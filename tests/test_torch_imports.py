@@ -1,0 +1,52 @@
+"""The port imports neither JAX nor the JAX package, and runs on CUDA by
+default: with no card and no ``device="cpu"`` it raises."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_BLOCKED = r"""
+import importlib, importlib.util, pkgutil, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now fails
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) == 16     # every module imported
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    from repro_torch.core import bt, sample_load
+    from repro_torch.engine import EngineOptions, solve_batch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device runs")
+    assert EngineOptions().device == "cuda"
+    t = bt(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_batch([t], [sample_load(t)], 2)
+    res = solve_batch([t], [sample_load(t)], 2,
+                      options=EngineOptions(device="cpu"))
+    assert np.isfinite(res.costs).all()
