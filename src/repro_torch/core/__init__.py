@@ -1,19 +1,22 @@
 """Host layer of the port: trees, the packed forest, the serial SOAR oracle.
 
-Numpy only; a copy of what the batched solve needs from the JAX package's
-``core`` (the port imports nothing of that package).
+Numpy only; a copy of what the batched solve and the reduce path need from
+the JAX package's ``core`` (the port imports nothing of that package).
 """
 from .forest import (Forest, build_fleet_forest, build_forest,
                      forest_from_arrays, layout_key, layout_stats)
-from .reduce import messages_up, phi
+from .reduce import (agg_width, all_blue, all_red, mask_from_set,
+                     messages_up, messages_up_degraded, phi, phi_barrier,
+                     phi_degraded)
 from .soar import SoarResult, soar, soar_color, soar_gather
 from .tree import DEST, Tree, bt, random_tree, rpa, sample_load, with_rates
 from .tropical import BIG, minplus, minplus_batch
 
 __all__ = [
-    "BIG", "DEST", "Forest", "SoarResult", "Tree", "bt",
-    "build_fleet_forest", "build_forest", "forest_from_arrays",
-    "layout_key", "layout_stats", "messages_up", "minplus", "minplus_batch",
-    "phi", "random_tree", "rpa", "sample_load", "soar", "soar_color",
-    "soar_gather", "with_rates",
+    "BIG", "DEST", "Forest", "SoarResult", "Tree", "agg_width", "all_blue",
+    "all_red", "bt", "build_fleet_forest", "build_forest",
+    "forest_from_arrays", "layout_key", "layout_stats", "mask_from_set",
+    "messages_up", "messages_up_degraded", "minplus", "minplus_batch", "phi",
+    "phi_barrier", "phi_degraded", "random_tree", "rpa", "sample_load",
+    "soar", "soar_color", "soar_gather", "with_rates",
 ]

@@ -2,5 +2,6 @@
 
 ``minplus``: the fused level fold of the batched gather and the batched
 min-plus convolution of the color traceback (``csrc/levelfold.cu``,
-``csrc/minplus.cu``), built by ``_build``.
+``csrc/minplus.cu``); ``segment_reduce``: the masked group sum of the
+reduce executor (``csrc/segment_reduce.cu``). All are built by ``_build``.
 """

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "soar_minplus_f64": (_P, _P, _P, ctypes.c_longlong, _I, _P),
     "soar_levelfold_f32": (_P,) * 8 + (_I,) * 6 + (_P,),
     "soar_levelfold_f64": (_P,) * 8 + (_I,) * 6 + (_P,),
+    "soar_segment_reduce_f32": (_P,) * 5 + (_I, _I, ctypes.c_longlong, _I,
+                                            _P),
+    "soar_segment_reduce_bf16": (_P,) * 5 + (_I, _I, ctypes.c_longlong, _I,
+                                             _P),
 }
 
 _lib: ctypes.CDLL | None = None

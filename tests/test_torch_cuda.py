@@ -6,7 +6,8 @@ so every xdist worker collects the same tests). Run on a GPU machine with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Every comparison is bitwise (``torch.equal``): the kernels keep the plain
-versions' candidate sets, child order and separate roundings (no FMA).
+versions' candidate sets, child order, summation order and separate
+roundings (no FMA).
 """
 import numpy as np
 import pytest
@@ -21,6 +22,10 @@ from repro_torch.kernels.minplus.levelfold import (level_fold,
                                                    minplus_fused)
 from repro_torch.kernels.minplus.minplus import minplus_cuda
 from repro_torch.kernels.minplus.ops import minplus
+from repro_torch.kernels.segment_reduce.ops import reduce_rows, segment_reduce
+from repro_torch.kernels.segment_reduce.ref import segment_reduce_torch
+from repro_torch.kernels.segment_reduce.segment_reduce import (
+    segment_reduce_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +119,60 @@ def test_solve_on_card_equals_cpu(dev, dtype, seed, k, cap):
                      rho_scale=scale, rho_root_add=extra)
     assert np.array_equal(a.costs, b.costs)
     assert np.array_equal(a.blue, b.blue)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,c,d", [(1, 1, 8), (4, 7, 130), (16, 32, 512),
+                                   (3, 5, 1000), (2, 300, 9), (5, 3, 4097)])
+def test_segment_reduce_kernel_bitwise(dev, dtype, g, c, d):
+    rng = np.random.default_rng(g * 100 + c)
+    x = torch.as_tensor(rng.normal(size=(g, c, d)), dtype=dtype, device=dev)
+    mask = torch.as_tensor(rng.random((g, c)) < 0.7, device=dev)
+    before = segment_reduce_cuda.launches
+    got = segment_reduce(x, mask)
+    assert segment_reduce_cuda.launches == before + 1
+    assert torch.equal(got, segment_reduce_torch(x, mask))
+    # a misaligned start takes the scalar loads
+    big = torch.empty(g * c * d + 1, dtype=dtype, device=dev)
+    big[1:] = x.reshape(-1)
+    assert torch.equal(segment_reduce(big[1:].view(g, c, d), mask), got)
+
+
+def test_segment_reduce_rows_in_place(dev):
+    rng = np.random.default_rng(3)
+    flat = torch.as_tensor(rng.normal(size=(40, 1028)), dtype=torch.float32,
+                           device=dev)
+    rows = torch.tensor([0, 10, 33], device=dev)
+    mask = torch.as_tensor(rng.random((3, 7)) < 0.6, device=dev)
+    mask[2, 5:] = False
+    want = segment_reduce_torch(flat, mask, rows)
+    assert torch.equal(reduce_rows(flat, mask, rows), want)
+    out = flat.clone()
+    reduce_rows(out, mask, rows, inplace=True)
+    expect = flat.clone()
+    expect[rows] = want
+    assert torch.equal(out, expect)
+
+
+def test_executor_on_card_equals_cpu(dev):
+    import repro_torch.collectives as T
+    from repro_torch.collectives.tree_allreduce import device_program
+    rng = np.random.default_rng(1)
+    n = 0
+    for dims in [(1, 2, 2), (2, 2, 2), (2, 2, 4), (2, 4, 8)]:
+        topo = T.chip_level_tree(*dims)
+        t = topo.tree
+        x = torch.as_tensor(rng.standard_normal((topo.n_devices, 4099)),
+                            dtype=torch.float32)
+        for _ in range(6):
+            blue = rng.random(t.n) < 0.5
+            scales = {int(s): 0.5 for s in rng.choice(t.n, 2, replace=False)}
+            for tp in (topo, T.degrade_switches(topo, scales)):
+                prog = T.build_program(tp, blue)
+                before = segment_reduce_cuda.launches
+                got = T.tree_allreduce(x.to(dev), prog)
+                assert (segment_reduce_cuda.launches - before
+                        == device_program(prog, dev).n_reduce)
+                assert torch.equal(got.cpu(), T.tree_allreduce(x, prog))
+                n += 1
+    assert n == 48

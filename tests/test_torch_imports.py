@@ -25,17 +25,30 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
              and sys.modules[m] is not None)
 assert not bad, bad
+for name in sys.argv[2:]:
+    assert name in names, name
 print(len(names))
 """
+
+# the modules of the reduce path, which must be among those imported
+_REDUCE_PATH = ("repro_torch.core.reduce", "repro_torch.core.baselines",
+                "repro_torch.collectives", "repro_torch.collectives.topology",
+                "repro_torch.collectives.schedule",
+                "repro_torch.collectives.tree_allreduce",
+                "repro_torch.kernels.segment_reduce",
+                "repro_torch.kernels.segment_reduce.ref",
+                "repro_torch.kernels.segment_reduce.segment_reduce",
+                "repro_torch.kernels.segment_reduce.ops")
 
 
 def test_port_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
-        [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py")],
+        [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
+         *_REDUCE_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 16     # every module imported
+    assert int(out.stdout.split()[-1]) == 25     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -50,3 +63,8 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     res = solve_batch([t], [sample_load(t)], 2,
                       options=EngineOptions(device="cpu"))
     assert np.isfinite(res.costs).all()
+    from repro_torch.collectives import chip_level_tree, plan
+    topo = chip_level_tree(1, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plan(topo, 1)
+    assert plan(topo, 1, options=EngineOptions(device="cpu")).blue.sum() == 1
