@@ -2,13 +2,16 @@
 """Smoke run of the PyTorch/CUDA port of SOAR on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the root of a checkout; needs a card
+    python3 chip_smoke.py --lr-witness   # only the learning-rate witness
 
-Drives the port's two paths at full size on the card: the batched
-placement solve (``repro_torch.engine.solve_batch``) and the reduce path
+Drives the port's three paths at full size on the card: the batched
+placement solve (``repro_torch.engine.solve_batch``), the reduce path
 (``repro_torch.collectives``: ``plan`` -> ``build_program`` ->
-``tree_allreduce``). It builds the CUDA kernels from
-``src/repro_torch/csrc`` and holds every kernel against its plain torch
-version on the inputs the paths give it. Phases:
+``tree_allreduce``) and the data-parallel trainer
+(``repro_torch.launch.train``: model -> per-worker gradient -> top-k
+compression -> SOAR reduce -> AdamW -> checkpoint). It builds the CUDA
+kernels from ``src/repro_torch/csrc`` and holds every kernel against its
+plain torch version on the inputs the paths give it. Phases:
 
 1. device: name, power limit, versions, kernel build time;
 2. kernels vs plain versions on the card, bitwise (``torch.equal``):
@@ -30,7 +33,27 @@ version on the inputs the paths give it. Phases:
    FoldOp and CompactOp rounds, and all-red ``chip64-k0-d64k``; each result
    must equal the plain executor on the card and the CPU executor bitwise,
    stay within the float32 error bound of the exact sum, and run one
-   kernel launch per Reduce op plus one.
+   kernel launch per Reduce op plus one;
+7. top-k kernel vs its plain version (a stable sort) on the card,
+   bitwise: random rows at the JAX test shapes in float32 and bfloat16,
+   rows of ties, zeros, +-0, +-inf, NaN and fewer than k nonzeros, and one
+   full-size row of the trainer's largest leaf (781,189,120 float32, the
+   qwen3-32b embedding, k = 7,811,891), with times against the bound, the
+   plain version and ``torch.topk``; before the trainer allocates anything;
+8. the trainer: ``qwen3-32b-l1-dp2-topk`` (qwen3-32b at its published
+   widths, depth cut to 1 layer, 2 simulated workers, top-k 1%, batch 2 x
+   512, AdamW at lr 1e-5, 3 steps) and ``e2e100m-dp8-topk`` (the repo's end-to-end preset on
+   8 workers through ``main``, 5 steps, then a resume from step 3). Checks:
+   finite, falling loss; on every leaf and worker the top-k threshold T
+   has #(|g| > T) < k <= #(|g| >= T) and sent + residual == g; every
+   segment-reduce launch of the gradient reduce equals its plain version
+   bitwise; the resumed run equals the uninterrupted one bitwise; the
+   top-k, segment-reduce, level-fold and min-plus kernels all ran.
+
+``--lr-witness`` runs none of the phases: it builds the kernels and prints
+the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
+at 1e-5, with and without compression, and without compression at
+qwen3-32b's widths scaled by 1/4 .. 1 (see :func:`lr_witness`).
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -38,16 +61,23 @@ last the JSON line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# the trainer at full width fills most of the card: let the allocator grow
+# segments instead of fragmenting (read when torch first touches the card)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -243,7 +273,10 @@ def _counted():
     from repro_torch.kernels.minplus.minplus import minplus_cuda
     from repro_torch.kernels.segment_reduce.segment_reduce import (
         segment_reduce_cuda)
-    return level_fold_cuda, minplus_cuda, segment_reduce_cuda
+    from repro_torch.kernels.topk_compress.topk_compress import (
+        topk_compress_cuda, topk_threshold_cuda)
+    return (level_fold_cuda, minplus_cuda, segment_reduce_cuda,
+            topk_threshold_cuda, topk_compress_cuda)
 
 
 def reset_counts():
@@ -251,8 +284,9 @@ def reset_counts():
         fn.launches = 0
 
 
-def read_counts() -> tuple[int, int, int]:
-    """Launches of the level fold, min-plus and segment reduce."""
+def read_counts() -> tuple[int, ...]:
+    """Launches of the level fold, min-plus, segment reduce, top-k select
+    stage and whole top-k."""
     return tuple(fn.launches for fn in _counted())
 
 
@@ -420,11 +454,14 @@ class LaunchCheck:
     """Phase 5 on the executor's launches: swaps the executor's
     ``reduce_rows`` for one that computes the plain version on the launch's
     inputs, launches the kernel as the executor does, and requires the two
-    bitwise equal. Keeps (buffer, mask, rows) of every launch for timing."""
+    bitwise equal. It keeps (buffer, mask, rows) of every launch for
+    timing, or of the first ``keep`` launches."""
 
-    def __init__(self, mod):
+    def __init__(self, mod, keep: bool | int = True):
         self.mod = mod
+        self.keep = float("inf") if keep is True else int(keep)
         self.launches: list = []
+        self.n = 0
         self.err = 0.0
 
     def __enter__(self):
@@ -433,14 +470,16 @@ class LaunchCheck:
 
         def checked(flat, mask, rows, *, inplace=False):
             import torch
-            want = segment_reduce_torch(flat, mask, rows)
+            want = segment_reduce_torch(flat, mask, rows, round_each=True)
             out = run(flat, mask, rows, inplace=inplace)
             got = flat.index_select(0, rows) if inplace else out
             self.err = max(self.err, float(
                 (got.double() - want.double()).abs().max()))
             check(torch.equal(got, want),
                   f"executor launch {len(self.launches)}: kernel != plain")
-            self.launches.append((flat, mask, rows))
+            self.n += 1
+            if len(self.launches) < self.keep:
+                self.launches.append((flat, mask, rows))
             return out
 
         self.mod.reduce_rows = checked
@@ -486,11 +525,13 @@ def time_reduce_launches(launches):
             max=flat.shape[0] - 1)
         stacked.append((flat[idx], mask))     # (G, C, D) for the library
     v = dict(
-        ms=cuda_ms(lambda: [segment_reduce_cuda(f, m, r)
+        ms=cuda_ms(lambda: [segment_reduce_cuda(f, m, r, round_each=True)
                             for f, m, r in launches], 10),
-        plain_ms=cuda_ms(lambda: [segment_reduce_torch(f, m, r)
+        plain_ms=cuda_ms(lambda: [segment_reduce_torch(f, m, r,
+                                                       round_each=True)
                                   for f, m, r in launches], 3, warmup=1),
-        library_ms=cuda_ms(lambda: [torch.einsum("gcd,gc->gd", x3, m)
+        library_ms=cuda_ms(lambda: [torch.einsum("gcd,gc->gd", x3,
+                                                 m.to(x3.dtype))
                                     for x3, m in stacked], 10))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -676,9 +717,510 @@ def reduce_path(d64=6_553_600, d256=262_144, d_red=65_536):
     run_reduce("chip64-k0-d64k", t64, d_red, normal(64, d_red, 640), k=0)
     return counts[2], main
 
+# -- phase 7: the top-k kernel ------------------------------------------------
 
-def main() -> int:
+# phases 7 and 8 allocate on DEVICE (the card; a rehearsal on the CPU may
+# point it elsewhere)
+DEVICE = "cuda"
+
+# (R, D, k): the JAX test shapes, then one of many rows per block
+TOPK_SHAPES = [(1, 16, 4), (8, 256, 32), (5, 100, 10), (3, 1_000_003, 10_000)]
+EMBED_SIZE = 152_576 * 5_120     # qwen3-32b: padded vocab x d_model
+EMBED_K = 7_811_891              # max(1, round(0.01 * EMBED_SIZE))
+
+
+def _bits(t):
     import torch
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _abs_err(got, want) -> float:
+    """Largest |got - want| over the elements whose bits differ (0.0 when
+    the two are bitwise equal; NaN where they differ at a NaN or inf)."""
+    import torch
+    d = (got.double() - want.double()).abs()
+    d = torch.where(_bits(got) == _bits(want), torch.zeros_like(d), d)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def topk_equal(x, k: int, label: str) -> float:
+    """The kernel's values, indices and threshold bitwise equal to the
+    plain version's (a stable sort); every row's indices distinct. Returns
+    the largest difference of a value or threshold (0.0: bitwise)."""
+    import torch
+
+    from repro_torch.kernels.topk_compress.ref import (topk_compress_torch,
+                                                       topk_threshold_torch)
+    from repro_torch.kernels.topk_compress.topk_compress import (
+        topk_compress_cuda, topk_threshold_cuda)
+    v, i = topk_compress_cuda(x, k)
+    wv, wi = topk_compress_torch(x, k)
+    check(torch.equal(i, wi), f"top-k {label}: indices != plain")
+    err = _abs_err(v, wv)
+    check(torch.equal(_bits(v), _bits(wv)),
+          f"top-k {label}: values != plain (max |err| {err})")
+    del v, wv, wi
+    t, wt = topk_threshold_cuda(x, k), topk_threshold_torch(x, k)
+    nan = torch.isnan(wt)
+    check(torch.equal(torch.isnan(t), nan)
+          and torch.equal(_bits(t[~nan]), _bits(wt[~nan])),
+          f"top-k {label}: threshold != plain")
+    err = max(err, _abs_err(t[~nan], wt[~nan]))
+    srt = torch.sort(i.long(), dim=1).values
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()),
+          f"top-k {label}: an index repeats")
+    return err
+
+
+def _special_rows(d: int, rng):
+    """Ties, zeros, +-0, +-inf, NaN, fewer than k nonzeros, heavy ties."""
+    import numpy as np
+    ties = rng.integers(-3, 4, size=d).astype(np.float64)
+    signed_zero = np.where(rng.random(d) < 0.5, -0.0, 0.0)
+    infs = rng.standard_normal(d)
+    infs[rng.choice(d, 5, replace=False)] = np.inf
+    infs[rng.choice(d, 5, replace=False)] = -np.inf
+    nans = rng.standard_normal(d)
+    nans[rng.choice(d, 3, replace=False)] = np.nan
+    sparse = np.zeros(d)
+    sparse[rng.choice(d, 3, replace=False)] = rng.standard_normal(3)
+    heavy = np.where(rng.random(d) < 0.9, 1.5, -1.5) * (rng.random(d) < 0.8)
+    return np.stack([ties, np.zeros(d), signed_zero, infs, nans, sparse,
+                     heavy])
+
+
+def check_topk_random() -> float:
+    """Phase 7 on random and special rows, float32 and bfloat16; returns
+    the largest difference from the plain version."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for r, d, k in TOPK_SHAPES:
+            x = torch.randn((r, d), generator=gen, device=DEVICE).to(dt)
+            err = max(err, topk_equal(x, k, f"random {(r, d, k)} {dt}"))
+        for d, k in ((256, 32), (5_120, 51), (100_000, 1_000)):
+            x = torch.as_tensor(_special_rows(d, np.random.default_rng(d)),
+                                device=DEVICE).to(dt)
+            err = max(err, topk_equal(x, k,
+                                      f"special rows d={d} k={k} {dt}"))
+    say(f"kernels: top-k bitwise on random rows {TOPK_SHAPES} and on rows "
+        "of ties, zeros, +-0, +-inf, NaN and fewer than k nonzeros "
+        "(d = 256, 5120, 100000), float32 and bfloat16")
+    return err
+
+
+def kernel_profile(fn, label: str, top: int = 8):
+    """(wall ms, device-busy ms, [(kernel, device ms, count)]) of one
+    ``fn()`` under ``torch.profiler``; None where the profiler records no
+    device time (it is a guest on the chip machine)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    except Exception as e:      # a measurement, not a check
+        say(f"{label}: profile not measured ({type(e).__name__}: {e})")
+        return None
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    if busy <= 0:
+        say(f"{label}: profile not measured (no device time recorded)")
+        return None
+    kern = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in ev), key=lambda t: -t[1])
+    say(f"{label}: under the profiler wall {wall:.4f} ms, device busy "
+        f"{busy:.4f} ms ({100 * busy / wall:.1f}%); kernels by device ms: "
+        + "; ".join(f"{k[:60]} {ms:.4f} ({n})" for k, ms, n in kern[:top]))
+    return wall, busy, kern
+
+
+def topk_full_size(d: int = EMBED_SIZE, k: int = EMBED_K) -> dict:
+    """Phase 7 at the trainer's largest leaf: one float32 row of ``d``
+    (the select stage reads the float32 gradient g32), bitwise against the
+    plain version, then the times."""
+    import torch
+
+    from repro_torch.kernels.topk_compress.ref import (topk_compress_torch,
+                                                       topk_threshold_torch)
+    from repro_torch.kernels.topk_compress.topk_compress import (
+        topk_compress_cuda, topk_threshold_cuda)
+    gen = torch.Generator(device=DEVICE).manual_seed(781)
+    x = torch.randn((1, d), generator=gen, device=DEVICE)
+    err = topk_equal(x, k, f"full-size row d={d} k={k}")
+    torch.cuda.empty_cache()
+    v = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: topk_compress_cuda(x, k), 3, warmup=1),
+        select_ms=cuda_ms(lambda: topk_threshold_cuda(x, k), 5, warmup=1),
+        plain_ms=cuda_ms(lambda: topk_compress_torch(x, k), 1, warmup=0),
+        select_plain_ms=cuda_ms(lambda: topk_threshold_torch(x, k), 1,
+                                warmup=0))
+    mag = x.abs()             # torch.topk takes |x| (made outside the timing)
+    v["library_ms"] = cuda_ms(lambda: torch.topk(mag, k), 1, warmup=1)
+    del mag
+    torch.cuda.empty_cache()
+    prof = kernel_profile(lambda: topk_compress_cuda(x, k),
+                          f"top-k full-size d={d} k={k}", top=12)
+    v["profile"] = None if prof is None else prof[1]
+    nbytes = d * 4 + k * (4 + 4)          # read the row, write values + idx
+    v["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    v["select_bound_ms"] = (d * 4 + 4) / HBM_BYTES_PER_S * 1e3
+    v["bound_by"] = "bytes"
+    del x
+    torch.cuda.empty_cache()
+    say(f"top-k full-size row d={d} k={k} float32: kernel == plain bitwise; "
+        f"kernel {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms, bytes), "
+        f"select stage {v['select_ms']:.4f} ms (bound "
+        f"{v['select_bound_ms']:.4f} ms); plain {v['plain_ms']:.4f} ms, "
+        f"plain threshold {v['select_plain_ms']:.4f} ms; torch.topk(|x|, k) "
+        f"{v['library_ms']:.4f} ms")
+    return v
+
+
+# -- phase 8: the trainer -----------------------------------------------------
+
+class TopkLeafCheck:
+    """Swaps ``compression.topk_threshold`` and ``compression._topk_leaf``
+    for versions that time each select launch with CUDA events and, while
+    ``checking``, hold every threshold T of the main path exactly:
+    #(|g| > T) < k <= #(|g| >= T) (this defines the k-th largest |g|),
+    T bitwise equal to the plain version on leaves up to 64 M entries,
+    and sent + residual == g32 (as values)."""
+
+    CHUNK = 1 << 26
+
+    def __init__(self, comp, checking: bool = True):
+        self.comp = comp
+        self.checking = checking
+        self.events: list = []
+        self.n_checked = self.n_plain = 0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels.topk_compress.ref import topk_threshold_torch
+        comp = self.comp
+        self._orig = sel, leaf = comp.topk_threshold, comp._topk_leaf
+        chunks = lambda t: t.reshape(-1).split(self.CHUNK)
+
+        def timed_sel(x, k):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t = sel(x, k)
+            b.record()
+            self.events.append((a, b))
+            if self.checking:
+                n_gt = n_ge = 0
+                for c in chunks(x):
+                    c = c.abs()
+                    n_gt += int((c > t[0]).sum())
+                    n_ge += int((c >= t[0]).sum())
+                check(n_gt < k <= n_ge,
+                      f"top-k threshold: #(>T)={n_gt} k={k} #(>=T)={n_ge}")
+                if x.numel() <= self.CHUNK:
+                    check(torch.equal(_bits(t), _bits(
+                        topk_threshold_torch(x, k))),
+                        "top-k threshold != plain on a trainer leaf")
+                    self.n_plain += 1
+            return t
+
+        def checked_leaf(g32, ratio):
+            sent, resid = leaf(g32, ratio)
+            if self.checking:
+                for a, b, g in zip(chunks(sent), chunks(resid), chunks(g32)):
+                    check(torch.equal(a + b, g), "sent + residual != g32")
+                self.n_checked += 1
+            return sent, resid
+
+        comp.topk_threshold, comp._topk_leaf = timed_sel, checked_leaf
+        return self
+
+    def __exit__(self, *exc):
+        self.comp.topk_threshold, self.comp._topk_leaf = self._orig
+
+    def take_ms(self) -> float:
+        """Device ms of the select launches since the last call."""
+        import torch
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return ms
+
+
+def _mem_line(name, params, opt, ef, n_dev, n_slots) -> str:
+    from repro_torch import tree as T
+    gb = lambda b: f"{b / 1e9:.2f} GB"
+    pb, d_max = T.nbytes(params), max(p.numel() for p in T.leaves(params))
+    parts = {"params": pb, "adamw m+v": T.nbytes(opt["m"]) + T.nbytes(
+        opt["v"]), "error feedback": T.nbytes(ef), "stacked sent": n_dev * pb,
+        "gradients of one worker": pb,
+        "executor buffer (largest leaf)": n_dev * n_slots * d_max * 2,
+        "compression temporaries (largest leaf)": 4 * 4 * d_max + d_max}
+    return (f"{name}: memory reckoned from the code: "
+            + ", ".join(f"{k} {gb(v)}" for k, v in parts.items())
+            + f"; sum {gb(sum(parts.values()))}")
+
+
+def trainer_l1(steps: int = 3) -> dict:
+    """Phase 8, ``qwen3-32b-l1-dp2-topk``: the trainer's entry points at
+    qwen3-32b's published widths with one layer, 2 workers on one card."""
+    import math
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw, compression
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               payload_bytes)
+    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
+    name = "qwen3-32b-l1-dp2-topk"
+    cfg = dataclasses.replace(ARCHS["qwen3-32b"], n_layers=1)
+    n_dev, k, batch, seq = 2, 2, 2, 512
+    ccfg = CompressionConfig.parse("topk:0.01")
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, counted: plan, init, steps
+    reset_counts()
+    topo, prog = train.reduce_program(n_dev, k, device=DEVICE)
+    params = api.init_fn(cfg, DEVICE)(0)
+    # lr 1e-5: at the trainer's 3e-4 (no warmup) Adam's first step
+    # overshoots at these widths and the loss rises, with or without
+    # compression (``python3 chip_smoke.py --lr-witness``; PERF.md)
+    ocfg = adamw.AdamWConfig(lr=1e-5)
+    opt = adamw.init(params, ocfg)
+    ef = T.tree_map(lambda p: p.new_zeros((n_dev,) + tuple(p.shape),
+                                          dtype=torch.float32), params)
+    data = SyntheticLM(cfg, DataConfig(batch, seq, seed=0), device=DEVICE)
+    step = train.make_step(cfg, ocfg, prog, topo.n_devices / n_dev, ccfg)
+    peak = 0
+    say(f"{name}: params {T.size(params):,} in {len(T.leaves(params))} "
+        f"leaves, n_dev={n_dev}, program ops "
+        f"{[type(o).__name__ for o in prog.ops]}, n_slots={prog.n_slots}")
+    say(_mem_line(name, params, opt, ef, n_dev, prog.n_slots))
+    n_leaves = len(T.leaves(params))
+    per_call = sum(isinstance(st, exe._Reduce) for st in exe.device_program(
+        prog, DEVICE).steps) + 1
+    losses, walls = [], []
+    timings, prof = {}, None
+    with TopkLeafCheck(compression) as tc:
+        for s in range(steps):
+            b = data.batch(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if s == 0:       # every check, every reduce launch held vs plain
+                with LaunchCheck(exe, keep=False) as lc:
+                    params, opt, ef, met = step(params, opt, ef, b)
+                check(lc.n == n_leaves * per_call,
+                      f"{name}: {lc.n} checked reduce launches != "
+                      f"{n_leaves * per_call}")
+                check(tc.n_checked == n_dev * n_leaves,
+                      f"{name}: {tc.n_checked} checked leaves")
+                tc.checking = False
+            elif s == 1:     # timed, split by phase; its own peak memory
+                torch.cuda.reset_peak_memory_stats()
+                params, opt, ef, met = step(params, opt, ef, b, timings)
+                timings["topk kernel"] = tc.take_ms() / 1e3
+                step_peak = torch.cuda.max_memory_allocated()
+            else:            # under the profiler
+                out = {}
+                prof = kernel_profile(lambda: out.update(
+                    r=step(params, opt, ef, b)), f"{name} step {s}", top=10)
+                params, opt, ef, met = out["r"]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            tc.take_ms()
+            losses.append(float(met["loss"]))
+    counts = read_counts()
+    check(all(math.isfinite(v) for v in losses), f"{name}: loss not finite")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall {losses}")
+    check(all(n > 0 for n in counts[:4]),
+          f"{name}: a kernel of the path did not run {counts}")
+    dense_b = payload_bytes(params, CompressionConfig())
+    comp_b = payload_bytes(params, ccfg)
+    say(f"{name}: losses {losses}; launches level fold {counts[0]}, "
+        f"min-plus {counts[1]}, segment reduce {counts[2]}, top-k select "
+        f"{counts[3]}; thresholds exact on {tc.n_plain} leaves vs plain and "
+        f"{n_dev * n_leaves} by counting; reduce == plain on {lc.n} launches")
+    say(f"{name}: step wall s {[round(w, 4) for w in walls]}; step 1 split s: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
+        + f"; worker payload {dense_b} B dense -> {comp_b} B top-k; "
+        f"max_memory_allocated over the run {peak} (step 0 with its "
+        f"checks), over step 1 {step_peak}")
+    del params, opt, ef, data, step
+    torch.cuda.empty_cache()
+    return dict(counts=counts, timings=timings, walls=walls, peak=peak,
+                step_peak=step_peak, steps=steps,
+                busy=None if prof is None else prof[1] / prof[0])
+
+
+# (d_model, n_heads, n_kv_heads, d_ff): qwen3-32b's widths times 1/4 .. 1
+WITNESS_WIDTHS = [(1280, 16, 2, 6_400), (2560, 32, 4, 12_800),
+                  (3840, 48, 6, 19_200), (5120, 64, 8, 25_600)]
+
+
+def lr_witness(steps: int = 5, widths=WITNESS_WIDTHS) -> None:
+    """``--lr-witness``: why the l1 cell trains at lr 1e-5. The l1 cell's
+    run (qwen3-32b, one layer, 2 workers, fresh batches of 2 x 512) at the
+    trainer's lr 3e-4 without compression at each of ``widths``, with top-k
+    1% at full width, and at lr 1e-5 without compression at full width.
+    Prints each run's losses; checks only that they are finite."""
+    import math
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import CompressionConfig
+    n_dev = 2
+    topo, prog = train.reduce_program(n_dev, 2, device=DEVICE)
+    runs = ([(w, "none", 3e-4) for w in widths]
+            + [(widths[-1], "topk:0.01", 3e-4), (widths[-1], "none", 1e-5)])
+    for (d, heads, kv, ff), spec, lr in runs:
+        cfg = dataclasses.replace(ARCHS["qwen3-32b"], n_layers=1, d_model=d,
+                                  n_heads=heads, n_kv_heads=kv, d_ff=ff)
+        ccfg = CompressionConfig.parse(spec)
+        ocfg = adamw.AdamWConfig(lr=lr)
+        params = api.init_fn(cfg, DEVICE)(0)
+        opt = adamw.init(params, ocfg)
+        ef = (T.tree_map(lambda p: p.new_zeros(
+            (n_dev,) + tuple(p.shape), dtype=torch.float32), params)
+            if ccfg.kind != "none" else {})
+        data = SyntheticLM(cfg, DataConfig(n_dev, 512, seed=0),
+                           device=DEVICE)
+        step = train.make_step(cfg, ocfg, prog, topo.n_devices / n_dev, ccfg)
+        losses = []
+        for s in range(steps):
+            params, opt, ef, met = step(params, opt, ef, data.batch(s))
+            losses.append(float(met["loss"]))
+        check(all(math.isfinite(v) for v in losses),
+              f"lr witness: loss not finite {losses}")
+        say(f"lr witness: qwen3-32b 1 layer d_model {d} heads {heads}/{kv} "
+            f"d_ff {ff} ({T.size(params):,} params), {n_dev} workers, "
+            f"{spec}, lr {lr}: losses {losses}")
+        del params, opt, ef, data, step
+        torch.cuda.empty_cache()
+
+
+def _ckpt_arrays(d: Path, step: int) -> dict:
+    import numpy as np
+    return dict(np.load(d / f"step_{step:08d}" / "arrays.npz"))
+
+
+def trainer_e2e() -> dict:
+    """Phase 8, ``e2e100m-dp8-topk``: ``examples/train_e2e.py``'s preset
+    through the port's ``main`` on 8 simulated workers, 5 steps with a
+    checkpoint at 3, then a resume from it."""
+    import math
+    import types
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw, compression
+    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
+    name = "e2e100m-dp8-topk"
+    args = ["--arch", "qwen3-32b", "--preset-100m", "--global-batch", "8",
+            "--seq", "256", "--k", "2", "--n-dev", "8", "--compress",
+            "topk:0.01", "--steps", "5", "--ckpt-every", "3",
+            "--log-every", "1", "--device", DEVICE]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        # a save and restore of a fresh state, bitwise
+        cfg = train.config_from_args(types.SimpleNamespace(
+            arch="qwen3-32b", preset_100m=True, reduced=False))
+        params = api.init_fn(cfg, DEVICE)(1)
+        state = {"params": params, "opt": adamw.init(params,
+                                                     adamw.AdamWConfig()),
+                 "ef": T.tree_map(lambda p: torch.randn(
+                     (2,) + tuple(p.shape), device=DEVICE), params)}
+        mgr = ckpt.CheckpointManager(tmp / "rt")
+        mgr.save(7, state)
+        mgr.wait()
+        back, step = ckpt.restore(tmp / "rt", state)
+        check(step == 7 and all(
+            a.dtype == b.dtype and a.device == b.device
+            and torch.equal(_bits(a) if a.is_floating_point() else a,
+                            _bits(b) if b.is_floating_point() else b)
+            for a, b in zip(T.leaves(back), T.leaves(state))),
+            f"{name}: restored state != saved state")
+        # keep one step's reduce launches for the timings
+        _, prog = train.reduce_program(8, 2, device=DEVICE)
+        per_step = len(T.leaves(params)) * (sum(
+            isinstance(st, exe._Reduce) for st in exe.device_program(
+                prog, DEVICE).steps) + 1)
+        del params, state, back
+        shutil.rmtree(tmp / "rt")
+        # the main path, counted
+        reset_counts()
+        with LaunchCheck(exe, keep=per_step) as lc, \
+                TopkLeafCheck(compression) as tc:
+            t0 = time.perf_counter()
+            losses = train.main(args + ["--ckpt-dir", str(tmp / "a")])
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(all(math.isfinite(v) for v in losses) and len(losses) == 5,
+              f"{name}: losses {losses}")
+        check(losses[-1] < losses[0], f"{name}: loss did not fall {losses}")
+        check(all(n > 0 for n in counts[:4]),
+              f"{name}: a kernel of the path did not run {counts}")
+        times = time_reduce_launches(lc.launches)
+        times["max_abs_err"] = lc.err
+        n_checked, n_plain, n_launch = tc.n_checked, tc.n_plain, lc.n
+        del lc
+        torch.cuda.empty_cache()
+        # resume from the step-3 checkpoint in a fresh directory
+        shutil.copytree(tmp / "a" / "step_00000003",
+                        tmp / "b" / "step_00000003")
+        resumed = train.main(args + ["--ckpt-dir", str(tmp / "b"),
+                                     "--resume"])
+        check(resumed == losses[3:],
+              f"{name}: resumed losses {resumed} != {losses[3:]}")
+        a, b = _ckpt_arrays(tmp / "a", 5), _ckpt_arrays(tmp / "b", 5)
+        check(sorted(a) == sorted(b) and all(
+            a[key].tobytes() == b[key].tobytes() for key in a),
+            f"{name}: resumed state != uninterrupted state")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"{name}: losses {losses}; main {wall:.2f} s for 5 steps with 2 "
+        f"checkpoints; launches level fold {counts[0]}, min-plus "
+        f"{counts[1]}, segment reduce {counts[2]}, top-k select {counts[3]}; "
+        f"{n_launch} reduce launches == plain bitwise; {n_checked} leaves "
+        f"with exact thresholds ({n_plain} also == plain); restore == save "
+        f"bitwise; resumed steps 3-4 == uninterrupted bitwise")
+    say(f"{name}: segment reduce bfloat16 (round each add) per step "
+        f"{times['ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
+        f"({times['bound_by']}), plain {times['plain_ms']:.4f} ms, "
+        f"torch.einsum {times['library_ms']:.4f} ms")
+    return dict(counts=counts, times=times, steps=len(losses))
+
+
+def main(args: list[str]) -> int:
+    import torch
+    if args not in ([], ["--lr-witness"]):
+        print(f"usage: chip_smoke.py [--lr-witness], got {args}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -699,6 +1241,9 @@ def main() -> int:
     say(f"device: {smi}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; kernels built and loaded in "
         f"{_build.build_seconds:.2f} s")
+    if args == ["--lr-witness"]:
+        lr_witness()
+        return 0
 
     # the two configurations
     t = bt(4096, "exponential")
@@ -744,6 +1289,15 @@ def main() -> int:
     sr_err = check_segment_reduce_random()
     sr_launches, sr = reduce_path()
     sr_err = max(sr_err, sr["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    # phase 7: the top-k kernel, before the trainer allocates anything
+    tk_err = check_topk_random()
+    tk = topk_full_size()
+    tk["max_abs_err"] = max(tk_err, tk["max_abs_err"])
+    # phase 8: the trainer
+    l1 = trainer_l1()
+    e2e = trainer_e2e()
 
     rows = []
     for name, src, replaces, n, err in (
@@ -760,7 +1314,8 @@ def main() -> int:
                      "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
                      "bound_by": v["bound_by"], "library_ms": None,
                      "bitwise": err == 0.0, "config": "bt4096-x64-k64",
-                     "dtype": "float32"})
+                     "dtype": "float32", "ms_per": "solve",
+                     "launches_per": "solve"})
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
                  "replaces": "src/repro/kernels/segment_reduce/"
@@ -769,7 +1324,45 @@ def main() -> int:
                  "ms": sr["ms"], "plain_ms": sr["plain_ms"],
                  "bound_ms": sr["bound_ms"], "bound_by": sr["bound_by"],
                  "library_ms": sr["library_ms"], "bitwise": sr_err == 0.0,
-                 "config": "chip64-k16-d6.5m", "dtype": "float32"})
+                 "config": "chip64-k16-d6.5m", "dtype": "float32",
+                 "ms_per": "executor call",
+                 "launches_per": "executor call"})
+    bf = e2e["times"]
+    rows.append({"name": "segment_reduce", "route": "cuda",
+                 "source": "src/repro_torch/csrc/segment_reduce.cu",
+                 "replaces": "src/repro/kernels/segment_reduce/"
+                             "segment_reduce.py:32",
+                 "launches": e2e["counts"][2],
+                 "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
+                 "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+                 "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
+                 "bitwise": bf["max_abs_err"] == 0.0,
+                 "config": "e2e100m-dp8-topk", "dtype": "bfloat16",
+                 "mode": "round each add", "ms_per": "training step",
+                 "launches_per": f"run of {e2e['steps']} training steps",
+                 "launches_per_step": e2e["counts"][2] / e2e["steps"]})
+    # the trainer runs the kernel's select stage (the threshold is all that
+    # compression needs): launches are the select launches of the l1 run;
+    # times are per call at its largest leaf, the whole kernel and the
+    # select stage
+    rows.append({"name": "topk_compress", "route": "cuda",
+                 "source": "src/repro_torch/csrc/topk_compress.cu",
+                 "replaces": "src/repro/kernels/topk_compress/"
+                             "topk_compress.py:43",
+                 "launches": l1["counts"][3] + l1["counts"][4],
+                 "max_abs_err": tk["max_abs_err"], "ms": tk["ms"],
+                 "plain_ms": tk["plain_ms"], "bound_ms": tk["bound_ms"],
+                 "bound_by": tk["bound_by"], "library_ms": tk["library_ms"],
+                 "select_ms": tk["select_ms"],
+                 "select_bound_ms": tk["select_bound_ms"],
+                 "select_plain_ms": tk["select_plain_ms"],
+                 "bitwise": tk["max_abs_err"] == 0.0,
+                 "config": "qwen3-32b-l1-dp2-topk", "dtype": "float32",
+                 "shape": [1, EMBED_SIZE], "k": EMBED_K,
+                 "ms_per": "call at the largest leaf",
+                 "launches_per": f"run of {l1['steps']} training steps",
+                 "launches_per_step": (l1["counts"][3] + l1["counts"][4])
+                 / l1["steps"]})
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
@@ -779,4 +1372,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -15,7 +15,10 @@ Reduce (one per ``CompressOp`` or ``FoldOp``, plus the destination's) is one
 launch of the segment-reduce kernel on a CUDA buffer, and its plain torch
 version on a CPU buffer. Folds start at +0, where the JAX fold starts at its
 first slot and adds +0 past the fold's width: the two differ only in the
-sign of a zero sum.
+sign of a zero sum. The buffer keeps ``x``'s dtype, float32 or bfloat16,
+as the JAX buffer does; a bfloat16 fold rounds after every add, because
+the JAX fold carries a bfloat16 accumulator through its ``fori_loop``
+(held bitwise against the JAX executor in ``tests/test_torch_executor.py``).
 
 The buffer is updated in place. A program's index and mask tensors are
 built once per program and device and kept while the program lives.
@@ -171,14 +174,16 @@ def device_program(prog: ReduceProgram, device) -> DeviceProgram:
 def tree_allreduce(x: torch.Tensor, prog: ReduceProgram) -> torch.Tensor:
     """AllReduce-sum of ``x`` (n_dev, D) following the SOAR program.
 
-    Returns the (D,) sum on ``x``'s device: float32, through the segment-
-    reduce kernel on a CUDA tensor and its plain version on a CPU tensor.
+    Returns the (D,) sum on ``x``'s device in ``x``'s dtype (float32 or
+    bfloat16), through the segment-reduce kernel on a CUDA tensor and its
+    plain version on a CPU tensor.
     """
     if x.ndim != 2 or x.shape[0] != prog.n_dev:
         raise ValueError(f"x must be ({prog.n_dev}, D), got "
                          f"{tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the executor runs float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the executor runs float32 or bfloat16, got "
+                        f"{x.dtype}")
     dp = device_program(prog, x.device)
     n_dev, d = x.shape
     buf = x.new_zeros((n_dev, dp.n_slots, d))

@@ -13,7 +13,13 @@
 // executor reproduce the JAX package's _left_fold bit for bit. A row whose
 // mask is 0 is not read; for finite inputs this differs from adding 0 * x
 // only in the sign of a zero sum (the sum starts at +0). bfloat16 inputs
-// accumulate in float32 and are rounded once at the store.
+// accumulate in float32 and are rounded once at the store, or, with
+// kRoundEach (entry soar_segment_reduce_bf16_round_each), rounded to
+// bfloat16 after every add: that is what the JAX executor's fold does with
+// a bfloat16 buffer (its fori_loop carries a bfloat16 accumulator; tested
+// bitwise in tests/test_torch_executor.py). Rounding the float32 sum of
+// two bfloat16 values to bfloat16 is the correctly rounded bfloat16 sum
+// (24 >= 2 * 8 + 2 bits), so this is bfloat16 addition.
 //
 // Bound on the H100: bytes. Each output element costs one read of every
 // unmasked row and one write, at 2 operations per read value, far below the
@@ -106,7 +112,7 @@ struct Io<__nv_bfloat16, kVec> {
 
 // x and out may be the same buffer (the executor's in-place fold), so
 // neither pointer is __restrict__.
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kRoundEach>
 __global__ void __launch_bounds__(kThreads)
 segment_reduce_kernel(const T* x, const float* __restrict__ mask,
                       const long long* __restrict__ rows, T* out,
@@ -133,13 +139,16 @@ segment_reduce_kernel(const T* x, const float* __restrict__ mask,
       float v[kPer];
       Io<T, kVec>::load(x + (in_row + c0 + i) * D + d0, D - d0, v);
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(m, v[j]));
+      for (int j = 0; j < kPer; ++j) {
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(m, v[j]));
+        if (kRoundEach) acc[j] = __bfloat162float(__float2bfloat16_rn(acc[j]));
+      }
     }
   }
   if (live) Io<T, kVec>::store(out + out_row * D + d0, D - d0, acc);
 }
 
-template <typename T>
+template <typename T, bool kRoundEach>
 int launch(const void* x, const void* mask, const void* rows, void* out,
            const void* out_rows, int G, int C, long long D, int vec,
            void* stream) {
@@ -153,11 +162,11 @@ int launch(const void* x, const void* mask, const void* rows, void* out,
   const long long* op = static_cast<const long long*>(out_rows);
   T* outp = static_cast<T*>(out);
   if (vec)
-    segment_reduce_kernel<T, true><<<grid, kThreads, 0, s>>>(xp, mp, rp, outp,
-                                                            op, C, D);
+    segment_reduce_kernel<T, true, kRoundEach>
+        <<<grid, kThreads, 0, s>>>(xp, mp, rp, outp, op, C, D);
   else
-    segment_reduce_kernel<T, false><<<grid, kThreads, 0, s>>>(xp, mp, rp, outp,
-                                                             op, C, D);
+    segment_reduce_kernel<T, false, kRoundEach>
+        <<<grid, kThreads, 0, s>>>(xp, mp, rp, outp, op, C, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -168,14 +177,23 @@ extern "C" {
 int soar_segment_reduce_f32(const void* x, const void* mask, const void* rows,
                             void* out, const void* out_rows, int G, int C,
                             long long D, int vec, void* stream) {
-  return launch<float>(x, mask, rows, out, out_rows, G, C, D, vec, stream);
+  return launch<float, false>(x, mask, rows, out, out_rows, G, C, D, vec,
+                              stream);
 }
 
 int soar_segment_reduce_bf16(const void* x, const void* mask, const void* rows,
                              void* out, const void* out_rows, int G, int C,
                              long long D, int vec, void* stream) {
-  return launch<__nv_bfloat16>(x, mask, rows, out, out_rows, G, C, D, vec,
-                               stream);
+  return launch<__nv_bfloat16, false>(x, mask, rows, out, out_rows, G, C, D,
+                                      vec, stream);
+}
+
+int soar_segment_reduce_bf16_round_each(const void* x, const void* mask,
+                                        const void* rows, void* out,
+                                        const void* out_rows, int G, int C,
+                                        long long D, int vec, void* stream) {
+  return launch<__nv_bfloat16, true>(x, mask, rows, out, out_rows, G, C, D,
+                                     vec, stream);
 }
 
 }  // extern "C"

@@ -3,5 +3,7 @@
 ``minplus``: the fused level fold of the batched gather and the batched
 min-plus convolution of the color traceback (``csrc/levelfold.cu``,
 ``csrc/minplus.cu``); ``segment_reduce``: the masked group sum of the
-reduce executor (``csrc/segment_reduce.cu``). All are built by ``_build``.
+reduce executor (``csrc/segment_reduce.cu``); ``topk_compress``: the per-row
+top-k by magnitude of gradient compression (``csrc/topk_compress.cu``).
+All are built by ``_build``.
 """

@@ -40,6 +40,10 @@ _SIGNATURES = {
                                             _P),
     "soar_segment_reduce_bf16": (_P,) * 5 + (_I, _I, ctypes.c_longlong, _I,
                                              _P),
+    "soar_segment_reduce_bf16_round_each": (_P,) * 5 + (
+        _I, _I, ctypes.c_longlong, _I, _P),
+    "soar_topk_select": (_P, _I, _I, ctypes.c_longlong, _I, _P, _P, _P),
+    "soar_topk_compress": (_P, _I, _I, ctypes.c_longlong, _I) + (_P,) * 11,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -27,8 +27,11 @@ def reduce_rows(flat: torch.Tensor, mask: torch.Tensor, rows: torch.Tensor,
     Group g folds rows ``rows[g] .. rows[g] + C - 1`` of ``flat`` under
     ``mask[g]`` (G, C), in ascending order; returns the (G, D) sums, or
     with ``inplace=True`` writes each over row ``rows[g]`` and returns
-    ``flat``. The kernel on a CUDA buffer, the plain version on a CPU one.
+    ``flat``. The sum is rounded to ``flat``'s dtype after every add, as
+    the JAX fold's carry is (bfloat16 addition; for float32 the plain
+    fold). The kernel on a CUDA buffer, the plain version on a CPU one.
     """
     if flat.device.type == "cpu":
         return reduce_rows_torch(flat, mask, rows, inplace=inplace)
-    return segment_reduce_cuda(flat, mask, rows, inplace=inplace)
+    return segment_reduce_cuda(flat, mask, rows, inplace=inplace,
+                               round_each=True)

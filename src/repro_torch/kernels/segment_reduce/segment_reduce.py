@@ -21,7 +21,8 @@ _MAX_GROUPS = 65535                               # gridDim.y
 
 def segment_reduce_cuda(x: torch.Tensor, mask: torch.Tensor,
                         rows: torch.Tensor | None = None, *,
-                        inplace: bool = False) -> torch.Tensor:
+                        inplace: bool = False,
+                        round_each: bool = False) -> torch.Tensor:
     """Launch the kernel: ``out[g, d] = sum_c mask[g, c] * x[g, c, d]``.
 
     Without ``rows``: ``x`` (G, C, D) -> a new (G, D). With ``rows`` (G,)
@@ -30,8 +31,9 @@ def segment_reduce_cuda(x: torch.Tensor, mask: torch.Tensor,
     unchecked, so they must lie in ``[0, R)``), into a new (G, D) or, with
     ``inplace=True``, over row ``rows[g]`` of ``x`` (spans of different
     groups must not overlap). ``x`` is contiguous float32 or bfloat16 on a
-    CUDA device; a CPU tensor raises. Counts each launch in
-    ``segment_reduce_cuda.launches``.
+    CUDA device; a CPU tensor raises. ``round_each=True`` rounds the sum to
+    ``x``'s dtype after every add (bfloat16 addition; for float32 that is
+    the default fold). Counts each launch in ``segment_reduce_cuda.launches``.
     """
     if x.device.type != "cuda" or mask.device != x.device:
         raise ValueError(f"segment_reduce_cuda needs CUDA tensors on one "
@@ -71,7 +73,10 @@ def segment_reduce_cuda(x: torch.Tensor, mask: torch.Tensor,
     vec = int(D % 4 == 0 and x.data_ptr() % a == 0
               and out.data_ptr() % a == 0)
     rp = 0 if rows is None else rows.data_ptr()
-    fn = getattr(library(), _ENTRY[x.dtype])
+    entry = _ENTRY[x.dtype]
+    if round_each and x.dtype == torch.bfloat16:
+        entry += "_round_each"
+    fn = getattr(library(), entry)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), m.data_ptr(), rp, out.data_ptr(),
                  rp if inplace else 0, G, C, D, vec, stream_of(x))

@@ -1,0 +1,324 @@
+"""Data-parallel training driver with the SOAR gradient reduce: the port of
+the JAX package's ``launch/train.py``.
+
+  data/SyntheticLM -> models/api loss -> per-worker gradient -> top-k/int8
+  compression with error feedback -> SOAR reduce (tree_allreduce) ->
+  optim/adamw -> checkpoint/CheckpointManager
+
+Single-card form: ``n_dev`` data-parallel workers are simulated on one
+device, as XLA's fake host devices simulate them for the JAX driver. Each
+worker takes the loss and the gradient of its shard of the global batch
+and compresses it with its own error feedback; the sent gradients are
+stacked ``(n_dev, ...)`` per leaf, reduced with the SOAR program (every
+Reduce a segment-reduce launch on the card), scaled by
+``grad_scale / n_dev`` and applied by AdamW. Loss and metrics are the mean
+over workers. With one worker there is no reduce and no scale, as in JAX.
+
+Checkpoints hold params, optimizer state and error feedback, labelled with
+the number of steps taken, so a resumed run repeats no step and continues
+bit for bit (the JAX driver labels a checkpoint with the step it has just
+taken, repeats that step on resume and restarts the error feedback from
+zero: ROADMAP C9).
+
+Usage:
+  python -m repro_torch.launch.train --preset-100m --n-dev 8 \
+      --compress topk:0.01 --steps 20 --ckpt-dir /tmp/ckpt   # on the card
+  python -m repro_torch.launch.train --reduced --device cpu --steps 5
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import tree as T
+from ..checkpoint import ckpt
+from ..collectives import chip_level_tree, plan
+from ..collectives.tree_allreduce import tree_allreduce
+from ..configs import ARCHS
+from ..data.pipeline import DataConfig, SyntheticLM
+from ..engine import EngineOptions
+from ..models import api
+from ..models.config import ModelConfig
+from ..optim import adamw
+from ..optim.compression import (CompressionConfig, compress_leaf,
+                                 init_error_feedback, payload_bytes)
+
+
+def dp_fleet(n_devices: int):
+    """A chip-level reduction tree whose leaves are the dp devices."""
+    # factor n_devices into pods x racks x chips (powers of two preferred)
+    chips = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    rest = n_devices // chips
+    pods = 2 if rest % 2 == 0 and rest > 1 else 1
+    racks = max(1, rest // pods)
+    assert pods * racks * chips == n_devices, (pods, racks, chips, n_devices)
+    return chip_level_tree(n_pods=pods, racks_per_pod=racks,
+                           chips_per_rack=chips)
+
+
+def reduce_program(n_dev: int, k: int, strategy: str = "soar",
+                   device="cuda"):
+    """(topology, program) of the gradient reduce over ``dp_fleet(n_dev)``:
+    what the JAX driver's ``Orchestrator(topo, OrchestratorConfig(k,
+    strategy))`` holds before any fault. The SOAR solve runs on
+    ``device``."""
+    topo = dp_fleet(n_dev)
+    opts = ({"options": EngineOptions(device=str(device))}
+            if strategy == "soar" else {})
+    return topo, plan(topo, k, strategy=strategy, **opts).program
+
+
+def scaled(g: torch.Tensor, scale: float) -> torch.Tensor:
+    """``g * scale`` as JAX computes an array times a Python float: the
+    weakly typed scalar is first rounded to ``g``'s dtype."""
+    return g * torch.tensor(scale, dtype=g.dtype, device=g.device)
+
+
+class TrainStep:
+    """One data-parallel step: per-worker gradients (+ compression), the
+    SOAR reduce, AdamW. ``step(params, opt_state, ef, batch)`` returns
+    ``(params, opt_state, ef, metrics)``; params, moments and error
+    feedback are updated in place. For ``n_dev > 1`` every ``ef`` leaf is
+    stacked ``(n_dev, ...)``, one row per worker.
+
+    Pass a dict as ``timings`` to add the seconds of each phase (the
+    device synchronised at its edges): ``fwd_bwd``, ``compress``,
+    ``reduce``, ``adamw``.
+    """
+
+    def __init__(self, cfg: ModelConfig, ocfg: adamw.AdamWConfig, prog,
+                 grad_scale: float,
+                 ccfg: CompressionConfig = CompressionConfig()):
+        self.cfg, self.ocfg, self.prog, self.ccfg = cfg, ocfg, prog, ccfg
+        self.grad_scale = grad_scale
+        self.n_dev = prog.n_dev
+        self.lfn = api.loss_fn(cfg)
+
+    @staticmethod
+    def _tick(timings, name, t0, device):
+        if timings is None:
+            return t0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        timings[name] = timings.get(name, 0.0) + t1 - t0
+        return t1
+
+    def worker_grads(self, params, ef, batch, timings=None):
+        """Loss, metrics and sent gradient of each worker. Returns
+        ``(loss, metrics, sent)``, loss and metrics the mean over workers,
+        ``sent`` a dict path -> stacked ``(n_dev, ...)`` gradients (n_dev
+        > 1) or the gradient tree's leaves (n_dev = 1)."""
+        n = self.n_dev
+        named = list(T.leaves_with_paths(params))
+        leaves = [p for _, p in named]
+        ef_flat = dict(T.leaves_with_paths(ef))
+        dev = leaves[0].device
+        per = next(iter(batch.values())).shape[0] // n
+        sent = ({path: torch.empty((n,) + tuple(p.shape), dtype=p.dtype,
+                                   device=dev) for path, p in named}
+                if n > 1 else {})
+        losses, nlls, auxs = [], [], []
+        t0 = time.perf_counter()
+        for i in range(n):
+            shard = ({k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                     if n > 1 else batch)
+            loss, met = self.lfn(params, shard)
+            grads = list(torch.autograd.grad(loss, leaves))
+            losses.append(loss.detach())
+            nlls.append(met["nll"].detach())
+            auxs.append(met["aux"].detach())
+            t0 = self._tick(timings, "fwd_bwd", t0, dev)
+            for j, (path, _) in enumerate(named):
+                g, grads[j] = grads[j], None          # free leaf by leaf
+                if self.ccfg.kind != "none":
+                    e = ef_flat[path][i] if n > 1 else ef_flat[path]
+                    g, resid = compress_leaf(g, e, self.ccfg)
+                    e.copy_(resid)
+                    del resid
+                if n > 1:
+                    sent[path][i].copy_(g)
+                else:
+                    sent[path] = g
+                del g
+            t0 = self._tick(timings, "compress", t0, dev)
+        mean = lambda xs: torch.stack(xs).sum() / n
+        return mean(losses), {"nll": mean(nlls), "aux": mean(auxs)}, sent
+
+    def reduce(self, sent: dict, timings=None) -> dict:
+        """SOAR-reduce the stacked gradients leaf by leaf (freeing each
+        stack as it goes) and scale by ``grad_scale / n_dev``."""
+        n = self.n_dev
+        out = {}
+        t0 = time.perf_counter()
+        for path in list(sent):
+            g = sent.pop(path)
+            r = tree_allreduce(g.reshape(n, -1), self.prog)
+            out[path] = scaled(r.reshape(g.shape[1:]), self.grad_scale / n)
+            del g, r
+        if out:
+            self._tick(timings, "reduce", t0, next(iter(out.values())).device)
+        return out
+
+    def __call__(self, params, opt_state, ef, batch, timings=None):
+        loss, metrics, sent = self.worker_grads(params, ef, batch, timings)
+        grads = self.reduce(sent, timings) if self.n_dev > 1 else sent
+        grads = T.unflatten(grads)
+        dev = loss.device
+        t0 = time.perf_counter()
+        params, opt_state, gnorm = adamw.update(grads, opt_state, params,
+                                                self.ocfg)
+        self._tick(timings, "adamw", t0, dev)
+        return params, opt_state, ef, {"loss": loss, "grad_norm": gnorm,
+                                       **metrics}
+
+
+def make_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, prog,
+              grad_scale: float,
+              ccfg: CompressionConfig = CompressionConfig()) -> TrainStep:
+    """The training step for ``prog.n_dev`` workers (:class:`TrainStep`)."""
+    return TrainStep(cfg, ocfg, prog, grad_scale, ccfg)
+
+
+def mask_dead_batch(batch, alive, global_batch: int, n_dev: int):
+    """Zero the batch shards of non-contributing devices.
+
+    Dead/quarantined chips produce no gradient messages; their slice of
+    the global batch is zeroed (a zero contribution to the sum) and the
+    orchestrator's ``grad_scale`` re-normalizes the mean over survivors.
+    """
+    dead = [d for d, a in enumerate(alive) if not a]
+    if not dead:
+        return batch
+    per = global_batch // n_dev
+    first = next(iter(batch.values()))
+    mask = torch.ones(global_batch, dtype=torch.bool, device=first.device)
+    for d in dead:
+        mask[d * per:(d + 1) * per] = False
+    return {k: torch.where(mask[:, None] if v.ndim > 1 else mask, v, 0)
+            for k, v in batch.items()}
+
+
+def parse_failures(spec: str | None) -> dict[int, list[int]]:
+    """--fail "30:0,1;60:5" -> {30: [0, 1], 60: [5]}."""
+    out: dict[int, list[int]] = {}
+    if not spec:
+        return out
+    for part in spec.split(";"):
+        step_s, devs = part.split(":")
+        out[int(step_s)] = [int(d) for d in devs.split(",")]
+    return out
+
+
+def config_from_args(args) -> ModelConfig:
+    cfg = ARCHS[args.arch]
+    if args.preset_100m:
+        return cfg.reduced(n_layers=8, d_model=512, n_heads=8, n_kv_heads=8,
+                           d_ff=2048, vocab=32_768, head_dim=0)
+    if args.reduced:
+        return cfg.reduced()
+    return cfg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-32b", choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU)")
+    ap.add_argument("--preset-100m", action="store_true",
+                    help="~100M-param config for the e2e example")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--k", type=int, default=2, help="SOAR blue budget")
+    ap.add_argument("--strategy", default="soar")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--fail", default=None,
+                    help="inject failures (needs the runtime: not ported)")
+    ap.add_argument("--compress", default=None,
+                    help='gradient compression: "topk:0.01" | "int8"')
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-dev", type=int, default=1,
+                    help="data-parallel workers, simulated on one device")
+    ap.add_argument("--device", default="cuda",
+                    help='"cuda" (default) or "cpu"')
+    args = ap.parse_args(argv)
+
+    if args.fail:
+        raise SystemExit("--fail needs the runtime's Orchestrator, which is "
+                         "not ported yet (ROADMAP A8)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to train on "
+                           "the CPU")
+    cfg = config_from_args(args)
+    if device.type == "cpu" and cfg.param_count() > 1e9:
+        raise SystemExit("full-size config on CPU driver; pass --reduced")
+    print(f"arch={cfg.name} params={cfg.param_count():,}")
+
+    n_dev = args.n_dev
+    if args.global_batch % n_dev:
+        raise SystemExit(f"--global-batch {args.global_batch} does not "
+                         f"split over {n_dev} workers")
+    topo, prog = reduce_program(n_dev, args.k, args.strategy, device)
+    grad_scale = topo.n_devices / n_dev        # every device alive
+    print(f"devices={n_dev} fleet_switches={topo.tree.n} k={args.k} "
+          f"phi={prog.utilization:.1f} msgs={prog.total_network_messages}")
+
+    ocfg = adamw.AdamWConfig()
+    ccfg = CompressionConfig.parse(args.compress)
+    params = api.init_fn(cfg, device)(args.seed)
+    opt_state = adamw.init(params, ocfg)
+    ef = init_error_feedback(params)
+    if n_dev > 1:
+        ef = T.tree_map(lambda e: e.new_zeros((n_dev,) + tuple(e.shape)), ef)
+    if ccfg.kind != "none":
+        dense_b = payload_bytes(params, CompressionConfig())
+        comp_b = payload_bytes(params, ccfg)
+        print(f"compression={ccfg.kind} worker payload "
+              f"{dense_b/1e6:.1f} MB -> {comp_b/1e6:.2f} MB "
+              f"({dense_b/comp_b:.0f}x)")
+    data = SyntheticLM(cfg, DataConfig(args.global_batch, args.seq,
+                                       seed=args.seed), device=device)
+
+    mgr = ckpt.CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    state = lambda: {"params": params, "opt": opt_state, "ef": ef}
+    start = 0
+    if mgr and args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
+        saved, start = ckpt.restore(args.ckpt_dir, state())
+        with torch.no_grad():
+            for dst, src in zip(T.leaves(state()), T.leaves(saved)):
+                dst.copy_(src)
+        print(f"resumed from step {start}")
+
+    step_fn = make_step(cfg, ocfg, prog, grad_scale, ccfg)
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(start, args.steps):
+        batch = data.batch(step)
+        params, opt_state, ef, metrics = step_fn(params, opt_state, ef, batch)
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            dt = time.perf_counter() - t0
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"({dt / max(1, step - start + 1):.2f}s/step)")
+        done = step + 1
+        if mgr and done < args.steps and done % args.ckpt_every == 0:
+            mgr.save(done, state())
+    if mgr:
+        mgr.save(args.steps, state())
+        mgr.wait()
+    if losses:
+        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,104 @@
+"""Model API and the assigned input shapes: the port of the JAX package's
+``models/api.py`` for the training entry points, plus the weight converter.
+
+  init_fn(cfg, device)(seed_or_generator) -> params (nested dicts of
+      leaf tensors that require grad, keyed as the JAX pytree)
+  loss_fn(cfg)(params, batch) -> (loss, metrics)
+  params_from_jax(tree_of_numpy) / params_to_numpy(params): 1:1 by key
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import tree as T
+from . import transformer
+from .config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def init_fn(cfg: ModelConfig, device="cuda"):
+    """``init(seed)`` -> params on ``device`` (a seed or a Generator on it)."""
+    transformer.check_supported(cfg)
+
+    def init(seed):
+        gen = seed if isinstance(seed, torch.Generator) else \
+            torch.Generator(device=device).manual_seed(int(seed))
+        with torch.no_grad():
+            params = transformer.init_params(cfg, gen)
+        return T.tree_map(lambda p: p.requires_grad_(), params)
+
+    return init
+
+
+def loss_fn(cfg: ModelConfig):
+    transformer.check_supported(cfg)
+    return lambda params, batch: transformer.loss_fn(params, batch, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Weight conversion: the same keys, shapes and layouts, no transposes
+# ---------------------------------------------------------------------------
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def params_from_jax(tree, device="cuda"):
+    """A JAX parameter pytree (numpy or JAX arrays) -> the port's params.
+    Empty containers (the JAX tree's ``prefix: []``) carry no leaves and
+    are dropped."""
+    flat = {k: _to_tensor(v, device).requires_grad_()
+            for k, v in T.leaves_with_paths(_drop_empty(tree))}
+    return T.unflatten(flat)
+
+
+def _drop_empty(tree):
+    if isinstance(tree, dict):
+        out = {k: _drop_empty(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items()
+                if not (isinstance(v, (dict, list, tuple)) and not v)}
+    if isinstance(tree, (list, tuple)):
+        return [_drop_empty(v) for v in tree]
+    return tree
+
+
+def params_to_numpy(params) -> dict:
+    """The port's params -> a nested dict of numpy arrays (bfloat16 as
+    ``ml_dtypes.bfloat16`` where numpy has it, else the uint16 bits)."""
+    return T.tree_map(tensor_to_numpy, params)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        try:
+            import ml_dtypes
+        except ImportError:
+            return bits
+        return bits.view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -176,3 +176,138 @@ def test_executor_on_card_equals_cpu(dev):
                 assert torch.equal(got.cpu(), T.tree_allreduce(x, prog))
                 n += 1
     assert n == 48
+
+
+# -- the training path: top-k, bfloat16 reduce, the trainer -------------------
+
+def _topk_rows(rng, r, d):
+    x = rng.standard_normal((r, d))
+    x[0, rng.choice(d, min(d, 5), replace=False)] = np.inf
+    if r > 1:
+        x[1] = rng.integers(-3, 4, size=d)           # heavy ties
+    if r > 2:
+        x[2] = 0.0
+        x[2, :2] = [-0.0, 1.0]                        # fewer than k nonzeros
+    if r > 3:
+        x[3, rng.choice(d, 2, replace=False)] = np.nan
+    return x
+
+
+def _raw(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,d,k", [(1, 16, 4), (8, 256, 32), (5, 100, 10),
+                                   (4, 5120, 51), (2, 300_001, 3_000),
+                                   (4, 64, 64)])
+def test_topk_kernel_bitwise(dev, dtype, r, d, k):
+    from repro_torch.kernels.topk_compress.ops import (topk_compress,
+                                                       topk_threshold)
+    from repro_torch.kernels.topk_compress.ref import (topk_compress_torch,
+                                                       topk_threshold_torch)
+    from repro_torch.kernels.topk_compress.topk_compress import (
+        topk_compress_cuda, topk_threshold_cuda)
+    x = torch.as_tensor(_topk_rows(np.random.default_rng(d + k), r, d),
+                        device=dev).to(dtype)
+    before = (topk_compress_cuda.launches, topk_threshold_cuda.launches)
+    v, i = topk_compress(x, k)
+    t = topk_threshold(x, k)
+    assert (topk_compress_cuda.launches, topk_threshold_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    wv, wi = topk_compress_torch(x, k)
+    assert torch.equal(i, wi)
+    assert torch.equal(_raw(v), _raw(wv))
+    wt = topk_threshold_torch(x, k)
+    nan = torch.isnan(wt)
+    assert torch.equal(torch.isnan(t), nan)
+    assert torch.equal(_raw(t[~nan]), _raw(wt[~nan]))
+    srt = torch.sort(i.long(), dim=1).values
+    assert bool((srt[:, 1:] != srt[:, :-1]).all())
+
+
+@pytest.mark.parametrize("g,c,d", [(1, 2, 4099), (3, 8, 1024), (2, 64, 9)])
+def test_segment_reduce_round_each_kernel_bitwise(dev, g, c, d):
+    """Rounding after each add differs from rounding once wherever a group
+    folds three or more rows (0 + x is exact)."""
+    rng = np.random.default_rng(g + c + d)
+    x = torch.as_tensor(rng.standard_normal((g, c, d))
+                        * np.exp(2 * rng.standard_normal((g, c, d))),
+                        dtype=torch.bfloat16, device=dev)
+    mask = torch.as_tensor(rng.random((g, c)) < 0.8, device=dev)
+    got = segment_reduce_cuda(x, mask, round_each=True)
+    assert torch.equal(got, segment_reduce_torch(x, mask, round_each=True))
+    if int(mask.sum(1).max()) >= 3:
+        assert not torch.equal(got, segment_reduce_torch(x, mask))
+
+
+def test_bf16_executor_on_card_equals_cpu(dev):
+    import repro_torch.collectives as T
+    rng = np.random.default_rng(4)
+    topo = T.chip_level_tree(2, 2, 2)
+    x = torch.as_tensor(rng.standard_normal((8, 5000)), dtype=torch.bfloat16)
+    for blue in (np.ones(topo.tree.n, bool), rng.random(topo.tree.n) < 0.5):
+        for tp in (topo, T.degrade_switches(topo, {1: 0.5})):
+            prog = T.build_program(tp, blue)
+            got = T.tree_allreduce(x.to(dev), prog)
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(_raw(got.cpu()), _raw(T.tree_allreduce(x,
+                                                                      prog)))
+
+
+def test_post_gradient_half_on_card_equals_cpu(dev):
+    """Compression, the SOAR reduce and the scale on the card equal the CPU
+    bit for bit on the same per-worker gradients (bfloat16, 8 workers)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import CompressionConfig, compress_leaf
+    rng = np.random.default_rng(8)
+    g = torch.as_tensor(rng.standard_normal((8, 3, 40, 24)),
+                        dtype=torch.bfloat16)
+    ccfg = CompressionConfig.parse("topk:0.05")
+    out = {}
+    for where in ("cpu", dev):
+        _, prog = train.reduce_program(8, 2, device=where)
+        step = train.make_step(ARCHS["qwen3-32b"].reduced(),
+                               adamw.AdamWConfig(), prog, 8 / 7, ccfg)
+        ef = torch.zeros(g.shape, device=where)
+        sent = torch.empty_like(g, device=where)
+        for s in range(2):
+            for i in range(8):
+                si, resid = compress_leaf(g[i].to(where), ef[i], ccfg)
+                ef[i].copy_(resid)
+                sent[i].copy_(si)
+        out[str(where)] = (sent.cpu(), ef.cpu(),
+                           step.reduce({"w": sent.clone()})["w"].cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(_raw(a) if a.is_floating_point() else a,
+                           _raw(b) if b.is_floating_point() else b)
+
+
+def test_trainer_main_on_card(dev, tmp_path):
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels.topk_compress.topk_compress import (
+        topk_threshold_cuda)
+    from repro_torch.launch import train
+    before = (topk_threshold_cuda.launches, segment_reduce_cuda.launches,
+              level_fold_cuda.launches)
+    args = ["--reduced", "--n-dev", "8", "--global-batch", "8", "--seq",
+            "32", "--steps", "5", "--compress", "topk:0.05", "--ckpt-every",
+            "3", "--log-every", "1"]
+    losses = train.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+    assert len(losses) == 5 and np.isfinite(losses).all()
+    after = (topk_threshold_cuda.launches, segment_reduce_cuda.launches,
+             level_fold_cuda.launches)
+    assert all(a > b for a, b in zip(after, before))
+    import shutil
+    shutil.copytree(tmp_path / "a" / "step_00000003",
+                    tmp_path / "b" / "step_00000003")
+    resumed = train.main(args + ["--ckpt-dir", str(tmp_path / "b"),
+                                 "--resume"])
+    assert resumed == losses[3:]
+    a = np.load(tmp_path / "a" / "step_00000005" / "arrays.npz")
+    b = np.load(tmp_path / "b" / "step_00000005" / "arrays.npz")
+    assert sorted(a.files) == sorted(b.files)
+    assert all(a[k].tobytes() == b[k].tobytes() for k in a.files)
+    assert ckpt.latest_step(tmp_path / "a") == 5

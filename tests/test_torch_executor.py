@@ -11,12 +11,14 @@ segment sum. It is held, bitwise:
   subprocess (this file run as ``python tests/test_torch_executor.py
   --jax-ref IN OUT``; the device count must be set before JAX starts), on
   three programs of ``chip_level_tree(2, 2, 2)``: SOAR at k = 2, all red,
-  and a degraded program with FoldOp and CompactOp rounds. The JAX
-  executor runs under ``jax.jit``, as a training step calls it.
+  and a degraded program with FoldOp and CompactOp rounds, in float32 and
+  in bfloat16. The JAX executor runs under ``jax.jit``, as a training step
+  calls it.
 
 Inputs are standard normal float32, so no sum is zero and equal values
 are equal bytes.
 """
+import importlib
 import os
 import subprocess
 import sys
@@ -204,38 +206,47 @@ def _jax_programs():
 
 
 def _jax_reference(path_in: str, path_out: str) -> None:
-    """Subprocess body: the JAX executor on 8 fake CPU devices."""
+    """Subprocess body: the JAX executor on 8 fake CPU devices, on ``x``
+    (float32) and on ``xb`` (its float32 values, cast to bfloat16)."""
     import jax
+    import jax.numpy as jnp
 
     import repro.collectives as J
     assert jax.device_count() == 8, jax.device_count()
     data = np.load(path_in)
     mesh = jax.sharding.Mesh(np.array(jax.devices()), ("data",))
     topo = J.chip_level_tree(2, 2, 2)
-    outs = []
+    outs, outs_bf16 = [], []
     for i, blue in enumerate(data["blues"]):
         ids, fr = data[f"ids{i}"], data[f"fracs{i}"]
         t = J.degrade_switches(topo, dict(zip(ids.tolist(), fr.tolist())))
         prog = J.build_program(t, blue)
         run = jax.jit(lambda v, p=prog: J.tree_allreduce(v, p, mesh, "data"))
         outs.append(np.asarray(run(data["x"])))
-    np.save(path_out, np.stack(outs))
+        got = run(jnp.asarray(data["xb"], jnp.bfloat16))
+        assert got.dtype == jnp.bfloat16
+        outs_bf16.append(np.asarray(got).view(np.uint16))
+    np.savez(path_out, f32=np.stack(outs), bf16=np.stack(outs_bf16))
 
 
-def test_executor_equals_jax_shard_map_executor():
+@pytest.fixture(scope="module")
+def jax_executor():
+    """The three programs, the inputs, and the JAX executor's results (one
+    subprocess for the module)."""
     topo, progs = _jax_programs()
     rng = np.random.default_rng(12)
     x = rng.standard_normal((8, 33)).astype(np.float32)
-    ported = []
-    for blue, scales in progs:
-        prog = T.build_program(T.degrade_switches(topo, scales), blue)
-        ported.append(T.tree_allreduce(torch.as_tensor(x), prog))
-        _bytes_equal(ported[-1], _run_host(prog, x))
-    kinds = {type(op).__name__ for op in prog.ops}
-    assert {"FoldOp", "CompactOp"} <= kinds      # the degraded program
+    # bfloat16: a wide range of magnitudes, so that where a fold rounds
+    # shows in the sum
+    xb = (rng.standard_normal((8, 1024))
+          * np.exp(2.0 * rng.standard_normal((8, 1024)))).astype(np.float32)
+    xb = torch.as_tensor(xb).to(torch.bfloat16)
+    programs = [T.build_program(T.degrade_switches(topo, scales), blue)
+                for blue, scales in progs]
     with tempfile.TemporaryDirectory() as tmp:
-        fin, fout = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npy")
-        arrays = {"x": x, "blues": np.stack([b for b, _ in progs])}
+        fin, fout = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
+        arrays = {"x": x, "xb": xb.to(torch.float32).numpy(),
+                  "blues": np.stack([b for b, _ in progs])}
         for i, (_, scales) in enumerate(progs):
             arrays[f"ids{i}"] = np.asarray(list(scales), np.int64)
             arrays[f"fracs{i}"] = np.asarray(list(scales.values()))
@@ -248,9 +259,42 @@ def test_executor_equals_jax_shard_map_executor():
             capture_output=True, text=True, env=env, timeout=60)
         assert out.returncode == 0, out.stderr[-4000:]
         want = np.load(fout)
+        return programs, x, xb, want["f32"], want["bf16"]
+
+
+def test_executor_equals_jax_shard_map_executor(jax_executor):
+    programs, x, _, want, _ = jax_executor
+    ported = []
+    for prog in programs:
+        ported.append(T.tree_allreduce(torch.as_tensor(x), prog))
+        _bytes_equal(ported[-1], _run_host(prog, x))
+    kinds = {type(op).__name__ for op in programs[-1].ops}
+    assert {"FoldOp", "CompactOp"} <= kinds      # the degraded program
     for got, w in zip(ported, want, strict=True):
         assert torch.equal(got, torch.as_tensor(w))
         _bytes_equal(got, w)
+
+
+def test_bf16_executor_equals_jax_bitwise(jax_executor, monkeypatch):
+    """The JAX fold carries a bfloat16 accumulator through its fori_loop:
+    it rounds to bfloat16 after every add (a), not once per fold after a
+    float32 sum (b). The port's bfloat16 executor does (a) and is bitwise
+    equal to the JAX executor; (b) differs on these inputs."""
+    # the module (the package's name tree_allreduce is the function)
+    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
+    programs, _, xb, _, want = jax_executor
+    bits = lambda t: t.view(torch.int16).numpy().view(np.uint16)
+    for prog, w in zip(programs, want, strict=True):
+        got = T.tree_allreduce(xb, prog)
+        assert got.dtype == torch.bfloat16 and got.shape == (1024,)
+        np.testing.assert_array_equal(bits(got), w)
+    ref = importlib.import_module("repro_torch.kernels.segment_reduce.ref")
+    each = ref.segment_reduce_torch
+    monkeypatch.setattr(ref, "segment_reduce_torch", lambda *a, round_each,
+                        **kw: each(*a, round_each=False, **kw))
+    differs = [not np.array_equal(bits(T.tree_allreduce(xb, prog)), w)
+               for prog, w in zip(programs, want)]
+    assert all(differs), differs
 
 
 if __name__ == "__main__":

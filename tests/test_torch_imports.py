@@ -40,15 +40,30 @@ _REDUCE_PATH = ("repro_torch.core.reduce", "repro_torch.core.baselines",
                 "repro_torch.kernels.segment_reduce.segment_reduce",
                 "repro_torch.kernels.segment_reduce.ops")
 
+# the modules of the training path, which must be among those imported
+_TRAIN_PATH = ("repro_torch.tree", "repro_torch.kernels.topk_compress",
+               "repro_torch.kernels.topk_compress.ref",
+               "repro_torch.kernels.topk_compress.topk_compress",
+               "repro_torch.kernels.topk_compress.ops",
+               "repro_torch.optim", "repro_torch.optim.adamw",
+               "repro_torch.optim.compression", "repro_torch.configs",
+               "repro_torch.configs.qwen3_32b", "repro_torch.models",
+               "repro_torch.models.config", "repro_torch.models.layers",
+               "repro_torch.models.attention",
+               "repro_torch.models.transformer", "repro_torch.models.api",
+               "repro_torch.data", "repro_torch.data.pipeline",
+               "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+               "repro_torch.launch", "repro_torch.launch.train")
+
 
 def test_port_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
-         *_REDUCE_PATH],
+         *_REDUCE_PATH, *_TRAIN_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 25     # every module imported
+    assert int(out.stdout.split()[-1]) == 56     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -68,3 +83,6 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         plan(topo, 1)
     assert plan(topo, 1, options=EngineOptions(device="cpu")).blue.sum() == 1
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])

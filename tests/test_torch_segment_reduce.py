@@ -124,3 +124,27 @@ def test_cuda_launcher_refuses_cpu_tensors():
         segment_reduce_cuda(torch.zeros(8, 4), torch.ones(2, 3),
                             torch.tensor([0, 4]), inplace=True)
     assert segment_reduce_cuda.launches == before
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_round_each_rounds_after_every_add(inplace):
+    """``round_each=True`` is bfloat16 addition: the sum is rounded to
+    bfloat16 after every add (as the JAX executor's bfloat16 fold carry
+    is), where the default rounds once at the end. 1 + 2^-8 rounds back to
+    1 in bfloat16, so two such adds leave 1; summed in float32 first they
+    reach 1 + 2^-7. Float32 is unchanged by the flag. The executor's
+    ``reduce_rows`` always rounds after every add."""
+    x = torch.tensor([1.0, 2.0 ** -8, 2.0 ** -8]).reshape(3, 1)
+    rows, mask = torch.tensor([0]), torch.ones(1, 3)
+    for dt, each, want in ((torch.bfloat16, True, 1.0),
+                           (torch.bfloat16, False, 1.0 + 2.0 ** -7),
+                           (torch.float32, True, 1.0 + 2.0 ** -7),
+                           (torch.float32, False, 1.0 + 2.0 ** -7)):
+        assert torch.equal(segment_reduce_torch(x.to(dt)[None], mask,
+                                                round_each=each)[0],
+                           torch.tensor([want], dtype=dt)), (dt, each)
+        if each:
+            flat = x.to(dt).clone()
+            out = reduce_rows(flat, mask, rows, inplace=inplace)
+            got = (flat[0] if inplace else out[0]).item()
+            assert got == want, dt
