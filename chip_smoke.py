@@ -4,12 +4,14 @@
     python3 chip_smoke.py        # from the root of a checkout; needs a card
     python3 chip_smoke.py --lr-witness   # only the learning-rate witness
 
-Drives the port's three paths at full size on the card: the batched
+Drives the port's four paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``), the reduce path
 (``repro_torch.collectives``: ``plan`` -> ``build_program`` ->
-``tree_allreduce``) and the data-parallel trainer
+``tree_allreduce``), the data-parallel trainer
 (``repro_torch.launch.train``: model -> per-worker gradient -> top-k
-compression -> SOAR reduce -> AdamW -> checkpoint). It builds the CUDA
+compression -> SOAR reduce -> AdamW -> checkpoint) and serving
+(``repro_torch.launch.steps``: prefill, then greedy decode steps over
+caches written in place, attention by the flash kernel). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -49,6 +51,32 @@ plain torch version on the inputs the paths give it. Phases:
    segment-reduce launch of the gradient reduce equals its plain version
    bitwise; the resumed run equals the uninterrupted one bitwise; the
    top-k, segment-reduce, level-fold and min-plus kernels all ran.
+9. serving, everything of the trainer freed first. 9a, before the model
+   allocates: the flash-attention kernel within tolerance of its plain
+   version (float32 2e-5, bfloat16 3e-2, the JAX tests') on the JAX test
+   shapes, bidirectional and ragged T/S, then at the cell's shapes in
+   bfloat16 against the plain version in float32 on the same inputs,
+   elementwise within 2^-8 of the value plus 2^-15: prefill (4, 2048,
+   64/8 heads, 128) request by request, decode (4, 1) over strided cache
+   prefixes of 1, 2047, 2048 and 2112 positions, and one call at
+   prefill_32k's (1, 32768) compared on two heads in 2048-row chunks.
+   Planted faults (a dropped key tile in prefill; a dropped warp state
+   or newest 32 keys in decode) must fail that limit. Times against the
+   bound, the plain version and ``scaled_dot_product_attention``. 9b: a
+   float32 qwen3-32b
+   at its published widths and 4 layers (TF32 off), 2 prompts of 128
+   tokens and 8 decode steps: the last decode logits within 1e-3 of the
+   largest logit of a fresh prefill of the extended sequences, and tokens
+   and logits equal to the same run on the CPU (rtol 1e-4); then the cell
+   ``qwen3-32b-serve-b4-p2048-g64``: qwen3-32b at full width and depth in
+   bfloat16, 4 prompts of 2048 tokens, ``make_prefill_step``, the caches
+   copied into ``init_caches(cfg, 4, 2112)``, 64 ``make_serve_step``s.
+   Checks: tokens in [0, vocab), every logit finite, 64 x 65 flash
+   launches, no decode step allocates a cache, the last decode logits
+   within 5% of the largest logit of a fresh prefill's. The run is then
+   repeated through the bare entry points (equal tokens) for the times:
+   time to first token, decode ms per step, peak memory, the device's
+   busy share over one decode step.
 
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
@@ -273,10 +301,12 @@ def _counted():
     from repro_torch.kernels.minplus.minplus import minplus_cuda
     from repro_torch.kernels.segment_reduce.segment_reduce import (
         segment_reduce_cuda)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
     from repro_torch.kernels.topk_compress.topk_compress import (
         topk_compress_cuda, topk_threshold_cuda)
     return (level_fold_cuda, minplus_cuda, segment_reduce_cuda,
-            topk_threshold_cuda, topk_compress_cuda)
+            topk_threshold_cuda, topk_compress_cuda, flash_attention_cuda)
 
 
 def reset_counts():
@@ -286,7 +316,7 @@ def reset_counts():
 
 def read_counts() -> tuple[int, ...]:
     """Launches of the level fold, min-plus, segment reduce, top-k select
-    stage and whole top-k."""
+    stage, whole top-k and flash attention."""
     return tuple(fn.launches for fn in _counted())
 
 
@@ -811,10 +841,11 @@ def check_topk_random() -> float:
     return err
 
 
-def kernel_profile(fn, label: str, top: int = 8):
+def kernel_profile(fn, label: str, top: int = 8, host_top: int = 0):
     """(wall ms, device-busy ms, [(kernel, device ms, count)]) of one
     ``fn()`` under ``torch.profiler``; None where the profiler records no
-    device time (it is a guest on the chip machine)."""
+    device time (it is a guest on the chip machine). With ``host_top``
+    also prints that many host operations by self CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -840,6 +871,13 @@ def kernel_profile(fn, label: str, top: int = 8):
     say(f"{label}: under the profiler wall {wall:.4f} ms, device busy "
         f"{busy:.4f} ms ({100 * busy / wall:.1f}%); kernels by device ms: "
         + "; ".join(f"{k[:60]} {ms:.4f} ({n})" for k, ms, n in kern[:top]))
+    if host_top:
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU),
+                      key=lambda t: -t[1])
+        say(f"{label}: host ops by self CPU ms: " + "; ".join(
+            f"{k[:40]} {ms:.4f} ({n})" for k, ms, n in host[:host_top]))
     return wall, busy, kern
 
 
@@ -1215,6 +1253,530 @@ def trainer_e2e() -> dict:
     return dict(counts=counts, times=times, steps=len(losses))
 
 
+# -- phase 9: serving ---------------------------------------------------------
+
+SERVE_CELL = "qwen3-32b-serve-b4-p2048-g64"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 64
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
+# bfloat16 outputs are also held, elementwise, to the plain version computed
+# in float32 from the same bfloat16 inputs: |got - want| <= rtol |want| +
+# atol. The kernel's arithmetic is float32 (held at the float32 tolerance,
+# 2e-5), then it rounds its output to bfloat16 (at most half an ulp, 2^-8
+# of the value): rtol 2^-8, atol 2^-15 >= (1 + 2^-8) x 2e-5. Unlike 3e-2
+# against the bfloat16 plain version, this scales with the output, whose
+# typical size at the serving shapes is 0.01-0.04.
+FLASH_TIGHT = {"rtol": 2.0 ** -8, "atol": 2.0 ** -15}
+# (BH, T, D): the JAX test shapes, causal
+FLASH_JAX_SHAPES = [(2, 64, 32), (4, 128, 64), (1, 200, 128), (3, 256, 16)]
+# (BH, T, S, D, causal): bidirectional, then ragged T and S
+FLASH_MORE = [(2, 128, 128, 32, False), (2, 37, 101, 48, False),
+              (1, 5, 300, 200, False), (2, 130, 61, 40, True),
+              (2, 300, 200, 48, True)]
+LONG_T = 32_768               # prefill_32k's sequence
+# The bfloat16 cell's last decode logits against a fresh prefill of the
+# same sequences, as a share of the largest logit: 1.9% was read on the
+# H100 (0.1406 of 7.344); the limit leaves room for bfloat16 rounding,
+# which grows with depth.
+SERVE_BF16_DIFF = 0.05
+
+
+def _dt_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def flash_work(b, t, s, h, hkv, d, causal, elt) -> tuple[int, int]:
+    """(bytes, operations) one attention call needs: q, k, v read once and
+    the output written once; 2 operations per multiply-add of the two
+    products over the keys each query row sees (all S, or min(i + 1, S)
+    for row i when causal)."""
+    nbytes = (2 * b * t * h * d + 2 * b * s * hkv * d) * elt
+    if causal:
+        m = min(t, s)
+        keys = m * (m + 1) // 2 + (t - m) * s
+    else:
+        keys = t * s
+    return nbytes, 4 * b * h * d * keys
+
+
+def flash_bound(work, dtype) -> tuple[float, str]:
+    """(ms, what bounds it) on the H100 at its published peaks."""
+    import torch
+    nbytes, ops = work
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_close(got, want, dtype, label) -> float:
+    """The kernel's output within the stated tolerance of the plain
+    version's; returns the largest |difference|."""
+    import torch
+    tol = FLASH_TOL[_dt_name(dtype)]
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    err = float((g - w).abs().max())
+    check(bool(torch.isfinite(g).all()) and torch.allclose(
+        g, w, rtol=tol, atol=tol),
+        f"flash {label}: kernel != plain beyond {tol} (max |err| {err})")
+    return err
+
+
+def flash_over_limit(got, want32) -> tuple[float, float]:
+    """(max |got - want32|, max of |got - want32| / (rtol |want32| +
+    atol)) at ``FLASH_TIGHT``: the second is at most 1 when ``got`` is
+    within the limit."""
+    import torch
+    err = (got.to(torch.float32) - want32).abs()
+    lim = FLASH_TIGHT["rtol"] * want32.abs() + FLASH_TIGHT["atol"]
+    return float(err.max()), float((err / lim).max())
+
+
+def flash_tight(got, want32, label) -> tuple[float, float]:
+    """A bfloat16 kernel output within ``FLASH_TIGHT`` of the plain version
+    in float32 on the same inputs; returns ``flash_over_limit``."""
+    import torch
+    err, ratio = flash_over_limit(got, want32)
+    check(bool(torch.isfinite(got).all()) and ratio <= 1.0,
+          f"flash {label}: kernel != float32 plain beyond rtol 2^-8, atol "
+          f"2^-15 (max |err| {err}, {ratio:.3g} x the limit)")
+    return err, ratio
+
+
+def flash_fault_caught(faulty32, want32, label) -> float:
+    """A planted fault (the plain version with keys a faulty kernel would
+    drop, rounded to bfloat16 as the kernel's output is) must fail the
+    limit that the kernel passes; returns its err / limit."""
+    import torch
+    _, ratio = flash_over_limit(faulty32.to(torch.bfloat16), want32)
+    check(ratio > 1.0, f"flash: the planted fault '{label}' passes the "
+          f"limit ({ratio:.3g} x); the check cannot see it")
+    return ratio
+
+
+def check_flash_random() -> dict:
+    """Phase 9a on the (BH, T, D) layout: the JAX test shapes (causal),
+    bidirectional and ragged T/S, float32 and bfloat16 (bfloat16 also
+    within ``FLASH_TIGHT`` of the float32 plain version); returns the
+    largest error by dtype."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    errs, ratio = {}, 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        err = 0.0
+        cases = ([(bh, t, t, d, True) for bh, t, d in FLASH_JAX_SHAPES]
+                 + FLASH_MORE)
+        for bh, t, s, d, causal in cases:
+            q = torch.randn((bh, t, d), generator=gen, device=DEVICE).to(dt)
+            k, v = (torch.randn((bh, s, d), generator=gen,
+                                device=DEVICE).to(dt) for _ in range(2))
+            label = f"{(bh, t, s, d, causal)} {_dt_name(dt)}"
+            got = flash_attention(q, k, v, causal)
+            err = max(err, flash_close(
+                got, flash_attention_torch(q, k, v, causal), dt, label))
+            if dt == torch.bfloat16:
+                ratio = max(ratio, flash_tight(got, flash_attention_torch(
+                    *(x.float() for x in (q, k, v)), causal), label)[1])
+        errs[_dt_name(dt)] = err
+    say(f"kernels: flash attention within tolerance of its plain version "
+        f"on the JAX test shapes {FLASH_JAX_SHAPES} (causal) and on "
+        f"{FLASH_MORE}, float32 (max |err| {errs['float32']:.3g}, tol "
+        f"2e-5) and bfloat16 (max |err| {errs['bfloat16']:.3g}, tol 3e-2; "
+        f"against the float32 plain version {ratio:.3g} x its limit)")
+    return errs
+
+
+def sdpa_layout(q, k, v):
+    """(B, T, H, D) views -> contiguous (B, H, T, D) copies for
+    ``scaled_dot_product_attention`` (made outside its timing)."""
+    return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+
+def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
+                         cache=SERVE_PROMPT + SERVE_STEPS,
+                         long_t=LONG_T, long_heads=(0, 37)) -> dict:
+    """Phase 9a at the cell's shapes, bfloat16, each output held to
+    ``FLASH_TIGHT`` against the plain version in float32 on the same
+    inputs: prefill (b, t, h/hkv, d) causal, request by request; decode
+    (b, 1) over strided cache prefixes of 1, t - 1, t and ``cache``
+    positions; one long-context call (1, long_t) on ``long_heads`` in
+    2048-row query chunks. Planted faults (a 64-key tile dropped for one
+    query tile; a decode warp's keys, or the newest 32 keys, dropped)
+    must fail that limit. Then the times: kernel, plain and
+    ``scaled_dot_product_attention`` per prefill and per decode layer,
+    and the long call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, sdpa)
+    from repro_torch.models.attention import causal_mask
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 references
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(2048)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=DEVICE).to(bf)
+    f32 = lambda *xs: [x.float() for x in xs]
+    scale = 1.0 / d ** 0.5
+    v_, checks, faults = {}, {}, {}
+    # prefill
+    q, k, v = rnd(b, t, h, d), rnd(b, t, hkv, d), rnd(b, t, hkv, d)
+    got = flash_attention_gqa(q, k, v, scale, causal=True)
+    e = [flash_tight(got[i:i + 1], flash_attention_gqa_torch(
+        *f32(q[i:i + 1], k[i:i + 1], v[i:i + 1]), scale, causal=True),
+        f"prefill request {i}") for i in range(b)]
+    checks[f"prefill ({b}, {t}, {h}/{hkv}, {d}) causal"] = (
+        max(x[0] for x in e), max(x[1] for x in e))
+    # fault: the last 64-row query tile skips key tile 0
+    last = (t - 1) // 64
+    mask = causal_mask(t, t, device=DEVICE)
+    mask[64 * last:, :64] = False
+    q0, k0, v0 = f32(q[:1], k[:1], v[:1])
+    label = f"prefill: query tile {last} skips key tile 0"
+    faults[label] = flash_fault_caught(
+        sdpa(q0, k0, v0, mask[None], scale),
+        flash_attention_gqa_torch(q0, k0, v0, scale, causal=True), label)
+    del q0, k0, v0, mask
+    v_["ms"] = cuda_ms(lambda: flash_attention_gqa(q, k, v, scale, True), 5)
+    v_["plain_ms"] = cuda_ms(
+        lambda: flash_attention_gqa_torch(q, k, v, scale, True), 2, 1)
+    qs, ks, vs = sdpa_layout(q, k, v)
+    v_["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, scale=scale, enable_gqa=True), 5)
+    v_["bound_ms"], v_["bound_by"] = flash_bound(
+        flash_work(b, t, t, h, hkv, d, True, 2), bf)
+    del q, k, v, got, qs, ks, vs
+    torch.cuda.empty_cache()
+    # decode over strided prefixes of one cache
+    ck, cv, q1 = rnd(b, cache, hkv, d), rnd(b, cache, hkv, d), rnd(b, 1, h, d)
+    for n in (1, t - 1, t, cache):
+        kp, vp = ck[:, :n], cv[:, :n]
+        checks[f"decode ({b}, 1, {h}/{hkv}, {d}) over {n}"] = flash_tight(
+            flash_attention_gqa(q1, kp, vp, scale, causal=False),
+            flash_attention_gqa_torch(*f32(q1, kp, vp), scale, causal=False),
+            f"decode over {n} positions")
+    # faults: one warp's state (keys with (key // 32) % 4 == 3) or the
+    # newest 32 keys left out of the merge
+    qf, kf, vf = f32(q1, ck, cv)
+    want = flash_attention_gqa_torch(qf, kf, vf, scale, causal=False)
+    kpos = torch.arange(cache, device=DEVICE)[None, None, :]
+    for label, drop in (("decode: warp 3's state dropped",
+                         (kpos // 32) % 4 == 3),
+                        ("decode: the newest 32 keys dropped",
+                         kpos >= cache - 32)):
+        faults[label] = flash_fault_caught(
+            sdpa(qf, kf, vf, ~drop, scale), want, label)
+    del qf, kf, vf, want
+    v_["decode_ms"] = cuda_ms(
+        lambda: flash_attention_gqa(q1, ck, cv, scale, False), 20)
+    v_["decode_plain_ms"] = cuda_ms(
+        lambda: flash_attention_gqa_torch(q1, ck, cv, scale, False), 20)
+    qs, ks, vs = sdpa_layout(q1, ck, cv)
+    v_["decode_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, scale=scale, enable_gqa=True), 20)
+    v_["decode_bound_ms"], v_["decode_bound_by"] = flash_bound(
+        flash_work(b, 1, cache, h, hkv, d, False, 2), bf)
+    del ck, cv, q1, qs, ks, vs
+    torch.cuda.empty_cache()
+    # one long-context call, compared on sampled heads in row chunks
+    q, k, v = rnd(1, long_t, h, d), rnd(1, long_t, hkv, d), rnd(1, long_t,
+                                                              hkv, d)
+    got = flash_attention_gqa(q, k, v, scale, causal=True)
+    g = h // hkv
+    e = []
+    for hh in long_heads:
+        kv = hh // g
+        for r0 in range(0, long_t, 2048):
+            r1 = min(long_t, r0 + 2048)
+            e.append(flash_tight(
+                got[:, r0:r1, hh:hh + 1], sdpa(
+                    *f32(q[:, r0:r1, hh:hh + 1], k[:, :r1, kv:kv + 1],
+                         v[:, :r1, kv:kv + 1]),
+                    causal_mask(r1 - r0, r1, offset=r0,
+                                device=DEVICE)[None], scale),
+                f"long context head {hh} rows {r0}:{r1}"))
+    checks[f"long (1, {long_t}, {h}/{hkv}, {d}) causal, heads "
+           f"{list(long_heads)}"] = (max(x[0] for x in e),
+                                     max(x[1] for x in e))
+    v_["long_ms"] = cuda_ms(lambda: flash_attention_gqa(q, k, v, scale, True),
+                            2, 0)
+    v_["long_bound_ms"], _ = flash_bound(
+        flash_work(1, long_t, long_t, h, hkv, d, True, 2), bf)
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    v_["max_abs_err"] = max(x[0] for x in checks.values())
+    v_["checks"] = [{"shape": lab, "max_abs_err": x[0], "err_over_limit": x[1]}
+                    for lab, x in checks.items()]
+    v_["planted_faults"] = [{"fault": lab, "err_over_limit": r}
+                            for lab, r in faults.items()]
+    say("flash attention at the serving shapes, bfloat16 against the plain "
+        "version in float32 (|err| <= 2^-8 |want| + 2^-15): " + "; ".join(
+            f"{lab}: max |err| {x[0]:.4g}, {x[1]:.4g} x the limit"
+            for lab, x in checks.items()))
+    say("flash attention planted faults, each beyond the limit: " + "; ".join(
+        f"{lab}: {r:.4g} x the limit" for lab, r in faults.items()))
+    say(f"flash attention at the serving shapes ({nvidia_smi_line()}): "
+        f"prefill ({b}, {t}, "
+        f"{h}/{hkv}, {d}) causal {v_['ms']:.4f} ms per layer (bound "
+        f"{v_['bound_ms']:.4f} ms, {v_['bound_by']}), plain "
+        f"{v_['plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{v_['library_ms']:.4f} ms; decode ({b}, 1) over {cache} "
+        f"positions {v_['decode_ms']:.4f} ms per layer (bound "
+        f"{v_['decode_bound_ms']:.4f} ms, {v_['decode_bound_by']}), plain "
+        f"{v_['decode_plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{v_['decode_library_ms']:.4f} ms; long context (1, {long_t}) "
+        f"causal {v_['long_ms']:.4f} ms (bound {v_['long_bound_ms']:.4f} "
+        f"ms)")
+    return v_
+
+
+class LogitsCheck:
+    """Swaps ``transformer._lm_logits`` for a wrapper that ANDs
+    ``isfinite(logits).all()`` into a flag on the device (no sync) and
+    keeps the last position's real-vocab logits of the latest call (the
+    padding columns hold -1e30)."""
+
+    def __init__(self, transformer):
+        self.mod = transformer
+        self.finite = None
+        self.last = None
+
+    def __enter__(self):
+        import torch
+        orig = self._orig = self.mod._lm_logits
+
+        def wrapped(params, x, cfg):
+            out = orig(params, x, cfg)
+            # NaN and +-inf reach the max or the min; ``isfinite`` itself
+            # would allocate several copies of the 2.5 GB prefill logits
+            ok = torch.isfinite(out.amax()) & torch.isfinite(out.amin())
+            self.finite = ok if self.finite is None else self.finite & ok
+            # the real vocab (padding columns hold -1e30), not a view of
+            # all the logits
+            self.last = out[:, -1, :cfg.vocab].clone()
+            return out
+
+        self.mod._lm_logits = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._lm_logits = self._orig
+
+
+def greedy_run(cfg, params, prompts, n_steps: int, timed=False):
+    """The serving loop: ``make_prefill_step``, the prefill caches copied
+    into ``init_caches(cfg, B, T + n_steps)``, then ``n_steps``
+    ``make_serve_step``s. Returns (tokens (B, 1 + n_steps), the last
+    decode logits (B, V) float32, the prefill's last logits, caches,
+    timings). Untimed, ``LogitsCheck`` checks every call's logits and
+    keeps the last ones; ``timed`` runs the bare entry points, synchronised
+    around each step, and returns no logits."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import api, transformer
+    b, t = prompts.shape
+    prefill_step = steps.make_prefill_step(cfg)
+    serve_step = steps.make_serve_step(cfg)
+    tm, pre_logits, last = {}, None, None
+    with (contextlib.nullcontext() if timed
+          else LogitsCheck(transformer)) as lc:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, pre = prefill_step(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        tm["prefill_s"] = time.perf_counter() - t0
+        tm["prefill_peak"] = torch.cuda.max_memory_allocated()
+        if not timed:
+            pre_logits = lc.last.to(torch.float32)
+        caches = api.init_caches(cfg, b, t + n_steps, prompts.device)
+        with torch.inference_mode():
+            for n in ("k", "v"):
+                caches["layers"][n][:, :, :t].copy_(pre["layers"][n])
+        del pre
+        ptrs = [caches["layers"][n].data_ptr() for n in ("k", "v")]
+        toks, walls = [tok], []
+        for s in range(n_steps):
+            if timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, out = serve_step(params, caches, tok, t + s)
+            if timed:
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            check(out is caches and [caches["layers"][n].data_ptr()
+                                     for n in ("k", "v")] == ptrs,
+                  f"decode step {s} allocated a new cache")
+            toks.append(tok)
+        torch.cuda.synchronize()
+        if not timed:
+            check(bool(lc.finite), "serving: a logit is not finite")
+            last = lc.last.to(torch.float32)
+    tm["step_s"] = walls
+    return torch.cat(toks, 1), last, pre_logits, caches, tm
+
+
+def fresh_prefill_logits(cfg, params, prompts, toks):
+    """The last logits of one prefill of the prompts extended by every
+    decoded token but the last (the sequence the last decode step saw)."""
+    import torch
+
+    from repro_torch.models import api
+    seq = torch.cat([prompts, toks[:, :-1].to(prompts.dtype)], 1)
+    with torch.inference_mode():
+        logits, _ = api.prefill_fn(cfg)(params, {"tokens": seq})
+    return logits[:, -1, :cfg.vocab].to(torch.float32)
+
+
+def _prompts(cfg, b, t, seed, device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, cfg.vocab, size=(b, t)),
+                           device=device)
+
+
+def serve_f32(depth=4, b=2, t=128, n_steps=8) -> dict:
+    """Phase 9b consistency: a float32 qwen3-32b at its published widths
+    and ``depth`` layers, TF32 off. Its last decode logits against a
+    fresh prefill of the extended sequences (within 1e-3 of the largest
+    logit), and the whole run against the same run on the CPU (logits at
+    rtol 1e-4 with an atol of 1e-4 times the largest logit, equal
+    tokens)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(ARCHS["qwen3-32b"], n_layers=depth,
+                              dtype="float32")
+    name = f"qwen3-32b-f32-l{depth}-b{b}-p{t}-g{n_steps}"
+    params = api.init_fn(cfg, DEVICE)(0)
+    prompts = _prompts(cfg, b, t, 7, DEVICE)
+    toks, last, pre, caches, _ = greedy_run(cfg, params, prompts, n_steps)
+    fresh = fresh_prefill_logits(cfg, params, prompts, toks)
+    scale = float(fresh.abs().max())
+    diff = float((last - fresh).abs().max())
+    check(diff <= 1e-3 * scale, f"{name}: decode logits differ from a "
+          f"fresh prefill by {diff} > 1e-3 x {scale}")
+    del caches
+    torch.cuda.empty_cache()
+    # the same run on the CPU
+    cpu = T.tree_map(lambda w: w.detach().cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        t0 = time.perf_counter()
+        ctoks, clast, cpre, _, _ = greedy_run(cfg, cpu, prompts.cpu(),
+                                              n_steps)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    del cpu
+    check(torch.equal(toks.cpu(), ctoks),
+          f"{name}: card tokens {toks.tolist()} != CPU {ctoks.tolist()}")
+    errs = []
+    for a, w in ((pre.cpu(), cpre), (last.cpu(), clast)):
+        errs.append(float((a - w).abs().max()))
+        check(torch.allclose(a, w, rtol=1e-4,
+                             atol=1e-4 * float(w.abs().max())),
+              f"{name}: card logits != CPU (max |err| {errs[-1]})")
+    say(f"{name}: tokens {toks.tolist()} equal on the card and the CPU "
+        f"(CPU run {cpu_s:.1f} s); logits vs CPU max |err| prefill "
+        f"{errs[0]:.3g}, last decode {errs[1]:.3g} (max |logit| "
+        f"{scale:.4g}); last decode vs fresh prefill {diff:.3g} "
+        f"(<= 1e-3 x max |logit|)")
+    return dict(diff=diff, scale=scale, cpu_err=max(errs))
+
+
+def serve_cell(cfg=None, b=SERVE_BATCH, t=SERVE_PROMPT,
+               n_steps=SERVE_STEPS) -> dict:
+    """Phase 9b, ``qwen3-32b-serve-b4-p2048-g64``: qwen3-32b at full width
+    and depth in bfloat16, 4 requests of 2048 tokens, one prefill step and
+    64 greedy serve steps, counted and checked; the same run again, timed;
+    one step under the profiler; the last decode logits against a fresh
+    prefill's, within ``SERVE_BF16_DIFF`` of the largest logit."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    cfg = cfg or ARCHS["qwen3-32b"]
+    name = SERVE_CELL
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"{name}: {held} bytes still allocated before the "
+          "model")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_fn(cfg, DEVICE)(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts(cfg, b, t, 0, DEVICE)
+    say(f"{name}: params {T.size(params):,} ({T.nbytes(params) / 1e9:.2f} "
+        f"GB) in {init_s:.1f} s; prompts {tuple(prompts.shape)}")
+    # the main path, counted, every call's logits checked
+    reset_counts()
+    toks, last, _, caches, _ = greedy_run(cfg, params, prompts, n_steps)
+    counts = read_counts()
+    want = cfg.n_layers * (1 + n_steps)
+    check(counts[5] == want,
+          f"{name}: {counts[5]} flash launches, expected {want}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{name}: a token outside [0, {cfg.vocab})")
+    del caches
+    torch.cuda.empty_cache()
+    # the same run again, timed through the bare entry points
+    ttoks, _, _, caches, tm = greedy_run(cfg, params, prompts, n_steps,
+                                         timed=True)
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(ttoks, toks), f"{name}: the timed run's tokens differ "
+          "from the counted run's")
+    # one more step under the profiler
+    serve_step = steps.make_serve_step(cfg)
+    tok = toks[:, -1:]
+    prof = kernel_profile(lambda: serve_step(params, caches, tok,
+                                             t + n_steps - 1),
+                          f"{name} one decode step", top=8, host_top=12)
+    del caches
+    torch.cuda.empty_cache()
+    fresh = fresh_prefill_logits(cfg, params, prompts, toks)
+    diff = float((last - fresh).abs().max())
+    scale = float(fresh.abs().max())
+    check(diff <= SERVE_BF16_DIFF * scale, f"{name}: last decode logits "
+          f"differ from a fresh prefill by {diff} > {SERVE_BF16_DIFF} x "
+          f"{scale}")
+    del params
+    torch.cuda.empty_cache()
+    step_s = statistics.median(tm["step_s"])
+    say(f"{name} ({nvidia_smi_line()}): tokens in [0, {cfg.vocab}), "
+        f"logits finite; flash "
+        f"launches {counts[5]} (= {cfg.n_layers} x (1 + {n_steps})); "
+        f"prefill (time to first token) {tm['prefill_s']:.4f} s, "
+        f"{b * t / tm['prefill_s']:.1f} tokens/s; decode median "
+        f"{step_s * 1e3:.4f} ms per step (min "
+        f"{min(tm['step_s']) * 1e3:.4f}, max {max(tm['step_s']) * 1e3:.4f}),"
+        f" {b / step_s:.1f} tokens/s; max_memory_allocated {peak}; last "
+        f"decode vs fresh prefill max |diff| {diff:.4g} (max |logit| "
+        f"{scale:.4g}; bfloat16, <= {SERVE_BF16_DIFF} x max |logit|)")
+    say(f"{name}: max_memory_allocated {tm['prefill_peak']} over init and "
+        f"prefill, {peak} over the served run")
+    return dict(counts=counts, prefill_s=tm["prefill_s"], step_s=step_s,
+                steps=tm["step_s"], peak=peak, diff=diff, scale=scale,
+                busy=None if prof is None else prof[1] / prof[0],
+                n_layers=cfg.n_layers, toks=b * t)
+
+
 def main(args: list[str]) -> int:
     import torch
     if args not in ([], ["--lr-witness"]):
@@ -1298,6 +1860,22 @@ def main(args: list[str]) -> int:
     # phase 8: the trainer
     l1 = trainer_l1()
     e2e = trainer_e2e()
+    torch.cuda.empty_cache()
+
+    # phase 9: serving. 9a: the flash kernel before the model allocates;
+    # 9b: the float32 consistency run, then the cell at full size
+    t9 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 9: {held} bytes still allocated after the "
+          "trainer")
+    fl_errs = check_flash_random()
+    fl = flash_serving_shapes()
+    t9b = time.perf_counter()
+    serve_f32()
+    t9c = time.perf_counter()
+    cell = serve_cell()
+    say(f"phase 9 wall: 9a {t9b - t9:.1f} s, float32 consistency "
+        f"{t9c - t9b:.1f} s, {SERVE_CELL} {time.perf_counter() - t9c:.1f} s")
 
     rows = []
     for name, src, replaces, n, err in (
@@ -1363,6 +1941,43 @@ def main(args: list[str]) -> int:
                  "launches_per": f"run of {l1['steps']} training steps",
                  "launches_per_step": (l1["counts"][3] + l1["counts"][4])
                  / l1["steps"]})
+    fl_err = max(fl["max_abs_err"], *fl_errs.values())
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:69",
+                 "launches": cell["counts"][5], "max_abs_err": fl_err,
+                 "max_abs_err_float32": fl_errs["float32"],
+                 "tol": dict(FLASH_TOL, bfloat16_vs_float32_plain=FLASH_TIGHT),
+                 "checks": fl["checks"],
+                 "planted_faults": fl["planted_faults"],
+                 "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+                 "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+                 "library_ms": fl["library_ms"],
+                 "decode_ms": fl["decode_ms"],
+                 "decode_plain_ms": fl["decode_plain_ms"],
+                 "decode_bound_ms": fl["decode_bound_ms"],
+                 "decode_bound_by": fl["decode_bound_by"],
+                 "decode_library_ms": fl["decode_library_ms"],
+                 "long_ms": fl["long_ms"],
+                 "long_bound_ms": fl["long_bound_ms"],
+                 "bitwise": False, "config": SERVE_CELL, "dtype": "bfloat16",
+                 "ms_per": f"prefill layer ({SERVE_BATCH} x {SERVE_PROMPT}, "
+                           "64/8 heads, causal)",
+                 "decode_ms_per": f"decode layer ({SERVE_BATCH} x 1 over "
+                                  f"{SERVE_PROMPT + SERVE_STEPS} positions)",
+                 "long_ms_per": f"call (1 x {LONG_T}, 64/8 heads, causal)",
+                 "launches_per": f"served run: 1 prefill + {SERVE_STEPS} "
+                                 f"decode steps x {cell['n_layers']} layers",
+                 "library": "torch.nn.functional.scaled_dot_product_attention"
+                 })
+    pre_attn = fl["ms"] * cell["n_layers"] / 1e3
+    say(f"{SERVE_CELL}: attention's share of prefill {pre_attn:.4f} s of "
+        f"{cell['prefill_s']:.4f} s ({100 * pre_attn / cell['prefill_s']:.1f}"
+        f"%); decode attention {fl['decode_ms'] * cell['n_layers']:.4f} ms "
+        f"of {cell['step_s'] * 1e3:.4f} ms per step; device busy over one "
+        "decode step " + ("not measured" if cell["busy"] is None else
+                          f"{100 * cell['busy']:.1f}%") + f" ({smi})")
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

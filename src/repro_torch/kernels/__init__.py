@@ -4,6 +4,7 @@
 min-plus convolution of the color traceback (``csrc/levelfold.cu``,
 ``csrc/minplus.cu``); ``segment_reduce``: the masked group sum of the
 reduce executor (``csrc/segment_reduce.cu``); ``topk_compress``: the per-row
-top-k by magnitude of gradient compression (``csrc/topk_compress.cu``).
-All are built by ``_build``.
+top-k by magnitude of gradient compression (``csrc/topk_compress.cu``);
+``flash_attention``: the online-softmax attention of prefill and decode
+(``csrc/flash_attention.cu``). All are built by ``_build``.
 """

@@ -1,1 +1,2 @@
-"""Entry points: the data-parallel trainer (``train``)."""
+"""Entry points: the data-parallel trainer (``train``) and the serving
+steps (``steps``)."""

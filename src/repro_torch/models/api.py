@@ -1,10 +1,16 @@
 """Model API and the assigned input shapes: the port of the JAX package's
-``models/api.py`` for the training entry points, plus the weight converter.
+``models/api.py``, plus the weight and cache converters.
 
   init_fn(cfg, device)(seed_or_generator) -> params (nested dicts of
       leaf tensors that require grad, keyed as the JAX pytree)
   loss_fn(cfg)(params, batch) -> (loss, metrics)
-  params_from_jax(tree_of_numpy) / params_to_numpy(params): 1:1 by key
+  prefill_fn(cfg)(params, batch) -> (last_logits, caches)
+  decode_fn(cfg)(params, caches, token, pos) -> (logits, caches), the
+      caches written in place
+  init_caches(cfg, batch, seq, device) -> zero caches
+  input_specs(cfg, shape, mode, device) -> batch of zeros
+  params_from_jax(tree_of_numpy) / params_to_numpy(params): 1:1 by key;
+  caches_from_jax / caches_to_numpy likewise for caches
 """
 from __future__ import annotations
 
@@ -34,6 +40,14 @@ SHAPES = {
 }
 
 
+def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(supported, reason-if-not). long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 524k dense KV excluded "
+                       "(DESIGN.md)")
+    return True, ""
+
+
 def init_fn(cfg: ModelConfig, device="cuda"):
     """``init(seed)`` -> params on ``device`` (a seed or a Generator on it)."""
     transformer.check_supported(cfg)
@@ -51,6 +65,35 @@ def init_fn(cfg: ModelConfig, device="cuda"):
 def loss_fn(cfg: ModelConfig):
     transformer.check_supported(cfg)
     return lambda params, batch: transformer.loss_fn(params, batch, cfg)
+
+
+def prefill_fn(cfg: ModelConfig):
+    transformer.check_supported(cfg)
+    return lambda params, batch: transformer.prefill(params, batch, cfg)
+
+
+def decode_fn(cfg: ModelConfig):
+    transformer.check_supported(cfg)
+    return lambda params, caches, token, pos: transformer.decode_step(
+        params, caches, token, pos, cfg)
+
+
+def init_caches(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
+    return transformer.init_caches(cfg, batch, seq, device)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, mode: str | None = None,
+                device="cuda"):
+    """Batch of zeros for (cfg, shape): tokens (B, S) and, to train, labels,
+    int64 as the port's data pipeline makes them (JAX: int32)."""
+    transformer.check_supported(cfg)
+    mode = mode or shape.kind
+    B, S = shape.global_batch, shape.seq_len
+    batch = {"tokens": torch.zeros((B, S), dtype=torch.int64, device=device)}
+    if mode == "train":
+        batch["labels"] = torch.zeros((B, S), dtype=torch.int64,
+                                      device=device)
+    return batch
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +127,17 @@ def _drop_empty(tree):
     if isinstance(tree, (list, tuple)):
         return [_drop_empty(v) for v in tree]
     return tree
+
+
+def caches_from_jax(tree, device="cuda"):
+    """A JAX cache tree (numpy or JAX arrays) -> the port's caches, the same
+    keys (``prefix: []`` included)."""
+    return T.tree_map(lambda a: _to_tensor(a, device), tree)
+
+
+def caches_to_numpy(caches) -> dict:
+    """The port's caches -> the same tree of numpy arrays."""
+    return T.tree_map(tensor_to_numpy, caches)
 
 
 def params_to_numpy(params) -> dict:

@@ -1,18 +1,24 @@
-"""Grouped-query attention for training: the port of the GQA part of the JAX
-package's ``models/attention.py``.
+"""Grouped-query attention: the port of the GQA part of the JAX package's
+``models/attention.py``, for training, prefill and decode.
 
-Spelled in torch ops as the JAX model spells it in jnp: ``sdpa`` builds the
-masked (T, S) scores and ``sdpa_blocked`` is the online-softmax dataflow
-over (query block, key block) tiles that long sequences take. Shapes:
-x (B, T, d); q (B, T, H, hd); k, v (B, S, Hkv, hd). MLA and decode come
-with later slices.
+Training is spelled in torch ops as the JAX model spells it in jnp:
+``sdpa`` (the kernel's plain version, ``kernels.flash_attention.ref``)
+builds the masked (T, S) scores and ``sdpa_blocked`` is the
+online-softmax dataflow over (query block, key block) tiles that long
+sequences take; autograd runs through them. Prefill and decode run the
+flash-attention kernel (``kernels.flash_attention.ops``; its plain version
+on CPU tensors). Shapes: x (B, T, d); q (B, T, H, hd); k, v and the cache
+(B, S, Hkv, hd). MLA comes with a later slice.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from ..kernels.flash_attention.ops import flash_attention_gqa
+from ..kernels.flash_attention.ref import sdpa  # noqa: F401  (re-exported)
 from .config import ModelConfig
 from .layers import (apply_rope, dense_init, dtype_of, rms_head_norm,
                      rope_tables)
@@ -22,20 +28,6 @@ NEG_INF = -1e30
 # Blocked attention activates for sequences at least this long (and the
 # block size), as in the JAX package.
 SDPA_BLOCK = 2048
-
-
-def sdpa(q, k, v, mask, scale):
-    """q: (B,T,H,Dq) k: (B,S,Hkv,Dq) v: (B,S,Hkv,Dv); GQA by head grouping.
-    mask: (B or 1, T, S) bool."""
-    B, T, H, Dq = q.shape
-    Hkv = k.shape[2]
-    G = H // Hkv
-    qg = q.reshape(B, T, Hkv, G, Dq)
-    logits = torch.einsum("bthgd,bshd->bhgts", qg, k).to(torch.float32) * scale
-    logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgts,bshd->bthgd", w, v)
-    return out.reshape(B, T, H, -1)
 
 
 def causal_mask(T: int, S: int, window: int = 0, offset: int = 0,
@@ -136,11 +128,30 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def gqa_forward(p, x, cfg: ModelConfig, causal: bool = True, window: int = 0):
-    """Full-sequence attention (train). Returns (out, {"k", "v"})."""
+def _scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(hd) as the JAX model rounds it (float32), as a Python float
+    computed on the host: a decode step never waits for the card."""
+    return float(np.float32(1) / np.sqrt(np.float32(cfg.hd)))
+
+
+def gqa_forward(p, x, cfg: ModelConfig, causal: bool = True, window: int = 0,
+                mode: str = "train"):
+    """Full-sequence attention. Returns (out, {"k", "v"}).
+
+    ``mode="train"`` runs ``sdpa``/``sdpa_blocked`` (autograd needs them);
+    ``mode="prefill"`` runs the flash-attention kernel, which has no
+    sliding window."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
+    if mode == "prefill":
+        if window:
+            raise ValueError(f"{cfg.name}: sliding-window prefill is not "
+                             "ported yet (ROADMAP A10: transformer)")
+        out = flash_attention_gqa(q, k, v, _scale(cfg), causal=causal)
+        return out.reshape(B, T, -1) @ p["w_o"], {"k": k, "v": v}
+    if mode != "train":
+        raise ValueError(f"gqa_forward: mode {mode!r} is train or prefill")
     scale = 1.0 / torch.sqrt(torch.tensor(float(cfg.hd), dtype=torch.float32,
                                           device=x.device))
     block = _pick_block(T, T, window)
@@ -154,3 +165,42 @@ def gqa_forward(p, x, cfg: ModelConfig, causal: bool = True, window: int = 0):
             mask = torch.ones((1, T, T), dtype=torch.bool, device=x.device)
         out = sdpa(q, k, v, mask, scale)
     return out.reshape(B, T, -1) @ p["w_o"], {"k": k, "v": v}
+
+
+def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig, window: int = 0):
+    """Single-token decode. x: (B, 1, d); cache k/v: (B, S, Hkv, hd).
+
+    Unlike the JAX function, which returns new arrays, the token's k and v
+    are written into ``cache`` in place, and the same tensors are returned.
+    With a ``window`` shorter than the cache plus one the cache is a ring
+    buffer: slot ``pos % S``, each entry rope'd at its absolute position.
+    Attention runs over the filled prefix ``[:n]`` of the cache, a view:
+    n = pos + 1, or min(pos + 1, S) for the ring. JAX masks the slots past
+    ``pos`` to -1e30 instead; their weights exp(-1e30 - m) are exactly 0, so
+    the two agree.
+    """
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    pos = int(pos)
+    q, k, v = _qkv(p, x, cfg, torch.full((1,), pos, device=x.device))
+    if window and window < S + 1:
+        slot, n = pos % S, min(pos + 1, S)
+    else:
+        if not 0 <= pos < S:
+            raise ValueError(f"gqa_decode: position {pos} outside a cache "
+                             f"of {S}")
+        slot, n = pos, pos + 1
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    out = flash_attention_gqa(q, cache["k"][:, :n], cache["v"][:, :n],
+                              _scale(cfg), causal=False)
+    return out.reshape(B, 1, -1) @ p["w_o"], cache
+
+
+def gqa_cache_spec(cfg: ModelConfig, batch: int, seq: int, window: int = 0,
+                   device="cuda"):
+    """Zero k/v caches (batch, min(seq, window) or seq, Hkv, hd)."""
+    S = min(seq, window) if window else seq
+    shape = (batch, S, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}

@@ -80,8 +80,9 @@ def rope_tables(positions, dim: int, theta: float):
     half = dim // 2
     exps = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    # a Python base: no host-to-device copy (a copy of a host scalar
+    # synchronises the stream, once per layer and step)
+    freqs = 1.0 / torch.pow(theta, exps)
     ang = positions[..., None].to(torch.float32) * freqs
     return torch.cos(ang), torch.sin(ang)
 

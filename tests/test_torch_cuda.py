@@ -5,9 +5,12 @@ so every xdist worker collects the same tests). Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Every comparison is bitwise (``torch.equal``): the kernels keep the plain
-versions' candidate sets, child order, summation order and separate
-roundings (no FMA).
+Every comparison of the solve, reduce and top-k kernels is bitwise
+(``torch.equal``): they keep the plain versions' candidate sets, child
+order, summation order and separate roundings (no FMA). Flash attention is
+held to the JAX tests' tolerances (float32 rtol = atol = 2e-5, bfloat16
+3e-2): it sums in another order, uses FMA and keeps the softmax weights in
+float32 where the plain version rounds them to v's dtype.
 """
 import numpy as np
 import pytest
@@ -311,3 +314,105 @@ def test_trainer_main_on_card(dev, tmp_path):
     assert sorted(a.files) == sorted(b.files)
     assert all(a[k].tobytes() == b[k].tobytes() for k in a.files)
     assert ckpt.latest_step(tmp_path / "a") == 5
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,s,d,causal", [
+    (2, 64, 64, 32, True), (4, 128, 128, 64, True), (1, 200, 200, 128, True),
+    (3, 256, 256, 16, True), (2, 128, 128, 32, False),
+    (2, 37, 101, 48, False), (2, 130, 61, 40, True), (2, 300, 200, 48, True),
+    (1, 5, 300, 200, False), (3, 1, 77, 128, False)])
+def test_flash_kernel_matches_plain(dev, dtype, bh, t, s, d, causal):
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    rng = np.random.default_rng(bh * 31 + t + s)
+    q = torch.as_tensor(rng.normal(size=(bh, t, d)), device=dev).to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(bh, s, d)), device=dev).to(dtype)
+            for _ in range(2))
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_torch(q, k, v, causal)
+    torch.testing.assert_close(got, want, rtol=FLASH_TOL[dtype],
+                               atol=FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        # against the float32 plain version on the same inputs: the
+        # kernel's float32 arithmetic (2e-5), then its output's rounding
+        # to bfloat16 (half an ulp, 2^-8 of the value)
+        want32 = flash_attention_torch(q.float(), k.float(), v.float(),
+                                       causal)
+        torch.testing.assert_close(got.float(), want32, rtol=2.0 ** -8,
+                                   atol=2.0 ** -15)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [128, 36])
+def test_flash_kernel_on_decode_prefix_views(dev, dtype, hd):
+    """T = 1 over strided cache prefixes (16-byte rows at hd 128, the
+    scalar loads at hd 36), and GQA prefill on the model's layout."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch)
+    rng = np.random.default_rng(hd)
+    cache_k, cache_v = (torch.as_tensor(rng.normal(size=(2, 300, 2, hd)),
+                                        device=dev).to(dtype)
+                        for _ in range(2))
+    q = torch.as_tensor(rng.normal(size=(2, 1, 8, hd)), device=dev).to(dtype)
+    tol = FLASH_TOL[dtype]
+    for n in (1, 2, 129, 300):
+        kp, vp = cache_k[:, :n], cache_v[:, :n]
+        torch.testing.assert_close(
+            flash_attention_gqa(q, kp, vp, 0.125, causal=False),
+            flash_attention_gqa_torch(q, kp, vp, 0.125, causal=False),
+            rtol=tol, atol=tol)
+    qp = torch.as_tensor(rng.normal(size=(2, 300, 8, hd)),
+                         device=dev).to(dtype)
+    torch.testing.assert_close(
+        flash_attention_gqa(qp, cache_k, cache_v, 0.125, causal=True),
+        flash_attention_gqa_torch(qp, cache_k, cache_v, 0.125, causal=True),
+        rtol=tol, atol=tol)
+
+
+def test_serving_on_card_equals_cpu(dev):
+    """Reduced qwen3-32b in float32 (TF32 off): prefill and 4 decode steps
+    on the card against the CPU, logits at rtol 1e-4 with an atol of 1e-4
+    times the largest logit (summation order), and the same tokens."""
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["qwen3-32b"].reduced(dtype="float32")
+    params = api.init_fn(cfg, "cpu")(0)
+    card = T.tree_map(lambda w: w.detach().to(dev), params)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 12)))
+    before = flash_attention_cuda.launches
+    out = {}
+    for where, p, t in (("cpu", params, toks), ("card", card, toks.to(dev))):
+        tok, pre = steps.make_prefill_step(cfg)(p, {"tokens": t})
+        caches = api.init_caches(cfg, 2, 16, p["embed_tokens"].device)
+        for k in ("k", "v"):
+            caches["layers"][k][:, :, :12] = pre["layers"][k]
+        toks_out, logits = [tok], []
+        for s in range(4):
+            with torch.inference_mode():
+                lg, caches = api.decode_fn(cfg)(p, caches, tok, 12 + s)
+            tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            toks_out.append(tok)
+            logits.append(lg)
+        out[where] = (torch.cat(toks_out, 1).cpu(),
+                      torch.cat(logits, 1).cpu())
+    assert flash_attention_cuda.launches == before + 5 * cfg.n_layers
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    want = out["cpu"][1]
+    torch.testing.assert_close(out["card"][1], want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))

@@ -55,15 +55,22 @@ _TRAIN_PATH = ("repro_torch.tree", "repro_torch.kernels.topk_compress",
                "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
                "repro_torch.launch", "repro_torch.launch.train")
 
+# the modules of the serving path, which must be among those imported
+_SERVE_PATH = ("repro_torch.kernels.flash_attention",
+               "repro_torch.kernels.flash_attention.ref",
+               "repro_torch.kernels.flash_attention.flash_attention",
+               "repro_torch.kernels.flash_attention.ops",
+               "repro_torch.launch.steps")
+
 
 def test_port_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
-         *_REDUCE_PATH, *_TRAIN_PATH],
+         *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 56     # every module imported
+    assert int(out.stdout.split()[-1]) == 61     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
