@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout; needs a card
     python3 chip_smoke.py --lr-witness   # only the learning-rate witness
+    python3 chip_smoke.py --bf16-witness # only hymba's bfloat16 witness
 
 Drives the port's four paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``), the reduce path
@@ -11,7 +12,9 @@ placement solve (``repro_torch.engine.solve_batch``), the reduce path
 (``repro_torch.launch.train``: model -> per-worker gradient -> top-k
 compression -> SOAR reduce -> AdamW -> checkpoint) and serving
 (``repro_torch.launch.steps``: prefill, then greedy decode steps over
-caches written in place, attention by the flash kernel). It builds the CUDA
+caches written in place, attention by the flash kernel; the dense family,
+then the hybrid family with the windowed flash and the selective-scan
+kernel in every layer). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -76,12 +79,49 @@ plain torch version on the inputs the paths give it. Phases:
    within 5% of the largest logit of a fresh prefill's. The run is then
    repeated through the bare entry points (equal tokens) for the times:
    time to first token, decode ms per step, peak memory, the device's
-   busy share over one decode step.
+   busy share over one decode step and one prefill.
+
+10. hybrid serving, everything of phase 9 freed first. 10a, before the
+   model allocates: the selective-scan kernel within the JAX test's 1e-5
+   of its plain version on the JAX test shapes, T = 1 and T = 77, also
+   with the final state written over s0; then at the cell's (4, 32768,
+   3200, 16) against the plain version in float64 on the same inputs,
+   elementwise within a running float32 error bound (derived in
+   :func:`scan_f64_bound`), which two planted faults (the carry dropped
+   at one step; one lane of N left out of y) must fail; the flash kernel
+   with a sliding window within the JAX tests' tolerances of ``sdpa``
+   under the band mask (windows 1, 63, 64, 100, 1024; T not a multiple
+   of 64), then at the cell's windowed prefill (4, 32768, 25/5 heads, 64,
+   window 1024) on two heads against the float32 plain version within
+   2^-8 of the value plus 2^-15, which the kernel run without the window
+   must fail. Times against the bounds and plain versions, the windowed
+   flash also against ``scaled_dot_product_attention`` with the band
+   mask. 10b: a float32 hymba-1.5b at its published widths and 2 layers
+   (layer 0 global, layer 1 windowed; TF32 off), 2 prompts of 1,280 tokens
+   and 8 decode steps: the last decode logits within 1e-3 of the largest
+   logit of a fresh prefill, tokens and logits equal to the same run on
+   the CPU (rtol 1e-4); the same at all 32 layers, 2 prompts of 2,048 and
+   64 steps, card only. Then the cell ``hymba-1.5b-serve-b4-p32768-g64``:
+   hymba-1.5b at full width and depth in bfloat16, 4 prompts of 32,768
+   tokens, ``make_prefill_step``, the caches handed to
+   ``init_caches(cfg, 4, 32832)`` (global layers' k/v by position,
+   windowed layers' last 1,024 positions into ring slot p % 1024, the
+   Mamba states as they are), 64 ``make_serve_step``s. Checks: tokens in
+   [0, vocab), every logit finite, 32 x 65 flash and 32 x 65 scan
+   launches, no decode step allocates a cache, the last decode logits
+   within 20% of the largest logit of a fresh prefill's (hymba's own
+   bfloat16 noise reaches 9%; see ``SERVE_HYBRID_BF16_DIFF``), and two
+   served runs with planted handoff faults beyond it. Then the times
+   through the bare entry points, one decode step and one prefill under
+   the profiler.
 
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
 qwen3-32b's widths scaled by 1/4 .. 1 (see :func:`lr_witness`).
+``--bf16-witness`` runs none either: it prints hymba-1.5b's last decode
+logits against a fresh prefill's by precision, depth and decode steps, and
+the bfloat16 noise floor of the prefill (see :func:`bf16_witness`).
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -305,8 +345,10 @@ def _counted():
         flash_attention_cuda)
     from repro_torch.kernels.topk_compress.topk_compress import (
         topk_compress_cuda, topk_threshold_cuda)
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_cuda
     return (level_fold_cuda, minplus_cuda, segment_reduce_cuda,
-            topk_threshold_cuda, topk_compress_cuda, flash_attention_cuda)
+            topk_threshold_cuda, topk_compress_cuda, flash_attention_cuda,
+            ssm_chunk_scan_cuda)
 
 
 def reset_counts():
@@ -316,7 +358,7 @@ def reset_counts():
 
 def read_counts() -> tuple[int, ...]:
     """Launches of the level fold, min-plus, segment reduce, top-k select
-    stage, whole top-k and flash attention."""
+    stage, whole top-k, flash attention and the selective-SSM scan."""
     return tuple(fn.launches for fn in _counted())
 
 
@@ -1285,13 +1327,17 @@ def _dt_name(dt) -> str:
     return str(dt).replace("torch.", "")
 
 
-def flash_work(b, t, s, h, hkv, d, causal, elt) -> tuple[int, int]:
+def flash_work(b, t, s, h, hkv, d, causal, elt,
+               window=0) -> tuple[int, int]:
     """(bytes, operations) one attention call needs: q, k, v read once and
     the output written once; 2 operations per multiply-add of the two
     products over the keys each query row sees (all S, or min(i + 1, S)
-    for row i when causal)."""
+    for row i when causal, min(i + 1, window) with a window, T == S)."""
     nbytes = (2 * b * t * h * d + 2 * b * s * hkv * d) * elt
-    if causal:
+    if window:
+        w = min(window, t)
+        keys = w * (w + 1) // 2 + (t - w) * w
+    elif causal:
         m = min(t, s)
         keys = m * (m + 1) // 2 + (t - m) * s
     else:
@@ -1567,9 +1613,52 @@ class LogitsCheck:
         self.mod._lm_logits = self._orig
 
 
-def greedy_run(cfg, params, prompts, n_steps: int, timed=False):
-    """The serving loop: ``make_prefill_step``, the prefill caches copied
-    into ``init_caches(cfg, B, T + n_steps)``, then ``n_steps``
+def handoff(pre, caches, t: int) -> None:
+    """Copy a ``t``-token prefill's caches into decode caches, in place:
+    the stacked layers' k/v into positions [0, t); per block, position p
+    of a k/v of S slots into slot p % S for the last min(t, S) positions
+    (a global layer: [0, t); a windowed layer's ring: the last S), and the
+    Mamba state as it is."""
+    import torch
+    with torch.inference_mode():
+        if "layers" in caches:
+            for n in ("k", "v"):
+                caches["layers"][n][:, :, :t].copy_(pre["layers"][n])
+            return
+        for pb, cb in zip(pre["blocks"], caches["blocks"]):
+            for n in ("k", "v"):
+                dst = cb["attn"][n]
+                s, lo = dst.shape[1], max(0, t - dst.shape[1])
+                pos = torch.arange(lo, t, device=dst.device) % s
+                dst.index_copy_(1, pos, pb["attn"][n][:, lo:t])
+            cb["ssm"]["s"].copy_(pb["ssm"]["s"])
+
+
+def handoff_state_dropped(pre, caches, t: int) -> None:
+    """A planted fault: :func:`handoff` without the Mamba states (decode
+    starts from zero states)."""
+    handoff(pre, caches, t)
+    for cb in caches["blocks"]:
+        cb["ssm"]["s"].zero_()
+
+
+def handoff_ring_first(pre, caches, t: int) -> None:
+    """A planted fault: :func:`handoff` with each windowed ring holding the
+    prompt's first S positions in slots 0..S-1 instead of its last S."""
+    import torch
+    handoff(pre, caches, t)
+    with torch.inference_mode():
+        for pb, cb in zip(pre["blocks"], caches["blocks"]):
+            for n in ("k", "v"):
+                s = cb["attn"][n].shape[1]
+                if s < t:
+                    cb["attn"][n].copy_(pb["attn"][n][:, :s])
+
+
+def greedy_run(cfg, params, prompts, n_steps: int, timed=False,
+               hand=None):
+    """The serving loop: ``make_prefill_step``, the prefill caches handed
+    to ``init_caches(cfg, B, T + n_steps)`` (:func:`handoff`), then ``n_steps``
     ``make_serve_step``s. Returns (tokens (B, 1 + n_steps), the last
     decode logits (B, V) float32, the prefill's last logits, caches,
     timings). Untimed, ``LogitsCheck`` checks every call's logits and
@@ -1579,6 +1668,7 @@ def greedy_run(cfg, params, prompts, n_steps: int, timed=False):
 
     import torch
 
+    from repro_torch import tree as T
     from repro_torch.launch import steps
     from repro_torch.models import api, transformer
     b, t = prompts.shape
@@ -1596,11 +1686,9 @@ def greedy_run(cfg, params, prompts, n_steps: int, timed=False):
         if not timed:
             pre_logits = lc.last.to(torch.float32)
         caches = api.init_caches(cfg, b, t + n_steps, prompts.device)
-        with torch.inference_mode():
-            for n in ("k", "v"):
-                caches["layers"][n][:, :, :t].copy_(pre["layers"][n])
+        (hand or handoff)(pre, caches, t)
         del pre
-        ptrs = [caches["layers"][n].data_ptr() for n in ("k", "v")]
+        ptrs = [x.data_ptr() for x in T.leaves(caches)]
         toks, walls = [tok], []
         for s in range(n_steps):
             if timed:
@@ -1610,9 +1698,8 @@ def greedy_run(cfg, params, prompts, n_steps: int, timed=False):
             if timed:
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-            check(out is caches and [caches["layers"][n].data_ptr()
-                                     for n in ("k", "v")] == ptrs,
-                  f"decode step {s} allocated a new cache")
+            check(out is caches and [x.data_ptr() for x in T.leaves(caches)]
+                  == ptrs, f"decode step {s} allocated a new cache")
             toks.append(tok)
         torch.cuda.synchronize()
         if not timed:
@@ -1642,23 +1729,20 @@ def _prompts(cfg, b, t, seed, device):
                            device=device)
 
 
-def serve_f32(depth=4, b=2, t=128, n_steps=8) -> dict:
-    """Phase 9b consistency: a float32 qwen3-32b at its published widths
-    and ``depth`` layers, TF32 off. Its last decode logits against a
-    fresh prefill of the extended sequences (within 1e-3 of the largest
-    logit), and the whole run against the same run on the CPU (logits at
-    rtol 1e-4 with an atol of 1e-4 times the largest logit, equal
-    tokens)."""
+def serve_f32(cfg, b, t, n_steps, cpu=True) -> dict:
+    """Phases 9b and 10b, consistency: ``cfg`` in float32 (TF32 off). Its
+    last decode logits against a fresh prefill of the extended sequences
+    (within 1e-3 of the largest logit) and, with ``cpu``, the whole run
+    against the same run on the CPU (logits at rtol 1e-4 with an atol of
+    1e-4 times the largest logit, equal tokens)."""
     import torch
 
     from repro_torch import tree as T
-    from repro_torch.configs import ARCHS
     from repro_torch.models import api
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(ARCHS["qwen3-32b"], n_layers=depth,
-                              dtype="float32")
-    name = f"qwen3-32b-f32-l{depth}-b{b}-p{t}-g{n_steps}"
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    name = f"{cfg.name}-f32-l{cfg.n_layers}-b{b}-p{t}-g{n_steps}"
     params = api.init_fn(cfg, DEVICE)(0)
     prompts = _prompts(cfg, b, t, 7, DEVICE)
     toks, last, pre, caches, _ = greedy_run(cfg, params, prompts, n_steps)
@@ -1669,6 +1753,10 @@ def serve_f32(depth=4, b=2, t=128, n_steps=8) -> dict:
           f"fresh prefill by {diff} > 1e-3 x {scale}")
     del caches
     torch.cuda.empty_cache()
+    if not cpu:
+        say(f"{name}: last decode vs fresh prefill {diff:.3g} (max |logit| "
+            f"{scale:.4g}; <= 1e-3 x max |logit|)")
+        return dict(diff=diff, scale=scale)
     # the same run on the CPU
     cpu = T.tree_map(lambda w: w.detach().cpu(), params)
     del params
@@ -1699,21 +1787,26 @@ def serve_f32(depth=4, b=2, t=128, n_steps=8) -> dict:
     return dict(diff=diff, scale=scale, cpu_err=max(errs))
 
 
-def serve_cell(cfg=None, b=SERVE_BATCH, t=SERVE_PROMPT,
-               n_steps=SERVE_STEPS) -> dict:
-    """Phase 9b, ``qwen3-32b-serve-b4-p2048-g64``: qwen3-32b at full width
-    and depth in bfloat16, 4 requests of 2048 tokens, one prefill step and
-    64 greedy serve steps, counted and checked; the same run again, timed;
-    one step under the profiler; the last decode logits against a fresh
-    prefill's, within ``SERVE_BF16_DIFF`` of the largest logit."""
+_KERNEL_NAMES = ("level fold", "min-plus", "segment reduce", "top-k select",
+                 "top-k", "flash", "scan")
+
+
+def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
+               faults=()) -> dict:
+    """Phases 9c and 10c, the serving cell ``name``: ``cfg`` at full
+    width and depth in bfloat16, ``b`` requests of ``t`` tokens, one
+    prefill step and ``n_steps`` greedy serve steps, counted (each kernel
+    of ``kernels``, indices into :func:`read_counts`, launched once per
+    layer of the prefill and of every step) and checked; the same run
+    again through the bare entry points, timed; one decode step and one
+    prefill under the profiler; the last decode logits against a fresh
+    prefill's within ``gate`` of the largest logit, and a served run with
+    each planted handoff fault of ``faults`` beyond it."""
     import torch
 
     from repro_torch import tree as T
-    from repro_torch.configs import ARCHS
     from repro_torch.launch import steps
     from repro_torch.models import api
-    cfg = cfg or ARCHS["qwen3-32b"]
-    name = SERVE_CELL
     held = torch.cuda.memory_allocated()
     check(held < 1e9, f"{name}: {held} bytes still allocated before the "
           "model")
@@ -1730,10 +1823,12 @@ def serve_cell(cfg=None, b=SERVE_BATCH, t=SERVE_PROMPT,
     toks, last, _, caches, _ = greedy_run(cfg, params, prompts, n_steps)
     counts = read_counts()
     want = cfg.n_layers * (1 + n_steps)
-    check(counts[5] == want,
-          f"{name}: {counts[5]} flash launches, expected {want}")
+    launched = ", ".join(f"{_KERNEL_NAMES[i]} {counts[i]}" for i in kernels)
+    check(all(counts[i] == want for i in kernels),
+          f"{name}: launches {launched}, expected {want} each")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           f"{name}: a token outside [0, {cfg.vocab})")
+    cache_bytes = T.nbytes(caches)
     del caches
     torch.cuda.empty_cache()
     # the same run again, timed through the bare entry points
@@ -1742,45 +1837,476 @@ def serve_cell(cfg=None, b=SERVE_BATCH, t=SERVE_PROMPT,
     peak = torch.cuda.max_memory_allocated()
     check(torch.equal(ttoks, toks), f"{name}: the timed run's tokens differ "
           "from the counted run's")
-    # one more step under the profiler
+    # one more decode step, then one prefill, under the profiler
     serve_step = steps.make_serve_step(cfg)
     tok = toks[:, -1:]
-    prof = kernel_profile(lambda: serve_step(params, caches, tok,
-                                             t + n_steps - 1),
-                          f"{name} one decode step", top=8, host_top=12)
+    dprof = kernel_profile(lambda: serve_step(params, caches, tok,
+                                              t + n_steps - 1),
+                           f"{name} one decode step", top=8, host_top=12)
     del caches
+    torch.cuda.empty_cache()
+    prefill_step = steps.make_prefill_step(cfg)
+    pprof = kernel_profile(lambda: prefill_step(params, {"tokens": prompts}),
+                           f"{name} one prefill", top=12)
     torch.cuda.empty_cache()
     fresh = fresh_prefill_logits(cfg, params, prompts, toks)
     diff = float((last - fresh).abs().max())
     scale = float(fresh.abs().max())
-    check(diff <= SERVE_BF16_DIFF * scale, f"{name}: last decode logits "
-          f"differ from a fresh prefill by {diff} > {SERVE_BF16_DIFF} x "
-          f"{scale}")
+    check(diff <= gate * scale, f"{name}: last decode logits differ from a "
+          f"fresh prefill by {diff} > {gate} x {scale}")
+    # planted faults: the served run with a broken handoff must fail it
+    fault_diffs = {}
+    for hand in faults:
+        ftoks, flast, _, fc, _ = greedy_run(cfg, params, prompts, n_steps,
+                                            hand=hand)
+        del fc
+        torch.cuda.empty_cache()
+        ffresh = fresh_prefill_logits(cfg, params, prompts, ftoks)
+        r = float((flast - ffresh).abs().max()) / float(ffresh.abs().max())
+        check(r > gate, f"{name}: the planted fault {hand.__name__} passes "
+              f"the decode-vs-prefill limit ({r:.3g}); the check cannot see "
+              "it")
+        fault_diffs[hand.__name__] = r
     del params
     torch.cuda.empty_cache()
+    if faults:
+        say(f"{name}: planted handoff faults against a fresh prefill, each "
+            f"beyond {gate} of the largest logit: " + "; ".join(
+                f"{k} {100 * r:.2f}%" for k, r in fault_diffs.items()))
     step_s = statistics.median(tm["step_s"])
     say(f"{name} ({nvidia_smi_line()}): tokens in [0, {cfg.vocab}), "
-        f"logits finite; flash "
-        f"launches {counts[5]} (= {cfg.n_layers} x (1 + {n_steps})); "
-        f"prefill (time to first token) {tm['prefill_s']:.4f} s, "
-        f"{b * t / tm['prefill_s']:.1f} tokens/s; decode median "
+        f"logits finite; launches {launched} (each = {cfg.n_layers} x (1 + "
+        f"{n_steps})); prefill (time to first token) {tm['prefill_s']:.4f} "
+        f"s, {b * t / tm['prefill_s']:.1f} tokens/s; decode median "
         f"{step_s * 1e3:.4f} ms per step (min "
         f"{min(tm['step_s']) * 1e3:.4f}, max {max(tm['step_s']) * 1e3:.4f}),"
-        f" {b / step_s:.1f} tokens/s; max_memory_allocated {peak}; last "
-        f"decode vs fresh prefill max |diff| {diff:.4g} (max |logit| "
-        f"{scale:.4g}; bfloat16, <= {SERVE_BF16_DIFF} x max |logit|)")
+        f" {b / step_s:.1f} tokens/s; decode caches {cache_bytes} bytes; "
+        f"max_memory_allocated {peak}; last decode vs fresh prefill max "
+        f"|diff| {diff:.4g} (max |logit| {scale:.4g}, "
+        f"{100 * diff / scale:.2f}%; bfloat16, <= {gate} x max |logit|)")
     say(f"{name}: max_memory_allocated {tm['prefill_peak']} over init and "
         f"prefill, {peak} over the served run")
     return dict(counts=counts, prefill_s=tm["prefill_s"], step_s=step_s,
                 steps=tm["step_s"], peak=peak, diff=diff, scale=scale,
-                busy=None if prof is None else prof[1] / prof[0],
+                faults=fault_diffs,
+                busy=None if dprof is None else dprof[1] / dprof[0],
+                prefill_busy=None if pprof is None else pprof[1] / pprof[0],
                 n_layers=cfg.n_layers, toks=b * t)
+
+
+# -- phase 10: hybrid serving (hymba-1.5b) ------------------------------------
+
+HYBRID_CELL = "hymba-1.5b-serve-b4-p32768-g64"
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_STEPS = 4, 32_768, 64
+HYMBA_WINDOW, HYMBA_DI, HYMBA_N = 1024, 3200, 16
+SCAN_TOL = 1e-5               # tests/test_kernels.py (rtol = atol)
+# The bfloat16 cell's last decode logits against a fresh prefill of the same
+# sequences, as a share of the largest logit. Phase 9's 5% lies below
+# hymba's own bfloat16 noise at full depth (``--bf16-witness``, H100): one
+# prompt prefilled with its batch against alone differs by 6.1% (2 x
+# 2048); decode against a fresh prefill read 5.3% after 1 step, 8.75%
+# after 64 (2 x 2048) and 6.3% / 8.8% at the cell, while float32 at full
+# depth reads 0.002%. The planted handoff faults below read 54% (rings
+# holding the prompt's first positions) and 110% (Mamba states dropped) at
+# the cell. The limit sits between the two, about 2.3 x the largest
+# correct reading and 2.7 x under the smallest fault; phase 10c checks
+# that both faults exceed it, and phase 10b holds float32 at full depth
+# to 1e-3.
+SERVE_HYBRID_BF16_DIFF = 0.20
+# (B, T, D, N): the JAX test shapes ((b, t, d, n, chunk) with chunks 8, 8,
+# 16 and 32; the kernel has no chunk), T = 1, T not a multiple of 32
+SCAN_SHAPES = [(1, 16, 8, 4), (2, 32, 16, 4), (3, 64, 24, 8), (2, 32, 16, 4),
+               (2, 1, HYMBA_DI, HYMBA_N), (2, 77, 100, HYMBA_N)]
+# (B, T, H, Hkv, D, window): windows 1, 63, 64, 100 (not all multiples of
+# the kernel's 64-key tile), T not a multiple of 64, one window past T
+WINDOW_SHAPES = [(2, 200, 4, 2, 64, 1), (2, 200, 4, 2, 64, 63),
+                 (1, 300, 2, 1, 64, 64), (2, 333, 5, 1, 64, 100),
+                 (1, 1100, 5, 5, 64, 1024), (1, 130, 2, 2, 40, 1024)]
+U32 = 2.0 ** -24              # float32 unit roundoff
+SFU_EXP_PER_SM_CLOCK = 16     # H100 special function units per SM
+H100_SMS = 132
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_bound(b, t, d, n) -> dict:
+    """The scan's least time on the H100, the largest of three: bytes (u
+    read and y written once, delta, B, C, A, s0 read and s_final written
+    once, float32) over the memory rate; exponentials (one per (b, t, d,
+    n)) over the special function units' rate at the card's clock; and
+    float32 operations (6 per (b, t, d, n): delta * A, * B, * decay,
+    + w, * C, the sum over n; 1 per (b, t, d): delta * u) over the float32
+    rate."""
+    nbytes = 4 * (2 * b * t * d + b * t * (2 * n + 1) + d * n + 2 * b * d * n)
+    exps = b * t * d * n
+    ops = 6 * exps + b * t * d
+    clock = sm_clock_hz()
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "exps": exps / (SFU_EXP_PER_SM_CLOCK * H100_SMS * clock) * 1e3,
+             "operations": ops / FP32_OPS_PER_S * 1e3}
+    worst = max(times, key=times.get)
+    return dict(bound_ms=times[worst], bound_by=("bytes" if worst == "bytes"
+                                                 else "operations"),
+                bound_parts_ms=times, sm_clock_hz=clock)
+
+
+def scan_inputs(gen, b, t, d, n):
+    """float32 u, delta, bv, cv, a, s0 as the JAX test draws them."""
+    import torch
+    f = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
+    return (f(b, t, d), torch.nn.functional.softplus(f(b, t, 1) - 2),
+            f(b, t, n), f(b, t, n), -torch.exp(f(d, n) * 0.3), f(b, d, n))
+
+
+def check_scan_random() -> float:
+    """Phase 10a: the scan kernel within the JAX test's 1e-5 of its plain
+    version on ``SCAN_SHAPES``, and with ``s_out`` aliasing ``s0``;
+    returns the largest |error|."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_torch
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    err = 0.0
+    for shape in SCAN_SHAPES:
+        xs = scan_inputs(gen, *shape)
+        y, s = ssm_chunk_scan(*xs)
+        wy, ws = ssm_chunk_scan_torch(*xs)
+        e = max(float((y - wy).abs().max()), float((s - ws).abs().max()))
+        check(bool(torch.allclose(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL))
+              and bool(torch.allclose(s, ws, rtol=SCAN_TOL, atol=SCAN_TOL)),
+              f"ssm scan {shape}: kernel != plain beyond {SCAN_TOL} (max "
+              f"|err| {e})")
+        err = max(err, e)
+        s0 = xs[5]
+        y2, s2 = ssm_chunk_scan(*xs[:5], s0, s_out=s0)
+        check(s2 is s0 and torch.equal(y2, y) and torch.equal(s0, s),
+              f"ssm scan {shape}: s_out aliasing s0 changed the result")
+    say(f"kernels: ssm scan within {SCAN_TOL} of its plain version on "
+        f"(B, T, D, N) {SCAN_SHAPES}, also in place (max |err| {err:.3g})")
+    return err
+
+
+def scan_f64_bound(u, delta, bv, cv, a, s0, keep_from: int):
+    """The scan in float64 on the same float32 inputs, with a running bound
+    of the float32 kernel's error. Per (b, d, n), with d_t = exp(delta_t
+    a) and w_t = (delta_t u_t) b_t: the magnitude m_t = d_t m_{t-1} +
+    |w_t| (m_0 = |s0|) bounds |s_t|, and the state error obeys, to first
+    order,
+
+        E_t = d_t E_{t-1} + u ((|delta_t a| + 5) d_t m_{t-1} + 2 |w_t| + m_t)
+
+    with u = 2^-24: expf within 2 ulp (4u) of exp of its rounded argument
+    (|delta_t a| u), the product s d_t (u), the two products of w_t (2u)
+    and the sum (u). y_t = sum_n s_n c_n adds the products' rounding and
+    log2(NP) levels of the lanes' butterfly (NP = N rounded up to a power
+    of two, at least 4) on top of the carried error: |y_t error| <=
+    sum_n |c_n| (E_n + (1 + log2 NP) u m_n). Both limits are doubled for
+    the terms of second order. Returns (y64, s64, y limit, state limit,
+    the float64 state entering step ``keep_from``)."""
+    import math
+
+    import torch
+    f = lambda x: x.to(torch.float64)
+    u, delta, bv, cv, a = map(f, (u, delta, bv, cv, a))
+    b, t, d = u.shape
+    n = bv.shape[-1]
+    k_sum = (1 + math.log2(max(4, 1 << (n - 1).bit_length()))) * U32
+    s = f(s0).clone()
+    m, e = s.abs(), torch.zeros_like(s)
+    y = torch.empty((b, t, d), dtype=torch.float64, device=u.device)
+    ylim = torch.empty_like(y)
+    kept = None
+    for i in range(t):
+        if i == keep_from:
+            kept = s.clone()
+        da = delta[:, i, :, None] * a                        # (B, D, N)
+        dec = torch.exp(da)
+        w = (delta[:, i] * u[:, i])[..., None] * bv[:, i, None, :]
+        aw = w.abs()
+        dm = dec * m
+        m = dm + aw
+        e = dec * e + U32 * ((da.abs() + 5) * dm + 2 * aw + m)
+        s = s * dec + w
+        y[:, i] = torch.einsum("bdn,bn->bd", s, cv[:, i])
+        ylim[:, i] = 2 * torch.einsum("bdn,bn->bd", e + k_sum * m,
+                                      cv[:, i].abs())
+    return y, s, ylim, 2 * e, kept
+
+
+def _over(got, want64, lim) -> tuple[float, float, bool]:
+    """(max |got - want64|, max |got - want64| / lim where lim > 0, every
+    element within lim)."""
+    import torch
+    err = (got.to(torch.float64) - want64).abs()
+    ratio = torch.where(lim > 0, err / lim, torch.zeros_like(err))
+    return float(err.max()), float(ratio.max()), bool((err <= lim).all())
+
+
+def scan_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, d=HYMBA_DI, n=HYMBA_N,
+                     fault_steps=64) -> dict:
+    """Phase 10a at the cell's shapes: one kernel call on (b, t, d, n)
+    float32 held elementwise to ``scan_f64_bound``'s limit around the
+    float64 plain version on the same inputs; two planted faults in the
+    last ``fault_steps`` steps (the carry dropped at one step; lane n = 0
+    left out of y), each computed in float64 from the kept state and
+    rounded to float32 as the kernel's output is, must fail that limit.
+    Then the kernel's time against its bound and the plain version's."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_torch
+    gen = torch.Generator(device=DEVICE).manual_seed(32768)
+    xs = scan_inputs(gen, b, t, d, n)
+    y, s = ssm_chunk_scan(*xs)
+    t0 = t - fault_steps
+    y64, s64, ylim, slim, kept = scan_f64_bound(*xs, keep_from=t0)
+    ey, ry, oky = _over(y, y64, ylim)
+    es, rs, oks = _over(s, s64, slim)
+    check(oky and oks and bool(torch.isfinite(y).all()),
+          f"ssm scan ({b}, {t}, {d}, {n}): kernel beyond the float32 error "
+          f"bound of the float64 plain version (y {ry:.3g} x, state "
+          f"{rs:.3g} x the limit)")
+    # planted faults over steps [t0, t): the plain version in float64 from
+    # the state entering t0 (or from 0: the carry dropped at t0), or with
+    # lane 0 of C zeroed
+    u, dl, bv, cv, a, _ = (x.to(torch.float64) for x in xs)
+    tail = lambda x: x[:, t0:]
+    faults = {}
+    for label, s_in, c in ((f"state carry dropped at step {t0}",
+                            torch.zeros_like(kept), tail(cv)),
+                           ("lane n = 0 left out of y", kept,
+                            torch.cat([torch.zeros_like(tail(cv)[..., :1]),
+                                       tail(cv)[..., 1:]], -1))):
+        yf, _ = ssm_chunk_scan_torch(tail(u), tail(dl), tail(bv), c, a, s_in)
+        _, r, ok = _over(yf.to(torch.float32), y64[:, t0:], ylim[:, t0:])
+        check(not ok, f"ssm scan: the planted fault '{label}' passes the "
+              f"limit ({r:.3g} x); the check cannot see it")
+        faults[label] = r
+    del y64, ylim, u, dl, bv, cv, a, kept
+    out = {"max_abs_err": max(ey, es), "err_over_limit": max(ry, rs),
+           "planted_faults": [{"fault": k, "err_over_limit": r}
+                              for k, r in faults.items()]}
+    out["ms"] = cuda_ms(lambda: ssm_chunk_scan(*xs), 5)
+    out["plain_ms"] = cuda_ms(lambda: ssm_chunk_scan_torch(*xs), 1, 0)
+    out.update(scan_bound(b, t, d, n))
+    del xs, y, s
+    torch.cuda.empty_cache()
+    parts = out["bound_parts_ms"]
+    say(f"ssm scan ({b}, {t}, {d}, {n}) float32 against the float64 plain "
+        f"version within its float32 error bound: max |err| y {ey:.4g} "
+        f"({ry:.4g} x the limit), state {es:.4g} ({rs:.4g} x); planted "
+        "faults " + "; ".join(f"{k}: {r:.4g} x the limit"
+                              for k, r in faults.items()))
+    say(f"ssm scan ({b}, {t}, {d}, {n}) ({nvidia_smi_line()}): "
+        f"{out['ms']:.4f} ms per layer, plain {out['plain_ms']:.4f} ms, "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}; bytes "
+        f"{parts['bytes']:.4f}, exponentials {parts['exps']:.4f} at "
+        f"{out['sm_clock_hz'] / 1e6:.0f} MHz, float32 operations "
+        f"{parts['operations']:.4f})")
+    return out
+
+
+def check_window_random() -> dict:
+    """Phase 10a: the flash kernel with a sliding window within the JAX
+    tests' tolerances of its plain version (``sdpa`` under
+    ``causal_mask(T, T, window)``) on ``WINDOW_SHAPES``, float32 and
+    bfloat16 (bfloat16 also within ``FLASH_TIGHT`` of the float32 plain
+    version); returns the largest error by dtype."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import sdpa
+    from repro_torch.models.attention import causal_mask
+    gen = torch.Generator(device=DEVICE).manual_seed(1024)
+    errs, ratio = {}, 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        err = 0.0
+        for b, t, h, hkv, d, w in WINDOW_SHAPES:
+            q = torch.randn((b, t, h, d), generator=gen, device=DEVICE).to(dt)
+            k, v = (torch.randn((b, t, hkv, d), generator=gen,
+                                device=DEVICE).to(dt) for _ in range(2))
+            mask = causal_mask(t, t, w, device=DEVICE)[None]
+            scale = 1.0 / d ** 0.5
+            got = flash_attention_gqa(q, k, v, scale, True, w)
+            label = f"{(b, t, h, hkv, d)} window {w} {_dt_name(dt)}"
+            err = max(err, flash_close(got, sdpa(q, k, v, mask, scale), dt,
+                                       label))
+            if dt == torch.bfloat16:
+                ratio = max(ratio, flash_tight(got, sdpa(
+                    q.float(), k.float(), v.float(), mask, scale), label)[1])
+        errs[_dt_name(dt)] = err
+    say(f"kernels: windowed flash attention within tolerance of its plain "
+        f"version on (B, T, H, Hkv, D, window) {WINDOW_SHAPES}, float32 "
+        f"(max |err| {errs['float32']:.3g}, tol 2e-5) and bfloat16 (max "
+        f"|err| {errs['bfloat16']:.3g}, tol 3e-2; against the float32 "
+        f"plain version {ratio:.3g} x its limit)")
+    return errs
+
+
+def window_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, h=25, hkv=5, d=64,
+                       window=HYMBA_WINDOW, heads=(0, 24),
+                       chunk=2048) -> dict:
+    """Phase 10a at the cell's windowed prefill, bfloat16: one kernel call
+    on (b, t, h/hkv, d) with the window, compared on ``heads`` in
+    ``chunk``-row query blocks (each against its band of keys) to the plain
+    version in float32 on the same inputs within ``FLASH_TIGHT``. A planted
+    fault, the kernel run on those heads without the window, must fail
+    that limit. Then the times: kernel, plain (band by band) and
+    ``scaled_dot_product_attention`` with the band mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, sdpa)
+    from repro_torch.models.attention import causal_mask
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(1025)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(bf)
+               for shape in ((b, t, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+    scale = 1.0 / d ** 0.5
+    got = flash_attention_gqa(q, k, v, scale, True, window)
+    g = h // hkv
+    e, fault = [], 0.0
+    for hh in heads:
+        kv = hh // g
+        qh, kh, vh = q[:, :, hh:hh + 1], k[:, :, kv:kv + 1], v[:, :, kv:kv + 1]
+        nowin = flash_attention_gqa(qh, kh, vh, scale, True)
+        for r0 in range(0, t, chunk):
+            r1, k0 = min(t, r0 + chunk), max(0, r0 - window + 1)
+            want = sdpa(*(x.float() for x in (qh[:, r0:r1], kh[:, k0:r1],
+                                              vh[:, k0:r1])),
+                        causal_mask(r1 - r0, r1 - k0, window, r0 - k0,
+                                    device=DEVICE)[None], scale)
+            e.append(flash_tight(got[:, r0:r1, hh:hh + 1], want,
+                                 f"windowed head {hh} rows {r0}:{r1}"))
+            fault = max(fault, flash_over_limit(nowin[:, r0:r1], want)[1])
+    label = "windowed prefill: the kernel run without the window"
+    check(fault > 1.0, f"flash: the planted fault '{label}' passes the limit "
+          f"({fault:.3g} x); the check cannot see it")
+    del got, nowin
+    out = {"checks": [{"shape": f"windowed prefill ({b}, {t}, {h}/{hkv}, "
+                                f"{d}) window {window}, heads {list(heads)}",
+                       "max_abs_err": max(x[0] for x in e),
+                       "err_over_limit": max(x[1] for x in e)}],
+           "planted_faults": [{"fault": label, "err_over_limit": fault}]}
+    out["max_abs_err"] = out["checks"][0]["max_abs_err"]
+    out["ms"] = cuda_ms(
+        lambda: flash_attention_gqa(q, k, v, scale, True, window), 5)
+    out["plain_ms"] = cuda_ms(lambda: flash_attention_gqa_torch(
+        q, k, v, scale, True, window), 2, 1)
+    out["bound_ms"], out["bound_by"] = flash_bound(
+        flash_work(b, t, t, h, hkv, d, True, 2, window), bf)
+    # the library call: grouped heads repeated and the band mask built
+    # outside the timing; the memory-efficient backend (the only one that
+    # takes a mask without the (T, T) scores)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (
+        q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+    mask = causal_mask(t, t, window, device=DEVICE)
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=scale), 3)
+    except RuntimeError as ex:     # a yardstick, not a check
+        out["library_ms"] = None
+        say(f"windowed flash: scaled_dot_product_attention with the band "
+            f"mask not measured ({type(ex).__name__}: {str(ex)[:200]})")
+    del q, k, v, qs, ks, vs, mask
+    torch.cuda.empty_cache()
+    lib = ("not measured" if out["library_ms"] is None
+           else f"{out['library_ms']:.4f} ms")
+    say(f"windowed flash attention ({b}, {t}, {h}/{hkv}, {d}) window "
+        f"{window}, bfloat16 against the float32 plain version on heads "
+        f"{list(heads)}: max |err| {out['max_abs_err']:.4g}, "
+        f"{out['checks'][0]['err_over_limit']:.4g} x the limit; planted "
+        f"fault '{label}' {fault:.4g} x the limit")
+    say(f"windowed flash attention ({nvidia_smi_line()}): {out['ms']:.4f} "
+        f"ms per layer (bound {out['bound_ms']:.4f} ms, {out['bound_by']}), "
+        f"plain {out['plain_ms']:.4f} ms, scaled_dot_product_attention with "
+        f"the band mask {lib}")
+    return out
+
+
+def hymba(depth=None, dtype="bfloat16"):
+    """hymba-1.5b at its published widths; ``depth`` cuts it to its first
+    layers (layer 0 global, the rest windowed below layer 15)."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS["hymba-1.5b"]
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
+                               dtype=dtype)
+
+
+def _last_logits(cfg, params, prompts):
+    """The prefill's last-position logits over the real vocab, float32."""
+    import torch
+
+    from repro_torch.models import api
+    with torch.inference_mode():
+        logits, _ = api.prefill_fn(cfg)(params, {"tokens": prompts})
+    return logits[:, -1, :cfg.vocab].to(torch.float32)
+
+
+def bf16_witness() -> None:
+    """``--bf16-witness``: how far hymba-1.5b's last decode logits lie from
+    a fresh prefill's (as a share of the largest logit) by precision,
+    depth, prompt length and number of decode steps, beside the bfloat16
+    noise floor of the prefill alone: the last logits of one prompt
+    prefilled in a batch of several against the same prompt prefilled
+    alone (the same function; the matrix products pick other kernels and
+    accumulation orders). Prints each; checks only that they are
+    finite."""
+    import math
+
+    import torch
+
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = [("float32", 32, 2, 2048, 64), ("bfloat16", 4, 2, 1280, 8),
+            ("bfloat16", 32, 2, 2048, 1), ("bfloat16", 32, 2, 2048, 8),
+            ("bfloat16", 32, 2, 2048, 64),
+            ("bfloat16", 32, HYBRID_BATCH, HYBRID_PROMPT, 1)]
+    for dtype, depth, b, t, n in runs:
+        cfg = hymba(depth, dtype)
+        params = api.init_fn(cfg, DEVICE)(0)
+        prompts = _prompts(cfg, b, t, 0, DEVICE)
+        toks, last, _, caches, _ = greedy_run(cfg, params, prompts, n)
+        del caches
+        torch.cuda.empty_cache()
+        fresh = fresh_prefill_logits(cfg, params, prompts, toks)
+        scale = float(fresh.abs().max())
+        diff = float((last - fresh).abs().max())
+        line = (f"bf16 witness: hymba-1.5b {dtype} {depth} layers, {b} x "
+                f"{t}, {n} decode steps: last decode vs fresh prefill max "
+                f"|diff| {diff:.4g} of max |logit| {scale:.4g} "
+                f"({100 * diff / scale:.3f}%)")
+        if dtype == "bfloat16" and depth == 32 and n == 1:
+            whole = _last_logits(cfg, params, prompts)[:1]
+            alone = _last_logits(cfg, params, prompts[:1])
+            floor = float((whole - alone).abs().max())
+            line += (f"; noise floor, prompt 0 prefilled with the batch vs "
+                     f"alone: max |diff| {floor:.4g} of "
+                     f"{float(alone.abs().max()):.4g} "
+                     f"({100 * floor / float(alone.abs().max()):.3f}%)")
+        check(math.isfinite(diff), f"bf16 witness: {line}")
+        say(line)
+        del params
+        torch.cuda.empty_cache()
 
 
 def main(args: list[str]) -> int:
     import torch
-    if args not in ([], ["--lr-witness"]):
-        print(f"usage: chip_smoke.py [--lr-witness], got {args}",
+    if args not in ([], ["--lr-witness"], ["--bf16-witness"]):
+        print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness], got "
+              f"{args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1794,6 +2320,7 @@ def main(args: list[str]) -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    from repro_torch.configs import ARCHS
     from repro_torch.core import build_forest, bt, rpa, sample_load
     from repro_torch.kernels import _build
 
@@ -1805,6 +2332,9 @@ def main(args: list[str]) -> int:
         f"{_build.build_seconds:.2f} s")
     if args == ["--lr-witness"]:
         lr_witness()
+        return 0
+    if args == ["--bf16-witness"]:
+        bf16_witness()
         return 0
 
     # the two configurations
@@ -1871,11 +2401,36 @@ def main(args: list[str]) -> int:
     fl_errs = check_flash_random()
     fl = flash_serving_shapes()
     t9b = time.perf_counter()
-    serve_f32()
+    qwen = ARCHS["qwen3-32b"]
+    serve_f32(dataclasses.replace(qwen, n_layers=4), 2, 128, 8)
     t9c = time.perf_counter()
-    cell = serve_cell()
+    cell = serve_cell(qwen, SERVE_CELL, SERVE_BATCH, SERVE_PROMPT,
+                      SERVE_STEPS, SERVE_BF16_DIFF)
     say(f"phase 9 wall: 9a {t9b - t9:.1f} s, float32 consistency "
         f"{t9c - t9b:.1f} s, {SERVE_CELL} {time.perf_counter() - t9c:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 10: hybrid serving. 10a: the scan and the windowed flash
+    # kernels before the model allocates; 10b: the float32 consistency run;
+    # 10c: the cell at full size
+    t10 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 10: {held} bytes still allocated after "
+          "phase 9")
+    sc_err = check_scan_random()
+    sc = scan_cell_shapes()
+    wf_errs = check_window_random()
+    wf = window_cell_shapes()
+    t10b = time.perf_counter()
+    serve_f32(hymba(2), 2, 1280, 8)
+    serve_f32(hymba(), 2, 2048, 64, cpu=False)
+    t10c = time.perf_counter()
+    hy = serve_cell(hymba(), HYBRID_CELL, HYBRID_BATCH, HYBRID_PROMPT,
+                    HYBRID_STEPS, SERVE_HYBRID_BF16_DIFF, kernels=(5, 6),
+                    faults=(handoff_ring_first, handoff_state_dropped))
+    say(f"phase 10 wall: 10a {t10b - t10:.1f} s, float32 consistency "
+        f"{t10c - t10b:.1f} s, {HYBRID_CELL} {time.perf_counter() - t10c:.1f}"
+        " s")
 
     rows = []
     for name, src, replaces, n, err in (
@@ -1971,6 +2526,49 @@ def main(args: list[str]) -> int:
                                  f"decode steps x {cell['n_layers']} layers",
                  "library": "torch.nn.functional.scaled_dot_product_attention"
                  })
+    hy_launches = f"served run: 1 prefill + {HYBRID_STEPS} decode steps x " \
+                  f"{hy['n_layers']} layers"
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:69",
+                 "mode": f"sliding window {HYMBA_WINDOW}",
+                 "launches": hy["counts"][5],
+                 "max_abs_err": max(wf["max_abs_err"], *wf_errs.values()),
+                 "max_abs_err_float32": wf_errs["float32"],
+                 "tol": dict(FLASH_TOL, bfloat16_vs_float32_plain=FLASH_TIGHT),
+                 "checks": wf["checks"],
+                 "planted_faults": wf["planted_faults"],
+                 "ms": wf["ms"], "plain_ms": wf["plain_ms"],
+                 "bound_ms": wf["bound_ms"], "bound_by": wf["bound_by"],
+                 "library_ms": wf["library_ms"],
+                 "bitwise": False, "config": HYBRID_CELL,
+                 "dtype": "bfloat16",
+                 "ms_per": f"windowed prefill layer ({HYBRID_BATCH} x "
+                           f"{HYBRID_PROMPT}, 25/5 heads, window "
+                           f"{HYMBA_WINDOW})",
+                 "launches_per": hy_launches + " (29 of the 32 prefill "
+                                               "launches windowed)",
+                 "library": "torch.nn.functional.scaled_dot_product_attention"
+                            " (band mask, memory-efficient backend)"})
+    rows.append({"name": "ssm_scan", "route": "cuda",
+                 "source": "src/repro_torch/csrc/ssm_scan.cu",
+                 "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:78",
+                 "launches": hy["counts"][6],
+                 "max_abs_err": max(sc["max_abs_err"], sc_err),
+                 "tol": {"float32": SCAN_TOL,
+                         "cell_vs_float64_plain": "running float32 error "
+                                                  "bound, doubled"},
+                 "err_over_limit": sc["err_over_limit"],
+                 "planted_faults": sc["planted_faults"],
+                 "ms": sc["ms"], "plain_ms": sc["plain_ms"],
+                 "bound_ms": sc["bound_ms"], "bound_by": sc["bound_by"],
+                 "bound_parts_ms": sc["bound_parts_ms"],
+                 "library_ms": None, "library": "none exists",
+                 "bitwise": False, "config": HYBRID_CELL, "dtype": "float32",
+                 "ms_per": f"layer ({HYBRID_BATCH} x {HYBRID_PROMPT}, D "
+                           f"{HYMBA_DI}, N {HYMBA_N})",
+                 "launches_per": hy_launches})
     pre_attn = fl["ms"] * cell["n_layers"] / 1e3
     say(f"{SERVE_CELL}: attention's share of prefill {pre_attn:.4f} s of "
         f"{cell['prefill_s']:.4f} s ({100 * pre_attn / cell['prefill_s']:.1f}"
@@ -1978,6 +2576,14 @@ def main(args: list[str]) -> int:
         f"of {cell['step_s'] * 1e3:.4f} ms per step; device busy over one "
         "decode step " + ("not measured" if cell["busy"] is None else
                           f"{100 * cell['busy']:.1f}%") + f" ({smi})")
+    pre_hy = (wf["ms"] * 29 + sc["ms"] * hy["n_layers"]) / 1e3
+    say(f"{HYBRID_CELL}: the windowed flash (29 layers) and the scan (32) "
+        f"take {pre_hy:.4f} s of the {hy['prefill_s']:.4f} s prefill "
+        f"({100 * pre_hy / hy['prefill_s']:.1f}%); device busy over one "
+        "decode step " + ("not measured" if hy["busy"] is None else
+                          f"{100 * hy['busy']:.1f}%") + ", over one prefill "
+        + ("not measured" if hy["prefill_busy"] is None else
+           f"{100 * hy['prefill_busy']:.1f}%") + f" ({smi})")
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@
 //   never repeated; the (BH, T, D) layout is H = Hkv = 1. For every (b, h,
 //   query row): logits (q . k) * scale in float32, masked to key < S and,
 //   when causal, key <= row (positions aligned at 0, as the JAX oracle
-//   aligns them); the running max m and normaliser l in float32 from
+//   aligns them) and, with a sliding window w > 0 (causal, T == S only),
+//   key > row - w, the band of models/attention.py::causal_mask(T, S, w);
+//   the running max m and normaliser l in float32 from
 //   NEG_INF = -1e30; acc += p v with p kept in float32; o = acc / max(l,
 //   1e-30) in q's dtype.
 //
@@ -28,6 +30,14 @@
 //    butterflies over the 16 lanes of a row group, so every lane holds the
 //    same m and l. With causal, the key loop ends at the tile holding the
 //    query tile's last row: later keys have p = exp(-1e30 - m) = 0 exactly.
+//    With a window w, it starts at the tile holding q0 - w + 1, the first
+//    key of the tile's first row, so a query tile reads about w / 64 + 1
+//    key tiles. In that first key tile a row whose band starts later sees
+//    only masked keys: its m stays -1e30 and each masked key gets p =
+//    exp(0) = 1, until a later tile's first unmasked key gives alpha =
+//    exp(-1e30 - m) = 0 and wipes l and acc. That is exact only because
+//    every row's own key (key = row) lies in the same or a later tile and
+//    is never masked.
 //  * decode kernel (T = 1): one block of four warps per (b, h). Warp w
 //    takes key tiles w, w + 4, ... of 32 keys; lane j scores key j of the
 //    tile (16-byte loads when the rows are aligned), the warp updates its
@@ -95,7 +105,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int B, int Tq,
                   int S, int H, int G, int D, Strides sq, Strides sk,
-                  Strides sv, Strides so, int causal, float scale) {
+                  Strides sv, Strides so, int causal, int window,
+                  float scale) {
   constexpr int W = 16 * DJ;
   constexpr int ld = W + 1;               // odd: conflict-free column reads
   extern __shared__ float smem[];
@@ -127,8 +138,9 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(Tq, q0 + kTile) - 1;
   const int s_end = causal ? min(S, q_last + 1) : S;
   const int n_kt = (s_end + kTile - 1) / kTile;
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                      // the previous V tile is read
     load_tile<T, W>(kv, kb, sk.t, k0, S, D, ld);
@@ -159,7 +171,9 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (kpos >= S || (causal && kpos > qpos)) x = kNegInf;
+        if (kpos >= S || (causal && kpos > qpos) ||
+            (window > 0 && kpos <= qpos - window))
+          x = kNegInf;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -350,7 +364,7 @@ template <typename T, int DJ>
 cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
                         int Tq, int S, int H, int G, int D, Strides sq,
                         Strides sk, Strides sv, Strides so, int causal,
-                        float scale, cudaStream_t stream) {
+                        int window, float scale, cudaStream_t stream) {
   const int ld = 16 * DJ + 1;
   const int smem = (2 * kTile * ld + kTile * kPs) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -361,7 +375,7 @@ cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
       static_cast<long long>(B) * H * ((Tq + kTile - 1) / kTile);
   flash_tile_kernel<T, DJ><<<static_cast<unsigned>(blocks), kThreads, smem,
                              stream>>>(q, k, v, o, B, Tq, S, H, G, D, sq, sk,
-                                       sv, so, causal, scale);
+                                       sv, so, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -389,7 +403,8 @@ cudaError_t launch_decode(const T* q, const T* k, const T* v, T* o, int B,
 template <typename T>
 int launch(const void* q_, const void* k_, const void* v_, void* o_, int B,
            int Tq, int S, int H, int Hkv, int D, Strides sq, Strides sk,
-           Strides sv, Strides so, int causal, float scale, void* stream_) {
+           Strides sv, Strides so, int causal, int window, float scale,
+           void* stream_) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
@@ -397,10 +412,10 @@ int launch(const void* q_, const void* k_, const void* v_, void* o_, int B,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int G = H / Hkv;
   if (B < 1 || Tq < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
-      D > 256)
+      D > 256 || window < 0 || (window > 0 && (!causal || Tq != S)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (Tq == 1) {
+  if (Tq == 1) {                          // a window holds key 0 here
     const int s_eff = causal ? 1 : S;     // the one query sits at position 0
     if (D <= 32)
       err = launch_decode<T, 1>(q, k, v, o, B, s_eff, H, G, D, sq, sk, sv, so,
@@ -416,19 +431,19 @@ int launch(const void* q_, const void* k_, const void* v_, void* o_, int B,
                                 scale, stream);
   } else if (D <= 16) {
     err = launch_tile<T, 1>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                            causal, scale, stream);
+                            causal, window, scale, stream);
   } else if (D <= 32) {
     err = launch_tile<T, 2>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                            causal, scale, stream);
+                            causal, window, scale, stream);
   } else if (D <= 64) {
     err = launch_tile<T, 4>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                            causal, scale, stream);
+                            causal, window, scale, stream);
   } else if (D <= 128) {
     err = launch_tile<T, 8>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                            causal, scale, stream);
+                            causal, window, scale, stream);
   } else {
     err = launch_tile<T, 16>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                             causal, scale, stream);
+                             causal, window, scale, stream);
   }
   return static_cast<int>(err);
 }
@@ -445,15 +460,15 @@ int soar_flash_attention(const void* q, const void* k, const void* v, void* o,
                          long long q_sh, long long k_sb, long long k_st,
                          long long k_sh, long long v_sb, long long v_st,
                          long long v_sh, long long o_sb, long long o_st,
-                         long long o_sh, int causal, float scale,
-                         void* stream) {
+                         long long o_sh, int causal, int window,
+                         float scale, void* stream) {
   const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh},
       sv{v_sb, v_st, v_sh}, so{o_sb, o_st, o_sh};
   if (bf16)
     return launch<__nv_bfloat16>(q, k, v, o, B, Tq, S, H, Hkv, D, sq, sk, sv,
-                                 so, causal, scale, stream);
+                                 so, causal, window, scale, stream);
   return launch<float>(q, k, v, o, B, Tq, S, H, Hkv, D, sq, sk, sv, so,
-                       causal, scale, stream);
+                       causal, window, scale, stream);
 }
 
 }  // extern "C"

@@ -6,13 +6,16 @@ it agrees to rounding. It takes the model's layout, q (B, T, H, D) and k, v
 (B, S, Hkv, D), as strided views whose last dimension is contiguous (a
 decode passes the cache prefix ``k_all[:, :n]`` with no copy), and writes a
 new contiguous (B, T, H, D). T = 1 takes the kernel's decode launch shape.
-Counts each launch in ``.launches``.
+A sliding ``window`` w > 0 (causal self-attention, T == S) limits query
+row i to keys i - w < j <= i, and the kernel skips the key tiles outside
+that band. Counts each launch in ``.launches``.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import check, library, stream_of
+from .ref import check_window
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -50,20 +53,24 @@ def geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float, causal: bool) -> torch.Tensor:
+                         scale: float, causal: bool,
+                         window: int = 0) -> torch.Tensor:
     """Attention of q (B, T, H, D) over k, v (B, S, Hkv, D) on the card ->
-    (B, T, H, D) in q's dtype. Counts each launch in ``.launches``."""
+    (B, T, H, D) in q's dtype, within a sliding ``window`` when it is
+    positive. Counts each launch in ``.launches``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention_cuda needs q, k, v on one "
                              f"CUDA device, got {name} on {t.device}")
     g = geometry(q, k, v)
+    check_window(q.shape[1], k.shape[1], causal, window,
+                 "flash_attention_cuda")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = library().soar_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _BF16[q.dtype], *g, *out.stride()[:3], int(causal), float(scale),
-            stream_of(q))
+            _BF16[q.dtype], *g, *out.stride()[:3], int(causal), int(window),
+            float(scale), stream_of(q))
     check(err, "flash attention launch")
     flash_attention_cuda.launches += 1
     return out

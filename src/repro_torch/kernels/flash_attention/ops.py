@@ -27,10 +27,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale, causal: bool = True) -> torch.Tensor:
+                        scale, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
     """q (B, T, H, D) over k, v (B, S, Hkv, D) -> (B, T, H, D), query head h
     on KV head h // (H / Hkv). k and v may be strided views (a cache
-    prefix). ``scale`` is a float or a 0-d float32 tensor."""
+    prefix). ``scale`` is a float or a 0-d float32 tensor. A ``window``
+    w > 0 (causal, T == S) limits row i to keys i - w < j <= i."""
     if q.device.type == "cpu":
-        return flash_attention_gqa_torch(q, k, v, scale, causal)
-    return flash_attention_cuda(q, k, v, float(scale), causal)
+        return flash_attention_gqa_torch(q, k, v, scale, causal, window)
+    return flash_attention_cuda(q, k, v, float(scale), causal, window)

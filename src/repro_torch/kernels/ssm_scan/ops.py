@@ -1,0 +1,39 @@
+"""Selective-SSM scan: shape checks and device dispatch.
+
+A CUDA tensor always launches the kernel; a CPU tensor runs the plain
+version. There is no option that sends a CUDA tensor to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from .ref import ssm_chunk_scan_torch
+from .ssm_scan import ssm_chunk_scan_cuda
+
+
+def ssm_chunk_scan(u, delta, bv, cv, a, s0, s_out=None):
+    """Selective-SSM scan: u (B, T, D) float32, delta (B, T, 1), bv/cv
+    (B, T, N), a (D, N), s0 (B, D, N) -> (y (B, T, D), s_final (B, D, N)).
+
+    The JAX wrapper runs its Pallas kernel only when T is a multiple of
+    ``chunk`` and its reference otherwise; the CUDA kernel takes any T,
+    T = 1 (a decode step) included, so there is no ``chunk`` here. With
+    ``s_out`` (which may be ``s0`` itself) the final state is written into
+    it and it is returned: a decode step updates its cache in place."""
+    B, T, D = u.shape
+    N = bv.shape[-1]
+    if delta.shape != (B, T, 1) or bv.shape != (B, T, N) or \
+            cv.shape != (B, T, N):
+        raise ValueError(f"bad shapes delta={tuple(delta.shape)} "
+                         f"bv={tuple(bv.shape)} cv={tuple(cv.shape)}")
+    if a.shape != (D, N) or s0.shape != (B, D, N):
+        raise ValueError(f"bad shapes a={tuple(a.shape)} "
+                         f"s0={tuple(s0.shape)}")
+    if s_out is not None and s_out.shape != s0.shape:
+        raise ValueError(f"bad shape s_out={tuple(s_out.shape)}")
+    if u.device.type == "cpu":
+        y, s = ssm_chunk_scan_torch(u, delta, bv, cv, a, s0)
+        if s_out is None:
+            return y, s
+        return y, s_out.copy_(s)
+    return ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0, s_out)

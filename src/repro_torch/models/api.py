@@ -7,7 +7,8 @@
   prefill_fn(cfg)(params, batch) -> (last_logits, caches)
   decode_fn(cfg)(params, caches, token, pos) -> (logits, caches), the
       caches written in place
-  init_caches(cfg, batch, seq, device) -> zero caches
+  init_caches(cfg, batch, seq, device) -> zero caches (stacked, or one per
+      block for the hybrid family)
   input_specs(cfg, shape, mode, device) -> batch of zeros
   params_from_jax(tree_of_numpy) / params_to_numpy(params): 1:1 by key;
   caches_from_jax / caches_to_numpy likewise for caches
@@ -63,7 +64,7 @@ def init_fn(cfg: ModelConfig, device="cuda"):
 
 
 def loss_fn(cfg: ModelConfig):
-    transformer.check_supported(cfg)
+    transformer.check_supported(cfg, "train")
     return lambda params, batch: transformer.loss_fn(params, batch, cfg)
 
 
@@ -86,8 +87,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mode: str | None = None,
                 device="cuda"):
     """Batch of zeros for (cfg, shape): tokens (B, S) and, to train, labels,
     int64 as the port's data pipeline makes them (JAX: int32)."""
-    transformer.check_supported(cfg)
     mode = mode or shape.kind
+    transformer.check_supported(cfg, "train" if mode == "train" else "serve")
     B, S = shape.global_batch, shape.seq_len
     batch = {"tokens": torch.zeros((B, S), dtype=torch.int64, device=device)}
     if mode == "train":
@@ -111,12 +112,12 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, device="cuda"):
-    """A JAX parameter pytree (numpy or JAX arrays) -> the port's params.
-    Empty containers (the JAX tree's ``prefix: []``) carry no leaves and
-    are dropped."""
-    flat = {k: _to_tensor(v, device).requires_grad_()
-            for k, v in T.leaves_with_paths(_drop_empty(tree))}
-    return T.unflatten(flat)
+    """A JAX parameter pytree (numpy or JAX arrays) -> the port's params,
+    built by walking the JAX tree, so its lists (hymba's ``blocks``) stay
+    lists in JAX's leaf order. Empty containers (the JAX tree's
+    ``prefix: []``) carry no leaves and are dropped."""
+    return T.tree_map(lambda a: _to_tensor(a, device).requires_grad_(),
+                      _drop_empty(tree))
 
 
 def _drop_empty(tree):

@@ -7,8 +7,9 @@ builds the masked (T, S) scores and ``sdpa_blocked`` is the
 online-softmax dataflow over (query block, key block) tiles that long
 sequences take; autograd runs through them. Prefill and decode run the
 flash-attention kernel (``kernels.flash_attention.ops``; its plain version
-on CPU tensors). Shapes: x (B, T, d); q (B, T, H, hd); k, v and the cache
-(B, S, Hkv, hd). MLA comes with a later slice.
+on CPU tensors), windowed layers with the kernel's sliding window. Shapes:
+x (B, T, d); q (B, T, H, hd); k, v and the cache (B, S, Hkv, hd). MLA
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -139,16 +140,15 @@ def gqa_forward(p, x, cfg: ModelConfig, causal: bool = True, window: int = 0,
     """Full-sequence attention. Returns (out, {"k", "v"}).
 
     ``mode="train"`` runs ``sdpa``/``sdpa_blocked`` (autograd needs them);
-    ``mode="prefill"`` runs the flash-attention kernel, which has no
-    sliding window."""
+    ``mode="prefill"`` runs the flash-attention kernel, with its sliding
+    window where the layer has one. As in JAX, the window applies to
+    causal attention only."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
     if mode == "prefill":
-        if window:
-            raise ValueError(f"{cfg.name}: sliding-window prefill is not "
-                             "ported yet (ROADMAP A10: transformer)")
-        out = flash_attention_gqa(q, k, v, _scale(cfg), causal=causal)
+        out = flash_attention_gqa(q, k, v, _scale(cfg), causal=causal,
+                                  window=window if causal else 0)
         return out.reshape(B, T, -1) @ p["w_o"], {"k": k, "v": v}
     if mode != "train":
         raise ValueError(f"gqa_forward: mode {mode!r} is train or prefill")

@@ -1,14 +1,21 @@
-"""Decoder-only LM, dense family: the port of the JAX package's
-``models/transformer.py`` for training, prefill and decode.
+"""Decoder-only LM, dense and hybrid families: the port of the JAX
+package's ``models/transformer.py`` for training (dense), prefill and
+decode (both).
 
 The parameter tree has exactly the JAX pytree's leaves: ``embed_tokens``
 (padded_vocab, d), ``final_norm/scale``, ``lm_head`` (d, padded_vocab) and
-the layer stack ``layers/...``, each leaf stacked ``(L, ...)`` as
-``jax.vmap(init_block)`` makes it, with ``x @ W`` layouts. The forward
-walks the stack layer by layer, as ``lax.scan`` does; ``remat`` only saves
-memory and is left out. Caches are the JAX tree of the stacked stack,
-``{"prefix": [], "layers": {"k", "v": (L, B, S, Hkv, hd)}}``; a decode step
-writes into them in place. Other families raise ``ValueError``.
+the layers, with ``x @ W`` layouts. Where ``uses_scan(cfg)`` (deep
+homogeneous dense stacks) they are the stack ``layers/...``, each leaf
+stacked ``(L, ...)`` as ``jax.vmap(init_block)`` makes it; otherwise
+(hymba: hybrid blocks, sliding windows) the list ``blocks``, one tree per
+layer, each of its kind (``attn`` or ``hybrid``: attention and Mamba heads
+side by side) and window. The forward walks the layers one by one, as
+``lax.scan`` does; ``remat`` only saves memory and is left out. Caches are
+the JAX trees: ``{"prefix": [], "layers": {"k", "v": (L, B, S, Hkv,
+hd)}}`` for the stack, ``{"blocks": [{"attn": {"k", "v"}, "ssm": {"s"}},
+...]}`` for hybrid blocks (a windowed layer's k/v a ring of min(seq,
+window) slots); a decode step writes into them in place. Other families
+raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -19,31 +26,62 @@ from .attention import gqa_cache_spec, gqa_decode, gqa_forward, init_gqa
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, dtype_of, embed_init, init_mlp,
                      init_norm)
+from .ssm import init_mamba, mamba_decode, mamba_forward, mamba_state
 
-# what each unported part of the model zoo waits for (ROADMAP.md, A10)
+# what each unported part of the model zoo waits for (ROADMAP.md, A10), by
+# mode: "train" (loss_fn) or "serve" (init, prefill, decode, caches)
 _UNPORTED = (
-    (lambda c: c.is_encoder_decoder, "encoder-decoder (ROADMAP A10: encdec)"),
-    (lambda c: c.is_moe, "MoE (ROADMAP A10: moe)"),
-    (lambda c: c.family in ("ssm", "hybrid"),
-     "SSM/hybrid blocks (ROADMAP A10: ssm, kernel B6)"),
-    (lambda c: c.attn_type == "mla", "MLA attention (ROADMAP A10: attention)"),
-    (lambda c: c.family == "vlm" or c.n_prefix_embeds,
+    (lambda c, m: c.is_encoder_decoder,
+     "encoder-decoder (ROADMAP A10: encdec)"),
+    (lambda c, m: c.is_moe, "MoE (ROADMAP A10: moe)"),
+    (lambda c, m: c.family == "ssm",
+     "xLSTM's SSM blocks, mLSTM and sLSTM (ROADMAP A10: ssm)"),
+    (lambda c, m: c.family == "hybrid" and m == "train",
+     "training of the SSM/hybrid blocks (ROADMAP A10: ssm training)"),
+    (lambda c, m: c.attn_type == "mla",
+     "MLA attention (ROADMAP A10: attention)"),
+    (lambda c, m: c.family == "vlm" or c.n_prefix_embeds,
      "the VLM prefix (ROADMAP A10: transformer)"),
-    (lambda c: c.sliding_window or not c.scan_layers,
-     "unstacked or sliding-window layers (ROADMAP A10: transformer)"),
+    (lambda c, m: m == "train" and not uses_scan(c),
+     "training of unstacked or sliding-window layers (ROADMAP A10: "
+     "transformer)"),
 )
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for any family the port does not run yet."""
+def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
+    """Raise ``ValueError`` for any family the port does not run yet in
+    ``mode`` ("train" or "serve")."""
     for test, what in _UNPORTED:
-        if test(cfg):
+        if test(cfg, mode):
             raise ValueError(f"{cfg.name}: {what} is not ported yet; the "
-                             f"port runs the dense GQA family")
+                             f"port trains the dense GQA family and serves "
+                             f"it and the hybrid family")
 
 
-def init_block(gen, cfg: ModelConfig):
+def _layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Each layer's block kind: attn, or hybrid (attention and Mamba heads
+    on the same input). xLSTM's m and s kinds come with xLSTM."""
+    return ["hybrid" if cfg.family == "hybrid" else "attn"] * cfg.n_layers
+
+
+def _layer_windows(cfg: ModelConfig) -> list[int]:
+    """Each layer's sliding window, 0 for full (global) attention."""
+    return [cfg.sliding_window if cfg.sliding_window
+            and i not in cfg.global_attn_layers else 0
+            for i in range(cfg.n_layers)]
+
+
+def uses_scan(cfg: ModelConfig) -> bool:
+    """Stacked layers only for deep, fully homogeneous attention stacks."""
+    return (cfg.scan_layers and cfg.family in ("dense", "moe", "vlm")
+            and not cfg.sliding_window)
+
+
+def init_block(gen, cfg: ModelConfig, kind: str = "attn"):
+    """kind: attn | hybrid (attention and Mamba heads on the same input)."""
     p = {"ln1": init_norm(cfg, gen.device), "attn": init_gqa(gen, cfg)}
+    if kind == "hybrid":
+        p["ssm"] = init_mamba(gen, cfg, d_out=cfg.d_model)
     if cfg.d_ff > 0:
         p["ln2"] = init_norm(cfg, gen.device)
         p["mlp"] = init_mlp(gen, cfg, cfg.d_ff)
@@ -76,6 +114,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab),
                                        dt)
+    if not uses_scan(cfg):
+        params["blocks"] = [init_block(gen, cfg, kind)
+                            for kind in _layer_kinds(cfg)]
+        return params
     layers = None
     for i in range(cfg.n_layers):
         layers = _stack_into(layers, init_block(gen, cfg), i, cfg.n_layers)
@@ -84,16 +126,28 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 
 
 def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
-                  pos=None):
-    """One attention block; x (B, T, d). Returns (x, {"k", "v"}): the
-    block's keys and values (train, prefill) or its cache, written in place
-    (decode)."""
+                  pos=None, kind: str = "attn", window: int = 0):
+    """One block; x (B, T, d). Returns (x, cache): the block's keys and
+    values (train, prefill; a hybrid block adds the Mamba state,
+    ``{"attn": {"k", "v"}, "ssm": {"s"}}``) or its cache, written in place
+    (decode). A hybrid block adds the mean of its attention and Mamba
+    heads, both reading the same normed input."""
     h = apply_norm(p["ln1"], x, cfg)
+    hybrid = kind == "hybrid"
     if mode == "decode":
-        a, nc = gqa_decode(p["attn"], h, cache, pos, cfg)
+        a, nc = gqa_decode(p["attn"], h, cache["attn"] if hybrid else cache,
+                           pos, cfg, window)
     else:
-        a, nc = gqa_forward(p["attn"], h, cfg, mode=mode)
-    x = x + a
+        a, nc = gqa_forward(p["attn"], h, cfg, window=window, mode=mode)
+    if hybrid:
+        if mode == "decode":
+            s, sc = mamba_decode(p["ssm"], h, cache["ssm"], cfg)
+        else:
+            s, sc = mamba_forward(p["ssm"], h, cfg)
+        x = x + 0.5 * (a + s)
+        nc = {"attn": nc, "ssm": sc}
+    else:
+        x = x + a
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
     return x, nc
@@ -123,17 +177,29 @@ def _lm_logits(params, x, cfg: ModelConfig):
 def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
     """Full-sequence forward (train or prefill). Returns (logits, aux,
     caches); caches are None in train mode."""
-    check_supported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode {mode!r} is train or prefill")
+    check_supported(cfg, "train" if mode == "train" else "serve")
     x = _embed_inputs(params, batch, cfg)
-    stacked = None
-    for i in range(cfg.n_layers):
-        x, nc = block_forward(_layer(params["layers"], i), x, cfg, mode)
+    caches = None
+    if uses_scan(cfg):
+        stacked = None
+        for i in range(cfg.n_layers):
+            x, nc = block_forward(_layer(params["layers"], i), x, cfg, mode)
+            if mode == "prefill":
+                stacked = _stack_into(stacked, nc, i, cfg.n_layers)
         if mode == "prefill":
-            stacked = _stack_into(stacked, nc, i, cfg.n_layers)
+            caches = {"prefix": [], "layers": stacked}
+    else:
+        blocks = []
+        for bp, kind, w in zip(params["blocks"], _layer_kinds(cfg),
+                               _layer_windows(cfg)):
+            x, nc = block_forward(bp, x, cfg, mode, kind=kind, window=w)
+            if mode == "prefill":
+                blocks.append(nc)
+        if mode == "prefill":
+            caches = {"blocks": blocks}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = None if stacked is None else {"prefix": [], "layers": stacked}
     return _lm_logits(params, x, cfg), aux, caches
 
 
@@ -157,22 +223,41 @@ def prefill(params, batch, cfg: ModelConfig):
 
 def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
     """One decode step. token: (B, 1) int; pos: the token's position (an
-    int). Writes each layer's k/v at ``pos`` into ``caches`` in place and
-    returns (logits (B, 1, V), caches)."""
+    int). Writes each layer's k/v at ``pos`` (and each Mamba state) into
+    ``caches`` in place and returns (logits (B, 1, V), caches)."""
     check_supported(cfg)
     x = F.embedding(token, params["embed_tokens"])
-    stack = caches["layers"]
-    for i in range(cfg.n_layers):
-        cache = {"k": stack["k"][i], "v": stack["v"][i]}
-        x, _ = block_forward(_layer(params["layers"], i), x, cfg, "decode",
-                             cache=cache, pos=pos)
+    if uses_scan(cfg):
+        stack = caches["layers"]
+        for i in range(cfg.n_layers):
+            cache = {"k": stack["k"][i], "v": stack["v"][i]}
+            x, _ = block_forward(_layer(params["layers"], i), x, cfg,
+                                 "decode", cache=cache, pos=pos)
+    else:
+        for bp, c, kind, w in zip(params["blocks"], caches["blocks"],
+                                  _layer_kinds(cfg), _layer_windows(cfg)):
+            x, _ = block_forward(bp, x, cfg, "decode", cache=c, pos=pos,
+                                 kind=kind, window=w)
     return _lm_logits(params, x, cfg), caches
+
+
+def _one_cache(cfg: ModelConfig, kind: str, window: int, batch: int,
+               seq: int, device):
+    c = gqa_cache_spec(cfg, batch, seq, window, device)
+    if kind == "hybrid":
+        return {"attn": c, "ssm": mamba_state(cfg, batch, device)}
+    return c
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
     """Zero caches for a ``seq``-token context: the stacked (L, ...) tree,
-    allocated (JAX only broadcasts one layer's)."""
+    allocated (JAX only broadcasts one layer's), or one cache per block, a
+    windowed layer's k/v min(seq, window) slots."""
     check_supported(cfg)
+    if not uses_scan(cfg):
+        return {"blocks": [_one_cache(cfg, kind, w, batch, seq, device)
+                           for kind, w in zip(_layer_kinds(cfg),
+                                              _layer_windows(cfg))]}
     one = gqa_cache_spec(cfg, batch, seq, 0, "meta")
     return {"prefix": [], "layers": {
         k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,

@@ -10,7 +10,9 @@ Every comparison of the solve, reduce and top-k kernels is bitwise
 order, summation order and separate roundings (no FMA). Flash attention is
 held to the JAX tests' tolerances (float32 rtol = atol = 2e-5, bfloat16
 3e-2): it sums in another order, uses FMA and keeps the softmax weights in
-float32 where the plain version rounds them to v's dtype.
+float32 where the plain version rounds them to v's dtype. The selective-SSM
+scan is held to the JAX test's rtol = atol = 1e-5 (its sum over N runs in
+another order, its exponential is expf).
 """
 import numpy as np
 import pytest
@@ -412,6 +414,138 @@ def test_serving_on_card_equals_cpu(dev):
         out[where] = (torch.cat(toks_out, 1).cpu(),
                       torch.cat(logits, 1).cpu())
     assert flash_attention_cuda.launches == before + 5 * cfg.n_layers
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    want = out["cpu"][1]
+    torch.testing.assert_close(out["card"][1], want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d,window", [
+    (2, 200, 4, 2, 64, 1), (2, 200, 4, 2, 64, 63), (1, 300, 2, 1, 64, 64),
+    (2, 333, 5, 1, 64, 100), (1, 130, 2, 2, 40, 1024), (1, 1, 2, 1, 64, 8)])
+def test_flash_kernel_sliding_window_matches_plain(dev, dtype, b, t, h, hkv,
+                                                   d, window):
+    """Windows of 1, 63, 64 and 100 (not multiples of the 64-key tile),
+    one longer than T, and T = 1, against ``sdpa`` under
+    ``causal_mask(T, T, window)``; the kernel without the window must
+    differ where the band cuts keys off."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import sdpa
+    from repro_torch.models.attention import causal_mask
+    rng = np.random.default_rng(t + window)
+    q = torch.as_tensor(rng.normal(size=(b, t, h, d)), device=dev).to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(b, t, hkv, d)),
+                            device=dev).to(dtype) for _ in range(2))
+    before = flash_attention_cuda.launches
+    got = flash_attention_gqa(q, k, v, 0.125, causal=True, window=window)
+    assert flash_attention_cuda.launches == before + 1
+    mask = causal_mask(t, t, window, device=dev)[None]
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, sdpa(q, k, v, mask, 0.125), rtol=tol,
+                               atol=tol)
+    if window < t:
+        full = flash_attention_gqa(q, k, v, 0.125, causal=True)
+        assert (full.float() - got.float()).abs().max() > 0.1
+
+
+SCAN_SHAPES = [(1, 16, 8, 4), (2, 32, 16, 4), (3, 64, 24, 8), (2, 32, 16, 4),
+               (2, 1, 3200, 16), (2, 77, 100, 16), (1, 40, 33, 32),
+               (2, 50, 20, 3)]
+
+
+def _scan_inputs(rng, b, t, d, n, dev):
+    f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                   device=dev)
+    return (f(b, t, d), torch.nn.functional.softplus(f(b, t, 1) - 2),
+            f(b, t, n), f(b, t, n), -torch.exp(f(d, n) * 0.3), f(b, d, n))
+
+
+@pytest.mark.parametrize("b,t,d,n", SCAN_SHAPES)
+def test_ssm_scan_kernel_matches_plain(dev, b, t, d, n):
+    """The JAX test shapes, T = 1, ragged D and T, N = 3 and 32, at the JAX
+    test's rtol = atol = 1e-5; then with ``s_out`` aliasing ``s0``."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_torch
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_cuda
+    rng = np.random.default_rng(b * 1000 + t * 10 + n)
+    xs = _scan_inputs(rng, b, t, d, n, dev)
+    before = ssm_chunk_scan_cuda.launches
+    y, s = ssm_chunk_scan(*xs)
+    assert ssm_chunk_scan_cuda.launches == before + 1
+    wy, ws = ssm_chunk_scan_torch(*xs)
+    torch.testing.assert_close(y, wy, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, ws, rtol=1e-5, atol=1e-5)
+    s0 = xs[5]
+    y2, s2 = ssm_chunk_scan(*xs, s_out=s0)
+    assert s2 is s0
+    assert torch.equal(y2, y) and torch.equal(s0, s)
+
+
+def test_ssm_scan_kernel_takes_strided_views(dev):
+    """u as half of a (B, T, 2D) projection, delta, bv and cv as slices of
+    one (B, T, 2N + 1) projection, as the model passes them: no copy, the
+    contiguous copies' result bit for bit."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
+    rng = np.random.default_rng(7)
+    uz = torch.as_tensor(rng.normal(size=(2, 70, 96)), dtype=torch.float32,
+                         device=dev)
+    bcdt = torch.as_tensor(rng.normal(size=(2, 70, 33)), dtype=torch.float32,
+                           device=dev)
+    a = -torch.exp(torch.as_tensor(rng.normal(size=(48, 16)),
+                                   dtype=torch.float32, device=dev))
+    s0 = torch.zeros((2, 48, 16), device=dev)
+    views = (uz[..., :48], torch.nn.functional.softplus(bcdt[..., -1:]),
+             bcdt[..., :16], bcdt[..., 16:32], a, s0)
+    got = ssm_chunk_scan(*views)
+    want = ssm_chunk_scan(*(x.contiguous() for x in views))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_hybrid_serving_on_card_equals_cpu(dev):
+    """Reduced hymba in float32 (TF32 off): a prefill of 40 tokens (past
+    the window of 32), the caches handed to a ring, then 6 decode steps,
+    on the card against the CPU: logits at rtol 1e-4 with an atol of 1e-4
+    times the largest logit, the same tokens; every layer ran the flash
+    and the scan kernels."""
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["hymba-1.5b"].reduced(dtype="float32")
+    params = api.init_fn(cfg, "cpu")(0)
+    card = T.tree_map(lambda w: w.detach().to(dev), params)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40)))
+    before = (flash_attention_cuda.launches, ssm_chunk_scan_cuda.launches)
+    out = {}
+    for where, p, t in (("cpu", params, toks), ("card", card, toks.to(dev))):
+        tok, pre = steps.make_prefill_step(cfg)(p, {"tokens": t})
+        caches = api.init_caches(cfg, 2, 46, p["embed_tokens"].device)
+        with torch.inference_mode():
+            for pb, cb in zip(pre["blocks"], caches["blocks"]):
+                for n in ("k", "v"):
+                    s = cb["attn"][n].shape[1]
+                    pos = torch.arange(max(0, 40 - s), 40)
+                    cb["attn"][n][:, pos % s] = pb["attn"][n][:, pos]
+                cb["ssm"]["s"].copy_(pb["ssm"]["s"])
+        toks_out, logits = [tok], []
+        for s in range(6):
+            with torch.inference_mode():
+                lg, caches = api.decode_fn(cfg)(p, caches, tok, 40 + s)
+            tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            toks_out.append(tok)
+            logits.append(lg)
+        out[where] = (torch.cat(toks_out, 1).cpu(),
+                      torch.cat(logits, 1).cpu())
+    after = (flash_attention_cuda.launches, ssm_chunk_scan_cuda.launches)
+    assert [a - b for a, b in zip(after, before)] == [7 * cfg.n_layers] * 2
     assert torch.equal(out["card"][0], out["cpu"][0])
     want = out["cpu"][1]
     torch.testing.assert_close(out["card"][1], want, rtol=1e-4,

@@ -62,15 +62,22 @@ _SERVE_PATH = ("repro_torch.kernels.flash_attention",
                "repro_torch.kernels.flash_attention.ops",
                "repro_torch.launch.steps")
 
+# the modules of the hybrid family's serving path
+_HYBRID_PATH = ("repro_torch.kernels.ssm_scan",
+                "repro_torch.kernels.ssm_scan.ref",
+                "repro_torch.kernels.ssm_scan.ssm_scan",
+                "repro_torch.kernels.ssm_scan.ops", "repro_torch.models.ssm",
+                "repro_torch.configs.hymba_1_5b")
+
 
 def test_port_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
-         *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH],
+         *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH, *_HYBRID_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 61     # every module imported
+    assert int(out.stdout.split()[-1]) == 66     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
