@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout; needs a card
     python3 chip_smoke.py --lr-witness   # only the learning-rate witness
     python3 chip_smoke.py --bf16-witness # only hymba's bfloat16 witness
+    python3 chip_smoke.py --attention-rows  # only hymba's attention rows
 
 Drives the port's four paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``), the reduce path
@@ -55,18 +56,25 @@ plain torch version on the inputs the paths give it. Phases:
    bitwise; the resumed run equals the uninterrupted one bitwise; the
    top-k, segment-reduce, level-fold and min-plus kernels all ran.
 9. serving, everything of the trainer freed first. 9a, before the model
-   allocates: the flash-attention kernel within tolerance of its plain
+   allocates: the flash-attention kernels within tolerance of their plain
    version (float32 2e-5, bfloat16 3e-2, the JAX tests') on the JAX test
-   shapes, bidirectional and ragged T/S, then at the cell's shapes in
-   bfloat16 against the plain version in float32 on the same inputs,
-   elementwise within 2^-8 of the value plus 2^-15: prefill (4, 2048,
-   64/8 heads, 128) request by request, decode (4, 1) over strided cache
-   prefixes of 1, 2047, 2048 and 2112 positions, and one call at
-   prefill_32k's (1, 32768) compared on two heads in 2048-row chunks.
-   Planted faults (a dropped key tile in prefill; a dropped warp state
-   or newest 32 keys in decode) must fail that limit. Times against the
-   bound, the plain version and ``scaled_dot_product_attention``. 9b: a
-   float32 qwen3-32b
+   shapes, bidirectional and ragged T/S; in bfloat16 also against the
+   plain version in float32 on the same inputs, elementwise: the
+   tensor-core tile kernel (bfloat16, D 64 and 128) within ``FLASH_TC``,
+   2^-8 |want| + (2^-8 + 2^-15) A + 2^-15 with A the float32 attention
+   over |v| (it rounds the softmax weights to bfloat16), the CUDA-core
+   kernels within ``FLASH_TIGHT``, 2^-8 |want| + 2^-15 (both derived
+   beside the constants). At the cell's shapes: prefill (4, 2048, 64/8
+   heads, 128) request by request, decode (4, 1) over strided cache
+   prefixes of 1, 2047, 2048 and 2112 positions on the split decode, and
+   one call at prefill_32k's (1, 32768) compared on two heads in 2048-row
+   chunks, with nvidia-smi's clocks and power sampled beside its timing.
+   Planted faults must fail those limits (prefill: a key tile skipped by
+   the last query tile, the diagonal shifted by one key, one key tile
+   dropped for every row; decode: every fourth 32-key group, the newest
+   32 keys, one split's keys dropped). Times against the bound, the plain
+   version and ``scaled_dot_product_attention``; the CUDA-core kernel
+   timed at the float32 gate's prefill layer. 9b: a float32 qwen3-32b
    at its published widths and 4 layers (TF32 off), 2 prompts of 128
    tokens and 8 decode steps: the last decode logits within 1e-3 of the
    largest logit of a fresh prefill of the extended sequences, and tokens
@@ -75,7 +83,8 @@ plain torch version on the inputs the paths give it. Phases:
    bfloat16, 4 prompts of 2048 tokens, ``make_prefill_step``, the caches
    copied into ``init_caches(cfg, 4, 2112)``, 64 ``make_serve_step``s.
    Checks: tokens in [0, vocab), every logit finite, 64 x 65 flash
-   launches, no decode step allocates a cache, the last decode logits
+   launches (64 on the tensor-core tile kernel, 64 x 64 on the split
+   decode), no decode step allocates a cache, the last decode logits
    within 5% of the largest logit of a fresh prefill's. The run is then
    repeated through the bare entry points (equal tokens) for the times:
    time to first token, decode ms per step, peak memory, the device's
@@ -93,10 +102,13 @@ plain torch version on the inputs the paths give it. Phases:
    under the band mask (windows 1, 63, 64, 100, 1024; T not a multiple
    of 64), then at the cell's windowed prefill (4, 32768, 25/5 heads, 64,
    window 1024) on two heads against the float32 plain version within
-   2^-8 of the value plus 2^-15, which the kernel run without the window
-   must fail. Times against the bounds and plain versions, the windowed
-   flash also against ``scaled_dot_product_attention`` with the band
-   mask. 10b: a float32 hymba-1.5b at its published widths and 2 layers
+   ``FLASH_TC``, which the kernel run without the window must fail; the
+   global causal prefill layer (4, 32768, 25/5, 64) on two heads in
+   2048-row chunks within ``FLASH_TC``, and the decode layers over the
+   global cache (32,832 positions) and over the 1,024-slot ring within
+   ``FLASH_TIGHT``. Times against the bounds and plain versions and
+   ``scaled_dot_product_attention`` (the windowed prefill with the band
+   mask). 10b: a float32 hymba-1.5b at its published widths and 2 layers
    (layer 0 global, layer 1 windowed; TF32 off), 2 prompts of 1,280 tokens
    and 8 decode steps: the last decode logits within 1e-3 of the largest
    logit of a fresh prefill, tokens and logits equal to the same run on
@@ -107,8 +119,9 @@ plain torch version on the inputs the paths give it. Phases:
    ``init_caches(cfg, 4, 32832)`` (global layers' k/v by position,
    windowed layers' last 1,024 positions into ring slot p % 1024, the
    Mamba states as they are), 64 ``make_serve_step``s. Checks: tokens in
-   [0, vocab), every logit finite, 32 x 65 flash and 32 x 65 scan
-   launches, no decode step allocates a cache, the last decode logits
+   [0, vocab), every logit finite, 32 x 65 flash (32 on the tensor-core
+   tile kernel, 32 x 64 on the split decode) and 32 x 65 scan launches,
+   no decode step allocates a cache, the last decode logits
    within 20% of the largest logit of a fresh prefill's (hymba's own
    bfloat16 noise reaches 9%; see ``SERVE_HYBRID_BF16_DIFF``), and two
    served runs with planted handoff faults beyond it. Then the times
@@ -186,6 +199,30 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 2):
+    """Device time of one ``fn()``: its kernels' time summed by
+    ``torch.profiler`` over ``reps`` runs, over ``reps``; None where the
+    profiler records no device time. Unlike :func:`cuda_ms` it leaves out
+    the card's idle gaps while the host launches slower than it runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    except Exception as e:      # a measurement, not a check
+        say(f"device time not measured ({type(e).__name__}: {e})")
+        return None
+    return busy / 1e3 / reps if busy > 0 else None
 
 
 class Recorder:
@@ -354,6 +391,14 @@ def _counted():
 def reset_counts():
     for fn in _counted():
         fn.launches = 0
+    paths = _counted()[5].launches_by_path
+    for p in paths:
+        paths[p] = 0
+
+
+def read_paths() -> dict:
+    """Flash-attention calls by kernel since the last ``reset_counts``."""
+    return dict(_counted()[5].launches_by_path)
 
 
 def read_counts() -> tuple[int, ...]:
@@ -1309,6 +1354,25 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 # against the bfloat16 plain version, this scales with the output, whose
 # typical size at the serving shapes is 0.01-0.04.
 FLASH_TIGHT = {"rtol": 2.0 ** -8, "atol": 2.0 ** -15}
+# The tensor-core tile kernel (bfloat16, D 64 or 128, T > 1) rounds each
+# softmax weight p_j = 2^(s_j c - m) to bfloat16 before the P.V product
+# and sums l from the float32 p_j, as the plain version rounds softmax(x)
+# to v's dtype before its product. So its float32 result is sum_j p~_j
+# v_j / l with |p~_j - p_j| <= u p_j, u = 2^-8 (bfloat16's unit
+# roundoff): at most u A from the exact o, where A = sum_j p_j |v_j| / l
+# is the float32 plain attention over |v| on the same inputs. Rounding
+# that result to bfloat16 adds u |o~| <= u |want| + u^2 A. So |got -
+# want32| <= u |want32| + u (1 + u) A, plus the float32 arithmetic's own
+# error: products and sums (the float32 tolerance 2e-5 before, at most
+# (1 + 2^-8) 2e-5 after the rounding, under the atol) and the weights
+# (the exponent s c - m by one FMA, off by at most |s c - m| 2^-23 with
+# c's and m's roundings, then ex2.approx, relative error below 2^-22: for
+# every weight above 2^-32 a relative error below 2^-17, under the 2^-15
+# A that arel adds to u (1 + u) = 2^-8 + 2^-16; smaller weights fall
+# under the atol). Hence rtol 2^-8, arel 2^-8 + 2^-15, atol 2^-15. The
+# CUDA-core paths keep FLASH_TIGHT.
+FLASH_TC = {"rtol": 2.0 ** -8, "arel": 2.0 ** -8 + 2.0 ** -15,
+            "atol": 2.0 ** -15}
 # (BH, T, D): the JAX test shapes, causal
 FLASH_JAX_SHAPES = [(2, 64, 32), (4, 128, 64), (1, 200, 128), (3, 256, 16)]
 # (BH, T, S, D, causal): bidirectional, then ragged T and S
@@ -1368,36 +1432,84 @@ def flash_close(got, want, dtype, label) -> float:
     return err
 
 
-def flash_over_limit(got, want32) -> tuple[float, float]:
-    """(max |got - want32|, max of |got - want32| / (rtol |want32| +
-    atol)) at ``FLASH_TIGHT``: the second is at most 1 when ``got`` is
-    within the limit."""
+def flash_over_limit(got, want32, a32=None) -> tuple[float, float]:
+    """(max |got - want32|, max of |got - want32| / limit): at
+    ``FLASH_TIGHT`` (rtol |want32| + atol), or with ``a32``, the float32
+    plain attention over |v|, at ``FLASH_TC`` (rtol |want32| + arel a32 +
+    atol). The second is at most 1 when ``got`` is within the limit."""
     import torch
     err = (got.to(torch.float32) - want32).abs()
-    lim = FLASH_TIGHT["rtol"] * want32.abs() + FLASH_TIGHT["atol"]
+    if a32 is None:
+        lim = FLASH_TIGHT["rtol"] * want32.abs() + FLASH_TIGHT["atol"]
+    else:
+        lim = (FLASH_TC["rtol"] * want32.abs() + FLASH_TC["arel"] * a32
+               + FLASH_TC["atol"])
     return float(err.max()), float((err / lim).max())
 
 
-def flash_tight(got, want32, label) -> tuple[float, float]:
-    """A bfloat16 kernel output within ``FLASH_TIGHT`` of the plain version
-    in float32 on the same inputs; returns ``flash_over_limit``."""
+def flash_check(got, want32, a32, label) -> tuple[float, float]:
+    """A bfloat16 kernel output within its limit of the plain version in
+    float32 on the same inputs: ``FLASH_TC`` given ``a32`` (the
+    tensor-core tile kernel), else ``FLASH_TIGHT``; returns
+    ``flash_over_limit``."""
     import torch
-    err, ratio = flash_over_limit(got, want32)
+    err, ratio = flash_over_limit(got, want32, a32)
+    what = "FLASH_TIGHT" if a32 is None else "FLASH_TC"
     check(bool(torch.isfinite(got).all()) and ratio <= 1.0,
-          f"flash {label}: kernel != float32 plain beyond rtol 2^-8, atol "
-          f"2^-15 (max |err| {err}, {ratio:.3g} x the limit)")
+          f"flash {label}: kernel != float32 plain beyond {what} (max "
+          f"|err| {err}, {ratio:.3g} x the limit)")
     return err, ratio
 
 
-def flash_fault_caught(faulty32, want32, label) -> float:
+def flash_fault_caught(faulty32, want32, label, a32=None) -> float:
     """A planted fault (the plain version with keys a faulty kernel would
-    drop, rounded to bfloat16 as the kernel's output is) must fail the
-    limit that the kernel passes; returns its err / limit."""
+    drop or add, rounded to bfloat16 as the kernel's output is) must fail
+    the limit that the kernel passes (``FLASH_TC`` given ``a32``, else
+    ``FLASH_TIGHT``); returns its err / limit."""
     import torch
-    _, ratio = flash_over_limit(faulty32.to(torch.bfloat16), want32)
+    _, ratio = flash_over_limit(faulty32.to(torch.bfloat16), want32, a32)
     check(ratio > 1.0, f"flash: the planted fault '{label}' passes the "
           f"limit ({ratio:.3g} x); the check cannot see it")
     return ratio
+
+
+class SmiSampler:
+    """Samples the card's SM clock (MHz), power draw (W) and temperature
+    (C) with ``nvidia-smi`` in a thread while the ``with`` block runs."""
+
+    QUERY = "clocks.sm,power.draw,temperature.gpu"
+
+    def __enter__(self):
+        import threading
+        self.rows, self._stop = [], threading.Event()
+
+        def run():
+            while not self._stop.is_set():
+                out = subprocess.run(
+                    ["nvidia-smi", f"--query-gpu={self.QUERY}",
+                     "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True, timeout=60)
+                try:
+                    self.rows.append(tuple(float(x) for x in out.stdout
+                                           .splitlines()[0].split(",")))
+                except (IndexError, ValueError):
+                    pass
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self) -> dict:
+        """min / max of each sampled quantity, and the sample count."""
+        out = {"samples": len(self.rows)}
+        for i, key in enumerate(("sm_mhz", "power_w", "temp_c")):
+            vals = [r[i] for r in self.rows]
+            out[key] = [min(vals), max(vals)] if vals else None
+        return out
 
 
 def check_flash_random() -> dict:
@@ -1407,10 +1519,11 @@ def check_flash_random() -> dict:
     largest error by dtype."""
     import torch
 
+    from repro_torch.kernels.flash_attention.flash_attention import path_of
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_torch
     gen = torch.Generator(device=DEVICE).manual_seed(14)
-    errs, ratio = {}, 0.0
+    errs, ratio = {}, {"FLASH_TIGHT": 0.0, "FLASH_TC": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         err = 0.0
         cases = ([(bh, t, t, d, True) for bh, t, d in FLASH_JAX_SHAPES]
@@ -1424,15 +1537,59 @@ def check_flash_random() -> dict:
             err = max(err, flash_close(
                 got, flash_attention_torch(q, k, v, causal), dt, label))
             if dt == torch.bfloat16:
-                ratio = max(ratio, flash_tight(got, flash_attention_torch(
-                    *(x.float() for x in (q, k, v)), causal), label)[1])
+                qf, kf, vf = (x.float() for x in (q, k, v))
+                tc = path_of(q[:, :, None]) == "tile_tc"
+                a32 = flash_attention_torch(qf, kf, vf.abs(), causal) if tc \
+                    else None
+                lim = "FLASH_TC" if tc else "FLASH_TIGHT"
+                ratio[lim] = max(ratio[lim], flash_check(
+                    got, flash_attention_torch(qf, kf, vf, causal), a32,
+                    label)[1])
         errs[_dt_name(dt)] = err
     say(f"kernels: flash attention within tolerance of its plain version "
         f"on the JAX test shapes {FLASH_JAX_SHAPES} (causal) and on "
         f"{FLASH_MORE}, float32 (max |err| {errs['float32']:.3g}, tol "
         f"2e-5) and bfloat16 (max |err| {errs['bfloat16']:.3g}, tol 3e-2; "
-        f"against the float32 plain version {ratio:.3g} x its limit)")
+        f"against the float32 plain version {ratio['FLASH_TC']:.3g} x "
+        f"FLASH_TC on the tensor-core kernel's shapes, "
+        f"{ratio['FLASH_TIGHT']:.3g} x FLASH_TIGHT on the others)")
     return errs
+
+
+def flash_simt_times(b=2, t=128, h=64, hkv=8, d=128) -> dict:
+    """Phase 9a, the CUDA-core tile kernel at the float32 gate's prefill
+    layer (qwen3-32b-f32-l4-b2-p128-g8: (b, t, h/hkv, d) causal, float32):
+    within the JAX tests' 2e-5 of the plain version; kernel, plain and
+    ``scaled_dot_product_attention`` times and the bound at the float32
+    rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(128)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE)
+               for shape in ((b, t, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+    scale = 1.0 / d ** 0.5
+    out = {"max_abs_err": flash_close(
+        flash_attention_gqa(q, k, v, scale, True),
+        flash_attention_gqa_torch(q, k, v, scale, True), torch.float32,
+        f"float32 prefill {(b, t, h, hkv, d)}")}
+    out["ms"] = cuda_ms(lambda: flash_attention_gqa(q, k, v, scale, True), 20)
+    out["plain_ms"] = cuda_ms(
+        lambda: flash_attention_gqa_torch(q, k, v, scale, True), 20)
+    qs, ks, vs = sdpa_layout(q, k, v)
+    out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, scale=scale, enable_gqa=True), 20)
+    out["bound_ms"], out["bound_by"] = flash_bound(
+        flash_work(b, t, t, h, hkv, d, True, 4), torch.float32)
+    say(f"flash CUDA-core tile kernel, float32 ({b}, {t}, {h}/{hkv}, {d}) "
+        f"causal ({nvidia_smi_line()}): {out['ms']:.4f} ms per layer (bound "
+        f"{out['bound_ms']:.4f} ms, {out['bound_by']}), plain "
+        f"{out['plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{out['library_ms']:.4f} ms; max |err| {out['max_abs_err']:.3g}")
+    return out
 
 
 def sdpa_layout(q, k, v):
@@ -1444,22 +1601,27 @@ def sdpa_layout(q, k, v):
 def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
                          cache=SERVE_PROMPT + SERVE_STEPS,
                          long_t=LONG_T, long_heads=(0, 37)) -> dict:
-    """Phase 9a at the cell's shapes, bfloat16, each output held to
-    ``FLASH_TIGHT`` against the plain version in float32 on the same
-    inputs: prefill (b, t, h/hkv, d) causal, request by request; decode
-    (b, 1) over strided cache prefixes of 1, t - 1, t and ``cache``
-    positions; one long-context call (1, long_t) on ``long_heads`` in
-    2048-row query chunks. Planted faults (a 64-key tile dropped for one
-    query tile; a decode warp's keys, or the newest 32 keys, dropped)
-    must fail that limit. Then the times: kernel, plain and
-    ``scaled_dot_product_attention`` per prefill and per decode layer,
-    and the long call."""
+    """Phase 9a at the cell's shapes, bfloat16, each output held against
+    the plain version in float32 on the same inputs: prefill (b, t,
+    h/hkv, d) causal, request by request, on the tensor-core tile kernel
+    within ``FLASH_TC``; decode (b, 1) over strided cache prefixes of 1,
+    t - 1, t and ``cache`` positions on the split decode within
+    ``FLASH_TIGHT``; one long-context call (1, long_t) on ``long_heads`` in
+    2048-row query chunks within ``FLASH_TC``. Planted faults must fail
+    those limits: in prefill a 64-key tile skipped by the last query tile,
+    the diagonal shifted by one key, one key tile dropped for every row; in
+    decode every fourth 32-key group, the newest 32 keys or one split's
+    keys dropped. Then the times: kernel, plain and
+    ``scaled_dot_product_attention`` per prefill and per decode layer, and
+    the long call with the card's clocks and power sampled beside it."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        DECODE_HEADS, decode_splits)
     from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
     from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_gqa_torch, sdpa)
+        TC_KEYS, flash_attention_gqa_torch, sdpa, split_chunk)
     from repro_torch.models.attention import causal_mask
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 references
     bf = torch.bfloat16
@@ -1472,21 +1634,35 @@ def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
     # prefill
     q, k, v = rnd(b, t, h, d), rnd(b, t, hkv, d), rnd(b, t, hkv, d)
     got = flash_attention_gqa(q, k, v, scale, causal=True)
-    e = [flash_tight(got[i:i + 1], flash_attention_gqa_torch(
-        *f32(q[i:i + 1], k[i:i + 1], v[i:i + 1]), scale, causal=True),
-        f"prefill request {i}") for i in range(b)]
+    e = []
+    for i in range(b):
+        qi, ki, vi = f32(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        e.append(flash_check(
+            got[i:i + 1],
+            flash_attention_gqa_torch(qi, ki, vi, scale, causal=True),
+            flash_attention_gqa_torch(qi, ki, vi.abs(), scale, causal=True),
+            f"prefill request {i}"))
     checks[f"prefill ({b}, {t}, {h}/{hkv}, {d}) causal"] = (
         max(x[0] for x in e), max(x[1] for x in e))
-    # fault: the last 64-row query tile skips key tile 0
-    last = (t - 1) // 64
-    mask = causal_mask(t, t, device=DEVICE)
-    mask[64 * last:, :64] = False
+    # faults, each against request 0 under FLASH_TC
     q0, k0, v0 = f32(q[:1], k[:1], v[:1])
-    label = f"prefill: query tile {last} skips key tile 0"
-    faults[label] = flash_fault_caught(
-        sdpa(q0, k0, v0, mask[None], scale),
-        flash_attention_gqa_torch(q0, k0, v0, scale, causal=True), label)
-    del q0, k0, v0, mask
+    good = causal_mask(t, t, device=DEVICE)
+    want = sdpa(q0, k0, v0, good[None], scale)
+    a32 = sdpa(q0, k0, v0.abs(), good[None], scale)
+    last = (t - 1) // 64
+    skipped = good.clone()
+    skipped[64 * last:, :64] = False
+    kpos = torch.arange(t, device=DEVICE)[None, :]
+    for label, mask in (
+            (f"prefill: query tile {last} skips key tile 0", skipped),
+            ("prefill: the diagonal shifted by one key",
+             causal_mask(t, t, offset=1, device=DEVICE)),
+            (f"prefill: key tile 1 (keys {TC_KEYS}-{2 * TC_KEYS - 1}) "
+             "dropped for every row",
+             good & ((kpos < TC_KEYS) | (kpos >= 2 * TC_KEYS)))):
+        faults[label] = flash_fault_caught(sdpa(q0, k0, v0, mask[None], scale),
+                                           want, label, a32)
+    del q0, k0, v0, good, want, a32, skipped, kpos
     v_["ms"] = cuda_ms(lambda: flash_attention_gqa(q, k, v, scale, True), 5)
     v_["plain_ms"] = cuda_ms(
         lambda: flash_attention_gqa_torch(q, k, v, scale, True), 2, 1)
@@ -1501,31 +1677,41 @@ def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
     ck, cv, q1 = rnd(b, cache, hkv, d), rnd(b, cache, hkv, d), rnd(b, 1, h, d)
     for n in (1, t - 1, t, cache):
         kp, vp = ck[:, :n], cv[:, :n]
-        checks[f"decode ({b}, 1, {h}/{hkv}, {d}) over {n}"] = flash_tight(
+        checks[f"decode ({b}, 1, {h}/{hkv}, {d}) over {n}"] = flash_check(
             flash_attention_gqa(q1, kp, vp, scale, causal=False),
             flash_attention_gqa_torch(*f32(q1, kp, vp), scale, causal=False),
-            f"decode over {n} positions")
-    # faults: one warp's state (keys with (key // 32) % 4 == 3) or the
-    # newest 32 keys left out of the merge
+            None, f"decode over {n} positions")
+    # faults: every fourth 32-key group (the old kernel's warp 3), the
+    # newest 32 keys, or split 3's keys (the last split's, if fewer) left
+    # out of the merge
     qf, kf, vf = f32(q1, ck, cv)
     want = flash_attention_gqa_torch(qf, kf, vf, scale, causal=False)
     kpos = torch.arange(cache, device=DEVICE)[None, None, :]
-    for label, drop in (("decode: warp 3's state dropped",
+    n_split = decode_splits(cache, b * hkv * -(-(h // hkv) // DECODE_HEADS))
+    chunk, s3 = split_chunk(cache, n_split), min(3, n_split - 1)
+    for label, drop in (("decode: every fourth 32-key group dropped",
                          (kpos // 32) % 4 == 3),
                         ("decode: the newest 32 keys dropped",
-                         kpos >= cache - 32)):
+                         kpos >= cache - 32),
+                        (f"decode: split {s3} of {n_split} ({chunk} keys) "
+                         "dropped", (kpos >= s3 * chunk)
+                         & (kpos < (s3 + 1) * chunk))):
         faults[label] = flash_fault_caught(
             sdpa(qf, kf, vf, ~drop, scale), want, label)
     del qf, kf, vf, want
-    v_["decode_ms"] = cuda_ms(
-        lambda: flash_attention_gqa(q1, ck, cv, scale, False), 20)
-    v_["decode_plain_ms"] = cuda_ms(
-        lambda: flash_attention_gqa_torch(q1, ck, cv, scale, False), 20)
     qs, ks, vs = sdpa_layout(q1, ck, cv)
-    v_["decode_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, scale=scale, enable_gqa=True), 20)
+    for key, fn in (
+            ("decode_ms", lambda: flash_attention_gqa(q1, ck, cv, scale,
+                                                      False)),
+            ("decode_plain_ms", lambda: flash_attention_gqa_torch(
+                q1, ck, cv, scale, False)),
+            ("decode_library_ms", lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, scale=scale, enable_gqa=True))):
+        v_[key] = cuda_ms(fn, 20)
+        v_[key.replace("_ms", "_device_ms")] = device_ms(fn, 20)
     v_["decode_bound_ms"], v_["decode_bound_by"] = flash_bound(
         flash_work(b, 1, cache, h, hkv, d, False, 2), bf)
+    v_["decode_splits"] = n_split
     del ck, cv, q1, qs, ks, vs
     torch.cuda.empty_cache()
     # one long-context call, compared on sampled heads in row chunks
@@ -1538,18 +1724,20 @@ def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
         kv = hh // g
         for r0 in range(0, long_t, 2048):
             r1 = min(long_t, r0 + 2048)
-            e.append(flash_tight(
-                got[:, r0:r1, hh:hh + 1], sdpa(
-                    *f32(q[:, r0:r1, hh:hh + 1], k[:, :r1, kv:kv + 1],
-                         v[:, :r1, kv:kv + 1]),
-                    causal_mask(r1 - r0, r1, offset=r0,
-                                device=DEVICE)[None], scale),
+            qc, kc, vc = f32(q[:, r0:r1, hh:hh + 1], k[:, :r1, kv:kv + 1],
+                             v[:, :r1, kv:kv + 1])
+            mask = causal_mask(r1 - r0, r1, offset=r0, device=DEVICE)[None]
+            e.append(flash_check(
+                got[:, r0:r1, hh:hh + 1], sdpa(qc, kc, vc, mask, scale),
+                sdpa(qc, kc, vc.abs(), mask, scale),
                 f"long context head {hh} rows {r0}:{r1}"))
     checks[f"long (1, {long_t}, {h}/{hkv}, {d}) causal, heads "
            f"{list(long_heads)}"] = (max(x[0] for x in e),
                                      max(x[1] for x in e))
-    v_["long_ms"] = cuda_ms(lambda: flash_attention_gqa(q, k, v, scale, True),
-                            2, 0)
+    with SmiSampler() as smi:
+        v_["long_ms"] = cuda_ms(
+            lambda: flash_attention_gqa(q, k, v, scale, True), 20, 1)
+    v_["long_clocks"] = smi.summary()
     v_["long_bound_ms"], _ = flash_bound(
         flash_work(1, long_t, long_t, h, hkv, d, True, 2), bf)
     del q, k, v, got
@@ -1560,10 +1748,11 @@ def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
     v_["planted_faults"] = [{"fault": lab, "err_over_limit": r}
                             for lab, r in faults.items()]
     say("flash attention at the serving shapes, bfloat16 against the plain "
-        "version in float32 (|err| <= 2^-8 |want| + 2^-15): " + "; ".join(
+        "version in float32 (prefill and long: FLASH_TC, decode: "
+        "FLASH_TIGHT): " + "; ".join(
             f"{lab}: max |err| {x[0]:.4g}, {x[1]:.4g} x the limit"
             for lab, x in checks.items()))
-    say("flash attention planted faults, each beyond the limit: " + "; ".join(
+    say("flash attention planted faults, each beyond its limit: " + "; ".join(
         f"{lab}: {r:.4g} x the limit" for lab, r in faults.items()))
     say(f"flash attention at the serving shapes ({nvidia_smi_line()}): "
         f"prefill ({b}, {t}, "
@@ -1571,12 +1760,15 @@ def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
         f"{v_['bound_ms']:.4f} ms, {v_['bound_by']}), plain "
         f"{v_['plain_ms']:.4f} ms, scaled_dot_product_attention "
         f"{v_['library_ms']:.4f} ms; decode ({b}, 1) over {cache} "
-        f"positions {v_['decode_ms']:.4f} ms per layer (bound "
-        f"{v_['decode_bound_ms']:.4f} ms, {v_['decode_bound_by']}), plain "
-        f"{v_['decode_plain_ms']:.4f} ms, scaled_dot_product_attention "
-        f"{v_['decode_library_ms']:.4f} ms; long context (1, {long_t}) "
+        f"positions in {n_split} splits {v_['decode_ms']:.4f} ms per layer "
+        f"(bound {v_['decode_bound_ms']:.4f} ms, {v_['decode_bound_by']}), "
+        f"plain {v_['decode_plain_ms']:.4f} ms, scaled_dot_product_attention"
+        f" {v_['decode_library_ms']:.4f} ms (device time by the profiler: "
+        f"kernel {v_['decode_device_ms']}, plain "
+        f"{v_['decode_plain_device_ms']}, library "
+        f"{v_['decode_library_device_ms']} ms); long context (1, {long_t}) "
         f"causal {v_['long_ms']:.4f} ms (bound {v_['long_bound_ms']:.4f} "
-        f"ms)")
+        f"ms; nvidia-smi beside it: {v_['long_clocks']})")
     return v_
 
 
@@ -1745,8 +1937,10 @@ def serve_f32(cfg, b, t, n_steps, cpu=True) -> dict:
     name = f"{cfg.name}-f32-l{cfg.n_layers}-b{b}-p{t}-g{n_steps}"
     params = api.init_fn(cfg, DEVICE)(0)
     prompts = _prompts(cfg, b, t, 7, DEVICE)
+    reset_counts()
     toks, last, pre, caches, _ = greedy_run(cfg, params, prompts, n_steps)
     fresh = fresh_prefill_logits(cfg, params, prompts, toks)
+    paths = read_paths()
     scale = float(fresh.abs().max())
     diff = float((last - fresh).abs().max())
     check(diff <= 1e-3 * scale, f"{name}: decode logits differ from a "
@@ -1755,8 +1949,9 @@ def serve_f32(cfg, b, t, n_steps, cpu=True) -> dict:
     torch.cuda.empty_cache()
     if not cpu:
         say(f"{name}: last decode vs fresh prefill {diff:.3g} (max |logit| "
-            f"{scale:.4g}; <= 1e-3 x max |logit|)")
-        return dict(diff=diff, scale=scale)
+            f"{scale:.4g}; <= 1e-3 x max |logit|); flash calls by kernel "
+            f"{paths}")
+        return dict(diff=diff, scale=scale, paths=paths)
     # the same run on the CPU
     cpu = T.tree_map(lambda w: w.detach().cpu(), params)
     del params
@@ -1783,8 +1978,9 @@ def serve_f32(cfg, b, t, n_steps, cpu=True) -> dict:
         f"(CPU run {cpu_s:.1f} s); logits vs CPU max |err| prefill "
         f"{errs[0]:.3g}, last decode {errs[1]:.3g} (max |logit| "
         f"{scale:.4g}); last decode vs fresh prefill {diff:.3g} "
-        f"(<= 1e-3 x max |logit|)")
-    return dict(diff=diff, scale=scale, cpu_err=max(errs))
+        f"(<= 1e-3 x max |logit|); flash calls on the card by kernel "
+        f"{paths}")
+    return dict(diff=diff, scale=scale, cpu_err=max(errs), paths=paths)
 
 
 _KERNEL_NAMES = ("level fold", "min-plus", "segment reduce", "top-k select",
@@ -1801,7 +1997,9 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     again through the bare entry points, timed; one decode step and one
     prefill under the profiler; the last decode logits against a fresh
     prefill's within ``gate`` of the largest logit, and a served run with
-    each planted handoff fault of ``faults`` beyond it."""
+    each planted handoff fault of ``faults`` beyond it. Every prefill
+    attention call must have run the tensor-core tile kernel and every
+    decode call the split decode (``launches_by_path``)."""
     import torch
 
     from repro_torch import tree as T
@@ -1821,11 +2019,15 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     # the main path, counted, every call's logits checked
     reset_counts()
     toks, last, _, caches, _ = greedy_run(cfg, params, prompts, n_steps)
-    counts = read_counts()
+    counts, paths = read_counts(), read_paths()
     want = cfg.n_layers * (1 + n_steps)
     launched = ", ".join(f"{_KERNEL_NAMES[i]} {counts[i]}" for i in kernels)
     check(all(counts[i] == want for i in kernels),
           f"{name}: launches {launched}, expected {want} each")
+    want_paths = {"tile_tc": cfg.n_layers, "tile_simt": 0,
+                  "decode_split": cfg.n_layers * n_steps}
+    check(paths == want_paths, f"{name}: flash calls by kernel {paths}, "
+          f"expected {want_paths}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           f"{name}: a token outside [0, {cfg.vocab})")
     cache_bytes = T.nbytes(caches)
@@ -1876,7 +2078,7 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     step_s = statistics.median(tm["step_s"])
     say(f"{name} ({nvidia_smi_line()}): tokens in [0, {cfg.vocab}), "
         f"logits finite; launches {launched} (each = {cfg.n_layers} x (1 + "
-        f"{n_steps})); prefill (time to first token) {tm['prefill_s']:.4f} "
+        f"{n_steps})), flash calls by kernel {paths}; prefill (time to first token) {tm['prefill_s']:.4f} "
         f"s, {b * t / tm['prefill_s']:.1f} tokens/s; decode median "
         f"{step_s * 1e3:.4f} ms per step (min "
         f"{min(tm['step_s']) * 1e3:.4f}, max {max(tm['step_s']) * 1e3:.4f}),"
@@ -1886,7 +2088,8 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
         f"{100 * diff / scale:.2f}%; bfloat16, <= {gate} x max |logit|)")
     say(f"{name}: max_memory_allocated {tm['prefill_peak']} over init and "
         f"prefill, {peak} over the served run")
-    return dict(counts=counts, prefill_s=tm["prefill_s"], step_s=step_s,
+    return dict(counts=counts, paths=paths, prefill_s=tm["prefill_s"],
+                step_s=step_s,
                 steps=tm["step_s"], peak=peak, diff=diff, scale=scale,
                 faults=fault_diffs,
                 busy=None if dprof is None else dprof[1] / dprof[0],
@@ -2122,11 +2325,12 @@ def check_window_random() -> dict:
     version); returns the largest error by dtype."""
     import torch
 
+    from repro_torch.kernels.flash_attention.flash_attention import path_of
     from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
     from repro_torch.kernels.flash_attention.ref import sdpa
     from repro_torch.models.attention import causal_mask
     gen = torch.Generator(device=DEVICE).manual_seed(1024)
-    errs, ratio = {}, 0.0
+    errs, ratio = {}, {"FLASH_TIGHT": 0.0, "FLASH_TC": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         err = 0.0
         for b, t, h, hkv, d, w in WINDOW_SHAPES:
@@ -2140,14 +2344,20 @@ def check_window_random() -> dict:
             err = max(err, flash_close(got, sdpa(q, k, v, mask, scale), dt,
                                        label))
             if dt == torch.bfloat16:
-                ratio = max(ratio, flash_tight(got, sdpa(
-                    q.float(), k.float(), v.float(), mask, scale), label)[1])
+                qf, kf, vf = (x.float() for x in (q, k, v))
+                tc = path_of(q) == "tile_tc"
+                a32 = sdpa(qf, kf, vf.abs(), mask, scale) if tc else None
+                lim = "FLASH_TC" if tc else "FLASH_TIGHT"
+                ratio[lim] = max(ratio[lim], flash_check(
+                    got, sdpa(qf, kf, vf, mask, scale), a32, label)[1])
         errs[_dt_name(dt)] = err
     say(f"kernels: windowed flash attention within tolerance of its plain "
         f"version on (B, T, H, Hkv, D, window) {WINDOW_SHAPES}, float32 "
         f"(max |err| {errs['float32']:.3g}, tol 2e-5) and bfloat16 (max "
         f"|err| {errs['bfloat16']:.3g}, tol 3e-2; against the float32 "
-        f"plain version {ratio:.3g} x its limit)")
+        f"plain version {ratio['FLASH_TC']:.3g} x FLASH_TC on the "
+        f"tensor-core kernel's shapes, {ratio['FLASH_TIGHT']:.3g} x "
+        f"FLASH_TIGHT on the others)")
     return errs
 
 
@@ -2157,9 +2367,9 @@ def window_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, h=25, hkv=5, d=64,
     """Phase 10a at the cell's windowed prefill, bfloat16: one kernel call
     on (b, t, h/hkv, d) with the window, compared on ``heads`` in
     ``chunk``-row query blocks (each against its band of keys) to the plain
-    version in float32 on the same inputs within ``FLASH_TIGHT``. A planted
-    fault, the kernel run on those heads without the window, must fail
-    that limit. Then the times: kernel, plain (band by band) and
+    version in float32 on the same inputs within ``FLASH_TC`` (the
+    tensor-core tile kernel). A planted fault, the kernel run on those
+    heads without the window, must fail that limit. Then the times: kernel, plain (band by band) and
     ``scaled_dot_product_attention`` with the band mask."""
     import torch
     import torch.nn.functional as F
@@ -2182,13 +2392,16 @@ def window_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, h=25, hkv=5, d=64,
         nowin = flash_attention_gqa(qh, kh, vh, scale, True)
         for r0 in range(0, t, chunk):
             r1, k0 = min(t, r0 + chunk), max(0, r0 - window + 1)
-            want = sdpa(*(x.float() for x in (qh[:, r0:r1], kh[:, k0:r1],
-                                              vh[:, k0:r1])),
-                        causal_mask(r1 - r0, r1 - k0, window, r0 - k0,
-                                    device=DEVICE)[None], scale)
-            e.append(flash_tight(got[:, r0:r1, hh:hh + 1], want,
+            qc, kc, vc = (x.float() for x in (qh[:, r0:r1], kh[:, k0:r1],
+                                              vh[:, k0:r1]))
+            mask = causal_mask(r1 - r0, r1 - k0, window, r0 - k0,
+                               device=DEVICE)[None]
+            want = sdpa(qc, kc, vc, mask, scale)
+            a32 = sdpa(qc, kc, vc.abs(), mask, scale)
+            e.append(flash_check(got[:, r0:r1, hh:hh + 1], want, a32,
                                  f"windowed head {hh} rows {r0}:{r1}"))
-            fault = max(fault, flash_over_limit(nowin[:, r0:r1], want)[1])
+            fault = max(fault, flash_over_limit(nowin[:, r0:r1], want,
+                                                a32)[1])
     label = "windowed prefill: the kernel run without the window"
     check(fault > 1.0, f"flash: the planted fault '{label}' passes the limit "
           f"({fault:.3g} x); the check cannot see it")
@@ -2233,6 +2446,121 @@ def window_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, h=25, hkv=5, d=64,
         f"ms per layer (bound {out['bound_ms']:.4f} ms, {out['bound_by']}), "
         f"plain {out['plain_ms']:.4f} ms, scaled_dot_product_attention with "
         f"the band mask {lib}")
+    return out
+
+
+def plain_causal_rows(q, k, v, scale, rows=512):
+    """The float32-softmax plain version of causal attention, query rows in
+    blocks of ``rows`` against keys [0, r1): the plain version of a layer
+    whose (T, T) scores do not fit on the card at once."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import sdpa
+    from repro_torch.models.attention import causal_mask
+    t = q.shape[1]
+    out = torch.empty_like(q)
+    for r0 in range(0, t, rows):
+        r1 = min(t, r0 + rows)
+        out[:, r0:r1] = sdpa(q[:, r0:r1], k[:, :r1], v[:, :r1], causal_mask(
+            r1 - r0, r1, offset=r0, device=q.device)[None], scale)
+    return out
+
+
+def hymba_attention_rows(b=HYBRID_BATCH, t=HYBRID_PROMPT, h=25, hkv=5,
+                         d=64, cache=HYBRID_PROMPT + HYBRID_STEPS,
+                         window=HYMBA_WINDOW, heads=(0, 24),
+                         chunk=2048) -> dict:
+    """Phase 10a, hymba's attention outside the windowed prefill, bfloat16:
+    the global causal prefill layer (b, t, h/hkv, d), checked on ``heads``
+    in ``chunk``-row query blocks against the float32 plain version; the
+    decode layers (b, 1) over a global cache of ``cache`` positions and
+    over the windowed ring of ``window`` slots, checked whole. Times of
+    each: kernel, plain (the prefill in 512-row blocks,
+    :func:`plain_causal_rows`), ``scaled_dot_product_attention`` and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, sdpa)
+    from repro_torch.models.attention import causal_mask
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(32768)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=DEVICE).to(bf)
+    f32 = lambda *xs: [x.float() for x in xs]
+    scale = 1.0 / d ** 0.5
+    g = h // hkv
+    out = {}
+    # the global causal prefill layer
+    q, k, v = rnd(b, t, h, d), rnd(b, t, hkv, d), rnd(b, t, hkv, d)
+    got = flash_attention_gqa(q, k, v, scale, causal=True)
+    e = []
+    for hh in heads:
+        kv = hh // g
+        for r0 in range(0, t, chunk):
+            r1 = min(t, r0 + chunk)
+            qc, kc, vc = f32(q[:, r0:r1, hh:hh + 1], k[:, :r1, kv:kv + 1],
+                             v[:, :r1, kv:kv + 1])
+            mask = causal_mask(r1 - r0, r1, offset=r0, device=DEVICE)[None]
+            e.append(flash_check(
+                got[:, r0:r1, hh:hh + 1], sdpa(qc, kc, vc, mask, scale),
+                sdpa(qc, kc, vc.abs(), mask, scale),
+                f"global causal head {hh} rows {r0}:{r1}"))
+    row = {"checks": [{"shape": f"global causal prefill ({b}, {t}, "
+                                f"{h}/{hkv}, {d}), heads {list(heads)}",
+                       "max_abs_err": max(x[0] for x in e),
+                       "err_over_limit": max(x[1] for x in e)}]}
+    del got
+    row["ms"] = cuda_ms(lambda: flash_attention_gqa(q, k, v, scale, True), 2,
+                        1)
+    row["plain_ms"] = cuda_ms(lambda: plain_causal_rows(q, k, v, scale), 1, 1)
+    qs, ks, vs = sdpa_layout(q, k, v)
+    row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, scale=scale, enable_gqa=True), 3)
+    row["bound_ms"], row["bound_by"] = flash_bound(
+        flash_work(b, t, t, h, hkv, d, True, 2), bf)
+    out["global_prefill"] = row
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    # decode over the global cache and over the windowed ring
+    for name, n in (("global_decode", cache), ("window_decode", window)):
+        ck, cv, q1 = rnd(b, n, hkv, d), rnd(b, n, hkv, d), rnd(b, 1, h, d)
+        err, ratio = flash_check(
+            flash_attention_gqa(q1, ck, cv, scale, causal=False),
+            flash_attention_gqa_torch(*f32(q1, ck, cv), scale, causal=False),
+            None, f"{name} over {n} positions")
+        row = {"checks": [{"shape": f"decode ({b}, 1, {h}/{hkv}, {d}) over "
+                                    f"{n}", "max_abs_err": err,
+                           "err_over_limit": ratio}]}
+        qs, ks, vs = sdpa_layout(q1, ck, cv)
+        for key, fn in (
+                ("ms", lambda: flash_attention_gqa(q1, ck, cv, scale,
+                                                   False)),
+                ("plain_ms", lambda: flash_attention_gqa_torch(
+                    q1, ck, cv, scale, False)),
+                ("library_ms", lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, scale=scale, enable_gqa=True))):
+            row[key] = cuda_ms(fn, 20)
+            row[key.replace("ms", "device_ms")] = device_ms(fn, 20)
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            flash_work(b, 1, n, h, hkv, d, False, 2), bf)
+        out[name] = row
+        del ck, cv, q1, qs, ks, vs
+    torch.cuda.empty_cache()
+    for name, row in out.items():
+        row["max_abs_err"] = row["checks"][0]["max_abs_err"]
+        say(f"hymba {name} {row['checks'][0]['shape']} "
+            f"({nvidia_smi_line()}): {row['ms']:.4f} ms per layer (bound "
+            f"{row['bound_ms']:.4f} ms, {row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{row['library_ms']:.4f} ms; max |err| {row['max_abs_err']:.4g},"
+            f" {row['checks'][0]['err_over_limit']:.4g} x the limit"
+            + ("" if "device_ms" not in row else
+               f"; device time by the profiler: kernel {row['device_ms']}, "
+               f"plain {row['plain_device_ms']}, library "
+               f"{row['library_device_ms']} ms"))
     return out
 
 
@@ -2304,10 +2632,10 @@ def bf16_witness() -> None:
 
 def main(args: list[str]) -> int:
     import torch
-    if args not in ([], ["--lr-witness"], ["--bf16-witness"]):
-        print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness], got "
-              f"{args}",
-              file=sys.stderr)
+    if args not in ([], ["--lr-witness"], ["--bf16-witness"],
+                    ["--attention-rows"]):
+        print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
+              f"--attention-rows], got {args}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2335,6 +2663,9 @@ def main(args: list[str]) -> int:
         return 0
     if args == ["--bf16-witness"]:
         bf16_witness()
+        return 0
+    if args == ["--attention-rows"]:
+        hymba_attention_rows()
         return 0
 
     # the two configurations
@@ -2400,9 +2731,10 @@ def main(args: list[str]) -> int:
           "trainer")
     fl_errs = check_flash_random()
     fl = flash_serving_shapes()
+    simt = flash_simt_times()
     t9b = time.perf_counter()
     qwen = ARCHS["qwen3-32b"]
-    serve_f32(dataclasses.replace(qwen, n_layers=4), 2, 128, 8)
+    f32_gate = serve_f32(dataclasses.replace(qwen, n_layers=4), 2, 128, 8)
     t9c = time.perf_counter()
     cell = serve_cell(qwen, SERVE_CELL, SERVE_BATCH, SERVE_PROMPT,
                       SERVE_STEPS, SERVE_BF16_DIFF)
@@ -2421,6 +2753,7 @@ def main(args: list[str]) -> int:
     sc = scan_cell_shapes()
     wf_errs = check_window_random()
     wf = window_cell_shapes()
+    hr = hymba_attention_rows()
     t10b = time.perf_counter()
     serve_f32(hymba(2), 2, 1280, 8)
     serve_f32(hymba(), 2, 2048, 64, cpu=False)
@@ -2497,60 +2830,111 @@ def main(args: list[str]) -> int:
                  "launches_per_step": (l1["counts"][3] + l1["counts"][4])
                  / l1["steps"]})
     fl_err = max(fl["max_abs_err"], *fl_errs.values())
-    rows.append({"name": "flash_attention", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention/"
-                             "flash_attention.py:69",
-                 "launches": cell["counts"][5], "max_abs_err": fl_err,
-                 "max_abs_err_float32": fl_errs["float32"],
-                 "tol": dict(FLASH_TOL, bfloat16_vs_float32_plain=FLASH_TIGHT),
-                 "checks": fl["checks"],
-                 "planted_faults": fl["planted_faults"],
+    flash = {"route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:69",
+             "bitwise": False,
+             "library": "torch.nn.functional.scaled_dot_product_attention"}
+    tc_tol = {"bfloat16_vs_float32_plain": FLASH_TC, **FLASH_TOL}
+    tight_tol = {"bfloat16_vs_float32_plain": FLASH_TIGHT, **FLASH_TOL}
+    served = lambda c, n: (f"served run: 1 prefill + {n} decode steps x "
+                           f"{c['n_layers']} layers")
+    rows.append({"name": "flash_tile_tc", **flash,
+                 "launches": cell["paths"]["tile_tc"],
+                 "launches_by_path": cell["paths"], "max_abs_err": fl_err,
+                 "max_abs_err_float32": fl_errs["float32"], "tol": tc_tol,
+                 "checks": [c for c in fl["checks"]
+                            if not c["shape"].startswith("decode")],
+                 "planted_faults": [f for f in fl["planted_faults"]
+                                    if f["fault"].startswith("prefill")],
                  "ms": fl["ms"], "plain_ms": fl["plain_ms"],
                  "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-                 "library_ms": fl["library_ms"],
-                 "decode_ms": fl["decode_ms"],
-                 "decode_plain_ms": fl["decode_plain_ms"],
-                 "decode_bound_ms": fl["decode_bound_ms"],
-                 "decode_bound_by": fl["decode_bound_by"],
-                 "decode_library_ms": fl["decode_library_ms"],
-                 "long_ms": fl["long_ms"],
+                 "library_ms": fl["library_ms"], "long_ms": fl["long_ms"],
                  "long_bound_ms": fl["long_bound_ms"],
-                 "bitwise": False, "config": SERVE_CELL, "dtype": "bfloat16",
+                 "long_nvidia_smi": fl["long_clocks"],
+                 "config": SERVE_CELL, "dtype": "bfloat16",
                  "ms_per": f"prefill layer ({SERVE_BATCH} x {SERVE_PROMPT}, "
-                           "64/8 heads, causal)",
-                 "decode_ms_per": f"decode layer ({SERVE_BATCH} x 1 over "
-                                  f"{SERVE_PROMPT + SERVE_STEPS} positions)",
+                           "64/8 heads of 128, causal)",
                  "long_ms_per": f"call (1 x {LONG_T}, 64/8 heads, causal)",
-                 "launches_per": f"served run: 1 prefill + {SERVE_STEPS} "
-                                 f"decode steps x {cell['n_layers']} layers",
-                 "library": "torch.nn.functional.scaled_dot_product_attention"
-                 })
-    hy_launches = f"served run: 1 prefill + {HYBRID_STEPS} decode steps x " \
-                  f"{hy['n_layers']} layers"
-    rows.append({"name": "flash_attention", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention/"
-                             "flash_attention.py:69",
+                 "launches_per": served(cell, SERVE_STEPS)})
+    rows.append({"name": "flash_decode_split", **flash,
+                 "launches": cell["paths"]["decode_split"],
+                 "max_abs_err": max(c["max_abs_err"] for c in fl["checks"]
+                                    if c["shape"].startswith("decode")),
+                 "tol": tight_tol, "splits": fl["decode_splits"],
+                 "planted_faults": [f for f in fl["planted_faults"]
+                                    if f["fault"].startswith("decode")],
+                 "ms": fl["decode_ms"], "plain_ms": fl["decode_plain_ms"],
+                 "bound_ms": fl["decode_bound_ms"],
+                 "bound_by": fl["decode_bound_by"],
+                 "library_ms": fl["decode_library_ms"],
+                 "device_ms": fl["decode_device_ms"],
+                 "plain_device_ms": fl["decode_plain_device_ms"],
+                 "library_device_ms": fl["decode_library_device_ms"],
+                 "config": SERVE_CELL, "dtype": "bfloat16",
+                 "ms_per": f"decode layer ({SERVE_BATCH} x 1 over "
+                           f"{SERVE_PROMPT + SERVE_STEPS} positions, two "
+                           "launches: splits and merge)",
+                 "launches_per": served(cell, SERVE_STEPS)})
+    rows.append({"name": "flash_tile_simt", **flash,
+                 "launches": f32_gate["paths"]["tile_simt"],
+                 "launches_by_path": f32_gate["paths"],
+                 "max_abs_err": simt["max_abs_err"],
+                 "tol": {"float32": FLASH_TOL["float32"]},
+                 "ms": simt["ms"], "plain_ms": simt["plain_ms"],
+                 "bound_ms": simt["bound_ms"], "bound_by": simt["bound_by"],
+                 "library_ms": simt["library_ms"],
+                 "config": "qwen3-32b-f32-l4-b2-p128-g8", "dtype": "float32",
+                 "ms_per": "prefill layer (2 x 128, 64/8 heads of 128, "
+                           "causal)",
+                 "launches_per": "the float32 gate's card run: prefill and "
+                                 "a fresh prefill x 4 layers"})
+    rows.append({"name": "flash_tile_tc", **flash,
                  "mode": f"sliding window {HYMBA_WINDOW}",
-                 "launches": hy["counts"][5],
+                 "launches": hy["paths"]["tile_tc"],
+                 "launches_by_path": hy["paths"],
                  "max_abs_err": max(wf["max_abs_err"], *wf_errs.values()),
-                 "max_abs_err_float32": wf_errs["float32"],
-                 "tol": dict(FLASH_TOL, bfloat16_vs_float32_plain=FLASH_TIGHT),
+                 "max_abs_err_float32": wf_errs["float32"], "tol": tc_tol,
                  "checks": wf["checks"],
                  "planted_faults": wf["planted_faults"],
                  "ms": wf["ms"], "plain_ms": wf["plain_ms"],
                  "bound_ms": wf["bound_ms"], "bound_by": wf["bound_by"],
                  "library_ms": wf["library_ms"],
-                 "bitwise": False, "config": HYBRID_CELL,
-                 "dtype": "bfloat16",
+                 "config": HYBRID_CELL, "dtype": "bfloat16",
                  "ms_per": f"windowed prefill layer ({HYBRID_BATCH} x "
-                           f"{HYBRID_PROMPT}, 25/5 heads, window "
+                           f"{HYBRID_PROMPT}, 25/5 heads of 64, window "
                            f"{HYMBA_WINDOW})",
-                 "launches_per": hy_launches + " (29 of the 32 prefill "
-                                               "launches windowed)",
+                 "launches_per": served(hy, HYBRID_STEPS) + " (29 of the 32 "
+                                 "prefill calls windowed)",
                  "library": "torch.nn.functional.scaled_dot_product_attention"
                             " (band mask, memory-efficient backend)"})
+    for key, kernel, path, per, tol in (
+            ("global_prefill", "flash_tile_tc", "tile_tc",
+             f"global causal prefill layer ({HYBRID_BATCH} x "
+             f"{HYBRID_PROMPT}, 25/5 heads of 64; 3 of the 32 prefill "
+             "calls)", tc_tol),
+            ("global_decode", "flash_decode_split", "decode_split",
+             f"global decode layer ({HYBRID_BATCH} x 1 over "
+             f"{HYBRID_PROMPT + HYBRID_STEPS} positions; 3 of the 32 calls "
+             "a step)", tight_tol),
+            ("window_decode", "flash_decode_split", "decode_split",
+             f"windowed decode layer ({HYBRID_BATCH} x 1 over the "
+             f"{HYMBA_WINDOW}-slot ring; 29 of the 32 calls a step)",
+             tight_tol)):
+        r = hr[key]
+        dev = {k: r[k] for k in ("device_ms", "plain_device_ms",
+                                 "library_device_ms") if k in r}
+        rows.append({"name": kernel, **flash, **dev,
+                     "mode": key.replace("_", " "),
+                     "launches": hy["paths"][path],
+                     "max_abs_err": r["max_abs_err"], "tol": tol,
+                     "checks": r["checks"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "config": HYBRID_CELL,
+                     "dtype": "bfloat16", "ms_per": per,
+                     "launches_per": served(hy, HYBRID_STEPS)})
     rows.append({"name": "ssm_scan", "route": "cuda",
                  "source": "src/repro_torch/csrc/ssm_scan.cu",
                  "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:78",
@@ -2568,7 +2952,7 @@ def main(args: list[str]) -> int:
                  "bitwise": False, "config": HYBRID_CELL, "dtype": "float32",
                  "ms_per": f"layer ({HYBRID_BATCH} x {HYBRID_PROMPT}, D "
                            f"{HYMBA_DI}, N {HYMBA_N})",
-                 "launches_per": hy_launches})
+                 "launches_per": served(hy, HYBRID_STEPS)})
     pre_attn = fl["ms"] * cell["n_layers"] / 1e3
     say(f"{SERVE_CELL}: attention's share of prefill {pre_attn:.4f} s of "
         f"{cell['prefill_s']:.4f} s ({100 * pre_attn / cell['prefill_s']:.1f}"
@@ -2576,10 +2960,14 @@ def main(args: list[str]) -> int:
         f"of {cell['step_s'] * 1e3:.4f} ms per step; device busy over one "
         "decode step " + ("not measured" if cell["busy"] is None else
                           f"{100 * cell['busy']:.1f}%") + f" ({smi})")
-    pre_hy = (wf["ms"] * 29 + sc["ms"] * hy["n_layers"]) / 1e3
-    say(f"{HYBRID_CELL}: the windowed flash (29 layers) and the scan (32) "
-        f"take {pre_hy:.4f} s of the {hy['prefill_s']:.4f} s prefill "
-        f"({100 * pre_hy / hy['prefill_s']:.1f}%); device busy over one "
+    pre_hy = (wf["ms"] * 29 + hr["global_prefill"]["ms"] * 3
+              + sc["ms"] * hy["n_layers"]) / 1e3
+    say(f"{HYBRID_CELL}: the flash tile kernel (29 windowed and 3 global "
+        f"layers) and the scan (32) take {pre_hy:.4f} s of the "
+        f"{hy['prefill_s']:.4f} s prefill "
+        f"({100 * pre_hy / hy['prefill_s']:.1f}%); decode attention "
+        f"{hr['global_decode']['ms'] * 3 + hr['window_decode']['ms'] * 29:.4f}"
+        f" ms of {hy['step_s'] * 1e3:.4f} ms per step; device busy over one "
         "decode step " + ("not measured" if hy["busy"] is None else
                           f"{100 * hy['busy']:.1f}%") + ", over one prefill "
         + ("not measured" if hy["prefill_busy"] is None else

@@ -9,9 +9,8 @@
 //   when causal, key <= row (positions aligned at 0, as the JAX oracle
 //   aligns them) and, with a sliding window w > 0 (causal, T == S only),
 //   key > row - w, the band of models/attention.py::causal_mask(T, S, w);
-//   the running max m and normaliser l in float32 from
-//   NEG_INF = -1e30; acc += p v with p kept in float32; o = acc / max(l,
-//   1e-30) in q's dtype.
+//   the running max m and normaliser l in float32 from NEG_INF = -1e30;
+//   o = acc / max(l, 1e-30) in q's dtype.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/
 // flash_attention.py :: flash_attention_pallas (body _flash_kernel; the
@@ -19,45 +18,69 @@
 // (128 x 128 block, VMEM-resident K/V panel) schedule; ragged query and key
 // tiles are masked here, so the wrapper pads nothing and never falls back.
 //
-// Two launch shapes, both counted as one launch by the wrapper:
-//  * tile kernel (T > 1, prefill): one block of 256 threads per (b, h,
-//    64-row query tile), the longest causal tiles first. The Q tile and
-//    one 64-key K tile, then the V tile in the same buffer, sit in shared
-//    memory as float32 rows padded to an odd stride (conflict-free column
-//    reads). Thread (ty, tx) of the 16 x 16 grid holds rows ty + 16 i and
-//    key columns tx + 16 j of the 64 x 64 score tile, and rows ty + 16 i,
+// Three launch shapes; the wrapper picks one by T, dtype and D only and
+// counts each call once:
+//  * tensor-core tile kernel (T > 1, bfloat16, D 64 or 128; the serving
+//    cells' prefill): one block of 288 threads per (b, h, 128-row query
+//    tile), the longest causal tiles first. A producer warp loads the Q
+//    tile once and 128-key K and V tiles into a ring of 3 stages (D 64) or
+//    2 (D 128) by TMA (tensor maps over each strided view, 128-byte
+//    swizzle, zeros out of bounds), each stage guarded by a full and an
+//    empty mbarrier. Two consumer warpgroups of 64 rows each compute S =
+//    Q K^T with wgmma.m64n128k16 (bf16 operands from shared memory, float32
+//    accumulator), the online softmax on the accumulator fragment in
+//    registers (a row's max and sum over the four lanes that hold it, two
+//    shuffles; base-2 exponentials of logits pre-scaled by log2(e)), round
+//    P to bfloat16 in registers, where the accumulator layout is exactly
+//    wgmma's register-A layout, and compute O += P V with
+//    wgmma.m64n{D}k16 (V the transposed B operand). l sums the float32 P;
+//    only P's product rounds it, as the plain version rounds its weights to
+//    v's dtype. Key tiles past the diagonal are never loaded, the window's
+//    band starts at its first tile, and only diagonal, ragged and band-edge
+//    tiles are masked element by element. A masked score becomes -inf:
+//    its weight 2^(s c - m) is 0 whatever the row's running max, so a row
+//    whose band starts past the window's first key tile keeps m = -1e30
+//    and l = 0 there. Each weight takes one FMA and one ex2.approx.ftz,
+//    and O is rescaled only when a row's max moved.
+//  * CUDA-core tile kernel (T > 1, float32, or bfloat16 with D not 64 or
+//    128): one block of 256 threads per (b, h, 64-row query tile). The Q
+//    tile and one 64-key K tile, then the V tile in the same buffer, sit in
+//    shared memory as float32 rows padded to an odd stride (conflict-free
+//    column reads). Thread (ty, tx) of the 16 x 16 grid holds rows ty + 16 i
+//    and key columns tx + 16 j of the 64 x 64 score tile, and rows ty + 16 i,
 //    head dims tx + 16 jj of the accumulator; row max and row sum are
-//    butterflies over the 16 lanes of a row group, so every lane holds the
-//    same m and l. With causal, the key loop ends at the tile holding the
-//    query tile's last row: later keys have p = exp(-1e30 - m) = 0 exactly.
-//    With a window w, it starts at the tile holding q0 - w + 1, the first
-//    key of the tile's first row, so a query tile reads about w / 64 + 1
-//    key tiles. In that first key tile a row whose band starts later sees
-//    only masked keys: its m stays -1e30 and each masked key gets p =
-//    exp(0) = 1, until a later tile's first unmasked key gives alpha =
-//    exp(-1e30 - m) = 0 and wipes l and acc. That is exact only because
-//    every row's own key (key = row) lies in the same or a later tile and
-//    is never masked.
-//  * decode kernel (T = 1): one block of four warps per (b, h). Warp w
-//    takes key tiles w, w + 4, ... of 32 keys; lane j scores key j of the
-//    tile (16-byte loads when the rows are aligned), the warp updates its
-//    m, l and its accumulator (lane owns head dims lane + 32 e), and the
-//    four partial states are merged in shared memory at the end. A decode
-//    passes the cache prefix k_all[:, :n] as a view, with no copy.
-// Products are float32 on the CUDA cores with explicit fmaf (the build has
-// -fmad=false), exponentials by expf.
+//    butterflies over the 16 lanes of a row group. Products in float32 with
+//    explicit fmaf (the build has -fmad=false), P kept in float32,
+//    exponentials by expf; causal and window skips as above.
+//  * split decode (T = 1, float32 and bfloat16): grid (B Hkv ceil(G / 8),
+//    n_split). A block of 128 threads takes up to 8 query heads of one KV
+//    head over one contiguous key range of the split, so each K/V byte is
+//    read once per KV head, not G times. 64-key K/V tiles (32 or 16 for
+//    rows past 256 bytes) are staged in shared memory by cp.async, 16 bytes
+//    a thread, double-buffered; scores (a thread per key, q rows read as
+//    float4), the online softmax (expf) and P V (a thread per pair of head
+//    dims of all the block's heads and one phase of the keys, the phases
+//    summed in order at the end) are float32 on the CUDA cores. Each split
+//    writes its m, l and unnormalised accumulator to scratch; a second
+//    launch merges the splits in split order (no atomics: deterministic)
+//    and writes o. A decode passes the cache prefix k_all[:, :n] as a view,
+//    with no copy.
 //
 // Bound on the H100: prefill is bound by operations. At the qwen3-32b
 // serving cell (B 4, T = S = 2048, 64 heads over 8 KV heads, D 128) the two
 // causal products are 275 GFLOP per layer: 0.28 ms at the bf16 tensor-core
-// rate (989 TFLOP/s), 4.1 ms at the float32 CUDA-core rate (67 TFLOP/s)
-// that this design is limited to. Decode is bound by bytes: the KV prefix,
-// 34.6 MB per layer at 2112 positions, 10 us at 3.35 TB/s. What the simple
-// design gives up: tensor cores (wgmma or mma.sync on bf16 operands), TMA
-// copies in a ring of tiles, skipping work inside the diagonal tile, and
-// splitting long decode rows over more blocks (split-K); later work.
+// rate (989 TFLOP/s), which only wgmma reaches; the CUDA-core kernel is
+// capped at the float32 rate (67 TFLOP/s). Decode is bound by bytes: the KV
+// prefix, 34.6 MB per layer at 2112 positions, 10 us at 3.35 TB/s, which the
+// split decode reads once with about two waves of blocks in flight. What the
+// design still gives up: ping-pong scheduling of the two warpgroups (one's
+// softmax under the other's products), a persistent grid, and a TMA store
+// of the output. Issuing the next tile's S together with this tile's P V
+// inside a warpgroup was measured slower on the H100 (PERF.md).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -65,7 +88,6 @@ constexpr float kNegInf = -1e30f;
 constexpr int kTile = 64;                 // query rows and keys of a tile
 constexpr int kThreads = 256;             // the tile kernel's 16 x 16 grid
 constexpr int kPs = kTile + 1;            // row stride of the P tile
-constexpr int kDecodeWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Strides {                          // element strides of (B, T, H, D)
@@ -85,6 +107,13 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);             // round to nearest even
 }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core tile kernel
 
 // Copy rows [r0, r0 + kTile) of a (rows, D) panel (row stride `ld_g`) into
 // a float32 tile of row stride `ld`, zeros past `rows` and past D up to W.
@@ -230,135 +259,6 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// q . k over D, q in shared memory as float32, k a row in device memory.
-template <typename T, bool kVec>
-struct RowDot;
-
-template <typename T>
-struct RowDot<T, false> {
-  static __device__ __forceinline__ float run(const float* qs, const T* kr,
-                                              int D) {
-    float dot = 0.f;
-    for (int d = 0; d < D; ++d) dot = fmaf(qs[d], to_f(kr[d]), dot);
-    return dot;
-  }
-};
-
-template <>
-struct RowDot<float, true> {              // 16-byte aligned rows, D % 4 == 0
-  static __device__ __forceinline__ float run(const float* qs,
-                                              const float* kr, int D) {
-    float dot = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(kr + d);
-      dot = fmaf(qs[d], x.x, dot);
-      dot = fmaf(qs[d + 1], x.y, dot);
-      dot = fmaf(qs[d + 2], x.z, dot);
-      dot = fmaf(qs[d + 3], x.w, dot);
-    }
-    return dot;
-  }
-};
-
-template <>
-struct RowDot<__nv_bfloat16, true> {      // 16-byte aligned rows, D % 8 == 0
-  static __device__ __forceinline__ float run(const float* qs,
-                                              const __nv_bfloat16* kr,
-                                              int D) {
-    float dot = 0.f;
-    for (int d = 0; d < D; d += 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(kr + d);
-      const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {       // a bfloat16 is the high half of
-        dot = fmaf(qs[d + 2 * e], __uint_as_float(w[e] << 16), dot);
-        dot = fmaf(qs[d + 2 * e + 1], __uint_as_float(w[e] & 0xffff0000u),
-                   dot);                  // a float32; element 2e is low
-      }
-    }
-    return dot;
-  }
-};
-
-// DE = head dims per lane: D <= 32 * DE.
-template <typename T, int DE, bool kVec>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int H, int S,
-                    int G, int D, Strides sq, Strides sk, Strides sv,
-                    Strides so, float scale) {
-  __shared__ float qs[32 * DE];
-  __shared__ float part_m[kDecodeWarps], part_l[kDecodeWarps];
-  __shared__ float part_acc[kDecodeWarps][32 * DE];
-  const int bh = blockIdx.x, b = bh / H, h = bh - (bh / H) * H, hk = h / G;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* qrow = q + b * sq.b + h * sq.h;
-  for (int d = threadIdx.x; d < 32 * DE; d += blockDim.x)
-    qs[d] = d < D ? to_f(qrow[d]) : 0.f;
-  __syncthreads();
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
-
-  float m = kNegInf, l = 0.f, acc[DE];
-#pragma unroll
-  for (int e = 0; e < DE; ++e) acc[e] = 0.f;
-  for (int k0 = warp * 32; k0 < S; k0 += kDecodeWarps * 32) {
-    const int key = k0 + lane;
-    float x = kNegInf;
-    if (key < S) x = RowDot<T, kVec>::run(qs, kb + key * sk.t, D) * scale;
-    float mx = x;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    const float p = expf(x - m_new);      // 0 for a key past S
-    float sum = p;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(kFull, sum, off);
-    l = l * alpha + sum;
-#pragma unroll
-    for (int e = 0; e < DE; ++e) acc[e] *= alpha;
-    const int n = min(32, S - k0);
-    for (int j = 0; j < n; ++j) {
-      const float pj = __shfl_sync(kFull, p, j);
-      const T* vr = vb + (k0 + j) * sv.t;
-#pragma unroll
-      for (int e = 0; e < DE; ++e) {
-        const int d = lane + 32 * e;
-        if (d < D) acc[e] = fmaf(pj, to_f(vr[d]), acc[e]);
-      }
-    }
-    m = m_new;
-  }
-
-  // merge the warps' states: a warp that saw no key has m = -1e30, l = 0
-  if (lane == 0) {
-    part_m[warp] = m;
-    part_l[warp] = l;
-  }
-#pragma unroll
-  for (int e = 0; e < DE; ++e) part_acc[warp][lane + 32 * e] = acc[e];
-  __syncthreads();
-  float mm = kNegInf;
-#pragma unroll
-  for (int w = 0; w < kDecodeWarps; ++w) mm = fmaxf(mm, part_m[w]);
-  float ll = 0.f, f[kDecodeWarps];
-#pragma unroll
-  for (int w = 0; w < kDecodeWarps; ++w) {
-    f[w] = expf(part_m[w] - mm);
-    ll = fmaf(part_l[w], f[w], ll);
-  }
-  const float den = fmaxf(ll, 1e-30f);
-  T* orow = o + b * so.b + h * so.h;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) a = fmaf(part_acc[w][d], f[w], a);
-    orow[d] = from_f<T>(a / den);
-  }
-}
 
 template <typename T, int DJ>
 cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
@@ -379,73 +279,885 @@ cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
   return cudaGetLastError();
 }
 
-template <typename T, int DE>
-cudaError_t launch_decode(const T* q, const T* k, const T* v, T* o, int B,
-                          int S, int H, int G, int D, Strides sq, Strides sk,
-                          Strides sv, Strides so, float scale,
-                          cudaStream_t stream) {
-  // 16-byte loads of K rows when every row starts on a 16-byte boundary
+// ---------------------------------------------------------------------------
+// The tensor-core tile kernel (bfloat16, D 64 or 128)
+
+namespace tc {
+
+constexpr int kRows = 128;                // query rows of a block
+constexpr int kKeys = 128;                // keys of a K/V tile
+constexpr int kMaxStages = 3;             // K/V tiles in flight, at most
+constexpr int kConsumers = 256;           // two warpgroups of 64 rows
+constexpr int kThreadsTc = kConsumers + 32;   // and one producer warp
+constexpr int kRowBytes = 128;            // 64 bf16: one swizzled row
+
+// Shared memory: the Q tile, then a ring of (K tile, V tile) stages, each as
+// D / 64 panels of 128-byte rows in the 128-byte swizzle (16-byte chunk c
+// of row r at chunk c ^ (r % 8)), every panel 1024-byte aligned.
+template <int D>
+struct Layout {
+  static constexpr int kStages = D == 64 ? 3 : 2;   // K/V tiles in flight
+  static constexpr int kPanels = D / 64;
+  static constexpr int kQ = kPanels * kRows * kRowBytes;
+  static constexpr int kKv = kPanels * kKeys * kRowBytes;   // K or V
+  static constexpr int kStage = 2 * kKv;
+  static constexpr int kBytes = kQ + kStages * kStage;
+};
+
+struct Args {
+  __nv_bfloat16* o;
+  int B, Tq, S, H, G, causal, window;
+  float scale_log2;                       // scale * log2(e)
+  Strides sq, sk, sv, so;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA box (64 d, 1 head, rows, 1 batch) at coordinates (c0..c3) of a
+// (D, heads, rows, B) tensor map into shared memory; completes on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma matrix descriptor of a tile in the 128-byte swizzle: start address,
+// leading and stride byte offsets (in 16-byte units), layout type 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator registers across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// 2^x by the special function unit, subnormal results flushed to zero
+// (relative error below 2^-22; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);   // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// d (+)= A B: A (64 x 16) and B (16 x 128, K-major) from shared memory by
+// descriptor; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A B: A (64 x 16) from registers (a: four bf16 pairs in the
+// accumulator's layout), B (16 x 64) MN-major (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B: A (64 x 16) from registers (a: four bf16 pairs in the
+// accumulator's layout), B (16 x 128) MN-major (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const Args a) {
+  using L = Layout<D>;
+  constexpr int NP = L::kPanels;
+  extern __shared__ char smem_raw[];
+  constexpr int kStages = L::kStages;
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages], qbar;
+  const uint32_t raw = smem_u32(smem_raw);
+  char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  char* qs = smem;
+
+  const int n_bh = a.B * a.H;
+  const int n_qt = (a.Tq + kRows - 1) / kRows;
+  const int bh = blockIdx.x % n_bh;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / n_bh);
+  const int b = bh / a.H, h = bh - b * a.H, hk = h / a.G;
+  const int q0 = qt * kRows;
+  const int q_last = min(a.Tq, q0 + kRows) - 1;
+  const int s_end = a.causal ? min(a.S, q_last + 1) : a.S;
+  const int kt0 = a.window > 0 ? max(0, q0 - a.window + 1) / kKeys : 0;
+  const int n_tiles = (s_end + kKeys - 1) / kKeys - kt0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);            // one arrival per warpgroup
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // the producer warp: Q once, then K and V tile by tile into the ring
+    if (lane == 0) {
+      mbar_expect_tx(&qbar, L::kQ);
+      for (int p = 0; p < NP; ++p)
+        tma_load(qs + p * kRows * kRowBytes, &tq, &qbar, p * 64, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        char* ks = smem + L::kQ + s * L::kStage;
+        const int k0 = (kt0 + it) * kKeys;
+        mbar_expect_tx(&full[s], L::kStage);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(ks + p * kKeys * kRowBytes, &tk, &full[s], p * 64, hk,
+                   k0, b);
+          tma_load(ks + L::kKv + p * kKeys * kRowBytes, &tv, &full[s],
+                   p * 64, hk, k0, b);
+        }
+      }
+    }
+  } else {
+    // a consumer warpgroup: query rows [qmin, qmin + 64)
+    const int wg = warp >> 2, w = warp & 3;
+    const int qmin = q0 + wg * 64, qmax = qmin + 63;
+    const int row0 = qmin + w * 16 + (lane >> 2);   // and row0 + 8
+    const int col = 2 * (lane & 3);
+    const uint32_t q_addr = smem_u32(qs) + wg * 64 * kRowBytes;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    mbar_wait(&qbar, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int k0 = (kt0 + it) * kKeys;
+      const uint32_t k_addr = smem_u32(smem + L::kQ + s * L::kStage);
+      const uint32_t v_addr = k_addr + L::kKv;
+      mbar_wait(&full[s], (it / kStages) & 1);
+
+      // S = Q K^T: K-major A and B, 16 head dims a step; a step inside a
+      // 128-byte row advances the start address by 32 bytes
+      float sc[kKeys / 2];
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+      pin(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n128(
+            sc,
+            sw128_desc(q_addr + (kk >> 2) * kRows * kRowBytes + (kk & 3) * 32,
+                       16, 1024),
+            sw128_desc(k_addr + (kk >> 2) * kKeys * kRowBytes + (kk & 3) * 32,
+                       16, 1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      pin(sc);
+
+      // the element mask only where a tile crosses the diagonal, the key
+      // end or the band's lower edge: a masked score becomes -inf, whose
+      // weight is 0 whatever the row's max. sc[4 i + e] holds row row0 +
+      // 8 (e / 2), key k0 + 8 i + col + e % 2.
+      const bool edge = (a.causal && k0 + kKeys - 1 > qmin) ||
+                        k0 + kKeys > a.S ||
+                        (a.window > 0 && k0 <= qmax - a.window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kKeys / 2; ++i) {
+          const int key = k0 + 8 * (i >> 2) + col + (i & 1);
+          const int row = row0 + 8 * ((i >> 1) & 1);
+          if (key >= a.S || (a.causal && key > row) ||
+              (a.window > 0 && key <= row - a.window))
+            sc[i] = -INFINITY;
+        }
+      }
+      // base 2: the max m of the scaled logits (from -1e30), alpha =
+      // 2^(m - m_new), p = 2^(s c - m_new) by one FMA and ex2
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i)
+          mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m[r], mx * a.scale_log2);
+        alpha[r] = ex2(m[r] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p =
+                ex2(fmaf(sc[4 * i + 2 * r + e], a.scale_log2, -m_new));
+            sc[4 * i + 2 * r + e] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        l[r] = l[r] * alpha[r] + sum;
+        m[r] = m_new;
+      }
+      // rescale O only where a row's max moved (alpha != 1)
+      if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          o[4 * i] *= alpha[0];
+          o[4 * i + 1] *= alpha[0];
+          o[4 * i + 2] *= alpha[1];
+          o[4 * i + 3] *= alpha[1];
+        }
+      }
+
+      // P in bfloat16 as wgmma's register A: k-step j (keys 16 j ..) takes
+      // accumulator column blocks 2 j and 2 j + 1, rows row0 and row0 + 8
+      uint32_t pa[kKeys / 4];
+#pragma unroll
+      for (int j = 0; j < kKeys / 16; ++j) {
+        pa[4 * j + 0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+        pa[4 * j + 1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+        pa[4 * j + 2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+        pa[4 * j + 3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+      }
+      // O += P V: V MN-major (head dims contiguous), 16 keys a step of
+      // 2048 bytes; its 64-dim panels kKeys x 128 bytes apart
+      pin(o);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kKeys / 16; ++j) {
+        const uint64_t dv = sw128_desc(v_addr + j * 16 * kRowBytes,
+                                       kKeys * kRowBytes, 1024);
+        if constexpr (D == 64)
+          wgmma_rs_n64(o, pa + 4 * j, dv);
+        else
+          wgmma_rs_n128(o, pa + 4 * j, dv);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      pin(o);
+      if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= a.Tq) continue;
+      const float den = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = a.o + b * a.so.b + row * a.so.t + h * a.so.h;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + col) =
+            __floats2bfloat162_rn(o[4 * i + 2 * r] / den,
+                                  o[4 * i + 2 * r + 1] / den);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver, found through the runtime (the
+// library links no -lcuda); null where the CUDA driver has none.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (D, heads, rows, B) tensor map of a strided bf16 view (element
+// strides st), box (64, 1, box_rows, 1), 128-byte swizzle, zeros out of
+// bounds. The caller has checked 16-byte alignment of base and strides.
+bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
+              int B, Strides st, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.t) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_d(const CUtensorMap& mq, const CUtensorMap& mk,
+                     const CUtensorMap& mv, const Args& a,
+                     cudaStream_t stream) {
+  const int smem = Layout<D>::kBytes + 1024;    // + alignment to 1024
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>(a.B) * a.H * ((a.Tq + kRows - 1) / kRows);
+  flash_tc_kernel<D><<<static_cast<unsigned>(blocks), kThreadsTc, smem,
+                       stream>>>(mq, mk, mv, a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const Args& a, int D, int Hkv, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, D, a.H, a.Tq, a.B, a.sq, kRows) ||
+      !make_map(&mk, k, D, Hkv, a.S, a.B, a.sk, kKeys) ||
+      !make_map(&mv, v, D, Hkv, a.S, a.B, a.sv, kKeys))
+    return cudaErrorInvalidValue;
+  return D == 64 ? launch_d<64>(mq, mk, mv, a, stream)
+                 : launch_d<128>(mq, mk, mv, a, stream);
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// The split decode (T = 1)
+
+namespace dec {
+
+constexpr int kThreadsDec = 128;
+constexpr int kHeads = 8;                 // query heads of a block
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Keys [k0, min(k0 + KT, k_end)) of one KV head (row stride ld) into
+// shared rows of RB bytes: 16-byte cp.async copies (kVec: rows and base
+// 16-byte aligned, D * sizeof(T) a multiple of 16), else element copies.
+template <typename T, int KT, int RB, bool kVec>
+__device__ __forceinline__ void stage_rows(char* dst, const T* src,
+                                           long long ld, int k0, int k_end,
+                                           int D) {
+  if (kVec) {
+    const int chunks = D * static_cast<int>(sizeof(T)) / 16;
+    for (int i = threadIdx.x; i < KT * chunks; i += kThreadsDec) {
+      const int r = i / chunks, c = i - r * chunks;
+      if (k0 + r < k_end)
+        cp_async16(dst + r * RB + c * 16,
+                   src + static_cast<long long>(k0 + r) * ld +
+                       c * (16 / static_cast<int>(sizeof(T))));
+    }
+  } else {
+    for (int i = threadIdx.x; i < KT * D; i += kThreadsDec) {
+      const int r = i / D, d = i - r * D;
+      if (k0 + r < k_end)
+        reinterpret_cast<T*>(dst + r * RB)[d] =
+            src[static_cast<long long>(k0 + r) * ld + d];
+    }
+  }
+}
+
+// 16 bytes of a shared row as floats
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x;
+  x[1] = u.y;
+  x[2] = u.z;
+  x[3] = u.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {           // a bfloat16 is the high half of
+    x[2 * e] = __uint_as_float(w[e] << 16);   // a float32; element 2e is
+    x[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);   // the low half
+  }
+}
+
+template <typename T, int DP>
+struct DecodeShape {
+  static constexpr int kRowBytes = DP * static_cast<int>(sizeof(T));
+  // keys of a staged tile: 64, or fewer for long rows
+  static constexpr int KT = kRowBytes <= 256 ? 64 : kRowBytes <= 512 ? 32
+                                                                     : 16;
+  static constexpr int RB = kRowBytes + 16;   // padded: conflict-free rows
+  static constexpr int kFloats = kHeads * DP + kHeads * KT + 3 * kHeads;
+  static constexpr int kBytes = 4 * kFloats + 4 * KT * RB;
+};
+
+// two consecutive elements of a shared row as floats
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+
+// DP = D rounded up to a power of two (at least 32).
+template <typename T, int DP, bool kVec>
+__global__ void __launch_bounds__(kThreadsDec)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, float* __restrict__ part_ml,
+                    float* __restrict__ part_acc, int H, int G, int D, int n,
+                    int chunk, int n_split, Strides sq, Strides sk,
+                    Strides sv, float scale) {
+  using Sh = DecodeShape<T, DP>;
+  constexpr int KT = Sh::KT, RB = Sh::RB;
+  constexpr int kSets = kThreadsDec / KT;         // head sets of the scores
+  constexpr int kG = kHeads / kSets;              // heads of a set
+  constexpr int NV = 16 / static_cast<int>(sizeof(T));
+  constexpr int kPairs = DP / 2;                  // head-dim pairs of P V
+  constexpr int kPhases = kThreadsDec / kPairs;   // key phases of P V
+  extern __shared__ __align__(16) char smem[];
+  float* qs = reinterpret_cast<float*>(smem);    // kHeads x DP
+  float* ps = qs + kHeads * DP;                  // KT x kHeads: p[j][g]
+  float* ms = ps + kHeads * KT;                  // running max
+  float* as = ms + kHeads;                       // this tile's alpha
+  float* ls = as + kHeads;                       // running sum
+  char* kv = reinterpret_cast<char*>(ls + kHeads);   // 2 x (K, V) x KT x RB
+
+  const int n_hg = (G + kHeads - 1) / kHeads;
+  const int hg = blockIdx.x % n_hg, bk = blockIdx.x / n_hg;
+  const int Hkv = H / G;
+  const int b = bk / Hkv, hk = bk - b * Hkv;
+  const int g0 = hg * kHeads, gn = min(kHeads, G - g0);
+  const int split = blockIdx.y;
+  const int k_lo = split * chunk, k_hi = min(n, k_lo + chunk);
+  const int n_t = k_hi > k_lo ? (k_hi - k_lo + KT - 1) / KT : 0;
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
+
+  for (int i = threadIdx.x; i < kHeads * DP; i += kThreadsDec) {
+    const int g = i / DP, d = i - g * DP;
+    qs[i] = (g < gn && d < D)
+                ? to_f(q[b * sq.b + (hk * G + g0 + g) * sq.h + d])
+                : 0.f;
+  }
+  if (threadIdx.x < kHeads) {
+    ms[threadIdx.x] = kNegInf;
+    ls[threadIdx.x] = 0.f;
+  }
+  // P V: thread -> head dims 2 dp, 2 dp + 1 of every head, keys of its
+  // phase (j = phase, phase + kPhases, ...)
+  const int dp = threadIdx.x % kPairs, phase = threadIdx.x / kPairs;
+  float acc[kHeads][2];
+#pragma unroll
+  for (int g = 0; g < kHeads; ++g) acc[g][0] = acc[g][1] = 0.f;
+  if (n_t > 0) {
+    stage_rows<T, KT, RB, kVec>(kv, kb, sk.t, k_lo, k_hi, D);
+    stage_rows<T, KT, RB, kVec>(kv + KT * RB, vb, sv.t, k_lo, k_hi, D);
+    cp_commit();
+  }
+  __syncthreads();
+
+  for (int it = 0; it < n_t; ++it) {
+    if (it + 1 < n_t) {                   // the next tile into the other
+      char* nxt = kv + ((it + 1) & 1) * 2 * KT * RB;   // buffer
+      const int k1 = k_lo + (it + 1) * KT;
+      stage_rows<T, KT, RB, kVec>(nxt, kb, sk.t, k1, k_hi, D);
+      stage_rows<T, KT, RB, kVec>(nxt + KT * RB, vb, sv.t, k1, k_hi, D);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const char* ks = kv + (it & 1) * 2 * KT * RB;
+    const char* vs = ks + KT * RB;
+    const int k0 = k_lo + it * KT;
+    const int nk = min(KT, k_hi - k0);
+
+    {  // scores: thread -> key j of the tile, heads [set kG, set kG + kG)
+      const int j = threadIdx.x % KT, set = threadIdx.x / KT;
+      const T* kr = reinterpret_cast<const T*>(ks + j * RB);
+      const float* qset = qs + set * kG * DP;
+      float dot[kG];
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi) dot[gi] = 0.f;
+      if (kVec) {
+        for (int d = 0; d < D; d += NV) {
+          float x[NV];
+          load16(kr + d, x);
+#pragma unroll
+          for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+            for (int e = 0; e < NV; e += 4) {
+              const float4 qv =
+                  *reinterpret_cast<const float4*>(qset + gi * DP + d + e);
+              dot[gi] = fmaf(qv.x, x[e], dot[gi]);
+              dot[gi] = fmaf(qv.y, x[e + 1], dot[gi]);
+              dot[gi] = fmaf(qv.z, x[e + 2], dot[gi]);
+              dot[gi] = fmaf(qv.w, x[e + 3], dot[gi]);
+            }
+        }
+      } else {
+        for (int d = 0; d < D; ++d) {
+          const float x = to_f(kr[d]);
+#pragma unroll
+          for (int gi = 0; gi < kG; ++gi)
+            dot[gi] = fmaf(qset[gi * DP + d], x, dot[gi]);
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi)     // keys past the range: -1e30
+        ps[j * kHeads + set * kG + gi] = j < nk ? dot[gi] * scale : kNegInf;
+    }
+    __syncthreads();
+
+    {  // the online softmax: warp w takes heads w, w + 4
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      for (int g = warp; g < gn; g += kThreadsDec / 32) {
+        const float x0 = lane < KT ? ps[lane * kHeads + g] : kNegInf;
+        const float x1 =
+            lane + 32 < KT ? ps[(lane + 32) * kHeads + g] : kNegInf;
+        float mx = fmaxf(x0, x1);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+        const float m_old = ms[g], m_new = fmaxf(m_old, mx);
+        const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
+        if (lane < KT) ps[lane * kHeads + g] = p0;
+        if (lane + 32 < KT) ps[(lane + 32) * kHeads + g] = p1;
+        float sum = p0 + p1;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(kFull, sum, off);
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);
+          ms[g] = m_new;
+          as[g] = alpha;
+          ls[g] = ls[g] * alpha + sum;
+        }
+      }
+    }
+    __syncthreads();
+
+    {  // P V over this thread's keys; heads past gn hold p = 0 rows
+#pragma unroll
+      for (int g = 0; g < kHeads; ++g) {
+        const float al = g < gn ? as[g] : 0.f;
+        acc[g][0] *= al;
+        acc[g][1] *= al;
+      }
+      const T* vcol = reinterpret_cast<const T*>(vs) + 2 * dp;
+      for (int j = phase; j < nk; j += kPhases) {
+        const float2 x = load2(reinterpret_cast<const T*>(
+                                   reinterpret_cast<const char*>(vcol) +
+                                   j * RB));
+        const float4 pa = *reinterpret_cast<const float4*>(ps + j * kHeads);
+        const float4 pb =
+            *reinterpret_cast<const float4*>(ps + j * kHeads + 4);
+        const float pj[kHeads] = {pa.x, pa.y, pa.z, pa.w,
+                                  pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int g = 0; g < kHeads; ++g) {
+          acc[g][0] = fmaf(pj[g], x.x, acc[g][0]);
+          acc[g][1] = fmaf(pj[g], x.y, acc[g][1]);
+        }
+      }
+    }
+    __syncthreads();                      // the buffer and P are free
+  }
+
+  // the key phases' sums in fixed phase order (the staging buffer is free)
+  float* red = reinterpret_cast<float*>(kv);     // kPhases x kHeads x DP
+#pragma unroll
+  for (int g = 0; g < kHeads; ++g) {
+    red[(phase * kHeads + g) * DP + 2 * dp] = acc[g][0];
+    red[(phase * kHeads + g) * DP + 2 * dp + 1] = acc[g][1];
+  }
+  __syncthreads();
+  // this split's partial state; an empty split leaves m = -1e30, l = 0
+  const long long bh0 = static_cast<long long>(b) * H + hk * G + g0;
+  if (threadIdx.x < gn) {
+    float* ml = part_ml + ((bh0 + threadIdx.x) * n_split + split) * 2;
+    ml[0] = ms[threadIdx.x];
+    ml[1] = ls[threadIdx.x];
+  }
+  for (int i = threadIdx.x; i < gn * D; i += kThreadsDec) {
+    const int g = i / D, d = i - g * D;
+    float x = 0.f;
+    for (int ph = 0; ph < kPhases; ++ph) x += red[(ph * kHeads + g) * DP + d];
+    part_acc[((bh0 + g) * n_split + split) * D + d] = x;
+  }
+}
+
+// o[b, 0, h] = sum_s acc_s exp(m_s - M) / max(sum_s l_s exp(m_s - M),
+// 1e-30), M = max_s m_s, the splits taken in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsDec)
+flash_merge_kernel(const float* __restrict__ part_ml,
+                   const float* __restrict__ part_acc, T* __restrict__ o,
+                   int H, int D, int n_split, Strides so) {
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const float* ml = part_ml + static_cast<long long>(bh) * n_split * 2;
+  const float* acc = part_acc + static_cast<long long>(bh) * n_split * D;
+  float mm = kNegInf;
+  for (int s = 0; s < n_split; ++s) mm = fmaxf(mm, ml[2 * s]);
+  float ll = 0.f;
+  for (int s = 0; s < n_split; ++s)
+    ll = fmaf(ml[2 * s + 1], expf(ml[2 * s] - mm), ll);
+  const float den = fmaxf(ll, 1e-30f);
+  T* orow = o + b * so.b + h * so.h;
+  for (int d = threadIdx.x; d < D; d += kThreadsDec) {
+    float x = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      x = fmaf(acc[s * D + d], expf(ml[2 * s] - mm), x);
+    orow[d] = from_f<T>(x / den);
+  }
+}
+
+template <typename T, int DP>
+cudaError_t launch_dp(const T* q, const T* k, const T* v, T* o, int B, int n,
+                      int H, int G, int D, Strides sq, Strides sk,
+                      Strides sv, Strides so, float scale, int n_split,
+                      int chunk, float* part_ml, float* part_acc,
+                      cudaStream_t stream) {
+  // 16-byte copies when every K and V row starts on a 16-byte boundary
   const long long vec = 16 / sizeof(T);
-  const bool aligned = reinterpret_cast<unsigned long long>(k) % 16 == 0 &&
-                       D % vec == 0 && sk.b % vec == 0 && sk.t % vec == 0 &&
-                       sk.h % vec == 0;
-  const unsigned blocks = static_cast<unsigned>(B) * H;
-  if (aligned)
-    flash_decode_kernel<T, DE, true><<<blocks, kDecodeWarps * 32, 0, stream>>>(
-        q, k, v, o, H, S, G, D, sq, sk, sv, so, scale);
-  else
-    flash_decode_kernel<T, DE, false><<<blocks, kDecodeWarps * 32, 0,
-                                        stream>>>(q, k, v, o, H, S, G, D, sq,
-                                                  sk, sv, so, scale);
+  const bool aligned =
+      reinterpret_cast<unsigned long long>(k) % 16 == 0 &&
+      reinterpret_cast<unsigned long long>(v) % 16 == 0 && D % vec == 0 &&
+      sk.b % vec == 0 && sk.t % vec == 0 && sk.h % vec == 0 &&
+      sv.b % vec == 0 && sv.t % vec == 0 && sv.h % vec == 0;
+  const int smem = DecodeShape<T, DP>::kBytes;
+  auto kern = aligned ? flash_decode_kernel<T, DP, true>
+                      : flash_decode_kernel<T, DP, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(B) * (H / G) *
+                      ((G + kHeads - 1) / kHeads),
+                  static_cast<unsigned>(n_split));
+  kern<<<grid, kThreadsDec, smem, stream>>>(q, k, v, part_ml, part_acc, H, G,
+                                            D, n, chunk, n_split, sq, sk, sv,
+                                            scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_merge_kernel<T><<<static_cast<unsigned>(B) * H, kThreadsDec, 0,
+                          stream>>>(part_ml, part_acc, o, H, D, n_split, so);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q_, const void* k_, const void* v_, void* o_, int B,
-           int Tq, int S, int H, int Hkv, int D, Strides sq, Strides sk,
-           Strides sv, Strides so, int causal, int window, float scale,
-           void* stream_) {
+cudaError_t launch(const void* q_, const void* k_, const void* v_, void* o_,
+                   int B, int n, int H, int Hkv, int D, Strides sq,
+                   Strides sk, Strides sv, Strides so, float scale,
+                   int n_split, int chunk, float* part_ml, float* part_acc,
+                   cudaStream_t stream) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  T* o = static_cast<T*>(o_);
+  const int G = H / Hkv;
+  if (D <= 32)
+    return launch_dp<T, 32>(q, k, v, o, B, n, H, G, D, sq, sk, sv, so, scale,
+                            n_split, chunk, part_ml, part_acc, stream);
+  if (D <= 64)
+    return launch_dp<T, 64>(q, k, v, o, B, n, H, G, D, sq, sk, sv, so, scale,
+                            n_split, chunk, part_ml, part_acc, stream);
+  if (D <= 128)
+    return launch_dp<T, 128>(q, k, v, o, B, n, H, G, D, sq, sk, sv, so,
+                             scale, n_split, chunk, part_ml, part_acc,
+                             stream);
+  return launch_dp<T, 256>(q, k, v, o, B, n, H, G, D, sq, sk, sv, so, scale,
+                           n_split, chunk, part_ml, part_acc, stream);
+}
+
+}  // namespace dec
+
+template <typename T>
+int launch_simt(const void* q_, const void* k_, const void* v_, void* o_,
+                int B, int Tq, int S, int H, int Hkv, int D, Strides sq,
+                Strides sk, Strides sv, Strides so, int causal, int window,
+                float scale, void* stream_) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
   T* o = static_cast<T*>(o_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int G = H / Hkv;
-  if (B < 1 || Tq < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
-      D > 256 || window < 0 || (window > 0 && (!causal || Tq != S)))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (Tq == 1) {                          // a window holds key 0 here
-    const int s_eff = causal ? 1 : S;     // the one query sits at position 0
-    if (D <= 32)
-      err = launch_decode<T, 1>(q, k, v, o, B, s_eff, H, G, D, sq, sk, sv, so,
-                                scale, stream);
-    else if (D <= 64)
-      err = launch_decode<T, 2>(q, k, v, o, B, s_eff, H, G, D, sq, sk, sv, so,
-                                scale, stream);
-    else if (D <= 128)
-      err = launch_decode<T, 4>(q, k, v, o, B, s_eff, H, G, D, sq, sk, sv, so,
-                                scale, stream);
-    else
-      err = launch_decode<T, 8>(q, k, v, o, B, s_eff, H, G, D, sq, sk, sv, so,
-                                scale, stream);
-  } else if (D <= 16) {
+  if (D <= 16)
     err = launch_tile<T, 1>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
                             causal, window, scale, stream);
-  } else if (D <= 32) {
+  else if (D <= 32)
     err = launch_tile<T, 2>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
                             causal, window, scale, stream);
-  } else if (D <= 64) {
+  else if (D <= 64)
     err = launch_tile<T, 4>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
                             causal, window, scale, stream);
-  } else if (D <= 128) {
+  else if (D <= 128)
     err = launch_tile<T, 8>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
                             causal, window, scale, stream);
-  } else {
+  else
     err = launch_tile<T, 16>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
                              causal, window, scale, stream);
-  }
   return static_cast<int>(err);
+}
+
+bool bad_shape(int B, int Tq, int S, int H, int Hkv, int D, int causal,
+               int window) {
+  return B < 1 || Tq < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
+         D > 256 || window < 0 || (window > 0 && (!causal || Tq != S));
 }
 
 }  // namespace
@@ -454,21 +1166,72 @@ extern "C" {
 
 // Strides are in elements, for the (B, T, H, D) views q, o and the
 // (B, S, Hkv, D) views k, v; D is contiguous in all four.
-int soar_flash_attention(const void* q, const void* k, const void* v, void* o,
-                         int bf16, int B, int Tq, int S, int H, int Hkv,
-                         int D, long long q_sb, long long q_st,
-                         long long q_sh, long long k_sb, long long k_st,
-                         long long k_sh, long long v_sb, long long v_st,
-                         long long v_sh, long long o_sb, long long o_st,
-                         long long o_sh, int causal, int window,
-                         float scale, void* stream) {
+
+// The CUDA-core tile kernel, any T (the wrapper sends it T > 1).
+int soar_flash_tile(const void* q, const void* k, const void* v, void* o,
+                    int bf16, int B, int Tq, int S, int H, int Hkv, int D,
+                    long long q_sb, long long q_st, long long q_sh,
+                    long long k_sb, long long k_st, long long k_sh,
+                    long long v_sb, long long v_st, long long v_sh,
+                    long long o_sb, long long o_st, long long o_sh,
+                    int causal, int window, float scale, void* stream) {
+  if (bad_shape(B, Tq, S, H, Hkv, D, causal, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh},
       sv{v_sb, v_st, v_sh}, so{o_sb, o_st, o_sh};
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Tq, S, H, Hkv, D, sq, sk, sv,
-                                 so, causal, window, scale, stream);
-  return launch<float>(q, k, v, o, B, Tq, S, H, Hkv, D, sq, sk, sv, so,
-                       causal, window, scale, stream);
+    return launch_simt<__nv_bfloat16>(q, k, v, o, B, Tq, S, H, Hkv, D, sq,
+                                      sk, sv, so, causal, window, scale,
+                                      stream);
+  return launch_simt<float>(q, k, v, o, B, Tq, S, H, Hkv, D, sq, sk, sv, so,
+                            causal, window, scale, stream);
+}
+
+// The tensor-core tile kernel: bfloat16, D 64 or 128, q, k and v based and
+// strided on 16-byte multiples.
+int soar_flash_tile_tc(const void* q, const void* k, const void* v, void* o,
+                       int B, int Tq, int S, int H, int Hkv, int D,
+                       long long q_sb, long long q_st, long long q_sh,
+                       long long k_sb, long long k_st, long long k_sh,
+                       long long v_sb, long long v_st, long long v_sh,
+                       long long o_sb, long long o_st, long long o_sh,
+                       int causal, int window, float scale, void* stream) {
+  if (bad_shape(B, Tq, S, H, Hkv, D, causal, window) || (D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::Args a{static_cast<__nv_bfloat16*>(o), B, Tq, S, H, H / Hkv,
+                   causal, window, scale * 1.4426950408889634f,
+                   {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh},
+                   {v_sb, v_st, v_sh}, {o_sb, o_st, o_sh}};
+  return static_cast<int>(
+      tc::launch(q, k, v, a, D, Hkv, static_cast<cudaStream_t>(stream)));
+}
+
+// The split decode: one query row (T = 1) over keys [0, n); n_split splits
+// of `chunk` keys (a multiple of 64); part_ml (B H n_split 2) and part_acc
+// (B H n_split D) float32 scratch.
+int soar_flash_decode(const void* q, const void* k, const void* v, void* o,
+                      int bf16, int B, int n, int H, int Hkv, int D,
+                      long long q_sb, long long q_sh, long long k_sb,
+                      long long k_st, long long k_sh, long long v_sb,
+                      long long v_st, long long v_sh, long long o_sb,
+                      long long o_sh, float scale, int n_split, int chunk,
+                      void* part_ml, void* part_acc, void* stream) {
+  if (bad_shape(B, 1, n, H, Hkv, D, 0, 0) || n_split < 1 ||
+      n_split > 65535 || chunk < 1 || chunk % 64 ||
+      static_cast<long long>(n_split) * chunk < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides sq{q_sb, 0, q_sh}, sk{k_sb, k_st, k_sh},
+      sv{v_sb, v_st, v_sh}, so{o_sb, 0, o_sh};
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return static_cast<int>(dec::launch<__nv_bfloat16>(
+        q, k, v, o, B, n, H, Hkv, D, sq, sk, sv, so, scale, n_split, chunk,
+        ml, acc, st));
+  return static_cast<int>(dec::launch<float>(q, k, v, o, B, n, H, Hkv, D, sq,
+                                             sk, sv, so, scale, n_split,
+                                             chunk, ml, acc, st));
 }
 
 }  // extern "C"

@@ -44,8 +44,12 @@ _SIGNATURES = {
         _I, _I, ctypes.c_longlong, _I, _P),
     "soar_topk_select": (_P, _I, _I, ctypes.c_longlong, _I, _P, _P, _P),
     "soar_topk_compress": (_P, _I, _I, ctypes.c_longlong, _I) + (_P,) * 11,
-    "soar_flash_attention": (_P,) * 4 + (_I,) * 7 + (ctypes.c_longlong,) * 12
+    "soar_flash_tile": (_P,) * 4 + (_I,) * 7 + (ctypes.c_longlong,) * 12
     + (_I, _I, ctypes.c_float, _P),
+    "soar_flash_tile_tc": (_P,) * 4 + (_I,) * 6 + (ctypes.c_longlong,) * 12
+    + (_I, _I, ctypes.c_float, _P),
+    "soar_flash_decode": (_P,) * 4 + (_I,) * 6 + (ctypes.c_longlong,) * 10
+    + (ctypes.c_float, _I, _I, _P, _P, _P),
     "soar_ssm_scan": (_P,) * 8 + (_I,) * 4 + (ctypes.c_longlong,) * 8
     + (_P,),
 }

@@ -10,9 +10,13 @@ product; the causal mask aligns query and key positions at 0. With a
 sliding window w, ``flash_attention_gqa_torch`` takes the query rows in
 blocks and each block only the keys of its band, so the scores never
 exceed (rows, rows + w) per head; keys outside the band would get weight
-exp(-1e30 - m) = 0 exactly. The CUDA kernel ``csrc/flash_attention.cu``
-agrees with them to rounding: it keeps the weights in float32 and sums in
-another order.
+exp(-1e30 - m) = 0 exactly. The CUDA kernels ``csrc/flash_attention.cu``
+agree with them to rounding. Two plain versions repeat a kernel's own
+arithmetic for the tests: ``flash_attention_tc_torch`` that of the
+tensor-core tile kernel (online softmax over 128-key tiles in base 2,
+masked scores -inf, the weights rounded to bfloat16 before P.V, l summed
+from the float32 weights) and ``flash_decode_split_torch`` that of the split decode
+(float32 partial states per split of keys, merged in split order).
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ import torch
 NEG_INF = -1e30
 # query rows per block of the windowed plain version (at least the window)
 WINDOW_ROWS = 256
+TC_KEYS = 128                 # keys of the tensor-core kernel's K/V tile
+SPLIT_ALIGN = 64              # a decode split is a multiple of 64 keys
+LOG2E = 1.4426950408889634
 
 
 def _mask(t: int, s: int, device, window: int = 0,
@@ -90,3 +97,94 @@ def flash_attention_gqa_torch(q, k, v, scale, causal: bool = True,
         out.append(sdpa(q[:, r0:r1], k[:, k0:r1], v[:, k0:r1], mask[None],
                         scale))
     return torch.cat(out, 1)
+
+
+def flash_attention_tc_torch(q, k, v, scale, causal: bool = True,
+                             window: int = 0) -> torch.Tensor:
+    """q: (B, T, H, D); k, v: (B, S, Hkv, D) bfloat16 -> (B, T, H, D), in
+    the tensor-core tile kernel's arithmetic: scores s = q . k in float32,
+    masked to -inf; per 128-key tile the running max m of s c (c the
+    float32 scale * log2(e); m from -1e30), alpha = exp2(m - m_new), p =
+    exp2(s c - m_new) rounded once (the kernel's FMA), l = l alpha + sum(p)
+    in float32, acc = acc alpha + bf16(p) . v in float32; o = acc /
+    max(l, 1e-30) in q's dtype."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    check_window(T, S, causal, window, "flash_attention_tc_torch")
+    c = (torch.tensor(float(scale), dtype=torch.float32)
+         * torch.tensor(LOG2E, dtype=torch.float32)).to(q.device)
+    qf = q.to(torch.float32).reshape(B, T, Hkv, G, D)
+    m = torch.full((B, Hkv, G, T), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, T, D), dtype=torch.float32,
+                      device=q.device)
+    rows = torch.arange(T, device=q.device)[:, None]
+    for k0 in range(0, S, TC_KEYS):
+        k1 = min(S, k0 + TC_KEYS)
+        sc = torch.einsum("bthgd,bshd->bhgts", qf,
+                          k[:, k0:k1].to(torch.float32))
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        keep = torch.ones((T, k1 - k0), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= kpos <= rows
+        if window:
+            keep &= kpos > rows - window
+        sc = torch.where(keep, sc, -torch.inf)
+        m_new = torch.maximum(m, sc.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        y = sc.to(torch.float64) * c.to(torch.float64) - m_new[..., None].to(
+            torch.float64)
+        p = torch.exp2(y.to(torch.float32))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgts,bshd->bhgtd", p.to(torch.bfloat16).to(torch.float32),
+            v[:, k0:k1].to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
+
+
+def split_chunk(n: int, n_split: int) -> int:
+    """Keys of each of ``n_split`` decode splits over ``n`` keys: the 64-key
+    tiles shared out evenly; trailing splits may come out empty."""
+    tiles = -(-n // SPLIT_ALIGN)
+    return -(-tiles // n_split) * SPLIT_ALIGN
+
+
+def flash_decode_split_torch(q, k, v, scale, n_split: int) -> torch.Tensor:
+    """q: (B, 1, H, D); k, v: (B, n, Hkv, D) -> (B, 1, H, D), in the split
+    decode's arithmetic: split s takes keys [s c, (s + 1) c), c =
+    ``split_chunk(n, n_split)``, and keeps its float32 max m_s, sum l_s and
+    unnormalised accumulator (an empty split m = -1e30, l = 0); the splits
+    are merged in order: o = sum_s acc_s e_s / max(sum_s l_s e_s, 1e-30),
+    e_s = exp(m_s - max m)."""
+    B, _, H, D = q.shape
+    n, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    chunk = split_chunk(n, n_split)
+    qf = q.to(torch.float32).reshape(B, Hkv, G, D)
+    parts = []
+    for s in range(n_split):
+        lo, hi = s * chunk, min(n, (s + 1) * chunk)
+        if lo >= hi:
+            m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
+            parts.append((m, torch.zeros_like(m),
+                          torch.zeros((B, Hkv, G, D), device=q.device)))
+            continue
+        x = torch.einsum("bhgd,bshd->bhgs", qf,
+                         k[:, lo:hi].to(torch.float32)) * scale
+        m = x.amax(-1)
+        p = torch.exp(x - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum(
+            "bhgs,bshd->bhgd", p, v[:, lo:hi].to(torch.float32))))
+    mm = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = torch.zeros_like(mm)
+    out = torch.zeros((B, Hkv, G, D), device=q.device)
+    for m, ls, acc in parts:
+        e = torch.exp(m - mm)
+        den = den + ls * e
+        out = out + acc * e[..., None]
+    out = out / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, D).to(q.dtype)

@@ -9,9 +9,14 @@ Every comparison of the solve, reduce and top-k kernels is bitwise
 (``torch.equal``): they keep the plain versions' candidate sets, child
 order, summation order and separate roundings (no FMA). Flash attention is
 held to the JAX tests' tolerances (float32 rtol = atol = 2e-5, bfloat16
-3e-2): it sums in another order, uses FMA and keeps the softmax weights in
-float32 where the plain version rounds them to v's dtype. The selective-SSM
-scan is held to the JAX test's rtol = atol = 1e-5 (its sum over N runs in
+3e-2): it sums in another order and uses FMA. In bfloat16 each kernel is
+also held to the plain version in float32 on the same inputs: the
+CUDA-core tile kernel and the split decode, which keep the softmax weights
+in float32, within 2^-8 |want| + 2^-15 (``FLASH_TIGHT``); the tensor-core
+tile kernel, which rounds them to bfloat16 for P.V, within 2^-8 |want| +
+(2^-8 + 2^-15) A + 2^-15, A the float32 plain attention over |v|
+(``FLASH_TC``; both derived in ``chip_smoke.py``). The selective-SSM scan
+is held to the JAX test's rtol = atol = 1e-5 (its sum over N runs in
 another order, its exponential is expf).
 """
 import numpy as np
@@ -321,6 +326,21 @@ def test_trainer_main_on_card(dev, tmp_path):
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
+def _flash_limit(got, q, k, v, scale, causal, window=0, tc=False):
+    """A bfloat16 output against the float32 plain version on the same
+    inputs: ``FLASH_TC`` (``tc``, the tensor-core tile kernel) or
+    ``FLASH_TIGHT``; returns max |err| / limit."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch)
+    f = [x.float() for x in (q, k, v)]
+    want = flash_attention_gqa_torch(*f, scale, causal, window)
+    lim = 2.0 ** -8 * want.abs() + 2.0 ** -15
+    if tc:
+        lim += (2.0 ** -8 + 2.0 ** -15) * flash_attention_gqa_torch(
+            f[0], f[1], f[2].abs(), scale, causal, window)
+    return float(((got.float() - want).abs() / lim).max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,t,s,d,causal", [
     (2, 64, 64, 32, True), (4, 128, 128, 64, True), (1, 200, 200, 128, True),
@@ -329,7 +349,7 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
     (1, 5, 300, 200, False), (3, 1, 77, 128, False)])
 def test_flash_kernel_matches_plain(dev, dtype, bh, t, s, d, causal):
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_cuda)
+        flash_attention_cuda, path_of)
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_torch
     rng = np.random.default_rng(bh * 31 + t + s)
@@ -337,20 +357,23 @@ def test_flash_kernel_matches_plain(dev, dtype, bh, t, s, d, causal):
     k, v = (torch.as_tensor(rng.normal(size=(bh, s, d)), device=dev).to(dtype)
             for _ in range(2))
     before = flash_attention_cuda.launches
+    path = path_of(q[:, :, None])
+    by_path = flash_attention_cuda.launches_by_path[path]
     got = flash_attention(q, k, v, causal=causal)
     assert flash_attention_cuda.launches == before + 1
+    assert flash_attention_cuda.launches_by_path[path] == by_path + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_torch(q, k, v, causal)
     torch.testing.assert_close(got, want, rtol=FLASH_TOL[dtype],
                                atol=FLASH_TOL[dtype])
     if dtype == torch.bfloat16:
         # against the float32 plain version on the same inputs: the
-        # kernel's float32 arithmetic (2e-5), then its output's rounding
-        # to bfloat16 (half an ulp, 2^-8 of the value)
-        want32 = flash_attention_torch(q.float(), k.float(), v.float(),
-                                       causal)
-        torch.testing.assert_close(got.float(), want32, rtol=2.0 ** -8,
-                                   atol=2.0 ** -15)
+        # CUDA-core kernels' float32 arithmetic (2e-5), then the output's
+        # rounding to bfloat16 (half an ulp, 2^-8 of the value); the
+        # tensor-core kernel also rounds each weight (2^-8 A)
+        assert _flash_limit(got[:, :, None], q[:, :, None], k[:, :, None],
+                            v[:, :, None], d ** -0.5, causal,
+                            tc=path == "tile_tc") <= 1.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -449,6 +472,143 @@ def test_flash_kernel_sliding_window_matches_plain(dev, dtype, b, t, h, hkv,
     if window < t:
         full = flash_attention_gqa(q, k, v, 0.125, causal=True)
         assert (full.float() - got.float()).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,t,s,h,hkv,causal,window", [
+    (4, 128, 128, 1, 1, True, 0), (1, 200, 200, 1, 1, True, 0),
+    (2, 37, 101, 4, 2, False, 0), (2, 130, 61, 4, 1, True, 0),
+    (2, 300, 200, 8, 2, True, 0), (1, 5, 300, 2, 2, True, 0),
+    (2, 200, 200, 4, 2, True, 1), (2, 200, 200, 4, 2, True, 63),
+    (1, 300, 300, 2, 1, True, 64), (2, 333, 333, 5, 1, True, 100),
+    (1, 1100, 1100, 5, 5, True, 1024), (1, 2100, 2100, 4, 2, True, 1024)])
+def test_flash_tc_kernel_matches_plain(dev, d, b, t, s, h, hkv, causal,
+                                       window):
+    """The tensor-core tile kernel (bfloat16, D 64 and 128): the JAX test
+    shapes, ragged T and S, causal T > S and T < S, windows 1, 63, 64, 100
+    and 1024. Within the JAX tests' 3e-2 of the bfloat16 plain version,
+    within ``FLASH_TC`` of the float32 one, and within 3e-2 of its own
+    arithmetic's plain twin, ``flash_attention_tc_torch``."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, flash_attention_tc_torch)
+    rng = np.random.default_rng(t * 7 + s + window + d)
+    bf = torch.bfloat16
+    q = torch.as_tensor(rng.normal(size=(b, t, h, d)), device=dev).to(bf)
+    k, v = (torch.as_tensor(rng.normal(size=(b, s, hkv, d)),
+                            device=dev).to(bf) for _ in range(2))
+    scale = d ** -0.5
+    before = dict(flash_attention_cuda.launches_by_path)
+    got = flash_attention_gqa(q, k, v, scale, causal, window)
+    after = flash_attention_cuda.launches_by_path
+    assert {p: after[p] - before[p] for p in after} == {
+        "tile_tc": 1, "tile_simt": 0, "decode_split": 0}
+    assert got.dtype == bf and got.shape == q.shape
+    tol = FLASH_TOL[bf]
+    torch.testing.assert_close(
+        got, flash_attention_gqa_torch(q, k, v, scale, causal, window),
+        rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        got, flash_attention_tc_torch(q, k, v, scale, causal, window),
+        rtol=tol, atol=tol)
+    assert _flash_limit(got, q, k, v, scale, causal, window, tc=True) <= 1.0
+
+
+def test_flash_tc_kernel_on_model_and_cache_views(dev):
+    """The views the serving path gives the tensor-core kernel:
+    ``attention._qkv``'s q, k, v (bfloat16, hd 128) and k, v as slices of a
+    fused projection and as cache prefixes (strided: TMA tensor maps over
+    each view's own strides); a view off a 16-byte boundary raises."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(ARCHS["qwen3-32b"].reduced(dtype="bfloat16"),
+                              d_model=256, n_heads=4, n_kv_heads=2,
+                              head_dim=128)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = attention.init_gqa(gen, cfg)
+    x = torch.randn((2, 150, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    q, k, v = attention._qkv(p, x, cfg, torch.arange(150, device=dev))
+    scale = attention._scale(cfg)
+    assert _flash_limit(flash_attention_gqa(q, k, v, scale, True), q, k, v,
+                        scale, True, tc=True) <= 1.0
+    qkv = torch.randn((2, 150, 8 * 128), generator=gen,
+                      device=dev).to(torch.bfloat16).view(2, 150, 8, 128)
+    qf, kf, vf = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    assert _flash_limit(flash_attention_gqa(qf, kf, vf, scale, True), qf, kf,
+                        vf, scale, True, tc=True) <= 1.0
+    cache = torch.randn((2, 300, 2, 128), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    kp, vp = cache[:, :150], cache.flip(1)[:, :150].contiguous()
+    assert _flash_limit(flash_attention_gqa(q, kp, vp, scale, False), q, kp,
+                        vp, scale, False, tc=True) <= 1.0
+    odd = torch.zeros((2, 150, 4 * 128 + 4), dtype=torch.bfloat16,
+                      device=dev)[:, :, 4:].view(2, 150, 4, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_gqa(odd, k, v, scale, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,hkv,d", [
+    (2, 1, 8, 2, 64), (2, 63, 8, 2, 64), (2, 64, 5, 1, 64),
+    (2, 65, 8, 2, 128), (2, 1000, 5, 1, 64), (4, 2112, 64, 8, 128),
+    (2, 300, 12, 1, 36), (1, 500, 4, 4, 256), (1, 700, 24, 2, 128)])
+def test_flash_decode_split_matches_plain(dev, dtype, b, n, h, hkv, d):
+    """The split decode on a strided cache prefix ``[:, :n]``: n = 1, tile
+    edges, a partial last tile, the qwen3-32b cell's decode, unaligned rows
+    (hd 36 in bfloat16), 256-dim rows and two head groups a KV head (G =
+    12). Within the JAX tests' tolerance of the plain version, within 2e-5
+    of its own split arithmetic's plain twin on float32 inputs, and in
+    bfloat16 within ``FLASH_TIGHT`` of the float32 plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        DECODE_HEADS, decode_splits, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, flash_decode_split_torch)
+    rng = np.random.default_rng(n + d)
+    cache_k, cache_v = (torch.as_tensor(rng.normal(size=(b, n + 9, hkv, d)),
+                                        device=dev).to(dtype)
+                        for _ in range(2))
+    kp, vp = cache_k[:, :n], cache_v[:, :n]
+    q = torch.as_tensor(rng.normal(size=(b, 1, h, d)), device=dev).to(dtype)
+    before = dict(flash_attention_cuda.launches_by_path)
+    got = flash_attention_gqa(q, kp, vp, 0.125, causal=False)
+    after = flash_attention_cuda.launches_by_path
+    assert {p: after[p] - before[p] for p in after} == {
+        "tile_tc": 0, "tile_simt": 0, "decode_split": 1}
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got, flash_attention_gqa_torch(q, kp, vp, 0.125, causal=False),
+        rtol=tol, atol=tol)
+    n_split = decode_splits(n, b * hkv * -(-(h // hkv) // DECODE_HEADS))
+    f = [x.float() for x in (q, kp, vp)]
+    torch.testing.assert_close(got.float(), flash_decode_split_torch(
+        *f, 0.125, n_split), rtol=2e-5 if dtype == torch.float32 else tol,
+        atol=2e-5 if dtype == torch.float32 else tol)
+    if dtype == torch.bfloat16:
+        assert _flash_limit(got, q, kp, vp, 0.125, False) <= 1.0
+
+
+def test_flash_decode_split_on_a_ring(dev):
+    """A windowed layer's decode: the whole 1,024-slot ring (slot p %
+    1024), hymba's 25/5 heads of 64, in bfloat16, within ``FLASH_TIGHT`` of
+    the float32 plain version; the same call twice gives the same bits."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    gen = torch.Generator(device=dev).manual_seed(1024)
+    ring_k, ring_v = (torch.randn((4, 1024, 5, 64), generator=gen,
+                                  device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+    q = torch.randn((4, 1, 25, 64), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    got = flash_attention_gqa(q, ring_k, ring_v, 0.125, causal=False)
+    assert _flash_limit(got, q, ring_k, ring_v, 0.125, False) <= 1.0
+    assert torch.equal(got, flash_attention_gqa(q, ring_k, ring_v, 0.125,
+                                                causal=False))
 
 
 SCAN_SHAPES = [(1, 16, 8, 4), (2, 32, 16, 4), (3, 64, 24, 8), (2, 32, 16, 4),
