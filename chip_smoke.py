@@ -44,8 +44,11 @@ plain torch version on the inputs the paths give it. Phases:
    bitwise: random rows at the JAX test shapes in float32 and bfloat16,
    rows of ties, zeros, +-0, +-inf, NaN and fewer than k nonzeros, and one
    full-size row of the trainer's largest leaf (781,189,120 float32, the
-   qwen3-32b embedding, k = 7,811,891), with times against the bound, the
-   plain version and ``torch.topk``; before the trainer allocates anything;
+   qwen3-32b embedding, k = 7,811,891; also in bfloat16), with times against
+   the bound, the plain version and ``torch.topk``, and the launches one
+   call puts on the card (by the profiler) against the kernel's plan: a
+   select stage of 4 (float32), 3 (bfloat16) and 1 (a row of at most
+   16,384); before the trainer allocates anything;
 8. the trainer: ``qwen3-32b-l1-dp2-topk`` (qwen3-32b at its published
    widths, depth cut to 1 layer, 2 simulated workers, top-k 1%, batch 2 x
    512, AdamW at lr 1e-5, 3 steps) and ``e2e100m-dp8-topk`` (the repo's end-to-end preset on
@@ -93,11 +96,15 @@ plain torch version on the inputs the paths give it. Phases:
 10. hybrid serving, everything of phase 9 freed first. 10a, before the
    model allocates: the selective-scan kernel within the JAX test's 1e-5
    of its plain version on the JAX test shapes, T = 1 and T = 77, also
-   with the final state written over s0; then at the cell's (4, 32768,
-   3200, 16) against the plain version in float64 on the same inputs,
-   elementwise within a running float32 error bound (derived in
-   :func:`scan_f64_bound`), which two planted faults (the carry dropped
-   at one step; one lane of N left out of y) must fail; the flash kernel
+   with the final state written over s0; then ex2.approx (the scan's
+   exponential) swept over every float32 argument the cell's inputs reach,
+   and the scan at the cell's (4, 32768, 3200, 16) against the plain
+   version in float64 on the same inputs, elementwise within a running
+   float32 error bound (derived in :func:`scan_f64_bound`, with the larger
+   of the PTX ISA's and the sweep's ex2 error), which two planted faults
+   (the carry dropped at one step; one lane of N left out of y) must fail;
+   the scan's decode call (4, 1, 3200, 16) in place, timed by CUDA events
+   and by its device time; the flash kernel
    with a sliding window within the JAX tests' tolerances of ``sdpa``
    under the band mask (windows 1, 63, 64, 100, 1024; T not a multiple
    of 64), then at the cell's windowed prefill (4, 32768, 25/5 heads, 64,
@@ -146,6 +153,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -223,6 +231,52 @@ def device_ms(fn, reps: int, warmup: int = 2):
         say(f"device time not measured ({type(e).__name__}: {e})")
         return None
     return busy / 1e3 / reps if busy > 0 else None
+
+
+def device_ops(fn, sessions: int = 6):
+    """Kernels and memsets that one ``fn()`` puts on the card, counted by
+    ``torch.profiler`` (after one call outside it). Each session runs
+    ``fn`` between two of torch's spin kernels, which are not counted; a
+    session on the chip machine sometimes loses records, so one counts
+    only if it recorded both spins, and the most that such a session
+    records is returned; None where none does or the profiler fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(sessions):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(100_000)
+                fn()
+                torch.cuda._sleep(100_000)
+                torch.cuda.synchronize()
+        except Exception as e:      # a measurement, not a check
+            say(f"device launches not counted ({type(e).__name__}: {e})")
+            return None
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        spins = sum("spin_kernel" in n for n in names)
+        if spins == 2:
+            most = max(most, len(names) - spins)
+    return most or None
+
+
+def scan_per_layer(prof, n_layers: int):
+    """Scan kernels per layer in a profiled prefill or decode step of the
+    hybrid cell (``kernel_profile``'s result): its launches a call on the
+    main path; None where the profile was not measured."""
+    if prof is None:
+        return None
+    return sum(c for key, _, c in prof[2] if "ssm_scan" in key) / n_layers
+
+
+def measured(**counts) -> dict:
+    """The counts that were measured; one that was not (None) is left
+    out of the kernels line, not filled in."""
+    return {k: v for k, v in counts.items() if v is not None}
 
 
 class Recorder:
@@ -977,10 +1031,34 @@ def topk_full_size(d: int = EMBED_SIZE, k: int = EMBED_K) -> dict:
     from repro_torch.kernels.topk_compress.ref import (topk_compress_torch,
                                                        topk_threshold_torch)
     from repro_torch.kernels.topk_compress.topk_compress import (
-        topk_compress_cuda, topk_threshold_cuda)
+        SMALL_ROW, select_launches, topk_compress_cuda, topk_threshold_cuda)
     gen = torch.Generator(device=DEVICE).manual_seed(781)
     x = torch.randn((1, d), generator=gen, device=DEVICE)
     err = topk_equal(x, k, f"full-size row d={d} k={k}")
+    # launches per call, by the profiler, against the kernel's plan: the
+    # select at this row in float32 and bfloat16 and at a short row, and
+    # the whole kernel
+    xb = x.to(torch.bfloat16)
+    err = max(err, topk_equal(xb, k, f"full-size row d={d} k={k} bfloat16"))
+    short = x[:, :5_120].contiguous()
+    per_call = {
+        "select float32": device_ops(lambda: topk_threshold_cuda(x, k)),
+        "select bfloat16": device_ops(lambda: topk_threshold_cuda(xb, k)),
+        f"select row of {short.shape[1]}": device_ops(
+            lambda: topk_threshold_cuda(short, 51)),
+        "whole float32": device_ops(lambda: topk_compress_cuda(x, k))}
+    planned = [select_launches(torch.float32, d),
+               select_launches(torch.bfloat16, d),
+               select_launches(torch.float32, short.shape[1])]
+    measured = list(per_call.values())[:3]
+    check(None not in measured and measured == planned,
+          f"top-k select launches per call {per_call} (None: not counted), "
+          f"planned {planned}")
+    check(select_launches(torch.float32, SMALL_ROW) == 1
+          and planned[:2] == [4, 3],
+          f"top-k select launches planned {planned}")
+    select_bf16_ms = cuda_ms(lambda: topk_threshold_cuda(xb, k), 5, warmup=1)
+    del xb, short
     torch.cuda.empty_cache()
     v = dict(
         max_abs_err=err,
@@ -999,15 +1077,21 @@ def topk_full_size(d: int = EMBED_SIZE, k: int = EMBED_K) -> dict:
     nbytes = d * 4 + k * (4 + 4)          # read the row, write values + idx
     v["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     v["select_bound_ms"] = (d * 4 + 4) / HBM_BYTES_PER_S * 1e3
+    v["select_bf16_ms"] = select_bf16_ms
+    v["select_bf16_bound_ms"] = (d * 2 + 4) / HBM_BYTES_PER_S * 1e3
+    v["launches_per_call"] = per_call
     v["bound_by"] = "bytes"
     del x
     torch.cuda.empty_cache()
     say(f"top-k full-size row d={d} k={k} float32: kernel == plain bitwise; "
         f"kernel {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms, bytes), "
         f"select stage {v['select_ms']:.4f} ms (bound "
-        f"{v['select_bound_ms']:.4f} ms); plain {v['plain_ms']:.4f} ms, "
+        f"{v['select_bound_ms']:.4f} ms), bfloat16 select "
+        f"{select_bf16_ms:.4f} ms (bound {v['select_bf16_bound_ms']:.4f} "
+        f"ms); plain {v['plain_ms']:.4f} ms, "
         f"plain threshold {v['select_plain_ms']:.4f} ms; torch.topk(|x|, k) "
-        f"{v['library_ms']:.4f} ms")
+        f"{v['library_ms']:.4f} ms; launches per call {per_call} "
+        f"({nvidia_smi_line()})")
     return v
 
 
@@ -1090,7 +1174,8 @@ def _mem_line(name, params, opt, ef, n_dev, n_slots) -> str:
         opt["v"]), "error feedback": T.nbytes(ef), "stacked sent": n_dev * pb,
         "gradients of one worker": pb,
         "executor buffer (largest leaf)": n_dev * n_slots * d_max * 2,
-        "compression temporaries (largest leaf)": 4 * 4 * d_max + d_max}
+        "compression temporaries (largest leaf)": 4 * 4 * d_max + d_max,
+        "top-k candidate buffer (largest leaf)": d_max // 16 * 4}
     return (f"{name}: memory reckoned from the code: "
             + ", ".join(f"{k} {gb(v)}" for k, v in parts.items())
             + f"; sum {gb(sum(parts.values()))}")
@@ -1176,9 +1261,20 @@ def trainer_l1(steps: int = 3) -> dict:
           f"{name}: a kernel of the path did not run {counts}")
     dense_b = payload_bytes(params, CompressionConfig())
     comp_b = payload_bytes(params, ccfg)
+    # on the card in the profiled step: the select's kernels, and the
+    # memsets of the whole step (the select's one a multi-pass call among
+    # them)
+    kern = None if prof is None else prof[2]
+    sel_kernels = None if kern is None else sum(
+        c for key, _, c in kern if re.search(r"::select_(pass|small)<", key))
+    memsets = None if kern is None else sum(
+        c for key, _, c in kern if key.startswith("Memset"))
+    fmt = lambda v: "not measured" if v is None else v
     say(f"{name}: losses {losses}; launches level fold {counts[0]}, "
         f"min-plus {counts[1]}, segment reduce {counts[2]}, top-k select "
-        f"{counts[3]}; thresholds exact on {tc.n_plain} leaves vs plain and "
+        f"{counts[3]} calls; in the profiled step {fmt(sel_kernels)} select "
+        f"kernels and {fmt(memsets)} memsets on the card; "
+        f"thresholds exact on {tc.n_plain} leaves vs plain and "
         f"{n_dev * n_leaves} by counting; reduce == plain on {lc.n} launches")
     say(f"{name}: step wall s {[round(w, 4) for w in walls]}; step 1 split s: "
         + ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
@@ -1189,6 +1285,8 @@ def trainer_l1(steps: int = 3) -> dict:
     torch.cuda.empty_cache()
     return dict(counts=counts, timings=timings, walls=walls, peak=peak,
                 step_peak=step_peak, steps=steps,
+                select_kernels_per_step=sel_kernels,
+                memsets_per_step=memsets,
                 busy=None if prof is None else prof[1] / prof[0])
 
 
@@ -2094,6 +2192,7 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
                 faults=fault_diffs,
                 busy=None if dprof is None else dprof[1] / dprof[0],
                 prefill_busy=None if pprof is None else pprof[1] / pprof[0],
+                decode_profile=dprof, prefill_profile=pprof,
                 n_layers=cfg.n_layers, toks=b * t)
 
 
@@ -2197,31 +2296,72 @@ def check_scan_random() -> float:
     return err
 
 
-def scan_f64_bound(u, delta, bv, cv, a, s0, keep_from: int):
+# ex2.approx.f32's largest relative error as the PTX ISA states it: 2 ulp,
+# at most 2^-22 of the value (also the constant term of the CUDA math
+# library's __expf bound, 2 + floor(|1.173 x|) ulp, __expf being ex2.approx
+# of x * log2 e). The toolkit's headers do not state it, so phase 10a also
+# sweeps every float32 argument the cell reaches on the card, prints both
+# figures and takes the larger.
+EX2_PTX_REL = 2.0 ** -22
+FTZ_MIN = 2.0 ** -126         # smallest normal float32: smaller decays flush
+
+
+def ex2_sweep(lo: float) -> float:
+    """The kernel's exponential ex2.approx.ftz on the card over every float32
+    argument in [lo, 0] whose power of two is a normal float: the largest
+    relative error against 2^x in float64 (one launch, the scan library's
+    sweep entry)."""
+    import struct
+
+    import torch
+
+    from repro_torch.kernels._build import check as lib_check
+    from repro_torch.kernels._build import library, stream_of
+    lo_bits = struct.unpack("<I", struct.pack("<f", min(lo, -0.0)))[0]
+    worst = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    err = library().soar_ex2_sweep(0x80000000, lo_bits - 0x80000000 + 1,
+                                   worst.data_ptr(), stream_of(worst))
+    lib_check(err, "ex2 sweep launch")
+    return float(worst.view(torch.float32)[0])
+
+
+def scan_f64_bound(u, delta, bv, cv, a, s0, keep_from: int,
+                   ex2_rel: float = EX2_PTX_REL):
     """The scan in float64 on the same float32 inputs, with a running bound
     of the float32 kernel's error. Per (b, d, n), with d_t = exp(delta_t
     a) and w_t = (delta_t u_t) b_t: the magnitude m_t = d_t m_{t-1} +
     |w_t| (m_0 = |s0|) bounds |s_t|, and the state error obeys, to first
     order,
 
-        E_t = d_t E_{t-1} + u ((|delta_t a| + 5) d_t m_{t-1} + 2 |w_t| + m_t)
+        E_t = d_t E_{t-1} + u ((3 |delta_t a| + r) d_t m_{t-1} + 2 |w_t|
+                               + m_t) + 2^-126 m_{t-1}
 
-    with u = 2^-24: expf within 2 ulp (4u) of exp of its rounded argument
-    (|delta_t a| u), the product s d_t (u), the two products of w_t (2u)
-    and the sum (u). y_t = sum_n s_n c_n adds the products' rounding and
-    log2(NP) levels of the lanes' butterfly (NP = N rounded up to a power
-    of two, at least 4) on top of the carried error: |y_t error| <=
-    sum_n |c_n| (E_n + (1 + log2 NP) u m_n). Both limits are doubled for
-    the terms of second order. Returns (y64, s64, y limit, state limit,
-    the float64 state entering step ``keep_from``)."""
+    with u = 2^-24, from the kernel's arithmetic (``csrc/ssm_scan.cu``):
+    the decay is ex2.approx.ftz(delta_t * fl(a * fl(log2 e))); the three
+    roundings of its argument (log2 e to float32, the product with a, the
+    product with delta_t) are a relative error up to 3u of the argument x,
+    so 2^x is off by a factor 2^(3u |x|) = 1 + 3u |delta_t a| (|x| ln 2 =
+    |delta_t a|); ex2.approx itself adds a relative error ``ex2_rel`` = r u
+    (the larger of the PTX ISA's 2 ulp and the card's sweep); decays below
+    2^-126 flush to zero, an absolute error up to 2^-126; w_t's two products
+    add 2u |w_t|; s_t = fma(s_{t-1}, d_t, w_t) rounds once, u m_t. y_t =
+    sum_n s_n c_n rounds each product once and sums in 2 + log2(L) levels
+    (pairs of each thread's four states, then the reduce-scatter over the
+    L lanes of a channel, NP = 4 L states): |y_t error| <= sum_n |c_n| (E_n
+    + (1 + log2 NP) u m_n). Both limits are doubled for the terms of second
+    order. Returns (y64, s64, y limit, state limit, the float64 state
+    entering step ``keep_from``)."""
     import math
 
     import torch
+
+    from repro_torch.kernels.ssm_scan.ref import NS, scan_lanes
     f = lambda x: x.to(torch.float64)
     u, delta, bv, cv, a = map(f, (u, delta, bv, cv, a))
     b, t, d = u.shape
     n = bv.shape[-1]
-    k_sum = (1 + math.log2(max(4, 1 << (n - 1).bit_length()))) * U32
+    k_sum = (1 + math.log2(NS * scan_lanes(n))) * U32
+    r = ex2_rel / U32
     s = f(s0).clone()
     m, e = s.abs(), torch.zeros_like(s)
     y = torch.empty((b, t, d), dtype=torch.float64, device=u.device)
@@ -2235,8 +2375,9 @@ def scan_f64_bound(u, delta, bv, cv, a, s0, keep_from: int):
         w = (delta[:, i] * u[:, i])[..., None] * bv[:, i, None, :]
         aw = w.abs()
         dm = dec * m
+        e = (dec * e + U32 * ((3 * da.abs() + r) * dm + 2 * aw + dm + aw)
+             + FTZ_MIN * m)
         m = dm + aw
-        e = dec * e + U32 * ((da.abs() + 5) * dm + 2 * aw + m)
         s = s * dec + w
         y[:, i] = torch.einsum("bdn,bn->bd", s, cv[:, i])
         ylim[:, i] = 2 * torch.einsum("bdn,bn->bd", e + k_sum * m,
@@ -2253,36 +2394,17 @@ def _over(got, want64, lim) -> tuple[float, float, bool]:
     return float(err.max()), float(ratio.max()), bool((err <= lim).all())
 
 
-def scan_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, d=HYMBA_DI, n=HYMBA_N,
-                     fault_steps=64) -> dict:
-    """Phase 10a at the cell's shapes: one kernel call on (b, t, d, n)
-    float32 held elementwise to ``scan_f64_bound``'s limit around the
-    float64 plain version on the same inputs; two planted faults in the
-    last ``fault_steps`` steps (the carry dropped at one step; lane n = 0
-    left out of y), each computed in float64 from the kept state and
-    rounded to float32 as the kernel's output is, must fail that limit.
-    Then the kernel's time against its bound and the plain version's."""
+def scan_faults(xs, y64, ylim, kept, t0: int) -> dict:
+    """The two planted faults over steps [t0, T): the plain version in
+    float64 from the state entering t0 (or from 0: the carry dropped at
+    t0), or with lane n = 0 of C zeroed, each rounded to float32 as the
+    kernel's output is; {fault: (max error / limit, within the limit)}."""
     import torch
 
-    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_torch
-    gen = torch.Generator(device=DEVICE).manual_seed(32768)
-    xs = scan_inputs(gen, b, t, d, n)
-    y, s = ssm_chunk_scan(*xs)
-    t0 = t - fault_steps
-    y64, s64, ylim, slim, kept = scan_f64_bound(*xs, keep_from=t0)
-    ey, ry, oky = _over(y, y64, ylim)
-    es, rs, oks = _over(s, s64, slim)
-    check(oky and oks and bool(torch.isfinite(y).all()),
-          f"ssm scan ({b}, {t}, {d}, {n}): kernel beyond the float32 error "
-          f"bound of the float64 plain version (y {ry:.3g} x, state "
-          f"{rs:.3g} x the limit)")
-    # planted faults over steps [t0, t): the plain version in float64 from
-    # the state entering t0 (or from 0: the carry dropped at t0), or with
-    # lane 0 of C zeroed
     u, dl, bv, cv, a, _ = (x.to(torch.float64) for x in xs)
     tail = lambda x: x[:, t0:]
-    faults = {}
+    out = {}
     for label, s_in, c in ((f"state carry dropped at step {t0}",
                             torch.zeros_like(kept), tail(cv)),
                            ("lane n = 0 left out of y", kept,
@@ -2290,17 +2412,64 @@ def scan_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, d=HYMBA_DI, n=HYMBA_N,
                                        tail(cv)[..., 1:]], -1))):
         yf, _ = ssm_chunk_scan_torch(tail(u), tail(dl), tail(bv), c, a, s_in)
         _, r, ok = _over(yf.to(torch.float32), y64[:, t0:], ylim[:, t0:])
+        out[label] = (r, ok)
+    return out
+
+
+def scan_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, d=HYMBA_DI, n=HYMBA_N,
+                     fault_steps=64) -> dict:
+    """Phase 10a at the cell's shapes: ex2.approx swept over every float32
+    argument the cell's inputs reach; one kernel call on (b, t, d, n)
+    float32 held elementwise to ``scan_f64_bound``'s limit (with the larger
+    of the PTX ISA's and the sweep's ex2 error) around the float64 plain
+    version on the same inputs; two planted faults in the last
+    ``fault_steps`` steps (the carry dropped at one step; lane n = 0 left
+    out of y) must fail that limit. Then the kernel's time against its
+    bound and the plain version's."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
+    from repro_torch.kernels.ssm_scan.ref import LOG2E, ssm_chunk_scan_torch
+    gen = torch.Generator(device=DEVICE).manual_seed(32768)
+    xs = scan_inputs(gen, b, t, d, n)
+    a2 = xs[4] * torch.tensor(LOG2E, dtype=torch.float32)
+    lo = float(xs[1].max() * a2.min())      # delta > 0, a < 0: the lowest
+    swept = ex2_sweep(lo)
+    ex2_rel = max(EX2_PTX_REL, swept)
+    say(f"ssm scan: ex2.approx.ftz over every float32 argument in [{lo:.6g}, "
+        f"0] with a normal result: largest relative error {swept:.6g} "
+        f"({swept / U32:.4g} u) on the card, PTX ISA {EX2_PTX_REL:.6g} "
+        f"({EX2_PTX_REL / U32:.4g} u); the bound takes {ex2_rel:.6g}")
+    y, s = ssm_chunk_scan(*xs)
+    t0 = t - fault_steps
+    y64, s64, ylim, slim, kept = scan_f64_bound(*xs, keep_from=t0,
+                                                ex2_rel=ex2_rel)
+    ey, ry, oky = _over(y, y64, ylim)
+    es, rs, oks = _over(s, s64, slim)
+    check(oky and oks and bool(torch.isfinite(y).all()),
+          f"ssm scan ({b}, {t}, {d}, {n}): kernel beyond the float32 error "
+          f"bound of the float64 plain version (y {ry:.3g} x, state "
+          f"{rs:.3g} x the limit)")
+    faults = {}
+    for label, (r, ok) in scan_faults(xs, y64, ylim, kept, t0).items():
         check(not ok, f"ssm scan: the planted fault '{label}' passes the "
               f"limit ({r:.3g} x); the check cannot see it")
         faults[label] = r
-    del y64, ylim, u, dl, bv, cv, a, kept
+    del y64, ylim, kept
     out = {"max_abs_err": max(ey, es), "err_over_limit": max(ry, rs),
            "planted_faults": [{"fault": k, "err_over_limit": r}
-                              for k, r in faults.items()]}
+                              for k, r in faults.items()],
+           "ex2_rel_swept": swept, "ex2_rel_ptx": EX2_PTX_REL,
+           "ex2_arg_lo": lo}
     out["ms"] = cuda_ms(lambda: ssm_chunk_scan(*xs), 5)
     out["plain_ms"] = cuda_ms(lambda: ssm_chunk_scan_torch(*xs), 1, 0)
     out.update(scan_bound(b, t, d, n))
     del xs, y, s
+    torch.cuda.empty_cache()
+    # one sequence: one thread's serial walk over T, without the batch
+    x1 = scan_inputs(gen, 1, t, d, n)
+    out["batch1_ms"] = cuda_ms(lambda: ssm_chunk_scan(*x1), 5)
+    del x1
     torch.cuda.empty_cache()
     parts = out["bound_parts_ms"]
     say(f"ssm scan ({b}, {t}, {d}, {n}) float32 against the float64 plain "
@@ -2313,7 +2482,42 @@ def scan_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, d=HYMBA_DI, n=HYMBA_N,
         f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}; bytes "
         f"{parts['bytes']:.4f}, exponentials {parts['exps']:.4f} at "
         f"{out['sm_clock_hz'] / 1e6:.0f} MHz, float32 operations "
-        f"{parts['operations']:.4f})")
+        f"{parts['operations']:.4f}); at batch 1 {out['batch1_ms']:.4f} ms")
+    return out
+
+
+def scan_decode_row(b=HYBRID_BATCH, d=HYMBA_DI, n=HYMBA_N) -> dict:
+    """Phase 10a, the scan's decode call (b, 1, d, n) as hymba's decode
+    step makes it, the state written over s0: within ``SCAN_TOL`` of the
+    plain version, then its time by CUDA events and its device time
+    (``device_ms``) against the bound and the plain version's."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_torch
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    xs = scan_inputs(gen, b, 1, d, n)
+    wy, ws = ssm_chunk_scan_torch(*xs)
+    s0 = xs[5].clone()
+    y, s = ssm_chunk_scan(*xs[:5], s0, s_out=s0)
+    err = max(float((y - wy).abs().max()), float((s - ws).abs().max()))
+    check(bool(torch.allclose(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL))
+          and bool(torch.allclose(s, ws, rtol=SCAN_TOL, atol=SCAN_TOL)),
+          f"ssm scan decode ({b}, 1, {d}, {n}): kernel != plain beyond "
+          f"{SCAN_TOL} (max |err| {err})")
+    step = lambda: ssm_chunk_scan(*xs[:5], s0, s_out=s0)
+    plain = lambda: ssm_chunk_scan_torch(*xs)
+    out = dict(max_abs_err=err, ms=cuda_ms(step, 50, 5),
+               device_ms=device_ms(step, 50, 5),
+               plain_ms=cuda_ms(plain, 50, 5),
+               plain_device_ms=device_ms(plain, 50, 5))
+    out.update(scan_bound(b, 1, d, n))
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    say(f"ssm scan decode ({b}, 1, {d}, {n}) in place ({nvidia_smi_line()}):"
+        f" {out['ms']:.4f} ms a call by CUDA events, device "
+        f"{fmt(out['device_ms'])} ms; plain {out['plain_ms']:.4f} ms, device "
+        f"{fmt(out['plain_device_ms'])} ms; bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}); max |err| {err:.3g}")
     return out
 
 
@@ -2635,7 +2839,8 @@ def main(args: list[str]) -> int:
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
                     ["--attention-rows"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
-              f"--attention-rows], got {args}", file=sys.stderr)
+              f"--attention-rows], got {args}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2751,6 +2956,7 @@ def main(args: list[str]) -> int:
           "phase 9")
     sc_err = check_scan_random()
     sc = scan_cell_shapes()
+    sd = scan_decode_row()
     wf_errs = check_window_random()
     wf = window_cell_shapes()
     hr = hymba_attention_rows()
@@ -2822,6 +3028,12 @@ def main(args: list[str]) -> int:
                  "select_ms": tk["select_ms"],
                  "select_bound_ms": tk["select_bound_ms"],
                  "select_plain_ms": tk["select_plain_ms"],
+                 "select_bf16_ms": tk["select_bf16_ms"],
+                 "select_bf16_bound_ms": tk["select_bf16_bound_ms"],
+                 "launches_per_call": tk["launches_per_call"],
+                 **measured(
+                     select_kernels_per_step=l1["select_kernels_per_step"],
+                     memsets_per_step=l1["memsets_per_step"]),
                  "bitwise": tk["max_abs_err"] == 0.0,
                  "config": "qwen3-32b-l1-dp2-topk", "dtype": "float32",
                  "shape": [1, EMBED_SIZE], "k": EMBED_K,
@@ -2949,10 +3161,33 @@ def main(args: list[str]) -> int:
                  "bound_ms": sc["bound_ms"], "bound_by": sc["bound_by"],
                  "bound_parts_ms": sc["bound_parts_ms"],
                  "library_ms": None, "library": "none exists",
+                 "ex2_rel_swept": sc["ex2_rel_swept"],
+                 "ex2_rel_ptx": sc["ex2_rel_ptx"],
                  "bitwise": False, "config": HYBRID_CELL, "dtype": "float32",
                  "ms_per": f"layer ({HYBRID_BATCH} x {HYBRID_PROMPT}, D "
                            f"{HYMBA_DI}, N {HYMBA_N})",
+                 "batch1_ms": sc["batch1_ms"],
+                 **measured(launches_per_call=scan_per_layer(
+                     hy["prefill_profile"], hy["n_layers"])),
                  "launches_per": served(hy, HYBRID_STEPS)})
+    rows.append({"name": "ssm_scan", "route": "cuda",
+                 "source": "src/repro_torch/csrc/ssm_scan.cu",
+                 "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:78",
+                 "mode": "decode, state written over s0",
+                 "launches": hy["counts"][6] - hy["n_layers"],
+                 "max_abs_err": sd["max_abs_err"],
+                 "tol": {"float32": SCAN_TOL}, "ms": sd["ms"],
+                 "device_ms": sd["device_ms"], "plain_ms": sd["plain_ms"],
+                 "plain_device_ms": sd["plain_device_ms"],
+                 "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+                 "library_ms": None, "library": "none exists",
+                 "bitwise": False, "config": HYBRID_CELL, "dtype": "float32",
+                 "ms_per": f"decode call ({HYBRID_BATCH} x 1, D {HYMBA_DI}, "
+                           f"N {HYMBA_N})",
+                 **measured(launches_per_call=scan_per_layer(
+                     hy["decode_profile"], hy["n_layers"])),
+                 "launches_per": f"{HYBRID_STEPS} decode steps x "
+                                 f"{hy['n_layers']} layers"})
     pre_attn = fl["ms"] * cell["n_layers"] / 1e3
     say(f"{SERVE_CELL}: attention's share of prefill {pre_attn:.4f} s of "
         f"{cell['prefill_s']:.4f} s ({100 * pre_attn / cell['prefill_s']:.1f}"
@@ -2972,6 +3207,16 @@ def main(args: list[str]) -> int:
                           f"{100 * hy['busy']:.1f}%") + ", over one prefill "
         + ("not measured" if hy["prefill_busy"] is None else
            f"{100 * hy['prefill_busy']:.1f}%") + f" ({smi})")
+    dp = hy["decode_profile"]
+    if dp is not None:
+        scan_ms = sum(ms for key, ms, _ in dp[2] if "ssm_scan" in key)
+        say(f"{HYBRID_CELL}: the scan's device time in one profiled decode "
+            f"step {scan_ms:.4f} ms of {dp[1]:.4f} ms busy "
+            f"({100 * scan_ms / dp[1]:.2f}%; the step's wall {dp[0]:.4f} "
+            f"ms) ({smi})")
+    say(f"{HYBRID_CELL}: scan launches a layer, profiled prefill "
+        f"{scan_per_layer(hy['prefill_profile'], hy['n_layers'])}, decode "
+        f"step {scan_per_layer(dp, hy['n_layers'])} (None: not profiled)")
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

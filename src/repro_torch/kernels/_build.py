@@ -42,8 +42,9 @@ _SIGNATURES = {
                                              _P),
     "soar_segment_reduce_bf16_round_each": (_P,) * 5 + (
         _I, _I, ctypes.c_longlong, _I, _P),
-    "soar_topk_select": (_P, _I, _I, ctypes.c_longlong, _I, _P, _P, _P),
-    "soar_topk_compress": (_P, _I, _I, ctypes.c_longlong, _I) + (_P,) * 11,
+    "soar_topk_scratch": (_I, _I, ctypes.c_longlong, _I, _I, _P),
+    "soar_topk_select": (_P, _I, _I, ctypes.c_longlong, _I, _P, _P, _P, _P),
+    "soar_topk_compress": (_P, _I, _I, ctypes.c_longlong, _I) + (_P,) * 5,
     "soar_flash_tile": (_P,) * 4 + (_I,) * 7 + (ctypes.c_longlong,) * 12
     + (_I, _I, ctypes.c_float, _P),
     "soar_flash_tile_tc": (_P,) * 4 + (_I,) * 6 + (ctypes.c_longlong,) * 12
@@ -52,6 +53,7 @@ _SIGNATURES = {
     + (ctypes.c_float, _I, _I, _P, _P, _P),
     "soar_ssm_scan": (_P,) * 8 + (_I,) * 4 + (ctypes.c_longlong,) * 8
     + (_P,),
+    "soar_ex2_sweep": (ctypes.c_uint, ctypes.c_ulonglong, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

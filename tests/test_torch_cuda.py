@@ -17,7 +17,9 @@ tile kernel, which rounds them to bfloat16 for P.V, within 2^-8 |want| +
 (2^-8 + 2^-15) A + 2^-15, A the float32 plain attention over |v|
 (``FLASH_TC``; both derived in ``chip_smoke.py``). The selective-SSM scan
 is held to the JAX test's rtol = atol = 1e-5 (its sum over N runs in
-another order, its exponential is expf).
+another order, its exponential is ex2.approx of a pre-scaled argument), and
+at a longer sequence to the float64 plain version within the error bound
+derived for it (``chip_smoke.scan_f64_bound``).
 """
 import numpy as np
 import pytest
@@ -710,3 +712,91 @@ def test_hybrid_serving_on_card_equals_cpu(dev):
     want = out["cpu"][1]
     torch.testing.assert_close(out["card"][1], want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [5_120, 16_384, 16_385, 1_000_003])
+def test_topk_select_launches_per_call(dev, dtype, d):
+    """A row of at most 16,384 values: one launch; a longer one: a memset
+    and three passes (float32) or two (bfloat16)."""
+    from repro_torch.kernels.topk_compress.ref import topk_threshold_torch
+    from repro_torch.kernels.topk_compress.topk_compress import (
+        select_launches, topk_threshold_cuda)
+    x = torch.randn((1, d), generator=torch.Generator(device=dev).manual_seed(
+        d), device=dev).to(dtype)
+    k = max(1, d // 100)
+    launched = _chip_smoke().device_ops(lambda: topk_threshold_cuda(x, k))
+    assert launched == select_launches(dtype, d) == (
+        1 if d <= 16_384 else 3 + (dtype == torch.float32))
+    assert torch.equal(_raw(topk_threshold_cuda(x, k)),
+                       _raw(topk_threshold_torch(x, k)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_candidate_buffer_and_overflow(dev, dtype):
+    """Rows of 100,003 values that start off 16 bytes (as a view one to
+    three elements into a buffer too), whose first pass picks a bin that
+    fits the candidate buffer (6,248 keys: random; 5,000 keys in [1, 1.125)
+    above small ones) or overflows it (every key in one first digit; heavy
+    ties): the threshold, values and indices equal the plain version's bit
+    for bit."""
+    from repro_torch.kernels.topk_compress.ref import (topk_compress_torch,
+                                                       topk_threshold_torch)
+    from repro_torch.kernels.topk_compress.topk_compress import (
+        topk_compress_cuda, topk_threshold_cuda)
+    rng = np.random.default_rng(17)
+    d, k = 100_003, 1_000
+    rows = rng.standard_normal((4, d))
+    rows[1] = (1 + rng.random(d) / 8.5) * rng.choice([-1, 1], d)
+    rows[2] = np.where(rng.random(d) < 0.9, 1.5, -1.5) * (rng.random(d) < 0.8)
+    rows[3] = rng.random(d) / 128
+    rows[3, rng.choice(d, 5_000, replace=False)] = 1 + rng.random(5_000) / 8.5
+    for off in (0, 1, 3):
+        buf = torch.zeros(4 * d + off, dtype=dtype, device=dev)
+        x = buf[off:].view(4, d)
+        x.copy_(torch.as_tensor(rows, device=dev).to(dtype))
+        t = topk_threshold_cuda(x, k)
+        assert torch.equal(_raw(t), _raw(topk_threshold_torch(x, k)))
+        v, i = topk_compress_cuda(x, k)
+        wv, wi = topk_compress_torch(x, k)
+        assert torch.equal(i, wi) and torch.equal(_raw(v), _raw(wv))
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 32])
+@pytest.mark.parametrize("t", [1, 70])
+def test_ssm_scan_kernel_every_lane_count_in_place(dev, n, t):
+    """N = 1, 5, 16, 32 (one, two, four and eight lanes a channel), a
+    decode step (T = 1) and a prefill, the state written over s0: within
+    1e-5 of the plain version, and equal to the call with a fresh s_out."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_torch
+    rng = np.random.default_rng(n * 100 + t)
+    xs = _scan_inputs(rng, 3, t, 70, n, dev)
+    wy, ws = ssm_chunk_scan_torch(*xs)
+    y1, s1 = ssm_chunk_scan(*xs)
+    s0 = xs[5].clone()
+    y, s = ssm_chunk_scan(*xs[:5], s0, s_out=s0)
+    assert s is s0
+    assert torch.equal(y, y1) and torch.equal(s, s1)
+    torch.testing.assert_close(y, wy, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, ws, rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_kernel_within_the_derived_bound(dev):
+    """(2, 2000, 96, 16): elementwise within ``scan_f64_bound``'s limit of
+    the float64 plain version (the PTX ISA's ex2 error)."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_chunk_scan
+    chip_smoke = _chip_smoke()
+    xs = _scan_inputs(np.random.default_rng(2000), 2, 2000, 96, 16, dev)
+    y, s = ssm_chunk_scan(*xs)
+    y64, s64, ylim, slim, _ = chip_smoke.scan_f64_bound(*xs, keep_from=0)
+    assert chip_smoke._over(y, y64, ylim)[2]
+    assert chip_smoke._over(s, s64, slim)[2]
