@@ -5,6 +5,7 @@
     python3 chip_smoke.py --lr-witness   # only the learning-rate witness
     python3 chip_smoke.py --bf16-witness # only hymba's bfloat16 witness
     python3 chip_smoke.py --attention-rows  # only hymba's attention rows
+    python3 chip_smoke.py --solve        # only phases 1-4, the solve
 
 Drives the port's four paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``), the reduce path
@@ -21,12 +22,16 @@ plain torch version on the inputs the paths give it. Phases:
 
 1. device: name, power limit, versions, kernel build time;
 2. kernels vs plain versions on the card, bitwise (``torch.equal``):
-   min-plus on random rows with BIG entries, then both kernels on every
-   level of both configurations below, float32 and float64, with times;
+   the standalone min-plus (``ops.minplus``) on random rows with BIG
+   entries, then the solve's two kernels, the level fold (its output) and
+   the color-level kernel (``isblue`` and ``split``), on every level of
+   both configurations below, float32 and float64, with times per level
+   (depth, K, the level's largest real child count, ms, bound);
 3. main path ``bt4096-x64-k64``: 64 tenants on BT(4096) (paper Sec. 5,
    Figs. 9-10), exponential (dyadic) rates, power-law loads, k = 64; the
    card's masks and costs must equal the CPU path bitwise and the serial
-   ``soar`` on 4 instances, and each kernel must have run;
+   ``soar`` on 4 instances; one level-fold and one color-level launch per
+   level with internal nodes, and none of the standalone min-plus;
 4. ragged path ``rpa1024-x16-k16``: 16 scale-free rpa(1024) trees (paper
    Appendix B, Fig. 11) with 80% availability, k = 16, max_children 128;
    the same checks plus ``rho_scale`` / ``rho_root_add`` re-solves;
@@ -57,7 +62,7 @@ plain torch version on the inputs the paths give it. Phases:
    has #(|g| > T) < k <= #(|g| >= T) and sent + residual == g; every
    segment-reduce launch of the gradient reduce equals its plain version
    bitwise; the resumed run equals the uninterrupted one bitwise; the
-   top-k, segment-reduce, level-fold and min-plus kernels all ran.
+   top-k, segment-reduce, level-fold and color-level kernels all ran.
 9. serving, everything of the trainer freed first. 9a, before the model
    allocates: the flash-attention kernels within tolerance of their plain
    version (float32 2e-5, bfloat16 3e-2, the JAX tests') on the JAX test
@@ -142,6 +147,7 @@ qwen3-32b's widths scaled by 1/4 .. 1 (see :func:`lr_witness`).
 ``--bf16-witness`` runs none either: it prints hymba-1.5b's last decode
 logits against a fresh prefill's by precision, depth and decode steps, and
 the bfloat16 noise floor of the prefill (see :func:`bf16_witness`).
+``--solve`` runs phases 1-4 only and prints the solve's kernel rows.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -280,9 +286,10 @@ def measured(**counts) -> dict:
 
 
 class Recorder:
-    """Records the engine's level-fold and chain calls during one solve.
+    """Records the engine's level-fold and color-level calls during one
+    solve.
 
-    Swaps the names ``level_fold`` and ``chain_fold`` in the engine module
+    Swaps the names ``level_fold`` and ``color_level`` in the engine module
     for wrappers that keep their arguments and call through, so the inputs
     are exactly those of the main path.
     """
@@ -290,33 +297,34 @@ class Recorder:
     def __init__(self, batched):
         self.batched = batched
         self.folds: list = []
-        self.chains: list = []
+        self.colors: list = []
 
     def __enter__(self):
         b = self.batched
-        self._orig = (b.level_fold, b.chain_fold)
-        fold, chain = self._orig
+        self._orig = (b.level_fold, b.color_level)
+        fold, color = self._orig
 
         def rec_fold(*args, **kw):
             self.folds.append((args, kw))
             return fold(*args, **kw)
 
-        def rec_chain(st, collect=False):
-            self.chains.append(st)
-            return chain(st, collect)
+        def rec_color(*args, **kw):
+            self.colors.append((args, kw))
+            return color(*args, **kw)
 
-        b.level_fold, b.chain_fold = rec_fold, rec_chain
+        b.level_fold, b.color_level = rec_fold, rec_color
         return self
 
     def __exit__(self, *exc):
-        self.batched.level_fold, self.batched.chain_fold = self._orig
+        self.batched.level_fold, self.batched.color_level = self._orig
 
 
-def fold_work(args, kw) -> tuple[int, int]:
-    """(bytes, operations) one level fold needs: each operand read once
-    and the output written once; two operations (add, min) per min-plus
-    candidate, K*K candidates per row for every real child after the
-    first, plus the epilogue's five per output entry of a real node."""
+def fold_work(args, kw) -> tuple[int, int, int]:
+    """(bytes, operations, largest real child count) of one level fold:
+    each operand read once and the output written once; two operations
+    (add, min) per min-plus candidate, K*K candidates per row for every
+    real child after the first, plus the epilogue's five per output entry
+    of a real node."""
     xs, kid = args[0], args[2]
     nl, kcap = kw["nl"], kw["kcap"]
     B, W = kid.shape[:2]
@@ -325,30 +333,26 @@ def fold_work(args, kw) -> tuple[int, int]:
     real = (kid != xs.shape[1] - 1).sum(dim=2)
     folds = int((real - 1).clamp(min=0).sum())
     nodes = int((real > 0).sum())
-    return nbytes, 2 * folds * (nl + 1) * kcap * kcap + 5 * nodes * nl * kcap
+    return (nbytes, 2 * folds * (nl + 1) * kcap * kcap
+            + 5 * nodes * nl * kcap, int(real.max()))
 
 
-def chain_pairs(chains, f):
-    """The min-plus launches of the color's chains: (acc, child, real
-    rows) per launch, the accumulators replayed with the plain version.
-    A row is real where its node's child m exists; the recorded chains
-    come top-down, one per level with internal nodes."""
-    import torch
-
-    from repro_torch.kernels.minplus.levelfold import minplus_fused
-    levels = [d for d in range(f.h_max + 1)
-              if f.lvl_width[d] and f.lvl_internal[d]]
-    check(len(levels) == len(chains), "one recorded chain per level")
-    pairs = []
-    for d, st in zip(levels, chains):
-        o, wi = f.lvl_off[d], f.lvl_internal[d]
-        kid = torch.as_tensor(f.pk_kid[:, o : o + wi])
-        acc = st[0]
-        for m in range(1, st.shape[0]):
-            real_rows = 2 * int((kid[:, :, m] < f.n_slots).sum())
-            pairs.append((acc, st[m], real_rows))
-            acc = minplus_fused(acc, st[m])
-    return pairs
+def color_work(args, kw) -> tuple[int, int, int]:
+    """(bytes, operations, largest real child count) of one color level:
+    the children's rows at the two rows (red el+1, blue 1) read once, the
+    per-node inputs read once and the outputs written once; 2*2*(real-1)
+    *Kc^2 operations for the two chains and 2*(real-1)*Kc for the split's
+    candidates (add, min), ``real`` each node's real children."""
+    ch, kid = args[0], args[1]
+    kc = kw["kc"]
+    B, Wi, max_c = kid.shape
+    real = (kid != ch.shape[1]).sum(dim=2)
+    nbytes = 2 * int(real.sum()) * kc * ch.element_size()
+    nbytes += sum(t.numel() * t.element_size() for t in args[1:])
+    nbytes += B * Wi * (1 + 8 * max_c)          # isblue bool, split int64
+    steps = int((real - 1).clamp(min=0).sum())
+    return (nbytes, 2 * 2 * steps * kc * kc + 2 * steps * kc,
+            int(real.max()))
 
 
 def compare_kernels(f, k, dtype, label):
@@ -357,12 +361,16 @@ def compare_kernels(f, k, dtype, label):
     import torch
 
     from repro_torch.engine import EngineOptions, batched, solve_forest
+    from repro_torch.kernels.minplus.color import color_level_torch
     from repro_torch.kernels.minplus.levelfold import (level_fold_cuda,
-                                                       level_fold_torch,
-                                                       minplus_fused)
-    from repro_torch.kernels.minplus.minplus import minplus_cuda
+                                                       level_fold_torch)
+    from repro_torch.kernels.minplus.minplus import color_level_cuda
     with Recorder(batched) as rec:
         solve_forest(f, k, options=EngineOptions(dtype=dtype))
+    levels = [d for d in range(f.h_max + 1)
+              if f.lvl_width[d] and f.lvl_internal[d]]
+    check(len(rec.folds) == len(levels) == len(rec.colors),
+          f"{label}: one level fold and one color level per level")
     err = 0.0
     for args, kw in rec.folds:
         args = tuple(t.contiguous() for t in args)
@@ -370,48 +378,54 @@ def compare_kernels(f, k, dtype, label):
         err = max(err, float((got.double() - want.double()).abs().max()))
         check(torch.equal(got, want),
               f"{label}: level fold != plain at nl={kw['nl']}")
-    pairs = chain_pairs(rec.chains, f)
-    mp_err = 0.0
-    for a, b, _ in pairs:
-        got, want = minplus_cuda(a, b), minplus_fused(a, b)
-        mp_err = max(mp_err, float((got.double() - want.double()).abs().max()))
-        check(torch.equal(got, want), f"{label}: min-plus != plain")
+    c_err = 0.0
+    colors = [(tuple(t.contiguous() for t in a), kw) for a, kw in rec.colors]
+    for args, kw in colors:
+        (gb, gs), (wb, ws) = (color_level_cuda(*args, **kw),
+                              color_level_torch(*args, **kw))
+        c_err = max(c_err, float((gb != wb).sum()),
+                    float((gs - ws).abs().max()))
+        check(torch.equal(gb, wb) and torch.equal(gs, ws),
+              f"{label}: color level != plain at depth "
+              f"{args[0].shape[2] - 3} (isblue or split)")
     say(f"kernels {label} {str(dtype)[6:]}: level fold bitwise on "
-        f"{len(rec.folds)} levels, min-plus bitwise on {len(pairs)} "
-        f"launches")
-    return rec.folds, pairs, err, mp_err
+        f"{len(rec.folds)} levels, color level (isblue, split) bitwise on "
+        f"{len(colors)} levels")
+    return rec.folds, colors, err, c_err
 
 
-def time_kernels(folds, pairs):
+def time_kernels(folds, colors):
     """Per-solve device time of each kernel and of its plain version over
-    the recorded calls, with the bound from this run's shapes."""
+    the recorded calls (CUDA events around the solve's launches, and the
+    profiler's device time, which leaves out the host's gaps between
+    short launches), with the bound from this run's inputs, and per level
+    (depth, K, largest real child count, ms, bound ms)."""
+    from repro_torch.kernels.minplus.color import color_level_torch
     from repro_torch.kernels.minplus.levelfold import (level_fold_cuda,
-                                                       level_fold_torch,
-                                                       minplus_fused)
-    from repro_torch.kernels.minplus.minplus import minplus_cuda
+                                                       level_fold_torch)
+    from repro_torch.kernels.minplus.minplus import color_level_cuda
     folds = [(tuple(t.contiguous() for t in a), kw) for a, kw in folds]
     out = {}
-    fb = fo = 0
-    for a, kw in folds:
-        nb, no = fold_work(a, kw)
-        fb, fo = fb + nb, fo + no
-    out["levelfold"] = dict(
-        ms=cuda_ms(lambda: [level_fold_cuda(*a, **kw) for a, kw in folds], 20),
-        plain_ms=cuda_ms(lambda: [level_fold_torch(*a, **kw)
-                                  for a, kw in folds], 3, warmup=1),
-        nbytes=fb, ops=fo,
-        # (depth, K, ms, bound ms) of each level's launch
-        levels=[(kw["nl"] - 2, kw["kcap"],
-                 cuda_ms(lambda a=a, kw=kw: level_fold_cuda(*a, **kw), 20),
-                 max(nb / HBM_BYTES_PER_S, no / FP32_OPS_PER_S) * 1e3)
-                for a, kw in folds for nb, no in [fold_work(a, kw)]])
-    mb = sum(3 * a.numel() * a.element_size() for a, _, _ in pairs)
-    mo = sum(2 * r * a.shape[1] ** 2 for a, _, r in pairs)
-    out["minplus"] = dict(
-        ms=cuda_ms(lambda: [minplus_cuda(a, b) for a, b, _ in pairs], 20),
-        plain_ms=cuda_ms(lambda: [minplus_fused(a, b) for a, b, _ in pairs],
-                         3, warmup=1),
-        nbytes=mb, ops=mo)
+    for name, calls, cuda, plain, work, depth, width in (
+            ("levelfold", folds, level_fold_cuda, level_fold_torch,
+             fold_work, lambda a, kw: kw["nl"] - 2, lambda kw: kw["kcap"]),
+            ("color_level", colors, color_level_cuda, color_level_torch,
+             color_work, lambda a, kw: a[0].shape[2] - 3,
+             lambda kw: kw["kc"])):
+        levels, nb, no = [], 0, 0
+        for a, kw in calls:
+            b, o, real = work(a, kw)
+            nb, no = nb + b, no + o
+            levels.append((depth(a, kw), width(kw), real,
+                           cuda_ms(lambda a=a, kw=kw: cuda(*a, **kw), 20),
+                           max(b / HBM_BYTES_PER_S, o / FP32_OPS_PER_S)
+                           * 1e3))
+        solve = lambda: [cuda(*a, **kw) for a, kw in calls]
+        out[name] = dict(
+            ms=cuda_ms(solve, 20), device_ms=device_ms(solve, 5),
+            plain_ms=cuda_ms(lambda: [plain(*a, **kw) for a, kw in calls],
+                             3, warmup=1),
+            nbytes=nb, ops=no, levels=levels)
     for v in out.values():
         t_bytes = v["nbytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = v["ops"] / FP32_OPS_PER_S * 1e3
@@ -421,15 +435,17 @@ def time_kernels(folds, pairs):
 
 
 def expected_launches(f) -> tuple[int, int]:
-    """Level-fold and min-plus launches one solve of ``f`` makes."""
+    """Level-fold and color-level launches one solve of ``f`` makes: one
+    each per level with internal nodes."""
     levels = [d for d in range(f.h_max + 1)
               if f.lvl_width[d] and f.lvl_internal[d]]
-    return len(levels), len(levels) * (f.max_children - 1)
+    return len(levels), len(levels)
 
 
 def _counted():
     from repro_torch.kernels.minplus.levelfold import level_fold_cuda
-    from repro_torch.kernels.minplus.minplus import minplus_cuda
+    from repro_torch.kernels.minplus.minplus import (color_level_cuda,
+                                                     minplus_cuda)
     from repro_torch.kernels.segment_reduce.segment_reduce import (
         segment_reduce_cuda)
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -437,9 +453,9 @@ def _counted():
     from repro_torch.kernels.topk_compress.topk_compress import (
         topk_compress_cuda, topk_threshold_cuda)
     from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_cuda
-    return (level_fold_cuda, minplus_cuda, segment_reduce_cuda,
+    return (level_fold_cuda, color_level_cuda, segment_reduce_cuda,
             topk_threshold_cuda, topk_compress_cuda, flash_attention_cuda,
-            ssm_chunk_scan_cuda)
+            ssm_chunk_scan_cuda, minplus_cuda)
 
 
 def reset_counts():
@@ -456,8 +472,9 @@ def read_paths() -> dict:
 
 
 def read_counts() -> tuple[int, ...]:
-    """Launches of the level fold, min-plus, segment reduce, top-k select
-    stage, whole top-k, flash attention and the selective-SSM scan."""
+    """Launches of the level fold, the color level, segment reduce, top-k
+    select stage, whole top-k, flash attention, the selective-SSM scan and
+    the standalone min-plus."""
     return tuple(fn.launches for fn in _counted())
 
 
@@ -513,12 +530,15 @@ def run_config(name, trees, loads, avail, k, sample, overrides=False):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     res, first_s = solve_timed(lambda: solve_batch(trees, loads, k, avail))
-    launches, reduces = read_counts()[:2], read_counts()[2]
+    counts = read_counts()
+    launches, reduces = counts[:2], counts[2]
     f = build_forest(trees, loads, avail)
     want = expected_launches(f)
     check(launches == want, f"{name}: launches {launches} != {want}")
     check(all(n > 0 for n in launches), f"{name}: a kernel did not run")
     check(reduces == 0, f"{name}: the solve launched a segment reduce")
+    check(counts[7] == 0, f"{name}: the solve launched the standalone "
+          "min-plus")
     peak = torch.cuda.max_memory_allocated()
     check(res.costs.shape == (len(trees),) and np.isfinite(res.costs).all(),
           f"{name}: costs shape or finiteness")
@@ -543,7 +563,7 @@ def run_config(name, trees, loads, avail, k, sample, overrides=False):
     say(f"{name}: B={len(trees)} n_slots={f.n_slots} h_max={f.h_max} "
         f"max_children={f.max_children} k={k}")
     say(f"{name}: card == CPU bitwise (masks, costs); launches level fold "
-        f"{launches[0]}, min-plus {launches[1]}; first solve_batch "
+        f"{launches[0]}, color level {launches[1]}; first solve_batch "
         f"{first_s:.4f} s; warm solve_forest min {min(warm):.6f} s median "
         f"{statistics.median(warm):.6f} s; bytes_to_host "
         f"{res.bytes_to_host}; max_memory_allocated {peak}")
@@ -566,7 +586,9 @@ def run_config(name, trees, loads, avail, k, sample, overrides=False):
     return f, launches
 
 
-def check_minplus_random():
+def check_minplus_random() -> dict:
+    """The standalone min-plus (``ops.minplus``, no longer on the solve's
+    path) bitwise on random rows; timed on (100,000, 65) float32 rows."""
     import numpy as np
     import torch
 
@@ -586,6 +608,17 @@ def check_minplus_random():
                   f"min-plus != plain at K={K} {dt}")
     say("kernels: min-plus bitwise on (1000, K) rows, K in {2, 17, 65, "
         "129}, float32 and float64, with BIG entries")
+    rows, K = 100_000, 65
+    a, b = (torch.as_tensor(rng.integers(0, 4000, size=(rows, K)) / 8.0,
+                            dtype=torch.float32, device="cuda")
+            for _ in range(2))
+    t_bytes = 3 * rows * K * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * rows * K * K / FP32_OPS_PER_S * 1e3
+    return dict(ms=cuda_ms(lambda: minplus(a, b), 20),
+                plain_ms=cuda_ms(lambda: minplus_fused(a, b), 3, warmup=1),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=0.0, shape=[rows, K])
 
 
 # -- phases 5 and 6: the reduce path -----------------------------------------
@@ -790,7 +823,7 @@ def run_reduce(name, topo, d, x, *, k=None, blue=None, pristine=None):
           f"{name}: {counts[2]} segment-reduce launches != {want_n}")
     if k is not None:
         check(counts[0] > 0 and counts[1] > 0,
-              f"{name}: plan ran no level fold or min-plus on the card")
+              f"{name}: plan ran no level fold or color level on the card")
     check(got.shape == (d,) and got.dtype == torch.float32
           and bool(torch.isfinite(got).all()), f"{name}: result shape/finite")
     # layers: the solve and build_program apart, the device program's upload
@@ -840,7 +873,7 @@ def run_reduce(name, topo, d, x, *, k=None, blue=None, pristine=None):
     say(f"{name}: n_dev={prog.n_dev} n_slots={prog.n_slots} D={d} "
         f"blue={int(np.sum(blue))} ops={len(prog.ops)} "
         f"(reduce ops {want_n - 1}); launches level fold {counts[0]}, "
-        f"min-plus {counts[1]}, segment reduce {counts[2]}; card == plain "
+        f"color level {counts[1]}, segment reduce {counts[2]}; card == plain "
         f"executor == CPU executor ({cols} columns) bitwise; max |err| "
         f"{max_err:.3e} within n_dev*2^-23*sum|x|; utilization "
         f"{prog.utilization}"
@@ -1271,7 +1304,7 @@ def trainer_l1(steps: int = 3) -> dict:
         c for key, _, c in kern if key.startswith("Memset"))
     fmt = lambda v: "not measured" if v is None else v
     say(f"{name}: losses {losses}; launches level fold {counts[0]}, "
-        f"min-plus {counts[1]}, segment reduce {counts[2]}, top-k select "
+        f"color level {counts[1]}, segment reduce {counts[2]}, top-k select "
         f"{counts[3]} calls; in the profiled step {fmt(sel_kernels)} select "
         f"kernels and {fmt(memsets)} memsets on the card; "
         f"thresholds exact on {tc.n_plain} leaves vs plain and "
@@ -1426,7 +1459,7 @@ def trainer_e2e() -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     say(f"{name}: losses {losses}; main {wall:.2f} s for 5 steps with 2 "
-        f"checkpoints; launches level fold {counts[0]}, min-plus "
+        f"checkpoints; launches level fold {counts[0]}, color level "
         f"{counts[1]}, segment reduce {counts[2]}, top-k select {counts[3]}; "
         f"{n_launch} reduce launches == plain bitwise; {n_checked} leaves "
         f"with exact thresholds ({n_plain} also == plain); restore == save "
@@ -2081,8 +2114,8 @@ def serve_f32(cfg, b, t, n_steps, cpu=True) -> dict:
     return dict(diff=diff, scale=scale, cpu_err=max(errs), paths=paths)
 
 
-_KERNEL_NAMES = ("level fold", "min-plus", "segment reduce", "top-k select",
-                 "top-k", "flash", "scan")
+_KERNEL_NAMES = ("level fold", "color level", "segment reduce",
+                 "top-k select", "top-k", "flash", "scan", "min-plus")
 
 
 def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
@@ -2834,12 +2867,99 @@ def bf16_witness() -> None:
         torch.cuda.empty_cache()
 
 
+SOLVE_CELLS = ("bt4096-x64-k64", "rpa1024-x16-k16")
+
+
+def solve_phases() -> list:
+    """Phases 2-4: the solve's kernels against their plain versions on
+    every level of both cells, their times, then both cells through the
+    entry points. Returns the kernels-line rows of the level fold and of
+    the color level (the B2 kernel on the path), each with both cells."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_forest, bt, rpa, sample_load
+
+    t = bt(4096, "exponential")
+    bt_trees = [t] * 64
+    bt_loads = [sample_load(t, "power-law", seed=s) for s in range(64)]
+    bt_f = build_forest(bt_trees, bt_loads)
+    rp_trees = [rpa(1024, seed=s) for s in range(16)]
+    rp_loads = [sample_load(tr, "power-law", seed=s)
+                for s, tr in enumerate(rp_trees)]
+    rng = np.random.default_rng(0)
+    rp_avail = [rng.random(tr.n) < 0.8 for tr in rp_trees]
+    rp_f = build_forest(rp_trees, rp_loads, rp_avail)
+
+    # phase 2: kernels vs plain versions on the card
+    mp = check_minplus_random()
+    times, errs = {}, {"levelfold": 0.0, "color_level": 0.0}
+    for label, f, k in zip(SOLVE_CELLS, (bt_f, rp_f), (64, 16)):
+        folds, colors, lf_err, cl_err = compare_kernels(
+            f, k, torch.float32, label)
+        _, _, lf64, cl64 = compare_kernels(f, k, torch.float64, label)
+        errs["levelfold"] = max(errs["levelfold"], lf_err, lf64)
+        errs["color_level"] = max(errs["color_level"], cl_err, cl64)
+        times[label] = time_kernels(folds, colors)
+    for label, tk in times.items():
+        for name, v in tk.items():
+            say(f"kernels {label} float32 {name} per level (depth, K, "
+                "largest real child count, ms, bound ms): " + ", ".join(
+                    f"({d}, {k}, {r}, {ms:.4f}, {b:.4f})"
+                    for d, k, r, ms, b in v["levels"]))
+            say(f"kernels {label} float32 {name}: {v['ms']:.4f} ms per "
+                f"solve (device {v['device_ms']} ms), plain "
+                f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+                f"({v['bound_by']})")
+
+    # phase 3: the main path, full size
+    _, bt_launches = run_config(SOLVE_CELLS[0], bt_trees, bt_loads, None, 64,
+                                (0, 21, 42, 63))
+    # phase 4: the ragged path, with overrides
+    _, rp_launches = run_config(SOLVE_CELLS[1], rp_trees, rp_loads, rp_avail,
+                                16, (0, 5, 10, 15), overrides=True)
+
+    rows = []
+    for i, (name, src, replaces, entry) in enumerate((
+            ("levelfold", "src/repro_torch/csrc/levelfold.cu",
+             "src/repro/kernels/minplus/levelfold.py:267",
+             "soar_levelfold_f32"),
+            ("color_level", "src/repro_torch/csrc/minplus.cu",
+             "src/repro/kernels/minplus/minplus.py:38",
+             "soar_color_level_f32"))):
+        cells = {}
+        for label, launches in zip(SOLVE_CELLS, (bt_launches, rp_launches)):
+            v = times[label][name]
+            cells[label] = {"launches": launches[i], "ms": v["ms"],
+                            **measured(device_ms=v["device_ms"]),
+                            "plain_ms": v["plain_ms"],
+                            "bound_ms": v["bound_ms"],
+                            "bound_by": v["bound_by"],
+                            "levels": v["levels"]}
+        main = cells[SOLVE_CELLS[0]]
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "entry": entry,
+               "launches": main["launches"], "max_abs_err": errs[name],
+               "ms": main["ms"], "plain_ms": main["plain_ms"],
+               "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+               "library_ms": None, "library": "none exists",
+               "bitwise": errs[name] == 0.0, "config": SOLVE_CELLS[0],
+               "dtype": "float32", "ms_per": "solve",
+               "launches_per": "solve", "cells": cells}
+        if name == "color_level":
+            row["standalone_minplus"] = {
+                "entry": "soar_minplus_f32", "launches_on_main_path": 0,
+                "serves": "repro_torch.kernels.minplus.ops.minplus", **mp}
+        rows.append(row)
+    return rows
+
+
 def main(args: list[str]) -> int:
     import torch
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
-                    ["--attention-rows"]):
+                    ["--attention-rows"], ["--solve"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
-              f"--attention-rows], got {args}",
+              f"--attention-rows | --solve], got {args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2851,10 +2971,7 @@ def main(args: list[str]) -> int:
               "root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    import numpy as np
-
     from repro_torch.configs import ARCHS
-    from repro_torch.core import build_forest, bt, rpa, sample_load
     from repro_torch.kernels import _build
 
     # phase 1: device
@@ -2873,45 +2990,11 @@ def main(args: list[str]) -> int:
         hymba_attention_rows()
         return 0
 
-    # the two configurations
-    t = bt(4096, "exponential")
-    bt_trees = [t] * 64
-    bt_loads = [sample_load(t, "power-law", seed=s) for s in range(64)]
-    bt_f = build_forest(bt_trees, bt_loads)
-    rp_trees = [rpa(1024, seed=s) for s in range(16)]
-    rp_loads = [sample_load(tr, "power-law", seed=s)
-                for s, tr in enumerate(rp_trees)]
-    rng = np.random.default_rng(0)
-    rp_avail = [rng.random(tr.n) < 0.8 for tr in rp_trees]
-    rp_f = build_forest(rp_trees, rp_loads, rp_avail)
-
-    # phase 2: kernels vs plain versions on the card
-    check_minplus_random()
-    folds, pairs, lf_err, mp_err = compare_kernels(
-        bt_f, 64, torch.float32, "bt4096-x64-k64")
-    compare_kernels(bt_f, 64, torch.float64, "bt4096-x64-k64")
-    rp_folds, rp_pairs, _, _ = compare_kernels(
-        rp_f, 16, torch.float32, "rpa1024-x16-k16")
-    compare_kernels(rp_f, 16, torch.float64, "rpa1024-x16-k16")
-    times = time_kernels(folds, pairs)
-    rp_times = time_kernels(rp_folds, rp_pairs)
-    for label, tk in (("bt4096-x64-k64", times),
-                      ("rpa1024-x16-k16", rp_times)):
-        say(f"kernels {label} float32 levelfold per level "
-            "(depth, K, ms, bound ms): " + ", ".join(
-                f"({d}, {k}, {ms:.4f}, {b:.4f})"
-                for d, k, ms, b in tk["levelfold"]["levels"]))
-    for name, v in rp_times.items():
-        say(f"kernels rpa1024-x16-k16 float32 {name}: {v['ms']:.4f} ms per "
-            f"solve, plain {v['plain_ms']:.4f} ms, bound "
-            f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
-
-    # phase 3: the main path, full size
-    _, launches = run_config("bt4096-x64-k64", bt_trees, bt_loads, None, 64,
-                             (0, 21, 42, 63))
-    # phase 4: the ragged path, with overrides
-    run_config("rpa1024-x16-k16", rp_trees, rp_loads, rp_avail, 16,
-               (0, 5, 10, 15), overrides=True)
+    rows = solve_phases()
+    if args == ["--solve"]:
+        say(json.dumps({"kernels": rows}))
+        say(smi)
+        return 0
 
     # phase 5 (random shapes) and phase 6 with phase 5 on its launches
     sr_err = check_segment_reduce_random()
@@ -2971,23 +3054,6 @@ def main(args: list[str]) -> int:
         f"{t10c - t10b:.1f} s, {HYBRID_CELL} {time.perf_counter() - t10c:.1f}"
         " s")
 
-    rows = []
-    for name, src, replaces, n, err in (
-            ("levelfold", "src/repro_torch/csrc/levelfold.cu",
-             "src/repro/kernels/minplus/levelfold.py:267", launches[0],
-             lf_err),
-            ("minplus", "src/repro_torch/csrc/minplus.cu",
-             "src/repro/kernels/minplus/minplus.py:38", launches[1],
-             mp_err)):
-        v = times[name]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": n,
-                     "max_abs_err": err, "ms": v["ms"],
-                     "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-                     "bound_by": v["bound_by"], "library_ms": None,
-                     "bitwise": err == 0.0, "config": "bt4096-x64-k64",
-                     "dtype": "float32", "ms_per": "solve",
-                     "launches_per": "solve"})
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
                  "replaces": "src/repro/kernels/segment_reduce/"

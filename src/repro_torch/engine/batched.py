@@ -16,19 +16,20 @@ the device, and only the answers cross back to the host:
   * **Color**: a top-down level-synchronous traceback over the same packed
     layout replays each node's budget split against the resident tables
     with the serial solver's tie-breaking (blue iff strictly better; first
-    minimizer per child split). Its partial min-plus chains run through the
-    CUDA min-plus kernel, one launch per child index. Each level publishes
-    its split matrix and the next level gathers its budget and barrier
-    distance through inverse parent pointers; no backpointers are stored.
+    minimizer per child split). Each level's chains and split run through
+    ``repro_torch.kernels.minplus.color``: one CUDA kernel launch per level
+    with internal nodes. Each level publishes its split matrix and the next
+    level gathers its budget and barrier distance through inverse parent
+    pointers; no backpointers are stored.
 
 Only the ``(B, n_max)`` blue masks and ``(B,)`` costs come back to the host
 (``BatchResult.bytes_to_host``); ``debug_tables=True`` pulls the whole
 table back and colors it on the host with :func:`color_batch` instead.
 
 ``EngineOptions.device`` picks the device, "cuda" by default. On a CUDA
-device the level fold and the min-plus chains are the hand-written kernels
-and nothing else; with ``device="cpu"`` the same sweep runs their plain
-torch versions. Asking for CUDA where there is no card raises.
+device the level fold and the color's level kernel are the hand-written
+kernels and nothing else; with ``device="cpu"`` the same sweep runs their
+plain torch versions. Asking for CUDA where there is no card raises.
 
 Numerics: the DP runs on the finite ``BIG`` sentinel instead of ``inf`` so
 that ``0 * BIG`` stays finite. Tables are float32 by default; instances
@@ -52,8 +53,9 @@ from ..core.forest import Forest, build_forest, layout_stats
 from ..core.tree import Tree
 from ..core.tropical import BIG, minplus_batch
 from ..kernels._build import built_kernels
-from ..kernels.minplus.levelfold import (chain_fold, level_fold,
-                                         rho_up_from_edges, scaled_edges)
+from ..kernels.minplus.color import color_level
+from ..kernels.minplus.levelfold import (level_fold, rho_up_from_edges,
+                                         scaled_edges)
 from .options import EngineOptions, resolve_options
 
 
@@ -188,79 +190,27 @@ def _color_body(
             i = torch.gather(prev_split, 1, pl * max_c + pk_cidx[:, o : o + W])
             el = torch.gather(prev_lc, 1, pl)
         rl = torch.gather(pk_rho_up[:, o : o + W], 2, el[:, :, None])[..., 0]
-        can_blue = pk_avail[:, o : o + W] & (i >= 1)
         if Wi < W:
             # leaves: no children to chain or split, an elementwise test
             red_l = loadf[:, o + Wi : o + W] * rl[:, Wi:]
-            blue_l = torch.where(can_blue[:, Wi:],
+            can_blue = pk_avail[:, o + Wi : o + W] & (i[:, Wi:] >= 1)
+            blue_l = torch.where(can_blue,
                                  sendf[:, o + Wi : o + W] * rl[:, Wi:], inf)
             leaf_blue = blue_l < red_l
         if Wi == 0:
             blue_parts.append(leaf_blue)
             continue                 # leaf-only level: nothing deeper
         Kc = min(K, lvl_sub[d] + 1) if cap else K
-        jj = torch.arange(Kc, device=dev)[None, None, :]
-        i_in, el_in = i[:, :Wi], el[:, :Wi]
         o1, W1 = lvl_off[d + 1], lvl_width[d + 1]
-        nl1 = d + 3                  # rows of the child level's block
-        ch = torch.cat(
-            [blocks[d + 1][..., :Kc],
-             torch.zeros((B, 1, nl1, Kc), dtype=dt, device=dev)], dim=1)
-        chf = ch.reshape(B, (W1 + 1) * nl1, Kc)
-        kidl = torch.clamp(pk_kid[:, o : o + Wi] - o1, max=W1)
-
-        def slot_rows(row, kidl=kidl, chf=chf, nl1=nl1, Kc=Kc, Wi=Wi):
-            """All children's tables at per-node row: (max_c, B, Wi, Kc)."""
-            idx = (kidl * nl1 + row[:, :, None]).reshape(B, Wi * max_c)
-            got = torch.gather(chf, 1, idx[:, :, None].expand(-1, -1, Kc))
-            return got.reshape(B, Wi, max_c, Kc).movedim(2, 0)
-
-        # partial min-plus chains over children, red (row ell+1) and blue
-        # (row 1) variants; sentinel children hit the appended identity.
-        # chain_fold is the same fold the gather ran, so replayed values
-        # match the tables bit for bit.
-        er = el_in + 1               # <= d+2: always inside the child block
-        x_r = slot_rows(er)
-        x_b = slot_rows(torch.ones_like(er))
-        st = torch.cat([x_r.reshape(max_c, B * Wi, Kc),
-                        x_b.reshape(max_c, B * Wi, Kc)], dim=1)
-        _, parts = chain_fold(st, collect=True)       # (max_c, 2BWi, Kc)
-        ch_r = parts[:, : B * Wi].reshape(max_c, B, Wi, Kc)
-        ch_b = parts[:, B * Wi :].reshape(max_c, B, Wi, Kc)
-        ic = torch.clamp(i_in, max=Kc - 1)             # flat-region clip
-        red_val = (torch.gather(ch_r[-1], 2, ic[..., None])[..., 0]
-                   + loadf[:, o : o + Wi] * rl[:, :Wi])
-        ib = torch.clamp(i_in - 1, 0, Kc - 1)
-        blue_val = torch.where(
-            can_blue[:, :Wi],
-            torch.gather(ch_b[-1], 2, ib[..., None])[..., 0]
-            + sendf[:, o : o + Wi] * rl[:, :Wi],
-            inf)
-        isblue = blue_val < red_val                    # strict, as in serial
+        el_in = el[:, :Wi]
+        isblue, split = color_level(
+            blocks[d + 1], torch.clamp(pk_kid[:, o : o + Wi] - o1, max=W1),
+            i[:, :Wi], el_in, rl[:, :Wi], loadf[:, o : o + Wi],
+            sendf[:, o : o + Wi], pk_avail[:, o : o + Wi], kc=Kc)
         blue_parts.append(isblue if Wi == W else
                           torch.cat([isblue, leaf_blue], dim=1))
-        bud = i_in - isblue.to(torch.int64)
+        # children see the barrier at row lc = isblue ? 1 : ell+1
         lc = torch.where(isblue, 1, el_in + 1)
-        # split the budget among children, last child first (mSplit
-        # replay). Sentinel children read the identity's zero table: their
-        # vals are the (monotone non-increasing) partial chain at bud - j,
-        # non-decreasing in j, so the first minimizer is j = 0 and the
-        # running budget passes through untouched.
-        sel = isblue[None, :, :, None]
-        chain = torch.where(sel, ch_b, ch_r)
-        # children see the barrier at row lc = isblue ? 1 : ell+1, both
-        # already gathered
-        xc = torch.where(sel, x_b, x_r)
-        best = []
-        for m in range(max_c - 1, 0, -1):
-            feas = jj <= bud[..., None]
-            vals = torch.gather(chain[m - 1], 2,
-                                torch.clamp(bud[..., None] - jj, 0, Kc - 1))
-            vals = torch.where(feas, vals + xc[m], inf)
-            best_j = torch.argmin(vals, dim=2)
-            bud = bud - best_j
-            best.append(best_j)
-        split = torch.stack([bud] + best[::-1], dim=2)   # (B, Wi, max_c)
         prev_split = split.reshape(B, Wi * max_c)
         prev_lc = lc
 

@@ -34,6 +34,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "soar_minplus_f32": (_P, _P, _P, ctypes.c_longlong, _I, _P),
     "soar_minplus_f64": (_P, _P, _P, ctypes.c_longlong, _I, _P),
+    "soar_color_level_f32": (_P,) * 11 + (_I,) * 8 + (_P,),
+    "soar_color_level_f64": (_P,) * 11 + (_I,) * 8 + (_P,),
     "soar_levelfold_f32": (_P,) * 8 + (_I,) * 6 + (_P,),
     "soar_levelfold_f64": (_P,) * 8 + (_I,) * 6 + (_P,),
     "soar_segment_reduce_f32": (_P,) * 5 + (_I, _I, ctypes.c_longlong, _I,

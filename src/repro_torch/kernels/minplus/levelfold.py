@@ -45,6 +45,28 @@ def minplus_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def identity_steps(acc: torch.Tensor, r: int) -> torch.Tensor:
+    """``r`` chain steps against the all-zeros identity child, in closed
+    form: bitwise equal to ``r`` repeated ``minplus_fused(acc, zeros)``.
+
+    With ``pm`` the prefix minimum of ``acc + 0``, one step gives
+    ``min(pm, BIG)`` below the last entry and ``pm`` at it: ``a + 0`` is
+    exact, and the shifted-in ``BIG + 0`` candidate exists only for
+    i < K-1. A second step caps the last entry as well, and further steps
+    change nothing; for K = 1 every step returns ``acc + 0``. Both kernels
+    fold a run of sentinel children this way, never with a K*K step.
+    """
+    if r < 1:
+        return acc
+    pm = torch.cummin(acc + 0.0, dim=-1).values
+    if pm.shape[-1] == 1:
+        return pm
+    capped = torch.minimum(pm, pm.new_tensor(BIG))
+    if r >= 2:
+        return capped
+    return torch.cat([capped[..., :-1], pm[..., -1:]], dim=-1)
+
+
 def _fold(st: torch.Tensor, collect: bool,
           step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]):
     acc = st[0]
@@ -62,10 +84,11 @@ def chain_fold(st: torch.Tensor, collect: bool = False):
 
     ``st``: (max_c, R, K), child 0 first. Returns the final accumulator
     (R, K), plus with ``collect=True`` the (max_c, R, K) stack of partial
-    chains (the color traceback's mSplit replay needs them). On a CUDA
-    tensor each step is one launch of the min-plus kernel; on a CPU tensor
+    chains (the color's mSplit replay reads them). On a CUDA tensor each
+    step is one launch of the standalone min-plus kernel; on a CPU tensor
     it is :func:`minplus_fused`. The gather's fold and the color's replay
-    both chain in this order, which keeps their values bit-identical.
+    (``color.color_level_torch`` and its kernel) chain in this order,
+    which keeps their values bit-identical.
     """
     step = minplus_fused if st.device.type == "cpu" else minplus_cuda
     return _fold(st, collect, step)

@@ -28,11 +28,13 @@ import torch
 from repro_torch.core import Tree, build_forest
 from repro_torch.core.tropical import BIG
 from repro_torch.engine import EngineOptions, solve_batch, solve_forest
+from repro_torch.kernels.minplus import minplus as minplus_mod
+from repro_torch.kernels.minplus.color import color_level, color_level_torch
 from repro_torch.kernels.minplus.levelfold import (level_fold,
                                                    level_fold_cuda,
                                                    level_fold_torch,
                                                    minplus_fused)
-from repro_torch.kernels.minplus.minplus import minplus_cuda
+from repro_torch.kernels.minplus.minplus import color_level_cuda, minplus_cuda
 from repro_torch.kernels.minplus.ops import minplus
 from repro_torch.kernels.segment_reduce.ops import reduce_rows, segment_reduce
 from repro_torch.kernels.segment_reduce.ref import segment_reduce_torch
@@ -67,18 +69,31 @@ def test_minplus_kernel_bitwise(dev, dtype, rows, k):
     assert torch.equal(got, minplus_fused(a, b))
 
 
+def _saturate(x, rng, frac):
+    """Set a fraction of x's entries to 2e18, above BIG (BIG + BIG)."""
+    if frac:
+        x[torch.as_tensor(rng.random(tuple(x.shape)) < frac,
+                          device=x.device)] = 2e18
+    return x
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("huge", [0.0, 0.85])
 @pytest.mark.parametrize("B,C,W,max_c,nl,kcap", [
     (1, 2, 1, 1, 2, 1), (2, 5, 3, 2, 3, 4), (3, 40, 37, 4, 5, 9),
-    (2, 17, 8, 8, 14, 65), (1, 9, 5, 3, 33, 129)])
-def test_level_fold_kernel_bitwise(dev, dtype, B, C, W, max_c, nl, kcap):
+    (2, 17, 8, 8, 14, 65), (1, 9, 5, 3, 33, 129), (2, 30, 6, 128, 3, 17),
+    (1, 12, 300, 2, 12, 5),
+    (1, 12, 40000, 2, 12, 5)])   # 520,000 chains: groups narrow to 2 lanes
+def test_level_fold_kernel_bitwise(dev, dtype, huge, B, C, W, max_c, nl,
+                                   kcap):
     rng = np.random.default_rng(B * 100 + C * 10 + max_c)
-    xs = _rows(rng, (B, C, nl, kcap), dtype, dev, 0.05)
-    xb = _rows(rng, (B, C, kcap), dtype, dev, 0.05)
+    xs = _saturate(_rows(rng, (B, C, nl, kcap), dtype, dev, 0.05), rng, huge)
+    xb = _saturate(_rows(rng, (B, C, kcap), dtype, dev, 0.05), rng, huge)
     xs[:, -1] = 0
     xb[:, -1] = 0
     kid = rng.integers(0, C, size=(B, W, max_c))
-    kid[rng.random(kid.shape) < 0.3] = C - 1
+    kid[rng.random(kid.shape) < 0.3] = C - 1   # interleaved sentinels
+    kid[:, :, (max_c + 1) // 2 :][rng.random((B, W)) < 0.5] = C - 1
     kid = torch.as_tensor(kid, device=dev)
     load = torch.as_tensor(rng.integers(0, 30, (B, W)), dtype=dtype,
                            device=dev)
@@ -93,6 +108,45 @@ def test_level_fold_kernel_bitwise(dev, dtype, B, C, W, max_c, nl, kcap):
     got = level_fold(*args, nl=nl, kcap=kcap)
     assert level_fold_cuda.launches == before + 1
     assert torch.equal(got, level_fold_torch(*args, nl=nl, kcap=kcap))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("huge", [0.0, 0.85])
+@pytest.mark.parametrize("scratch", [False, True])
+@pytest.mark.parametrize("B,W1,nl1,ldk,Wi,max_c,kc", [
+    (1, 1, 2, 1, 1, 1, 1), (2, 5, 3, 4, 3, 2, 4), (3, 40, 5, 9, 37, 4, 9),
+    (2, 17, 14, 65, 8, 8, 65), (1, 9, 33, 129, 5, 3, 100),
+    (2, 30, 3, 17, 6, 128, 17), (1, 12, 12, 6, 300, 2, 5),
+    (2, 50, 3, 5, 40000, 2, 5)])   # 160,000 chains: groups narrow to 4
+def test_color_level_kernel_bitwise(dev, dtype, huge, scratch, B, W1, nl1,
+                                    ldk, Wi, max_c, kc, monkeypatch):
+    """Random rows (non-monotone, BIG, 2e18) and sentinels both
+    interleaved and trailing: the kernel skips split steps only where the
+    closed form proves j = 0, so it is bitwise on any input; ``scratch``
+    forces the node slabs out of shared memory."""
+    if scratch:
+        monkeypatch.setattr(minplus_mod, "COLOR_SMEM_BUDGET", 0)
+    rng = np.random.default_rng(B * 100 + W1 * 10 + max_c)
+    ch = _saturate(_rows(rng, (B, W1, nl1, ldk), dtype, dev, 0.1), rng, huge)
+    kid = rng.integers(0, W1, size=(B, Wi, max_c))
+    kid[rng.random(kid.shape) < 0.3] = W1
+    kid[:, :, (max_c + 1) // 2 :][rng.random((B, Wi)) < 0.5] = W1
+    ints = lambda hi: torch.as_tensor(rng.integers(0, hi, (B, Wi)),
+                                      device=dev)
+    vals = lambda hi: torch.as_tensor(rng.integers(0, hi, (B, Wi)),
+                                      dtype=dtype, device=dev)
+    args = (ch, torch.as_tensor(kid, device=dev), ints(ldk + 2),
+            ints(nl1 - 1),
+            torch.as_tensor(1.0 / rng.integers(1, 12, (B, Wi)), dtype=dtype,
+                            device=dev),
+            vals(30), vals(30),
+            torch.as_tensor(rng.random((B, Wi)) < 0.7, device=dev))
+    before = color_level_cuda.launches
+    isblue, split = color_level(*args, kc=kc)
+    assert color_level_cuda.launches == before + 1
+    want_blue, want_split = color_level_torch(*args, kc=kc)
+    assert torch.equal(isblue, want_blue)
+    assert torch.equal(split, want_split)
 
 
 def _ragged(seed, B, n_hi=40):
@@ -115,10 +169,12 @@ def _ragged(seed, B, n_hi=40):
 def test_solve_on_card_equals_cpu(dev, dtype, seed, k, cap):
     trees, loads, avails = _ragged(seed, 12)
     opts = EngineOptions(dtype=dtype, cap=cap)
-    folds, chains = level_fold_cuda.launches, minplus_cuda.launches
+    folds, colors = level_fold_cuda.launches, color_level_cuda.launches
+    chains = minplus_cuda.launches
     got = solve_batch(trees, loads, k, avails, options=opts)
     assert level_fold_cuda.launches > folds
-    assert minplus_cuda.launches > chains
+    assert color_level_cuda.launches > colors
+    assert minplus_cuda.launches == chains     # not on the solve's path
     want = solve_batch(trees, loads, k, avails,
                        options=opts.replace(device="cpu"))
     assert np.array_equal(got.costs, want.costs)

@@ -30,6 +30,12 @@ for name in sys.argv[2:]:
 print(len(names))
 """
 
+# the modules of the solve's kernels, which must be among those imported
+_SOLVE_PATH = ("repro_torch.kernels.minplus.levelfold",
+               "repro_torch.kernels.minplus.minplus",
+               "repro_torch.kernels.minplus.color",
+               "repro_torch.kernels.minplus.ops")
+
 # the modules of the reduce path, which must be among those imported
 _REDUCE_PATH = ("repro_torch.core.reduce", "repro_torch.core.baselines",
                 "repro_torch.collectives", "repro_torch.collectives.topology",
@@ -74,10 +80,11 @@ def test_port_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
-         *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH, *_HYBRID_PATH],
+         *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
+         *_HYBRID_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 66     # every module imported
+    assert int(out.stdout.split()[-1]) == 67     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
