@@ -6,6 +6,8 @@
     python3 chip_smoke.py --bf16-witness # only hymba's bfloat16 witness
     python3 chip_smoke.py --attention-rows  # only hymba's attention rows
     python3 chip_smoke.py --solve        # only phases 1-4, the solve
+    python3 chip_smoke.py --reduce       # only phases 5-6, the reduce,
+                                         # and the rows-in-flight variants
 
 Drives the port's four paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``), the reduce path
@@ -36,15 +38,20 @@ plain torch version on the inputs the paths give it. Phases:
    Appendix B, Fig. 11) with 80% availability, k = 16, max_children 128;
    the same checks plus ``rho_scale`` / ``rho_root_add`` re-solves;
 5. segment-reduce kernel vs its plain version on the card, bitwise, on
-   random (G, C, D) in float32 and bfloat16 and on every launch the
-   executor makes in phase 6;
+   random (G, C, D) in float32 and bfloat16, on random gather tables over
+   x and scratch rows (repeats, empty entries, misaligned D and x, small
+   and large grids), and on every launch the executor makes in phase 6;
+   two planted faults of a bfloat16 launch (two rows swapped, an empty
+   entry read) must fail;
 6. reduce path: ``plan`` on the card, ``build_program``, ``tree_allreduce``
    on the card at ``chip64-k16-d6.5m`` (64 devices, one 25 MiB gradient
    bucket each), ``chip256-k16-d256k``, a degraded 256-device program with
    FoldOp and CompactOp rounds, and all-red ``chip64-k0-d64k``; each result
-   must equal the plain executor on the card and the CPU executor bitwise,
-   stay within the float32 error bound of the exact sum, and run one
-   kernel launch per Reduce op plus one;
+   must equal the plain executor on the card, the buffer executor (the
+   JAX package's slot buffer, in plain torch) and the CPU executor
+   bitwise, stay within the float32 error bound of the exact sum, and run
+   one kernel launch per Reduce op plus one and nothing else: no aten
+   operator that moves data, no allocation beyond the partials;
 7. top-k kernel vs its plain version (a stable sort) on the card,
    bitwise: random rows at the JAX test shapes in float32 and bfloat16,
    rows of ties, zeros, +-0, +-inf, NaN and fewer than k nonzeros, and one
@@ -625,17 +632,48 @@ def check_minplus_random() -> dict:
 
 REDUCE_SHAPES = [(1, 1, 8), (4, 7, 130), (16, 32, 512), (3, 5, 1000),
                  (64, 8, 1_000_003)]
+# (G, C, R0, P, D) of the random tables: small G and large D (the tile
+# narrows, or not), large G and small D, a misaligned D, C past one staged
+# chunk of 256
+TABLE_SHAPES = [(1, 6, 5, 4, 1_000_003), (2, 17, 64, 17, 262_144),
+                (1, 3, 2, 2, 65_536), (4096, 8, 100, 50, 40),
+                (60_000, 3, 10, 10, 16), (3, 300, 7, 9, 4097)]
+
+
+def _table_case(gen, g, c, r0, p, d, dt):
+    """x (R0, D), scratch (P, D) and a table over both with repeats and -1
+    entries; values over many magnitudes, so that order shows."""
+    import numpy as np
+    import torch
+    x, s = ((torch.randn((n, d), generator=gen, device="cuda")
+             * torch.exp(2 * torch.randn((n, d), generator=gen,
+                                         device="cuda"))).to(dt)
+            for n in (r0, p))
+    rng = np.random.default_rng(g + c + d)
+    table = torch.as_tensor(rng.integers(-1, r0 + p, size=(g, c)),
+                            device="cuda")
+    table[0, : min(c, 3)] = r0 + p - 1
+    return x, s, table
 
 
 def check_segment_reduce_random() -> float:
     """Phase 5, random inputs: the kernel bitwise equal to its plain
-    version at every shape, float32 and bfloat16, masks of density 0.7.
-    Returns the largest absolute difference seen."""
+    version in the stacked (G, C, D) form at every shape, float32 and
+    bfloat16, masks of density 0.7; then on random tables over x and
+    scratch rows (``TABLE_SHAPES``; repeats, -1 entries, masks of density
+    0.9), written over random rows of an output whose other rows must stay,
+    with x also starting off a 16-byte boundary, with and without rounding
+    after every add; then two planted faults of a bfloat16 ``round_each``
+    launch (two rows swapped in c, an empty entry named as a real row) must
+    differ from the plain version. Returns the largest absolute difference
+    seen."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.segment_reduce.ops import segment_reduce
     from repro_torch.kernels.segment_reduce.ref import segment_reduce_torch
+    from repro_torch.kernels.segment_reduce.segment_reduce import (
+        segment_reduce_cuda, tile_of)
     err = 0.0
     gen = torch.Generator(device="cuda").manual_seed(5)
     for g, c, d in REDUCE_SHAPES:
@@ -649,17 +687,71 @@ def check_segment_reduce_random() -> float:
             check(torch.equal(got, want),
                   f"segment reduce != plain at {(g, c, d)} {dt}")
             del x, got, want
+    tiles = set()
+    for g, c, r0, p, d in TABLE_SHAPES:
+        rng = np.random.default_rng(r0 + p)
+        mask = torch.as_tensor(rng.random((g, c)) < 0.9, device="cuda")
+        q = g + 5
+        rows = torch.as_tensor(rng.permutation(q)[:g], device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            tiles.add(tile_of(g, d, dt))
+            x, s, table = _table_case(gen, g, c, r0, p, d, dt)
+            for each in (False, True):
+                want = segment_reduce_torch(x, mask, table, scratch=s,
+                                            round_each=each)
+                for shift in (0, 1):
+                    big = torch.empty(r0 * d + shift, dtype=dt,
+                                      device="cuda")
+                    big[shift:] = x.reshape(-1)
+                    out = torch.full((q, d), 7.0, dtype=dt, device="cuda")
+                    segment_reduce_cuda(big[shift:].view(r0, d), mask,
+                                        table, scratch=s, out=out,
+                                        out_rows=rows, round_each=each)
+                    got = out[rows]
+                    err = max(err, float(
+                        (got.double() - want.double()).abs().max()))
+                    check(torch.equal(got, want),
+                          f"table reduce != plain at {(g, c, r0, p, d)} "
+                          f"{dt} round_each={each} shift={shift}")
+                    kept = torch.ones(q, dtype=torch.bool, device="cuda")
+                    kept[rows] = False
+                    check(bool((out[kept] == 7.0).all()),
+                          f"table reduce wrote rows not named at "
+                          f"{(g, c, r0, p, d)}")
+                    del big, out, got
+            del x, s, table
+    # planted faults: group 0 reads rows 0, 1, 2 in that order and names
+    # nothing at c = 3
+    bf = torch.bfloat16
+    x, s, table = _table_case(gen, 4, 6, 8, 4, 4096, bf)
+    table[0, :4] = torch.tensor([0, 1, 2, -1])
+    want = segment_reduce_torch(x, None, table, scratch=s, round_each=True)
+    check(torch.equal(segment_reduce_cuda(x, None, table, scratch=s,
+                                          round_each=True), want),
+          "planted-fault base launch != plain")
+    swapped, named = table.clone(), table.clone()
+    swapped[0, 1:3] = torch.tensor([2, 1])
+    named[0, 3] = 3
+    for label, bad in (("two rows swapped in c", swapped),
+                       ("an empty entry named as a real row", named)):
+        got = segment_reduce_cuda(x, None, bad, scratch=s, round_each=True)
+        check(not torch.equal(got, want),
+              f"planted fault ({label}) passed the bitwise check")
     say("kernels: segment reduce bitwise on random (G, C, D) in "
-        f"{REDUCE_SHAPES}, float32 and bfloat16, mask density 0.7")
+        f"{REDUCE_SHAPES}, float32 and bfloat16, mask density 0.7; on "
+        f"random tables (G, C, R0, P, D) in {TABLE_SHAPES} over x and "
+        f"scratch rows, with and without rounding after every add, x "
+        f"aligned and not, tiles {sorted(tiles)}; planted faults (two rows "
+        "swapped, an empty entry read) fail")
     return err
 
 
 class LaunchCheck:
     """Phase 5 on the executor's launches: swaps the executor's
-    ``reduce_rows`` for one that computes the plain version on the launch's
-    inputs, launches the kernel as the executor does, and requires the two
-    bitwise equal. It keeps (buffer, mask, rows) of every launch for
-    timing, or of the first ``keep`` launches."""
+    ``reduce_table`` for one that computes the plain version on the
+    launch's inputs, launches the kernel as the executor does, and requires
+    the two bitwise equal. It keeps (x, table, scratch, out, out_rows) of
+    every launch for timing, or of the first ``keep`` launches."""
 
     def __init__(self, mod, keep: bool | int = True):
         self.mod = mod
@@ -667,30 +759,35 @@ class LaunchCheck:
         self.launches: list = []
         self.n = 0
         self.err = 0.0
+        self.bytes = 0          # of every checked launch, as reduce_bound
 
     def __enter__(self):
         from repro_torch.kernels.segment_reduce.ref import segment_reduce_torch
-        self._orig = run = self.mod.reduce_rows
+        self._orig = run = self.mod.reduce_table
 
-        def checked(flat, mask, rows, *, inplace=False):
+        def checked(x, table, *, scratch=None, out=None, out_rows=None):
             import torch
-            want = segment_reduce_torch(flat, mask, rows, round_each=True)
-            out = run(flat, mask, rows, inplace=inplace)
-            got = flat.index_select(0, rows) if inplace else out
+            want = segment_reduce_torch(x, None, table, scratch=scratch,
+                                        round_each=True)
+            res = run(x, table, scratch=scratch, out=out, out_rows=out_rows)
+            g = table.shape[0]
+            got = (res if out is None else res[:g] if out_rows is None
+                   else res.index_select(0, out_rows))
             self.err = max(self.err, float(
                 (got.double() - want.double()).abs().max()))
             check(torch.equal(got, want),
-                  f"executor launch {len(self.launches)}: kernel != plain")
+                  f"executor launch {self.n}: kernel != plain")
             self.n += 1
+            self.bytes += reduce_bound([(x, table)])["bytes"]
             if len(self.launches) < self.keep:
-                self.launches.append((flat, mask, rows))
-            return out
+                self.launches.append((x, table, scratch, out, out_rows))
+            return res
 
-        self.mod.reduce_rows = checked
+        self.mod.reduce_table = checked
         return self
 
     def __exit__(self, *exc):
-        self.mod.reduce_rows = self._orig
+        self.mod.reduce_table = self._orig
 
 
 class PlainReduce:
@@ -700,47 +797,58 @@ class PlainReduce:
         self.mod = mod
 
     def __enter__(self):
-        from repro_torch.kernels.segment_reduce.ref import reduce_rows_torch
-        self._orig = self.mod.reduce_rows
-        self.mod.reduce_rows = reduce_rows_torch
+        from repro_torch.kernels.segment_reduce.ref import segment_reduce_torch
+        self._orig = self.mod.reduce_table
+        self.mod.reduce_table = lambda x, table, **kw: segment_reduce_torch(
+            x, None, table, round_each=True, **kw)
         return self
 
     def __exit__(self, *exc):
-        self.mod.reduce_rows = self._orig
+        self.mod.reduce_table = self._orig
+
+
+def reduce_bound(launches) -> dict:
+    """The least time of the recorded launches: each row a table names read
+    once, each row written once, 2 operations per value read."""
+    nbytes = ops = 0
+    for x, table, *_ in launches:
+        g = table.shape[0]
+        d, item = x.shape[1], x.element_size()
+        nnz = int((table >= 0).sum())
+        nbytes += (nnz + g) * d * item
+        ops += 2 * nnz * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes)
 
 
 def time_reduce_launches(launches):
     """Per executor call: the kernel, its plain version and torch.einsum on
-    the recorded launches, with the bytes bound of this run's masks."""
+    the recorded launches, with the bytes bound of this run's tables."""
     import torch
 
-    from repro_torch.kernels.segment_reduce.ref import segment_reduce_torch
+    from repro_torch.kernels.segment_reduce.ref import (gather_rows,
+                                                        segment_reduce_torch)
     from repro_torch.kernels.segment_reduce.segment_reduce import (
         segment_reduce_cuda)
-    nbytes = ops = 0
     stacked = []
-    for flat, mask, rows in launches:
-        g, c = mask.shape
-        d, item = flat.shape[1], flat.element_size()
-        nnz = int((mask != 0).sum())
-        nbytes += (nnz + g) * d * item
-        ops += 2 * nnz * d
-        idx = (rows[:, None] + torch.arange(c, device=rows.device)).clamp(
-            max=flat.shape[0] - 1)
-        stacked.append((flat[idx], mask))     # (G, C, D) for the library
+    for x, table, scratch, *_ in launches:     # (G, C, D) for the library
+        rows = torch.stack([gather_rows(x, scratch, table[:, c])
+                            for c in range(table.shape[1])], 1)
+        stacked.append((rows, (table >= 0).to(x.dtype)))
     v = dict(
-        ms=cuda_ms(lambda: [segment_reduce_cuda(f, m, r, round_each=True)
-                            for f, m, r in launches], 10),
-        plain_ms=cuda_ms(lambda: [segment_reduce_torch(f, m, r,
-                                                       round_each=True)
-                                  for f, m, r in launches], 3, warmup=1),
-        library_ms=cuda_ms(lambda: [torch.einsum("gcd,gc->gd", x3,
-                                                 m.to(x3.dtype))
+        ms=cuda_ms(lambda: [segment_reduce_cuda(
+            x, None, t, scratch=s, out=o, out_rows=r, round_each=True)
+            for x, t, s, o, r in launches], 10),
+        plain_ms=cuda_ms(lambda: [segment_reduce_torch(
+            x, None, t, scratch=s, round_each=True)
+            for x, t, s, _, _ in launches], 3, warmup=1),
+        library_ms=cuda_ms(lambda: [torch.einsum("gcd,gc->gd", x3, m)
                                     for x3, m in stacked], 10))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    v["bound_ms"] = max(t_bytes, t_ops)
-    v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    del stacked
+    v.update(reduce_bound(launches))
     return v
 
 
@@ -749,17 +857,107 @@ def n_reduce_ops(prog) -> int:
     return sum(isinstance(op, (CompressOp, FoldOp)) for op in prog.ops)
 
 
-# operators whose device time the profiler reports once; it counts the
-# buffer's zero-fill (aten::fill_) twice, so that one is read from the
-# kernel list (FillFunc)
-PROFILED_OPS = ("aten::copy_", "aten::index_select", "aten::index_add_",
-                "aten::index_fill_", "aten::index_copy_")
+def buffer_executor(x, prog):
+    """The executor as the JAX package's ``_apply_program`` runs it, in
+    plain torch on ``x``'s device: an (n_dev, n_slots, D) buffer of zeros
+    with slot 0 set to ``x``, received slots added, every fold a left fold
+    from +0 in slot order rounded to ``x``'s dtype after every add,
+    CompactOps as gathers. The table executor must give its bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.collectives.schedule import (CompactOp, CompressOp,
+                                                  FoldOp, PermuteRound)
+    n, S = prog.n_dev, prog.n_slots
+    buf = x.new_zeros((n, S, x.shape[1]))
+    buf[:, 0] = x
+
+    def fold(v, a, cnt):
+        acc = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+        for j in range(cnt):
+            acc = (acc + buf[v, a + j].float()).to(x.dtype).float()
+        return acc.to(x.dtype)
+
+    for op in prog.ops:
+        if isinstance(op, PermuteRound):
+            sent = {s: buf[s, :op.slab].clone() for s, _ in op.perm}
+            for s, d in op.perm:
+                off, cnt = int(op.recv_offset[d]), int(op.recv_count[d])
+                buf[d, off:off + cnt] += sent[s][:cnt]
+        elif isinstance(op, CompressOp):
+            for v in np.nonzero(np.asarray(op.flag, bool))[0]:
+                w = int(op.width[v])
+                buf[v, 0] = fold(v, 0, w)
+                buf[v, 1:w] = 0
+        elif isinstance(op, FoldOp):
+            for v in np.nonzero(np.asarray(op.count) > 0)[0]:
+                buf[v, int(op.start[v])] = fold(v, int(op.start[v]),
+                                                int(op.count[v]))
+        else:
+            assert isinstance(op, CompactOp)
+            for v in range(n):
+                idx = torch.as_tensor(np.asarray(op.src[v], np.int64),
+                                      device=x.device)
+                old = buf[v].index_select(0, idx.clamp(min=0))
+                buf[v] = torch.where((idx >= 0)[:, None], old,
+                                     torch.zeros_like(old))
+    if prog.root_home < 0:
+        return x.new_zeros(x.shape[1])
+    return fold(prog.root_home, 0, max(prog.root_count, 1))
 
 
-def profile_executor(name, x, prog) -> None:
-    """Device time by operator and the device's busy share over one warm
-    executor call, from ``torch.profiler``. A measurement, not a check:
-    where the profiler records no device time it says "not measured"."""
+# the aten operators that move data; an executor call runs none of them,
+# only its Reduce launches and their allocations
+MOVING_OPS = ("index_add_", "index_select", "index_fill_", "index_copy_",
+              "index_put_", "fill_", "zero_", "copy_", "zeros", "new_zeros",
+              "cat", "clone", "add_", "gather", "scatter_")
+
+
+def executor_ops(x, prog) -> dict:
+    """The aten operators one executor call runs (a dispatch mode sees
+    every one, with no profiler), and the device memory it allocates
+    (``max_memory_allocated`` over the call, less what was allocated
+    before it)."""
+    import collections
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.collectives import tree_allreduce
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    tree_allreduce(x, prog)
+    torch.cuda.synchronize()
+    with Seen() as seen:
+        tree_allreduce(x, prog)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = tree_allreduce(x, prog)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return dict(ops=dict(seen.ops), peak=peak)
+
+
+def profile_executor(name, x, prog, n_reduce, bound_ms,
+                     sessions: int = 6) -> float | None:
+    """Device time of one warm executor call from ``torch.profiler``,
+    against the bound of one call. Each session runs the call between two
+    of torch's spin kernels (not counted); a short profiler session
+    sometimes loses records, so one counts only if it recorded both spins
+    and the call's ``n_reduce`` Reduce kernels. Reports the least kernel
+    time of such a session, the span from its first kernel's start to its
+    last one's end, and any other kernel the call ran. A measurement, not
+    a check: None, and "not measured", where no session counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -767,33 +965,39 @@ def profile_executor(name, x, prog) -> None:
     from repro_torch.collectives import tree_allreduce
     tree_allreduce(x, prog)
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tree_allreduce(x, prog)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ev = prof.key_averages()
-        kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        ops = {e.key: (e.device_time_total / 1e3, e.count) for e in ev
-               if e.key in PROFILED_OPS}
-    except Exception as e:      # the profiler is a guest here: report it
-        say(f"{name}: profile not measured ({type(e).__name__}: {e})")
-        return
-    if busy <= 0:
-        say(f"{name}: profile not measured (no device time recorded)")
-        return
-    say(f"{name}: profile of one executor call: wall {wall * 1e3:.4f} ms "
-        f"under the profiler, device busy {busy:.4f} ms "
-        f"({100 * busy / (wall * 1e3):.1f}%); device ms (calls) by op: "
-        + ", ".join(f"{k} {ops[k][0]:.4f} ({ops[k][1]})"
-                    for k in PROFILED_OPS if k in ops))
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    say(f"{name}: kernels by device ms: " + "; ".join(
-        f"{e.key[:70]} {e.self_device_time_total / 1e3:.4f} ({e.count})"
-        for e in top))
+    best = None
+    for _ in range(sessions):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(100_000)
+                tree_allreduce(x, prog)
+                torch.cuda._sleep(100_000)
+                torch.cuda.synchronize()
+        except Exception as e:      # the profiler is a guest here
+            say(f"{name}: profile not measured ({type(e).__name__}: {e})")
+            return None
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        call = [e for e in ev if "spin_kernel" not in e.name]
+        if (len(ev) - len(call) != 2 or sum(
+                "gather_reduce" in e.name for e in call) != n_reduce):
+            continue
+        busy = sum(e.device_time_total for e in call) / 1e3
+        span = (max(e.time_range.end for e in call)
+                - min(e.time_range.start for e in call)) / 1e3
+        others = sorted({e.name[:60] for e in call
+                         if "gather_reduce" not in e.name})
+        if best is None or busy < best[0]:
+            best = (busy, span, others)
+    if best is None:
+        say(f"{name}: profile not measured (no session kept every kernel)")
+        return None
+    busy, span, others = best
+    say(f"{name}: profile of one executor call: {n_reduce} Reduce kernels, "
+        f"device time {busy:.4f} ms over a span of {span:.4f} ms "
+        f"({100 * busy / span:.1f}% busy), bound {bound_ms:.4f} ms "
+        f"({100 * bound_ms / busy:.1f}% of the device time); other kernels "
+        f"{others or 'none'}")
+    return busy
 
 
 def run_reduce(name, topo, d, x, *, k=None, blue=None, pristine=None):
@@ -808,6 +1012,7 @@ def run_reduce(name, topo, d, x, *, k=None, blue=None, pristine=None):
     exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
     from repro_torch.core.reduce import phi, phi_degraded
     from repro_torch.engine import solve_batch
+    from repro_torch.kernels.segment_reduce.segment_reduce import tile_of
     dev = x.device
     # the main path, counted: plan (solve + build_program), executor
     reset_counts()
@@ -835,14 +1040,32 @@ def run_reduce(name, topo, d, x, *, k=None, blue=None, pristine=None):
     _, build_s = solve_timed(lambda: build_program(topo, blue))
     fresh = build_program(topo, blue)
     _, upload_s = solve_timed(lambda: exe.device_program(fresh, dev))
+    dp = exe.device_program(prog, dev)
+    check(dp.merges == 0 and dp.n_reduce == want_n,
+          f"{name}: compiled program has {dp.merges} merged deliveries, "
+          f"{dp.n_reduce} Reduces")
     exec_ms = cuda_ms(lambda: tree_allreduce(x, prog), 5, warmup=1)
-    profile_executor(name, x, prog)
-    # checks against the plain executor, the CPU executor, the exact sum
+    # an executor call: its Reduce launches and their allocations only
+    item = x.element_size()
+    seen = executor_ops(x, prog)
+    moving = sorted(op for op in seen["ops"] if op in MOVING_OPS
+                    or op.startswith("index"))
+    check(not moving, f"{name}: an executor call ran {moving}")
+    slot_buffer = prog.n_dev * prog.n_slots * d * item
+    reckoned = (dp.n_partials + 1) * d * item
+    check(seen["peak"] < slot_buffer and seen["peak"] <= reckoned + 2 ** 21,
+          f"{name}: an executor call allocated {seen['peak']} bytes "
+          f"(partials {reckoned}, slot buffer {slot_buffer})")
+    # checks against the plain executor, the CPU executor, the buffer
+    # executor (the JAX package's layout), the exact sum
     with PlainReduce(exe):
         plain = tree_allreduce(x, prog)
         plain_exec_ms = cuda_ms(lambda: tree_allreduce(x, prog), 2, warmup=0)
     check(torch.equal(got, plain), f"{name}: card != plain executor")
     del plain
+    check(torch.equal(got, buffer_executor(x, prog)),
+          f"{name}: card != buffer executor")
+    torch.cuda.empty_cache()
     cols = min(d, 8192)
     cpu = tree_allreduce(x[:, :cols].cpu(), prog)
     check(torch.equal(cpu, got[:cols].cpu()),
@@ -868,16 +1091,25 @@ def run_reduce(name, topo, d, x, *, k=None, blue=None, pristine=None):
     check(len(lc.launches) == want_n, f"{name}: recorded launches")
     times = time_reduce_launches(lc.launches)
     times["max_abs_err"] = lc.err
+    grids = [(st.table.shape[0], tile_of(st.table.shape[0], d, x.dtype),
+              st.table.shape[0] * -(-d // tile_of(st.table.shape[0], d,
+                                                  x.dtype)))
+             for st in dp.steps + ((dp.dest,) if dp.dest else ())]
     del lc, again
+    busy = profile_executor(name, x, prog, want_n, times["bound_ms"])
     torch.cuda.empty_cache()
     say(f"{name}: n_dev={prog.n_dev} n_slots={prog.n_slots} D={d} "
         f"blue={int(np.sum(blue))} ops={len(prog.ops)} "
         f"(reduce ops {want_n - 1}); launches level fold {counts[0]}, "
         f"color level {counts[1]}, segment reduce {counts[2]}; card == plain "
-        f"executor == CPU executor ({cols} columns) bitwise; max |err| "
-        f"{max_err:.3e} within n_dev*2^-23*sum|x|; utilization "
-        f"{prog.utilization}"
+        f"executor == buffer executor == CPU executor ({cols} columns) "
+        f"bitwise; max |err| {max_err:.3e} within n_dev*2^-23*sum|x|; "
+        f"utilization {prog.utilization}"
         + ("; == pristine bitwise" if pristine is not None else ""))
+    say(f"{name}: a call runs aten ops {seen['ops']} and the Reduce "
+        f"launches (groups, tile, blocks) {grids}; allocates "
+        f"{seen['peak']} bytes (partials {dp.n_partials} + 1 rows = "
+        f"{reckoned}; the slot buffer was {slot_buffer})")
     say(f"{name}: plan {plan_s:.6f} s (solve {solve_s:.6f} s, "
         f"build_program {build_s:.6f} s); upload {upload_s:.6f} s; first "
         f"executor call {first_s:.6f} s; executor {exec_ms:.4f} ms "
@@ -886,6 +1118,7 @@ def run_reduce(name, topo, d, x, *, k=None, blue=None, pristine=None):
         f"({want_n} launches), bound {times['bound_ms']:.4f} ms "
         f"({times['bound_by']}), plain {times['plain_ms']:.4f} ms, "
         f"torch.einsum {times['library_ms']:.4f} ms")
+    times.update(exec_ms=exec_ms, busy_ms=busy, peak=seen["peak"])
     return prog, blue, got, counts, times
 
 
@@ -920,6 +1153,92 @@ def reduce_path(d64=6_553_600, d256=262_144, d_red=65_536):
     torch.cuda.empty_cache()
     run_reduce("chip64-k0-d64k", t64, d_red, normal(64, d_red, 640), k=0)
     return counts[2], main
+
+
+REDUCE_DEPTHS = (1, 2, 4, 8)
+
+
+def reduce_variants(cells=(("chip64-k16-d6.5m", 16, 6_553_600),
+                           ("chip64-k0-d64k", 0, 65_536)),
+                    depths=REDUCE_DEPTHS) -> None:
+    """``--reduce``: whether rows in flight set the kernel's rate. Builds
+    ``csrc/segment_reduce.cu`` once for each ``SOAR_REDUCE_DEPTH`` in
+    ``depths`` (rows whose loads a thread issues before their adds; the
+    library's is 2) into ``build/kernels/variants``, and times each on the
+    executor's launches at each of ``cells`` (name, k, D on
+    ``chip_level_tree(2, 4, 8)``), in float32 and in bfloat16 (rounding
+    after each add), in turns (depths up, then down), each launch's output
+    held bitwise against the library's."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.collectives import chip_level_tree, plan, tree_allreduce
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.segment_reduce.segment_reduce import tile_of
+    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = _build.CSRC / "segment_reduce.cu"
+    libs = {u: out_dir / f"libsegment_reduce_depth{u}.so" for u in depths}
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS,
+                      f"-DSOAR_REDUCE_DEPTH={u}", "-shared", str(src), "-o",
+                      str(so)] for u, so in libs.items()])
+    entries = {}
+    for u, so in libs.items():
+        lib = ctypes.CDLL(str(so))
+        for name in ("soar_segment_reduce_f32",
+                     "soar_segment_reduce_bf16_round_each"):
+            fn = getattr(lib, name)
+            fn.argtypes = list(_build._SEGMENT_REDUCE)
+            fn.restype = ctypes.c_int
+        entries[u] = lib
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    for cell, k, d in cells:
+        prog = plan(chip_level_tree(2, 4, 8), k).program
+        gen = torch.Generator(device="cuda").manual_seed(64)
+        x32 = torch.randn((64, d), generator=gen, device="cuda")
+        for dt, name in ((torch.float32, "soar_segment_reduce_f32"),
+                         (torch.bfloat16,
+                          "soar_segment_reduce_bf16_round_each")):
+            x = x32.to(dt)
+            with LaunchCheck(exe) as lc:
+                tree_allreduce(x, prog)
+            launches = lc.launches
+            per = 16 // x.element_size()
+
+            def replay(u):
+                fn = getattr(entries[u], name)
+                stream = torch.cuda.current_stream().cuda_stream
+                for xx, t, s, o, r in launches:
+                    g, c = t.shape
+                    vec = int(d % per == 0 and all(
+                        v.data_ptr() % 16 == 0 for v in (xx, s, o)
+                        if v is not None and v.numel()))
+                    _build.check(fn(xx.data_ptr(), xx.shape[0], ptr(s),
+                                    t.data_ptr(), 0, o.data_ptr(), ptr(r),
+                                    g, c, d, tile_of(g, d, dt), vec, stream),
+                                 f"depth {u} variant launch")
+
+            want = [o.clone() for *_, o, _ in launches]
+            for u in depths:
+                replay(u)
+                torch.cuda.synchronize()
+                check(all(torch.equal(o, w) for (*_, o, _), w in
+                          zip(launches, want)),
+                      f"depth {u} variant != library kernel ({dt})")
+            ms = {u: [] for u in depths}
+            for u in list(depths) + list(reversed(depths)):
+                ms[u].append(cuda_ms(lambda: replay(u), 10))
+            bound = reduce_bound(launches)["bound_ms"]
+            say(f"reduce variants ({dt}, the {len(launches)} launches of a "
+                f"{cell} call, bound {bound:.4f} ms): " + ", ".join(
+                    f"depth {u} {' / '.join(f'{v:.4f}' for v in ms[u])} ms"
+                    for u in depths) + "; every variant bitwise equal")
+            del x, lc, launches, want
+        del x32
+        torch.cuda.empty_cache()
+
 
 # -- phase 7: the top-k kernel ------------------------------------------------
 
@@ -1199,14 +1518,15 @@ class TopkLeafCheck:
         return ms
 
 
-def _mem_line(name, params, opt, ef, n_dev, n_slots) -> str:
+def _mem_line(name, params, opt, ef, n_dev, n_partials) -> str:
     from repro_torch import tree as T
     gb = lambda b: f"{b / 1e9:.2f} GB"
     pb, d_max = T.nbytes(params), max(p.numel() for p in T.leaves(params))
     parts = {"params": pb, "adamw m+v": T.nbytes(opt["m"]) + T.nbytes(
         opt["v"]), "error feedback": T.nbytes(ef), "stacked sent": n_dev * pb,
         "gradients of one worker": pb,
-        "executor buffer (largest leaf)": n_dev * n_slots * d_max * 2,
+        "executor partials and result (largest leaf)":
+            (n_partials + 1) * d_max * 2,
         "compression temporaries (largest leaf)": 4 * 4 * d_max + d_max,
         "top-k candidate buffer (largest leaf)": d_max // 16 * 4}
     return (f"{name}: memory reckoned from the code: "
@@ -1252,10 +1572,10 @@ def trainer_l1(steps: int = 3) -> dict:
     say(f"{name}: params {T.size(params):,} in {len(T.leaves(params))} "
         f"leaves, n_dev={n_dev}, program ops "
         f"{[type(o).__name__ for o in prog.ops]}, n_slots={prog.n_slots}")
-    say(_mem_line(name, params, opt, ef, n_dev, prog.n_slots))
+    per_call = exe.device_program(prog, DEVICE).n_reduce
+    say(_mem_line(name, params, opt, ef, n_dev,
+                  exe.device_program(prog, DEVICE).n_partials))
     n_leaves = len(T.leaves(params))
-    per_call = sum(isinstance(st, exe._Reduce) for st in exe.device_program(
-        prog, DEVICE).steps) + 1
     losses, walls = [], []
     timings, prof = {}, None
     with TopkLeafCheck(compression) as tc:
@@ -1302,13 +1622,18 @@ def trainer_l1(steps: int = 3) -> dict:
         c for key, _, c in kern if re.search(r"::select_(pass|small)<", key))
     memsets = None if kern is None else sum(
         c for key, _, c in kern if key.startswith("Memset"))
+    reduce_ms = None if kern is None else sum(
+        ms for key, ms, _ in kern if "gather_reduce" in key)
     fmt = lambda v: "not measured" if v is None else v
     say(f"{name}: losses {losses}; launches level fold {counts[0]}, "
         f"color level {counts[1]}, segment reduce {counts[2]}, top-k select "
         f"{counts[3]} calls; in the profiled step {fmt(sel_kernels)} select "
         f"kernels and {fmt(memsets)} memsets on the card; "
         f"thresholds exact on {tc.n_plain} leaves vs plain and "
-        f"{n_dev * n_leaves} by counting; reduce == plain on {lc.n} launches")
+        f"{n_dev * n_leaves} by counting; reduce == plain on {lc.n} launches;"
+        f" the Reduce kernels of the profiled step {fmt(reduce_ms)} ms of "
+        f"device time, bound {lc.bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        "(bytes)")
     say(f"{name}: step wall s {[round(w, 4) for w in walls]}; step 1 split s: "
         + ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
         + f"; worker payload {dense_b} B dense -> {comp_b} B top-k; "
@@ -1422,9 +1747,8 @@ def trainer_e2e() -> dict:
             f"{name}: restored state != saved state")
         # keep one step's reduce launches for the timings
         _, prog = train.reduce_program(8, 2, device=DEVICE)
-        per_step = len(T.leaves(params)) * (sum(
-            isinstance(st, exe._Reduce) for st in exe.device_program(
-                prog, DEVICE).steps) + 1)
+        per_step = len(T.leaves(params)) * exe.device_program(
+            prog, DEVICE).n_reduce
         del params, state, back
         shutil.rmtree(tmp / "rt")
         # the main path, counted
@@ -2957,9 +3281,9 @@ def solve_phases() -> list:
 def main(args: list[str]) -> int:
     import torch
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
-                    ["--attention-rows"], ["--solve"]):
+                    ["--attention-rows"], ["--solve"], ["--reduce"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
-              f"--attention-rows | --solve], got {args}",
+              f"--attention-rows | --solve | --reduce], got {args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2988,6 +3312,12 @@ def main(args: list[str]) -> int:
         return 0
     if args == ["--attention-rows"]:
         hymba_attention_rows()
+        return 0
+    if args == ["--reduce"]:
+        check_segment_reduce_random()
+        reduce_path()
+        reduce_variants()
+        say(smi)
         return 0
 
     rows = solve_phases()

@@ -1,6 +1,6 @@
 """Single-card executor of the SOAR reduction program.
 
-Runs the paper's Reduce (Algorithm 1) over all devices' buffers held on one
+Runs the paper's Reduce (Algorithm 1) over all devices' inputs held on one
 device: red switches forward message slots upward (``PermuteRound``), blue
 switches collapse their slots into one partial sum (``CompressOp``), a
 degraded switch's spilled overflow is completed one hop up (``FoldOp``,
@@ -8,20 +8,43 @@ degraded switch's spilled overflow is completed one hop up (``FoldOp``,
 is the ``(D,)`` sum that the JAX package's shard_map executor returns on
 every device.
 
-The arithmetic is the JAX package's ``_apply_program``: a buffer of
-``(n_dev, n_slots, D)`` zeros with slot 0 set to ``x``; received slots are
-*added* (``0 + x``); every fold is a strict left fold in slot order. Each
-Reduce (one per ``CompressOp`` or ``FoldOp``, plus the destination's) is one
-launch of the segment-reduce kernel on a CUDA buffer, and its plain torch
-version on a CPU buffer. Folds start at +0, where the JAX fold starts at its
-first slot and adds +0 past the fold's width: the two differ only in the
-sign of a zero sum. The buffer keeps ``x``'s dtype, float32 or bfloat16,
-as the JAX buffer does; a bfloat16 fold rounds after every add, because
-the JAX fold carries a bfloat16 accumulator through its ``fori_loop``
-(held bitwise against the JAX executor in ``tests/test_torch_executor.py``).
+The JAX package's ``_apply_program`` keeps an ``(n_slots, D)`` buffer per
+device and moves rows through it. Here the program is run once, when it is
+compiled, over what each ``(device, slot)`` *holds*: nothing (``EMPTY``),
+device v's input row ``X(v)``, or partial ``P(j)``. Only the folds remain,
+each a Reduce whose gather table names the rows it folds (a row of ``x`` or
+of a scratch of partials, -1 for nothing) and the partial it writes. A call
+allocates the ``(n_partials, D)`` scratch uninitialised (every partial is
+written before it is read) and launches one segment-reduce kernel per
+Reduce, in program order, and nothing else; on CPU tensors each Reduce runs
+the kernel's plain version over the same tables.
 
-The buffer is updated in place. A program's index and mask tensors are
-built once per program and device and kept while the program lives.
+Slot contents, op by op (slot 0 of every device starts as ``X(v)``, the
+others ``EMPTY``): a ``PermuteRound`` reads every delivery from the state
+before the round, a delivered slot takes the sender's content and the
+sender keeps its own; a delivery onto a slot that is not ``EMPTY`` becomes
+a two-row Reduce (old content, then the delivered one), which
+``build_program``'s programs never need. A ``CompressOp`` folds slots
+``[0, width)`` into a new partial at slot 0 and empties ``[1, width)``; a
+``FoldOp`` folds ``[start, start + count)`` into a new partial at ``start``;
+a ``CompactOp`` gathers contents (-1: ``EMPTY``); the destination folds
+``root_home``'s ``[0, max(root_count, 1))``.
+
+Bits: the JAX buffer adds what it receives (``0 + x``) and folds every
+slot of a span, empty ones as +0. The tables leave out what is ``EMPTY``,
+and that changes no bit: a fold starts at +0, under round-to-nearest a sum
+is -0 only if both operands are -0, so the accumulator is never -0, and
+adding +0 to it is the identity; for the same reason a row that holds -0
+where the JAX buffer holds ``0 + (-0) = +0`` folds alike. Folds start at
++0, where the JAX fold starts at its first slot: the two differ only in
+the sign of a zero sum. The partials keep ``x``'s dtype, float32 or
+bfloat16, as the JAX buffer does; a bfloat16 fold rounds after every add,
+because the JAX fold carries a bfloat16 accumulator through its
+``fori_loop`` (held bitwise against the JAX executor in
+``tests/test_torch_executor.py``).
+
+A program's tables are built once per program and device and kept while
+the program lives.
 """
 from __future__ import annotations
 
@@ -31,115 +54,120 @@ import weakref
 import numpy as np
 import torch
 
-from ..kernels.segment_reduce.ops import reduce_rows
+from ..kernels.segment_reduce.ops import reduce_table
 from .schedule import CompactOp, CompressOp, FoldOp, PermuteRound, ReduceProgram
 
-
-@dataclasses.dataclass(frozen=True)
-class _Permute:
-    src: torch.Tensor          # flat slot rows sent, gathered first
-    dst: torch.Tensor          # flat slot rows they are added to (unique)
+EMPTY = -1
 
 
 @dataclasses.dataclass(frozen=True)
 class _Reduce:
-    rows: torch.Tensor         # (G,) flat row of each span's first slot
-    mask: torch.Tensor         # (G, C) float32: 1 inside the span
-    clear: torch.Tensor | None  # flat rows set to 0 after the fold
-
-
-@dataclasses.dataclass(frozen=True)
-class _Compact:
-    src: torch.Tensor          # flat rows gathered first
-    dst: torch.Tensor          # flat rows they are copied to
-    zero: torch.Tensor         # flat rows set to 0
+    table: torch.Tensor        # (G, C) int64: row of x (< n_dev), or
+                               # n_dev + partial; -1 reads nothing
+    out_rows: torch.Tensor     # (G,) int64: the partial each group writes
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceProgram:
-    """A :class:`ReduceProgram`'s steps as index and mask tensors on one
-    device (slot ``s`` of device ``v`` is row ``v * n_slots + s`` of the
-    flattened buffer)."""
+    """A :class:`ReduceProgram` compiled to Reduce tables on one device."""
 
     n_dev: int
-    n_slots: int
-    steps: tuple               # _Permute | _Reduce | _Compact, in order
-    dest: _Reduce | None       # None: no device homes the root
+    n_partials: int            # rows of the scratch of partials
+    steps: tuple               # _Reduce, in program order
+    dest: _Reduce | None       # writes the result; None: no device homes
+                               # the root
+    merges: int                # deliveries onto an occupied slot, each a
+                               # group of a two-row Reduce
 
     @property
     def n_reduce(self) -> int:
-        """Reduce launches per call: one per fold step, one at the root."""
-        return (sum(isinstance(s, _Reduce) for s in self.steps)
-                + (self.dest is not None))
-
-
-def _spans(dev: np.ndarray, start: np.ndarray, count: np.ndarray,
-           n_slots: int, device: torch.device) -> _Reduce:
-    """A Reduce over span ``[start, start + count)`` of each device."""
-    c_max = int(count.max())
-    mask = np.arange(c_max)[None, :] < count[:, None]
-    return _Reduce(
-        rows=torch.as_tensor(dev * n_slots + start, dtype=torch.int64,
-                             device=device),
-        mask=torch.as_tensor(mask, dtype=torch.float32, device=device),
-        clear=None)
-
-
-def _idx(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.int64).reshape(-1),
-                           dtype=torch.int64, device=device)
+        """Reduce launches per call: one per step, one at the root."""
+        return len(self.steps) + (self.dest is not None)
 
 
 def compile_program(prog: ReduceProgram, device) -> DeviceProgram:
-    """Validate ``prog`` and lay its ops out as tensors on ``device``."""
+    """Validate ``prog`` and compile it to Reduce tables on ``device``."""
     device = torch.device(device)
     n_dev, S = prog.n_dev, prog.n_slots
-    steps = []
+    # what each slot holds: v < n_dev is X(v), n_dev + j is P(j)
+    slots = np.full((n_dev, S), EMPTY, np.int64)
+    slots[:, 0] = np.arange(n_dev)
+    steps: list[_Reduce] = []
+    n_partials = merges = 0
+
+    def tables(table, out) -> _Reduce:
+        t = lambda a: torch.as_tensor(np.asarray(a, np.int64),
+                                      dtype=torch.int64, device=device)
+        return _Reduce(table=t(table), out_rows=t(out))
+
+    def reduce(groups: list[list[int]]) -> list[int]:
+        """A Reduce step with one group per list of row ids (``EMPTY``
+        ones left out); returns the row id of each group's partial."""
+        nonlocal n_partials
+        rows = [[r for r in g if r != EMPTY] for g in groups]
+        table = np.full((len(rows), max([1, *map(len, rows)])), EMPTY)
+        for i, r in enumerate(rows):
+            table[i, :len(r)] = r
+        out = np.arange(n_partials, n_partials + len(rows))
+        n_partials += len(rows)
+        steps.append(tables(table, out))
+        return (n_dev + out).tolist()
+
     for op in prog.ops:
         if isinstance(op, PermuteRound):
             dsts = [d for _, d in op.perm]
             if len(set(dsts)) != len(dsts):
                 raise ValueError("a PermuteRound delivers twice to one "
                                  "device; the executor adds each slot once")
-            src, dst = [], []
+            old = slots.copy()
+            onto = []                   # (device, slot, held, delivered)
             for s, d in op.perm:
                 off, cnt = int(op.recv_offset[d]), int(op.recv_count[d])
                 if not (0 <= off and off + cnt <= S and cnt <= op.slab):
                     raise ValueError(f"PermuteRound {s}->{d} writes slots "
                                      f"[{off}, {off + cnt}) of {S}")
-                src.extend(s * S + j for j in range(cnt))
-                dst.extend(d * S + off + j for j in range(cnt))
-            steps.append(_Permute(_idx(src, device), _idx(dst, device)))
+                for j in range(cnt):
+                    sent, held = old[s, j], old[d, off + j]
+                    if sent == EMPTY:
+                        continue        # the JAX buffer adds +0
+                    if held == EMPTY:
+                        slots[d, off + j] = sent
+                    else:
+                        onto.append((d, off + j, held, sent))
+            if onto:
+                merges += len(onto)
+                parts = reduce([[held, sent] for *_, held, sent in onto])
+                for (d, j, *_), r in zip(onto, parts):
+                    slots[d, j] = r
         elif isinstance(op, CompressOp):
             dev = np.nonzero(np.asarray(op.flag, bool))[0]
             width = np.asarray(op.width, np.int64)[dev]
             if np.any(width < 1) or np.any(width > S):
                 raise ValueError(f"CompressOp widths outside [1, {S}]")
-            red = _spans(dev, np.zeros_like(dev), width, S, device)
-            clear = [v * S + j for v, w in zip(dev, width)
-                     for j in range(1, int(w))]
-            steps.append(dataclasses.replace(
-                red, clear=_idx(clear, device) if clear else None))
+            if len(dev):
+                parts = reduce([slots[v, :w].tolist()
+                                for v, w in zip(dev, width)])
+                for v, w, r in zip(dev, width, parts):
+                    slots[v, 1:w] = EMPTY
+                    slots[v, 0] = r
         elif isinstance(op, FoldOp):
             count = np.asarray(op.count, np.int64)
             dev = np.nonzero(count > 0)[0]
             start = np.asarray(op.start, np.int64)[dev]
             if np.any(start < 0) or np.any(start + count[dev] > S):
                 raise ValueError(f"FoldOp spans outside [0, {S})")
-            steps.append(_spans(dev, start, count[dev], S, device))
+            if len(dev):
+                parts = reduce([slots[v, a:a + count[v]].tolist()
+                                for v, a in zip(dev, start)])
+                for v, a, r in zip(dev, start, parts):
+                    slots[v, a] = r
         elif isinstance(op, CompactOp):
             src = np.asarray(op.src, np.int64)
             if src.shape != (n_dev, S) or np.any(src >= S):
                 raise ValueError(f"CompactOp map must be ({n_dev}, {S}) "
                                  f"slot ids or -1")
-            base = (np.arange(n_dev) * S)[:, None]
-            moved = src != np.arange(S)[None, :]
-            keep = moved & (src >= 0)
-            steps.append(_Compact(
-                src=_idx((base + src)[keep], device),
-                dst=_idx((base + np.arange(S)[None, :])[keep], device),
-                zero=_idx((base + np.arange(S)[None, :])[moved & (src < 0)],
-                          device)))
+            gathered = np.take_along_axis(slots, np.maximum(src, 0), axis=1)
+            slots = np.where(src >= 0, gathered, EMPTY)
         else:
             raise TypeError(f"unknown program op {type(op).__name__}")
     dest = None
@@ -148,10 +176,10 @@ def compile_program(prog: ReduceProgram, device) -> DeviceProgram:
         width = max(int(prog.root_count), 1)
         if width > S:
             raise ValueError(f"root_count {prog.root_count} > n_slots {S}")
-        dest = _spans(np.asarray([prog.root_home]), np.zeros(1, np.int64),
-                      np.asarray([width]), S, device)
-    return DeviceProgram(n_dev=n_dev, n_slots=S, steps=tuple(steps),
-                         dest=dest)
+        rows = [r for r in slots[prog.root_home, :width] if r != EMPTY]
+        dest = tables([rows or [EMPTY]], [0])
+    return DeviceProgram(n_dev=n_dev, n_partials=n_partials,
+                         steps=tuple(steps), dest=dest, merges=merges)
 
 
 _PROGRAM_CACHE: dict[tuple, tuple] = {}
@@ -175,8 +203,8 @@ def tree_allreduce(x: torch.Tensor, prog: ReduceProgram) -> torch.Tensor:
     """AllReduce-sum of ``x`` (n_dev, D) following the SOAR program.
 
     Returns the (D,) sum on ``x``'s device in ``x``'s dtype (float32 or
-    bfloat16), through the segment-reduce kernel on a CUDA tensor and its
-    plain version on a CPU tensor.
+    bfloat16): one segment-reduce launch per Reduce of the compiled program
+    on a CUDA tensor, its plain version on a CPU tensor.
     """
     if x.ndim != 2 or x.shape[0] != prog.n_dev:
         raise ValueError(f"x must be ({prog.n_dev}, D), got "
@@ -185,24 +213,17 @@ def tree_allreduce(x: torch.Tensor, prog: ReduceProgram) -> torch.Tensor:
         raise TypeError(f"the executor runs float32 or bfloat16, got "
                         f"{x.dtype}")
     dp = device_program(prog, x.device)
-    n_dev, d = x.shape
-    buf = x.new_zeros((n_dev, dp.n_slots, d))
-    buf[:, 0] = x
-    flat = buf.view(n_dev * dp.n_slots, d)
+    x = x.contiguous()
+    d = x.shape[1]
+    scratch = x.new_empty((dp.n_partials, d))
     for st in dp.steps:
-        if isinstance(st, _Permute):
-            flat.index_add_(0, st.dst, flat.index_select(0, st.src))
-        elif isinstance(st, _Reduce):
-            reduce_rows(flat, st.mask, st.rows, inplace=True)
-            if st.clear is not None:
-                flat.index_fill_(0, st.clear, 0.0)
-        else:
-            moved = flat.index_select(0, st.src)
-            flat.index_fill_(0, st.zero, 0.0)
-            flat.index_copy_(0, st.dst, moved)
+        reduce_table(x, st.table, scratch=scratch, out=scratch,
+                     out_rows=st.out_rows)
     if dp.dest is None:
         return x.new_zeros(d)
-    return reduce_rows(flat, dp.dest.mask, dp.dest.rows)[0]
+    out = x.new_empty(d)
+    reduce_table(x, dp.dest.table, scratch=scratch, out=out.view(1, d))
+    return out
 
 
 def tree_allreduce_tree(grads, prog: ReduceProgram):

@@ -31,6 +31,9 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# x, R0, scratch, table, mask, out, out_rows, G, C, D, tile, vec, stream
+_SEGMENT_REDUCE = (_P, ctypes.c_longlong) + (_P,) * 5 + (
+    _I, _I, ctypes.c_longlong, _I, _I, _P)
 _SIGNATURES = {
     "soar_minplus_f32": (_P, _P, _P, ctypes.c_longlong, _I, _P),
     "soar_minplus_f64": (_P, _P, _P, ctypes.c_longlong, _I, _P),
@@ -38,12 +41,9 @@ _SIGNATURES = {
     "soar_color_level_f64": (_P,) * 11 + (_I,) * 8 + (_P,),
     "soar_levelfold_f32": (_P,) * 8 + (_I,) * 6 + (_P,),
     "soar_levelfold_f64": (_P,) * 8 + (_I,) * 6 + (_P,),
-    "soar_segment_reduce_f32": (_P,) * 5 + (_I, _I, ctypes.c_longlong, _I,
-                                            _P),
-    "soar_segment_reduce_bf16": (_P,) * 5 + (_I, _I, ctypes.c_longlong, _I,
-                                             _P),
-    "soar_segment_reduce_bf16_round_each": (_P,) * 5 + (
-        _I, _I, ctypes.c_longlong, _I, _P),
+    "soar_segment_reduce_f32": _SEGMENT_REDUCE,
+    "soar_segment_reduce_bf16": _SEGMENT_REDUCE,
+    "soar_segment_reduce_bf16_round_each": _SEGMENT_REDUCE,
     "soar_topk_scratch": (_I, _I, ctypes.c_longlong, _I, _I, _P),
     "soar_topk_select": (_P, _I, _I, ctypes.c_longlong, _I, _P, _P, _P, _P),
     "soar_topk_compress": (_P, _I, _I, ctypes.c_longlong, _I) + (_P,) * 5,

@@ -1,4 +1,4 @@
-"""Masked group sum: shape checks and device dispatch.
+"""Gather-table segment reduce: shape checks and device dispatch.
 
 A CUDA tensor always launches the kernel; a CPU tensor runs the plain
 version. There is no option that sends a CUDA tensor to the plain version.
@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from .ref import reduce_rows_torch, segment_reduce_torch
+from .ref import segment_reduce_torch
 from .segment_reduce import segment_reduce_cuda
 
 
@@ -20,18 +20,20 @@ def segment_reduce(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return segment_reduce_cuda(x.contiguous(), mask)
 
 
-def reduce_rows(flat: torch.Tensor, mask: torch.Tensor, rows: torch.Tensor,
-                *, inplace: bool = False) -> torch.Tensor:
-    """The reduce executor's Reduce over row spans of a (R, D) buffer.
-
-    Group g folds rows ``rows[g] .. rows[g] + C - 1`` of ``flat`` under
-    ``mask[g]`` (G, C), in ascending order; returns the (G, D) sums, or
-    with ``inplace=True`` writes each over row ``rows[g]`` and returns
-    ``flat``. The sum is rounded to ``flat``'s dtype after every add, as
-    the JAX fold's carry is (bfloat16 addition; for float32 the plain
-    fold). The kernel on a CUDA buffer, the plain version on a CPU one.
+def reduce_table(x: torch.Tensor, table: torch.Tensor, *,
+                 scratch: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None,
+                 out_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """The reduce executor's Reduce: group g folds, in ascending c, the rows
+    that ``table[g]`` names (``i < R0``: row i of the (R0, D) ``x``;
+    ``i >= R0``: row ``i - R0`` of ``scratch``; -1: nothing) and writes the
+    sum over row ``out_rows[g]`` of ``out`` (a new (G, D) when ``out`` is
+    None). The sum is rounded to ``x``'s dtype after every add, as the JAX
+    fold's carry is (bfloat16 addition; for float32 the plain fold). The
+    kernel on CUDA tensors, the plain version on CPU ones.
     """
-    if flat.device.type == "cpu":
-        return reduce_rows_torch(flat, mask, rows, inplace=inplace)
-    return segment_reduce_cuda(flat, mask, rows, inplace=inplace,
-                               round_each=True)
+    if x.device.type == "cpu":
+        return segment_reduce_torch(x, None, table, scratch=scratch, out=out,
+                                    out_rows=out_rows, round_each=True)
+    return segment_reduce_cuda(x, None, table, scratch=scratch, out=out,
+                               out_rows=out_rows, round_each=True)

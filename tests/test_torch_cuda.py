@@ -36,10 +36,10 @@ from repro_torch.kernels.minplus.levelfold import (level_fold,
                                                    minplus_fused)
 from repro_torch.kernels.minplus.minplus import color_level_cuda, minplus_cuda
 from repro_torch.kernels.minplus.ops import minplus
-from repro_torch.kernels.segment_reduce.ops import reduce_rows, segment_reduce
+from repro_torch.kernels.segment_reduce.ops import reduce_table, segment_reduce
 from repro_torch.kernels.segment_reduce.ref import segment_reduce_torch
 from repro_torch.kernels.segment_reduce.segment_reduce import (
-    segment_reduce_cuda)
+    segment_reduce_cuda, tile_of)
 
 pytestmark = pytest.mark.cuda
 
@@ -207,19 +207,80 @@ def test_segment_reduce_kernel_bitwise(dev, dtype, g, c, d):
 
 
 def test_segment_reduce_rows_in_place(dev):
+    """The table form writing over rows of a scratch it also reads: the
+    rows named are written, the rest stay."""
     rng = np.random.default_rng(3)
-    flat = torch.as_tensor(rng.normal(size=(40, 1028)), dtype=torch.float32,
-                           device=dev)
-    rows = torch.tensor([0, 10, 33], device=dev)
-    mask = torch.as_tensor(rng.random((3, 7)) < 0.6, device=dev)
-    mask[2, 5:] = False
-    want = segment_reduce_torch(flat, mask, rows)
-    assert torch.equal(reduce_rows(flat, mask, rows), want)
-    out = flat.clone()
-    reduce_rows(out, mask, rows, inplace=True)
-    expect = flat.clone()
+    x = torch.as_tensor(rng.normal(size=(6, 1028)), dtype=torch.float32,
+                        device=dev)
+    scratch = torch.as_tensor(rng.normal(size=(40, 1028)),
+                              dtype=torch.float32, device=dev)
+    table = torch.as_tensor([[0, 6, 7, -1, 2], [10, 10, 5, 1, -1],
+                             [45, -1, -1, -1, -1]], device=dev)
+    rows = torch.tensor([39, 0, 20], device=dev)
+    want = segment_reduce_torch(x, None, table, scratch=scratch,
+                                round_each=True)
+    assert torch.equal(reduce_table(x, table, scratch=scratch), want)
+    out = scratch.clone()
+    reduce_table(x, table, scratch=out, out=out, out_rows=rows)
+    expect = scratch.clone()
     expect[rows] = want
     assert torch.equal(out, expect)
+
+
+def _sr_case(rng, g, c, r0, p, d, dtype, dev):
+    x, s = (torch.as_tensor(rng.standard_normal((n, d))
+                            * np.exp(2 * rng.standard_normal((n, d))),
+                            dtype=dtype, device=dev) for n in (r0, p))
+    table = torch.as_tensor(rng.integers(-1, r0 + p, size=(g, c)),
+                            device=dev)
+    table[0, : min(c, 3)] = r0 + p - 1
+    return x, s, table
+
+
+@pytest.mark.parametrize("round_each", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,c,r0,p,d", [
+    (1, 5, 3, 4, 1_000_003), (2, 9, 4, 6, 262_144), (3, 300, 7, 9, 4097),
+    (4096, 8, 100, 50, 40), (60_000, 3, 10, 10, 16), (7, 17, 64, 17, 6)])
+def test_segment_reduce_table_kernel_bitwise(dev, dtype, round_each, g, c,
+                                             r0, p, d):
+    """Random tables over x and scratch rows (repeats, -1 entries, weights
+    of 0), small-G/large-D and large-G/small-D grids, misaligned D and a
+    misaligned x: the kernel equals the plain version bitwise, writes only
+    the rows named, and counts one launch."""
+    rng = np.random.default_rng(g + c + d)
+    x, s, table = _sr_case(rng, g, c, r0, p, d, dtype, dev)
+    mask = torch.as_tensor(rng.random((g, c)) < 0.9, device=dev)
+    q = g + 5
+    out_rows = torch.as_tensor(rng.permutation(q)[:g], device=dev)
+    want = segment_reduce_torch(x, mask, table, scratch=s,
+                                round_each=round_each)
+    for shift in (0, 1):            # 1: x starts off a 16-byte boundary
+        big = torch.empty(r0 * d + shift, dtype=dtype, device=dev)
+        big[shift:] = x.reshape(-1)
+        xs = big[shift:].view(r0, d)
+        out = torch.full((q, d), 7.0, dtype=dtype, device=dev)
+        before = segment_reduce_cuda.launches
+        segment_reduce_cuda(xs, mask, table, scratch=s, out=out,
+                            out_rows=out_rows, round_each=round_each)
+        assert segment_reduce_cuda.launches == before + 1
+        assert torch.equal(out[out_rows], want)
+        kept = torch.ones(q, dtype=torch.bool, device=dev)
+        kept[out_rows] = False
+        assert bool((out[kept] == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", [(1, 65_536), (4, 65_536), (1, 300),
+                                 (2, 6_553_600)])
+def test_segment_reduce_narrowed_tiles_bitwise(dev, dtype, g, d):
+    """Grids the launcher narrows (tile 256 and 512) and one it does not."""
+    rng = np.random.default_rng(g * d)
+    x, s, table = _sr_case(rng, g, 12, 8, 4, d, dtype, dev)
+    assert tile_of(g, d, dtype) in (256, 512, 1024, 2048)
+    got = reduce_table(x, table, scratch=s)
+    assert torch.equal(got, segment_reduce_torch(x, None, table, scratch=s,
+                                                 round_each=True))
 
 
 def test_executor_on_card_equals_cpu(dev):

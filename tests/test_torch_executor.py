@@ -161,16 +161,28 @@ def test_tree_allreduce_tree_and_boundary_checks():
         T.tree_allreduce(torch.zeros(8, 3, dtype=torch.float64), prog)
 
 
+def _folds(prog):
+    return sum(isinstance(op, (CompressOp, FoldOp)) for op in prog.ops)
+
+
 def test_device_program_layout_and_cache():
+    """A compiled program is Reduce steps only: one per CompressOp and
+    FoldOp, plus the destination's; every partial is written once, by an
+    earlier step than any that reads it."""
     topo = T.chip_level_tree(2, 2, 4)
     for pristine, degraded, _ in list(_sweep())[-12:]:
         for prog in (pristine, degraded):
             dp = device_program(prog, "cpu")
             assert device_program(prog, "cpu") is dp
-            folds = sum(isinstance(op, (CompressOp, FoldOp))
-                        for op in prog.ops)
-            assert dp.n_reduce == folds + 1
-            assert len(dp.steps) == len(prog.ops)
+            assert dp.n_reduce == _folds(prog) + 1
+            assert len(dp.steps) == _folds(prog)
+            assert all(type(st).__name__ == "_Reduce" for st in dp.steps)
+            written = []
+            for st in dp.steps + (dp.dest,):
+                read = st.table[st.table >= 0]
+                assert bool((read < prog.n_dev + len(written)).all())
+                written += st.out_rows.tolist()
+            assert written[:-1] == list(range(dp.n_partials))
     # all devices dead: nothing reaches the root, the sum is zero
     prog = T.build_program(T.fail_devices(topo, range(topo.n_devices)),
                            all_red(topo.tree))
@@ -182,6 +194,56 @@ def test_device_program_layout_and_cache():
     bad.ops[0].perm = bad.ops[0].perm + bad.ops[0].perm[:1]
     with pytest.raises(ValueError, match="delivers twice"):
         compile_program(bad, "cpu")
+
+
+def _planned_programs():
+    base = T.chip_level_tree(2, 2, 4)
+    for strategy in ("soar", "top", "max", "random"):
+        opts = {"options": CPU} if strategy == "soar" else {}
+        for topo in (base, T.fail_devices(base, [3, 9])):
+            for k in (0, 1, 3, topo.tree.n):
+                yield T.plan(topo, k, strategy=strategy, **opts).program
+
+
+def test_programs_materialize_no_delivery():
+    """``build_program`` never delivers onto an occupied slot: compiling
+    the 96 sweep programs and the planned programs of
+    ``test_executor_sums_planned_programs`` adds no Reduce."""
+    progs = [p for pristine, degraded, _ in _sweep()
+             for p in (pristine, degraded)] + list(_planned_programs())
+    assert len(progs) == 96 + 32
+    for prog in progs:
+        dp = compile_program(prog, "cpu")
+        assert dp.merges == 0
+        assert dp.n_reduce == _folds(prog) + 1
+
+
+def test_delivery_onto_occupied_slot_equals_host_bitwise():
+    """A hand-built program whose round delivers onto a slot that holds a
+    row: the executor folds the two rows in a Reduce of its own (old
+    content, then the delivered one) and equals ``_run_host`` bitwise."""
+    n = 4
+    rounds = [PermuteRound(perm=[(1, 0), (3, 2)], slab=1,
+                           recv_offset=np.zeros(n, np.int64),
+                           recv_count=np.asarray([1, 0, 1, 0])),
+              PermuteRound(perm=[(2, 0)], slab=2,
+                           recv_offset=np.asarray([1, 0, 0, 0]),
+                           recv_count=np.asarray([2, 0, 0, 0]))]
+    prog = T.ReduceProgram(
+        n_dev=n, n_slots=3,
+        ops=rounds + [CompressOp(flag=np.asarray([True, False, False,
+                                                  False]),
+                                 width=np.asarray([3, 1, 1, 1]))],
+        root_home=0, root_count=1, utilization=0.0,
+        total_network_messages=0)
+    dp = compile_program(prog, "cpu")
+    assert dp.merges == 2
+    assert dp.n_reduce == _folds(prog) + 1 + 1
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((n, 257))
+         * np.exp(3 * rng.standard_normal((n, 257)))).astype(np.float32)
+    _bytes_equal(T.tree_allreduce(torch.as_tensor(x), prog),
+                 _run_host(prog, x))
 
 
 def test_cpu_executor_launches_no_kernel():
@@ -280,17 +342,15 @@ def test_bf16_executor_equals_jax_bitwise(jax_executor, monkeypatch):
     it rounds to bfloat16 after every add (a), not once per fold after a
     float32 sum (b). The port's bfloat16 executor does (a) and is bitwise
     equal to the JAX executor; (b) differs on these inputs."""
-    # the module (the package's name tree_allreduce is the function)
-    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
     programs, _, xb, _, want = jax_executor
     bits = lambda t: t.view(torch.int16).numpy().view(np.uint16)
     for prog, w in zip(programs, want, strict=True):
         got = T.tree_allreduce(xb, prog)
         assert got.dtype == torch.bfloat16 and got.shape == (1024,)
         np.testing.assert_array_equal(bits(got), w)
-    ref = importlib.import_module("repro_torch.kernels.segment_reduce.ref")
-    each = ref.segment_reduce_torch
-    monkeypatch.setattr(ref, "segment_reduce_torch", lambda *a, round_each,
+    ops = importlib.import_module("repro_torch.kernels.segment_reduce.ops")
+    each = ops.segment_reduce_torch
+    monkeypatch.setattr(ops, "segment_reduce_torch", lambda *a, round_each,
                         **kw: each(*a, round_each=False, **kw))
     differs = [not np.array_equal(bits(T.tree_allreduce(xb, prog)), w)
                for prog, w in zip(programs, want)]

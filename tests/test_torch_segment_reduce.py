@@ -4,9 +4,11 @@ The same numpy-seeded inputs go through ``repro.kernels.segment_reduce``
 (the jnp oracle ``segment_reduce_ref`` and the Pallas kernel in interpret
 mode, as ``tests/test_kernels.py`` runs it) and through
 ``repro_torch.kernels.segment_reduce`` on CPU tensors, which take the plain
-version. Tolerances are those of ``tests/test_kernels.py``: float32 rtol
-2e-5, atol 1e-6 (the oracle's einsum sums in another order than the left
-fold); bfloat16 rtol 2e-2, atol 1e-2. On integer-valued inputs every order
+version, in the JAX API's stacked (G, C, D) form and in the executor's
+gather-table form (rows of a source and of a scratch of partials).
+Tolerances are those of ``tests/test_kernels.py``: float32 rtol 2e-5,
+atol 1e-6 (the oracle's einsum sums in another order than the left fold);
+bfloat16 rtol 2e-2, atol 1e-2. On integer-valued inputs every order
 sums exactly, so there the results must be equal.
 """
 import jax.numpy as jnp
@@ -17,10 +19,10 @@ import torch
 from repro.kernels.segment_reduce.ops import segment_reduce as j_segment_reduce
 from repro.kernels.segment_reduce.ref import segment_reduce_ref
 from repro.kernels.segment_reduce.segment_reduce import segment_reduce_pallas
-from repro_torch.kernels.segment_reduce.ops import reduce_rows, segment_reduce
+from repro_torch.kernels.segment_reduce.ops import reduce_table, segment_reduce
 from repro_torch.kernels.segment_reduce.ref import segment_reduce_torch
 from repro_torch.kernels.segment_reduce.segment_reduce import (
-    segment_reduce_cuda)
+    MIN_TILE, SMS, segment_reduce_cuda, tile_of)
 
 SHAPES = [(1, 1, 8), (4, 7, 130), (16, 32, 512), (3, 5, 1000)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -89,22 +91,125 @@ def test_left_fold_order_and_skipped_rows():
 
 
 def test_rows_form_equals_stacked_form():
-    """The executor's form: group g reads rows rows[g] + c of a (R, D)
-    buffer; in place, it writes each sum over its span's first row."""
+    """The executor's table form: group g reads the rows its table names
+    (of a (R0, D) source, then of a scratch), in table order; with ``out``
+    it writes each sum over row ``out_rows[g]`` and leaves the rest."""
     rng = np.random.default_rng(3)
     flat = torch.as_tensor(rng.normal(size=(40, 9)), dtype=torch.float32)
-    rows = torch.tensor([0, 10, 33])
+    starts = torch.tensor([0, 10, 33])
     mask = torch.as_tensor(rng.random((3, 7)) < 0.6)
-    mask[2, 5:] = False                     # rows past the end: masked out
-    stacked = flat[(rows[:, None] + torch.arange(7)).clamp(max=39)]
+    mask[2, 5:] = False
+    table = starts[:, None] + torch.arange(7)
+    table[mask.logical_not()] = -1         # rows past the end: not named
+    stacked = flat[(starts[:, None] + torch.arange(7)).clamp(max=39)]
     want = segment_reduce_torch(stacked, mask)
-    assert torch.equal(reduce_rows(flat, mask, rows), want)
+    assert torch.equal(reduce_table(flat, table), want)
+    # the same rows named from a scratch (entry R0 + i is scratch row i)
+    assert torch.equal(reduce_table(flat[:0], table, scratch=flat), want)
     out = flat.clone()
-    reduce_rows(out, mask, rows, inplace=True)
+    rows = torch.tensor([39, 1, 20])
+    assert reduce_table(flat, table, out=out, out_rows=rows) is out
     assert torch.equal(out[rows], want)
     untouched = torch.ones(40, dtype=torch.bool)
     untouched[rows] = False
     assert torch.equal(out[untouched], flat[untouched])
+
+
+def _table_case(rng, g, c, r0, p, d, dtype):
+    """Source rows, scratch rows and a table over both with repeats and
+    -1 entries; values over many magnitudes, so that order shows."""
+    x, s = (torch.as_tensor(rng.standard_normal((n, d))
+                            * np.exp(2 * rng.standard_normal((n, d))),
+                            dtype=torch.float32).to(dtype) for n in (r0, p))
+    table = torch.as_tensor(rng.integers(-1, r0 + p, size=(g, c)))
+    table[0, : min(c, 3)] = r0 + p - 1        # a repeat, from the scratch
+    return x, s, table
+
+
+def _fold(x, s, table, mask, round_each):
+    """The left fold spelled entry by entry."""
+    src = torch.cat([x, s]).to(torch.float32)
+    out = torch.zeros((table.shape[0], x.shape[1]), dtype=torch.float32)
+    for g in range(table.shape[0]):
+        for c in range(table.shape[1]):
+            e, m = int(table[g, c]), float(mask[g, c])
+            if e < 0 or m == 0:
+                continue
+            out[g] = out[g] + torch.tensor(m, dtype=x.dtype).float() * src[e]
+            if round_each:
+                out[g] = out[g].to(x.dtype).float()
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("g,c,r0,p,d", [(1, 1, 1, 0, 8), (3, 6, 4, 5, 33),
+                                        (8, 17, 9, 12, 130),
+                                        (2, 40, 3, 2, 1000)])
+def test_table_mixes_x_and_scratch_rows(g, c, r0, p, d, dtype):
+    """Entries below R0 read x, the others the scratch; repeats read a row
+    again, -1 and a zero weight read nothing; the fold runs in table order
+    (bfloat16 rounded after every add under ``round_each``)."""
+    rng = np.random.default_rng(g * 31 + c)
+    x, s, table = _table_case(rng, g, c, r0, p, d, DTYPES[dtype])
+    mask = torch.as_tensor(rng.random((g, c)) < 0.8).float()
+    mask[-1, -1] = 0.5
+    for each in (False, True):
+        want = _fold(x, s, table, mask, each)
+        got = segment_reduce_torch(x, mask, table, scratch=s,
+                                   round_each=each)
+        assert torch.equal(got, want), each
+    ones = torch.ones_like(mask)
+    assert torch.equal(reduce_table(x, table, scratch=s),
+                       _fold(x, s, table, ones, True))
+
+
+@pytest.mark.parametrize("g,c,d", SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_table_form_matches_stacked_jax_oracle_and_pallas(g, c, d, dtype):
+    """The stacked form is the table ``g * C + c`` over ``x.view(G * C,
+    D)``: the rows of the (G, C, D) input, shuffled into a source and
+    named by a table, give the stacked form's bits, and the JAX oracle's
+    and the Pallas kernel's sums within their tolerances (exactly on
+    integer inputs)."""
+    rng = np.random.default_rng(g * 10 + c + d)
+    for vals in (rng.normal(size=(g, c, d)),
+                 rng.integers(-4, 5, size=(g, c, d))):
+        jx, jm, tx, tm = _both(vals, rng.random((g, c)) < 0.7, dtype)
+        perm = torch.as_tensor(rng.permutation(g * c))
+        src = tx.reshape(g * c, d)[perm]
+        table = torch.argsort(perm).view(g, c)     # src[table] == tx
+        got = segment_reduce_torch(src, tm, table)
+        assert torch.equal(got, segment_reduce(tx, tm))
+        table = table.where(tm, torch.full_like(table, -1))
+        assert torch.equal(segment_reduce_torch(src, None, table), got)
+        exact = vals.dtype.kind == "i"
+        tol = (dict(rtol=0, atol=0) if exact
+               else dict(rtol=2e-2, atol=1e-2) if dtype == "bfloat16"
+               else dict(rtol=2e-5, atol=1e-6))
+        for want in (segment_reduce_ref(jx, jm),
+                     segment_reduce_pallas(jx, jm, interpret=True)):
+            np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+
+
+def test_tile_of_fills_two_waves():
+    """The launcher's d a block: 256 threads of 16 bytes, halved while the
+    grid would fill fewer than two waves of the SMs, never below 256."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    blocks = lambda g, d, t: g * -(-d // t)
+    for dtype, widest in ((f32, 1024), (bf16, 2048)):
+        for g in (1, 2, 3, 4, 8, 17, 64, 300, 65535):
+            for d in (1, 8, 255, 1000, 4097, 65_536, 262_144, 6_553_600):
+                t = tile_of(g, d, dtype)
+                assert MIN_TILE <= t <= widest and widest % t == 0
+                if t < widest:          # narrowed: the wider tile fell short
+                    assert blocks(g, d, 2 * t) < 2 * SMS
+                if blocks(g, d, MIN_TILE) >= 2 * SMS:
+                    assert blocks(g, d, t) >= 2 * SMS
+    assert tile_of(64, 6_553_600, f32) == 1024     # chip64-k16-d6.5m
+    assert tile_of(1, 65_536, f32) == 256          # chip64-k0-d64k's root
+    assert tile_of(4, 65_536, f32) == 512
+    assert tile_of(1, 65_536, bf16) == 256
+    assert tile_of(8, 6_553_600, bf16) == 2048
 
 
 @pytest.mark.parametrize("xs,ms", [((2, 3, 4), (2, 4)), ((2, 3, 4), (3,)),
@@ -121,8 +226,10 @@ def test_cuda_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         segment_reduce_cuda(torch.zeros(2, 3, 4), torch.ones(2, 3))
     with pytest.raises(ValueError, match="CUDA"):
-        segment_reduce_cuda(torch.zeros(8, 4), torch.ones(2, 3),
-                            torch.tensor([0, 4]), inplace=True)
+        segment_reduce_cuda(torch.zeros(8, 4), None,
+                            torch.tensor([[0, 4, -1]]),
+                            scratch=torch.zeros(2, 4), out=torch.zeros(2, 4),
+                            out_rows=torch.tensor([1]))
     assert segment_reduce_cuda.launches == before
 
 
@@ -133,9 +240,9 @@ def test_round_each_rounds_after_every_add(inplace):
     is), where the default rounds once at the end. 1 + 2^-8 rounds back to
     1 in bfloat16, so two such adds leave 1; summed in float32 first they
     reach 1 + 2^-7. Float32 is unchanged by the flag. The executor's
-    ``reduce_rows`` always rounds after every add."""
+    ``reduce_table`` always rounds after every add."""
     x = torch.tensor([1.0, 2.0 ** -8, 2.0 ** -8]).reshape(3, 1)
-    rows, mask = torch.tensor([0]), torch.ones(1, 3)
+    table, mask = torch.tensor([[0, 1, 2]]), torch.ones(1, 3)
     for dt, each, want in ((torch.bfloat16, True, 1.0),
                            (torch.bfloat16, False, 1.0 + 2.0 ** -7),
                            (torch.float32, True, 1.0 + 2.0 ** -7),
@@ -144,7 +251,12 @@ def test_round_each_rounds_after_every_add(inplace):
                                                 round_each=each)[0],
                            torch.tensor([want], dtype=dt)), (dt, each)
         if each:
-            flat = x.to(dt).clone()
-            out = reduce_rows(flat, mask, rows, inplace=inplace)
-            got = (flat[0] if inplace else out[0]).item()
+            src = x.to(dt)
+            if inplace:         # the sum over a row of the scratch
+                out = torch.zeros(2, 1, dtype=dt)
+                reduce_table(src, table, out=out,
+                             out_rows=torch.tensor([1]))
+                got = out[1].item()
+            else:
+                got = reduce_table(src, table)[0].item()
             assert got == want, dt
