@@ -8,10 +8,12 @@
     python3 chip_smoke.py --solve        # only phases 1-4, the solve
     python3 chip_smoke.py --reduce       # only phases 5-6, the reduce,
                                          # and the rows-in-flight variants
+    python3 chip_smoke.py --fleet        # only phase 11, the penalty loop
 
-Drives the port's four paths at full size on the card: the batched
-placement solve (``repro_torch.engine.solve_batch``), the reduce path
-(``repro_torch.collectives``: ``plan`` -> ``build_program`` ->
+Drives the port's paths at full size on the card: the batched
+placement solve (``repro_torch.engine.solve_batch``) and the congestion/
+fleet penalty loop over it (``solve_congestion``, ``solve_fleet``), the
+reduce path (``repro_torch.collectives``: ``plan`` -> ``build_program`` ->
 ``tree_allreduce``), the data-parallel trainer
 (``repro_torch.launch.train``: model -> per-worker gradient -> top-k
 compression -> SOAR reduce -> AdamW -> checkpoint) and serving
@@ -147,6 +149,30 @@ plain torch version on the inputs the paths give it. Phases:
    through the bare entry points, one decode step and one prefill under
    the profiler.
 
+11. the congestion/fleet penalty loop, everything of phase 10 freed
+   first, with ``benchmarks/congestion.py``'s and ``benchmarks/fleet.py``'s
+   settings (8 rounds, patience 2, alpha 2, hot_frac 0.75, w_cap 8):
+   ``cong-bt4096-x64-k64`` (``solve_congestion`` on phase 3's instance,
+   unpriced, then priced with capacity 8 on every switch) and
+   ``fleet4-p16r64c8-x64-k16-admit`` (``solve_fleet`` on
+   ``build_fleet(4, 16, 64, 8, spine_rho=64, uplink_rho=32)``: 4 trees of
+   1,041 switches over 8,192 chips, pods of 64 racks, 5 core links; 16
+   tenants a tree with ``benchmarks/fleet.py``'s power-law loads, k = 16,
+   residual ledgers of 4 claims a switch, so admission runs in the loop).
+   Checks: the device loop equals the host loop on the card bitwise under
+   ``record_rounds`` (every round's effective rho and masks, history, best
+   round, admission log, drops, residual after) and the CPU loop bitwise
+   over the first ``CPU_ROUNDS`` = 2 rounds (the CPU loop takes seconds a
+   round at this size); ``rounds x`` one level-fold and one color-level
+   launch a level, no standalone min-plus; one device-to-host copy a
+   round (the stop flag) plus the final pull, counted by the profiler;
+   the best masks re-measured by ``phi`` and ``measure_fleet_multi``; both
+   solve kernels bitwise against their plain versions on every level of
+   the fleet forest under round 1's effective rates, float32 and
+   float64. Prints ms a round of both loops, transfers, rounds, the
+   congestion before and after, the core links' congestion and the busy
+   share of one profiled solve.
+
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
@@ -154,7 +180,8 @@ qwen3-32b's widths scaled by 1/4 .. 1 (see :func:`lr_witness`).
 ``--bf16-witness`` runs none either: it prints hymba-1.5b's last decode
 logits against a fresh prefill's by precision, depth and decode steps, and
 the bfloat16 noise floor of the prefill (see :func:`bf16_witness`).
-``--solve`` runs phases 1-4 only and prints the solve's kernel rows.
+``--solve`` runs phases 1-4 only and prints the solve's kernel rows;
+``--fleet`` runs phases 1 and 11 and prints the loop's kernel cells.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -362,8 +389,9 @@ def color_work(args, kw) -> tuple[int, int, int]:
             int(real.max()))
 
 
-def compare_kernels(f, k, dtype, label):
-    """Record one solve's kernel inputs on the card; hold both kernels
+def compare_kernels(f, k, dtype, label, **solve_kw):
+    """Record one solve's kernel inputs on the card (``solve_kw`` goes to
+    ``solve_forest``: ``rho_scale``, ``rho_root_add``); hold both kernels
     against their plain versions on every one of them, bitwise."""
     import torch
 
@@ -373,7 +401,7 @@ def compare_kernels(f, k, dtype, label):
                                                        level_fold_torch)
     from repro_torch.kernels.minplus.minplus import color_level_cuda
     with Recorder(batched) as rec:
-        solve_forest(f, k, options=EngineOptions(dtype=dtype))
+        solve_forest(f, k, options=EngineOptions(dtype=dtype), **solve_kw)
     levels = [d for d in range(f.h_max + 1)
               if f.lvl_width[d] and f.lvl_internal[d]]
     check(len(rec.folds) == len(levels) == len(rec.colors),
@@ -3278,13 +3306,334 @@ def solve_phases() -> list:
     return rows
 
 
+# -- phase 11: the congestion/fleet penalty loop -------------------------------
+
+FLEET_CELLS = ("cong-bt4096-x64-k64", "fleet4-p16r64c8-x64-k16-admit")
+# benchmarks/congestion.py's and benchmarks/fleet.py's settings
+LOOP_KW = dict(max_rounds=8, patience=2, alpha=2.0, hot_frac=0.75, w_cap=8.0)
+# the CPU loop at bt4096-x64-k64 takes seconds a round, so the card is held
+# against the CPU over the first rounds and against its own host loop (on
+# the card) over all of them
+CPU_ROUNDS = 2
+
+
+def _same(x, y) -> bool:
+    import numpy as np
+    if isinstance(x, (list, tuple)) and isinstance(y, (list, tuple)):
+        return len(x) == len(y) and all(map(_same, x, y))
+    if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+        return x is not None and y is not None and np.array_equal(x, y)
+    return x == y
+
+
+def congestion_diff(a, b) -> list[str]:
+    """The fields of two ``CongestionResult``s that differ bitwise (every
+    field but ``bytes_to_host``; the round log round by round)."""
+    return [f.name for f in dataclasses.fields(a)
+            if f.name != "bytes_to_host"
+            and not _same(getattr(a, f.name), getattr(b, f.name))]
+
+
+class LoopTimer:
+    """Host-clock seconds of each penalty loop run inside a call: swaps
+    the engine's ``_device_loop`` and ``_run_host`` for wrappers that
+    synchronise and time them (``seconds["device"]``, ``["host"]``), so a
+    round's time leaves out a call's packing, upload and re-measure."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.engine import congestion
+        self.mod = congestion
+        self.orig = (congestion._device_loop, congestion._run_host)
+        self.seconds = {"device": [], "host": []}
+
+        def timed(key, fn):
+            def wrapper(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[key].append(time.perf_counter() - t0)
+                return out
+            return wrapper
+        congestion._device_loop = timed("device", self.orig[0])
+        congestion._run_host = timed("host", self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._device_loop, self.mod._run_host = self.orig
+
+
+def fleet_runs(bt_n=4096, tenants=64, k=64, dims=(4, 16, 64, 8),
+               per_tree=16, fk=16) -> list[dict]:
+    """The phase's three runs, each with a ``run(**kw)`` through the entry
+    point a user calls: ``solve_congestion`` on phase 3's instance,
+    unpriced and priced (capacity 8 on every switch), and ``solve_fleet``
+    on 4 trees sharing a spine, with residual ledgers of 4 claims a
+    switch (admission inside the loop)."""
+    import numpy as np
+
+    from repro_torch.collectives import build_fleet
+    from repro_torch.core import (build_fleet_forest, build_forest, bt,
+                                  sample_load)
+    from repro_torch.engine import solve_congestion, solve_fleet
+    t = bt(bt_n, "exponential")
+    loads = [sample_load(t, "power-law", seed=s) for s in range(tenants)]
+    cong = dict(cell=FLEET_CELLS[0], forest=build_forest([t] * tenants,
+                                                         loads),
+                trees=[t], tree_of=[0] * tenants, loads=loads, k=k,
+                fleet=None)
+    cap = np.full(t.n, 8.0)
+    fl = build_fleet(*dims, spine_rho=64.0, uplink_rho=32.0)
+    trees = [tp.tree for tp in fl.topos]
+    tree_of = [g for g in range(len(trees)) for _ in range(per_tree)]
+    floads = [sample_load(trees[g], "power-law", seed=17 * i + g)
+              for i, g in enumerate(tree_of)]
+    residual = [np.full(tr.n, 4, np.int64) for tr in trees]
+    return [
+        dict(cong, label=f"{FLEET_CELLS[0]} unpriced",
+             run=lambda **kw: solve_congestion(t, loads, k,
+                                               **{**LOOP_KW, **kw})),
+        dict(cong, label=f"{FLEET_CELLS[0]} priced",
+             run=lambda **kw: solve_congestion(t, loads, k, capacity=cap,
+                                               **{**LOOP_KW, **kw})),
+        dict(cell=FLEET_CELLS[1], label=FLEET_CELLS[1],
+             forest=build_fleet_forest(trees, floads, tree_of,
+                                       core_rho=fl.core_rho,
+                                       core_path=fl.core_path)[0],
+             trees=trees, tree_of=tree_of, loads=floads, k=fk, fleet=fl,
+             run=lambda **kw: solve_fleet(
+                 trees, floads, tree_of, fk, core_rho=fl.core_rho,
+                 core_path=fl.core_path, residual=residual,
+                 **{**LOOP_KW, **kw}))]
+
+
+def loop_profile(fn, label: str, rounds: int, sessions: int = 3):
+    """One ``fn()`` under ``torch.profiler``: wall and device-busy ms, the
+    loop's own span (``LoopTimer``), the device-to-host copies (``Memcpy
+    DtoH``) and host scalar reads (``aten::_local_scalar_dense``), the
+    level-fold and color-level kernels' device ms and launches, and the
+    kernels that take the most device time. A session on the chip machine
+    sometimes loses device records, so up to ``sessions`` run until one
+    records ``rounds + 1`` copies; the last is returned either way. None
+    where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = None
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof, \
+                    LoopTimer() as lt:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            ev = prof.key_averages()
+        except Exception as e:      # a measurement, not a check
+            say(f"{label}: profile not measured ({type(e).__name__}: {e})")
+            return None
+        dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        if busy <= 0:
+            say(f"{label}: profile not measured (no device time recorded)")
+            return None
+        kern = {name: (sum(e.self_device_time_total for e in dev
+                           if name in e.key) / 1e3,
+                       sum(e.count for e in dev if name in e.key))
+                for name in ("levelfold_kernel", "color_level_kernel",
+                             "minplus_kernel")}
+        top = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in dev), key=lambda t: -t[1])[:6]
+        out = dict(wall_ms=wall, busy_ms=busy,
+                   loop_ms=sum(lt.seconds["device"]) * 1e3,
+                   dtoh=sum(e.count for e in dev if "Memcpy DtoH" in e.key),
+                   reads=sum(e.count for e in ev
+                             if e.key == "aten::_local_scalar_dense"),
+                   kernels=kern, top=top)
+        if out["dtoh"] == rounds + 1:
+            break
+    return out
+
+
+def fleet_run(r: dict) -> dict:
+    """One run of phase 11: the device loop on the card through the entry
+    point (launches counted around it), held bitwise against the host loop
+    on the card and the loop on the CPU; the result re-measured on the
+    host; times, transfers and one profiled solve."""
+    import numpy as np
+
+    from repro_torch.core import build_forest, measure_fleet_multi, phi
+    from repro_torch.engine import EngineOptions
+    label, run, f = r["label"], r["run"], r["forest"]
+    levels = expected_launches(f)[0]
+    reset_counts()
+    dev, first_s = solve_timed(lambda: run(record_rounds=True))
+    counts = read_counts()
+    want = dev.rounds * levels
+    check(counts[:2] == (want, want),
+          f"{label}: launches (level fold, color level) {counts[:2]} != "
+          f"{dev.rounds} rounds x {levels} levels")
+    check(counts[7] == 0, f"{label}: the loop launched the standalone "
+          "min-plus")
+    host = run(record_rounds=True, device_loop=False)
+    diff = congestion_diff(dev, host)
+    check(not diff, f"{label}: device loop != host loop on the card in "
+          f"{diff}")
+    # the best round re-measured on the host, on the original rho
+    blues = [dev.blue[i, : r["trees"][g].n]
+             for i, g in enumerate(r["tree_of"])]
+    fl = r["fleet"]
+    t0 = time.perf_counter()
+    m = measure_fleet_multi(r["trees"], r["tree_of"], r["loads"], blues,
+                            core_rho=None if fl is None else fl.core_rho,
+                            core_path=None if fl is None else fl.core_path)
+    measure_s = time.perf_counter() - t0
+    costs = [phi(r["trees"][g], r["loads"][i], blues[i])
+             for i, g in enumerate(r["tree_of"])]
+    check(np.array_equal(costs, dev.costs), f"{label}: phi of the masks != "
+          "costs")
+    check(np.array_equal(m.congestion, dev.congestion)
+          and m.max_congestion == dev.max_congestion
+          and np.array_equal(m.core_congestion, dev.core_congestion),
+          f"{label}: re-measured congestion != the result's")
+    # the CPU path over the first rounds
+    short = run(record_rounds=True, max_rounds=CPU_ROUNDS)
+    cpu, cpu_s = solve_timed(lambda: run(
+        record_rounds=True, max_rounds=CPU_ROUNDS,
+        options=EngineOptions(device="cpu")))
+    diff = congestion_diff(short, cpu)
+    check(not diff, f"{label}: card != CPU at max_rounds={CPU_ROUNDS} in "
+          f"{diff}")
+    # warm times without the round log: a call, and within it the loop
+    with LoopTimer() as lt:
+        plain, d_s = solve_timed(run)
+        plain2, d2_s = solve_timed(run)
+        h_res, h_s = solve_timed(lambda: run(device_loop=False))
+    check(plain.history == plain2.history == dev.history == h_res.history,
+          f"{label}: the unlogged runs took another trajectory")
+    d_s = min(d_s, d2_s)
+    d_ms = min(lt.seconds["device"]) / plain.rounds * 1e3
+    h_ms = lt.seconds["host"][0] / h_res.rounds * 1e3
+    pack_s = solve_timed(lambda: build_forest(
+        [r["trees"][g] for g in r["tree_of"]], r["loads"]))[1]
+    prof = loop_profile(run, label, plain.rounds)
+    if prof is not None:
+        check(prof["reads"] == plain.rounds,
+              f"{label}: {prof['reads']} host reads of a device value in "
+              f"{plain.rounds} rounds")
+        check(prof["dtoh"] == plain.rounds + 1,
+              f"{label}: {prof['dtoh']} device-to-host copies, not one a "
+              f"round ({plain.rounds}) plus the final pull")
+    hot = int(np.argmax(dev.congestion))
+    roots = [int(off) + r["trees"][g].root for g, off in enumerate(m.link_off)]
+    where = (" (a tree's root up-link)" if hot in roots else
+             f" (core link {hot - len(dev.congestion) + fl.n_core})"
+             if fl is not None and hot >= fl.core_offset else "")
+    say(f"{label}: B={f.batch} n_slots={f.n_slots} h_max={f.h_max} "
+        f"max_children={f.max_children} k={r['k']}; rounds {dev.rounds}, "
+        f"best round {dev.best_round}; max congestion {dev.baseline_max} "
+        f"-> {dev.max_congestion} (improvement {dev.improvement:.4f}) on "
+        f"global link {hot}{where}; history {dev.history}"
+        + ("" if fl is None else
+           f"; core congestion {dev.core_congestion.tolist()}")
+        + ("" if dev.admission_dropped is None else
+           f"; claims dropped by the best round "
+           f"{int(dev.admission_dropped.sum())}"))
+    say(f"{label}: card device loop == card host loop bitwise (rho_eff and "
+        f"masks of {dev.rounds} rounds, history, best round, costs, "
+        f"congestion, admission); card == CPU bitwise at max_rounds="
+        f"{CPU_ROUNDS} (the CPU loop {cpu_s:.2f} s); launches level fold "
+        f"{counts[0]}, color level {counts[1]} = {dev.rounds} rounds x "
+        f"{levels} levels, min-plus 0; first call {first_s:.4f} s")
+    say(f"{label}: ms a round (the loop alone, its final pull included), "
+        f"device loop {d_ms:.4f}, host loop {h_ms:.4f} (host / device "
+        f"{h_ms / d_ms:.2f}); a call {d_s:.4f} s (host loop {h_s:.4f} s), "
+        f"of which the pack {pack_s:.4f} s and the result's host "
+        f"re-measure {measure_s:.4f} s; bytes_to_host device loop "
+        f"{plain.bytes_to_host}, host loop {h_res.bytes_to_host}")
+    per_round = {}
+    if prof is not None:
+        kern = prof["kernels"]
+        per_round = {name: (kern[key][0] / plain.rounds,
+                            kern[key][1] / plain.rounds)
+                     for name, key in (("levelfold", "levelfold_kernel"),
+                                       ("color_level",
+                                        "color_level_kernel"))}
+        say(f"{label}: one device-loop solve under the profiler: wall "
+            f"{prof['wall_ms']:.4f} ms, device busy {prof['busy_ms']:.4f} "
+            f"ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%; of the "
+            f"loop's {prof['loop_ms']:.4f} ms, "
+            f"{100 * prof['busy_ms'] / prof['loop_ms']:.1f}%); "
+            f"device-to-host copies {prof['dtoh']}, host reads "
+            f"{prof['reads']} in {plain.rounds} rounds; a round: level "
+            f"fold {per_round['levelfold'][0]:.4f} ms "
+            f"({per_round['levelfold'][1]:g} launches), color level "
+            f"{per_round['color_level'][0]:.4f} ms "
+            f"({per_round['color_level'][1]:g}); most device ms: "
+            + "; ".join(f"{k[:60]} {ms:.4f} ({n})"
+                        for k, ms, n in prof["top"]))
+    return dict(result=dev, levels=levels, counts=counts,
+                busy=None if prof is None
+                else prof["busy_ms"] / prof["wall_ms"],
+                loop_busy=None if prof is None
+                else prof["busy_ms"] / prof["loop_ms"],
+                per_round=per_round, ms_per_round=d_ms,
+                host_ms_per_round=h_ms, call_s=d_s, host_call_s=h_s)
+
+
+def fleet_phase(runs=None) -> dict:
+    """Phase 11: the three runs, then both solve kernels against their
+    plain versions on the fleet forest under one round's effective rho.
+    Returns, per kernel row, the fleet cells' launches and device ms a
+    round."""
+    import numpy as np
+    import torch
+    runs = fleet_runs() if runs is None else runs
+    out = [fleet_run(r) for r in runs]
+    r, res = runs[-1], out[-1]["result"]
+    f, k = r["forest"], r["k"]
+    # round 1's effective rates as rho_scale / rho_root_add overrides of
+    # the fleet forest (exact: the rates and weights are dyadic)
+    rho_eff = res.rounds_log[min(1, res.rounds - 1)][0]
+    scale = np.ones((f.batch, f.n_max))
+    extra = np.zeros(f.batch)
+    for i, g in enumerate(r["tree_of"]):
+        tr = r["trees"][g]
+        scale[i, : tr.n] = rho_eff[i, : tr.n] / tr.rho
+        scale[i, tr.root] = 1.0
+        extra[i] = rho_eff[i, tr.root] - tr.rho[tr.root]
+    for dt in (torch.float32, torch.float64):
+        compare_kernels(f, k, dt, r["label"], rho_scale=scale,
+                        rho_root_add=extra)
+    cells = {"levelfold": {}, "color_level": {}}
+    for run, o in zip(runs, out):
+        for i, name in enumerate(cells):
+            ms, n = o["per_round"].get(name, (None, None))
+            cells[name][run["label"]] = {
+                "launches": o["counts"][i], "rounds": o["result"].rounds,
+                "launches_per_round": o["levels"],
+                **measured(device_ms_per_round=ms,
+                           profiled_launches_per_round=n),
+                "loop_ms_per_round": o["ms_per_round"],
+                "host_loop_ms_per_round": o["host_ms_per_round"],
+                "loop_call_s": o["call_s"],
+                "host_loop_call_s": o["host_call_s"],
+                **measured(busy=o["busy"], loop_busy=o["loop_busy"])}
+    return cells
+
+
 def main(args: list[str]) -> int:
     import torch
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
-                    ["--attention-rows"], ["--solve"], ["--reduce"]):
+                    ["--attention-rows"], ["--solve"], ["--reduce"],
+                    ["--fleet"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
-              f"--attention-rows | --solve | --reduce], got {args}",
-              file=sys.stderr)
+              f"--attention-rows | --solve | --reduce | --fleet], got "
+              f"{args}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3317,6 +3666,10 @@ def main(args: list[str]) -> int:
         check_segment_reduce_random()
         reduce_path()
         reduce_variants()
+        say(smi)
+        return 0
+    if args == ["--fleet"]:
+        say(json.dumps({"fleet": fleet_phase()}))
         say(smi)
         return 0
 
@@ -3383,6 +3736,17 @@ def main(args: list[str]) -> int:
     say(f"phase 10 wall: 10a {t10b - t10:.1f} s, float32 consistency "
         f"{t10c - t10b:.1f} s, {HYBRID_CELL} {time.perf_counter() - t10c:.1f}"
         " s")
+    torch.cuda.empty_cache()
+
+    # phase 11: the congestion/fleet penalty loop, on the solve's kernels
+    t11 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 11: {held} bytes still allocated after "
+          "phase 10")
+    fleet = fleet_phase()
+    for row in rows[:2]:
+        row["cells"].update(fleet[row["name"]])
+    say(f"phase 11 wall: {time.perf_counter() - t11:.1f} s")
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",

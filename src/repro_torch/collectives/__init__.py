@@ -1,19 +1,23 @@
 """Placement -> reduction program -> the SOAR reduce, on PyTorch.
 
 ``topology`` builds the cluster trees and applies faults, ``schedule``
-plans a placement (``plan``/``plan_batch`` over the batched engine) and
-compiles it into a :class:`ReduceProgram`, and ``tree_allreduce`` executes
+plans a placement (``plan``/``plan_batch`` over the batched engine,
+``plan_congestion``/``plan_fleet`` over the penalty loop) and compiles it
+into a :class:`ReduceProgram`, and ``tree_allreduce`` executes
 the program over all devices' buffers on one device. Numpy and torch only;
 nothing of the JAX package.
 """
-from .schedule import ReduceProgram, TenantPlan, build_program, plan, plan_batch
+from .schedule import (CongestionPlan, FleetPlan, ReduceProgram, TenantPlan,
+                       build_program, plan, plan_batch, plan_congestion,
+                       plan_fleet)
 from .topology import (ClusterTopology, Fleet, build_fleet, chip_level_tree,
                        degrade_links, degrade_switches, fail_devices,
                        fail_switches, fleet_tree, topology_from_arrays)
 from .tree_allreduce import tree_allreduce, tree_allreduce_tree
 
 __all__ = [
-    "ReduceProgram", "TenantPlan", "build_program", "plan", "plan_batch",
+    "CongestionPlan", "FleetPlan", "ReduceProgram", "TenantPlan",
+    "build_program", "plan", "plan_batch", "plan_congestion", "plan_fleet",
     "ClusterTopology", "Fleet", "build_fleet", "chip_level_tree",
     "fleet_tree", "fail_devices", "fail_switches", "degrade_links",
     "degrade_switches", "topology_from_arrays",

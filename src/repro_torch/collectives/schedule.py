@@ -6,9 +6,11 @@ which device sends which buffer slots to whom in each round, and where
 partial sums are materialized. All counts are static (topology, loads and
 coloring are known), so the program is a plain Python object.
 
-A copy of the JAX package's ``collectives/schedule.py`` with ``plan`` and
-``plan_batch`` running :func:`repro_torch.engine.solve_batch`; the
-congestion and fleet planners are not part of this package yet.
+A copy of the JAX package's ``collectives/schedule.py``: ``plan`` and
+``plan_batch`` run :func:`repro_torch.engine.solve_batch`,
+``plan_congestion`` and ``plan_fleet`` the penalty loop
+(:func:`repro_torch.engine.solve_congestion` / ``solve_fleet``), and every
+tenant's program comes from :func:`build_program`.
 """
 from __future__ import annotations
 
@@ -18,9 +20,9 @@ import numpy as np
 
 from ..core import baselines
 from ..core.reduce import messages_up, messages_up_degraded, phi_degraded
-from ..engine import solve_batch
+from ..engine import solve_batch, solve_congestion, solve_fleet
 from ..engine.options import EngineOptions, resolve_options
-from .topology import ClusterTopology
+from .topology import ClusterTopology, Fleet
 
 
 def _check_capacity(capacity, n: int, where: str):
@@ -286,6 +288,30 @@ class TenantPlan:
         return iter((self.blue, self.program))
 
 
+@dataclasses.dataclass(frozen=True)
+class CongestionPlan:
+    """:func:`plan_congestion`'s result: per-tenant plans + diagnostics.
+
+    ``plans`` is a list of :class:`TenantPlan` in tenant order; ``result``
+    the driver's ``CongestionResult`` (baseline vs achieved congestion,
+    rounds, history, transfer accounting). Unpacks as the historical
+    ``planned, res = plan_congestion(...)`` pair."""
+
+    plans: list
+    result: object                 # repro_torch.engine.CongestionResult
+
+    def __iter__(self):
+        return iter((self.plans, self.result))
+
+    @property
+    def max_congestion(self) -> float:
+        return self.result.max_congestion
+
+    @property
+    def improvement(self) -> float:
+        return self.result.improvement
+
+
 def plan(topo: ClusterTopology, k: int, avail: np.ndarray | None = None,
          strategy: str = "soar", *, options: EngineOptions | None = None,
          **engine_kw) -> TenantPlan:
@@ -349,3 +375,199 @@ def plan_batch(topos: list[ClusterTopology], k: int,
         prog = build_program(tp, blue)
         out.append(TenantPlan(blue, prog, prog.utilization))
     return out
+
+
+def plan_congestion(topo: ClusterTopology, k: int,
+                    loads: list[np.ndarray] | None = None,
+                    count: int | None = None,
+                    avails: list[np.ndarray | None] | np.ndarray | None = None,
+                    **driver_kw):
+    """Congestion-aware multi-tenant planning on one shared cluster tree.
+
+    Runs the repeated-solve penalty driver
+    (:func:`repro_torch.engine.solve_congestion`) for T tenants sharing
+    ``topo.tree`` — minimizing the *max-link* congestion across tenants
+    instead of each tenant's utilization in isolation — then compiles one
+    :class:`ReduceProgram` per tenant from the final masks. ``loads`` is
+    one per-tenant load vector (or pass ``count`` to admit that many
+    copies of ``topo.load`` — the orchestrator's admission shape);
+    ``avails`` is a shared mask or a per-tenant list. Driver keyword
+    arguments (``max_rounds``, ``alpha``, ``capacity``, ``residual`` —
+    the hard in-loop admission ledger, validated here — ``device_loop``,
+    ``options=EngineOptions(...)``, …) pass through. Returns a
+    :class:`CongestionPlan` — per-tenant :class:`TenantPlan`\\ s in tenant
+    order plus the driver's congestion diagnostics (baseline vs achieved
+    max/mean, rounds, history, device↔host traffic); unpacks as the
+    historical ``(planned, result)`` pair.
+    """
+    if (loads is None) == (count is None):
+        raise ValueError("pass exactly one of loads / count")
+    if loads is None:
+        loads = [topo.load] * count
+    # boundary validation (parity with plan_batch): a per-tenant avail list
+    # must pair positionally, and a malformed capacity vector fails here,
+    # not deep inside the engine
+    if avails is not None and not isinstance(avails, np.ndarray):
+        avails = list(avails)
+        if len(avails) != len(loads):
+            raise ValueError(
+                f"{len(avails)} avail masks for {len(loads)} tenants — "
+                "plan_congestion pairs them positionally")
+    if driver_kw.get("capacity") is not None:
+        driver_kw["capacity"] = _check_capacity(
+            driver_kw["capacity"], topo.tree.n, "plan_congestion")
+        if topo.cap_scale is not None:
+            # partial-capacity degradation shrinks the capacity snapshot
+            # the engine's crowding term prices against: a switch at half
+            # its aggregation plane crowds twice as fast
+            driver_kw["capacity"] = (driver_kw["capacity"]
+                                     * np.clip(topo.cap_scale, 0.0, 1.0))
+    if driver_kw.get("residual") is not None:
+        driver_kw["residual"] = _check_residual(
+            driver_kw["residual"], topo.tree.n, "plan_congestion")
+    if topo.blocked is not None or topo.cap_scale is not None:
+        # blocked and zero-capacity switches leave Lambda for every tenant
+        if avails is None or isinstance(avails, np.ndarray):
+            avails = topo.candidates(avails)
+        else:
+            avails = [topo.candidates(a) for a in avails]
+    res = solve_congestion(topo.tree, loads, k, avail=avails, **driver_kw)
+    plans = []
+    for L, blue in zip(loads, res.blue, strict=True):
+        tenant_topo = dataclasses.replace(topo, load=np.asarray(L, np.int64))
+        prog = build_program(tenant_topo, blue)
+        plans.append(TenantPlan(blue, prog, prog.utilization))
+    return CongestionPlan(plans, res)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetPlan:
+    """:func:`plan_fleet`'s result: per-tenant plans + fleet diagnostics.
+
+    ``plans`` is a list of :class:`TenantPlan` in tenant order (each
+    tenant's blue mask and program live on its *own* tree — look up the
+    tree with ``tree_of``); ``result`` is the driver's
+    ``CongestionResult`` with per-link arrays in the fleet's global
+    link-id space (tree segments first, shared-core links last).
+    Unpacks as the ``(planned, result)`` pair like
+    :class:`CongestionPlan`."""
+
+    plans: list
+    result: object                 # repro_torch.engine.CongestionResult
+    tree_of: np.ndarray            # (T,) tenant -> tree index
+
+    def __iter__(self):
+        return iter((self.plans, self.result))
+
+    @property
+    def max_congestion(self) -> float:
+        return self.result.max_congestion
+
+    @property
+    def improvement(self) -> float:
+        return self.result.improvement
+
+    @property
+    def core_congestion(self):
+        return self.result.core_congestion
+
+
+def plan_fleet(fleet: Fleet, k: int,
+               loads: list[np.ndarray] | None = None,
+               tree_of: list[int] | None = None,
+               counts: list[int] | None = None,
+               avails: list[np.ndarray | None] | None = None,
+               **driver_kw) -> FleetPlan:
+    """Congestion-coupled planning across a multi-tree fleet.
+
+    T tenants spread over the fleet's N aggregation trees, solved
+    *jointly* by :func:`repro_torch.engine.solve_fleet`: every penalty round
+    profiles the union of tree-local links and the fleet's shared-core
+    links, so tenants on different trees trade placements through the
+    links they share — two independent :func:`plan_congestion` calls
+    cannot see that coupling. Tenant assignment comes either from
+    ``counts`` (per-tree tenant counts; tenant loads default to each
+    tree's ``topo.load`` — the admission shape) or from explicit
+    ``loads`` + ``tree_of`` (one load vector per tenant, shaped for its
+    own tree). ``avails`` is an optional per-tenant mask list; each
+    tree's fault domains (``topo.blocked``) are subtracted for its own
+    tenants. ``capacity`` / ``residual`` in ``driver_kw`` are per-*tree*
+    lists of capacity vectors / hard-admission ledgers, validated here at
+    the call boundary. Compiles one
+    :class:`ReduceProgram` per tenant on its own tree and returns a
+    :class:`FleetPlan`.
+
+    For an N=1 fleet with no core links this is exactly
+    :func:`plan_congestion` on the single topology — same masks, same
+    costs, same round history (the engine path is shared, not parallel).
+    """
+    if not isinstance(fleet, Fleet):
+        raise TypeError("plan_fleet needs a Fleet; wrap a single topology "
+                        "with Fleet.single(topo)")
+    N = fleet.n_trees
+    if (loads is None) == (counts is None):
+        raise ValueError("pass exactly one of loads / counts")
+    if counts is not None:
+        if tree_of is not None:
+            raise ValueError("tree_of is derived from counts — pass it "
+                             "only with explicit loads")
+        counts = [int(c) for c in counts]
+        if len(counts) != N or any(c < 1 for c in counts):
+            raise ValueError(f"counts must give >=1 tenants for each of "
+                             f"the {N} trees, got {counts}")
+        tree_of = [g for g, c in enumerate(counts) for _ in range(c)]
+        loads = [fleet.topos[g].load for g in tree_of]
+    else:
+        if tree_of is None:
+            raise ValueError("explicit loads need tree_of (one tree index "
+                             "per tenant)")
+        tree_of = [int(g) for g in tree_of]
+        loads = list(loads)
+        if len(tree_of) != len(loads):
+            raise ValueError(f"{len(tree_of)} tree indices for "
+                             f"{len(loads)} loads")
+    T = len(loads)
+    tid = np.asarray(tree_of, np.int32)
+    if T and (tid.min() < 0 or tid.max() >= N):
+        raise ValueError(f"tree_of entries must be in [0, {N})")
+    if avails is not None:
+        avails = list(avails)
+        if len(avails) != T:
+            raise ValueError(f"{len(avails)} avail masks for {T} tenants — "
+                             "plan_fleet pairs them positionally")
+    else:
+        avails = [None] * T
+    # per-tree fault domains + mask validation at the boundary
+    avails = [fleet.topos[g].candidates(av)
+              for g, av in zip(tree_of, avails)]
+    if driver_kw.get("capacity") is not None:
+        caps = list(driver_kw["capacity"])
+        if len(caps) != N:
+            raise ValueError(f"{len(caps)} capacity vectors for {N} trees "
+                             "— plan_fleet takes one per tree")
+        driver_kw["capacity"] = [
+            _check_capacity(c, fleet.topos[g].tree.n, "plan_fleet")
+            * (np.clip(fleet.topos[g].cap_scale, 0.0, 1.0)
+               if fleet.topos[g].cap_scale is not None else 1.0)
+            for g, c in enumerate(caps)]
+    if driver_kw.get("residual") is not None:
+        resid = list(driver_kw["residual"])
+        if len(resid) != N:
+            raise ValueError(f"{len(resid)} residual ledgers for {N} trees "
+                             "— plan_fleet takes one per tree")
+        driver_kw["residual"] = [
+            _check_residual(rg, fleet.topos[g].tree.n, "plan_fleet")
+            for g, rg in enumerate(resid)]
+    res = solve_fleet([tp.tree for tp in fleet.topos], loads, tid, k,
+                      avails,
+                      core_rho=fleet.core_rho if fleet.n_core else None,
+                      core_path=fleet.core_path if fleet.n_core else None,
+                      **driver_kw)
+    plans = []
+    for t, (L, g) in enumerate(zip(loads, tree_of, strict=True)):
+        tp = fleet.topos[g]
+        blue = res.blue[t, : tp.tree.n]
+        tenant_topo = dataclasses.replace(tp, load=np.asarray(L, np.int64))
+        prog = build_program(tenant_topo, blue)
+        plans.append(TenantPlan(blue, prog, prog.utilization))
+    return FleetPlan(plans, res, tid)

@@ -917,3 +917,54 @@ def test_ssm_scan_kernel_within_the_derived_bound(dev):
     y64, s64, ylim, slim, _ = chip_smoke.scan_f64_bound(*xs, keep_from=0)
     assert chip_smoke._over(y, y64, ylim)[2]
     assert chip_smoke._over(s, s64, slim)[2]
+
+
+@pytest.mark.parametrize("admit", [False, True])
+def test_fleet_loop_on_card_equals_host_and_cpu(dev, admit):
+    """The penalty loop with a shared core on the card: the device loop
+    equals the host loop and the CPU loop bitwise, round for round, and
+    each round launches the level fold and the color once a level, and
+    never the standalone min-plus."""
+    from repro_torch.collectives import build_fleet
+    from repro_torch.core import build_fleet_forest, sample_load
+    from repro_torch.engine import solve_fleet
+    fleet = build_fleet(2, 2, 2, 4, spine_rho=8.0)
+    trees = [tp.tree for tp in fleet.topos]
+    tree_of = [0, 0, 0, 1, 1, 1]
+    loads = [sample_load(trees[g], "power-law", seed=7 + i)
+             for i, g in enumerate(tree_of)]
+    kw = dict(core_rho=fleet.core_rho, core_path=fleet.core_path,
+              record_rounds=True, rho_weighted=True)
+    if admit:
+        kw["residual"] = [np.full(tr.n, 2, np.int64) for tr in trees]
+    before = (level_fold_cuda.launches, color_level_cuda.launches,
+              minplus_cuda.launches)
+    got = solve_fleet(trees, loads, tree_of, 3, **kw)
+    launched = (level_fold_cuda.launches - before[0],
+                color_level_cuda.launches - before[1],
+                minplus_cuda.launches - before[2])
+    f, _ = build_fleet_forest(trees, loads, tree_of, core_rho=fleet.core_rho,
+                              core_path=fleet.core_path)
+    chip_smoke = _chip_smoke()
+    per = got.rounds * chip_smoke.expected_launches(f)[0]
+    assert launched == (per, per, 0)
+    diff = chip_smoke.congestion_diff
+    assert diff(got, solve_fleet(trees, loads, tree_of, 3,
+                                 device_loop=False, **kw)) == []
+    assert diff(got, solve_fleet(trees, loads, tree_of, 3,
+                                 options=EngineOptions(device="cpu"),
+                                 **kw)) == []
+
+
+def test_messages_up_forest_on_card_equals_cpu(dev):
+    from repro_torch.core import messages_up_forest, random_tree
+    rng = np.random.default_rng(4)
+    trees, loads = [], []
+    for s in range(16):
+        trees.append(random_tree(int(rng.integers(1, 200)), seed=s))
+        loads.append(rng.integers(0, 9, trees[-1].n))
+    f = build_forest(trees, loads)
+    blue = (rng.random(f.mask.shape) < 0.3) & f.mask
+    got = messages_up_forest(f, blue)
+    want = messages_up_forest(f, blue, options=EngineOptions(device="cpu"))
+    assert got.dtype == np.int64 and np.array_equal(got, want)

@@ -75,16 +75,20 @@ _HYBRID_PATH = ("repro_torch.kernels.ssm_scan",
                 "repro_torch.kernels.ssm_scan.ops", "repro_torch.models.ssm",
                 "repro_torch.configs.hymba_1_5b")
 
+# the modules of the congestion/fleet penalty loop
+_FLEET_PATH = ("repro_torch.core.congestion", "repro_torch.engine.congestion",
+               "repro_torch.collectives.schedule")
+
 
 def test_port_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
          *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
-         *_HYBRID_PATH],
+         *_HYBRID_PATH, *_FLEET_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 67     # every module imported
+    assert int(out.stdout.split()[-1]) == 69     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
