@@ -9,6 +9,7 @@
     python3 chip_smoke.py --reduce       # only phases 5-6, the reduce,
                                          # and the rows-in-flight variants
     python3 chip_smoke.py --fleet        # only phase 11, the penalty loop
+    python3 chip_smoke.py --runtime      # only phase 12, the runtime
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -20,7 +21,9 @@ compression -> SOAR reduce -> AdamW -> checkpoint) and serving
 (``repro_torch.launch.steps``: prefill, then greedy decode steps over
 caches written in place, attention by the flash kernel; the dense family,
 then the hybrid family with the windowed flash and the selective-scan
-kernel in every layer). It builds the CUDA
+kernel in every layer), and the runtime's orchestrator over all of it
+(``repro_torch.runtime``: admission, preplanned and solved recoveries,
+``launch/train.py --fail``). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -173,6 +176,37 @@ plain torch version on the inputs the paths give it. Phases:
    congestion before and after, the core links' congestion and the busy
    share of one profiled solve.
 
+12. the runtime, everything of phase 11 freed first, both cells on one
+   card. ``orch-fleet4-p16r64c8-k16-cap4``: an ``Orchestrator`` on phase
+   11's fleet with ``OrchestratorConfig(k=16, capacity=4)`` (a fleet
+   controller recovering and re-admitting tenants on a shared spine):
+   one admission wave of 16 tenants a tree in the loop
+   (``begin_workloads(fleet=[16] * 4, congestion_aware=True,
+   device_admission=True, capacity_priced=True)``, phase 11's settings),
+   its masks equal to a direct ``plan_fleet`` bitwise, no collision, every
+   switch's claims plus residual equal to the capacity; every blue
+   switch's failure preplanned in one batched solve, then one of them
+   failing; a rack in each of 16 pods preplanned, then one failing (each
+   preplan in the state its failure happens in); both recoveries cache
+   hits with no solve kernel (the wrappers' counts, and the profiler on a
+   copy of the orchestrator running the same event in a fresh process,
+   ``--runtime-probes``), their masks equal to
+   an uncached copy's solve on the card (timed), and 2 scenarios of each
+   preplan equal to the CPU path's; an up-link degrade that nothing
+   preplanned: a miss with one level-fold and one color launch a level,
+   equal to the CPU path's; one tree's jobs released and the ledgers back
+   to the capacity less the remaining claims. The cell's launches are its
+   path's events' own, (rounds + 4) x levels of each solve kernel. Prints
+   ms of each event, of one ``build_program`` and of one ``solve_batch``
+   of the tree.
+   ``e2e100m-dp8-topk-fail2``: phase 8's preset through ``train.main``
+   with ``--fail "2:0,1"``, 5 steps (a data-parallel job losing two chips
+   mid-run): the program and ``grad_scale`` installed at step 2 equal a
+   CPU orchestrator's after ``on_failure([0, 1])`` (blue bitwise, the same
+   ops, 8/6), every segment-reduce launch equal to its plain version
+   bitwise, finite losses, and the top-k, segment-reduce, level-fold and
+   color kernels all run.
+
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
@@ -181,7 +215,8 @@ qwen3-32b's widths scaled by 1/4 .. 1 (see :func:`lr_witness`).
 logits against a fresh prefill's by precision, depth and decode steps, and
 the bfloat16 noise floor of the prefill (see :func:`bf16_witness`).
 ``--solve`` runs phases 1-4 only and prints the solve's kernel rows;
-``--fleet`` runs phases 1 and 11 and prints the loop's kernel cells.
+``--fleet`` runs phases 1 and 11 and prints the loop's kernel cells;
+``--runtime`` runs phases 1 and 12 and prints the runtime's cells.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -190,6 +225,7 @@ last the JSON line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -1585,7 +1621,8 @@ def trainer_l1(steps: int = 3) -> dict:
     torch.cuda.reset_peak_memory_stats()
     # the main path, counted: plan, init, steps
     reset_counts()
-    topo, prog = train.reduce_program(n_dev, k, device=DEVICE)
+    orch = train.orchestrator(n_dev, k, device=DEVICE)
+    topo, prog = orch.topo0, orch.program
     params = api.init_fn(cfg, DEVICE)(0)
     # lr 1e-5: at the trainer's 3e-4 (no warmup) Adam's first step
     # overshoots at these widths and the loss rises, with or without
@@ -1699,7 +1736,8 @@ def lr_witness(steps: int = 5, widths=WITNESS_WIDTHS) -> None:
     from repro_torch.optim import adamw
     from repro_torch.optim.compression import CompressionConfig
     n_dev = 2
-    topo, prog = train.reduce_program(n_dev, 2, device=DEVICE)
+    orch = train.orchestrator(n_dev, 2, device=DEVICE)
+    topo, prog = orch.topo0, orch.program
     runs = ([(w, "none", 3e-4) for w in widths]
             + [(widths[-1], "topk:0.01", 3e-4), (widths[-1], "none", 1e-5)])
     for (d, heads, kv, ff), spec, lr in runs:
@@ -1774,7 +1812,7 @@ def trainer_e2e() -> dict:
             for a, b in zip(T.leaves(back), T.leaves(state))),
             f"{name}: restored state != saved state")
         # keep one step's reduce launches for the timings
-        _, prog = train.reduce_program(8, 2, device=DEVICE)
+        prog = train.orchestrator(8, 2, device=DEVICE).program
         per_step = len(T.leaves(params)) * exe.device_program(
             prog, DEVICE).n_reduce
         del params, state, back
@@ -3626,14 +3664,431 @@ def fleet_phase(runs=None) -> dict:
     return cells
 
 
+
+# -- phase 12: the runtime ----------------------------------------------------
+
+RUNTIME_CELLS = ("orch-fleet4-p16r64c8-k16-cap4", "e2e100m-dp8-topk-fail2")
+RUNTIME_RACKS = 16       # racks preplanned: the first of each of 16 pods
+
+
+def same_program(a, b) -> bool:
+    """Two ``ReduceProgram``s equal: the scalars and every field of every
+    op, in order."""
+    scalars = lambda p: (p.n_dev, p.n_slots, p.root_home, p.root_count,
+                         p.utilization, p.total_network_messages)
+    return (scalars(a) == scalars(b) and len(a.ops) == len(b.ops)
+            and all(type(x) is type(y) and vars(x).keys() == vars(y).keys()
+                    and all(_same(v, getattr(y, n)) for n, v in
+                            vars(x).items())
+                    for x, y in zip(a.ops, b.ops)))
+
+
+def solve_kernels_seen(make, sessions: int = 8):
+    """The (level-fold, color-level) kernels the card runs in one call of
+    ``make()``'s result, counted by ``torch.profiler`` (host and device
+    activity, as ``loop_profile``) between two of torch's spin kernels. A
+    session on the chip machine sometimes loses records, so only one that
+    kept both spins counts: each session runs a fresh ``make()`` (made
+    outside the profiler), up to ``sessions`` of them; the phase fails if
+    none keeps both."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lost = []
+    for _ in range(sessions):
+        fn = make()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)
+            fn()
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        spins = sum("spin_kernel" in n for n in names)
+        if spins == 2:
+            return (sum("levelfold_kernel" in n for n in names),
+                    sum("color_level_kernel" in n for n in names))
+        lost.append((spins, len(names)))
+    check(False, f"no profiler session of {sessions} kept both spin records "
+          f"(spins, device records a session: {lost})")
+
+
+def probe_in_fresh_process(probes) -> list:
+    """The card's (level-fold, color-level) kernels in each probe's event,
+    counted by ``solve_kernels_seen`` in a fresh process of this script
+    (``--runtime-probes``). Late in the whole script's one long process
+    the profiler stops recording the card (every session of phase 12 held
+    no device record at all), while a fresh process records it.
+    ``probes``: (orchestrator, method name, argument) triples, pickled
+    into the checkout's ``build/``."""
+    import pickle
+    path = ROOT / "build" / f"runtime_probes-{os.getpid()}.pkl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(pickle.dumps(probes))
+    try:
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--runtime-probes", str(path)],
+                             capture_output=True, text=True, timeout=600)
+    finally:
+        path.unlink(missing_ok=True)
+    check(out.returncode == 0,
+          f"the profiled probes failed: {out.stdout[-2000:]}"
+          f"{out.stderr[-2000:]}")
+    return [tuple(x) for x in json.loads(out.stdout.splitlines()[-1])]
+
+
+def runtime_probes(path: str) -> int:
+    """``--runtime-probes PATH``: each pickled probe's event under the
+    profiler, on a fresh copy a session; prints the counts as JSON."""
+    import copy
+    import pickle
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+    _build.library()
+    probes = pickle.loads(Path(path).read_bytes())
+    print(json.dumps([solve_kernels_seen(lambda: functools.partial(
+        getattr(copy.deepcopy(o), method), arg)) for o, method, arg in probes]))
+    return 0
+
+
+def ledgers_conserved(o, capacity: int) -> bool:
+    """Every switch of every tree: the registry's claims (and the
+    orchestrator's own blue on tree 0) plus the residual equal the
+    capacity (no switch of these cells is degraded)."""
+    import numpy as np
+    for g, res in enumerate(o._residuals):
+        claims = np.zeros_like(res)
+        for j in o.jobs.values():
+            if j.tree == g:
+                claims += j.blue
+        if g == 0:
+            claims += o.blue
+        if not (np.array_equal(res + claims, np.full_like(res, capacity))
+                and (res >= 0).all()):
+            return False
+    return True
+
+
+class Event:
+    """Host-clock seconds of orchestrator events (synchronised), with the
+    solve kernels' launches (the wrappers' counts), the ``build_program``
+    calls and their seconds, and the penalty loop's seconds
+    (``LoopTimer``) in each."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.launches: dict = {}
+        self.builds: dict = {}
+        self.loop: dict = {}
+
+    def __call__(self, key, fn):
+        from repro_torch.collectives import schedule
+        from repro_torch.runtime import orchestrator
+        real, spent = schedule.build_program, []
+
+        def build_program(*args):
+            t0 = time.perf_counter()
+            out = real(*args)
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        schedule.build_program = orchestrator.build_program = build_program
+        c0 = read_counts()
+        try:
+            with LoopTimer() as lt:
+                out, self.seconds[key] = solve_timed(fn)
+        finally:
+            schedule.build_program = orchestrator.build_program = real
+        self.launches[key] = tuple(b - a for a, b in
+                                   zip(c0[:2], read_counts()[:2]))
+        self.builds[key] = (len(spent), sum(spent))
+        self.loop[key] = sum(lt.seconds["device"])
+        return out
+
+
+def cached_recovery(o, ev, key, method, arg, levels, label):
+    """One preplanned failure: a cache hit with no solve kernel (wrapper
+    counts), its mask equal to an uncached copy's solve of the same state
+    on the card (timed: the same recovery without the cache), and the
+    degraded program never better than the replan. Returns the profiler's
+    probe: a copy of the orchestrator from before the event, the method
+    and its argument."""
+    import copy
+
+    import numpy as np
+    probe, fresh = copy.deepcopy(o), copy.deepcopy(o)
+    fresh._preplan.clear()
+    hits = o.preplan_cache_stats()["hits"]
+    ev(key, lambda: getattr(o, method)(arg))
+    check(o.preplan_cache_stats()["hits"] == hits + 1,
+          f"{label}: {key} was not a cache hit")
+    check(ev.launches[key] == (0, 0),
+          f"{label}: {key} launched solve kernels {ev.launches[key]}")
+    ev(f"{key} uncached", lambda: getattr(fresh, method)(arg))
+    check(ev.launches[f"{key} uncached"] == (levels, levels),
+          f"{label}: the uncached {key} launched "
+          f"{ev.launches[f'{key} uncached']}, not one of each a level")
+    check(np.array_equal(o.blue, fresh.blue)
+          and same_program(o.program, fresh.program),
+          f"{label}: {key} from the cache != an uncached solve")
+    if method == "on_switch_failure":
+        d = o.degraded_events[-1]
+        check(d["cache_hit"] and d["degraded_utilization"] is not None
+              and d["degraded_utilization"] >= d["utilization"],
+              f"{label}: {key} degraded {d}")
+    return probe, method, arg
+
+
+def runtime_orchestrator(dims=(4, 16, 64, 8), k=16, capacity=4, tenants=16,
+                         racks=RUNTIME_RACKS) -> dict:
+    """Phase 12, ``orch-fleet4-p16r64c8-k16-cap4``: an ``Orchestrator`` on
+    phase 11's fleet admits a wave on every tree in the loop, preplans, then
+    recovers from a switch failure and a rack failure out of its cache, from
+    a link degrade by a solve, and releases a tree's jobs."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.collectives import build_fleet, build_program, plan_fleet
+    from repro_torch.core import build_forest
+    from repro_torch.engine import EngineOptions, solve_batch
+    from repro_torch.runtime import Orchestrator, OrchestratorConfig
+    label = RUNTIME_CELLS[0]
+    n_trees, pods, rpp, cpr = dims
+    card, cpu = EngineOptions(device=DEVICE), EngineOptions(device="cpu")
+    fleet = build_fleet(*dims, spine_rho=64.0, uplink_rho=32.0)
+    ev = Event()
+    reset_counts()
+    o = ev("init", lambda: Orchestrator(
+        fleet, OrchestratorConfig(k=k, capacity=capacity), options=card))
+    levels = expected_launches(build_forest([o.topo.tree], [o.topo.load]))[0]
+
+    def on_cpu(x):
+        c = copy.deepcopy(x)
+        c.options = cpu
+        return c
+
+    # 1. one admission wave, the ledgers inside the loop
+    before = [r.copy() for r in o._residuals]
+    counts = [tenants] * n_trees
+    progs = ev("wave", lambda: o.begin_workloads(
+        fleet=counts, congestion_aware=True, device_admission=True,
+        capacity_priced=True, **LOOP_KW))
+    adm, res = o.last_admission, o.last_congestion
+    check(len(progs) == tenants * n_trees and adm["path"] == "device"
+          and adm["solves"] == 1 and adm["collisions"] == 0,
+          f"{label}: admission {adm}")
+    check(ev.launches["wave"] == (res.rounds * levels,) * 2,
+          f"{label}: the wave launched {ev.launches['wave']} in "
+          f"{res.rounds} rounds of {levels} levels")
+    check(ledgers_conserved(o, capacity), f"{label}: ledgers after the wave")
+    tree_of = [g for g, c in enumerate(counts) for _ in range(c)]
+    direct = plan_fleet(fleet, k, counts=counts,
+                        avails=[before[g] > 0 for g in tree_of],
+                        residual=[r.copy() for r in before],
+                        capacity=[r.astype(np.float64) for r in before],
+                        options=card, **LOOP_KW)
+    jobs = sorted(o.jobs.values(), key=lambda j: j.order)
+    check(len(jobs) == len(direct.plans) and all(
+        np.array_equal(j.blue, p.blue) for j, p in zip(jobs, direct.plans)),
+        f"{label}: the wave's masks != a direct plan_fleet")
+    # 2. preplan every blue switch failing alone: one batched solve
+    blues = [[int(s)] for s in np.nonzero(o.blue)[0]]
+    ref = on_cpu(o)
+    sw = ev("preplan switches", lambda: o.preplan_switch_failures(blues))
+    check(ev.launches["preplan switches"] == (levels, levels),
+          f"{label}: a preplan batch launched "
+          f"{ev.launches['preplan switches']}")
+    want = ref.preplan_switch_failures(blues[:2])
+    check(all(np.array_equal(a[0], b[0]) and a[1] == b[1]
+              for a, b in zip(sw[:2], want, strict=True)),
+          f"{label}: preplanned switch failures != the CPU path")
+    # 3. a blue switch fails: out of the cache
+    probes = [cached_recovery(o, ev, "switch failure", "on_switch_failure",
+                              blues[0], levels, label)]
+    # 4. preplan a rack in each of `racks` pods (in the state the failure
+    # happens in: the cache keys on the failed switches), then fail one
+    rack_sets = [list(range(p * rpp * cpr, p * rpp * cpr + cpr))
+                 for p in range(min(racks, pods))]
+    ref = on_cpu(o)
+    rk = ev("preplan racks", lambda: o.preplan_failures(rack_sets))
+    want = ref.preplan_failures(rack_sets[:2])
+    check(all(np.array_equal(a[0], b[0]) and a[1] == b[1]
+              for a, b in zip(rk[:2], want, strict=True)),
+          f"{label}: preplanned rack failures != the CPU path")
+    probes.append(cached_recovery(o, ev, "rack failure", "on_failure",
+                                  rack_sets[1], levels, label))
+    # 5. an up-link degrades that nothing preplanned: a solve on the card
+    v = 1 + pods + 2 * rpp                  # a rack's up-link in pod 2
+    ref = on_cpu(o)
+    probes.append((copy.deepcopy(o), "on_link_degrade", {v: 0.5}))
+    misses = o.preplan_cache_stats()["misses"]
+    ev("link degrade", lambda: o.on_link_degrade({v: 0.5}))
+    check(o.preplan_cache_stats()["misses"] == misses + 1,
+          f"{label}: the link degrade was not a miss")
+    check(ev.launches["link degrade"] == (levels, levels),
+          f"{label}: the link degrade launched {ev.launches['link degrade']}")
+    ref.on_link_degrade({v: 0.5})
+    check(np.array_equal(o.blue, ref.blue)
+          and same_program(o.program, ref.program),
+          f"{label}: the replan on the card != the CPU path")
+    # the card's own count of the solve kernels in each event
+    seen_sw, seen_rk, seen_ln = probe_in_fresh_process(probes)
+    check(seen_sw == seen_rk == (0, 0),
+          f"{label}: a cached recovery ran solve kernels on the card "
+          f"{seen_sw}, {seen_rk}")
+    check(seen_ln == (levels, levels),
+          f"{label}: the card ran {seen_ln} solve kernels in a replan")
+    # 6. release the last tree's jobs
+    ids = [j.job_id for j in o.jobs.values() if j.tree == n_trees - 1]
+    freed = o.release_workloads(ids)
+    check(freed > 0 and ledgers_conserved(o, capacity)
+          and (o._residuals[-1] == capacity).all(),
+          f"{label}: ledgers after releasing {len(ids)} jobs")
+    # the host's and the card's parts of a replan
+    avail = o._replan_avail()
+    bp_s = min(solve_timed(lambda: build_program(o.topo, o.blue))[1]
+               for _ in range(3))
+    solve_s = min(solve_timed(lambda: solve_batch(
+        [o.topo.tree], [o.topo.load], k, [avail], options=card))[1]
+        for _ in range(3))
+    # the path's own launches: its events, not the reference, the profiled
+    # copies, the uncached copies or the timings
+    path = {key: n for key, n in ev.launches.items()
+            if not key.endswith(" uncached")}
+    on_path = tuple(sum(n[i] for n in path.values()) for i in range(2))
+    check(on_path == ((res.rounds + 4) * levels,) * 2,
+          f"{label}: the path launched {on_path}, not {levels} a solve in "
+          f"the init, {res.rounds} wave rounds, 2 preplans and the link "
+          "degrade")
+    launches = read_counts()
+    ms = {key: 1e3 * sec for key, sec in ev.seconds.items()}
+    split = {key: dict(ms=ms[key], build_programs=ev.builds[key][0],
+                       build_program_ms=1e3 * ev.builds[key][1],
+                       loop_ms=1e3 * ev.loop[key]) for key in ms}
+    say(f"{label}: {tenants} tenants a tree on {n_trees} trees of "
+        f"{o.topo.tree.n} switches and {o.topo.n_devices} chips, k={k}, "
+        f"capacity {capacity}; the wave: {res.rounds} rounds, max congestion "
+        f"{res.baseline_max} -> {res.max_congestion}, claims dropped "
+        f"{int(res.admission_dropped.sum())}, == a direct plan_fleet "
+        f"bitwise; {len(blues)} switch and {len(rack_sets)} rack scenarios "
+        f"preplanned, 2 + 2 == the CPU path bitwise; the switch and rack "
+        f"failures cache hits with 0 solve kernels (profiler: {seen_sw}, "
+        f"{seen_rk}), each == an uncached solve; the link "
+        f"degrade a miss with {levels} level-fold and {levels} color launches "
+        f"(profiler: {seen_ln}), == the CPU path; {freed} claims released; "
+        f"ledgers conserved; preplan cache {o.preplan_cache_stats()}")
+    say(f"{label}: ms of each event (of which build_program calls and ms; "
+        f"the penalty loop ms): " + ", ".join(
+            f"{key} {v['ms']:.4f} ({v['build_programs']}, "
+            f"{v['build_program_ms']:.4f}; {v['loop_ms']:.4f})"
+            for key, v in split.items())
+        + f"; one build_program {1e3 * bp_s:.4f}, one solve_batch of the "
+        f"tree {1e3 * solve_s:.4f}; launches on the path level fold "
+        f"{on_path[0]}, color level {on_path[1]}; in the whole cell (with "
+        f"the reference, the copies and the timings) level fold "
+        f"{launches[0]}, color level {launches[1]}, min-plus {launches[7]}")
+    check(launches[7] == 0, f"{label}: the standalone min-plus ran")
+    return dict(split=split, launches=path, on_path=on_path, levels=levels,
+                rounds=res.rounds, build_program_ms=1e3 * bp_s,
+                solve_ms=1e3 * solve_s, scenarios=len(blues) + len(rack_sets),
+                profiled=dict(switch=seen_sw, rack=seen_rk, link=seen_ln))
+
+
+def trainer_fail() -> dict:
+    """Phase 12, ``e2e100m-dp8-topk-fail2``: phase 8's preset through the
+    port's ``main`` with workers 0 and 1 failing before step 2."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.launch import train
+    from repro_torch.optim.compression import CompressionConfig
+    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
+    label = RUNTIME_CELLS[1]
+    args = ["--arch", "qwen3-32b", "--preset-100m", "--global-batch", "8",
+            "--seq", "256", "--k", "2", "--n-dev", "8", "--compress",
+            "topk:0.01", "--steps", "5", "--log-every", "1", "--fail",
+            "2:0,1", "--device", DEVICE]
+    built, orchs = [], []
+    real_step, real_orch = train.make_step, train.orchestrator
+
+    def make_step(cfg, ocfg, prog, grad_scale, ccfg=CompressionConfig()):
+        built.append((prog, grad_scale))
+        return real_step(cfg, ocfg, prog, grad_scale, ccfg)
+
+    def orchestrator(*a, **kw):
+        orchs.append(real_orch(*a, **kw))
+        return orchs[-1]
+
+    train.make_step, train.orchestrator = make_step, orchestrator
+    reset_counts()
+    try:
+        with LaunchCheck(exe, keep=False) as lc:
+            losses, wall = solve_timed(lambda: train.main(args))
+    finally:
+        train.make_step, train.orchestrator = real_step, real_orch
+    counts = read_counts()
+    check(len(losses) == 5 and all(math.isfinite(v) for v in losses),
+          f"{label}: losses {losses}")
+    check(all(n > 0 for n in counts[:4]),
+          f"{label}: a kernel of the path did not run {counts}")
+    ref = train.orchestrator(8, 2, device="cpu")
+    ref.on_failure([0, 1])
+    (prog0, _), (prog, grad_scale) = built
+    check(len(orchs) == 1 and np.array_equal(orchs[0].blue, ref.blue)
+          and same_program(prog, ref.program) and grad_scale == 8 / 6
+          and grad_scale == ref.grad_scale
+          and not same_program(prog0, prog),
+          f"{label}: the program installed at step 2 != the CPU "
+          "orchestrator's after on_failure([0, 1])")
+    say(f"{label}: losses {losses}; main {wall:.2f} s for 5 steps; the "
+        f"program after the failure ({orchs[0].n_alive} of 8 alive, phi "
+        f"{prog.utilization} from {prog0.utilization}, grad_scale "
+        f"{grad_scale}) == the CPU orchestrator's; {lc.n} reduce launches "
+        f"== plain bitwise (Reduce ops a leaf: "
+        f"{exe.device_program(prog0, DEVICE).n_reduce} before, "
+        f"{exe.device_program(prog, DEVICE).n_reduce} after); launches level "
+        f"fold {counts[0]}, color level {counts[1]}, segment reduce "
+        f"{counts[2]}, top-k select {counts[3]}")
+    return dict(counts=counts, reduce_checked=lc.n, wall_s=wall,
+                losses=losses)
+
+
+def runtime_phase() -> dict:
+    """Phase 12: both cells; per kernel row, their launches."""
+    orch = runtime_orchestrator()
+    fail = trainer_fail()
+    cell = lambda i: {"launches": orch["on_path"][i],
+                      "launches_by_event": {k: v[i] for k, v in
+                                            orch["launches"].items()},
+                      "launches_per_solve": orch["levels"],
+                      "events": orch["split"]}
+    return {"levelfold": {RUNTIME_CELLS[0]: cell(0),
+                          RUNTIME_CELLS[1]: {"launches": fail["counts"][0]}},
+            "color_level": {RUNTIME_CELLS[0]: cell(1),
+                            RUNTIME_CELLS[1]: {"launches": fail["counts"][1]}},
+            "segment_reduce": {RUNTIME_CELLS[1]: {
+                "launches": fail["counts"][2],
+                "checked_vs_plain": fail["reduce_checked"]}},
+            "topk_compress": {RUNTIME_CELLS[1]: {
+                "launches": fail["counts"][3] + fail["counts"][4]}},
+            "orchestrator": {k: orch[k] for k in (
+                "build_program_ms", "solve_ms", "scenarios", "rounds",
+                "profiled")}}
+
+
 def main(args: list[str]) -> int:
     import torch
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
                     ["--attention-rows"], ["--solve"], ["--reduce"],
-                    ["--fleet"]):
+                    ["--fleet"], ["--runtime"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
-              f"--attention-rows | --solve | --reduce | --fleet], got "
-              f"{args}", file=sys.stderr)
+              f"--attention-rows | --solve | --reduce | --fleet | "
+              f"--runtime], got {args}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3670,6 +4125,10 @@ def main(args: list[str]) -> int:
         return 0
     if args == ["--fleet"]:
         say(json.dumps({"fleet": fleet_phase()}))
+        say(smi)
+        return 0
+    if args == ["--runtime"]:
+        say(json.dumps({"runtime": runtime_phase()}))
         say(smi)
         return 0
 
@@ -3747,6 +4206,17 @@ def main(args: list[str]) -> int:
     for row in rows[:2]:
         row["cells"].update(fleet[row["name"]])
     say(f"phase 11 wall: {time.perf_counter() - t11:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 12: the runtime, its solves on the same kernels
+    t12 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 12: {held} bytes still allocated after "
+          "phase 11")
+    runtime = runtime_phase()
+    for row in rows[:2]:
+        row["cells"].update(runtime[row["name"]])
+    say(f"phase 12 wall: {time.perf_counter() - t12:.1f} s")
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -3772,7 +4242,8 @@ def main(args: list[str]) -> int:
                  "config": "e2e100m-dp8-topk", "dtype": "bfloat16",
                  "mode": "round each add", "ms_per": "training step",
                  "launches_per": f"run of {e2e['steps']} training steps",
-                 "launches_per_step": e2e["counts"][2] / e2e["steps"]})
+                 "launches_per_step": e2e["counts"][2] / e2e["steps"],
+                 "cells": runtime["segment_reduce"]})
     # the trainer runs the kernel's select stage (the threshold is all that
     # compression needs): launches are the select launches of the l1 run;
     # times are per call at its largest leaf, the whole kernel and the
@@ -3800,7 +4271,7 @@ def main(args: list[str]) -> int:
                  "ms_per": "call at the largest leaf",
                  "launches_per": f"run of {l1['steps']} training steps",
                  "launches_per_step": (l1["counts"][3] + l1["counts"][4])
-                 / l1["steps"]})
+                 / l1["steps"], "cells": runtime["topk_compress"]})
     fl_err = max(fl["max_abs_err"], *fl_errs.values())
     flash = {"route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -3986,4 +4457,6 @@ def main(args: list[str]) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--runtime-probes"]:
+        sys.exit(runtime_probes(sys.argv[2]))
     sys.exit(main(sys.argv[1:]))

@@ -14,16 +14,27 @@ Reduce a segment-reduce launch on the card), scaled by
 ``grad_scale / n_dev`` and applied by AdamW. Loss and metrics are the mean
 over workers. With one worker there is no reduce and no scale, as in JAX.
 
+The program and ``grad_scale`` come from the runtime's
+:class:`~repro_torch.runtime.Orchestrator` over ``dp_fleet(n_dev)``, as in
+the JAX driver. ``--fail "STEP:DEV,DEV;..."`` fails workers before a step:
+the orchestrator replans (its solve on the trainer's device), the step is
+rebuilt on the new program and ``grad_scale``, and the dead workers'
+batch shards are zeroed; their sent rows are no longer read by the
+reduce.
+
 Checkpoints hold params, optimizer state and error feedback, labelled with
 the number of steps taken, so a resumed run repeats no step and continues
 bit for bit (the JAX driver labels a checkpoint with the step it has just
 taken, repeats that step on resume and restarts the error feedback from
-zero: ROADMAP C9).
+zero: ROADMAP C9). For the same reason a resumed run applies the failures
+of the steps before its first one before it starts (the JAX driver skips
+them).
 
 Usage:
   python -m repro_torch.launch.train --preset-100m --n-dev 8 \
       --compress topk:0.01 --steps 20 --ckpt-dir /tmp/ckpt   # on the card
-  python -m repro_torch.launch.train --reduced --device cpu --steps 5
+  python -m repro_torch.launch.train --reduced --device cpu --steps 5 \
+      --n-dev 4 --fail "2:0"
 """
 from __future__ import annotations
 
@@ -34,7 +45,7 @@ import torch
 
 from .. import tree as T
 from ..checkpoint import ckpt
-from ..collectives import chip_level_tree, plan
+from ..collectives import chip_level_tree
 from ..collectives.tree_allreduce import tree_allreduce
 from ..configs import ARCHS
 from ..data.pipeline import DataConfig, SyntheticLM
@@ -44,6 +55,7 @@ from ..models.config import ModelConfig
 from ..optim import adamw
 from ..optim.compression import (CompressionConfig, compress_leaf,
                                  init_error_feedback, payload_bytes)
+from ..runtime import Orchestrator, OrchestratorConfig
 
 
 def dp_fleet(n_devices: int):
@@ -58,16 +70,13 @@ def dp_fleet(n_devices: int):
                            chips_per_rack=chips)
 
 
-def reduce_program(n_dev: int, k: int, strategy: str = "soar",
-                   device="cuda"):
-    """(topology, program) of the gradient reduce over ``dp_fleet(n_dev)``:
-    what the JAX driver's ``Orchestrator(topo, OrchestratorConfig(k,
-    strategy))`` holds before any fault. The SOAR solve runs on
-    ``device``."""
-    topo = dp_fleet(n_dev)
-    opts = ({"options": EngineOptions(device=str(device))}
-            if strategy == "soar" else {})
-    return topo, plan(topo, k, strategy=strategy, **opts).program
+def orchestrator(n_dev: int, k: int, strategy: str = "soar",
+                 device="cuda") -> Orchestrator:
+    """The gradient reduce's :class:`Orchestrator` over ``dp_fleet(n_dev)``,
+    as the JAX driver builds it; its SOAR solves run on ``device``."""
+    return Orchestrator(dp_fleet(n_dev),
+                        OrchestratorConfig(k=k, strategy=strategy),
+                        options=EngineOptions(device=str(device)))
 
 
 def scaled(g: torch.Tensor, scale: float) -> torch.Tensor:
@@ -239,7 +248,7 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--fail", default=None,
-                    help="inject failures (needs the runtime: not ported)")
+                    help='inject failures, e.g. "30:0;60:2,3" (step:devices)')
     ap.add_argument("--compress", default=None,
                     help='gradient compression: "topk:0.01" | "int8"')
     ap.add_argument("--seed", type=int, default=0)
@@ -249,9 +258,6 @@ def main(argv=None):
                     help='"cuda" (default) or "cpu"')
     args = ap.parse_args(argv)
 
-    if args.fail:
-        raise SystemExit("--fail needs the runtime's Orchestrator, which is "
-                         "not ported yet (ROADMAP A8)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on "
@@ -265,10 +271,10 @@ def main(argv=None):
     if args.global_batch % n_dev:
         raise SystemExit(f"--global-batch {args.global_batch} does not "
                          f"split over {n_dev} workers")
-    topo, prog = reduce_program(n_dev, args.k, args.strategy, device)
-    grad_scale = topo.n_devices / n_dev        # every device alive
-    print(f"devices={n_dev} fleet_switches={topo.tree.n} k={args.k} "
-          f"phi={prog.utilization:.1f} msgs={prog.total_network_messages}")
+    orch = orchestrator(n_dev, args.k, args.strategy, device)
+    print(f"devices={n_dev} fleet_switches={orch.topo0.tree.n} k={args.k} "
+          f"phi={orch.program.utilization:.1f} "
+          f"msgs={orch.program.total_network_messages}")
 
     ocfg = adamw.AdamWConfig()
     ccfg = CompressionConfig.parse(args.compress)
@@ -296,11 +302,24 @@ def main(argv=None):
                 dst.copy_(src)
         print(f"resumed from step {start}")
 
-    step_fn = make_step(cfg, ocfg, prog, grad_scale, ccfg)
+    failures = parse_failures(args.fail)
+    for step in sorted(s for s in failures if s < start):
+        orch.on_failure(failures[step])       # failed before the checkpoint
+    step_fn = make_step(cfg, ocfg, orch.program, orch.grad_scale, ccfg)
     losses = []
     t0 = time.perf_counter()
     for step in range(start, args.steps):
+        if step in failures:
+            orch.on_failure(failures[step])
+            print(f"[step {step}] failure {failures[step]} -> replanned "
+                  f"phi={orch.program.utilization:.1f} "
+                  f"alive={orch.n_alive}")
+            step_fn = make_step(cfg, ocfg, orch.program, orch.grad_scale,
+                                ccfg)
         batch = data.batch(step)
+        if n_dev > 1:
+            batch = mask_dead_batch(batch, orch.alive, args.global_batch,
+                                    n_dev)
         params, opt_state, ef, metrics = step_fn(params, opt_state, ef, batch)
         loss = float(metrics["loss"])
         losses.append(loss)

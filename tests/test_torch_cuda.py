@@ -397,7 +397,7 @@ def test_post_gradient_half_on_card_equals_cpu(dev):
     ccfg = CompressionConfig.parse("topk:0.05")
     out = {}
     for where in ("cpu", dev):
-        _, prog = train.reduce_program(8, 2, device=where)
+        prog = train.orchestrator(8, 2, device=where).program
         step = train.make_step(ARCHS["qwen3-32b"].reduced(),
                                adamw.AdamWConfig(), prog, 8 / 7, ccfg)
         ef = torch.zeros(g.shape, device=where)
@@ -968,3 +968,80 @@ def test_messages_up_forest_on_card_equals_cpu(dev):
     got = messages_up_forest(f, blue)
     want = messages_up_forest(f, blue, options=EngineOptions(device="cpu"))
     assert got.dtype == np.int64 and np.array_equal(got, want)
+
+
+def _runtime_state(o) -> tuple:
+    """What an orchestrator event leaves: masks, program, ledgers, the job
+    registry, event records and cache counters, as comparable values."""
+    p = o.program
+    return (o.blue.tobytes(), p.utilization, p.total_network_messages,
+            p.n_slots, [type(op).__name__ for op in p.ops],
+            [r.tobytes() for r in o._residuals],
+            [(j.job_id, j.tree, j.blue.tobytes(), j.utilization)
+             for j in o.jobs.values()],
+            list(o.utilization_history), list(o.degraded_events),
+            o.last_admission, o.preplan_cache_stats())
+
+
+def _runtime_script(options) -> list:
+    """An event script on a small orchestrator; the state after each."""
+    from repro_torch.collectives import fleet_tree
+    from repro_torch.runtime import (Orchestrator, OrchestratorConfig,
+                                     PreemptionPolicy)
+    o = Orchestrator(fleet_tree(2, 4, 4), OrchestratorConfig(k=3, capacity=2),
+                     options=options)
+    states = [_runtime_state(o)]
+    blue = int(np.nonzero(o.blue)[0][0])
+    for event in (
+            lambda: o.preplan_failures([[0], [4, 5, 6, 7]]),
+            lambda: o.preplan_switch_failures(),
+            lambda: o.on_failure([0]),
+            lambda: o.on_switch_failure([blue]),
+            lambda: o.on_link_degrade({3: 0.5}),
+            lambda: o.begin_workloads(3, congestion_aware=True,
+                                      device_admission=True,
+                                      capacity_priced=True, max_rounds=3),
+            lambda: o.begin_workloads(6, congestion_aware=True,
+                                      device_admission=True, max_rounds=2,
+                                      preemption=PreemptionPolicy()),
+            lambda: o.on_switch_degrade({blue + 1: 0.5}),
+            lambda: o.release_workloads(sorted(o.jobs)[:2]),
+            lambda: o.on_recover([0])):
+        event()
+        states.append(_runtime_state(o))
+    return states
+
+
+def test_runtime_script_on_card_equals_cpu(dev):
+    """The orchestrator's events with the solves on the card leave the
+    same state as with them on the CPU, bitwise, event by event."""
+    got = _runtime_script(EngineOptions(device="cuda"))
+    want = _runtime_script(EngineOptions(device="cpu"))
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        assert a == b, f"state after event {i} differs"
+
+
+def test_runtime_cached_recovery_launches_no_solve_kernel(dev):
+    from repro_torch.collectives import fleet_tree
+    from repro_torch.runtime import Orchestrator, OrchestratorConfig
+    o = Orchestrator(fleet_tree(2, 4, 4), OrchestratorConfig(k=3, capacity=2),
+                     options=EngineOptions(device="cuda"))
+    counts = lambda: (level_fold_cuda.launches, color_level_cuda.launches,
+                      minplus_cuda.launches)
+    # each preplan in the state its failure happens in (the cache keys on
+    # the dead devices and the failed switches)
+    o.preplan_switch_failures()
+    before = counts()
+    o.on_switch_failure([int(np.nonzero(o.blue)[0][0])])
+    assert counts() == before
+    o.preplan_failures([[0, 1]])
+    before = counts()
+    o.on_failure([0, 1])
+    assert counts() == before
+    before = counts()
+    o.on_link_degrade({2: 0.5})                   # not preplanned: a solve
+    levels = _chip_smoke().expected_launches(
+        build_forest([o.topo.tree], [o.topo.load]))[0]
+    assert tuple(a - b for a, b in zip(counts(), before)) == (levels,
+                                                              levels, 0)
+    assert o.preplan_cache_stats()["hits"] == 2

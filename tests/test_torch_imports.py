@@ -79,16 +79,21 @@ _HYBRID_PATH = ("repro_torch.kernels.ssm_scan",
 _FLEET_PATH = ("repro_torch.core.congestion", "repro_torch.engine.congestion",
                "repro_torch.collectives.schedule")
 
+# the modules of the runtime
+_RUNTIME_PATH = ("repro_torch.runtime", "repro_torch.runtime.orchestrator",
+                 "repro_torch.runtime.stragglers",
+                 "repro_torch.runtime.elastic")
+
 
 def test_port_imports_without_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
          *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
-         *_HYBRID_PATH, *_FLEET_PATH],
+         *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 69     # every module imported
+    assert int(out.stdout.split()[-1]) == 73     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -108,6 +113,12 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         plan(topo, 1)
     assert plan(topo, 1, options=EngineOptions(device="cpu")).blue.sum() == 1
+    from repro_torch.runtime import Orchestrator, OrchestratorConfig
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Orchestrator(topo, OrchestratorConfig(k=1))
+    # a baseline strategy runs on the host and takes no engine options
+    top = Orchestrator(topo, OrchestratorConfig(k=1, strategy="top"))
+    assert top.blue.sum() == 1
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--reduced", "--steps", "1"])

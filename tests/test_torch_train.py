@@ -28,7 +28,13 @@
 * ``grad_scale / n_dev`` is rounded to the gradients' dtype before it
   multiplies, as JAX does with a weakly typed scalar;
 * the program the port's ``main`` runs is the JAX ``Orchestrator``'s;
-* ``main`` runs, checkpoints and resumes bit for bit.
+* ``main`` runs, checkpoints and resumes bit for bit;
+* ``main --fail`` replans through the port's ``Orchestrator``: the program
+  and ``grad_scale`` it installs equal the JAX ``Orchestrator``'s after the
+  same failure, its losses equal a run built directly from those programs
+  with the dead workers' batch shards zeroed (bit for bit), a dead
+  worker's sent row is not read by the reduce, and a resumed run replays
+  the failures before its first step.
 """
 import dataclasses
 import os
@@ -60,7 +66,9 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import train
 from repro_torch.models import api
 from repro_torch.optim import adamw
-from repro_torch.optim.compression import CompressionConfig, compress_leaf
+from repro_torch.optim.compression import (CompressionConfig, compress_leaf,
+                                           init_error_feedback)
+from test_torch_collectives import _same_program
 
 ROOT = Path(__file__).resolve().parents[1]
 N_DEV = 8
@@ -263,7 +271,7 @@ def _post_gradient_half(jax_ref, case):
     arrays, ref = jax_ref
     dt, grad_scale, spec = CASES[case]
     ccfg = CompressionConfig.parse(spec)
-    _, prog = train.reduce_program(N_DEV, 2, device="cpu")
+    prog = train.orchestrator(N_DEV, 2, device="cpu").program
     reducer = train.make_step(ARCHS["qwen3-32b"].reduced(),
                               adamw.AdamWConfig(), prog, grad_scale, ccfg)
     params = {k: _to_torch(arrays[f"{case}/p/{k}"]) for k in LEAVES}
@@ -326,7 +334,7 @@ def test_whole_step_eight_workers_matches_jax(jax_ref):
     init = {k[len("step/init/"):]: v for k, v in ref.items()
             if k.startswith("step/init/")}
     params = api.params_from_jax(T.unflatten(init), "cpu")
-    _, prog = train.reduce_program(N_DEV, 2, device="cpu")
+    prog = train.orchestrator(N_DEV, 2, device="cpu").program
     ocfg = adamw.AdamWConfig()
     opt = adamw.init(params, ocfg)
     ef = T.tree_map(lambda p: torch.zeros((N_DEV,) + tuple(p.shape)), params)
@@ -350,7 +358,7 @@ def test_whole_step_one_worker_matches_jax_make_step():
     params = api.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     jtopo = J_train.dp_fleet(1)
     jprog = j_build_program(jtopo, np.zeros(jtopo.tree.n, bool))
-    _, prog = train.reduce_program(1, 2, device="cpu")
+    prog = train.orchestrator(1, 2, device="cpu").program
     assert prog.n_dev == jprog.n_dev == 1
     jocfg, ocfg = j_adamw.AdamWConfig(), adamw.AdamWConfig()
     jstep = J_train.make_step(jcfg, jocfg, None, jprog, 1.0)
@@ -457,7 +465,7 @@ def test_checkpoint_manager_keeps_n_and_snapshots(tmp_path):
 def test_main_program_equals_orchestrator():
     jprog = Orchestrator(J_train.dp_fleet(N_DEV),
                          OrchestratorConfig(k=2, strategy="soar")).program
-    _, prog = train.reduce_program(N_DEV, 2, device="cpu")
+    prog = train.orchestrator(N_DEV, 2, device="cpu").program
     assert (prog.n_dev, prog.n_slots, prog.root_home, prog.root_count) == (
         jprog.n_dev, jprog.n_slots, jprog.root_home, jprog.root_count)
     assert prog.utilization == jprog.utilization
@@ -520,8 +528,14 @@ def test_parse_failures_and_mask_dead_batch_match_jax():
 
 
 def test_main_rejects_fail_and_bad_batch():
-    with pytest.raises(SystemExit, match="ROADMAP A8"):
-        train.main(["--reduced", "--device", "cpu", "--fail", "3:0"])
+    """A failure the orchestrator refuses stops ``main`` before its step
+    (``--fail`` itself runs through the orchestrator now)."""
+    base = ["--reduced", "--device", "cpu", "--n-dev", "4", "--global-batch",
+            "4", "--seq", "8", "--steps", "1"]
+    with pytest.raises(ValueError, match="device 9 out of range"):
+        train.main(base + ["--fail", "0:9"])
+    with pytest.raises(RuntimeError, match="all devices failed"):
+        train.main(base + ["--fail", "0:0,1,2,3"])
     with pytest.raises(SystemExit, match="split"):
         train.main(["--reduced", "--device", "cpu", "--n-dev", "3"])
     assert dataclasses.asdict(train.config_from_args(
@@ -530,6 +544,106 @@ def test_main_rejects_fail_and_bad_batch():
         J_ARCHS["qwen3-32b"].reduced(n_layers=8, d_model=512, n_heads=8,
                                      n_kv_heads=8, d_ff=2048, vocab=32_768,
                                      head_dim=0))
+
+
+FAIL_ARGS = ["--reduced", "--device", "cpu", "--n-dev", "4", "--global-batch",
+             "4", "--seq", "16", "--steps", "5", "--compress", "topk:0.05",
+             "--log-every", "1"]
+
+
+class _Steps:
+    """Records the (program, grad_scale) of every step ``main`` builds."""
+
+    def __init__(self, monkeypatch):
+        self.built = []
+        real = train.make_step
+
+        def make_step(cfg, ocfg, prog, grad_scale, ccfg=CompressionConfig()):
+            self.built.append((prog, grad_scale))
+            return real(cfg, ocfg, prog, grad_scale, ccfg)
+
+        monkeypatch.setattr(train, "make_step", make_step)
+
+
+def test_main_fail_replans_like_the_jax_orchestrator(monkeypatch, capsys):
+    steps = _Steps(monkeypatch)
+    losses = train.main(FAIL_ARGS + ["--fail", "2:0"])
+    assert len(losses) == 5 and np.isfinite(losses).all()
+    assert "[step 2] failure [0] -> replanned" in capsys.readouterr().out
+    assert len(steps.built) == 2
+    jorch = Orchestrator(J_train.dp_fleet(4), OrchestratorConfig(k=2))
+    _same_program(jorch.program, steps.built[0][0])
+    assert steps.built[0][1] == jorch.grad_scale == 1.0
+    jorch.on_failure([0])
+    prog, grad_scale = steps.built[1]
+    _same_program(jorch.program, prog)
+    assert grad_scale == jorch.grad_scale == 4 / 3
+    assert prog.n_dev == 4
+
+
+def _direct_run(fail_step, dead, steps=5):
+    """``main``'s run built by hand: the pristine program before
+    ``fail_step``, the orchestrator's after it, dead shards zeroed."""
+    cfg = ARCHS["qwen3-32b"].reduced()
+    ocfg, ccfg = adamw.AdamWConfig(), CompressionConfig.parse("topk:0.05")
+    orch = train.orchestrator(4, 2, device="cpu")
+    params = api.init_fn(cfg, "cpu")(0)
+    opt = adamw.init(params, ocfg)
+    ef = T.tree_map(lambda e: e.new_zeros((4,) + tuple(e.shape)),
+                    init_error_feedback(params))
+    data = SyntheticLM(cfg, DataConfig(4, 16, seed=0), device="cpu")
+    step = train.make_step(cfg, ocfg, orch.program, orch.grad_scale, ccfg)
+    losses = []
+    for s in range(steps):
+        if s == fail_step:
+            orch.on_failure(dead)
+            step = train.make_step(cfg, ocfg, orch.program, orch.grad_scale,
+                                   ccfg)
+        batch = train.mask_dead_batch(data.batch(s), orch.alive, 4, 4)
+        params, opt, ef, met = step(params, opt, ef, batch)
+        losses.append(float(met["loss"]))
+    return losses
+
+
+def test_main_fail_losses_equal_a_direct_run():
+    got = train.main(FAIL_ARGS + ["--fail", "2:0,3"])
+    assert got == _direct_run(2, [0, 3])
+    assert got[:2] == train.main(FAIL_ARGS + ["--steps", "2"])
+
+
+def test_dead_workers_sent_rows_are_not_read():
+    """A planted nonzero in a dead worker's row of the stacked sent
+    gradients leaves the reduced gradient unchanged, bit for bit; in a
+    live worker's row it changes it."""
+    orch = train.orchestrator(4, 2, device="cpu")
+    orch.on_failure([1, 2])
+    step = train.make_step(ARCHS["qwen3-32b"].reduced(), adamw.AdamWConfig(),
+                           orch.program, orch.grad_scale)
+    rng = np.random.default_rng(8)
+    sent = {k: torch.as_tensor(rng.standard_normal((4,) + s),
+                               dtype=torch.float32)
+            for k, s in LEAVES.items()}
+    want = step.reduce({k: v.clone() for k, v in sent.items()})
+    for row, same in ((1, True), (2, True), (0, False)):
+        planted = {k: v.clone() for k, v in sent.items()}
+        for v in planted.values():
+            v[row] = 1e6
+        got = step.reduce(planted)
+        for k in LEAVES:
+            assert torch.equal(got[k], want[k]) == same, (row, k)
+
+
+def test_main_resume_replays_earlier_failures(tmp_path):
+    args = FAIL_ARGS + ["--fail", "2:1", "--ckpt-every", "3"]
+    full = train.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+    shutil.copytree(tmp_path / "a" / "step_00000003",
+                    tmp_path / "b" / "step_00000003")
+    resumed = train.main(args + ["--ckpt-dir", str(tmp_path / "b"),
+                                 "--resume"])
+    assert resumed == full[3:]
+    a, b = _ckpt_arrays(tmp_path / "a", 5), _ckpt_arrays(tmp_path / "b", 5)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
 
 
 if __name__ == "__main__":
