@@ -1,3 +1,3 @@
-from .pipeline import DataConfig, SyntheticLM
+from .pipeline import DataConfig, SyntheticLM, wordcount_corpus
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "SyntheticLM", "wordcount_corpus"]

@@ -49,3 +49,13 @@ class SyntheticLM:
         as_t = lambda a: torch.as_tensor(a.astype(np.int64),
                                          device=self.device)
         return {"tokens": as_t(toks[:, :-1]), "labels": as_t(toks[:, 1:])}
+
+
+def wordcount_corpus(n_words: int, vocab: int, zipf_s: float = 1.07,
+                     seed: int = 0) -> np.ndarray:
+    """Synthetic Zipf corpus standing in for the paper's wikipedia dump
+    (int32 word ids on the host; the byte-complexity models read it)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** (-zipf_s)
+    return rng.choice(vocab, size=n_words, p=p / p.sum()).astype(np.int32)

@@ -1045,3 +1045,61 @@ def test_runtime_cached_recovery_launches_no_solve_kernel(dev):
     assert tuple(a - b for a, b in zip(counts(), before)) == (levels,
                                                               levels, 0)
     assert o.preplan_cache_stats()["hits"] == 2
+
+
+def _chaos_run(options):
+    """A 12-event seeded chaos run (admissions included) on a small
+    orchestrator; the report and the state it leaves."""
+    from repro_torch.collectives import fleet_tree
+    from repro_torch.runtime import (ChaosHarness, Orchestrator,
+                                     OrchestratorConfig, generate_scenario)
+    cfg = OrchestratorConfig(k=2, capacity=2, straggler_quantile=0.5,
+                             straggler_patience=2)
+    topo = fleet_tree(2, 4, 4)
+    events = generate_scenario(topo, n_events=12, seed=3, cfg=cfg,
+                               admits=True)
+    o = Orchestrator(topo, cfg, options=options)
+    o.preplan_switch_failures()
+    report = ChaosHarness(o, verify_cache_hits=True).run(events)
+    return report, _runtime_state(o)
+
+
+def test_chaos_run_on_card_equals_cpu(dev):
+    """The chaos harness with the solves (and the cache-hit checks' fresh
+    solves) on the card: the same records and state as on the CPU."""
+    got, got_state = _chaos_run(EngineOptions(device="cuda"))
+    want, want_state = _chaos_run(EngineOptions(device="cpu"))
+    assert got.invariant_checks == want.invariant_checks == 12
+    assert got.records == want.records
+    assert (got.replans, got.cache_hits, got.stale) == (
+        want.replans, want.cache_hits, want.stale)
+    assert got_state == want_state
+
+
+def test_chaos_trainer_on_card_bitwise(dev, tmp_path):
+    """ChaosTrainer on 8 workers on the card: the lossless steps under
+    degraded programs bitwise the pristine program's, two restores."""
+    from repro_torch.launch.train import dp_fleet
+    from repro_torch.runtime import (ChaosHarness, ChaosTrainer, FaultEvent,
+                                     Orchestrator, OrchestratorConfig)
+    o = Orchestrator(dp_fleet(8), OrchestratorConfig(k=2),
+                     options=EngineOptions(device="cuda"))
+    tr = ChaosTrainer(o, seq=16, global_batch=8, ckpt_dir=str(tmp_path),
+                      ckpt_every=2)
+    assert tr.device.type == "cuda"
+    blue = [int(s) for s in np.nonzero(o.blue)[0]]
+    events = [FaultEvent("degrade_switch", rates=((blue[0], 0.5),)),
+              FaultEvent("degrade_switch", rates=((blue[1], 0.25),)),
+              FaultEvent("crash"),
+              FaultEvent("recover_switch_capacity", rates=((blue[0], 1.0),)),
+              FaultEvent("fail_device", devices=(3,)),
+              FaultEvent("crash"),
+              FaultEvent("recover_device", devices=(3,)),
+              FaultEvent("recover_switch_capacity", rates=((blue[1], 1.0),))]
+    before = segment_reduce_cuda.launches
+    report = ChaosHarness(o, trainer=tr).run(events)
+    s = report.train
+    assert s["steps"] == 8 and s["restores"] == 2
+    assert s["bitwise_checks"] >= 2 and report.invariant_checks == 8
+    assert segment_reduce_cuda.launches > before
+    assert all(np.isfinite([r["loss"] for r in report.records]))

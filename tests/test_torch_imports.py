@@ -79,10 +79,15 @@ _HYBRID_PATH = ("repro_torch.kernels.ssm_scan",
 _FLEET_PATH = ("repro_torch.core.congestion", "repro_torch.engine.congestion",
                "repro_torch.collectives.schedule")
 
-# the modules of the runtime
+# the modules of the runtime and its chaos harness
 _RUNTIME_PATH = ("repro_torch.runtime", "repro_torch.runtime.orchestrator",
                  "repro_torch.runtime.stragglers",
-                 "repro_torch.runtime.elastic")
+                 "repro_torch.runtime.elastic", "repro_torch.runtime.faults")
+
+# the rest of the numpy core
+_CORE_REST = ("repro_torch.core.soar_fast", "repro_torch.core.brute",
+              "repro_torch.core.bottleneck", "repro_torch.core.budget",
+              "repro_torch.core.online", "repro_torch.core.bytes_model")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -90,10 +95,10 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
          *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
-         *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH],
+         *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH, *_CORE_REST],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 73     # every module imported
+    assert int(out.stdout.split()[-1]) == 80     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -119,6 +124,14 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     # a baseline strategy runs on the host and takes no engine options
     top = Orchestrator(topo, OrchestratorConfig(k=1, strategy="top"))
     assert top.blue.sum() == 1
+    # the chaos trainer trains on the orchestrator's engine device: the
+    # card, when it was built without options
+    from repro_torch.runtime import ChaosTrainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ChaosTrainer(top)
+    cpu = Orchestrator(topo, OrchestratorConfig(k=1, strategy="top"),
+                       options=EngineOptions(device="cpu"))
+    assert ChaosTrainer(cpu).device == torch.device("cpu")
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--reduced", "--steps", "1"])

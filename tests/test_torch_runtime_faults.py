@@ -8,8 +8,9 @@ Differential event scripts, as in ``test_torch_runtime.py`` (whose
 bitwise after every event). Mirrors the orchestrator cases of
 ``tests/test_degraded_capacity.py`` (chip-level trees) and
 ``tests/test_faults.py``. The cases of ``tests/test_faults.py`` that use
-``ChaosHarness``, ``ChaosTrainer`` or ``generate_scenario`` wait for the
-port of ``runtime/faults.py``. Tolerances: none.
+``ChaosHarness``, ``ChaosTrainer`` or ``generate_scenario`` are mirrored
+in ``test_torch_chaos.py`` and ``test_torch_chaos_train.py``. Tolerances:
+none.
 """
 import numpy as np
 import pytest
