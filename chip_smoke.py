@@ -11,6 +11,7 @@
     python3 chip_smoke.py --fleet        # only phase 11, the penalty loop
     python3 chip_smoke.py --runtime      # only phase 12, the runtime
     python3 chip_smoke.py --chaos        # only phase 13, the chaos harness
+    python3 chip_smoke.py --dist         # only phase 14, one rank a worker
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -25,8 +26,10 @@ then the hybrid family with the windowed flash and the selective-scan
 kernel in every layer), and the runtime's orchestrator over all of it
 (``repro_torch.runtime``: admission, preplanned and solved recoveries,
 ``launch/train.py --fail``), and the chaos harness over the runtime and
-the trainer (``repro_torch.runtime.ChaosHarness``, ``ChaosTrainer``). It
-builds the CUDA
+the trainer (``repro_torch.runtime.ChaosHarness``, ``ChaosTrainer``), and
+the reduce one rank per device (``repro_torch.collectives.reduce_local``
+under ``torch.distributed``, the trainer and ``ChaosTrainer`` one rank a
+worker). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -239,6 +242,33 @@ plain torch version on the inputs the paths give it. Phases:
    must raise ``InvariantViolation`` (one float32 ulp of ``grad_scale``
    must not: it rounds away in the bfloat16 gradients).
 
+14. the rank executor, everything of phase 13 freed first: 8 processes
+   under ``python -m torch.distributed.run`` (``--dist-rank``), all on
+   this card, over gloo on the loopback interface (NCCL refuses two ranks
+   on one card; NCCL across cards is not run here), their slabs staged
+   through pinned host memory. ``dist8-dp8-k2-d6.5m``: each rank's
+   ``reduce_local`` of its row of a seeded (8, 6,553,600) stack on
+   ``dp_fleet(8)``'s SOAR program at k = 2, all-red program and degraded
+   program (FoldOp and CompactOp rounds), float32 and bfloat16: bitwise
+   equal to the single-card ``tree_allreduce`` of the stack, every launch
+   of the first call equal to its plain version, then 10 timed calls
+   (median wall, a barrier at both edges), each launching exactly the
+   rank program's Reduces (the wrapper's count; the rank's launches
+   replayed into a CUDA graph hold as many nodes), the rank-local kernel
+   ms, and the bytes sent between ranks and staged through the host
+   beside the program's messages x D x itemsize.
+   ``e2e100m-dist8-topk-fail2``: phase 12's run through ``main`` one rank
+   a worker (``--dist-backend gloo --device cuda:0``): losses on every
+   rank bitwise the single-process run's (a control run skipping one
+   update must differ), at step 3 every leaf's sent rows gathered to rank
+   0 and reduced bitwise as the single-card executor does, the replan phi
+   88 -> 80 and ``grad_scale`` 8/6 on every rank, each rank's
+   segment-reduce launches its rank programs' Reduces.
+   ``chaos-train-dist8-e8``: ``ChaosTrainer`` one rank a worker through
+   phase 13's events: every rank's records equal to phase 13's
+   single-process run's, at least 2 bitwise checks and 2 restores on every
+   rank, losses within ``CHAOS_LOSS_RTOL`` of it.
+
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
@@ -252,7 +282,8 @@ update to the CPU's, the readings ``CHAOS_LOSS_RTOL`` sits between.
 ``--solve`` runs phases 1-4 only and prints the solve's kernel rows;
 ``--fleet`` runs phases 1 and 11 and prints the loop's kernel cells;
 ``--runtime`` runs phases 1 and 12 and prints the runtime's cells;
-``--chaos`` runs phases 1 and 13 and prints the chaos cells.
+``--chaos`` runs phases 1 and 13 and prints the chaos cells; ``--dist``
+runs phases 1 and 14 and prints the rank cells.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -4569,15 +4600,589 @@ def chaos_phase(fleet_kw=None) -> dict:
                     "events_per_sec")}}}
 
 
+# -- phase 14: the rank executor, one process a rank --------------------------
+
+DIST_CELLS = ("dist8-dp8-k2-d6.5m", "e2e100m-dist8-topk-fail2",
+              "chaos-train-dist8-e8")
+DIST_RANKS = 8
+DIST_D = 6_553_600          # values a rank: a 25 MiB float32 bucket
+DIST_REPS = 10              # timed calls a program and dtype
+DIST_GATHER_STEP = 3        # the trainer step whose sent rows are gathered
+DIST_SKIP_STEP = 3          # the control run's step without its update
+DIST_TRAIN_ARGS = ["--arch", "qwen3-32b", "--preset-100m", "--global-batch",
+                   "8", "--seq", "256", "--k", "2", "--compress", "topk:0.01",
+                   "--steps", "5", "--log-every", "1", "--fail", "2:0,1"]
+
+
+def dist_programs() -> dict:
+    """``dist8-dp8-k2-d6.5m``'s programs of ``dp_fleet(8)``: SOAR at k = 2,
+    all red, and a degraded program with FoldOp and CompactOp rounds
+    (``tests/test_torch_executor.py``'s third)."""
+    import numpy as np
+
+    from repro_torch import collectives as C
+    from repro_torch.core.reduce import all_red
+    from repro_torch.engine import EngineOptions
+    from repro_torch.launch.train import dp_fleet
+    topo = dp_fleet(DIST_RANKS)
+    deg = np.random.default_rng(0).random(topo.tree.n) < 0.5
+    scales = {int(v): 0.5 for v in np.nonzero(deg)[0][:2]}
+    return {"soar-k2": C.plan(topo, 2,
+                              options=EngineOptions(device="cpu")).program,
+            "all-red": C.build_program(topo, all_red(topo.tree)),
+            "degraded": C.build_program(C.degrade_switches(topo, scales),
+                                        deg)}
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dist_reduce_cell(group, device, d: int) -> dict:
+    """``dist8-dp8-k2-d6.5m`` on this rank: ``reduce_local`` of its row of
+    a seeded (8, d) stack over ``group``, on each program in float32 and
+    bfloat16. Each result bitwise equal to the single-card executor on the
+    whole stack; every launch of the first call held to its plain version
+    (``LaunchCheck``); then ``DIST_REPS`` timed calls (a barrier at both
+    edges), each launching the rank program's Reduces and nothing else of
+    the kernel; the rank's launches replayed for their kernel time and
+    their device ops (graph capture)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.collectives import reduce_local, tree_allreduce
+    from repro_torch.collectives.tree_allreduce import rank_program
+    from repro_torch.kernels.segment_reduce.segment_reduce import (
+        segment_reduce_cuda)
+    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
+    rank = dist.get_rank(group)
+    label = DIST_CELLS[0]
+    progs = dist_programs()
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        gen = torch.Generator(device=device).manual_seed(14)
+        stack = torch.randn((DIST_RANKS, d), generator=gen, device=device)
+        if dt == "bfloat16":     # a wide range, so each fold's rounding shows
+            stack = (stack * torch.exp(2 * torch.randn(
+                stack.shape, generator=gen, device=device))).to(
+                    torch.bfloat16)
+        x = stack[rank].clone()
+        for name, prog in progs.items():
+            what = f"{label} {name} {dt} rank {rank}"
+            rp = rank_program(prog, rank, device)
+            want = tree_allreduce(stack, prog)
+            with LaunchCheck(exe) as lc:
+                got = reduce_local(x, prog, group)
+            check(torch.equal(_bits(got), _bits(want)),
+                  f"{what}: != the single-card executor")
+            check(lc.n == rp.n_reduce, f"{what}: {lc.n} launches, "
+                  f"{rp.n_reduce} Reduces")
+            walls, launches = [], []
+            for _ in range(DIST_REPS):
+                before = segment_reduce_cuda.launches
+                _sync(device)
+                dist.barrier(group)
+                t0 = time.perf_counter()
+                got = reduce_local(x, prog, group)
+                _sync(device)
+                dist.barrier(group)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                launches.append(segment_reduce_cuda.launches - before)
+                check(torch.equal(_bits(got), _bits(want)),
+                      f"{what}: a timed call != the single-card executor")
+            check(launches == [rp.n_reduce] * DIST_REPS,
+                  f"{what}: launches a call {launches} != the rank "
+                  f"program's {rp.n_reduce} Reduces")
+
+            def replay(ls=lc.launches):
+                for xx, t, s, o, r in ls:
+                    segment_reduce_cuda(xx, None, t, scratch=s, out=o,
+                                        out_rows=r, round_each=True)
+            ops = kernel_ms = None
+            if device.type == "cuda" and lc.launches:
+                ops = device_ops(replay)
+                check(ops == rp.n_reduce, f"{what}: {ops} device ops for "
+                      f"{rp.n_reduce} Reduces")
+                kernel_ms = cuda_ms(replay, 10)
+            item = x.element_size()
+            out[f"{name}|{dt}"] = dict(
+                wall_ms=statistics.median(walls), walls_ms=walls,
+                launches=launches[0], n_reduce=rp.n_reduce,
+                device_ops=ops, kernel_ms=kernel_ms,
+                kernel_bound_ms=(reduce_bound(lc.launches)["bound_ms"]
+                                 if lc.launches else 0.0),
+                max_abs_err=lc.err, rows_sent=rp.rows_sent,
+                rows_received=rp.rows_received,
+                staged_bytes=(rp.rows_sent + rp.rows_received + 1) * d * item,
+                network_bytes=prog.total_network_messages * d * item,
+                row_bytes=d * item, phi=prog.utilization)
+            del lc, want, got
+        del stack, x
+    return out
+
+
+class RankReduces:
+    """Swaps the trainer's ``reduce_local`` for one that adds the calling
+    rank's Reduces (its rank program's ``n_reduce``) to ``expected``: the
+    segment-reduce launches the rank must make. ``after(g, prog, group,
+    r)`` sees every call's result."""
+
+    def __init__(self, after=None):
+        self.expected = self.calls = 0
+        self.after = after
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from repro_torch.collectives.tree_allreduce import rank_program
+        from repro_torch.launch import train
+        self._train = train
+        self._orig = run = train.reduce_local
+
+        def counted(g, prog, group):
+            r = run(g, prog, group)
+            self.expected += rank_program(prog, dist.get_rank(group),
+                                          g.device).n_reduce
+            self.calls += 1
+            if self.after is not None:
+                self.after(g, prog, group, r)
+            return r
+
+        train.reduce_local = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._train.reduce_local = self._orig
+
+
+def dist_train_cell(device, small: bool) -> dict:
+    """``e2e100m-dist8-topk-fail2`` on this rank: ``train.main`` under
+    torchrun, which initialises the process group itself, with
+    ``--dist-backend gloo --device`` this rank's device. At step
+    ``DIST_GATHER_STEP`` every leaf's sent rows are gathered to rank 0,
+    whose reduced leaf must equal the single-card executor on them,
+    bitwise. Returns the losses, the programs' facts and the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.collectives.tree_allreduce import Link, tree_allreduce
+    from repro_torch.launch import train
+    label = DIST_CELLS[1]
+    args = DIST_TRAIN_ARGS + ["--dist-backend", "gloo", "--device",
+                              str(device)]
+    if small:
+        args = [a for a in args if a != "--preset-100m"] + ["--reduced",
+                                                            "--seq", "16"]
+    built, seen = [], {"step": -1, "leaves": 0, "values": 0}
+    real = (train.make_step, train.TrainStep.reduce)
+
+    def make_step(cfg, ocfg, prog, grad_scale, ccfg, **kw):
+        built.append((prog.utilization, grad_scale, prog.n_dev,
+                      prog.total_network_messages))
+        return real[0](cfg, ocfg, prog, grad_scale, ccfg, **kw)
+
+    def reduce(self, sent, timings=None):
+        seen["step"] += 1
+        return real[1](self, sent, timings)
+
+    def gathered(g, prog, group, r):
+        if seen["step"] != DIST_GATHER_STEP:
+            return
+        rows = Link(group, g.device).gather(g)
+        if dist.get_rank(group) == 0:
+            rows = rows.to(g.device)
+            sr = _counted()[2]
+            before = sr.launches        # the comparison's launches
+            want = tree_allreduce(rows.reshape(len(rows), -1),
+                                  prog).reshape(g.shape)
+            sr.launches = before        # do not count
+            check(torch.equal(_bits(r), _bits(want)),
+                  f"{label}: leaf {seen['leaves']} at step "
+                  f"{DIST_GATHER_STEP} != the single-card executor on the "
+                  "gathered rows")
+            seen["leaves"] += 1
+            seen["values"] += g.numel()
+
+    train.make_step, train.TrainStep.reduce = make_step, reduce
+    reset_counts()
+    try:
+        with RankReduces(gathered) as rr:
+            t0 = time.perf_counter()
+            losses = train.main(args)
+            wall = time.perf_counter() - t0
+    finally:
+        train.make_step, train.TrainStep.reduce = real
+    counts = read_counts()
+    check(counts[2] == rr.expected, f"{label}: {counts[2]} segment-reduce "
+          f"launches, the rank programs' Reduces {rr.expected}")
+    return dict(losses=losses, wall_s=wall, built=built,
+                gathered_leaves=seen["leaves"],
+                gathered_values=seen["values"], counts=counts,
+                reduce_calls=rr.calls)
+
+
+def dist_chaos_cell(group, device, ckpt_dir) -> dict:
+    """``chaos-train-dist8-e8`` on this rank: ``ChaosTrainer`` over
+    ``dp_fleet(8)`` with this rank's worker through phase 13's events (its
+    own orchestrator, solves on the card; rank 0 writes the checkpoints;
+    every lossless step's bitwise check on this rank)."""
+    from repro_torch.engine import EngineOptions
+    from repro_torch.launch.train import dp_fleet
+    from repro_torch.runtime import (ChaosHarness, ChaosTrainer, Orchestrator,
+                                     OrchestratorConfig)
+    o = Orchestrator(dp_fleet(DIST_RANKS), OrchestratorConfig(k=2),
+                     options=EngineOptions(device=str(device)))
+    tr = ChaosTrainer(o, seq=16, global_batch=8, ckpt_dir=str(ckpt_dir),
+                      ckpt_every=2, seed=0, group=group)
+    reset_counts()
+    with RankReduces() as rr:
+        t0 = time.perf_counter()
+        report = ChaosHarness(o, trainer=tr).run(chaos_train_events(o))
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts[2] == rr.expected, f"{DIST_CELLS[2]}: {counts[2]} segment-"
+          f"reduce launches, the rank programs' Reduces {rr.expected}")
+    keys = ("kind", "utilization", "cache_hit", "n_alive", "replans", "step",
+            "compiled", "bitwise_checked", "restored")
+    return dict(records=[{k: r.get(k) for k in keys} for r in report.records],
+                losses=[r["loss"] for r in report.records],
+                summary=tr.summary(), checks=report.invariant_checks,
+                wall_s=wall, counts=counts, reduce_calls=rr.calls)
+
+
+def _rehearse_counts() -> None:
+    """A rank on CPU tensors (a rehearsal of this phase on the CPU only):
+    the solve, compression and reduce run their plain versions, which no
+    wrapper counts; wrap their callers to bump the wrappers' counts as
+    their kernels' launches would."""
+    from repro_torch.engine import batched
+    from repro_torch.optim import compression
+    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
+    fold, color, sr, threshold = _counted()[:4]
+    for mod, name, fn in ((batched, "level_fold", fold),
+                          (batched, "color_level", color),
+                          (compression, "topk_threshold", threshold),
+                          (exe, "reduce_table", sr)):
+        def counted(*a, _run=getattr(mod, name), _fn=fn, **kw):
+            _fn.launches += 1
+            return _run(*a, **kw)
+        setattr(mod, name, counted)
+
+
+def dist_rank(outdir: str, device: str, size: str) -> int:
+    """One rank of phase 14 (``chip_smoke.py --dist-rank OUT DEVICE SIZE``
+    under torchrun): the reduce cell, the trainer cell through ``main``
+    and the chaos cell, on the process group this body initialises; its
+    results to ``OUT/rank<r>.json``. A failed check raises, and the rank
+    exits non-zero."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import make_dp_mesh
+    out = Path(outdir)
+    (out / f"pid{os.environ['RANK']}").write_text(str(os.getpid()))
+    device = torch.device(device)
+    small = size == "small"
+    if device.type == "cuda":
+        # before the mesh, which would set cuda:LOCAL_RANK otherwise
+        torch.cuda.set_device(device)
+        from repro_torch.kernels import _build
+        _build.library()
+    else:
+        _rehearse_counts()
+    dist.init_process_group("gloo")
+    try:
+        group = make_dp_mesh(dist.get_world_size(),
+                             device_type=device.type).get_group("data")
+        rank = dist.get_rank(group)
+        res = {"rank": rank, "world": dist.get_world_size(group),
+               "backend": str(dist.get_backend(group))}
+        res["reduce"] = dist_reduce_cell(group, device,
+                                         4096 + 3 if small else DIST_D)
+        res["train"] = dist_train_cell(device, small)
+        res["chaos"] = dist_chaos_cell(group, device, out / "chaos-ckpt")
+        (out / f"rank{rank}.json").write_text(json.dumps(
+            res, default=lambda v: v.item()))
+        dist.barrier(group)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(outdir: Path, small: bool = False, timeout: int = 600) -> float:
+    """``DIST_RANKS`` ranks of ``dist_rank`` under torchrun, all on this
+    process's device, over gloo on the loopback interface; raises unless
+    every rank exits 0 (their output in ``OUT/ranks.log``). Returns the
+    wall seconds. torchrun starts each rank in a session of its own: past
+    ``timeout`` it is asked to stop them, and every rank still alive
+    (``OUT/pid<r>``) is killed."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--node-rank", "0", "--nproc-per-node", str(DIST_RANKS),
+           "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+           str(ROOT / "chip_smoke.py"), "--dist-rank", str(outdir),
+           "cuda:0" if DEVICE == "cuda" else DEVICE,
+           "small" if small else "full"]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    with open(outdir / "ranks.log", "w") as log:
+        p = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                             env=env, cwd=str(ROOT), start_new_session=True)
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.terminate()           # torchrun stops its ranks
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        finally:
+            for f in outdir.glob("pid*"):
+                try:
+                    os.kill(int(f.read_text()), signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    text = (outdir / "ranks.log").read_text()
+    if p.returncode != 0:
+        # torchrun names the first rank that failed; its own lines
+        first = re.search(r"Root Cause.*?rank\s*:\s*(\d+)", text, re.S)
+        own = ("" if first is None else "\n".join(
+            ln for ln in text.splitlines()
+            if ln.startswith(f"[rank{first.group(1)}]:"))[-6000:])
+        raise CheckFailed(f"phase 14: the ranks failed (torchrun exit "
+                          f"{p.returncode}; timeout {timeout} s); the first "
+                          f"failed rank's output:\n{own}\nthe log's "
+                          f"end:\n{text[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def dist_references(small: bool) -> dict:
+    """The single-process runs phase 14 is held to, on this process's
+    device: ``e2e100m-dp8-topk-fail2`` through ``main --n-dev 8`` (phase
+    12's run), the same with the update of step ``DIST_SKIP_STEP`` undone
+    (the planted fault the loss gate must fail), and phase 13's
+    ``chaos-train-dp8-e8`` card run."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.launch import train
+    args = DIST_TRAIN_ARGS + ["--n-dev", str(DIST_RANKS), "--device",
+                              DEVICE]
+    if small:
+        args = [a for a in args if a != "--preset-100m"] + ["--reduced",
+                                                            "--seq", "16"]
+    losses = train.main(args)
+    real = train.make_step
+    calls = [0]
+
+    def make_step(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(params, opt, ef, batch, timings=None):
+            calls[0] += 1
+            if calls[0] - 1 != DIST_SKIP_STEP:
+                return step(params, opt, ef, batch, timings)
+            keep = [t.detach().clone() for t in T.leaves((params, opt))]
+            out = step(params, opt, ef, batch, timings)
+            with torch.no_grad():
+                for dst, src in zip(T.leaves(out[:2]), keep, strict=True):
+                    dst.copy_(src)
+            return out
+        return run
+
+    train.make_step = make_step
+    try:
+        skipped = train.main(args)
+    finally:
+        train.make_step = real
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_ref_"))
+    try:
+        o, tr, h = chaos_trainer(DEVICE, tmp)
+        report = h.run(chaos_train_events(o))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(losses=losses, skipped=skipped, chaos=report)
+
+
+def _rel_gap(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b, strict=True))
+
+
+def dist_phase(small: bool = False) -> dict:
+    """Phase 14: the three cells on ``DIST_RANKS`` processes sharing the
+    card over gloo (NCCL refuses two ranks on one card; NCCL across cards
+    is not run on a one-card machine), held to the single-process runs;
+    per kernel row, the cells' launches (each rank's and their sum)."""
+    import torch
+    t_ref = time.perf_counter()
+    ref = dist_references(small)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        ranks_s = run_ranks(tmp, small)
+        got = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(DIST_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check([g["rank"] for g in got] == list(range(DIST_RANKS))
+          and all(g["world"] == DIST_RANKS and g["backend"] == "gloo"
+                  for g in got), "phase 14: ranks, world or backend")
+    # -- dist8-dp8-k2-d6.5m
+    red = [g["reduce"] for g in got]
+    cells = sorted(red[0])
+    table = {}
+    for key in cells:
+        rows = [r[key] for r in red]
+        table[key] = dict(
+            wall_ms=max(r["wall_ms"] for r in rows),
+            wall_ms_by_rank=[r["wall_ms"] for r in rows],
+            launches_by_rank=[r["launches"] for r in rows],
+            n_reduce_by_rank=[r["n_reduce"] for r in rows],
+            device_ops_by_rank=[r["device_ops"] for r in rows],
+            kernel_ms_by_rank=[r["kernel_ms"] for r in rows],
+            kernel_bound_ms_by_rank=[r["kernel_bound_ms"] for r in rows],
+            staged_bytes_by_rank=[r["staged_bytes"] for r in rows],
+            staged_bytes=sum(r["staged_bytes"] for r in rows),
+            sent_bytes=sum(r["rows_sent"] for r in rows)
+            * rows[0]["row_bytes"],
+            network_bytes=rows[0]["network_bytes"],
+            rows_sent=sum(r["rows_sent"] for r in rows),
+            phi=rows[0]["phi"])
+        say(f"{DIST_CELLS[0]} {key}: every rank == the single-card executor "
+            f"bitwise; wall a call (median of {DIST_REPS}, barriers at both "
+            f"edges) {table[key]['wall_ms_by_rank']} ms by rank; segment-"
+            f"reduce launches a call {table[key]['launches_by_rank']} == "
+            f"Reduces {table[key]['n_reduce_by_rank']} (device ops "
+            f"{table[key]['device_ops_by_rank']}); rank-local kernel ms "
+            f"{table[key]['kernel_ms_by_rank']} (bound "
+            f"{table[key]['kernel_bound_ms_by_rank']}); bytes sent between "
+            f"ranks {table[key]['sent_bytes']} ({table[key]['rows_sent']} "
+            f"rows) beside the program's messages x D x itemsize "
+            f"{table[key]['network_bytes']} (phi {table[key]['phi']}); "
+            f"bytes staged through the host (sent, received, broadcast) "
+            f"{table[key]['staged_bytes']}, by rank "
+            f"{table[key]['staged_bytes_by_rank']}")
+    # -- e2e100m-dist8-topk-fail2
+    label = DIST_CELLS[1]
+    tr = [g["train"] for g in got]
+    losses = tr[0]["losses"]
+    check(all(t["losses"] == losses for t in tr),
+          f"{label}: the ranks' losses differ")
+    bitwise = losses == ref["losses"]
+    gap = _rel_gap(losses, ref["losses"])
+    skip_gap = _rel_gap(ref["skipped"], ref["losses"])
+    check(bitwise, f"{label}: losses {losses} != the single-process run's "
+          f"{ref['losses']} (rel gap {gap!r})")
+    check(ref["skipped"] != ref["losses"] and skip_gap > 0,
+          f"{label}: a run that skipped one update passed the bitwise gate")
+    check(tr[0]["gathered_leaves"] > 0 and all(
+        t["gathered_leaves"] == 0 for t in tr[1:]),
+          f"{label}: gathered leaves {[t['gathered_leaves'] for t in tr]}")
+    (phi0, gs0, n0, m0), (phi1, gs1, n1, m1) = tr[0]["built"]
+    check(all(t["built"] == tr[0]["built"] for t in tr)
+          and (phi0, phi1) == (88.0, 80.0) and gs0 == 1.0 and gs1 == 8 / 6,
+          f"{label}: programs built {tr[0]['built']}")
+    counts = [t["counts"] for t in tr]
+    check(sum(c[2] for c in counts) > 0 and all(
+        c[0] > 0 and c[1] > 0 and c[3] > 0 for c in counts),
+          f"{label}: launches by rank {counts}")
+    say(f"{label}: losses {losses} on every rank, bitwise the single-"
+        f"process run's; one skipped update moves them by {skip_gap!r}; "
+        f"step {DIST_GATHER_STEP}: {tr[0]['gathered_leaves']} leaves "
+        f"({tr[0]['gathered_values']} values) gathered from every rank, "
+        f"reduced == the single-card executor bitwise; replan phi {phi0} -> "
+        f"{phi1}, grad_scale {gs0} -> {gs1}; main {[t['wall_s'] for t in tr]}"
+        f" s by rank; launches by rank (level fold, color, segment reduce, "
+        f"top-k select) {[c[:4] for c in counts]}")
+    # -- chaos-train-dist8-e8
+    label = DIST_CELLS[2]
+    want = ref["chaos"]
+    keys = ("kind", "utilization", "cache_hit", "n_alive", "replans", "step",
+            "compiled", "bitwise_checked", "restored")
+    want_records = [{k: r.get(k) for k in keys} for r in want.records]
+    want_losses = [r["loss"] for r in want.records]
+    ch = [g["chaos"] for g in got]
+    for r, c in enumerate(ch):
+        check(json.loads(json.dumps(want_records, default=lambda v: v.item()))
+              == c["records"], f"{label}: rank {r}'s records != phase 13's")
+        check(c["summary"]["steps"] == 8 and c["summary"]["restores"] == 2
+              and c["summary"]["bitwise_checks"] >= 2 and c["checks"] == 8,
+              f"{label}: rank {r}: {c['summary']}, {c['checks']} checks")
+        check(_rel_gap(c["losses"], want_losses) <= CHAOS_LOSS_RTOL,
+              f"{label}: rank {r}'s losses {c['losses']} vs "
+              f"{want_losses}: beyond rtol {CHAOS_LOSS_RTOL}")
+    ch_gap = max(_rel_gap(c["losses"], want_losses) for c in ch)
+    ch_counts = [c["counts"] for c in ch]
+    check(sum(c[2] for c in ch_counts) > 0 and all(
+        c[0] > 0 and c[1] > 0 for c in ch_counts),
+          f"{label}: launches by rank {ch_counts}")
+    say(f"{label}: records == phase 13's on every rank; "
+        f"{ch[0]['summary']['bitwise_checks']} bitwise checks a rank, "
+        f"{ch[0]['summary']['restores']} restores; losses max rel gap to "
+        f"the single-process run {ch_gap!r} (rtol {CHAOS_LOSS_RTOL!r}); "
+        f"wall {[c['wall_s'] for c in ch]} s by rank, median step "
+        f"{[c['summary']['median_step_seconds'] for c in ch]} s; phase 13's "
+        f"median step {want.train['median_step_seconds']} s; launches by rank "
+        f"{[c[:3] for c in ch_counts]}")
+    t_end = time.perf_counter()
+    say(f"phase 14: backend gloo, ranks_per_card {DIST_RANKS}, messages "
+        f"staged through pinned host memory; NCCL across cards: not run "
+        f"(one card); references {t_ranks - t_ref:.1f} s, ranks "
+        f"{ranks_s:.1f} s")
+    per = lambda cs, i: {"launches": sum(c[i] for c in cs),
+                         "launches_by_rank": [c[i] for c in cs]}
+    return {"levelfold": {DIST_CELLS[1]: per(counts, 0),
+                          DIST_CELLS[2]: per(ch_counts, 0)},
+            "color_level": {DIST_CELLS[1]: per(counts, 1),
+                            DIST_CELLS[2]: per(ch_counts, 1)},
+            "segment_reduce": {
+                DIST_CELLS[0]: {k: {"launches_per_call": v[
+                    "launches_by_rank"], "wall_ms": v["wall_ms"],
+                    "kernel_ms": v["kernel_ms_by_rank"]}
+                    for k, v in table.items()},
+                DIST_CELLS[1]: per(counts, 2), DIST_CELLS[2]: per(
+                    ch_counts, 2)},
+            "topk_compress": {DIST_CELLS[1]: {
+                "launches": sum(c[3] + c[4] for c in counts),
+                "launches_by_rank": [c[3] + c[4] for c in counts]}},
+            "dist": {"reduce": table, "train": {
+                "losses": losses, "bitwise": bitwise, "rel_gap": gap,
+                "skip_rel_gap": skip_gap,
+                "wall_s": [t["wall_s"] for t in tr],
+                "gathered_leaves": tr[0]["gathered_leaves"]},
+                "chaos": {"loss_gap": ch_gap,
+                          "wall_s": [c["wall_s"] for c in ch],
+                          "median_step_s": [c["summary"][
+                              "median_step_seconds"] for c in ch]},
+                "backend": "gloo", "ranks_per_card": DIST_RANKS,
+                "nccl_across_cards": "not run (one card)",
+                "ranks_s": ranks_s}}
+
+
 def main(args: list[str]) -> int:
     import torch
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
                     ["--attention-rows"], ["--solve"], ["--reduce"],
                     ["--fleet"], ["--runtime"], ["--chaos"],
-                    ["--chaos-loss-witness"]):
+                    ["--chaos-loss-witness"], ["--dist"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
-              f"--runtime | --chaos | --chaos-loss-witness], got {args}",
+              f"--runtime | --chaos | --chaos-loss-witness | --dist], got "
+              f"{args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4629,6 +5234,12 @@ def main(args: list[str]) -> int:
         t13 = time.perf_counter()
         say(json.dumps({"chaos": chaos_phase()}))
         say(f"phase 13 wall: {time.perf_counter() - t13:.1f} s")
+        say(smi)
+        return 0
+    if args == ["--dist"]:
+        t14 = time.perf_counter()
+        say(json.dumps({"dist": dist_phase()}))
+        say(f"phase 14 wall: {time.perf_counter() - t14:.1f} s")
         say(smi)
         return 0
 
@@ -4729,6 +5340,18 @@ def main(args: list[str]) -> int:
         row["cells"].update(chaos[row["name"]])
     say(json.dumps({"chaos": chaos["chaos"]}))
     say(f"phase 13 wall: {time.perf_counter() - t13:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 14: the rank executor, one process a rank, all on this card
+    t14 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 14: {held} bytes still allocated after "
+          "phase 13")
+    dist = dist_phase()
+    for row in rows[:2]:
+        row["cells"].update(dist[row["name"]])
+    say(json.dumps({"dist": dist["dist"]}))
+    say(f"phase 14 wall: {time.perf_counter() - t14:.1f} s")
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -4740,7 +5363,9 @@ def main(args: list[str]) -> int:
                  "library_ms": sr["library_ms"], "bitwise": sr_err == 0.0,
                  "config": "chip64-k16-d6.5m", "dtype": "float32",
                  "ms_per": "executor call",
-                 "launches_per": "executor call"})
+                 "launches_per": "executor call",
+                 "cells": {DIST_CELLS[0]: dist["segment_reduce"][
+                     DIST_CELLS[0]]}})
     bf = e2e["times"]
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -4756,7 +5381,9 @@ def main(args: list[str]) -> int:
                  "launches_per": f"run of {e2e['steps']} training steps",
                  "launches_per_step": e2e["counts"][2] / e2e["steps"],
                  "cells": {**runtime["segment_reduce"],
-                           **chaos["segment_reduce"]}})
+                           **chaos["segment_reduce"],
+                           **{c: dist["segment_reduce"][c]
+                              for c in DIST_CELLS[1:]}}})
     # the trainer runs the kernel's select stage (the threshold is all that
     # compression needs): launches are the select launches of the l1 run;
     # times are per call at its largest leaf, the whole kernel and the
@@ -4784,7 +5411,8 @@ def main(args: list[str]) -> int:
                  "ms_per": "call at the largest leaf",
                  "launches_per": f"run of {l1['steps']} training steps",
                  "launches_per_step": (l1["counts"][3] + l1["counts"][4])
-                 / l1["steps"], "cells": runtime["topk_compress"]})
+                 / l1["steps"], "cells": {**runtime["topk_compress"],
+                                          **dist["topk_compress"]}})
     fl_err = max(fl["max_abs_err"], *fl_errs.values())
     flash = {"route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -4972,4 +5600,6 @@ def main(args: list[str]) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--runtime-probes"]:
         sys.exit(runtime_probes(sys.argv[2]))
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank(*sys.argv[2:5]))
     sys.exit(main(sys.argv[1:]))

@@ -34,11 +34,13 @@ and the failed check, so a chaos run doubles as a regression bisection
 tool: replay the same seed, stop at the same event.
 
 :class:`ChaosTrainer` couples the harness to real training steps of the
-port's trainer (``repro_torch.launch.train.make_step``), which simulates
-``n_dev`` data-parallel workers on the orchestrator's engine device. Its
-checkpoints hold ``{"params", "opt"}`` as the JAX class's do; the port's
-``train.main`` also saves the error feedback (ROADMAP C9), which this
-trainer never uses (it does not compress).
+port's trainer (``repro_torch.launch.train.make_step``): the ``n_dev``
+data-parallel workers simulated on the orchestrator's engine device, or,
+given a process group of ``n_dev`` ranks, one worker a rank (each rank
+running the same harness events, as the JAX class steps over a mesh of
+devices). Its checkpoints hold ``{"params", "opt"}`` as the JAX class's
+do; the port's ``train.main`` also saves the error feedback (ROADMAP C9),
+which this trainer never uses (it does not compress).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree as T
 from ..collectives.schedule import build_program, plan
@@ -537,9 +540,14 @@ class ChaosTrainer:
         step counter — the unrecoverable-event path.
 
     The model, data and optimizer state live on the orchestrator's engine
-    device (``orch.options.device``; the card when ``options`` is None),
-    and the topology's ``n_dev`` workers are simulated there, each on its
-    shard of the batch. Step functions are cached by (load, blue,
+    device (``orch.options.device``; the card when ``options`` is None).
+    Without ``group`` the topology's ``n_dev`` workers are simulated
+    there, each on its shard of the batch. With a process ``group`` of
+    ``n_dev`` ranks, each rank builds its own orchestrator and trainer,
+    runs the same events, and trains its own worker (its rank in the
+    group), the gradients reduced by ``reduce_local``; a lossless event's
+    bitwise check runs on every rank, rank 0 writes the checkpoints and
+    every rank restores them. Step functions are cached by (load, blue,
     cap-scale, grad-scale); the first step on a program state is recorded
     with a ``compiled`` flag (the JAX class compiles there), so throughput
     stats can exclude those steps.
@@ -548,7 +556,7 @@ class ChaosTrainer:
     def __init__(self, orch: Orchestrator, arch: str = "qwen3-32b",
                  seq: int = 32, global_batch: int | None = None,
                  ckpt_dir: str | None = None, ckpt_every: int = 5,
-                 seed: int = 0):
+                 seed: int = 0, group=None):
         from ..checkpoint import ckpt as _ckpt
         from ..configs import ARCHS
         from ..data.pipeline import DataConfig, SyntheticLM
@@ -566,6 +574,13 @@ class ChaosTrainer:
                 "options=EngineOptions(device=\"cpu\") to train on the CPU")
         n_dev = orch.topo0.n_devices
         self.n_dev = n_dev
+        self.group, self.rank = group, 0
+        if group is not None:
+            if dist.get_world_size(group) != n_dev:
+                raise ValueError(f"orchestrator topology has {n_dev} "
+                                 f"devices but the group "
+                                 f"{dist.get_world_size(group)} ranks")
+            self.rank = dist.get_rank(group)
         self.cfg = ARCHS[arch].reduced()
         self.ocfg = adamw.AdamWConfig()
         self.ccfg = CompressionConfig()
@@ -580,7 +595,8 @@ class ChaosTrainer:
         self.params = api.init_fn(self.cfg, self.device)(seed)
         self.opt_state = adamw.init(self.params, self.ocfg)
         self.ef = init_error_feedback(self.params)
-        if n_dev > 1:         # one row per worker, as train.main stacks it
+        if n_dev > 1 and group is None:
+            # one row per simulated worker, as train.main stacks it
             self.ef = T.tree_map(
                 lambda e: e.new_zeros((n_dev,) + tuple(e.shape)), self.ef)
         self.step_no = 0
@@ -606,7 +622,10 @@ class ChaosTrainer:
         return {"params": self.params, "opt": self.opt_state}
 
     def _save(self) -> None:
-        self.mgr.save(self.step_no, self._state())
+        if self.rank == 0:
+            self.mgr.save(self.step_no, self._state())
+        if self.group is not None:          # saved before any rank restores
+            dist.barrier(group=self.group)
         # a host copy, as JAX's device_get: later steps write in place
         self._saved = {"step": self.step_no,
                        "state": T.tree_map(
@@ -659,7 +678,8 @@ class ChaosTrainer:
         if fresh:
             from ..launch.train import make_step
             self._step_fns[key] = make_step(self.cfg, self.ocfg, program,
-                                            grad_scale, self.ccfg)
+                                            grad_scale, self.ccfg,
+                                            group=self.group)
         return self._step_fns[key], fresh
 
     def _run(self, fn, state, batch):

@@ -1103,3 +1103,97 @@ def test_chaos_trainer_on_card_bitwise(dev, tmp_path):
     assert s["bitwise_checks"] >= 2 and report.invariant_checks == 8
     assert segment_reduce_cuda.launches > before
     assert all(np.isfinite([r["loss"] for r in report.records]))
+
+
+# -- the rank executor: ranks sharing the card over gloo ----------------------
+
+DIST_D = 1_000_003              # odd: no 16-byte rows
+
+
+def _dist_programs(world):
+    from repro_torch.collectives import plan
+    from repro_torch.launch.train import dp_fleet
+    topo = dp_fleet(world)
+    cpu = EngineOptions(device="cpu")
+    return {f"k{k}": plan(topo, k, options=cpu).program
+            for k in range(min(2, topo.tree.n) + 1)}
+
+
+def _dist_stack(world, dtype, dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((world, DIST_D), generator=gen, device=dev)
+    x = x * torch.exp(2 * torch.randn(x.shape, generator=gen, device=dev))
+    return x.to(dtype)
+
+
+def _dist_bits(t):
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16
+            else t.view(torch.int32)).cpu().numpy()
+
+
+def _dist_rank(rank, world, store, out):
+    """A rank on the card (``python tests/test_torch_cuda.py --dist-ranks N
+    OUT``): ``reduce_local`` of its row over gloo, its bits and launches."""
+    import torch.distributed as dist
+
+    from repro_torch.collectives import reduce_local
+    from repro_torch.collectives.tree_allreduce import rank_program
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        res = {}
+        for name, prog in _dist_programs(world).items():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = _dist_stack(world, dtype, dev)[rank].clone()
+                before = segment_reduce_cuda.launches
+                got = reduce_local(x, prog)
+                key = f"{name}|{dtype}"
+                res[key] = _dist_bits(got)
+                res[f"launches|{key}"] = np.asarray(
+                    [segment_reduce_cuda.launches - before,
+                     rank_program(prog, rank, dev).n_reduce])
+        np.savez(f"{out}/rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_rank_executor_two_ranks_share_the_card_over_gloo(dev, tmp_path):
+    """Two ranks on one card, gloo (their slabs staged through pinned host
+    memory): each rank's result bitwise the single-card executor's on the
+    stacked inputs, each rank's launches its rank program's Reduces."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.collectives import tree_allreduce
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, __file__, "--dist-ranks", "2",
+                          str(tmp_path)], capture_output=True, text=True,
+                         env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    for name, prog in _dist_programs(2).items():
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"{name}|{dtype}"
+            want = _dist_bits(tree_allreduce(_dist_stack(2, dtype, dev), prog))
+            for r in range(2):
+                np.testing.assert_array_equal(got[r][key], want,
+                                              err_msg=f"{key} rank {r}")
+                ran, n_reduce = got[r][f"launches|{key}"]
+                assert ran == n_reduce, (key, r)
+
+
+if __name__ == "__main__":
+    import sys
+    import tempfile
+
+    import torch.multiprocessing as mp
+    if sys.argv[1:2] != ["--dist-ranks"]:
+        sys.exit("usage: test_torch_cuda.py --dist-ranks N OUT")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_dist_rank, args=(int(sys.argv[2]), f"{tmp}/store",
+                                   sys.argv[3]), nprocs=int(sys.argv[2]))

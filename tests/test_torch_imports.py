@@ -84,6 +84,10 @@ _RUNTIME_PATH = ("repro_torch.runtime", "repro_torch.runtime.orchestrator",
                  "repro_torch.runtime.stragglers",
                  "repro_torch.runtime.elastic", "repro_torch.runtime.faults")
 
+# the rank executor's mesh (reduce_local lives in the reduce path's
+# collectives.tree_allreduce)
+_DIST_PATH = ("repro_torch.launch.mesh",)
+
 # the rest of the numpy core
 _CORE_REST = ("repro_torch.core.soar_fast", "repro_torch.core.brute",
               "repro_torch.core.bottleneck", "repro_torch.core.budget",
@@ -95,10 +99,11 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
          *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
-         *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH, *_CORE_REST],
+         *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH, *_CORE_REST,
+         *_DIST_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 80     # every module imported
+    assert int(out.stdout.split()[-1]) == 81     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
