@@ -12,6 +12,8 @@
     python3 chip_smoke.py --runtime      # only phase 12, the runtime
     python3 chip_smoke.py --chaos        # only phase 13, the chaos harness
     python3 chip_smoke.py --dist         # only phase 14, one rank a worker
+    python3 chip_smoke.py --ssm          # only phase 15, SSM training, xLSTM
+    python3 chip_smoke.py --xlstm-witness  # only xLSTM's gate readings
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -29,7 +31,8 @@ kernel in every layer), and the runtime's orchestrator over all of it
 the trainer (``repro_torch.runtime.ChaosHarness``, ``ChaosTrainer``), and
 the reduce one rank per device (``repro_torch.collectives.reduce_local``
 under ``torch.distributed``, the trainer and ``ChaosTrainer`` one rank a
-worker). It builds the CUDA
+worker), and the SSM family (hymba trained through the backward scan
+kernel, xLSTM served and trained). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -269,6 +272,35 @@ plain torch version on the inputs the paths give it. Phases:
    single-process run's, at least 2 bitwise checks and 2 restores on every
    rank, losses within ``CHAOS_LOSS_RTOL`` of it.
 
+15. the SSM family, everything of phase 14 freed first. 15a, before the
+   models allocate: the scan's backward kernel (``ssm_chunk_scan_bwd_cuda``)
+   against the plain backward in float64 on the same inputs, elementwise
+   within ``SCAN_BWD_REL`` = 2^-10 of M, the same backward on absolute
+   values (which bounds each output's sum of term magnitudes): the JAX
+   test shapes, T = 1, 77 and 45, with and without gs_final; then at (2,
+   4096, 3200, 16), where three planted faults (the adjoint carry dropped
+   at one step, batch row 0 left out of gA, gdelta without its decay
+   term) must exceed the limit, two calls equal bit for bit, timed by CUDA
+   events and the profiler's device time against its bound and the plain
+   backward, and at batch 1. 15b: a float32 hymba-1.5b of 2 layers at its
+   published widths (the window cut to 128 so 256 tokens cross it; TF32
+   off), 3 trainer steps on the card and on the CPU, losses within 1e-4;
+   then ``hymba-1.5b-train-dp2-b2-t4096-topk``: hymba-1.5b at full width
+   and depth in bfloat16, 2 workers on the card, one 4,096-token sequence
+   each, top-k 1%, remat on, 3 steps (step 1 split by phase, step 2 under
+   the profiler, device activity only), then step 2 again from the state
+   before it, kept on the host, bitwise. Checks: finite losses, the first
+   near ln(vocab), 64 scan forward launches a worker's step (32 and the
+   remat recompute) and 32 backward, the top-k and segment-reduce kernels
+   ran. 15c: a float32 xlstm-125m of 2 layers, 2 prompts of 248 and 8
+   steps against a fresh prefill (1e-3) and the CPU (rtol 1e-4); then
+   ``xlstm-125m-serve-b4-p4096-g64`` (full size, bfloat16) with phase 10's
+   checks that apply, the decode-vs-fresh-prefill gate
+   (``SERVE_XLSTM_BF16_DIFF``, 5%) read after 1 step and after 64, and
+   the states dropped at the handoff beyond it after 1 step. 15d:
+   ``xlstm-125m-train-dp2-b2-t2048-topk``, 3 steps and the resumed one,
+   as 15b's cell (no scan; its step is not profiled).
+
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
@@ -279,11 +311,15 @@ the bfloat16 noise floor of the prefill (see :func:`bf16_witness`).
 ``--chaos-loss-witness`` runs none either: it prints, for seeds 0-5,
 ``chaos-train-dp8-e8``'s loss gaps of the card and of a run that skips one
 update to the CPU's, the readings ``CHAOS_LOSS_RTOL`` sits between.
+``--xlstm-witness`` runs none either: it prints xlstm-125m's decode-vs-
+fresh-prefill readings after 1, 8 and 64 steps, with and without the
+states handed over, the readings ``SERVE_XLSTM_BF16_DIFF`` sits between.
 ``--solve`` runs phases 1-4 only and prints the solve's kernel rows;
 ``--fleet`` runs phases 1 and 11 and prints the loop's kernel cells;
 ``--runtime`` runs phases 1 and 12 and prints the runtime's cells;
 ``--chaos`` runs phases 1 and 13 and prints the chaos cells; ``--dist``
-runs phases 1 and 14 and prints the rank cells.
+runs phases 1 and 14 and prints the rank cells; ``--ssm`` runs phases 1
+and 15 and prints the backward scan's kernel row.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -295,6 +331,7 @@ import dataclasses
 import functools
 import importlib
 import json
+import math
 import os
 import re
 import shutil
@@ -581,10 +618,11 @@ def _counted():
         flash_attention_cuda)
     from repro_torch.kernels.topk_compress.topk_compress import (
         topk_compress_cuda, topk_threshold_cuda)
-    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_cuda
+    from repro_torch.kernels.ssm_scan.ssm_scan import (
+        ssm_chunk_scan_bwd_cuda, ssm_chunk_scan_cuda)
     return (level_fold_cuda, color_level_cuda, segment_reduce_cuda,
             topk_threshold_cuda, topk_compress_cuda, flash_attention_cuda,
-            ssm_chunk_scan_cuda, minplus_cuda)
+            ssm_chunk_scan_cuda, minplus_cuda, ssm_chunk_scan_bwd_cuda)
 
 
 def reset_counts():
@@ -602,8 +640,8 @@ def read_paths() -> dict:
 
 def read_counts() -> tuple[int, ...]:
     """Launches of the level fold, the color level, segment reduce, top-k
-    select stage, whole top-k, flash attention, the selective-SSM scan and
-    the standalone min-plus."""
+    select stage, whole top-k, flash attention, the selective-SSM scan,
+    the standalone min-plus and the scan's backward."""
     return tuple(fn.launches for fn in _counted())
 
 
@@ -1456,18 +1494,21 @@ def check_topk_random() -> float:
     return err
 
 
-def kernel_profile(fn, label: str, top: int = 8, host_top: int = 0):
+def kernel_profile(fn, label: str, top: int = 8, host_top: int = 0,
+                   host: bool = True):
     """(wall ms, device-busy ms, [(kernel, device ms, count)]) of one
     ``fn()`` under ``torch.profiler``; None where the profiler records no
     device time (it is a guest on the chip machine). With ``host_top``
-    also prints that many host operations by self CPU time."""
+    also prints that many host operations by self CPU time. ``host``
+    False records the device's activity only (a training step of tens of
+    thousands of host operations took 76 s under the full profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU] if host else []
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2388,7 +2429,7 @@ def handoff(pre, caches, t: int) -> None:
     the stacked layers' k/v into positions [0, t); per block, position p
     of a k/v of S slots into slot p % S for the last min(t, S) positions
     (a global layer: [0, t); a windowed layer's ring: the last S), and the
-    Mamba state as it is."""
+    Mamba and xLSTM states as they are."""
     import torch
     with torch.inference_mode():
         if "layers" in caches:
@@ -2396,6 +2437,10 @@ def handoff(pre, caches, t: int) -> None:
                 caches["layers"][n][:, :, :t].copy_(pre["layers"][n])
             return
         for pb, cb in zip(pre["blocks"], caches["blocks"]):
+            if "attn" not in cb:                 # an xLSTM block's state
+                for n, state in cb.items():
+                    state.copy_(pb[n])
+                continue
             for n in ("k", "v"):
                 dst = cb["attn"][n]
                 s, lo = dst.shape[1], max(0, t - dst.shape[1])
@@ -2481,14 +2526,25 @@ def greedy_run(cfg, params, prompts, n_steps: int, timed=False,
 
 def fresh_prefill_logits(cfg, params, prompts, toks):
     """The last logits of one prefill of the prompts extended by every
-    decoded token but the last (the sequence the last decode step saw)."""
+    decoded token but the last (the sequence the last decode step saw).
+    xLSTM's mLSTM takes whole chunks only: the sequence is then padded at
+    its end to a chunk multiple (the model is causal, so the padding
+    changes no earlier position) and the logits read at its last real
+    position."""
     import torch
 
-    from repro_torch.models import api
+    from repro_torch.models import api, transformer
     seq = torch.cat([prompts, toks[:, :-1].to(prompts.dtype)], 1)
+    n = seq.shape[1]
+    pad = -n % min(cfg.chunk_size, n) if cfg.family == "ssm" else 0
     with torch.inference_mode():
-        logits, _ = api.prefill_fn(cfg)(params, {"tokens": seq})
-    return logits[:, -1, :cfg.vocab].to(torch.float32)
+        if not pad:
+            logits, _ = api.prefill_fn(cfg)(params, {"tokens": seq})
+            return logits[:, -1, :cfg.vocab].to(torch.float32)
+        seq = torch.cat([seq, seq[:, :pad]], 1)
+        logits, _, _ = transformer.forward(params, {"tokens": seq}, cfg,
+                                           mode="prefill")
+    return logits[:, n - 1, :cfg.vocab].to(torch.float32)
 
 
 def _prompts(cfg, b, t, seed, device):
@@ -2562,11 +2618,12 @@ def serve_f32(cfg, b, t, n_steps, cpu=True) -> dict:
 
 
 _KERNEL_NAMES = ("level fold", "color level", "segment reduce",
-                 "top-k select", "top-k", "flash", "scan", "min-plus")
+                 "top-k select", "top-k", "flash", "scan", "min-plus",
+                 "scan backward")
 
 
 def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
-               faults=()) -> dict:
+               faults=(), gate_steps=None) -> dict:
     """Phases 9c and 10c, the serving cell ``name``: ``cfg`` at full
     width and depth in bfloat16, ``b`` requests of ``t`` tokens, one
     prefill step and ``n_steps`` greedy serve steps, counted (each kernel
@@ -2577,7 +2634,13 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     prefill's within ``gate`` of the largest logit, and a served run with
     each planted handoff fault of ``faults`` beyond it. Every prefill
     attention call must have run the tensor-core tile kernel and every
-    decode call the split decode (``launches_by_path``)."""
+    decode call the split decode (``launches_by_path``). xLSTM has no
+    attention, so no call may there, and its prefill is not profiled (its
+    sequential sLSTM puts hundreds of thousands of small kernels in it).
+    With ``gate_steps`` the gate and the faults are also read after that
+    many decode steps of another served run (a model that forgets its
+    prompt within the ``n_steps`` steps would hide a broken handoff at
+    their end)."""
     import torch
 
     from repro_torch import tree as T
@@ -2602,8 +2665,10 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     launched = ", ".join(f"{_KERNEL_NAMES[i]} {counts[i]}" for i in kernels)
     check(all(counts[i] == want for i in kernels),
           f"{name}: launches {launched}, expected {want} each")
-    want_paths = {"tile_tc": cfg.n_layers, "tile_simt": 0,
-                  "decode_split": cfg.n_layers * n_steps}
+    xlstm = cfg.family == "ssm"
+    want_paths = ({"tile_tc": 0, "tile_simt": 0, "decode_split": 0}
+                  if xlstm else {"tile_tc": cfg.n_layers, "tile_simt": 0,
+                                 "decode_split": cfg.n_layers * n_steps})
     check(paths == want_paths, f"{name}: flash calls by kernel {paths}, "
           f"expected {want_paths}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
@@ -2626,27 +2691,44 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     del caches
     torch.cuda.empty_cache()
     prefill_step = steps.make_prefill_step(cfg)
-    pprof = kernel_profile(lambda: prefill_step(params, {"tokens": prompts}),
-                           f"{name} one prefill", top=12)
+    pprof = (kernel_profile(lambda: prefill_step(params,
+                                                 {"tokens": prompts}),
+                            f"{name} one prefill", top=12)
+             if not xlstm else None)
     torch.cuda.empty_cache()
     fresh = fresh_prefill_logits(cfg, params, prompts, toks)
     diff = float((last - fresh).abs().max())
     scale = float(fresh.abs().max())
-    check(diff <= gate * scale, f"{name}: last decode logits differ from a "
-          f"fresh prefill by {diff} > {gate} x {scale}")
-    # planted faults: the served run with a broken handoff must fail it
-    fault_diffs = {}
-    for hand in faults:
-        ftoks, flast, _, fc, _ = greedy_run(cfg, params, prompts, n_steps,
+
+    def served_diff(n, hand=None) -> float:
+        """A served run of ``n`` decode steps: its last logits against a
+        fresh prefill's, as a share of the largest logit."""
+        ftoks, flast, _, fc, _ = greedy_run(cfg, params, prompts, n,
                                             hand=hand)
         del fc
         torch.cuda.empty_cache()
         ffresh = fresh_prefill_logits(cfg, params, prompts, ftoks)
-        r = float((flast - ffresh).abs().max()) / float(ffresh.abs().max())
-        check(r > gate, f"{name}: the planted fault {hand.__name__} passes "
-              f"the decode-vs-prefill limit ({r:.3g}); the check cannot see "
-              "it")
-        fault_diffs[hand.__name__] = r
+        return float((flast - ffresh).abs().max()) / float(
+            ffresh.abs().max())
+
+    early = None if gate_steps is None else served_diff(gate_steps)
+    # planted faults: the served run with a broken handoff must fail it
+    fault_diffs = {hand.__name__: served_diff(gate_steps or n_steps, hand)
+                   for hand in faults}
+    at = "" if gate_steps is None else f" after {gate_steps} decode steps"
+    say(f"{name}: last decode vs fresh prefill {100 * diff / scale:.4f}% of "
+        f"the largest logit after {n_steps} steps"
+        + ("" if early is None else f", {100 * early:.4f}%{at}")
+        + "; planted handoff faults" + at + ": " + ("; ".join(
+            f"{k} {100 * r:.4f}%" for k, r in fault_diffs.items())
+            or "none") + f"; the gate {100 * gate:.2f}%")
+    check(diff <= gate * scale, f"{name}: last decode logits differ from a "
+          f"fresh prefill by {diff} > {gate} x {scale}")
+    check(early is None or early <= gate, f"{name}: decode logits{at} "
+          f"differ from a fresh prefill by {early} > {gate} of the largest")
+    for k, r in fault_diffs.items():
+        check(r > gate, f"{name}: the planted fault {k} passes the "
+              f"decode-vs-prefill limit ({r:.3g}); the check cannot see it")
     del params
     torch.cuda.empty_cache()
     if faults:
@@ -2669,7 +2751,7 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     return dict(counts=counts, paths=paths, prefill_s=tm["prefill_s"],
                 step_s=step_s,
                 steps=tm["step_s"], peak=peak, diff=diff, scale=scale,
-                faults=fault_diffs,
+                faults=fault_diffs, early=early,
                 busy=None if dprof is None else dprof[1] / dprof[0],
                 prefill_busy=None if pprof is None else pprof[1] / pprof[0],
                 decode_profile=dprof, prefill_profile=pprof,
@@ -5173,16 +5255,601 @@ def dist_phase(small: bool = False) -> dict:
                 "ranks_s": ranks_s}}
 
 
+# -- phase 15: the SSM family trains (hymba) and xLSTM runs ------------------
+
+HYMBA_TRAIN_CELL = "hymba-1.5b-train-dp2-b2-t4096-topk"
+XLSTM_SERVE_CELL = "xlstm-125m-serve-b4-p4096-g64"
+XLSTM_TRAIN_CELL = "xlstm-125m-train-dp2-b2-t2048-topk"
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_STEPS = 4, 4096, 64
+# (B, T, D, N): the JAX test shapes, T = 1, T = 77 and 45 (not multiples of
+# the kernel's 32-step runs), N = 5 and 32 (two and eight lanes a channel)
+SCAN_BWD_SHAPES = [(1, 16, 8, 4), (2, 32, 16, 4), (3, 64, 24, 8),
+                   (2, 32, 16, 32), (2, 1, HYMBA_DI, HYMBA_N),
+                   (2, 77, 100, HYMBA_N), (1, 45, 33, 5)]
+SCAN_BWD_CELL = (2, 4096, HYMBA_DI, HYMBA_N)
+# The backward kernel against the float64 plain backward on the same
+# inputs: |got - want| <= SCAN_BWD_REL * M elementwise, M the same backward
+# on absolute values (|u|, |B|, |C|, |s0|, |gy|, |gs|, |A| outside the
+# decay), which bounds the sum of the magnitudes of every term an output
+# adds up. The longest float32 sum is gA's over 4,096 steps (the sums over
+# d and over the blocks are shorter): a running sum's error is at most
+# (n - 1) u of its terms' magnitudes, 4,096 x 2^-24 = 2.4e-4 of M, and the
+# decays' ex2.approx errors (2^-22 each, phase 10a) add a few u more. The
+# limit 2^-10 = 9.8e-4 of M lies above that worst case; phase 15a prints
+# the largest reading (err / M) beside it and three planted faults, each
+# of which must exceed it.
+SCAN_BWD_REL = 2.0 ** -10
+# The xLSTM serving cell's decode logits against a fresh prefill, as a share
+# of the largest logit, in bfloat16 at full depth, read after 1 decode step
+# and after the cell's 64. ``python3 chip_smoke.py --xlstm-witness`` (H100):
+# with the handoff 0.93% after 1 step, 1.46% after 8, 1.33% after 64
+# (float32: 0.0002% at each); with the states dropped 140% after 1 step,
+# 30% after 8 and 1.55% after 64: the randomly initialised xLSTM forgets
+# its prompt within a few steps (forget gates near 0.5), so a broken
+# handoff shows only early, and the gate and the planted fault are read
+# after the first decode step. The limit sits 3.4 x above the largest
+# correct reading and 28 x under the fault.
+SERVE_XLSTM_BF16_DIFF = 0.05
+SSM_LOSS_RTOL = 1e-4          # phase 15b's float32 card-vs-CPU losses
+
+
+def xlstm(depth=None, dtype="bfloat16"):
+    """xlstm-125m at its published widths; ``depth`` cuts it to its first
+    layers (m, s, m, ...)."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS["xlstm-125m"]
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
+                               dtype=dtype)
+
+
+def scan_bwd_inputs(gen, b, t, d, n, strided=False):
+    """float32 u, delta, bv, cv, a, s0 as :func:`scan_inputs` draws them,
+    then gy and gs_final; bv and cv as slices of one (B, T, 2N + 1) tensor
+    with ``strided``, as the model passes them."""
+    import torch
+    xs = list(scan_inputs(gen, b, t, d, n))
+    if strided:
+        proj = torch.randn((b, t, 2 * n + 1), generator=gen, device=DEVICE)
+        xs[2], xs[3] = proj[..., :n], proj[..., n:2 * n]
+    return (*xs, torch.randn((b, t, d), generator=gen, device=DEVICE),
+            torch.randn((b, d, n), generator=gen, device=DEVICE))
+
+
+def scan_bwd_magnitude(u, delta, bv, cv, a, s0, gy, gs):
+    """M of :data:`SCAN_BWD_REL`: the backward's recurrences in float64 on
+    absolute values: |s_t| <= M_s,t = M_s,t-1 e_t + delta_t |u_t| |B_t|,
+    the adjoint M_l,t = |gy_t| |C_t| + M_l,t+1 e_t+1 (+ |gs| at T), and
+    each gradient the sum of its terms' magnitudes. Returns the six
+    gradients' M in the order of ``ssm_chunk_scan_bwd_torch``."""
+    import torch
+    f = lambda x: x.to(torch.float64)
+    u, bv, cv, s0, gy, gs = (f(x).abs() for x in (u, bv, cv, s0, gy, gs))
+    delta, a = f(delta), f(a)
+    t = u.shape[1]
+    aa = a.abs()
+    states = [s0]
+    for i in range(t):
+        d_t = delta[:, i]
+        states.append(states[-1] * torch.exp(d_t[..., None] * a[None])
+                      + (d_t * u[:, i])[..., None] * bv[:, i, None, :])
+    mu, mb, mc = torch.empty_like(u), torch.empty_like(bv), \
+        torch.empty_like(cv)
+    md = torch.empty_like(delta)
+    ma = torch.zeros_like(a)
+    carry = gs
+    for i in reversed(range(t)):
+        d_t = delta[:, i]
+        e = torch.exp(d_t[..., None] * a[None])
+        lam = gy[:, i, :, None] * cv[:, i, None, :] + carry
+        mc[:, i] = torch.einsum("bd,bdn->bn", gy[:, i], states[i + 1])
+        mu[:, i] = d_t * torch.einsum("bdn,bn->bd", lam, bv[:, i])
+        mb[:, i] = torch.einsum("bdn,bd->bn", lam, d_t * u[:, i])
+        back = states[i] * e
+        md[:, i, 0] = (lam * (u[:, i, :, None] * bv[:, i, None, :]
+                              + back * aa[None])).sum((1, 2))
+        ma += (lam * back * d_t[..., None]).sum(0)
+        carry = lam * e
+    return mu, md, mb, mc, ma, carry
+
+
+SCAN_BWD_NAMES = ("gu", "gdelta", "gbv", "gcv", "ga", "gs0")
+
+
+def scan_bwd_over(got, want, mag) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / (SCAN_BWD_REL M)) over the six
+    gradients; the second is at most 1 when every element is within the
+    limit."""
+    import torch
+    err = ratio = 0.0
+    for g, w, m in zip(got, want, mag):
+        e = (g.to(torch.float64) - w).abs()
+        lim = SCAN_BWD_REL * m
+        check(bool(torch.isfinite(g).all()), "scan backward: not finite")
+        r = torch.where(lim > 0, e / lim, torch.where(
+            e > 0, torch.full_like(e, math.inf), torch.zeros_like(e)))
+        err, ratio = max(err, float(e.max())), max(ratio, float(r.max()))
+    return err, ratio
+
+
+def check_scan_bwd_random() -> float:
+    """Phase 15a: the backward kernel on ``SCAN_BWD_SHAPES`` against the
+    float64 plain backward within :data:`SCAN_BWD_REL`, with and without
+    gs_final and with bv, cv strided views; two calls bitwise; one
+    counted launch a call. Returns the largest |error|."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_bwd_torch
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_bwd_cuda
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    worst = worst_r = 0.0
+    for shape in SCAN_BWD_SHAPES:
+        for with_gs in (True, False):
+            xs = scan_bwd_inputs(gen, *shape, strided=shape[3] == HYMBA_N)
+            gs = xs[7] if with_gs else None
+            before = ssm_chunk_scan_bwd_cuda.launches
+            got = ssm_chunk_scan_bwd_cuda(*xs[:7], gs)
+            check(ssm_chunk_scan_bwd_cuda.launches == before + 1,
+                  "scan backward: one counted launch a call")
+            again = ssm_chunk_scan_bwd_cuda(*xs[:7], gs)
+            check(all(torch.equal(_bits(x), _bits(y))
+                      for x, y in zip(got, again)),
+                  f"scan backward {shape}: two calls differ")
+            x64 = [x.to(torch.float64) for x in xs]
+            gs64 = x64[7] if with_gs else None
+            want = ssm_chunk_scan_bwd_torch(*x64[:7], gs64)
+            mag = scan_bwd_magnitude(*xs[:7], xs[7] if with_gs
+                                     else torch.zeros_like(xs[7]))
+            err, r = scan_bwd_over(got, want, mag)
+            check(r <= 1.0, f"scan backward {shape} gs_final={with_gs}: "
+                  f"{r:.3g} x the limit {SCAN_BWD_REL} M (max |err| {err})")
+            worst, worst_r = max(worst, err), max(worst_r, r)
+    say(f"kernels: scan backward within {SCAN_BWD_REL:.3g} M of its float64 "
+        f"plain version on (B, T, D, N) {SCAN_BWD_SHAPES}, with and without "
+        f"gs_final, bv/cv strided at N = {HYMBA_N}; two calls bitwise (max "
+        f"|err| {worst:.3g}, {worst_r:.3g} x the limit)")
+    return worst
+
+
+def scan_bwd_bound(b, t, d, n) -> dict:
+    """The backward's least time on the H100, the largest of three: bytes
+    (u, gy read and gu written once; delta, B, C read and their gradients
+    written once; A, s0, gs_final read and gA, gs0 written once; float32)
+    over the memory rate; exponentials (two per (b, t, d, n): the forward's
+    state is rebuilt, the adjoint needs e_t) over the special function
+    units' rate at the card's clock; float32 operations (21 per (b, t, d,
+    n): 4 to rebuild the state, 17 for the adjoint and the five gradients'
+    terms) over the float32 rate."""
+    nbytes = 4 * (3 * b * t * d + 2 * b * t * (2 * n + 1) + 2 * d * n
+                  + 3 * b * d * n)
+    exps = 2 * b * t * d * n
+    ops = 21 * b * t * d * n
+    clock = sm_clock_hz()
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "exps": exps / (SFU_EXP_PER_SM_CLOCK * H100_SMS * clock) * 1e3,
+             "operations": ops / FP32_OPS_PER_S * 1e3}
+    worst = max(times, key=times.get)
+    return dict(bound_ms=times[worst], bound_by=("bytes" if worst == "bytes"
+                                                 else "operations"),
+                bound_parts_ms=times, sm_clock_hz=clock)
+
+
+def scan_bwd_faults(xs, got, want, mag, t0: int) -> dict:
+    """The three planted faults, built from the kernel's own results:
+    the adjoint carry dropped at step ``t0`` (the backward of steps [0, t0)
+    run from gs_final 0, its results in place of the whole run's there);
+    batch row 0 left out of gA's partials (gA of the call on rows 1..B-1);
+    gdelta without its decay term (its u B term alone, sum_d u gu /
+    delta from the kernel's gu). {fault: max error / limit}."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_bwd_cuda
+    u, dl, bv, cv, a, s0, gy, gs = xs
+    out = {}
+    head = ssm_chunk_scan_bwd_cuda(*(x[:, :t0] for x in (u, dl, bv, cv)), a,
+                                   s0, gy[:, :t0], None)
+    # the four (B, T, ...) gradients: the head's steps, then the tail's;
+    # gs0 the head's; gA the whole run's (the fault shows in the rest)
+    faulty = [torch.cat([h, g[:, t0:]], 1) for h, g in zip(head[:4],
+                                                           got[:4])]
+    faulty += [got[4], head[5]]
+    out[f"adjoint carry dropped at step {t0}"] = scan_bwd_over(
+        faulty, want, mag)[1]
+    rest = ssm_chunk_scan_bwd_cuda(*(x[1:] for x in (u, dl, bv, cv)), a,
+                                   s0[1:], gy[1:], gs[1:])
+    faulty = list(got)
+    faulty[4] = rest[4]
+    out["batch row 0 left out of gA"] = scan_bwd_over(faulty, want, mag)[1]
+    faulty = list(got)
+    faulty[1] = ((u * got[0]).sum(-1, keepdim=True) / dl)
+    out["gdelta without its decay term"] = scan_bwd_over(
+        faulty, want, mag)[1]
+    return out
+
+
+def scan_bwd_cell(b=SCAN_BWD_CELL[0], t=SCAN_BWD_CELL[1],
+                  d=SCAN_BWD_CELL[2], n=SCAN_BWD_CELL[3]) -> dict:
+    """Phase 15a at (b, t, d, n): the backward kernel held elementwise to
+    :data:`SCAN_BWD_REL` of the float64 plain backward on the same inputs,
+    three planted faults beyond it, two calls bitwise; times by CUDA
+    events and by the profiler's device time against the bound and the
+    plain backward (float32); and at batch 1, the training cell's one
+    sequence a worker."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_bwd_torch
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_bwd_cuda
+    gen = torch.Generator(device=DEVICE).manual_seed(4096)
+    xs = scan_bwd_inputs(gen, b, t, d, n, strided=True)
+    got = ssm_chunk_scan_bwd_cuda(*xs)
+    again = ssm_chunk_scan_bwd_cuda(*xs)
+    check(all(torch.equal(_bits(x), _bits(y)) for x, y in zip(got, again)),
+          f"scan backward ({b}, {t}, {d}, {n}): two calls differ")
+    del again
+    want = ssm_chunk_scan_bwd_torch(*(x.to(torch.float64) for x in xs))
+    mag = scan_bwd_magnitude(*xs)
+    err, r = scan_bwd_over(got, want, mag)
+    check(r <= 1.0, f"scan backward ({b}, {t}, {d}, {n}): {r:.4g} x the "
+          f"limit {SCAN_BWD_REL} M (max |err| {err})")
+    per = {}
+    for name, g, w, m in zip(SCAN_BWD_NAMES, got, want, mag):
+        per[name] = scan_bwd_over([g], [w], [m])[1]
+    faults = scan_bwd_faults(xs, got, want, mag, t - 100)
+    for label, fr in faults.items():
+        check(fr > 1.0, f"scan backward: the planted fault '{label}' passes "
+              f"the limit ({fr:.3g} x); the check cannot see it")
+    del want, mag, got
+    torch.cuda.empty_cache()
+    out = {"max_abs_err": err, "err_over_limit": r,
+           "err_over_limit_by_gradient": per,
+           "planted_faults": [{"fault": k, "err_over_limit": v}
+                              for k, v in faults.items()]}
+    fn = lambda: ssm_chunk_scan_bwd_cuda(*xs)
+    out["ms"] = cuda_ms(fn, 5)
+    out["device_ms"] = device_ms(fn, 3)
+    out["plain_ms"] = cuda_ms(lambda: ssm_chunk_scan_bwd_torch(*xs), 1, 0)
+    out.update(scan_bwd_bound(b, t, d, n))
+    del xs
+    torch.cuda.empty_cache()
+    x1 = scan_bwd_inputs(gen, 1, t, d, n, strided=True)
+    fn1 = lambda: ssm_chunk_scan_bwd_cuda(*x1)
+    out["batch1_ms"] = cuda_ms(fn1, 5)
+    out["batch1_device_ms"] = device_ms(fn1, 3)
+    b1 = scan_bwd_bound(1, t, d, n)
+    out["batch1_bound_ms"] = b1["bound_ms"]
+    del x1
+    torch.cuda.empty_cache()
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    say(f"scan backward ({b}, {t}, {d}, {n}) against the float64 plain "
+        f"backward: max |err| {err:.4g}, {r:.4g} x the limit "
+        f"{SCAN_BWD_REL:.3g} M (by gradient "
+        + ", ".join(f"{k} {v:.3g}" for k, v in per.items())
+        + "); planted faults " + "; ".join(
+            f"{k}: {v:.4g} x the limit" for k, v in faults.items()))
+    parts = out["bound_parts_ms"]
+    say(f"scan backward ({b}, {t}, {d}, {n}) ({nvidia_smi_line()}): "
+        f"{out['ms']:.4f} ms a call by CUDA events, device "
+        f"{fmt(out['device_ms'])}, plain {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}; bytes "
+        f"{parts['bytes']:.4f}, exponentials {parts['exps']:.4f} at "
+        f"{out['sm_clock_hz'] / 1e6:.0f} MHz, float32 operations "
+        f"{parts['operations']:.4f}); no library call exists; at batch 1 "
+        f"{out['batch1_ms']:.4f} ms (device {fmt(out['batch1_device_ms'])}"
+        f", bound {b1['bound_ms']:.4f} ms)")
+    return out
+
+
+def _train_state(cfg, n_dev, device, seed=0):
+    """params, AdamW state and the workers' stacked error feedback."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    params = api.init_fn(cfg, device)(seed)
+    ocfg = adamw.AdamWConfig()
+    opt = adamw.init(params, ocfg)
+    ef = T.tree_map(lambda p: p.new_zeros((n_dev,) + tuple(p.shape),
+                                          dtype=torch.float32), params)
+    return params, ocfg, opt, ef
+
+
+def ssm_train_f32(cfg, n_dev=1, seq=256, steps=3, window=128) -> dict:
+    """Phase 15b, consistency: ``cfg`` in float32 (TF32 off) with the
+    windowed layers' window cut to ``window``, so that ``seq`` crosses it
+    (at hymba's 1,024 the CPU twin took 117 s at 1,280 tokens on the chip
+    machine, and 54-74 s at 512; the cell takes ``sdpa_blocked``, which
+    the CPU tests hold to JAX), ``n_dev`` workers of one sequence of
+    ``seq`` tokens (one: no reduce; the cell runs it), no compression (a top-k
+    threshold may fall between two gradients that differ in the last
+    bit), remat on, ``steps`` trainer steps on the card and on the CPU:
+    losses within :data:`SSM_LOSS_RTOL`."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, dtype="float32", sliding_window=window)
+    name = (f"{cfg.name}-f32-l{cfg.n_layers}-w{window}-train-dp{n_dev}"
+            f"-t{seq}")
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        threads = torch.get_num_threads()
+        if device == "cpu":
+            torch.set_num_threads(os.cpu_count() or 1)
+        try:
+            params, ocfg, opt, ef = _train_state(cfg, n_dev, DEVICE)
+            if device == "cpu":
+                params, opt, ef = T.tree_map(
+                    lambda x: x.detach().cpu().requires_grad_(x.requires_grad),
+                    (params, opt, ef))
+            orch = train.orchestrator(n_dev, 2, device=device)
+            step = train.make_step(cfg, ocfg, orch.program,
+                                   orch.topo0.n_devices / n_dev)
+            data = SyntheticLM(cfg, DataConfig(n_dev, seq, seed=0),
+                               device=device)
+            reset_counts()
+            t0 = time.perf_counter()
+            losses = []
+            for s in range(steps):
+                params, opt, ef, met = step(params, opt, ef, data.batch(s))
+                losses.append(float(met["loss"]))
+            runs[device] = (losses, time.perf_counter() - t0, read_counts())
+            del params, opt, ef, step, data
+            torch.cuda.empty_cache()
+        finally:
+            torch.set_num_threads(threads)
+    (lc, wall, counts), (lh, cpu_s, _) = runs[DEVICE], runs["cpu"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    check(all(math.isfinite(v) for v in lc) and gap <= SSM_LOSS_RTOL,
+          f"{name}: card losses {lc} vs CPU {lh} (rel gap {gap:.3g} > "
+          f"{SSM_LOSS_RTOL})")
+    check(counts[6] == steps * n_dev * 2 * cfg.n_layers
+          and counts[8] == steps * n_dev * cfg.n_layers,
+          f"{name}: scan forward {counts[6]}, backward {counts[8]} launches")
+    say(f"{name}: losses on the card {lc}, on the CPU {lh} (largest "
+        f"relative gap {gap:.3g} <= {SSM_LOSS_RTOL}); card {wall:.2f} s, "
+        f"CPU {cpu_s:.1f} s for {steps} steps; scan launches forward "
+        f"{counts[6]}, backward {counts[8]}")
+    return dict(losses=lc, cpu_losses=lh, gap=gap)
+
+
+def _snapshot(tree):
+    """A host copy of every tensor of ``tree``."""
+    from repro_torch import tree as T
+    return T.tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def ssm_train_cell(cfg, name, seq, n_dev=2, steps=3) -> dict:
+    """Phases 15b (hymba) and 15d (xLSTM), the training cell ``name``:
+    ``cfg`` at full width and depth in bfloat16, ``n_dev`` workers on one
+    card, one ``seq``-token sequence each, top-k 1%, remat on (the
+    config's), ``steps`` steps: step 0 counted, step 1 timed by phase,
+    step 2 under the profiler; then the state after step 1, kept on the
+    host, restored and step 2 run again: its loss and every parameter
+    bitwise the first run's. Checks: finite losses, the first near
+    ln(vocab); the top-k select and segment-reduce kernels ran; for hymba
+    the scan's forward launched 2 x layers a worker a step (the forward and
+    the remat recompute) and its backward once a layer. xLSTM's last step
+    runs unprofiled and its busy share reads "not measured" (its step puts
+    about a million kernels on the card: its profile took 302 s)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim import compression
+    from repro_torch.optim.compression import CompressionConfig
+    exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
+    scan = profile = cfg.family == "hybrid"
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"{name}: {held} bytes still allocated before the "
+          "model")
+    check(cfg.remat, f"{name}: remat is off")
+    torch.cuda.reset_peak_memory_stats()
+    ccfg = CompressionConfig.parse("topk:0.01")
+    reset_counts()
+    orch = train.orchestrator(n_dev, 2, device=DEVICE)
+    prog = orch.program
+    t0 = time.perf_counter()
+    params, ocfg, opt, ef = _train_state(cfg, n_dev, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = train.make_step(cfg, ocfg, prog, orch.topo0.n_devices / n_dev,
+                           ccfg)
+    data = SyntheticLM(cfg, DataConfig(n_dev, seq, seed=0), device=DEVICE)
+    say(f"{name}: params {T.size(params):,} ({T.nbytes(params) / 1e9:.2f} "
+        f"GB) in {len(T.leaves(params))} leaves, init {init_s:.1f} s; "
+        f"{n_dev} workers x 1 x {seq} tokens; "
+        + _mem_line(name, params, opt, ef, n_dev,
+                    exe.device_program(prog, DEVICE).n_partials))
+    losses, walls, timings, prof = [], [], {}, None
+    snap = step_peak = None
+    per_step = []
+    with TopkLeafCheck(compression, checking=False) as tc:
+        for s in range(steps):
+            b = data.batch(s)
+            if s == steps - 1:
+                snap = _snapshot((params, opt, ef))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if s == 1:
+                torch.cuda.reset_peak_memory_stats()
+                params, opt, ef, met = step(params, opt, ef, b, timings)
+                timings["topk kernel"] = tc.take_ms() / 1e3
+                step_peak = torch.cuda.max_memory_allocated()
+            elif s == steps - 1 and profile:
+                out = {}
+                prof = kernel_profile(lambda: out.update(
+                    r=step(params, opt, ef, b)), f"{name} step {s}", top=10,
+                    host=False)
+                if "r" not in out:      # the profiler failed before fn ran
+                    out["r"] = step(params, opt, ef, b)
+                params, opt, ef, met = out["r"]
+            else:
+                params, opt, ef, met = step(params, opt, ef, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+            per_step.append(read_counts())
+            tc.take_ms()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
+    ln_v = math.log(cfg.vocab)
+    check(abs(losses[0] - ln_v) < 0.1 * ln_v,
+          f"{name}: first loss {losses[0]} not near ln(vocab) {ln_v:.4f}")
+    check(counts[2] > 0 and counts[3] > 0,
+          f"{name}: a kernel of the path did not run {counts}")
+    first = per_step[0]
+    if scan:
+        check(first[6] == n_dev * 2 * cfg.n_layers
+              and first[8] == n_dev * cfg.n_layers,
+              f"{name}: step 0 launched the scan forward {first[6]} and "
+              f"backward {first[8]} times, expected {n_dev} x (2 x "
+              f"{cfg.n_layers}) and {n_dev} x {cfg.n_layers}")
+        check(counts[6] == steps * first[6] and counts[8] == steps * first[8],
+              f"{name}: scan launches {counts[6]}, {counts[8]} over "
+              f"{steps} steps")
+    # the resume: the state before the last step, restored, that step again
+    t_res = time.perf_counter()
+    kept = _snapshot(params)
+    with torch.no_grad():
+        for dst, src in zip(T.leaves((params, opt, ef)), T.leaves(snap)):
+            dst.copy_(src)
+    del snap
+    params, opt, ef, met = step(params, opt, ef, data.batch(steps - 1))
+    again = float(met["loss"])
+    resume_s = time.perf_counter() - t_res
+    check(again == losses[-1] and all(
+        torch.equal(_bits(a.detach().cpu()), _bits(b_))
+        for a, b_ in zip(T.leaves(params), T.leaves(kept))),
+        f"{name}: the step resumed from step {steps - 1}'s state differs "
+        f"(loss {again} vs {losses[-1]})")
+    busy = None if prof is None else prof[1] / prof[0]
+    scan_ms = None if prof is None else sum(
+        ms for key, ms, _ in prof[2] if "ssm_scan" in key)
+    say(f"{name} ({nvidia_smi_line()}): losses {losses} (ln vocab "
+        f"{ln_v:.4f}); resumed step {steps - 1} bitwise (restore and step "
+        f"{resume_s:.1f} s); step wall s "
+        f"{[round(w, 4) for w in walls]}; step 1 split s: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
+        + f"; launches over the run: " + ", ".join(
+            f"{_KERNEL_NAMES[i]} {counts[i]}" for i in (2, 3, 6, 8))
+        + f"; max_memory_allocated over step 1 {step_peak}, over the run "
+        f"{peak}; device busy over the profiled step "
+        + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+        + ("" if not scan else "; the scan kernels' device time in it "
+           + ("not measured" if scan_ms is None else f"{scan_ms:.4f} ms")))
+    del params, opt, ef, kept, step, data
+    torch.cuda.empty_cache()
+    return dict(losses=losses, walls=walls, timings=timings, counts=counts,
+                step_counts=first, peak=peak, step_peak=step_peak,
+                busy=busy, steps=steps, scan_device_ms=scan_ms)
+
+
+def handoff_xlstm_states_dropped(pre, caches, t: int) -> None:
+    """A planted fault: :func:`handoff` without the xLSTM states (decode
+    starts from zero states)."""
+    handoff(pre, caches, t)
+    for cb in caches["blocks"]:
+        for state in cb.values():
+            state.zero_()
+
+
+def xlstm_witness(steps=(1, 8, 64)) -> None:
+    """``--xlstm-witness``: the readings behind phase 15c's gate.
+    xlstm-125m at full size, 4 prompts of 4,096: the last decode logits
+    against a fresh prefill's after each of ``steps`` decode steps, as a
+    share of the largest logit, in bfloat16 with the handoff and with the
+    states dropped, and in float32 with the handoff (TF32 off)."""
+    import torch
+
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype, hands in (("bfloat16", (handoff, handoff_xlstm_states_dropped)),
+                         ("float32", (handoff,))):
+        cfg = xlstm(dtype=dtype)
+        params = api.init_fn(cfg, DEVICE)(0)
+        prompts = _prompts(cfg, XLSTM_BATCH, XLSTM_PROMPT, 0, DEVICE)
+        for n in steps:
+            for hand in hands:
+                toks, last, _, c, _ = greedy_run(cfg, params, prompts, n,
+                                                 hand=hand)
+                del c
+                fresh = fresh_prefill_logits(cfg, params, prompts, toks)
+                r = float((last - fresh).abs().max()) / float(
+                    fresh.abs().max())
+                say(f"xlstm witness: {dtype}, {hand.__name__}, {n} decode "
+                    f"steps: last decode vs fresh prefill {100 * r:.4f}% of "
+                    "the largest logit")
+                torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    say(nvidia_smi_line())
+
+
+def ssm_phase() -> dict:
+    """Phase 15: the backward scan kernel (15a), hymba training (15b),
+    xLSTM serving (15c) and training (15d)."""
+    import torch
+    t15 = time.perf_counter()
+    bwd_err = check_scan_bwd_random()
+    bwd = scan_bwd_cell()
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd_err)
+    t15b = time.perf_counter()
+    ssm_train_f32(hymba(2))
+    hy = ssm_train_cell(hymba(), HYMBA_TRAIN_CELL, 4096)
+    t15c = time.perf_counter()
+    serve_f32(xlstm(2), 2, 248, 8)
+    xs = serve_cell(xlstm(), XLSTM_SERVE_CELL, XLSTM_BATCH, XLSTM_PROMPT,
+                    XLSTM_STEPS, SERVE_XLSTM_BF16_DIFF, kernels=(),
+                    faults=(handoff_xlstm_states_dropped,), gate_steps=1)
+    t15d = time.perf_counter()
+    xt = ssm_train_cell(xlstm(), XLSTM_TRAIN_CELL, 2048)
+    torch.cuda.empty_cache()
+    say(f"phase 15 wall: 15a {t15b - t15:.1f} s, 15b {t15c - t15b:.1f} s, "
+        f"15c {t15d - t15c:.1f} s, 15d {time.perf_counter() - t15d:.1f} s")
+    row = {"name": "ssm_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssm_scan.cu",
+           "replaces": "none (no TPU twin: the JAX package differentiates "
+                       "the jnp scan of src/repro/models/ssm.py:285-298)",
+           "launches": hy["counts"][8],
+           "max_abs_err": bwd["max_abs_err"],
+           "tol": f"{SCAN_BWD_REL} x M elementwise against the float64 "
+                  "plain backward (M: the backward on absolute values)",
+           "err_over_limit": bwd["err_over_limit"],
+           "planted_faults": bwd["planted_faults"],
+           "ms": bwd["ms"], "device_ms": bwd["device_ms"],
+           "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+           "bound_by": bwd["bound_by"],
+           "bound_parts_ms": bwd["bound_parts_ms"],
+           "library_ms": None, "library": "none exists",
+           "batch1_ms": bwd["batch1_ms"],
+           "batch1_device_ms": bwd["batch1_device_ms"],
+           "batch1_bound_ms": bwd["batch1_bound_ms"],
+           "bitwise": False, "config": HYMBA_TRAIN_CELL, "dtype": "float32",
+           "ms_per": "call at (2, 4096, 3200, 16); batch1_ms at the cell's "
+                     "(1, 4096, 3200, 16)",
+           "launches_per": f"run of {hy['steps']} training steps, 2 "
+                           "workers x 32 layers a step",
+           "kernels_per_call": 2}
+    return {"row": row, "hymba_train": hy, "xlstm_serve": xs,
+            "xlstm_train": xt, "scan_bwd": bwd}
+
+
 def main(args: list[str]) -> int:
     import torch
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
                     ["--attention-rows"], ["--solve"], ["--reduce"],
                     ["--fleet"], ["--runtime"], ["--chaos"],
-                    ["--chaos-loss-witness"], ["--dist"]):
+                    ["--chaos-loss-witness"], ["--dist"], ["--ssm"],
+                    ["--xlstm-witness"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
-              f"--runtime | --chaos | --chaos-loss-witness | --dist], got "
-              f"{args}",
+              f"--runtime | --chaos | --chaos-loss-witness | --dist | "
+              f"--ssm | --xlstm-witness], got {args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5240,6 +5907,16 @@ def main(args: list[str]) -> int:
         t14 = time.perf_counter()
         say(json.dumps({"dist": dist_phase()}))
         say(f"phase 14 wall: {time.perf_counter() - t14:.1f} s")
+        say(smi)
+        return 0
+    if args == ["--xlstm-witness"]:
+        xlstm_witness()
+        return 0
+    if args == ["--ssm"]:
+        t15 = time.perf_counter()
+        ssm = ssm_phase()
+        say(f"phase 15 wall: {time.perf_counter() - t15:.1f} s")
+        say(json.dumps({"kernels": [ssm["row"]]}))
         say(smi)
         return 0
 
@@ -5352,6 +6029,16 @@ def main(args: list[str]) -> int:
         row["cells"].update(dist[row["name"]])
     say(json.dumps({"dist": dist["dist"]}))
     say(f"phase 14 wall: {time.perf_counter() - t14:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 15: the backward scan kernel, hymba training, xLSTM serving and
+    # training
+    t15 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 15: {held} bytes still allocated after "
+          "phase 14")
+    ssm = ssm_phase()
+    say(f"phase 15 wall: {time.perf_counter() - t15:.1f} s")
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -5541,7 +6228,14 @@ def main(args: list[str]) -> int:
                  "batch1_ms": sc["batch1_ms"],
                  **measured(launches_per_call=scan_per_layer(
                      hy["prefill_profile"], hy["n_layers"])),
-                 "launches_per": served(hy, HYBRID_STEPS)})
+                 "launches_per": served(hy, HYBRID_STEPS),
+                 "cells": {HYMBA_TRAIN_CELL: {
+                     "launches": ssm["hymba_train"]["counts"][6],
+                     "launches_per": f"run of {ssm['hymba_train']['steps']}"
+                                     " training steps",
+                     "launches_per_worker_step":
+                         ssm["hymba_train"]["step_counts"][6] // 2,
+                     "mode": "training forward and its remat recompute"}}})
     rows.append({"name": "ssm_scan", "route": "cuda",
                  "source": "src/repro_torch/csrc/ssm_scan.cu",
                  "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:78",
@@ -5589,6 +6283,7 @@ def main(args: list[str]) -> int:
     say(f"{HYBRID_CELL}: scan launches a layer, profiled prefill "
         f"{scan_per_layer(hy['prefill_profile'], hy['n_layers'])}, decode "
         f"step {scan_per_layer(dp, hy['n_layers'])} (None: not profiled)")
+    rows.append(ssm["row"])
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

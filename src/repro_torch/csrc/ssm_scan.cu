@@ -66,6 +66,43 @@
 // a new error bound. Its error against the exact recurrence is derived in
 // chip_smoke.py (scan_f64_bound), from the rounding of the argument,
 // ex2.approx's relative error, flush-to-zero and the order of the sums.
+//
+// The backward (ssm_scan_bwd_kernel, then ssm_scan_bwd_finish) has no TPU
+// twin: the JAX package differentiates a jnp scan. With lambda_t the
+// adjoint of s_t, gy the gradient of y, gs_final that of s_out and
+// e_t = exp(delta_t A):
+//
+//   lambda_t = gy_t C_t + lambda_{t+1} e_{t+1}   (lambda_T: + gs_final)
+//   gu_t = delta_t sum_n lambda_t B_t      gB_t = sum_d lambda_t delta_t u_t
+//   gC_t = sum_d gy_t s_t                  gs0 = lambda_1 e_1
+//   gdelta_t = sum_{d,n} lambda_t (u_t B_t + s_{t-1} e_t A)
+//   gA = sum_{b,t} lambda_t s_{t-1} e_t delta_t
+//
+// Its design:
+//  - the same threads and blocks as the forward (a thread owns 4 states of
+//    one (b, d) for the whole sequence), so the forward's states can be
+//    recomputed with the forward's own arithmetic (ex2.approx.ftz of
+//    delta * a * log2 e, the explicit FMA; the library is built with
+//    -fmad=false): the recomputed states are bitwise the forward's. The
+//    forward is never run backwards (s_{t-1} = (s_t - w_t) / e_t): the
+//    decay flushes to zero;
+//  - pass 1 walks forward over runs of kRun = 32 steps, writes the state at
+//    each run's start to a checkpoint scratch (B, ceil(T/32), D, 4 L) and
+//    takes gC's partial sums, which need only gy and s_t; pass 2 walks the
+//    runs in reverse: it recomputes the run's states from its checkpoint
+//    into shared memory, then walks the run's steps backwards, carrying
+//    lambda in registers;
+//  - the sums across d (gB, gC, gdelta) are per-block partials, summed
+//    over the block's channels in a fixed order in shared memory at the
+//    end of each run, then over the blocks by the second kernel
+//    (ssm_scan_bwd_finish), also in a fixed order, which also sums gA's
+//    per-batch-row partials. No float atomics: repeated calls, and the
+//    recompute of a checkpointed layer, agree bit for bit.
+// What it gives up: each thread walks T steps twice (and recomputes each
+// run once more), so, as the forward at batch 1, it is latency-bound at
+// one sequence a worker; the inputs are staged with plain loads, not the
+// forward's asynchronous copies. chip_smoke.py times it against its bound
+// and holds it against the plain backward in float64.
 #include <cuda_runtime.h>
 
 namespace {
@@ -278,6 +315,280 @@ cudaError_t launch(const float* u, const float* dt, const float* bv,
   return cudaGetLastError();
 }
 
+// Shared memory of the backward, in floats: the run's staged delta, B, C,
+// u and gy, then gu and gdelta's per-thread terms, the run's states and the
+// per-thread terms of gB (of gC in pass 1), the last two as float4.
+template <int L>
+struct BwdSmem {
+  static constexpr int kCh = kThreads / L, kCols = kNS * L;
+  static constexpr int dt = 0, b = dt + kRun, c = b + kRun * kCols,
+                       u = c + kRun * kCols, g = u + kRun * kCh,
+                       gu = g + kRun * kCh, gd = gu + kRun * kCh,
+                       s = gd + kRun * kThreads, gb = s + kRun * kThreads * kNS,
+                       floats = gb + kRun * kThreads * kNS;
+  static_assert(s % 4 == 0 && b % 4 == 0 && c % 4 == 0, "float4 alignment");
+};
+
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+ssm_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__ dt,
+                    const float* __restrict__ bv, const float* __restrict__ cv,
+                    const float* __restrict__ a, const float* __restrict__ s0,
+                    const float* __restrict__ gy, const float* __restrict__ gsf,
+                    float* __restrict__ gu, float* __restrict__ ck,
+                    float* __restrict__ part_b, float* __restrict__ part_c,
+                    float* __restrict__ part_d, float* __restrict__ ga_part,
+                    float* __restrict__ gs0, int T, int D, int N, Views v) {
+  using S = BwdSmem<L>;
+  constexpr int kCh = S::kCh, kCols = S::kCols;
+  extern __shared__ __align__(16) float smem[];
+  float* sh_dt = smem + S::dt;
+  float* sh_b = smem + S::b;
+  float* sh_c = smem + S::c;
+  float* sh_u = smem + S::u;
+  float* sh_g = smem + S::g;
+  float* sh_gu = smem + S::gu;
+  float* sh_gd = smem + S::gd;
+  float4* sh_s = reinterpret_cast<float4*>(smem + S::s);
+  float4* sh_gb = reinterpret_cast<float4*>(smem + S::gb);
+
+  const int B = gridDim.y, b = blockIdx.y, blk = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int d0 = blk * kCh;
+  const int ch = tid / L, lane = tid - ch * L;
+  const int d = d0 + ch;
+  const int n0 = lane * kNS;
+  const int R = (T + kRun - 1) / kRun;
+  const long long si = (static_cast<long long>(b) * D + d) * N;
+  float a1[kNS], a2[kNS], s[kNS], carry[kNS], gA[kNS];
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) {
+    const bool own = d < D && n0 + i < N;
+    a1[i] = own ? a[static_cast<long long>(d) * N + n0 + i] : 0.f;
+    a2[i] = a1[i] * kLog2e;
+    s[i] = own ? s0[si + n0 + i] : 0.f;
+    carry[i] = own && gsf != nullptr ? gsf[si + n0 + i] : 0.f;
+    gA[i] = 0.f;
+  }
+  const float* ub = u + b * v.u_b;
+  const float* db = dt + b * v.d_b;
+  const float* bb = bv + b * v.b_b;
+  const float* cb = cv + b * v.c_b;
+  const float* gb = gy + static_cast<long long>(b) * T * D;
+  float4* ckb = reinterpret_cast<float4*>(ck) +
+                (static_cast<long long>(b) * R * D + d) * L + lane;
+  const long long ck_run = static_cast<long long>(D) * L;   // float4s a run
+  // partials: part_x[blk][b][t][n], part_d[blk][b][t]
+  const long long pbase = (static_cast<long long>(blk) * B + b) * T;
+
+  auto stage = [&](int t0, int nr) {
+    for (int i = tid; i < kRun; i += kThreads)
+      sh_dt[i] = i < nr ? db[static_cast<long long>(t0 + i) * v.d_t] : 0.f;
+    for (int i = tid; i < kRun * kCols; i += kThreads) {
+      const int r = i / kCols, n = i - r * kCols;
+      const bool in = r < nr && n < N;
+      sh_b[i] = in ? bb[static_cast<long long>(t0 + r) * v.b_t + n] : 0.f;
+      sh_c[i] = in ? cb[static_cast<long long>(t0 + r) * v.c_t + n] : 0.f;
+    }
+    for (int i = tid; i < kRun * kCh; i += kThreads) {
+      const int r = i / kCh, c = i - r * kCh;
+      const bool in = r < nr && d0 + c < D;
+      sh_u[i] =
+          in ? ub[static_cast<long long>(t0 + r) * v.u_t + d0 + c] : 0.f;
+      sh_g[i] = in ? gb[static_cast<long long>(t0 + r) * D + d0 + c] : 0.f;
+    }
+  };
+  // the forward's step r of the staged run, on s
+  auto fwd_step = [&](int r) {
+    const float dtv = sh_dt[r];
+    const float du = dtv * sh_u[r * kCh + ch];
+    const float4 bq =
+        *reinterpret_cast<const float4*>(&sh_b[r * kCols + n0]);
+    s[0] = __fmaf_rn(s[0], ex2(dtv * a2[0]), du * bq.x);
+    s[1] = __fmaf_rn(s[1], ex2(dtv * a2[1]), du * bq.y);
+    s[2] = __fmaf_rn(s[2], ex2(dtv * a2[2]), du * bq.z);
+    s[3] = __fmaf_rn(s[3], ex2(dtv * a2[3]), du * bq.w);
+  };
+  // the sum over the block's channels of per-thread float4 terms: row r,
+  // state n of the run -> out[(t0 + r) * N + n], channels in order
+  auto sum_channels = [&](const float4* terms, float* out, int t0, int nr) {
+    const float* f = reinterpret_cast<const float*>(terms);
+    for (int i = tid; i < kRun * kCols; i += kThreads) {
+      const int r = i / kCols, n = i - r * kCols;
+      if (r < nr && n < N) {
+        float acc = 0.f;
+        for (int c = 0; c < kCh; ++c)
+          acc += f[(r * kThreads + c * L) * kNS + n];
+        out[static_cast<long long>(t0 + r) * N + n] = acc;
+      }
+    }
+  };
+
+  // pass 1: forward; checkpoints at run starts, gC's partials
+  for (int k = 0; k < R; ++k) {
+    const int t0 = k * kRun, nr = min(kRun, T - t0);
+    if (d < D) ckb[k * ck_run] = make_float4(s[0], s[1], s[2], s[3]);
+    stage(t0, nr);
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      fwd_step(r);
+      const float g = sh_g[r * kCh + ch];
+      sh_gb[r * kThreads + tid] = make_float4(g * s[0], g * s[1], g * s[2],
+                                              g * s[3]);
+    }
+    __syncthreads();
+    sum_channels(sh_gb, part_c + pbase * N, t0, nr);
+    __syncthreads();
+  }
+
+  // pass 2: the runs in reverse
+  for (int k = R - 1; k >= 0; --k) {
+    const int t0 = k * kRun, nr = min(kRun, T - t0);
+    const float4 c0 =
+        d < D ? ckb[k * ck_run] : make_float4(0.f, 0.f, 0.f, 0.f);
+    s[0] = c0.x, s[1] = c0.y, s[2] = c0.z, s[3] = c0.w;
+    stage(t0, nr);
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {          // s_{t-1} of each step
+      sh_s[r * kThreads + tid] = make_float4(s[0], s[1], s[2], s[3]);
+      fwd_step(r);
+    }
+    for (int r = nr - 1; r >= 0; --r) {
+      const float dtv = sh_dt[r];
+      const float uv = sh_u[r * kCh + ch];
+      const float du = dtv * uv;
+      const float g = sh_g[r * kCh + ch];
+      const float4 bq =
+          *reinterpret_cast<const float4*>(&sh_b[r * kCols + n0]);
+      const float4 cq =
+          *reinterpret_cast<const float4*>(&sh_c[r * kCols + n0]);
+      const float4 sp = sh_s[r * kThreads + tid];
+      const float bb4[kNS] = {bq.x, bq.y, bq.z, bq.w};
+      const float cc4[kNS] = {cq.x, cq.y, cq.z, cq.w};
+      const float sp4[kNS] = {sp.x, sp.y, sp.z, sp.w};
+      float lam[kNS], gdt = 0.f;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const float e = ex2(dtv * a2[i]);
+        lam[i] = g * cc4[i] + carry[i];
+        const float back = sp4[i] * e;                  // s_{t-1} e_t
+        gdt += lam[i] * (uv * bb4[i] + back * a1[i]);
+        gA[i] += lam[i] * back * dtv;
+        carry[i] = lam[i] * e;
+      }
+      float pu = (lam[0] * bq.x + lam[1] * bq.y) +
+                 (lam[2] * bq.z + lam[3] * bq.w);
+#pragma unroll
+      for (int o = 1; o < L; o <<= 1) pu += __shfl_xor_sync(kFull, pu, o);
+      if (lane == 0) sh_gu[r * kCh + ch] = dtv * pu;
+      sh_gb[r * kThreads + tid] = make_float4(du * lam[0], du * lam[1],
+                                              du * lam[2], du * lam[3]);
+      sh_gd[r * kThreads + tid] = gdt;
+    }
+    __syncthreads();
+    sum_channels(sh_gb, part_b + pbase * N, t0, nr);
+    for (int r = tid; r < nr; r += kThreads) {
+      float acc = 0.f;
+      for (int j = 0; j < kThreads; ++j) acc += sh_gd[r * kThreads + j];
+      part_d[pbase + t0 + r] = acc;
+    }
+    float* gub = gu + static_cast<long long>(b) * T * D;
+    for (int i = tid; i < kRun * kCh; i += kThreads) {
+      const int r = i / kCh, c = i - r * kCh;
+      if (r < nr && d0 + c < D)
+        gub[static_cast<long long>(t0 + r) * D + d0 + c] = sh_gu[i];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) {
+    if (d < D && n0 + i < N) {
+      gs0[si + n0 + i] = carry[i];
+      ga_part[si + n0 + i] = gA[i];
+    }
+  }
+}
+
+// The blocks' partials summed in block order, and gA's batch rows in row
+// order: gbv, gcv (B, T, N), gdelta (B, T), ga (D, N), all contiguous.
+__global__ void ssm_scan_bwd_finish(const float* __restrict__ part_b,
+                                    const float* __restrict__ part_c,
+                                    const float* __restrict__ part_d,
+                                    const float* __restrict__ ga_part,
+                                    float* __restrict__ gbv,
+                                    float* __restrict__ gcv,
+                                    float* __restrict__ gdelta,
+                                    float* __restrict__ ga, int nblk, int B,
+                                    int T, int D, int N) {
+  const long long btn = static_cast<long long>(B) * T * N;
+  const long long bt = static_cast<long long>(B) * T;
+  const long long dn = static_cast<long long>(D) * N;
+  const long long total = 2 * btn + bt + dn;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float acc = 0.f;
+    if (i < 2 * btn) {
+      const bool is_b = i < btn;
+      const long long j = is_b ? i : i - btn;
+      const float* p = is_b ? part_b : part_c;
+      for (int k = 0; k < nblk; ++k) acc += p[k * btn + j];
+      (is_b ? gbv : gcv)[j] = acc;
+    } else if (i < 2 * btn + bt) {
+      const long long j = i - 2 * btn;
+      for (int k = 0; k < nblk; ++k) acc += part_d[k * bt + j];
+      gdelta[j] = acc;
+    } else {
+      const long long j = i - 2 * btn - bt;
+      for (int k = 0; k < B; ++k) acc += ga_part[k * dn + j];
+      ga[j] = acc;
+    }
+  }
+}
+
+template <int L>
+cudaError_t launch_bwd(const float* u, const float* dt, const float* bv,
+                       const float* cv, const float* a, const float* s0,
+                       const float* gy, const float* gsf, float* gu,
+                       float* gdelta, float* gbv, float* gcv, float* ga,
+                       float* gs0, float* scratch, int B, int T, int D, int N,
+                       Views v, cudaStream_t stream) {
+  using S = BwdSmem<L>;
+  const int nblk = (D + S::kCh - 1) / S::kCh;
+  const long long R = (T + kRun - 1) / kRun;
+  float* ck = scratch;
+  float* part_b = ck + static_cast<long long>(B) * R * D * S::kCols;
+  float* part_c = part_b + static_cast<long long>(nblk) * B * T * N;
+  float* part_d = part_c + static_cast<long long>(nblk) * B * T * N;
+  float* ga_part = part_d + static_cast<long long>(nblk) * B * T;
+  constexpr int kSmem = S::floats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      ssm_scan_bwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nblk, B);
+  ssm_scan_bwd_kernel<L><<<grid, kThreads, kSmem, stream>>>(
+      u, dt, bv, cv, a, s0, gy, gsf, gu, ck, part_b, part_c, part_d, ga_part,
+      gs0, T, D, N, v);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssm_scan_bwd_finish<<<1056, 256, 0, stream>>>(part_b, part_c, part_d,
+                                                ga_part, gbv, gcv, gdelta, ga,
+                                                nblk, B, T, D, N);
+  return cudaGetLastError();
+}
+
+// Floats of the backward's scratch: the run checkpoints, the blocks'
+// partials of gB, gC and gdelta, and gA's per-row partials.
+template <int L>
+long long bwd_scratch(int B, int T, int D, int N) {
+  using S = BwdSmem<L>;
+  const long long nblk = (D + S::kCh - 1) / S::kCh;
+  const long long R = (T + kRun - 1) / kRun;
+  return static_cast<long long>(B) * R * D * S::kCols +
+         nblk * B * T * (2LL * N + 1) + static_cast<long long>(B) * D * N;
+}
+
 // max_rel[0] gets the largest |ex2(x) - 2^x| / 2^x over the float32 x with
 // bits in [lo, lo + count) whose 2^x is a normal float, as float bits
 // (non-negative floats order like their bits); 2^x in double precision.
@@ -334,6 +645,52 @@ int soar_ssm_scan(const void* u, const void* delta, const void* bv,
     err = launch<4>(uf, df, bf, cf, af, sf, yf, of, B, T, D, N, v, stream);
   else
     err = launch<8>(uf, df, bf, cf, af, sf, yf, of, B, T, D, N, v, stream);
+  return static_cast<int>(err);
+}
+
+// Bytes of scratch the backward needs for (B, T, D, N), or -1 if invalid.
+long long soar_ssm_scan_bwd_scratch(int B, int T, int D, int N) {
+  if (B < 1 || B > 65535 || T < 1 || D < 1 || N < 1 || N > kMaxN) return -1;
+  const long long f = N <= 4   ? bwd_scratch<1>(B, T, D, N)
+                      : N <= 8  ? bwd_scratch<2>(B, T, D, N)
+                      : N <= 16 ? bwd_scratch<4>(B, T, D, N)
+                                : bwd_scratch<8>(B, T, D, N);
+  return f * static_cast<long long>(sizeof(float));
+}
+
+// The backward: the forward's operands (strided as there), gy (B, T, D)
+// and gs_final (B, D, N, or null for zero) contiguous -> gu (B, T, D),
+// gdelta (B, T), gbv and gcv (B, T, N), ga (D, N), gs0 (B, D, N), all
+// contiguous float32; scratch holds soar_ssm_scan_bwd_scratch bytes. Two
+// kernels on the stream: the walk, then the fixed-order sums.
+int soar_ssm_scan_bwd(const void* u, const void* delta, const void* bv,
+                      const void* cv, const void* a, const void* s0,
+                      const void* gy, const void* gs_final, void* gu,
+                      void* gdelta, void* gbv, void* gcv, void* ga, void* gs0,
+                      void* scratch, int B, int T, int D, int N,
+                      long long u_sb, long long u_st, long long d_sb,
+                      long long d_st, long long b_sb, long long b_st,
+                      long long c_sb, long long c_st, void* stream_) {
+  if (B < 1 || B > 65535 || T < 1 || D < 1 || N < 1 || N > kMaxN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Views v{u_sb, u_st, d_sb, d_st, b_sb, b_st, c_sb, c_st};
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto w = [](void* p) { return static_cast<float*>(p); };
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  cudaError_t err;
+#define SOAR_BWD(L)                                                         \
+  launch_bwd<L>(f(u), f(delta), f(bv), f(cv), f(a), f(s0), f(gy),           \
+                f(gs_final), w(gu), w(gdelta), w(gbv), w(gcv), w(ga),       \
+                w(gs0), w(scratch), B, T, D, N, v, stream)
+  if (N <= 4)
+    err = SOAR_BWD(1);
+  else if (N <= 8)
+    err = SOAR_BWD(2);
+  else if (N <= 16)
+    err = SOAR_BWD(4);
+  else
+    err = SOAR_BWD(8);
+#undef SOAR_BWD
   return static_cast<int>(err);
 }
 

@@ -55,6 +55,8 @@ _SIGNATURES = {
     + (ctypes.c_float, _I, _I, _P, _P, _P),
     "soar_ssm_scan": (_P,) * 8 + (_I,) * 4 + (ctypes.c_longlong,) * 8
     + (_P,),
+    "soar_ssm_scan_bwd": (_P,) * 15 + (_I,) * 4 + (ctypes.c_longlong,) * 8
+    + (_P,),
     "soar_ex2_sweep": (ctypes.c_uint, ctypes.c_ulonglong, _P, _P),
 }
 
@@ -126,6 +128,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
+    lib.soar_ssm_scan_bwd_scratch.argtypes = [_I] * 4
+    lib.soar_ssm_scan_bwd_scratch.restype = ctypes.c_longlong
     lib.soar_cuda_error_string.argtypes = [ctypes.c_int]
     lib.soar_cuda_error_string.restype = ctypes.c_char_p
     build_seconds = time.perf_counter() - t0

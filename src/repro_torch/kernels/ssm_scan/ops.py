@@ -1,14 +1,42 @@
 """Selective-SSM scan: shape checks and device dispatch.
 
-A CUDA tensor always launches the kernel; a CPU tensor runs the plain
-version. There is no option that sends a CUDA tensor to the plain version.
+A CUDA tensor always launches the kernels; a CPU tensor runs the plain
+versions. There is no option that sends a CUDA tensor to the plain
+version. Under autograd (grad enabled and an input that requires it) the
+scan is :class:`SSMScan`, whose backward is the backward kernel on the
+card and ``ssm_chunk_scan_bwd_torch`` on the CPU; otherwise it is one
+forward launch, as in serving.
 """
 from __future__ import annotations
 
 import torch
 
-from .ref import ssm_chunk_scan_torch
-from .ssm_scan import ssm_chunk_scan_cuda
+from .ref import ssm_chunk_scan_bwd_torch, ssm_chunk_scan_torch
+from .ssm_scan import ssm_chunk_scan_bwd_cuda, ssm_chunk_scan_cuda
+
+
+class SSMScan(torch.autograd.Function):
+    """The scan as an autograd function: (u, delta, bv, cv, a, s0) -> (y,
+    s_final), differentiable in all six; the backward recomputes the
+    forward's states from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, u, delta, bv, cv, a, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u, delta, bv, cv, a, s0)
+        if u.device.type == "cpu":
+            return ssm_chunk_scan_torch(u, delta, bv, cv, a, s0)
+        return ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy, gs):
+        u, delta, bv, cv, a, s0 = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(u)
+        if u.device.type == "cpu":
+            return ssm_chunk_scan_bwd_torch(u, delta, bv, cv, a, s0, gy, gs)
+        return ssm_chunk_scan_bwd_cuda(u, delta, bv, cv, a, s0, gy, gs)
 
 
 def ssm_chunk_scan(u, delta, bv, cv, a, s0, s_out=None):
@@ -19,7 +47,8 @@ def ssm_chunk_scan(u, delta, bv, cv, a, s0, s_out=None):
     ``chunk`` and its reference otherwise; the CUDA kernel takes any T,
     T = 1 (a decode step) included, so there is no ``chunk`` here. With
     ``s_out`` (which may be ``s0`` itself) the final state is written into
-    it and it is returned: a decode step updates its cache in place."""
+    it and it is returned: a decode step updates its cache in place. That
+    form is for inference only and raises under autograd."""
     B, T, D = u.shape
     N = bv.shape[-1]
     if delta.shape != (B, T, 1) or bv.shape != (B, T, N) or \
@@ -31,6 +60,13 @@ def ssm_chunk_scan(u, delta, bv, cv, a, s0, s_out=None):
                          f"s0={tuple(s0.shape)}")
     if s_out is not None and s_out.shape != s0.shape:
         raise ValueError(f"bad shape s_out={tuple(s_out.shape)}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, delta, bv, cv, a, s0)):
+        if s_out is not None:
+            raise ValueError("ssm_chunk_scan: s_out (the in-place state of "
+                             "a decode step) is for inference only, not "
+                             "under autograd")
+        return SSMScan.apply(u, delta, bv, cv, a, s0)
     if u.device.type == "cpu":
         y, s = ssm_chunk_scan_torch(u, delta, bv, cv, a, s0)
         if s_out is None:

@@ -17,6 +17,17 @@ halves across the groups). Its 2^x is the CPU's and not the card's
 ``ex2.approx``, and its FMA rounds through float64, so the two agree
 within the error bound derived for the kernel
 (``chip_smoke.scan_f64_bound``), not bit for bit.
+
+``ssm_chunk_scan_bwd_torch`` is the plain backward of the scan, the twin
+of the CUDA backward kernel. With ``lambda_t`` the adjoint of ``s_t``
+(``gy`` the gradient of y, ``gs_final`` that of the final state) and
+``e_t = exp(delta_t * A)``:
+
+    lambda_t = gy_t x C_t + lambda_{t+1} * e_{t+1}   (lambda_T: + gs_final)
+    gC_t = sum_d gy_t s_t          gu_t = delta_t sum_n lambda_t B_t
+    gB_t = sum_d lambda_t delta_t u_t
+    gdelta_t = sum_{d,n} lambda_t (u_t B_t + s_{t-1} e_t A)
+    gA = sum_{b,t} lambda_t s_{t-1} e_t delta_t      gs0 = lambda_1 e_1
 """
 from __future__ import annotations
 
@@ -80,3 +91,37 @@ def ssm_chunk_scan_ex2_torch(u, delta, bv, cv, a, s0):
             p = p[..., :h] + p[..., h:]
         y[:, i] = p[..., 0]
     return y, s[..., :n].contiguous()
+
+
+def ssm_chunk_scan_bwd_torch(u, delta, bv, cv, a, s0, gy, gs_final=None):
+    """The scan's backward: the forward's arguments, ``gy`` (B, T, D) and
+    the final state's gradient ``gs_final`` (B, D, N; None for zero) ->
+    ``(gu, gdelta, gbv, gcv, ga, gs0)``, each of its input's shape, in the
+    inputs' dtype. A forward loop keeps every state; a reverse loop over
+    t carries the adjoint (module docstring)."""
+    b, t, d = u.shape
+    states = [s0]
+    s = s0
+    for i in range(t):
+        d_t = delta[:, i]
+        s = s * torch.exp(d_t[..., None] * a[None]) + \
+            (d_t * u[:, i])[..., None] * bv[:, i, None, :]
+        states.append(s)
+    gu, gbv, gcv = (torch.empty_like(x, memory_format=torch.contiguous_format)
+                    for x in (u, bv, cv))
+    gdelta = torch.empty_like(delta, memory_format=torch.contiguous_format)
+    ga = torch.zeros_like(a)
+    carry = torch.zeros_like(s0) if gs_final is None else gs_final
+    for i in reversed(range(t)):
+        d_t = delta[:, i]                                      # (B, 1)
+        e = torch.exp(d_t[..., None] * a[None])                # (B, D, N)
+        lam = gy[:, i, :, None] * cv[:, i, None, :] + carry
+        gcv[:, i] = torch.einsum("bd,bdn->bn", gy[:, i], states[i + 1])
+        gu[:, i] = d_t * torch.einsum("bdn,bn->bd", lam, bv[:, i])
+        gbv[:, i] = torch.einsum("bdn,bd->bn", lam, d_t * u[:, i])
+        back = states[i] * e                                   # s_{t-1} e_t
+        gdelta[:, i, 0] = (lam * (u[:, i, :, None] * bv[:, i, None, :]
+                                  + back * a[None])).sum((1, 2))
+        ga += (lam * back * d_t[..., None]).sum(0)
+        carry = lam * e
+    return gu, gdelta, gbv, gcv, ga, carry

@@ -1,4 +1,5 @@
-"""Launcher of the CUDA selective-SSM scan (``csrc/ssm_scan.cu``).
+"""Launchers of the CUDA selective-SSM scan and its backward
+(``csrc/ssm_scan.cu``).
 
 The port's counterpart of the Pallas ``ssm_chunk_scan_pallas``. Its plain
 version is :mod:`repro_torch.kernels.ssm_scan.ref`, with which it agrees
@@ -10,6 +11,13 @@ projection, with no copy); a and s0 are contiguous. The final state is
 written into ``s_out``, which may be ``s0`` itself: each of the kernel's
 threads reads its state before it writes it. Counts each launch in
 ``.launches``.
+
+The backward (``ssm_chunk_scan_bwd_cuda``) has no Pallas twin (the JAX
+package differentiates a jnp scan); its plain version is
+``ref.ssm_chunk_scan_bwd_torch``. It takes the forward's operands as the
+forward does, gy and gs_final contiguous, and returns contiguous
+gradients. A call puts two kernels on the stream (the walk and the
+fixed-order sums) and counts one in ``.launches``.
 """
 from __future__ import annotations
 
@@ -29,15 +37,10 @@ def _strides(name: str, t: torch.Tensor, what: str) -> tuple[int, int]:
     return t.stride(0), t.stride(1)
 
 
-def ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0, s_out=None):
-    """The selective-SSM scan on the card: u (B, T, D), delta (B, T, 1),
-    bv/cv (B, T, N), a (D, N), s0 (B, D, N), all float32 -> (y (B, T, D),
-    s_final (B, D, N)); ``s_final`` is ``s_out`` when given (``s0``
-    allowed). Counts each launch in ``.launches``."""
-    what = "ssm_chunk_scan_cuda"
-    s_out = torch.empty_like(s0) if s_out is None else s_out
-    named = (("u", u), ("delta", delta), ("bv", bv), ("cv", cv), ("a", a),
-             ("s0", s0), ("s_out", s_out))
+def _checked(what: str, named) -> tuple[int, int, int, int]:
+    """(B, T, D, N) after the operands' device, dtype and shape checks;
+    ``named`` starts with u, delta, bv, cv."""
+    u, bv = named[0][1], named[2][1]
     for name, t in named:
         if t.device.type != "cuda" or t.device != u.device:
             raise ValueError(f"{what} needs every operand on one CUDA "
@@ -47,19 +50,70 @@ def ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0, s_out=None):
                             f"{t.dtype}")
     B, T, D = u.shape
     N = bv.shape[-1]
-    if delta.shape != (B, T, 1) or bv.shape != (B, T, N) or \
-            cv.shape != (B, T, N) or a.shape != (D, N) or \
-            s0.shape != (B, D, N) or s_out.shape != (B, D, N):
-        raise ValueError(f"{what}: bad shapes u {tuple(u.shape)} delta "
-                         f"{tuple(delta.shape)} bv {tuple(bv.shape)} cv "
-                         f"{tuple(cv.shape)} a {tuple(a.shape)} s0 "
-                         f"{tuple(s0.shape)} s_out {tuple(s_out.shape)}")
+    want = {"delta": (B, T, 1), "bv": (B, T, N), "cv": (B, T, N),
+            "a": (D, N), "s0": (B, D, N), "s_out": (B, D, N),
+            "gy": (B, T, D), "gs_final": (B, D, N)}
+    bad = {name: tuple(t.shape) for name, t in named
+           if name in want and tuple(t.shape) != want[name]}
+    if bad:
+        raise ValueError(f"{what}: bad shapes u {tuple(u.shape)} {bad}")
     if min(B, T, D, N) < 1 or N > MAX_STATE or B > 65535:
         raise ValueError(f"{what}: needs B, T, D >= 1, 1 <= N <= "
                          f"{MAX_STATE} and B <= 65535, got {(B, T, D, N)}")
-    for name, t in (("a", a), ("s0", s0), ("s_out", s_out)):
-        if not t.is_contiguous():
+    for name, t in named:
+        if name not in ("u", "delta", "bv", "cv") and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+    return B, T, D, N
+
+
+def ssm_chunk_scan_bwd_cuda(u, delta, bv, cv, a, s0, gy, gs_final=None):
+    """The scan's backward on the card: the forward's operands, gy (B, T,
+    D) and gs_final (B, D, N) or None (zero), float32 -> (gu, gdelta, gbv,
+    gcv, ga, gs0), contiguous, each of its operand's shape. Counts each
+    call in ``.launches``."""
+    what = "ssm_chunk_scan_bwd_cuda"
+    gy = gy.contiguous()
+    named = [("u", u), ("delta", delta), ("bv", bv), ("cv", cv), ("a", a),
+             ("s0", s0), ("gy", gy)]
+    if gs_final is not None:
+        gs_final = gs_final.contiguous()
+        named.append(("gs_final", gs_final))
+    B, T, D, N = _checked(what, named)
+    strides = [x for name, t in named[:4] for x in _strides(name, t, what)]
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=u.device)
+    gu, gdelta, gbv, gcv = new(B, T, D), new(B, T, 1), new(B, T, N), \
+        new(B, T, N)
+    ga, gs0 = new(D, N), new(B, D, N)
+    lib = library()
+    scratch = torch.empty(lib.soar_ssm_scan_bwd_scratch(B, T, D, N),
+                          dtype=torch.uint8, device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.soar_ssm_scan_bwd(
+            u.data_ptr(), delta.data_ptr(), bv.data_ptr(), cv.data_ptr(),
+            a.data_ptr(), s0.data_ptr(), gy.data_ptr(),
+            None if gs_final is None else gs_final.data_ptr(),
+            gu.data_ptr(), gdelta.data_ptr(), gbv.data_ptr(), gcv.data_ptr(),
+            ga.data_ptr(), gs0.data_ptr(), scratch.data_ptr(), B, T, D, N,
+            *strides, stream_of(u))
+    check(err, "ssm scan backward launch")
+    ssm_chunk_scan_bwd_cuda.launches += 1
+    return gu, gdelta, gbv, gcv, ga, gs0
+
+
+ssm_chunk_scan_bwd_cuda.launches = 0
+
+
+def ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0, s_out=None):
+    """The selective-SSM scan on the card: u (B, T, D), delta (B, T, 1),
+    bv/cv (B, T, N), a (D, N), s0 (B, D, N), all float32 -> (y (B, T, D),
+    s_final (B, D, N)); ``s_final`` is ``s_out`` when given (``s0``
+    allowed). Counts each launch in ``.launches``."""
+    what = "ssm_chunk_scan_cuda"
+    s_out = torch.empty_like(s0) if s_out is None else s_out
+    named = (("u", u), ("delta", delta), ("bv", bv), ("cv", cv), ("a", a),
+             ("s0", s0), ("s_out", s_out))
+    B, T, D, N = _checked(what, named)
     strides = [x for name, t in named[:4] for x in _strides(name, t, what)]
     y = torch.empty((B, T, D), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):

@@ -234,7 +234,7 @@ class TrainStep:
             self._checked = True
         loss, metrics, sent = self.worker_grads(params, ef, batch, timings)
         grads = self.reduce(sent, timings) if self.n_dev > 1 else sent
-        grads = T.unflatten(grads)
+        grads = T.unflatten(grads, like=params)
         dev = loss.device
         t0 = time.perf_counter()
         params, opt_state, gnorm = adamw.update(grads, opt_state, params,

@@ -64,7 +64,7 @@ def init_fn(cfg: ModelConfig, device="cuda"):
 
 
 def loss_fn(cfg: ModelConfig):
-    transformer.check_supported(cfg, "train")
+    transformer.check_supported(cfg)
     return lambda params, batch: transformer.loss_fn(params, batch, cfg)
 
 
@@ -88,7 +88,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mode: str | None = None,
     """Batch of zeros for (cfg, shape): tokens (B, S) and, to train, labels,
     int64 as the port's data pipeline makes them (JAX: int32)."""
     mode = mode or shape.kind
-    transformer.check_supported(cfg, "train" if mode == "train" else "serve")
+    transformer.check_supported(cfg)
     B, S = shape.global_batch, shape.seq_len
     batch = {"tokens": torch.zeros((B, S), dtype=torch.int64, device=device)}
     if mode == "train":

@@ -1,66 +1,67 @@
-"""Decoder-only LM, dense and hybrid families: the port of the JAX
-package's ``models/transformer.py`` for training (dense), prefill and
-decode (both).
+"""Decoder-only LM, dense, hybrid and xLSTM families: the port of the JAX
+package's ``models/transformer.py`` for training, prefill and decode.
 
 The parameter tree has exactly the JAX pytree's leaves: ``embed_tokens``
 (padded_vocab, d), ``final_norm/scale``, ``lm_head`` (d, padded_vocab) and
 the layers, with ``x @ W`` layouts. Where ``uses_scan(cfg)`` (deep
 homogeneous dense stacks) they are the stack ``layers/...``, each leaf
 stacked ``(L, ...)`` as ``jax.vmap(init_block)`` makes it; otherwise
-(hymba: hybrid blocks, sliding windows) the list ``blocks``, one tree per
-layer, each of its kind (``attn`` or ``hybrid``: attention and Mamba heads
-side by side) and window. The forward walks the layers one by one, as
-``lax.scan`` does; ``remat`` only saves memory and is left out. Caches are
-the JAX trees: ``{"prefix": [], "layers": {"k", "v": (L, B, S, Hkv,
-hd)}}`` for the stack, ``{"blocks": [{"attn": {"k", "v"}, "ssm": {"s"}},
-...]}`` for hybrid blocks (a windowed layer's k/v a ring of min(seq,
-window) slots); a decode step writes into them in place. Other families
+(hymba: hybrid blocks, sliding windows; xLSTM) the list ``blocks``, one
+tree per layer, each of its kind and window: ``attn``, ``hybrid``
+(attention and Mamba heads side by side), ``m`` (mLSTM) or ``s`` (sLSTM),
+the last two a ``mix`` tree and no MLP. The forward walks the layers one
+by one, as ``lax.scan`` does. In training, ``cfg.remat`` wraps each block
+of the ``blocks`` list in ``torch.utils.checkpoint`` (JAX's
+``jax.checkpoint`` per block): the backward recomputes the block's
+forward, which changes no bit. The stacked path keeps every activation
+(JAX checkpoints its scan body too). Caches are the JAX trees:
+``{"prefix": [], "layers": {"k", "v": (L, B, S, Hkv, hd)}}`` for the
+stack, ``{"blocks": [...]}`` otherwise, each block's ``{"k", "v"}``,
+``{"attn": {"k", "v"}, "ssm": {"s"}}`` (hybrid), ``{"C", "n"}`` (m) or
+``{"c", "n", "h"}`` (s), a windowed layer's k/v a ring of min(seq,
+window) slots; a decode step writes into them in place. Other families
 raise ``ValueError``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .attention import gqa_cache_spec, gqa_decode, gqa_forward, init_gqa
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, dtype_of, embed_init, init_mlp,
                      init_norm)
-from .ssm import init_mamba, mamba_decode, mamba_forward, mamba_state
+from .ssm import (init_mamba, init_mlstm, init_slstm, mamba_decode,
+                  mamba_forward, mamba_state, mlstm_decode, mlstm_forward,
+                  mlstm_state, slstm_decode, slstm_forward, slstm_state)
 
-# what each unported part of the model zoo waits for (ROADMAP.md, A10), by
-# mode: "train" (loss_fn) or "serve" (init, prefill, decode, caches)
+# what each unported part of the model zoo waits for (ROADMAP.md, A10); the
+# port trains and serves every other config
 _UNPORTED = (
-    (lambda c, m: c.is_encoder_decoder,
-     "encoder-decoder (ROADMAP A10: encdec)"),
-    (lambda c, m: c.is_moe, "MoE (ROADMAP A10: moe)"),
-    (lambda c, m: c.family == "ssm",
-     "xLSTM's SSM blocks, mLSTM and sLSTM (ROADMAP A10: ssm)"),
-    (lambda c, m: c.family == "hybrid" and m == "train",
-     "training of the SSM/hybrid blocks (ROADMAP A10: ssm training)"),
-    (lambda c, m: c.attn_type == "mla",
-     "MLA attention (ROADMAP A10: attention)"),
-    (lambda c, m: c.family == "vlm" or c.n_prefix_embeds,
+    (lambda c: c.is_encoder_decoder, "encoder-decoder (ROADMAP A10: encdec)"),
+    (lambda c: c.is_moe, "MoE (ROADMAP A10: moe)"),
+    (lambda c: c.attn_type == "mla", "MLA attention (ROADMAP A10: attention)"),
+    (lambda c: c.family == "vlm" or c.n_prefix_embeds,
      "the VLM prefix (ROADMAP A10: transformer)"),
-    (lambda c, m: m == "train" and not uses_scan(c),
-     "training of unstacked or sliding-window layers (ROADMAP A10: "
-     "transformer)"),
 )
 
 
-def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
-    """Raise ``ValueError`` for any family the port does not run yet in
-    ``mode`` ("train" or "serve")."""
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for any family the port does not run yet."""
     for test, what in _UNPORTED:
-        if test(cfg, mode):
+        if test(cfg):
             raise ValueError(f"{cfg.name}: {what} is not ported yet; the "
-                             f"port trains the dense GQA family and serves "
-                             f"it and the hybrid family")
+                             f"port trains and serves the dense GQA, hybrid "
+                             f"and xLSTM families")
 
 
 def _layer_kinds(cfg: ModelConfig) -> list[str]:
-    """Each layer's block kind: attn, or hybrid (attention and Mamba heads
-    on the same input). xLSTM's m and s kinds come with xLSTM."""
+    """Each layer's block kind: attn, hybrid (attention and Mamba heads on
+    the same input), or xLSTM's m and s by ``block_pattern``."""
+    if cfg.family == "ssm":
+        pat = cfg.block_pattern or ("m", "s")
+        return [pat[i % len(pat)] for i in range(cfg.n_layers)]
     return ["hybrid" if cfg.family == "hybrid" else "attn"] * cfg.n_layers
 
 
@@ -78,8 +79,13 @@ def uses_scan(cfg: ModelConfig) -> bool:
 
 
 def init_block(gen, cfg: ModelConfig, kind: str = "attn"):
-    """kind: attn | hybrid (attention and Mamba heads on the same input)."""
-    p = {"ln1": init_norm(cfg, gen.device), "attn": init_gqa(gen, cfg)}
+    """kind: attn | hybrid (attention and Mamba heads on the same input) |
+    m | s (xLSTM's mixers, no MLP)."""
+    p = {"ln1": init_norm(cfg, gen.device)}
+    if kind in ("m", "s"):
+        p["mix"] = (init_mlstm if kind == "m" else init_slstm)(gen, cfg)
+        return p
+    p["attn"] = init_gqa(gen, cfg)
     if kind == "hybrid":
         p["ssm"] = init_mamba(gen, cfg, d_out=cfg.d_model)
     if cfg.d_ff > 0:
@@ -129,10 +135,17 @@ def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
                   pos=None, kind: str = "attn", window: int = 0):
     """One block; x (B, T, d). Returns (x, cache): the block's keys and
     values (train, prefill; a hybrid block adds the Mamba state,
-    ``{"attn": {"k", "v"}, "ssm": {"s"}}``) or its cache, written in place
-    (decode). A hybrid block adds the mean of its attention and Mamba
-    heads, both reading the same normed input."""
+    ``{"attn": {"k", "v"}, "ssm": {"s"}}``; an xLSTM block its final
+    state) or its cache, written in place (decode). A hybrid block adds
+    the mean of its attention and Mamba heads, both reading the same
+    normed input."""
     h = apply_norm(p["ln1"], x, cfg)
+    if kind in ("m", "s"):
+        fwd, dec = ((mlstm_forward, mlstm_decode) if kind == "m"
+                    else (slstm_forward, slstm_decode))
+        a, nc = (dec(p["mix"], h, cache, cfg) if mode == "decode"
+                 else fwd(p["mix"], h, cfg))
+        return x + a, nc
     hybrid = kind == "hybrid"
     if mode == "decode":
         a, nc = gqa_decode(p["attn"], h, cache["attn"] if hybrid else cache,
@@ -151,6 +164,11 @@ def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
     return x, nc
+
+
+def _train_block(p, x, cfg: ModelConfig, kind: str, window: int):
+    """A block's output in train mode (what ``checkpoint`` recomputes)."""
+    return block_forward(p, x, cfg, "train", kind=kind, window=window)[0]
 
 
 def _layer(tree, i: int):
@@ -179,7 +197,7 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
     caches); caches are None in train mode."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode {mode!r} is train or prefill")
-    check_supported(cfg, "train" if mode == "train" else "serve")
+    check_supported(cfg)
     x = _embed_inputs(params, batch, cfg)
     caches = None
     if uses_scan(cfg):
@@ -194,6 +212,10 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
         blocks = []
         for bp, kind, w in zip(params["blocks"], _layer_kinds(cfg),
                                _layer_windows(cfg)):
+            if mode == "train" and cfg.remat:
+                x = checkpoint(_train_block, bp, x, cfg, kind, w,
+                               use_reentrant=False)
+                continue
             x, nc = block_forward(bp, x, cfg, mode, kind=kind, window=w)
             if mode == "prefill":
                 blocks.append(nc)
@@ -223,7 +245,7 @@ def prefill(params, batch, cfg: ModelConfig):
 
 def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
     """One decode step. token: (B, 1) int; pos: the token's position (an
-    int). Writes each layer's k/v at ``pos`` (and each Mamba state) into
+    int). Writes each layer's k/v at ``pos`` (and each recurrent state) into
     ``caches`` in place and returns (logits (B, 1, V), caches)."""
     check_supported(cfg)
     x = F.embedding(token, params["embed_tokens"])
@@ -243,6 +265,9 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
 
 def _one_cache(cfg: ModelConfig, kind: str, window: int, batch: int,
                seq: int, device):
+    if kind in ("m", "s"):
+        return (mlstm_state if kind == "m" else slstm_state)(cfg, batch,
+                                                             device)
     c = gqa_cache_spec(cfg, batch, seq, window, device)
     if kind == "hybrid":
         return {"attn": c, "ssm": mamba_state(cfg, batch, device)}

@@ -83,8 +83,9 @@ def compress_leaf(g: torch.Tensor, e: torch.Tensor, cfg: CompressionConfig):
 
 
 def compress_tree(grads: Any, ef: Any, cfg: CompressionConfig):
-    """(grads, error_feedback) -> (sent_grads, new_error_feedback), trees of
-    nested dicts.
+    """(grads, error_feedback) -> (sent_grads, new_error_feedback), both
+    with ``grads``' structure (lists kept lists, as ``jax.tree.map`` keeps
+    them).
 
     sent_grads is dense (zeros where dropped) in the original dtype.
     """
@@ -94,7 +95,7 @@ def compress_tree(grads: Any, ef: Any, cfg: CompressionConfig):
     sent, new_ef = {}, {}
     for path, g in T.leaves_with_paths(grads):
         sent[path], new_ef[path] = compress_leaf(g, flat_ef[path], cfg)
-    return T.unflatten(sent), T.unflatten(new_ef)
+    return T.unflatten(sent, like=grads), T.unflatten(new_ef, like=grads)
 
 
 def payload_bytes(params: Any, cfg: CompressionConfig) -> int:

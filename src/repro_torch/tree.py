@@ -41,8 +41,15 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def unflatten(flat: dict[str, Any]) -> dict:
-    """{"a/b": leaf} -> {"a": {"b": leaf}} (dicts only)."""
+def unflatten(flat: dict[str, Any], like: Any = None) -> Any:
+    """{"a/b": leaf} -> {"a": {"b": leaf}}.
+
+    With ``like`` the result has ``like``'s structure, its lists kept lists
+    (``blocks/0/...`` back into ``blocks[0]``), as ``jax.tree.map`` keeps
+    them; every path of ``like`` must be in ``flat``. Without it every
+    level is a dict."""
+    if like is not None:
+        return _rebuild(like, flat, "")
     out: dict = {}
     for path, leaf in flat.items():
         node = out
@@ -51,6 +58,15 @@ def unflatten(flat: dict[str, Any]) -> dict:
             node = node.setdefault(h, {})
         node[last] = leaf
     return out
+
+
+def _rebuild(like: Any, flat: dict[str, Any], prefix: str) -> Any:
+    if isinstance(like, dict):
+        return {k: _rebuild(v, flat, f"{prefix}{k}/") for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, flat, f"{prefix}{i}/")
+                          for i, v in enumerate(like))
+    return flat[prefix[:-1]]
 
 
 def size(tree: Any) -> int:

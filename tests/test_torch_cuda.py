@@ -19,7 +19,10 @@ tile kernel, which rounds them to bfloat16 for P.V, within 2^-8 |want| +
 is held to the JAX test's rtol = atol = 1e-5 (its sum over N runs in
 another order, its exponential is ex2.approx of a pre-scaled argument), and
 at a longer sequence to the float64 plain version within the error bound
-derived for it (``chip_smoke.scan_f64_bound``).
+derived for it (``chip_smoke.scan_f64_bound``); its backward to the
+float64 plain backward within ``chip_smoke.SCAN_BWD_REL`` of the backward
+on absolute values. Reduced hymba and xLSTM train on the card as on the
+CPU, with the scan's launches counted.
 """
 import numpy as np
 import pytest
@@ -1185,6 +1188,85 @@ def test_rank_executor_two_ranks_share_the_card_over_gloo(dev, tmp_path):
                                               err_msg=f"{key} rank {r}")
                 ran, n_reduce = got[r][f"launches|{key}"]
                 assert ran == n_reduce, (key, r)
+
+
+# ---------------------------------------------------------------------------
+# the scan's backward kernel and training the hybrid and xLSTM families
+# ---------------------------------------------------------------------------
+
+SCAN_BWD_SHAPES = [(1, 16, 8, 4), (2, 32, 16, 4), (3, 64, 24, 8),
+                   (2, 32, 16, 32), (2, 1, 3200, 16), (2, 77, 100, 16),
+                   (1, 45, 33, 5), (2, 300, 70, 16)]
+
+
+@pytest.mark.parametrize("with_gs", [True, False])
+@pytest.mark.parametrize("b,t,d,n", SCAN_BWD_SHAPES)
+def test_ssm_scan_bwd_kernel_matches_plain(dev, b, t, d, n, with_gs):
+    """The backward kernel against the float64 plain backward within
+    ``chip_smoke.SCAN_BWD_REL`` of the backward on absolute values
+    (``scan_bwd_magnitude``), bv/cv strided at N = 16; two calls bitwise;
+    one counted launch a call."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_bwd_torch
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_bwd_cuda
+    cs = _chip_smoke()
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + t * 10 + n)
+    cs.DEVICE = dev
+    xs = cs.scan_bwd_inputs(gen, b, t, d, n, strided=n == 16)
+    gs = xs[7] if with_gs else None
+    before = ssm_chunk_scan_bwd_cuda.launches
+    got = ssm_chunk_scan_bwd_cuda(*xs[:7], gs)
+    again = ssm_chunk_scan_bwd_cuda(*xs[:7], gs)
+    assert ssm_chunk_scan_bwd_cuda.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    x64 = [x.double() for x in xs]
+    want = ssm_chunk_scan_bwd_torch(*x64[:7], x64[7] if with_gs else None)
+    mag = cs.scan_bwd_magnitude(*xs[:7], xs[7] if with_gs
+                                else torch.zeros_like(xs[7]))
+    assert cs.scan_bwd_over(got, want, mag)[1] <= 1.0
+
+
+def _reduced_grads(cfg, params, toks):
+    from repro_torch import tree as T
+    from repro_torch.models import api
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss, _ = api.loss_fn(cfg)(params, batch)
+    return loss.detach(), torch.autograd.grad(loss, T.leaves(params))
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-125m"])
+def test_training_on_card_equals_cpu_and_launches(dev, name):
+    """Reduced hymba (a window of 32 crossed at T = 48) and xLSTM in
+    float32, TF32 off: loss and every gradient on the card against the
+    CPU (rtol 1e-4, atol 1e-4 of the leaf's largest |gradient|); hymba's
+    scan forward launched twice a layer (the forward and the remat
+    recompute) and its backward once a layer; xLSTM none; without grad
+    one forward a layer and no backward."""
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.ssm_scan.ssm_scan import (ssm_chunk_scan_bwd_cuda,
+                                                       ssm_chunk_scan_cuda)
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[name].reduced(dtype="float32", chunk_size=16)
+    params = api.init_fn(cfg, dev)(0)
+    cpu = T.tree_map(lambda p: p.detach().cpu().requires_grad_(), params)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 49)))
+    f0, b0 = ssm_chunk_scan_cuda.launches, ssm_chunk_scan_bwd_cuda.launches
+    loss, grads = _reduced_grads(cfg, params, toks.to(dev))
+    scan = name == "hymba-1.5b"
+    assert ssm_chunk_scan_cuda.launches - f0 == 2 * cfg.n_layers * scan
+    assert ssm_chunk_scan_bwd_cuda.launches - b0 == cfg.n_layers * scan
+    closs, cgrads = _reduced_grads(cfg, cpu, toks)
+    torch.testing.assert_close(loss.cpu(), closs, rtol=1e-4, atol=0)
+    for (path, _), g, w in zip(T.leaves_with_paths(cpu), grads, cgrads):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * float(
+            w.abs().max()), msg=path)
+    f0, b0 = ssm_chunk_scan_cuda.launches, ssm_chunk_scan_bwd_cuda.launches
+    with torch.no_grad():
+        api.prefill_fn(cfg)(params, {"tokens": toks[:, :32].to(dev)})
+    assert ssm_chunk_scan_cuda.launches - f0 == cfg.n_layers * scan
+    assert ssm_chunk_scan_bwd_cuda.launches == b0
 
 
 if __name__ == "__main__":

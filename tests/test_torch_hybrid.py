@@ -283,12 +283,18 @@ def test_init_tree_and_caches_match_jax(dtype):
     assert not transformer.uses_scan(cfg)
 
 
-def test_hybrid_serves_but_does_not_train():
-    cfg = ARCHS["hymba-1.5b"].reduced()
-    api.init_fn(cfg, "cpu")
+def test_hybrid_trains_and_serves():
+    """Every entry point takes hymba: serving, and since the backward scan
+    kernel also ``loss_fn`` and the train shape (the gradients against JAX
+    are in ``tests/test_torch_ssm_train.py``)."""
+    cfg = ARCHS["hymba-1.5b"].reduced(dtype="float32")
+    params = api.init_fn(cfg, "cpu")(0)
     api.prefill_fn(cfg), api.decode_fn(cfg)
     api.input_specs(cfg, api.ShapeSpec("d", 8, 1, "decode"), device="cpu")
-    for call in (lambda: api.loss_fn(cfg),
-                 lambda: api.input_specs(cfg, api.SHAPES["train_4k"])):
-        with pytest.raises(ValueError, match="SSM.*ROADMAP A10"):
-            call()
+    batch = api.input_specs(cfg, api.SHAPES["train_4k"], device="meta")
+    assert batch["labels"].shape == (256, 4096)
+    _, tt = _tokens(cfg, 2, 9, 0)
+    loss, _ = api.loss_fn(cfg)(params, {"tokens": tt[:, :-1],
+                                        "labels": tt[:, 1:]})
+    grads = torch.autograd.grad(loss, T.leaves(params))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

@@ -75,6 +75,13 @@ _HYBRID_PATH = ("repro_torch.kernels.ssm_scan",
                 "repro_torch.kernels.ssm_scan.ops", "repro_torch.models.ssm",
                 "repro_torch.configs.hymba_1_5b")
 
+# the modules of xLSTM (mLSTM and sLSTM in models.ssm) and of training
+# the hybrid and xLSTM families (the backward scan in the scan's modules)
+_SSM_PATH = ("repro_torch.configs.xlstm_125m", "repro_torch.models.ssm",
+             "repro_torch.kernels.ssm_scan.ops",
+             "repro_torch.kernels.ssm_scan.ref",
+             "repro_torch.kernels.ssm_scan.ssm_scan")
+
 # the modules of the congestion/fleet penalty loop
 _FLEET_PATH = ("repro_torch.core.congestion", "repro_torch.engine.congestion",
                "repro_torch.collectives.schedule")
@@ -100,7 +107,7 @@ def test_port_imports_without_jax_or_repro():
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
          *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
          *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH, *_CORE_REST,
-         *_DIST_PATH],
+         *_DIST_PATH, *_SSM_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) == 81     # every module imported

@@ -126,15 +126,13 @@ def test_init_tree_matches_jax_and_converter_round_trips(name):
 
 @pytest.mark.parametrize("name,what", [
     ("kimi-k2-1t-a32b", "MoE"), ("deepseek-v2-236b", "MoE"),
-    ("minicpm3-4b", "MLA"), ("xlstm-125m", "SSM"), ("hymba-1.5b", "SSM"),
-    ("llava-next-34b", "VLM"), ("whisper-large-v3", "encoder-decoder")])
+    ("minicpm3-4b", "MLA"), ("llava-next-34b", "VLM"),
+    ("whisper-large-v3", "encoder-decoder")])
 def test_other_families_raise_naming_the_roadmap(name, what):
-    """None of them trains; hymba serves, so its init runs
-    (tests/test_torch_hybrid.py), and only its training raises."""
+    """None of them trains or initialises (hymba and xLSTM do both:
+    tests/test_torch_ssm_train.py, tests/test_torch_xlstm.py)."""
     cfg = ARCHS[name].reduced()
-    calls = [lambda: api.loss_fn(cfg)]
-    if name != "hymba-1.5b":
-        calls.append(lambda: api.init_fn(cfg, "cpu"))
+    calls = [lambda: api.loss_fn(cfg), lambda: api.init_fn(cfg, "cpu")]
     for call in calls:
         with pytest.raises(ValueError, match=f"{what}.*ROADMAP A10"):
             call()
