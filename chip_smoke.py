@@ -14,6 +14,7 @@
     python3 chip_smoke.py --dist         # only phase 14, one rank a worker
     python3 chip_smoke.py --ssm          # only phase 15, SSM training, xLSTM
     python3 chip_smoke.py --xlstm-witness  # only xLSTM's gate readings
+    python3 chip_smoke.py --scan-rows    # only the scan's rows, timed
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -278,11 +279,18 @@ plain torch version on the inputs the paths give it. Phases:
    within ``SCAN_BWD_REL`` = 2^-10 of M, the same backward on absolute
    values (which bounds each output's sum of term magnitudes): the JAX
    test shapes, T = 1, 77 and 45, with and without gs_final; then at (2,
-   4096, 3200, 16), where three planted faults (the adjoint carry dropped
+   4096, 3200, 16), where four planted faults (the adjoint carry dropped
    at one step, batch row 0 left out of gA, gdelta without its decay
-   term) must exceed the limit, two calls equal bit for bit, timed by CUDA
-   events and the profiler's device time against its bound and the plain
-   backward, and at batch 1. 15b: a float32 hymba-1.5b of 2 layers at its
+   term, one of the kernel's segments of T walked with a zero carry in)
+   must exceed the limit (its worst case printed term by term), two calls
+   equal bit for bit, the backward fed the forward's run checkpoints
+   equal to the one that writes its own and the forward's y and s_final
+   unchanged by writing them, timed by CUDA events and the profiler's
+   device time against its bound and the plain backward; then at batch 1,
+   the training cell's (another cut of T), within the limit of the
+   float64 plain backward with the segment fault beyond it, two calls
+   bitwise, timed (with the bytes a call moves, reckoned from the
+   kernels' layout). 15b: a float32 hymba-1.5b of 2 layers at its
    published widths (the window cut to 128 so 256 tokens cross it; TF32
    off), 3 trainer steps on the card and on the CPU, losses within 1e-4;
    then ``hymba-1.5b-train-dp2-b2-t4096-topk``: hymba-1.5b at full width
@@ -314,6 +322,8 @@ update to the CPU's, the readings ``CHAOS_LOSS_RTOL`` sits between.
 ``--xlstm-witness`` runs none either: it prints xlstm-125m's decode-vs-
 fresh-prefill readings after 1, 8 and 64 steps, with and without the
 states handed over, the readings ``SERVE_XLSTM_BF16_DIFF`` sits between.
+``--scan-rows`` checks only row 6d and times the scan's rows and hymba's
+decode step, to compare with another checkout (see :func:`scan_rows`).
 ``--solve`` runs phases 1-4 only and prints the solve's kernel rows;
 ``--fleet`` runs phases 1 and 11 and prints the loop's kernel cells;
 ``--runtime`` runs phases 1 and 12 and prints the runtime's cells;
@@ -1680,7 +1690,7 @@ class TopkLeafCheck:
         return ms
 
 
-def _mem_line(name, params, opt, ef, n_dev, n_partials) -> str:
+def _mem_line(name, params, opt, ef, n_dev, n_partials, extra=None) -> str:
     from repro_torch import tree as T
     gb = lambda b: f"{b / 1e9:.2f} GB"
     pb, d_max = T.nbytes(params), max(p.numel() for p in T.leaves(params))
@@ -1690,7 +1700,8 @@ def _mem_line(name, params, opt, ef, n_dev, n_partials) -> str:
         "executor partials and result (largest leaf)":
             (n_partials + 1) * d_max * 2,
         "compression temporaries (largest leaf)": 4 * 4 * d_max + d_max,
-        "top-k candidate buffer (largest leaf)": d_max // 16 * 4}
+        "top-k candidate buffer (largest leaf)": d_max // 16 * 4,
+        **(extra or {})}
     return (f"{name}: memory reckoned from the code: "
             + ", ".join(f"{k} {gb(v)}" for k, v in parts.items())
             + f"; sum {gb(sum(parts.values()))}")
@@ -5276,8 +5287,19 @@ SCAN_BWD_CELL = (2, 4096, HYMBA_DI, HYMBA_N)
 # (n - 1) u of its terms' magnitudes, 4,096 x 2^-24 = 2.4e-4 of M, and the
 # decays' ex2.approx errors (2^-22 each, phase 10a) add a few u more. The
 # limit 2^-10 = 9.8e-4 of M lies above that worst case; phase 15a prints
-# the largest reading (err / M) beside it and three planted faults, each
+# the largest reading (err / M) beside it and four planted faults, each
 # of which must exceed it.
+# The segmented backward (T cut into S segments walked in parallel) keeps
+# the terms and changes their order: a segment's carry out is c + P x (its
+# carry in), c its carry out from a zero carry in and P its decays'
+# product, which carries the same roundings and ex2.approx errors as the
+# sequential carry's products over the same steps; each segment boundary a
+# carry crosses adds one FMA rounding, at most (S - 1) u of M. gA becomes
+# running sums over a segment's steps, then B x S partials: (T / S + B S)
+# u, under the 4,096 u above; the sums over d become shuffle trees and
+# fixed-order sums over warps and blocks, shorter than running sums. So
+# the worst case grows by at most (S - 1) u (S <= 128 runs at T = 4,096:
+# 7.6e-6 of M) and the limit stands (``scan_bwd_limit`` prints the terms).
 SCAN_BWD_REL = 2.0 ** -10
 # The xLSTM serving cell's decode logits against a fresh prefill, as a share
 # of the largest logit, in bfloat16 at full depth, read after 1 decode step
@@ -5414,32 +5436,79 @@ def scan_bwd_bound(b, t, d, n) -> dict:
     """The backward's least time on the H100, the largest of three: bytes
     (u, gy read and gu written once; delta, B, C read and their gradients
     written once; A, s0, gs_final read and gA, gs0 written once; float32)
-    over the memory rate; exponentials (two per (b, t, d, n): the forward's
-    state is rebuilt, the adjoint needs e_t) over the special function
+    over the memory rate; exponentials (one per (b, t, d, n): e_t, which
+    the rebuilt state and the adjoint share) over the special function
     units' rate at the card's clock; float32 operations (21 per (b, t, d,
     n): 4 to rebuild the state, 17 for the adjoint and the five gradients'
-    terms) over the float32 rate."""
+    terms) over the float32 rate. ``bound_by`` names the largest:
+    "bytes", "exponentials" or "operations"."""
     nbytes = 4 * (3 * b * t * d + 2 * b * t * (2 * n + 1) + 2 * d * n
                   + 3 * b * d * n)
-    exps = 2 * b * t * d * n
+    exps = b * t * d * n
     ops = 21 * b * t * d * n
     clock = sm_clock_hz()
     times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "exps": exps / (SFU_EXP_PER_SM_CLOCK * H100_SMS * clock) * 1e3,
              "operations": ops / FP32_OPS_PER_S * 1e3}
     worst = max(times, key=times.get)
-    return dict(bound_ms=times[worst], bound_by=("bytes" if worst == "bytes"
-                                                 else "operations"),
+    return dict(bound_ms=times[worst],
+                bound_by="exponentials" if worst == "exps" else worst,
                 bound_parts_ms=times, sm_clock_hz=clock)
 
 
+def scan_bwd_bytes(b, t, d, n, segments: int) -> dict:
+    """The bytes a backward call moves, reckoned from its kernels' layout
+    (``csrc/ssm_scan.cu``; float32): the carry pass reads gy, C and delta
+    of segments 1..S-1 and writes their (c, P); the walk reads u, gy,
+    delta, B, C, the checkpoints and the segments' (c, P) once (a block
+    reads every later segment's, S (S - 1) / 2 in all, 7.8 MB at 19
+    segments of hymba's batch 1: from L2 after the first) and writes gu,
+    its blocks' partials (B T (2N + 1) floats a block of 64 channels) and
+    gA's per (row, segment) partials; the finish reads the partials and
+    writes gB, gC, gdelta and gA."""
+    from repro_torch.kernels.ssm_scan.ref import checkpoint_shape
+    cols = checkpoint_shape(b, t, d, n)[3]          # 4 x lanes
+    nblk = -(-d // (64 if cols <= 16 else 32))
+    f = (segments - 1) / segments
+    pairs = 2 * b * d * cols                        # one segment's (c, P)
+    carry = f * b * t * (d + n + 1) + (segments - 1) * pairs
+    walk = (3 * b * t * d + b * t * (2 * n + 1)
+            + math.prod(checkpoint_shape(b, t, d, n))
+            + (segments - 1) * pairs
+            + nblk * b * t * (2 * n + 1)
+            + b * segments * d * n + d * n + b * d * n)
+    finish = (nblk * b * t * (2 * n + 1) + b * segments * d * n
+              + b * t * (2 * n + 1) + d * n)
+    parts = {"carry": 4 * carry, "walk": 4 * walk, "finish": 4 * finish}
+    return dict(parts, total=sum(parts.values()),
+                partials=4 * 2 * nblk * b * t * (2 * n + 1))
+
+
+def scan_bwd_limit(b, t, segments: int) -> str:
+    """The terms of :data:`SCAN_BWD_REL`'s worst case at (b, t) cut into
+    ``segments``, as shares of M (the comment there)."""
+    u = 2.0 ** -24
+    run = (t - 1) * u
+    seg = (segments - 1) * u
+    ga = (-(-t // segments) + b * segments) * u
+    ex2 = 4 * u
+    total = run + seg + ex2
+    return (f"limit {SCAN_BWD_REL:.4g} M against its worst case "
+            f"{total:.3g} M: a {t}-term running sum {run:.3g}, the carry "
+            f"fold across {segments} segments {seg:.3g}, ex2.approx a few u "
+            f"{ex2:.3g}; gA's segment sums and partials {ga:.3g} (under "
+            f"the running sum)")
+
+
 def scan_bwd_faults(xs, got, want, mag, t0: int) -> dict:
-    """The three planted faults, built from the kernel's own results:
+    """The four planted faults, built from the kernel's own results:
     the adjoint carry dropped at step ``t0`` (the backward of steps [0, t0)
     run from gs_final 0, its results in place of the whole run's there);
     batch row 0 left out of gA's partials (gA of the call on rows 1..B-1);
     gdelta without its decay term (its u B term alone, sum_d u gu /
-    delta from the kernel's gu). {fault: max error / limit}."""
+    delta from the kernel's gu); one segment of the kernel's cut of T
+    walked with a zero carry in (:func:`scan_bwd_segment_fault`). {fault:
+    max error / limit}."""
     import torch
 
     from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_bwd_cuda
@@ -5463,27 +5532,71 @@ def scan_bwd_faults(xs, got, want, mag, t0: int) -> dict:
     faulty[1] = ((u * got[0]).sum(-1, keepdim=True) / dl)
     out["gdelta without its decay term"] = scan_bwd_over(
         faulty, want, mag)[1]
+    out.update([scan_bwd_segment_fault(xs, got, want, mag)])
     return out
+
+
+def scan_bwd_segment_fault(xs, got, want, mag) -> tuple[str, float]:
+    """The fourth planted fault: the middle segment of the kernel's cut
+    of T walked with a zero carry in (the backward of its steps alone,
+    from the forward's state at its start and gs_final 0, in place of the
+    whole run's there; gA and gs0 the run's). (label, max error /
+    limit)."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.ssm_scan import (
+        bwd_plan, ssm_chunk_scan_bwd_cuda, ssm_chunk_scan_cuda)
+    u, dl, bv, cv, a, s0, gy, gs = xs
+    nseg, seg = bwd_plan(u, bv)
+    check(nseg >= 2, f"scan backward: {nseg} segment(s), no segment fault")
+    lo = nseg // 2 * seg
+    hi = min(u.shape[1], lo + seg)
+    s_lo = ssm_chunk_scan_cuda(*(x[:, :lo] for x in (u, dl, bv, cv)), a,
+                               s0)[1]
+    part = ssm_chunk_scan_bwd_cuda(*(x[:, lo:hi] for x in (u, dl, bv, cv)),
+                                   a, s_lo, gy[:, lo:hi], None)
+    faulty = [torch.cat([g[:, :lo], p, g[:, hi:]], 1)
+              for p, g in zip(part[:4], got[:4])] + list(got[4:])
+    return (f"segment {nseg // 2} of {nseg} (steps {lo}-{hi - 1}) walked "
+            "with a zero carry in", scan_bwd_over(faulty, want, mag)[1])
 
 
 def scan_bwd_cell(b=SCAN_BWD_CELL[0], t=SCAN_BWD_CELL[1],
                   d=SCAN_BWD_CELL[2], n=SCAN_BWD_CELL[3]) -> dict:
     """Phase 15a at (b, t, d, n): the backward kernel held elementwise to
     :data:`SCAN_BWD_REL` of the float64 plain backward on the same inputs,
-    three planted faults beyond it, two calls bitwise; times by CUDA
+    four planted faults beyond it, two calls bitwise, the backward fed the
+    forward's checkpoints bitwise the one that writes its own, the forward's
+    y and s_final bitwise with and without the checkpoints; times by CUDA
     events and by the profiler's device time against the bound and the
-    plain backward (float32); and at batch 1, the training cell's one
-    sequence a worker."""
+    plain backward (float32), with the forward that writes the checkpoints
+    timed beside the one that does not; and at batch 1, the training cell's
+    one sequence a worker, whose cut of T differs: there too within the
+    limit of the float64 plain backward, two calls bitwise, the segment
+    fault beyond the limit, and timed."""
     import torch
 
     from repro_torch.kernels.ssm_scan.ref import ssm_chunk_scan_bwd_torch
-    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_chunk_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan.ssm_scan import (
+        bwd_plan, scan_checkpoints, ssm_chunk_scan_bwd_cuda,
+        ssm_chunk_scan_cuda)
     gen = torch.Generator(device=DEVICE).manual_seed(4096)
     xs = scan_bwd_inputs(gen, b, t, d, n, strided=True)
     got = ssm_chunk_scan_bwd_cuda(*xs)
     again = ssm_chunk_scan_bwd_cuda(*xs)
     check(all(torch.equal(_bits(x), _bits(y)) for x, y in zip(got, again)),
           f"scan backward ({b}, {t}, {d}, {n}): two calls differ")
+    ck = scan_checkpoints(xs[0], xs[2])
+    fwd_ck = ssm_chunk_scan_cuda(*xs[:6], ck=ck)
+    fwd = ssm_chunk_scan_cuda(*xs[:6])
+    check(all(torch.equal(_bits(x), _bits(y)) for x, y in zip(fwd, fwd_ck)),
+          f"scan ({b}, {t}, {d}, {n}): y or s_final differ with the "
+          "checkpoints written")
+    del fwd, fwd_ck
+    again = ssm_chunk_scan_bwd_cuda(*xs, ck=ck)
+    check(all(torch.equal(_bits(x), _bits(y)) for x, y in zip(got, again)),
+          f"scan backward ({b}, {t}, {d}, {n}): fed the forward's "
+          "checkpoints, it differs from the call that writes its own")
     del again
     want = ssm_chunk_scan_bwd_torch(*(x.to(torch.float64) for x in xs))
     mag = scan_bwd_magnitude(*xs)
@@ -5499,24 +5612,53 @@ def scan_bwd_cell(b=SCAN_BWD_CELL[0], t=SCAN_BWD_CELL[1],
               f"the limit ({fr:.3g} x); the check cannot see it")
     del want, mag, got
     torch.cuda.empty_cache()
+    nseg = bwd_plan(xs[0], xs[2])
     out = {"max_abs_err": err, "err_over_limit": r,
            "err_over_limit_by_gradient": per,
            "planted_faults": [{"fault": k, "err_over_limit": v}
-                              for k, v in faults.items()]}
-    fn = lambda: ssm_chunk_scan_bwd_cuda(*xs)
+                              for k, v in faults.items()],
+           "limit": scan_bwd_limit(b, t, nseg[0]), "segments": nseg}
+    # the backward fed the checkpoints, as SSMScan calls it
+    fn = lambda: ssm_chunk_scan_bwd_cuda(*xs, ck=ck)
     out["ms"] = cuda_ms(fn, 5)
     out["device_ms"] = device_ms(fn, 3)
     out["plain_ms"] = cuda_ms(lambda: ssm_chunk_scan_bwd_torch(*xs), 1, 0)
+    out["fwd_ck_ms"] = cuda_ms(lambda: ssm_chunk_scan_cuda(*xs[:6], ck=ck), 5)
+    out["fwd_ms"] = cuda_ms(lambda: ssm_chunk_scan_cuda(*xs[:6]), 5)
     out.update(scan_bwd_bound(b, t, d, n))
-    del xs
+    out["bytes"] = scan_bwd_bytes(b, t, d, n, nseg[0])
+    del xs, ck
     torch.cuda.empty_cache()
     x1 = scan_bwd_inputs(gen, 1, t, d, n, strided=True)
-    fn1 = lambda: ssm_chunk_scan_bwd_cuda(*x1)
+    ck1 = scan_checkpoints(x1[0], x1[2])
+    ssm_chunk_scan_cuda(*x1[:6], ck=ck1)
+    fn1 = lambda: ssm_chunk_scan_bwd_cuda(*x1, ck=ck1)
+    got = fn1()
+    again = fn1()
+    check(all(torch.equal(_bits(x), _bits(y)) for x, y in zip(got, again)),
+          f"scan backward (1, {t}, {d}, {n}): two calls differ")
+    del again
+    want = ssm_chunk_scan_bwd_torch(*(x.to(torch.float64) for x in x1))
+    mag = scan_bwd_magnitude(*x1)
+    err1, r1 = scan_bwd_over(got, want, mag)
+    check(r1 <= 1.0, f"scan backward (1, {t}, {d}, {n}): {r1:.4g} x the "
+          f"limit {SCAN_BWD_REL} M (max |err| {err1})")
+    label1, fr1 = scan_bwd_segment_fault(x1, got, want, mag)
+    check(fr1 > 1.0, f"scan backward (1, {t}, {d}, {n}): the planted fault "
+          f"'{label1}' passes the limit ({fr1:.3g} x); the check cannot "
+          "see it")
+    del want, mag, got
+    torch.cuda.empty_cache()
+    out.update(batch1_max_abs_err=err1, batch1_err_over_limit=r1,
+               batch1_planted_fault={"fault": label1, "err_over_limit": fr1})
     out["batch1_ms"] = cuda_ms(fn1, 5)
     out["batch1_device_ms"] = device_ms(fn1, 3)
     b1 = scan_bwd_bound(1, t, d, n)
     out["batch1_bound_ms"] = b1["bound_ms"]
-    del x1
+    out["batch1_segments"] = bwd_plan(x1[0], x1[2])
+    out["batch1_bytes"] = scan_bwd_bytes(1, t, d, n,
+                                         out["batch1_segments"][0])
+    del x1, ck1
     torch.cuda.empty_cache()
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
     say(f"scan backward ({b}, {t}, {d}, {n}) against the float64 plain "
@@ -5524,17 +5666,30 @@ def scan_bwd_cell(b=SCAN_BWD_CELL[0], t=SCAN_BWD_CELL[1],
         f"{SCAN_BWD_REL:.3g} M (by gradient "
         + ", ".join(f"{k} {v:.3g}" for k, v in per.items())
         + "); planted faults " + "; ".join(
-            f"{k}: {v:.4g} x the limit" for k, v in faults.items()))
+            f"{k}: {v:.4g} x the limit" for k, v in faults.items())
+        + f"; {out['limit']}")
+    say(f"scan backward (1, {t}, {d}, {n}) against the float64 plain "
+        f"backward: max |err| {err1:.4g}, {r1:.4g} x the limit; planted "
+        f"fault {label1}: {fr1:.4g} x the limit; "
+        + scan_bwd_limit(1, t, out["batch1_segments"][0]))
     parts = out["bound_parts_ms"]
+    gb = lambda v: f"{v / 1e6:.1f} MB"
     say(f"scan backward ({b}, {t}, {d}, {n}) ({nvidia_smi_line()}): "
         f"{out['ms']:.4f} ms a call by CUDA events, device "
         f"{fmt(out['device_ms'])}, plain {out['plain_ms']:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']}; bytes "
         f"{parts['bytes']:.4f}, exponentials {parts['exps']:.4f} at "
         f"{out['sm_clock_hz'] / 1e6:.0f} MHz, float32 operations "
-        f"{parts['operations']:.4f}); no library call exists; at batch 1 "
-        f"{out['batch1_ms']:.4f} ms (device {fmt(out['batch1_device_ms'])}"
-        f", bound {b1['bound_ms']:.4f} ms)")
+        f"{parts['operations']:.4f}); {nseg[0]} segments of {nseg[1]} "
+        f"steps; bytes a call reckoned {gb(out['bytes']['total'])} "
+        f"(partials {gb(out['bytes']['partials'])}); no library call "
+        f"exists; at batch 1 {out['batch1_ms']:.4f} ms (device "
+        f"{fmt(out['batch1_device_ms'])}, bound {b1['bound_ms']:.4f} ms, "
+        f"{out['batch1_segments'][0]} segments, bytes reckoned "
+        f"{gb(out['batch1_bytes']['total'])}, partials "
+        f"{gb(out['batch1_bytes']['partials'])}); the forward "
+        f"{out['fwd_ck_ms']:.4f} ms writing the checkpoints, "
+        f"{out['fwd_ms']:.4f} ms without")
     return out
 
 
@@ -5659,11 +5814,17 @@ def ssm_train_cell(cfg, name, seq, n_dev=2, steps=3) -> dict:
     step = train.make_step(cfg, ocfg, prog, orch.topo0.n_devices / n_dev,
                            ccfg)
     data = SyntheticLM(cfg, DataConfig(n_dev, seq, seed=0), device=DEVICE)
+    extra = None
+    if scan:        # SSMScan keeps a layer's run checkpoints to its backward
+        from repro_torch.kernels.ssm_scan.ref import checkpoint_shape
+        extra = {"scan checkpoints (one layer)": 4 * math.prod(
+            checkpoint_shape(1, seq, int(cfg.d_inner_mult * cfg.d_model),
+                             cfg.ssm_state))}
     say(f"{name}: params {T.size(params):,} ({T.nbytes(params) / 1e9:.2f} "
         f"GB) in {len(T.leaves(params))} leaves, init {init_s:.1f} s; "
         f"{n_dev} workers x 1 x {seq} tokens; "
         + _mem_line(name, params, opt, ef, n_dev,
-                    exe.device_program(prog, DEVICE).n_partials))
+                    exe.device_program(prog, DEVICE).n_partials, extra))
     losses, walls, timings, prof = [], [], {}, None
     snap = step_peak = None
     per_step = []
@@ -5790,6 +5951,58 @@ def xlstm_witness(steps=(1, 8, 64)) -> None:
     say(nvidia_smi_line())
 
 
+def scan_rows() -> None:
+    """``--scan-rows``: the scan's rows of the package beside this script,
+    to compare two checkouts on one card (copy this script into the other
+    checkout's root and run both in one call, in turns): row 6d, the decode
+    call (:func:`scan_decode_row`); the decode step of
+    ``hymba-1.5b-serve-b4-p32768-g64`` (median of its 64 steps after the
+    prefill, through the bare entry points); the forward and the backward
+    at the training cell's (1, 4096, 3200, 16) and at
+    :data:`SCAN_BWD_CELL`, by CUDA events and the profiler's device time,
+    the backward fed the forward's checkpoints where the package writes
+    them."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ssm_scan as m
+    from repro_torch.models import api
+    row = scan_decode_row()
+    cfg = hymba()
+    params = api.init_fn(cfg, DEVICE)(0)
+    prompts = _prompts(cfg, HYBRID_BATCH, HYBRID_PROMPT, 0, DEVICE)
+    greedy_run(cfg, params, prompts, 2, timed=True)         # warm-up
+    tm = greedy_run(cfg, params, prompts, HYBRID_STEPS, timed=True)[4]
+    del params, prompts
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(tm["step_s"]) * 1e3
+    say(f"scan rows of {SRC}: row 6d {row['ms']:.4f} ms by CUDA events, "
+        "device " + ("not measured" if row["device_ms"] is None
+                     else f"{row['device_ms']:.4f} ms")
+        + f"; {HYBRID_CELL} prefill {tm['prefill_s']:.4f} s, decode median "
+        f"{step_ms:.4f} ms a step (min {min(tm['step_s']) * 1e3:.4f}, max "
+        f"{max(tm['step_s']) * 1e3:.4f}) ({nvidia_smi_line()})")
+    gen = torch.Generator(device=DEVICE).manual_seed(4096)
+    for b in (1, SCAN_BWD_CELL[0]):
+        xs = scan_bwd_inputs(gen, b, *SCAN_BWD_CELL[1:], strided=True)
+        kw = {}
+        if hasattr(m, "scan_checkpoints"):
+            kw["ck"] = m.scan_checkpoints(xs[0], xs[2])
+            m.ssm_chunk_scan_cuda(*xs[:6], ck=kw["ck"])
+        fn = lambda: m.ssm_chunk_scan_bwd_cuda(*xs, **kw)
+        ms, dev = cuda_ms(fn, 10), device_ms(fn, 5)
+        fwd = cuda_ms(lambda: m.ssm_chunk_scan_cuda(*xs[:6]), 10)
+        kernel_profile(fn, f"scan backward ({b}) of {SRC}", top=4,
+                       host=False)
+        say(f"scan rows of {SRC}: backward ({b}, {SCAN_BWD_CELL[1]}, "
+            f"{SCAN_BWD_CELL[2]}, {SCAN_BWD_CELL[3]}) {ms:.4f} ms by CUDA "
+            f"events, device " + ("not measured" if dev is None
+                                  else f"{dev:.4f} ms")
+            + f" ({'fed' if kw else 'no'} checkpoints); the forward "
+            f"{fwd:.4f} ms ({nvidia_smi_line()})")
+        del xs, kw
+        torch.cuda.empty_cache()
+
+
 def ssm_phase() -> dict:
     """Phase 15: the backward scan kernel (15a), hymba training (15b),
     xLSTM serving (15c) and training (15d)."""
@@ -5821,10 +6034,21 @@ def ssm_phase() -> dict:
                   "plain backward (M: the backward on absolute values)",
            "err_over_limit": bwd["err_over_limit"],
            "planted_faults": bwd["planted_faults"],
+           "batch1_max_abs_err": bwd["batch1_max_abs_err"],
+           "batch1_err_over_limit": bwd["batch1_err_over_limit"],
+           "batch1_planted_fault": bwd["batch1_planted_fault"],
            "ms": bwd["ms"], "device_ms": bwd["device_ms"],
            "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-           "bound_by": bwd["bound_by"],
+           # the contract's two kinds: exponentials are operations
+           "bound_by": "bytes" if bwd["bound_by"] == "bytes"
+                       else "operations",
+           "bound_operations": bwd["bound_by"],
            "bound_parts_ms": bwd["bound_parts_ms"],
+           "segments": bwd["segments"],
+           "batch1_segments": bwd["batch1_segments"],
+           "bytes_per_call": bwd["bytes"]["total"],
+           "batch1_bytes_per_call": bwd["batch1_bytes"]["total"],
+           "limit": bwd["limit"],
            "library_ms": None, "library": "none exists",
            "batch1_ms": bwd["batch1_ms"],
            "batch1_device_ms": bwd["batch1_device_ms"],
@@ -5834,7 +6058,7 @@ def ssm_phase() -> dict:
                      "(1, 4096, 3200, 16)",
            "launches_per": f"run of {hy['steps']} training steps, 2 "
                            "workers x 32 layers a step",
-           "kernels_per_call": 2}
+           "kernels_per_call": 3}
     return {"row": row, "hymba_train": hy, "xlstm_serve": xs,
             "xlstm_train": xt, "scan_bwd": bwd}
 
@@ -5845,11 +6069,11 @@ def main(args: list[str]) -> int:
                     ["--attention-rows"], ["--solve"], ["--reduce"],
                     ["--fleet"], ["--runtime"], ["--chaos"],
                     ["--chaos-loss-witness"], ["--dist"], ["--ssm"],
-                    ["--xlstm-witness"]):
+                    ["--xlstm-witness"], ["--scan-rows"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
               f"--runtime | --chaos | --chaos-loss-witness | --dist | "
-              f"--ssm | --xlstm-witness], got {args}",
+              f"--ssm | --xlstm-witness | --scan-rows], got {args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5911,6 +6135,9 @@ def main(args: list[str]) -> int:
         return 0
     if args == ["--xlstm-witness"]:
         xlstm_witness()
+        return 0
+    if args == ["--scan-rows"]:
+        scan_rows()
         return 0
     if args == ["--ssm"]:
         t15 = time.perf_counter()

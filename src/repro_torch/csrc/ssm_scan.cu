@@ -67,10 +67,9 @@
 // chip_smoke.py (scan_f64_bound), from the rounding of the argument,
 // ex2.approx's relative error, flush-to-zero and the order of the sums.
 //
-// The backward (ssm_scan_bwd_kernel, then ssm_scan_bwd_finish) has no TPU
-// twin: the JAX package differentiates a jnp scan. With lambda_t the
-// adjoint of s_t, gy the gradient of y, gs_final that of s_out and
-// e_t = exp(delta_t A):
+// The backward has no TPU twin: the JAX package differentiates a jnp scan.
+// With lambda_t the adjoint of s_t, gy the gradient of y, gs_final that of
+// s_out and e_t = exp(delta_t A):
 //
 //   lambda_t = gy_t C_t + lambda_{t+1} e_{t+1}   (lambda_T: + gs_final)
 //   gu_t = delta_t sum_n lambda_t B_t      gB_t = sum_d lambda_t delta_t u_t
@@ -78,38 +77,63 @@
 //   gdelta_t = sum_{d,n} lambda_t (u_t B_t + s_{t-1} e_t A)
 //   gA = sum_{b,t} lambda_t s_{t-1} e_t delta_t
 //
-// Its design:
-//  - the same threads and blocks as the forward (a thread owns 4 states of
-//    one (b, d) for the whole sequence), so the forward's states can be
-//    recomputed with the forward's own arithmetic (ex2.approx.ftz of
+// Its design (three kernels on the stream):
+//  - checkpoints: the forward kernel, given ck, stores each thread's four
+//    states at the start of every 32-step run, (B, ceil(T/32), D, 4 L): one
+//    float4 store a thread a run. The backward rebuilds a run's states from
+//    its checkpoint with the forward's own arithmetic (ex2.approx.ftz of
 //    delta * a * log2 e, the explicit FMA; the library is built with
-//    -fmad=false): the recomputed states are bitwise the forward's. The
-//    forward is never run backwards (s_{t-1} = (s_t - w_t) / e_t): the
-//    decay flushes to zero;
-//  - pass 1 walks forward over runs of kRun = 32 steps, writes the state at
-//    each run's start to a checkpoint scratch (B, ceil(T/32), D, 4 L) and
-//    takes gC's partial sums, which need only gy and s_t; pass 2 walks the
-//    runs in reverse: it recomputes the run's states from its checkpoint
-//    into shared memory, then walks the run's steps backwards, carrying
-//    lambda in registers;
-//  - the sums across d (gB, gC, gdelta) are per-block partials, summed
-//    over the block's channels in a fixed order in shared memory at the
-//    end of each run, then over the blocks by the second kernel
-//    (ssm_scan_bwd_finish), also in a fixed order, which also sums gA's
-//    per-batch-row partials. No float atomics: repeated calls, and the
-//    recompute of a checkpointed layer, agree bit for bit.
-// What it gives up: each thread walks T steps twice (and recomputes each
-// run once more), so, as the forward at batch 1, it is latency-bound at
-// one sequence a worker; the inputs are staged with plain loads, not the
-// forward's asynchronous copies. chip_smoke.py times it against its bound
-// and holds it against the plain backward in float64.
+//    -fmad=false), so they are bitwise the forward's. The forward is never
+//    run backwards (s_{t-1} = (s_t - w_t) / e_t): the decay flushes to zero;
+//  - parallel over T: the runs are cut into S segments of G runs, S chosen
+//    from the card's resident blocks so that (D / channels a block) x B x S
+//    blocks fill it about four times over (bwd_plan). The adjoint is
+//    linear in its carry, so a segment's
+//    carry out is c + P x (its carry in), c its carry out from a zero carry
+//    in and P the product of its decays, which need only gy, C and delta.
+//    ssm_scan_bwd_carry_kernel computes (c, P) of segments 1..S-1; each
+//    block of ssm_scan_bwd_kernel then folds gs_final through the later
+//    segments' (c, P), last first, and walks its own runs backwards from
+//    that true carry;
+//  - in registers: a run's checkpoint is stepped forward to the starts of
+//    its four 8-step sub-runs; each sub-run's nine states and eight decays
+//    are rebuilt into registers and walked back, carrying lambda. Nothing
+//    of a thread's per-step terms goes through shared memory: gB and gC
+//    (8 values a thread and step) are summed over the warp's channels by a
+//    reduce-scatter of shuffles (7 a step at L = 4), gdelta and gu over a
+//    sub-run's 8 steps at once; each warp writes one value per output to
+//    shared memory, and the block sums its warps in order. A block is 64
+//    channels (256 threads at L = 4; 32 channels at L = 8), about 58 KB of
+//    shared memory at L = 4;
+//  - staging: the run before the one being walked (delta, B, C, u, gy) is
+//    copied in by cp.async while this one is walked, as in the forward;
+//  - partials: per block (gB, gC, gdelta of each step: B T (2 N + 1)
+//    floats) and per (batch row, segment) for gA, summed in a fixed order
+//    by ssm_scan_bwd_finish, which writes gbv, gcv, gdelta and ga; segment
+//    0 writes gs0. No float atomics: two calls on one card agree bit for
+//    bit (S depends only on the shapes and the card).
+// Bound at the hymba training cell's batch 1 (T 4,096, D 3,200, N 16):
+// 21 float32 operations an element, 0.066 ms (one exponential an element,
+// e_t, which the state and the adjoint share, takes 0.050 ms on the
+// special function units; the bytes 0.048 ms). The kernels spend up to
+// 2.75 exponentials an element (the carry pass 1 but in segment 0, the
+// sub-run starts 0.75, the sub-run 1), and the walk about 167
+// instructions a thread and step (4 elements), so its instruction count
+// bounds it. chip_smoke.py times the three kernels
+// against the bound and holds them against the plain backward in float64
+// (ref.ssm_chunk_scan_bwd_seg_torch is the same order on the CPU).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 64;
 constexpr int kNS = 4;                    // states a thread owns
 constexpr int kRun = 32;                  // timesteps staged per pass
+constexpr int kSub = 8;                   // backward: steps held in registers
+constexpr int kBwdChannels = 64;         // backward: channels a block
+constexpr int kBwdMinBlocks = 2;          // backward: blocks an SM (registers)
 constexpr int kMaxN = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -175,13 +199,13 @@ __device__ __forceinline__ float reduce_scatter(float (&p)[L], int lane) {
   return p[0];
 }
 
-template <int L>
+template <int L, bool kCk>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
                 const float* __restrict__ bv, const float* __restrict__ cv,
                 const float* __restrict__ a, const float* s0,
-                float* __restrict__ y, float* s_out, int T, int D, int N,
-                Views v) {
+                float* __restrict__ y, float* s_out, float4* __restrict__ ck,
+                int T, int D, int N, Views v) {
   constexpr int kCh = kThreads / L;       // channels per block
   constexpr int kCols = kNS * L;          // states of a channel, N padded
   // two buffers: the next run is copied in while this one is computed
@@ -210,6 +234,10 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
   const float* bb = bv + b * v.b_b;
   const float* cb = cv + b * v.c_b;
   float* yb = y + static_cast<long long>(b) * T * D;
+  // the run checkpoints of this thread's states, a run D * L float4s apart
+  const int R = (T + kRun - 1) / kRun;
+  float4* ckb = kCk ? ck + (static_cast<long long>(b) * R * D + d) * L + lane
+                    : nullptr;
 
   // Copies of one run: each thread copies B and C column kb of rows rb,
   // rb + kRowsB, ..., and u of channel ku of rows ru, ru + kRowsU, ...
@@ -276,6 +304,9 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
   stage(0, 0);
   for (int t0 = 0, buf = 0; t0 < T; t0 += kRun, buf ^= 1) {
     const int nr = min(kRun, T - t0);
+    if (kCk && d < D)                     // the state at this run's start
+      ckb[static_cast<long long>(t0 / kRun) * D * L] =
+          make_float4(s[0], s[1], s[2], s[3]);
     if (t0 + kRun < T) {                  // the next run's copies in flight
       stage(t0 + kRun, buf ^ 1);
       copy_wait<1>();
@@ -306,287 +337,532 @@ ssm_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
 template <int L>
 cudaError_t launch(const float* u, const float* dt, const float* bv,
                    const float* cv, const float* a, const float* s0, float* y,
-                   float* s_out, int B, int T, int D, int N, Views v,
-                   cudaStream_t stream) {
+                   float* s_out, float4* ck, int B, int T, int D, int N,
+                   Views v, cudaStream_t stream) {
   constexpr int kCh = kThreads / L;
   const dim3 grid((D + kCh - 1) / kCh, B);
-  ssm_scan_kernel<L><<<grid, kThreads, 0, stream>>>(u, dt, bv, cv, a, s0, y,
-                                                    s_out, T, D, N, v);
+  if (ck != nullptr)
+    ssm_scan_kernel<L, true><<<grid, kThreads, 0, stream>>>(
+        u, dt, bv, cv, a, s0, y, s_out, ck, T, D, N, v);
+  else                                    // serving: no checkpoint stores
+    ssm_scan_kernel<L, false><<<grid, kThreads, 0, stream>>>(
+        u, dt, bv, cv, a, s0, y, s_out, ck, T, D, N, v);
   return cudaGetLastError();
 }
 
-// Shared memory of the backward, in floats: the run's staged delta, B, C,
-// u and gy, then gu and gdelta's per-thread terms, the run's states and the
-// per-thread terms of gB (of gC in pass 1), the last two as float4.
+// Sums v[0..K) of each lane over the lanes that differ from it only in the
+// lane bits O, O / 2, ..., LO, in a fixed tree: while more than one value
+// is left, a level sends half of them to the partner lane and keeps the
+// other half (a reduce-scatter); after that it adds the partner's one
+// value. The lane ends with max(1, K >> levels) whole sums in v[0..),
+// those of values held_first<K, O, LO>(lane), + 1, ...
+template <int K, int O, int LO, int KA>
+__device__ __forceinline__ void reduce_lanes(float (&v)[KA], int lane) {
+  if constexpr (O >= LO && O > 0) {
+    if constexpr (K > 1) {
+      constexpr int H = K / 2;
+      const bool up = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? v[i] : v[i + H];
+        const float keep = up ? v[i + H] : v[i];
+        v[i] = keep + __shfl_xor_sync(kFull, send, O);
+      }
+      reduce_lanes<H, O / 2, LO>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(kFull, v[0], O);
+      reduce_lanes<1, O / 2, LO>(v, lane);
+    }
+  }
+}
+
+template <int K, int O, int LO>
+__device__ __forceinline__ int held_first(int lane) {
+  if constexpr (O >= LO && O > 0 && K > 1)
+    return ((lane & O) != 0 ? K / 2 : 0) + held_first<K / 2, O / 2, LO>(lane);
+  else
+    return 0;
+}
+
+// The backward's block: kBwdChannels channels of L lanes (at most 256
+// threads: 32 channels at L = 8), and its shared memory in floats: two staging
+// buffers of a run (delta, B and C of kCols columns, u and gy of the
+// block's channels), then two buffers of the warps' sums of a sub-run (kW
+// a step: gB and gC of kCols columns, gdelta).
 template <int L>
-struct BwdSmem {
+struct Bwd {
+  static constexpr int kThreads =
+      kBwdChannels * L < 256 ? kBwdChannels * L : 256;
   static constexpr int kCh = kThreads / L, kCols = kNS * L;
+  static constexpr int kWarps = kThreads / 32, kW = 2 * kCols + 1;
   static constexpr int dt = 0, b = dt + kRun, c = b + kRun * kCols,
                        u = c + kRun * kCols, g = u + kRun * kCh,
-                       gu = g + kRun * kCh, gd = gu + kRun * kCh,
-                       s = gd + kRun * kThreads, gb = s + kRun * kThreads * kNS,
-                       floats = gb + kRun * kThreads * kNS;
-  static_assert(s % 4 == 0 && b % 4 == 0 && c % 4 == 0, "float4 alignment");
+                       stage = g + kRun * kCh, w = 2 * stage,
+                       floats = w + 2 * kWarps * kSub * kW;
+  static constexpr int kSmem = floats * static_cast<int>(sizeof(float));
+  static_assert(stage % 4 == 0 && b % 4 == 0 && c % 4 == 0,
+                "float4 alignment");
 };
 
+// The copies of run [t0, t0 + kRun) into a staging buffer, in flight until
+// copy_wait: delta, C and gy, and for the walk (kWalk) B and u; zeros past
+// T, N and D. gb is gy of the batch row (contiguous, D a step).
+template <int L, bool kWalk>
+__device__ __forceinline__ void bwd_stage(float* buf, int t0, int T, int D,
+                                          int N, int d0, const float* db,
+                                          const float* bb, const float* cb,
+                                          const float* ub, const float* gb,
+                                          const Views& v) {
+  using S = Bwd<L>;
+  constexpr int kRowsB = S::kThreads / S::kCols, kRowsU = S::kThreads / S::kCh;
+  const int nr = min(kRun, T - t0), tid = threadIdx.x;
+  if (tid < kRun)
+    copy_async(buf + S::dt + tid, tid < nr ? db + (t0 + tid) * v.d_t : db,
+               tid < nr);
+  const int kb = tid % S::kCols, rb = tid / S::kCols;
+#pragma unroll
+  for (int j = 0; j < kRun / kRowsB; ++j) {
+    const int r = rb + j * kRowsB;
+    const bool in = kb < N && r < nr;
+    if (kWalk)
+      copy_async(buf + S::b + r * S::kCols + kb,
+                 in ? bb + (t0 + r) * v.b_t + kb : bb, in);
+    copy_async(buf + S::c + r * S::kCols + kb,
+               in ? cb + (t0 + r) * v.c_t + kb : cb, in);
+  }
+  const int ku = tid % S::kCh, ru = tid / S::kCh;
+#pragma unroll
+  for (int j = 0; j < kRun / kRowsU; ++j) {
+    const int r = ru + j * kRowsU;
+    const bool in = d0 + ku < D && r < nr;
+    if (kWalk)
+      copy_async(buf + S::u + r * S::kCh + ku,
+                 in ? ub + (t0 + r) * v.u_t + d0 + ku : ub, in);
+    copy_async(buf + S::g + r * S::kCh + ku,
+               in ? gb + static_cast<long long>(t0 + r) * D + d0 + ku : gb,
+               in);
+  }
+  copy_commit();
+}
+
+// Segment seg of B T's runs: runs [seg G, min(R, seg G + G)).
+// ssm_scan_bwd_carry_kernel: grid (blocks over D, S - 1, B); segment
+// blockIdx.y + 1 walks its steps backwards from a zero carry and writes,
+// per state, its carry out c and the product P of its decays to
+// sum_c/sum_p[(b S + seg) D L + d L + lane] (float4s of a thread's states).
 template <int L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Bwd<L>::kThreads)
+ssm_scan_bwd_carry_kernel(const float* __restrict__ dt,
+                          const float* __restrict__ cv,
+                          const float* __restrict__ a,
+                          const float* __restrict__ gy,
+                          float4* __restrict__ sum_c,
+                          float4* __restrict__ sum_p, int T, int D, int N,
+                          int G, Views v) {
+  using S = Bwd<L>;
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z, seg = blockIdx.y + 1, nseg = gridDim.y + 1;
+  const int tid = threadIdx.x, d0 = blockIdx.x * S::kCh;
+  const int ch = tid / L, lane = tid - ch * L, d = d0 + ch, n0 = lane * kNS;
+  const int R = (T + kRun - 1) / kRun;
+  const int k_lo = seg * G, k_hi = min(R, k_lo + G);
+  float a2[kNS], carry[kNS], prod[kNS];
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) {
+    const bool own = d < D && n0 + i < N;
+    a2[i] = (own ? a[static_cast<long long>(d) * N + n0 + i] : 0.f) * kLog2e;
+    carry[i] = 0.f;
+    prod[i] = 1.f;
+  }
+  const float* db = dt + b * v.d_b;
+  const float* cb = cv + b * v.c_b;
+  const float* gb = gy + static_cast<long long>(b) * T * D;
+  auto steps = [&](const float* sm, int nr, auto full) {
+#pragma unroll
+    for (int r = kRun - 1; r >= 0; --r) {
+      if (!decltype(full)::value && r >= nr) continue;   // past T
+      const float dtv = sm[S::dt + r];
+      const float g = sm[S::g + r * S::kCh + ch];
+      const float4 cq = *reinterpret_cast<const float4*>(
+          &sm[S::c + r * S::kCols + n0]);
+      const float cc[kNS] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const float e = ex2(dtv * a2[i]);
+        const float lam = __fmaf_rn(g, cc[i], carry[i]);
+        carry[i] = lam * e;
+        prod[i] = prod[i] * e;
+      }
+    }
+  };
+  bwd_stage<L, false>(smem, (k_hi - 1) * kRun, T, D, N, d0, db, nullptr, cb,
+                      nullptr, gb, v);
+  for (int k = k_hi - 1, buf = 0; k >= k_lo; --k, buf ^= 1) {
+    if (k > k_lo) {                       // the run before in flight
+      bwd_stage<L, false>(smem + (buf ^ 1) * S::stage, (k - 1) * kRun, T, D,
+                          N, d0, db, nullptr, cb, nullptr, gb, v);
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
+    __syncthreads();                      // this run is staged
+    const int nr = min(kRun, T - k * kRun);
+    if (nr == kRun)
+      steps(smem + buf * S::stage, nr, std::true_type{});
+    else
+      steps(smem + buf * S::stage, nr, std::false_type{});
+    __syncthreads();                      // its buffer is free again
+  }
+  if (d < D) {
+    const long long at = ((static_cast<long long>(b) * nseg + seg) * D + d) *
+                             L + lane;
+    sum_c[at] = make_float4(carry[0], carry[1], carry[2], carry[3]);
+    sum_p[at] = make_float4(prod[0], prod[1], prod[2], prod[3]);
+  }
+}
+
+// The walk: grid (blocks over D, S, B). Block (blk, seg, b) folds gs_final
+// through segments S-1..seg+1's (c, P), then walks its runs backwards from
+// the checkpoints ck (the forward's), writing gu, the block's partial sums
+// part[((blk B + b) T + t) (2 N + 1) + x] (x: gB n, gC N + n, gdelta 2 N),
+// gA's partial ga_part[(b S + seg) D N + d N + n] and, in segment 0, gs0.
+template <int L>
+__global__ void __launch_bounds__(Bwd<L>::kThreads, kBwdMinBlocks)
 ssm_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__ dt,
                     const float* __restrict__ bv, const float* __restrict__ cv,
-                    const float* __restrict__ a, const float* __restrict__ s0,
-                    const float* __restrict__ gy, const float* __restrict__ gsf,
-                    float* __restrict__ gu, float* __restrict__ ck,
-                    float* __restrict__ part_b, float* __restrict__ part_c,
-                    float* __restrict__ part_d, float* __restrict__ ga_part,
-                    float* __restrict__ gs0, int T, int D, int N, Views v) {
-  using S = BwdSmem<L>;
+                    const float* __restrict__ a, const float* __restrict__ gy,
+                    const float* __restrict__ gsf,
+                    const float4* __restrict__ ck,
+                    const float4* __restrict__ sum_c,
+                    const float4* __restrict__ sum_p, float* __restrict__ gu,
+                    float* __restrict__ part, float* __restrict__ ga_part,
+                    float* __restrict__ gs0, int T, int D, int N, int G,
+                    Views v) {
+  using S = Bwd<L>;
   constexpr int kCh = S::kCh, kCols = S::kCols;
   extern __shared__ __align__(16) float smem[];
-  float* sh_dt = smem + S::dt;
-  float* sh_b = smem + S::b;
-  float* sh_c = smem + S::c;
-  float* sh_u = smem + S::u;
-  float* sh_g = smem + S::g;
-  float* sh_gu = smem + S::gu;
-  float* sh_gd = smem + S::gd;
-  float4* sh_s = reinterpret_cast<float4*>(smem + S::s);
-  float4* sh_gb = reinterpret_cast<float4*>(smem + S::gb);
-
-  const int B = gridDim.y, b = blockIdx.y, blk = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int B = gridDim.z, b = blockIdx.z, seg = blockIdx.y;
+  const int nseg = gridDim.y, blk = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, wl = tid & 31;
   const int d0 = blk * kCh;
-  const int ch = tid / L, lane = tid - ch * L;
-  const int d = d0 + ch;
-  const int n0 = lane * kNS;
+  const int ch = tid / L, lane = tid - ch * L, d = d0 + ch, n0 = lane * kNS;
   const int R = (T + kRun - 1) / kRun;
+  const int k_lo = seg * G, k_hi = min(R, k_lo + G);
+  const int W = 2 * N + 1;
   const long long si = (static_cast<long long>(b) * D + d) * N;
-  float a1[kNS], a2[kNS], s[kNS], carry[kNS], gA[kNS];
+  float a1[kNS], a2[kNS], carry[kNS], gA[kNS];
 #pragma unroll
   for (int i = 0; i < kNS; ++i) {
     const bool own = d < D && n0 + i < N;
     a1[i] = own ? a[static_cast<long long>(d) * N + n0 + i] : 0.f;
     a2[i] = a1[i] * kLog2e;
-    s[i] = own ? s0[si + n0 + i] : 0.f;
     carry[i] = own && gsf != nullptr ? gsf[si + n0 + i] : 0.f;
     gA[i] = 0.f;
+  }
+  // the carry into this segment: gs_final through the later segments
+  if (d < D) {
+    for (int k = nseg - 1; k > seg; --k) {
+      const long long at = ((static_cast<long long>(b) * nseg + k) * D + d) *
+                               L + lane;
+      const float4 c = sum_c[at], p = sum_p[at];
+      carry[0] = __fmaf_rn(p.x, carry[0], c.x);
+      carry[1] = __fmaf_rn(p.y, carry[1], c.y);
+      carry[2] = __fmaf_rn(p.z, carry[2], c.z);
+      carry[3] = __fmaf_rn(p.w, carry[3], c.w);
+    }
   }
   const float* ub = u + b * v.u_b;
   const float* db = dt + b * v.d_b;
   const float* bb = bv + b * v.b_b;
   const float* cb = cv + b * v.c_b;
   const float* gb = gy + static_cast<long long>(b) * T * D;
-  float4* ckb = reinterpret_cast<float4*>(ck) +
-                (static_cast<long long>(b) * R * D + d) * L + lane;
-  const long long ck_run = static_cast<long long>(D) * L;   // float4s a run
-  // partials: part_x[blk][b][t][n], part_d[blk][b][t]
-  const long long pbase = (static_cast<long long>(blk) * B + b) * T;
+  float* gub = gu + static_cast<long long>(b) * T * D;
+  const float4* ckb = ck + (static_cast<long long>(b) * R * D + d) * L + lane;
+  float* pb = part + (static_cast<long long>(blk) * B + b) * T * W;
+  int wbuf = 0;                           // the warp sums' buffer
+  // what the lane holds after the sums over lanes: gB/gC value xb (and
+  // xb + 1 at L = 8) of each step, its column in a warp's row of sums;
+  // gdelta of step rd; sum_n lambda B of steps ru, ru + 1, ...
+  constexpr int kHeld = 2 * kNS * L / 32 > 1 ? 2 * kNS * L / 32 : 1;
+  constexpr int kHeldU = kSub / L > 1 ? kSub / L : 1;
+  const int xb = held_first<2 * kNS, 16, L>(wl);
+  const int col_b = warp * kSub * S::kW + (xb / kNS) * kCols + n0 + xb % kNS;
+  const int rd = held_first<kSub, 16, 1>(wl);
+  const int ru = held_first<kSub, L / 2, 1>(wl);
 
-  auto stage = [&](int t0, int nr) {
-    for (int i = tid; i < kRun; i += kThreads)
-      sh_dt[i] = i < nr ? db[static_cast<long long>(t0 + i) * v.d_t] : 0.f;
-    for (int i = tid; i < kRun * kCols; i += kThreads) {
-      const int r = i / kCols, n = i - r * kCols;
-      const bool in = r < nr && n < N;
-      sh_b[i] = in ? bb[static_cast<long long>(t0 + r) * v.b_t + n] : 0.f;
-      sh_c[i] = in ? cb[static_cast<long long>(t0 + r) * v.c_t + n] : 0.f;
-    }
-    for (int i = tid; i < kRun * kCh; i += kThreads) {
-      const int r = i / kCh, c = i - r * kCh;
-      const bool in = r < nr && d0 + c < D;
-      sh_u[i] =
-          in ? ub[static_cast<long long>(t0 + r) * v.u_t + d0 + c] : 0.f;
-      sh_g[i] = in ? gb[static_cast<long long>(t0 + r) * D + d0 + c] : 0.f;
-    }
-  };
-  // the forward's step r of the staged run, on s
-  auto fwd_step = [&](int r) {
-    const float dtv = sh_dt[r];
-    const float du = dtv * sh_u[r * kCh + ch];
+  // the forward's step r of the staged run on s (none past T)
+  auto fwd_step = [&](const float* sm, int r, bool live, float (&s)[kNS],
+                      float (&e)[kNS]) {
+    const float dtv = sm[S::dt + r];
+    const float du = dtv * sm[S::u + r * kCh + ch];
     const float4 bq =
-        *reinterpret_cast<const float4*>(&sh_b[r * kCols + n0]);
-    s[0] = __fmaf_rn(s[0], ex2(dtv * a2[0]), du * bq.x);
-    s[1] = __fmaf_rn(s[1], ex2(dtv * a2[1]), du * bq.y);
-    s[2] = __fmaf_rn(s[2], ex2(dtv * a2[2]), du * bq.z);
-    s[3] = __fmaf_rn(s[3], ex2(dtv * a2[3]), du * bq.w);
+        *reinterpret_cast<const float4*>(&sm[S::b + r * kCols + n0]);
+    const float bb4[kNS] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      e[i] = live ? ex2(dtv * a2[i]) : 1.f;
+      s[i] = __fmaf_rn(s[i], e[i], du * bb4[i]);
+    }
   };
-  // the sum over the block's channels of per-thread float4 terms: row r,
-  // state n of the run -> out[(t0 + r) * N + n], channels in order
-  auto sum_channels = [&](const float4* terms, float* out, int t0, int nr) {
-    const float* f = reinterpret_cast<const float*>(terms);
-    for (int i = tid; i < kRun * kCols; i += kThreads) {
-      const int r = i / kCols, n = i - r * kCols;
-      if (r < nr && n < N) {
+
+  // one run: staged in sm, steps [t0, t0 + nr), its start's states c0
+  auto walk = [&](const float* sm, int t0, int nr, float4 c0, auto full) {
+    constexpr bool kFull = decltype(full)::value;
+    constexpr int kQ = kRun / kSub;
+    float st[kQ][kNS];                    // the sub-runs' first states
+    st[0][0] = c0.x, st[0][1] = c0.y, st[0][2] = c0.z, st[0][3] = c0.w;
+#pragma unroll
+    for (int q = 1; q < kQ; ++q) {
+      float e[kNS];
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) st[q][i] = st[q - 1][i];
+#pragma unroll
+      for (int r = (q - 1) * kSub; r < q * kSub; ++r)
+        fwd_step(sm, r, kFull || r < nr, st[q], e);
+    }
+#pragma unroll
+    for (int q = kQ - 1; q >= 0; --q) {
+      // the sub-run's states before each step and after its last, and its
+      // decays (1 past T: the carry passes those steps unchanged)
+      float sv[kSub + 1][kNS], ev[kSub][kNS];
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) sv[0][i] = st[q][i];
+#pragma unroll
+      for (int r = 0; r < kSub; ++r) {
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) sv[r + 1][i] = sv[r][i];
+        fwd_step(sm, q * kSub + r, kFull || q * kSub + r < nr, sv[r + 1],
+                 ev[r]);
+      }
+      float pu[kSub], pd[kSub];           // sum_n lambda B; gdelta's terms
+      float* sw = smem + S::w + wbuf * (S::kWarps * kSub * S::kW);
+#pragma unroll
+      for (int r = kSub - 1; r >= 0; --r) {
+        const int rr = q * kSub + r;
+        const float dtv = sm[S::dt + rr];
+        const float uv = sm[S::u + rr * kCh + ch];
+        const float g = sm[S::g + rr * kCh + ch];
+        const float du = dtv * uv;
+        const float4 bq =
+            *reinterpret_cast<const float4*>(&sm[S::b + rr * kCols + n0]);
+        const float4 cq =
+            *reinterpret_cast<const float4*>(&sm[S::c + rr * kCols + n0]);
+        const float bb4[kNS] = {bq.x, bq.y, bq.z, bq.w};
+        const float cc4[kNS] = {cq.x, cq.y, cq.z, cq.w};
+        // gdelta_t's terms sum_n lambda (u B + s_{t-1} e A) = u sum_n
+        // lambda B + sum_n lambda s_{t-1} e A, the first gu's sum too
+        float lam[kNS], vals[2 * kNS], gda = 0.f;
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          lam[i] = __fmaf_rn(g, cc4[i], carry[i]);
+          const float lb = lam[i] * (sv[r][i] * ev[r][i]);  // lambda s e
+          gA[i] = __fmaf_rn(lb, dtv, gA[i]);
+          gda = __fmaf_rn(lb, a1[i], gda);
+          carry[i] = lam[i] * ev[r][i];
+          vals[i] = du * lam[i];                           // gB's term
+          vals[kNS + i] = g * sv[r + 1][i];                // gC's: gy s_t
+        }
+        const float lb4 = __fmaf_rn(lam[0], bb4[0], lam[1] * bb4[1]) +
+                          __fmaf_rn(lam[2], bb4[2], lam[3] * bb4[3]);
+        pu[r] = lb4;
+        pd[r] = __fmaf_rn(uv, lb4, gda);
+        // gB and gC over the warp's channels: one or two sums a lane
+        reduce_lanes<2 * kNS, 16, L>(vals, wl);
+#pragma unroll
+        for (int j = 0; j < kHeld; ++j) sw[col_b + r * S::kW + j] = vals[j];
+      }
+      // gdelta over the warp, and gu over the channel's lanes, of the
+      // sub-run's kSub steps at once
+      reduce_lanes<kSub, 16, 1>(pd, wl);
+      if ((wl & 3) == 0) sw[(warp * kSub + rd) * S::kW + 2 * kCols] = pd[0];
+      reduce_lanes<kSub, L / 2, 1>(pu, wl);
+#pragma unroll
+      for (int j = 0; j < kHeldU; ++j) {
+        const int rr = q * kSub + ru + j;
+        if ((kFull || rr < nr) && d < D)
+          gub[static_cast<long long>(t0 + rr) * D + d] =
+              sm[S::dt + rr] * pu[j];
+      }
+      __syncthreads();                    // the warps' sums are in sw
+      // the block's sums, warps in order
+      for (int i = tid; i < kSub * W; i += S::kThreads) {
+        const int r = i / W, x = i - r * W;
+        const int col = x < N ? x : x < 2 * N ? kCols + x - N : 2 * kCols;
         float acc = 0.f;
-        for (int c = 0; c < kCh; ++c)
-          acc += f[(r * kThreads + c * L) * kNS + n];
-        out[static_cast<long long>(t0 + r) * N + n] = acc;
+#pragma unroll
+        for (int w = 0; w < S::kWarps; ++w)
+          acc += sw[(w * kSub + r) * S::kW + col];
+        const int t = t0 + q * kSub + r;
+        if (kFull || q * kSub + r < nr)
+          pb[static_cast<long long>(t) * W + x] = acc;
       }
+      wbuf ^= 1;  // the next sub-run writes the other buffer: this one is
+                  // read until every thread reaches its __syncthreads
     }
   };
 
-  // pass 1: forward; checkpoints at run starts, gC's partials
-  for (int k = 0; k < R; ++k) {
+  bwd_stage<L, true>(smem, (k_hi - 1) * kRun, T, D, N, d0, db, bb, cb, ub,
+                     gb, v);
+  for (int k = k_hi - 1, buf = 0; k >= k_lo; --k, buf ^= 1) {
     const int t0 = k * kRun, nr = min(kRun, T - t0);
-    if (d < D) ckb[k * ck_run] = make_float4(s[0], s[1], s[2], s[3]);
-    stage(t0, nr);
-    __syncthreads();
-    for (int r = 0; r < nr; ++r) {
-      fwd_step(r);
-      const float g = sh_g[r * kCh + ch];
-      sh_gb[r * kThreads + tid] = make_float4(g * s[0], g * s[1], g * s[2],
-                                              g * s[3]);
+    const float4 c0 = d < D ? ckb[static_cast<long long>(k) * D * L]
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k > k_lo) {                       // the run before in flight; its
+      bwd_stage<L, true>(smem + (buf ^ 1) * S::stage, t0 - kRun, T, D, N,
+                         d0, db, bb, cb, ub, gb, v);  // buffer was freed by
+      copy_wait<1>();                     // the last sub-run's barrier
+    } else {
+      copy_wait<0>();
     }
-    __syncthreads();
-    sum_channels(sh_gb, part_c + pbase * N, t0, nr);
-    __syncthreads();
-  }
-
-  // pass 2: the runs in reverse
-  for (int k = R - 1; k >= 0; --k) {
-    const int t0 = k * kRun, nr = min(kRun, T - t0);
-    const float4 c0 =
-        d < D ? ckb[k * ck_run] : make_float4(0.f, 0.f, 0.f, 0.f);
-    s[0] = c0.x, s[1] = c0.y, s[2] = c0.z, s[3] = c0.w;
-    stage(t0, nr);
-    __syncthreads();
-    for (int r = 0; r < nr; ++r) {          // s_{t-1} of each step
-      sh_s[r * kThreads + tid] = make_float4(s[0], s[1], s[2], s[3]);
-      fwd_step(r);
-    }
-    for (int r = nr - 1; r >= 0; --r) {
-      const float dtv = sh_dt[r];
-      const float uv = sh_u[r * kCh + ch];
-      const float du = dtv * uv;
-      const float g = sh_g[r * kCh + ch];
-      const float4 bq =
-          *reinterpret_cast<const float4*>(&sh_b[r * kCols + n0]);
-      const float4 cq =
-          *reinterpret_cast<const float4*>(&sh_c[r * kCols + n0]);
-      const float4 sp = sh_s[r * kThreads + tid];
-      const float bb4[kNS] = {bq.x, bq.y, bq.z, bq.w};
-      const float cc4[kNS] = {cq.x, cq.y, cq.z, cq.w};
-      const float sp4[kNS] = {sp.x, sp.y, sp.z, sp.w};
-      float lam[kNS], gdt = 0.f;
-#pragma unroll
-      for (int i = 0; i < kNS; ++i) {
-        const float e = ex2(dtv * a2[i]);
-        lam[i] = g * cc4[i] + carry[i];
-        const float back = sp4[i] * e;                  // s_{t-1} e_t
-        gdt += lam[i] * (uv * bb4[i] + back * a1[i]);
-        gA[i] += lam[i] * back * dtv;
-        carry[i] = lam[i] * e;
-      }
-      float pu = (lam[0] * bq.x + lam[1] * bq.y) +
-                 (lam[2] * bq.z + lam[3] * bq.w);
-#pragma unroll
-      for (int o = 1; o < L; o <<= 1) pu += __shfl_xor_sync(kFull, pu, o);
-      if (lane == 0) sh_gu[r * kCh + ch] = dtv * pu;
-      sh_gb[r * kThreads + tid] = make_float4(du * lam[0], du * lam[1],
-                                              du * lam[2], du * lam[3]);
-      sh_gd[r * kThreads + tid] = gdt;
-    }
-    __syncthreads();
-    sum_channels(sh_gb, part_b + pbase * N, t0, nr);
-    for (int r = tid; r < nr; r += kThreads) {
-      float acc = 0.f;
-      for (int j = 0; j < kThreads; ++j) acc += sh_gd[r * kThreads + j];
-      part_d[pbase + t0 + r] = acc;
-    }
-    float* gub = gu + static_cast<long long>(b) * T * D;
-    for (int i = tid; i < kRun * kCh; i += kThreads) {
-      const int r = i / kCh, c = i - r * kCh;
-      if (r < nr && d0 + c < D)
-        gub[static_cast<long long>(t0 + r) * D + d0 + c] = sh_gu[i];
-    }
-    __syncthreads();
+    __syncthreads();                      // this run is staged
+    if (nr == kRun)
+      walk(smem + buf * S::stage, t0, nr, c0, std::true_type{});
+    else
+      walk(smem + buf * S::stage, t0, nr, c0, std::false_type{});
   }
 #pragma unroll
   for (int i = 0; i < kNS; ++i) {
     if (d < D && n0 + i < N) {
-      gs0[si + n0 + i] = carry[i];
-      ga_part[si + n0 + i] = gA[i];
+      if (seg == 0) gs0[si + n0 + i] = carry[i];
+      ga_part[(static_cast<long long>(b) * nseg + seg) * D * N +
+              static_cast<long long>(d) * N + n0 + i] = gA[i];
     }
   }
 }
 
-// The blocks' partials summed in block order, and gA's batch rows in row
-// order: gbv, gcv (B, T, N), gdelta (B, T), ga (D, N), all contiguous.
-__global__ void ssm_scan_bwd_finish(const float* __restrict__ part_b,
-                                    const float* __restrict__ part_c,
-                                    const float* __restrict__ part_d,
+// The partials summed in a fixed order: part's blocks in block order into
+// gbv, gcv (B, T, N) and gdelta (B, T); ga_part's (batch row, segment)
+// pairs in order into ga (D, N).
+__global__ void ssm_scan_bwd_finish(const float* __restrict__ part,
                                     const float* __restrict__ ga_part,
                                     float* __restrict__ gbv,
                                     float* __restrict__ gcv,
                                     float* __restrict__ gdelta,
-                                    float* __restrict__ ga, int nblk, int B,
-                                    int T, int D, int N) {
-  const long long btn = static_cast<long long>(B) * T * N;
-  const long long bt = static_cast<long long>(B) * T;
+                                    float* __restrict__ ga, int nblk,
+                                    int nga, int B, int T, int D, int N) {
+  const int W = 2 * N + 1;
+  const long long rows = static_cast<long long>(B) * T;
+  const long long btw = rows * W;
   const long long dn = static_cast<long long>(D) * N;
-  const long long total = 2 * btn + bt + dn;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+       i < btw + dn; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     float acc = 0.f;
-    if (i < 2 * btn) {
-      const bool is_b = i < btn;
-      const long long j = is_b ? i : i - btn;
-      const float* p = is_b ? part_b : part_c;
-      for (int k = 0; k < nblk; ++k) acc += p[k * btn + j];
-      (is_b ? gbv : gcv)[j] = acc;
-    } else if (i < 2 * btn + bt) {
-      const long long j = i - 2 * btn;
-      for (int k = 0; k < nblk; ++k) acc += part_d[k * bt + j];
-      gdelta[j] = acc;
+    if (i < btw) {
+      for (int k = 0; k < nblk; ++k) acc += part[k * btw + i];
+      const long long row = i / W;
+      const int x = static_cast<int>(i - row * W);
+      if (x < N)
+        gbv[row * N + x] = acc;
+      else if (x < 2 * N)
+        gcv[row * N + x - N] = acc;
+      else
+        gdelta[row] = acc;
     } else {
-      const long long j = i - 2 * btn - bt;
-      for (int k = 0; k < B; ++k) acc += ga_part[k * dn + j];
+      const long long j = i - btw;
+      for (int k = 0; k < nga; ++k) acc += ga_part[k * dn + j];
       ga[j] = acc;
     }
   }
 }
 
+// How the backward cuts T: S segments of G runs. The walk's blocks that the
+// card holds at once (SMs x resident blocks, asked of the card once per
+// device) set S: (D / channels a block) x B x S blocks make about kWaves
+// times as many, so that the blocks that end last are short. On the H100
+// at hymba's (1, 4096, 3200, 16) that gives 19 segments; 5 (one wave) took
+// 5% longer, 32 4% (NVIDIA H100 80GB HBM3 at 700 W; 32 channels a block,
+// no register cap or 3 blocks an SM each about 23% longer).
+constexpr int kWaves = 4;
+
+struct Plan {
+  int S, G;
+};
+
+template <int L>
+cudaError_t bwd_plan(int B, int T, int D, Plan* plan) {
+  using S = Bwd<L>;
+  static int slots[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (slots[dev] == 0) {
+    err = cudaFuncSetAttribute(ssm_scan_bwd_kernel<L>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               S::kSmem);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, ssm_scan_bwd_kernel<L>, S::kThreads, S::kSmem);
+    if (err != cudaSuccess) return err;
+    slots[dev] = sms * per > 0 ? sms * per : 1;
+  }
+  const long long per_seg =
+      static_cast<long long>((D + S::kCh - 1) / S::kCh) * B;
+  const int R = (T + kRun - 1) / kRun;
+  const long long want = (kWaves * slots[dev] + per_seg / 2) / per_seg;
+  const int s = static_cast<int>(want < 1 ? 1 : want > R ? R : want);
+  const int g = (R + s - 1) / s;
+  *plan = Plan{(R + g - 1) / g, g};
+  return cudaSuccess;
+}
+
+// Floats of the backward's scratch: the segments' (c, P), the blocks'
+// partials of gB, gC and gdelta, gA's (batch row, segment) partials.
+template <int L>
+long long bwd_scratch(int B, int T, int D, int N, const Plan& p) {
+  using S = Bwd<L>;
+  const long long nblk = (D + S::kCh - 1) / S::kCh;
+  return 2LL * B * p.S * D * S::kCols + nblk * B * T * (2LL * N + 1) +
+         static_cast<long long>(B) * p.S * D * N;
+}
+
 template <int L>
 cudaError_t launch_bwd(const float* u, const float* dt, const float* bv,
-                       const float* cv, const float* a, const float* s0,
-                       const float* gy, const float* gsf, float* gu,
+                       const float* cv, const float* a, const float* gy,
+                       const float* gsf, const float* ck, float* gu,
                        float* gdelta, float* gbv, float* gcv, float* ga,
                        float* gs0, float* scratch, int B, int T, int D, int N,
                        Views v, cudaStream_t stream) {
-  using S = BwdSmem<L>;
-  const int nblk = (D + S::kCh - 1) / S::kCh;
-  const long long R = (T + kRun - 1) / kRun;
-  float* ck = scratch;
-  float* part_b = ck + static_cast<long long>(B) * R * D * S::kCols;
-  float* part_c = part_b + static_cast<long long>(nblk) * B * T * N;
-  float* part_d = part_c + static_cast<long long>(nblk) * B * T * N;
-  float* ga_part = part_d + static_cast<long long>(nblk) * B * T;
-  constexpr int kSmem = S::floats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      ssm_scan_bwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+  using S = Bwd<L>;
+  Plan p{};
+  cudaError_t err = bwd_plan<L>(B, T, D, &p);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nblk, B);
-  ssm_scan_bwd_kernel<L><<<grid, kThreads, kSmem, stream>>>(
-      u, dt, bv, cv, a, s0, gy, gsf, gu, ck, part_b, part_c, part_d, ga_part,
-      gs0, T, D, N, v);
+  const int nblk = (D + S::kCh - 1) / S::kCh;
+  const long long nsum = static_cast<long long>(B) * p.S * D * L;  // float4s
+  auto* sum_c = reinterpret_cast<float4*>(scratch);
+  float4* sum_p = sum_c + nsum;
+  float* part = reinterpret_cast<float*>(sum_p + nsum);
+  float* ga_part = part + static_cast<long long>(nblk) * B * T * (2 * N + 1);
+  if (p.S > 1) {
+    err = cudaFuncSetAttribute(ssm_scan_bwd_carry_kernel<L>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               2 * S::stage * static_cast<int>(sizeof(float)));
+    if (err != cudaSuccess) return err;
+    ssm_scan_bwd_carry_kernel<L>
+        <<<dim3(nblk, p.S - 1, B), S::kThreads,
+           2 * S::stage * sizeof(float), stream>>>(dt, cv, a, gy, sum_c,
+                                                   sum_p, T, D, N, p.G, v);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(ssm_scan_bwd_kernel<L>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::kSmem);
+  if (err != cudaSuccess) return err;
+  ssm_scan_bwd_kernel<L><<<dim3(nblk, p.S, B), S::kThreads, S::kSmem,
+                           stream>>>(
+      u, dt, bv, cv, a, gy, gsf, reinterpret_cast<const float4*>(ck), sum_c,
+      sum_p, gu, part, ga_part, gs0, T, D, N, p.G, v);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssm_scan_bwd_finish<<<1056, 256, 0, stream>>>(part_b, part_c, part_d,
-                                                ga_part, gbv, gcv, gdelta, ga,
-                                                nblk, B, T, D, N);
+  ssm_scan_bwd_finish<<<1056, 256, 0, stream>>>(part, ga_part, gbv, gcv,
+                                                gdelta, ga, nblk, B * p.S, B,
+                                                T, D, N);
   return cudaGetLastError();
-}
-
-// Floats of the backward's scratch: the run checkpoints, the blocks'
-// partials of gB, gC and gdelta, and gA's per-row partials.
-template <int L>
-long long bwd_scratch(int B, int T, int D, int N) {
-  using S = BwdSmem<L>;
-  const long long nblk = (D + S::kCh - 1) / S::kCh;
-  const long long R = (T + kRun - 1) / kRun;
-  return static_cast<long long>(B) * R * D * S::kCols +
-         nblk * B * T * (2LL * N + 1) + static_cast<long long>(B) * D * N;
 }
 
 // max_rel[0] gets the largest |ex2(x) - 2^x| / 2^x over the float32 x with
@@ -617,13 +893,14 @@ __global__ void ex2_sweep_kernel(unsigned lo, unsigned long long count,
 
 extern "C" {
 
-// Strides are in elements: (batch, time) of u, delta, bv and cv.
+// Strides are in elements: (batch, time) of u, delta, bv and cv. ck is
+// null, or (B, ceil(T / 32), D, 4 L) float32 for the run checkpoints.
 int soar_ssm_scan(const void* u, const void* delta, const void* bv,
                   const void* cv, const void* a, const void* s0, void* y,
-                  void* s_out, int B, int T, int D, int N, long long u_sb,
-                  long long u_st, long long d_sb, long long d_st,
-                  long long b_sb, long long b_st, long long c_sb,
-                  long long c_st, void* stream_) {
+                  void* s_out, void* ck, int B, int T, int D, int N,
+                  long long u_sb, long long u_st, long long d_sb,
+                  long long d_st, long long b_sb, long long b_st,
+                  long long c_sb, long long c_st, void* stream_) {
   if (B < 1 || B > 65535 || T < 1 || D < 1 || N < 1 || N > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
   const Views v{u_sb, u_st, d_sb, d_st, b_sb, b_st, c_sb, c_st};
@@ -635,37 +912,63 @@ int soar_ssm_scan(const void* u, const void* delta, const void* bv,
   const auto* sf = static_cast<const float*>(s0);
   auto* yf = static_cast<float*>(y);
   auto* of = static_cast<float*>(s_out);
+  auto* kf = static_cast<float4*>(ck);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   cudaError_t err;
   if (N <= 4)
-    err = launch<1>(uf, df, bf, cf, af, sf, yf, of, B, T, D, N, v, stream);
+    err = launch<1>(uf, df, bf, cf, af, sf, yf, of, kf, B, T, D, N, v,
+                    stream);
   else if (N <= 8)
-    err = launch<2>(uf, df, bf, cf, af, sf, yf, of, B, T, D, N, v, stream);
+    err = launch<2>(uf, df, bf, cf, af, sf, yf, of, kf, B, T, D, N, v,
+                    stream);
   else if (N <= 16)
-    err = launch<4>(uf, df, bf, cf, af, sf, yf, of, B, T, D, N, v, stream);
+    err = launch<4>(uf, df, bf, cf, af, sf, yf, of, kf, B, T, D, N, v,
+                    stream);
   else
-    err = launch<8>(uf, df, bf, cf, af, sf, yf, of, B, T, D, N, v, stream);
+    err = launch<8>(uf, df, bf, cf, af, sf, yf, of, kf, B, T, D, N, v,
+                    stream);
   return static_cast<int>(err);
 }
 
-// Bytes of scratch the backward needs for (B, T, D, N), or -1 if invalid.
-long long soar_ssm_scan_bwd_scratch(int B, int T, int D, int N) {
-  if (B < 1 || B > 65535 || T < 1 || D < 1 || N < 1 || N > kMaxN) return -1;
-  const long long f = N <= 4   ? bwd_scratch<1>(B, T, D, N)
-                      : N <= 8  ? bwd_scratch<2>(B, T, D, N)
-                      : N <= 16 ? bwd_scratch<4>(B, T, D, N)
-                                : bwd_scratch<8>(B, T, D, N);
-  return f * static_cast<long long>(sizeof(float));
+#define SOAR_BY_LANES(N, F) \
+  ((N) <= 4 ? F(1) : (N) <= 8 ? F(2) : (N) <= 16 ? F(4) : F(8))
+
+// The backward's cut of T on the current card: S segments of G runs of 32
+// steps (plan[0] = S, plan[1] = G), for (B, T, D, N); a CUDA error code.
+int soar_ssm_scan_bwd_plan(int B, int T, int D, int N, int* plan) {
+  if (B < 1 || B > 65535 || T < 1 || D < 1 || N < 1 || N > kMaxN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p{};
+#define SOAR_PLAN(L) bwd_plan<L>(B, T, D, &p)
+  const cudaError_t err = SOAR_BY_LANES(N, SOAR_PLAN);
+#undef SOAR_PLAN
+  plan[0] = p.S;
+  plan[1] = p.G;
+  return static_cast<int>(err);
 }
 
-// The backward: the forward's operands (strided as there), gy (B, T, D)
-// and gs_final (B, D, N, or null for zero) contiguous -> gu (B, T, D),
+// Bytes of scratch the backward needs for (B, T, D, N) on the current
+// card, or -1 if invalid.
+long long soar_ssm_scan_bwd_scratch(int B, int T, int D, int N) {
+  int plan[2];
+  if (soar_ssm_scan_bwd_plan(B, T, D, N, plan) != 0) return -1;
+  const Plan p{plan[0], plan[1]};
+#define SOAR_SCRATCH(L) bwd_scratch<L>(B, T, D, N, p)
+  return SOAR_BY_LANES(N, SOAR_SCRATCH) *
+         static_cast<long long>(sizeof(float));
+#undef SOAR_SCRATCH
+}
+
+// The backward: the forward's operands but s0 (strided as there), gy (B,
+// T, D), gs_final (B, D, N, or null for zero) and the forward's run
+// checkpoints ck (B, ceil(T / 32), D, 4 L), contiguous -> gu (B, T, D),
 // gdelta (B, T), gbv and gcv (B, T, N), ga (D, N), gs0 (B, D, N), all
-// contiguous float32; scratch holds soar_ssm_scan_bwd_scratch bytes. Two
-// kernels on the stream: the walk, then the fixed-order sums.
+// contiguous float32; scratch holds soar_ssm_scan_bwd_scratch bytes.
+// Kernels on the stream: the segments' carries (when S > 1), the walk,
+// the fixed-order sums.
 int soar_ssm_scan_bwd(const void* u, const void* delta, const void* bv,
-                      const void* cv, const void* a, const void* s0,
-                      const void* gy, const void* gs_final, void* gu,
+                      const void* cv, const void* a, const void* gy,
+                      const void* gs_final, const void* ck, void* gu,
                       void* gdelta, void* gbv, void* gcv, void* ga, void* gs0,
                       void* scratch, int B, int T, int D, int N,
                       long long u_sb, long long u_st, long long d_sb,
@@ -677,22 +980,16 @@ int soar_ssm_scan_bwd(const void* u, const void* delta, const void* bv,
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto w = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  cudaError_t err;
 #define SOAR_BWD(L)                                                         \
-  launch_bwd<L>(f(u), f(delta), f(bv), f(cv), f(a), f(s0), f(gy),           \
-                f(gs_final), w(gu), w(gdelta), w(gbv), w(gcv), w(ga),       \
-                w(gs0), w(scratch), B, T, D, N, v, stream)
-  if (N <= 4)
-    err = SOAR_BWD(1);
-  else if (N <= 8)
-    err = SOAR_BWD(2);
-  else if (N <= 16)
-    err = SOAR_BWD(4);
-  else
-    err = SOAR_BWD(8);
+  launch_bwd<L>(f(u), f(delta), f(bv), f(cv), f(a), f(gy), f(gs_final),     \
+                f(ck), w(gu), w(gdelta), w(gbv), w(gcv), w(ga), w(gs0),     \
+                w(scratch), B, T, D, N, v, stream)
+  const cudaError_t err = SOAR_BY_LANES(N, SOAR_BWD);
 #undef SOAR_BWD
   return static_cast<int>(err);
 }
+
+#undef SOAR_BY_LANES
 
 // The exponential the scan uses, swept over float32 arguments: max_rel
 // (one uint32, zeroed by the caller) gets the largest relative error as

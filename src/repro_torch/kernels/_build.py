@@ -53,8 +53,9 @@ _SIGNATURES = {
     + (_I, _I, ctypes.c_float, _P),
     "soar_flash_decode": (_P,) * 4 + (_I,) * 6 + (ctypes.c_longlong,) * 10
     + (ctypes.c_float, _I, _I, _P, _P, _P),
-    "soar_ssm_scan": (_P,) * 8 + (_I,) * 4 + (ctypes.c_longlong,) * 8
+    "soar_ssm_scan": (_P,) * 9 + (_I,) * 4 + (ctypes.c_longlong,) * 8
     + (_P,),
+    "soar_ssm_scan_bwd_plan": (_I,) * 4 + (_P,),
     "soar_ssm_scan_bwd": (_P,) * 15 + (_I,) * 4 + (ctypes.c_longlong,) * 8
     + (_P,),
     "soar_ex2_sweep": (ctypes.c_uint, ctypes.c_ulonglong, _P, _P),

@@ -12,31 +12,38 @@ from __future__ import annotations
 import torch
 
 from .ref import ssm_chunk_scan_bwd_torch, ssm_chunk_scan_torch
-from .ssm_scan import ssm_chunk_scan_bwd_cuda, ssm_chunk_scan_cuda
+from .ssm_scan import (scan_checkpoints, ssm_chunk_scan_bwd_cuda,
+                       ssm_chunk_scan_cuda)
 
 
 class SSMScan(torch.autograd.Function):
     """The scan as an autograd function: (u, delta, bv, cv, a, s0) -> (y,
-    s_final), differentiable in all six; the backward recomputes the
-    forward's states from the saved inputs."""
+    s_final), differentiable in all six. On the card the forward also
+    writes the state at the start of every 32-step run (one float4 a
+    thread a run), saved beside the inputs, and the backward kernel
+    rebuilds each run's states from it; on the CPU the plain backward
+    recomputes the states from the saved inputs."""
 
     @staticmethod
     def forward(ctx, u, delta, bv, cv, a, s0):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(u, delta, bv, cv, a, s0)
         if u.device.type == "cpu":
+            ctx.save_for_backward(u, delta, bv, cv, a, s0, None)
             return ssm_chunk_scan_torch(u, delta, bv, cv, a, s0)
-        return ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0)
+        ck = scan_checkpoints(u, bv)
+        ctx.save_for_backward(u, delta, bv, cv, a, s0, ck)
+        return ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0, ck=ck)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gy, gs):
-        u, delta, bv, cv, a, s0 = ctx.saved_tensors
+        u, delta, bv, cv, a, s0, ck = ctx.saved_tensors
         if gy is None:
             gy = torch.zeros_like(u)
         if u.device.type == "cpu":
             return ssm_chunk_scan_bwd_torch(u, delta, bv, cv, a, s0, gy, gs)
-        return ssm_chunk_scan_bwd_cuda(u, delta, bv, cv, a, s0, gy, gs)
+        return ssm_chunk_scan_bwd_cuda(u, delta, bv, cv, a, s0, gy, gs,
+                                       ck=ck)
 
 
 def ssm_chunk_scan(u, delta, bv, cv, a, s0, s_out=None):

@@ -28,6 +28,16 @@ of the CUDA backward kernel. With ``lambda_t`` the adjoint of ``s_t``
     gB_t = sum_d lambda_t delta_t u_t
     gdelta_t = sum_{d,n} lambda_t (u_t B_t + s_{t-1} e_t A)
     gA = sum_{b,t} lambda_t s_{t-1} e_t delta_t      gs0 = lambda_1 e_1
+
+``ssm_chunk_scan_bwd_seg_torch`` is the same backward in the CUDA
+kernels' order: the states rebuilt run by run from the forward's run
+checkpoints (``ssm_chunk_scan_torch(..., ck=...)``: the state at the start
+of every 32-step run), T cut into segments of ``seg`` steps, each segment
+but the first reduced to its carry out from a zero carry in and the
+product of its decays, gs_final folded through those last segment first,
+each segment walked from its true carry, and gA summed from per (batch
+row, segment) partials. The adjoint is linear in its carry, so in exact
+arithmetic both orders give the same gradients.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch
 
 LOG2E = 1.4426950408889634          # rounded to float32 where it is used
 NS = 4                              # states per thread of the kernel
+RUN = 32                            # steps between the forward's checkpoints
 
 
 def scan_lanes(n: int) -> int:
@@ -45,14 +56,30 @@ def scan_lanes(n: int) -> int:
     return 1 << max(0, math.ceil(n / NS) - 1).bit_length()
 
 
-def ssm_chunk_scan_torch(u, delta, bv, cv, a, s0):
+def checkpoint_shape(b: int, t: int, d: int, n: int) -> tuple:
+    """Shape of the run checkpoints of a (B, T, D, N) scan, the kernel's
+    layout: (B, ceil(T / 32), D, 4 x lanes), states past N zero."""
+    return (b, -(-t // RUN), d, NS * scan_lanes(n))
+
+
+def ssm_chunk_scan_torch(u, delta, bv, cv, a, s0, ck=None):
     """u (B, T, D), delta (B, T, 1), bv/cv (B, T, N), a (D, N), s0
     (B, D, N) -> (y (B, T, D), s_final (B, D, N)). ``s0`` is not
-    written."""
+    written. With ``ck`` (:func:`checkpoint_shape`), the state at the
+    start of every 32-step run is written into it, as the kernel writes
+    it."""
     b, t, d = u.shape
+    n = bv.shape[-1]
     y = torch.empty((b, t, d), dtype=u.dtype, device=u.device)
+    if ck is not None:
+        if tuple(ck.shape) != checkpoint_shape(b, t, d, n):
+            raise ValueError(f"ck {tuple(ck.shape)}, want "
+                             f"{checkpoint_shape(b, t, d, n)}")
+        ck[..., n:] = 0
     s = s0
     for i in range(t):
+        if ck is not None and i % RUN == 0:
+            ck[:, i // RUN, :, :n] = s
         d_t = delta[:, i]                                    # (B, 1)
         decay = torch.exp(d_t[..., None] * a[None])          # (B, D, N)
         s = s * decay + (d_t * u[:, i])[..., None] * bv[:, i, None, :]
@@ -125,3 +152,75 @@ def ssm_chunk_scan_bwd_torch(u, delta, bv, cv, a, s0, gy, gs_final=None):
         ga += (lam * back * d_t[..., None]).sum(0)
         carry = lam * e
     return gu, gdelta, gbv, gcv, ga, carry
+
+
+def _seg_carries(summaries, gs):
+    """The carry into each segment: ``gs`` (gs_final) for the last, then
+    c + P x (the carry into the segment after) down to the first; the
+    kernel's walk folds the same terms in the same order."""
+    carries = [gs]
+    for c, p in reversed(summaries):
+        carries.append(c + p * carries[-1])
+    return carries[::-1]
+
+
+def ssm_chunk_scan_bwd_seg_torch(u, delta, bv, cv, a, s0, gy, gs_final=None,
+                                 seg: int = RUN, ck=None):
+    """The backward in the CUDA kernels' order (module docstring), segments
+    of ``seg`` steps (any positive length; the kernel's are whole runs);
+    ``ck`` the forward's checkpoints, or None to compute them. Same
+    arguments and results as :func:`ssm_chunk_scan_bwd_torch`."""
+    b, t, d = u.shape
+    n = bv.shape[-1]
+    if seg < 1:
+        raise ValueError(f"seg must be positive, got {seg}")
+    if ck is None:
+        ck = torch.empty(checkpoint_shape(b, t, d, n), dtype=u.dtype,
+                         device=u.device)
+        ssm_chunk_scan_torch(u, delta, bv, cv, a, s0, ck=ck)
+    before = []                      # the state before each step
+    for i in range(t):
+        s = ck[:, i // RUN, :, :n] if i % RUN == 0 else s
+        before.append(s)
+        d_t = delta[:, i]
+        s = s * torch.exp(d_t[..., None] * a[None]) + \
+            (d_t * u[:, i])[..., None] * bv[:, i, None, :]
+    after = before[1:] + [s]
+    decay = lambda i: torch.exp(delta[:, i][..., None] * a[None])
+    bounds = [(lo, min(t, lo + seg)) for lo in range(0, t, seg)]
+    summaries = []                   # (c, P) of segments 1, 2, ...
+    for lo, hi in bounds[1:]:
+        c, p = torch.zeros_like(s0), torch.ones_like(s0)
+        for i in reversed(range(lo, hi)):
+            e = decay(i)
+            c = (gy[:, i, :, None] * cv[:, i, None, :] + c) * e
+            p = p * e
+        summaries.append((c, p))
+    gs = torch.zeros_like(s0) if gs_final is None else gs_final
+    carries = _seg_carries(summaries, gs)
+    gu, gbv, gcv = (torch.empty_like(x, memory_format=torch.contiguous_format)
+                    for x in (u, bv, cv))
+    gdelta = torch.empty_like(delta, memory_format=torch.contiguous_format)
+    ga_parts = []                    # per segment, per batch row
+    for (lo, hi), carry in zip(bounds, carries):
+        part = torch.zeros_like(s0)
+        for i in reversed(range(lo, hi)):
+            d_t = delta[:, i]                                  # (B, 1)
+            e = decay(i)
+            lam = gy[:, i, :, None] * cv[:, i, None, :] + carry
+            gcv[:, i] = torch.einsum("bd,bdn->bn", gy[:, i], after[i])
+            gu[:, i] = d_t * torch.einsum("bdn,bn->bd", lam, bv[:, i])
+            gbv[:, i] = torch.einsum("bdn,bd->bn", lam, d_t * u[:, i])
+            back = before[i] * e                               # s_{t-1} e_t
+            gdelta[:, i, 0] = (lam * (u[:, i, :, None] * bv[:, i, None, :]
+                                      + back * a[None])).sum((1, 2))
+            part = part + lam * back * d_t[..., None]
+            carry = lam * e
+        ga_parts.append(part)
+        if lo == 0:
+            gs0 = carry
+    ga = torch.zeros_like(a)
+    for row in range(b):             # the kernel's (batch row, segment)
+        for part in ga_parts:        # order
+            ga = ga + part[row]
+    return gu, gdelta, gbv, gcv, ga, gs0

@@ -21,8 +21,10 @@ projection and ``dt_bias[0]``, as the JAX model computes it, so
 gate, and the output projection in the model's dtype. The scan itself runs
 through ``kernels.ssm_scan.ops`` (the CUDA kernels on the card, the plain
 versions on CPU tensors) in ``mamba_forward`` and ``mamba_decode``; under
-autograd it is the ``SSMScan`` function, whose backward is the backward
-kernel, and the epilogue then runs out of place.
+autograd it is the ``SSMScan`` function: on the card its forward also
+writes the state at the start of every 32-step run, which it saves, and
+its backward kernels rebuild each run's states from those checkpoints and
+walk segments of T in parallel; the epilogue then runs out of place.
 ``mamba_forward_sequential`` with ``_mamba_step`` is the plain
 per-timestep oracle. The state is float32.
 """

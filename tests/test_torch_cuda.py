@@ -1225,6 +1225,66 @@ def test_ssm_scan_bwd_kernel_matches_plain(dev, b, t, d, n, with_gs):
     assert cs.scan_bwd_over(got, want, mag)[1] <= 1.0
 
 
+@pytest.mark.parametrize("b,t,d,n", [(1, 16, 8, 4), (2, 1, 3200, 16),
+                                     (2, 77, 100, 16), (1, 45, 33, 5),
+                                     (2, 100, 16, 32)])
+def test_ssm_scan_checkpoints_leave_the_forward_bitwise(dev, b, t, d, n):
+    """The forward with the run checkpoints written: y and s_final the
+    same bits as without, one launch each; each checkpoint the final
+    state of the forward over the steps before its run, bit for bit, and
+    the columns past N zero."""
+    from repro_torch.kernels.ssm_scan.ref import RUN
+    from repro_torch.kernels.ssm_scan.ssm_scan import (scan_checkpoints,
+                                                       ssm_chunk_scan_cuda)
+    cs = _chip_smoke()
+    cs.DEVICE = dev
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + t * 10 + n)
+    xs = cs.scan_bwd_inputs(gen, b, t, d, n, strided=n == 16)[:6]
+    ck = scan_checkpoints(xs[0], xs[2])
+    before = ssm_chunk_scan_cuda.launches
+    y, s = ssm_chunk_scan_cuda(*xs, ck=ck)
+    y2, s2 = ssm_chunk_scan_cuda(*xs)
+    assert ssm_chunk_scan_cuda.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    assert torch.equal(ck[0, 0, :, :n], xs[5][0])
+    assert not ck[..., n:].any()
+    for k in range(1, ck.shape[1]):
+        head = ssm_chunk_scan_cuda(*(x[:, :k * RUN] for x in xs[:4]),
+                                   *xs[4:])[1]
+        assert torch.equal(ck[:, k, :, :n], head), k
+
+
+@pytest.mark.parametrize("with_gs", [True, False])
+@pytest.mark.parametrize("b,t,d,n", [(2, 32, 16, 4), (2, 1, 3200, 16),
+                                     (2, 300, 70, 16), (1, 45, 33, 5),
+                                     (1, 4096, 3200, 16)])
+def test_ssm_scan_bwd_kernel_fed_checkpoints(dev, b, t, d, n, with_gs):
+    """The backward fed the forward's checkpoints, as ``SSMScan`` calls
+    it, equals the backward that has the forward write its own, bit for
+    bit, and two calls agree; launches: without checkpoints one forward
+    and one backward a call, with them one backward."""
+    from repro_torch.kernels.ssm_scan.ssm_scan import (
+        scan_checkpoints, ssm_chunk_scan_bwd_cuda, ssm_chunk_scan_cuda)
+    cs = _chip_smoke()
+    cs.DEVICE = dev
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + t * 10 + n)
+    xs = cs.scan_bwd_inputs(gen, b, t, d, n, strided=n == 16)
+    gs = xs[7] if with_gs else None
+    f0, b0 = ssm_chunk_scan_cuda.launches, ssm_chunk_scan_bwd_cuda.launches
+    own = ssm_chunk_scan_bwd_cuda(*xs[:7], gs)
+    assert (ssm_chunk_scan_cuda.launches - f0,
+            ssm_chunk_scan_bwd_cuda.launches - b0) == (1, 1)
+    ck = scan_checkpoints(xs[0], xs[2])
+    ssm_chunk_scan_cuda(*xs[:6], ck=ck)
+    f0, b0 = ssm_chunk_scan_cuda.launches, ssm_chunk_scan_bwd_cuda.launches
+    fed = ssm_chunk_scan_bwd_cuda(*xs[:7], gs, ck=ck)
+    again = ssm_chunk_scan_bwd_cuda(*xs[:7], gs, ck=ck)
+    assert (ssm_chunk_scan_cuda.launches - f0,
+            ssm_chunk_scan_bwd_cuda.launches - b0) == (0, 2)
+    assert all(torch.equal(x, y) for x, y in zip(own, fed))
+    assert all(torch.equal(x, y) for x, y in zip(fed, again))
+
+
 def _reduced_grads(cfg, params, toks):
     from repro_torch import tree as T
     from repro_torch.models import api
