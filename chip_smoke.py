@@ -15,6 +15,7 @@
     python3 chip_smoke.py --ssm          # only phase 15, SSM training, xLSTM
     python3 chip_smoke.py --xlstm-witness  # only xLSTM's gate readings
     python3 chip_smoke.py --scan-rows    # only the scan's rows, timed
+    python3 chip_smoke.py --mla          # only phase 16, MLA (minicpm3)
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -32,8 +33,10 @@ kernel in every layer), and the runtime's orchestrator over all of it
 the trainer (``repro_torch.runtime.ChaosHarness``, ``ChaosTrainer``), and
 the reduce one rank per device (``repro_torch.collectives.reduce_local``
 under ``torch.distributed``, the trainer and ``ChaosTrainer`` one rank a
-worker), and the SSM family (hymba trained through the backward scan
-kernel, xLSTM served and trained). It builds the CUDA
+worker), the SSM family (hymba trained through the backward scan
+kernel, xLSTM served and trained) and MLA (minicpm3-4b served through
+the flash kernel at keys 96 and values 64 and the latent decode kernel,
+and trained). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -309,6 +312,37 @@ plain torch version on the inputs the paths give it. Phases:
    ``xlstm-125m-train-dp2-b2-t2048-topk``, 3 steps and the resumed one,
    as 15b's cell (no scan; its step is not profiled).
 
+16. MLA, everything of phase 15 freed first. 16a, before the model
+   allocates: the tensor-core tile kernel at keys 96 wide and values 64
+   (a strided view) on the JAX test shapes, bidirectional and ragged,
+   within ``FLASH_TC``, and at the cell's prefill layer (4, 32768, 40/40,
+   96|64) on two (batch, head) pairs in 2048-row chunks; the CUDA-core
+   tile and the split decode with values narrower than keys (the float32
+   gate's prefill, the non-absorbed decode over up to 32,832 positions);
+   the latent decode kernel (``flash_mla_decode``) within 2e-5 (float32)
+   or ``FLASH_TIGHT`` (bfloat16) of its float32 plain version at small
+   shapes, n = 1, n off the split, and the cell's (4, 1, 40, 256 + 32)
+   over 32,832 positions, two calls bitwise. Planted faults beyond the
+   limits: the scores over 64 of the 96 key columns (prefill), the rope
+   part of the scores left out, one split's keys dropped, the values read
+   8 columns off (decode). Times against the bounds, the plain versions
+   and ``scaled_dot_product_attention``. 16b: a float32 minicpm3-4b of 2
+   layers at its published widths (TF32 off), 2 prompts of 128 and 8
+   steps, with ``decode_absorb`` on and off: against a fresh prefill
+   (1e-3) and the CPU (rtol 1e-4), every call on its kernel. 16c:
+   ``minicpm3-4b-serve-b4-p32768-g64``, minicpm3-4b at full width and
+   depth (62 layers) in bfloat16, ``prefill_32k``'s batch cut to 4, with
+   phase 10's checks: 62 prefill calls on the tensor-core tile, 62 x 64
+   on the latent decode and none elsewhere, the decode-vs-fresh-prefill
+   gate ``SERVE_MLA_BF16_DIFF`` and two planted handoff faults beyond it
+   (kr dropped, ckv one position late), the peak against its reckoning.
+   16d: the float32 training gate (2 layers, T 256, one worker, against
+   the CPU), then ``minicpm3-4b-l24-train-dp2-b1-t4096-topk``: published
+   widths, depth cut to 24, bfloat16, 2 workers of one 4,096-token
+   sequence, top-k 1%, remat on (the stacked path's checkpoint, MLA's
+   blocked branch), 3 steps (step 1 split by phase, step 2 profiled) and
+   the resumed one, bitwise.
+
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
@@ -329,7 +363,8 @@ decode step, to compare with another checkout (see :func:`scan_rows`).
 ``--runtime`` runs phases 1 and 12 and prints the runtime's cells;
 ``--chaos`` runs phases 1 and 13 and prints the chaos cells; ``--dist``
 runs phases 1 and 14 and prints the rank cells; ``--ssm`` runs phases 1
-and 15 and prints the backward scan's kernel row.
+and 15 and prints the backward scan's kernel row; ``--mla`` runs phases 1
+and 16 and prints the MLA rows.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -2022,12 +2057,14 @@ def _dt_name(dt) -> str:
 
 
 def flash_work(b, t, s, h, hkv, d, causal, elt,
-               window=0) -> tuple[int, int]:
-    """(bytes, operations) one attention call needs: q, k, v read once and
-    the output written once; 2 operations per multiply-add of the two
-    products over the keys each query row sees (all S, or min(i + 1, S)
-    for row i when causal, min(i + 1, window) with a window, T == S)."""
-    nbytes = (2 * b * t * h * d + 2 * b * s * hkv * d) * elt
+               window=0, dv=None) -> tuple[int, int]:
+    """(bytes, operations) one attention call needs: q, k (``d`` wide) and
+    v (``dv``, d when None) read once and the output written once; 2
+    operations per multiply-add of the two products over the keys each
+    query row sees (all S, or min(i + 1, S) for row i when causal, min(i +
+    1, window) with a window, T == S)."""
+    dv = dv or d
+    nbytes = (b * t * h * (d + dv) + b * s * hkv * (d + dv)) * elt
     if window:
         w = min(window, t)
         keys = w * (w + 1) // 2 + (t - w) * w
@@ -2036,7 +2073,7 @@ def flash_work(b, t, s, h, hkv, d, causal, elt,
         keys = m * (m + 1) // 2 + (t - m) * s
     else:
         keys = t * s
-    return nbytes, 4 * b * h * d * keys
+    return nbytes, 2 * b * h * (d + dv) * keys
 
 
 def flash_bound(work, dtype) -> tuple[float, str]:
@@ -2443,9 +2480,9 @@ def handoff(pre, caches, t: int) -> None:
     Mamba and xLSTM states as they are."""
     import torch
     with torch.inference_mode():
-        if "layers" in caches:
-            for n in ("k", "v"):
-                caches["layers"][n][:, :, :t].copy_(pre["layers"][n])
+        if "layers" in caches:                   # k, v; MLA: ckv, kr
+            for n, c in caches["layers"].items():
+                c[:, :, :t].copy_(pre["layers"][n])
             return
         for pb, cb in zip(pre["blocks"], caches["blocks"]):
             if "attn" not in cb:                 # an xLSTM block's state
@@ -2645,7 +2682,8 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     prefill's within ``gate`` of the largest logit, and a served run with
     each planted handoff fault of ``faults`` beyond it. Every prefill
     attention call must have run the tensor-core tile kernel and every
-    decode call the split decode (``launches_by_path``). xLSTM has no
+    decode call the split decode, or MLA's latent decode
+    (``launches_by_path``). xLSTM has no
     attention, so no call may there, and its prefill is not profiled (its
     sequential sLSTM puts hundreds of thousands of small kernels in it).
     With ``gate_steps`` the gate and the faults are also read after that
@@ -2677,9 +2715,12 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     check(all(counts[i] == want for i in kernels),
           f"{name}: launches {launched}, expected {want} each")
     xlstm = cfg.family == "ssm"
-    want_paths = ({"tile_tc": 0, "tile_simt": 0, "decode_split": 0}
-                  if xlstm else {"tile_tc": cfg.n_layers, "tile_simt": 0,
-                                 "decode_split": cfg.n_layers * n_steps})
+    want_paths = dict.fromkeys(paths, 0)
+    if not xlstm:           # MLA's absorbed decode: the latent decode
+        want_paths["tile_tc"] = cfg.n_layers
+        want_paths["mla_decode" if cfg.attn_type == "mla" and
+                   cfg.decode_absorb else "decode_split"] = (cfg.n_layers
+                                                             * n_steps)
     check(paths == want_paths, f"{name}: flash calls by kernel {paths}, "
           f"expected {want_paths}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
@@ -3235,7 +3276,7 @@ def plain_causal_rows(q, k, v, scale, rows=512):
     from repro_torch.kernels.flash_attention.ref import sdpa
     from repro_torch.models.attention import causal_mask
     t = q.shape[1]
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:3] + v.shape[3:])
     for r0 in range(0, t, rows):
         r1 = min(t, r0 + rows)
         out[:, r0:r1] = sdpa(q[:, r0:r1], k[:, :r1], v[:, :r1], causal_mask(
@@ -5709,8 +5750,8 @@ def _train_state(cfg, n_dev, device, seed=0):
 
 
 def ssm_train_f32(cfg, n_dev=1, seq=256, steps=3, window=128) -> dict:
-    """Phase 15b, consistency: ``cfg`` in float32 (TF32 off) with the
-    windowed layers' window cut to ``window``, so that ``seq`` crosses it
+    """Phases 15b and 16d, consistency: ``cfg`` in float32 (TF32 off), a
+    windowed model's window cut to ``window``, so that ``seq`` crosses it
     (at hymba's 1,024 the CPU twin took 117 s at 1,280 tokens on the chip
     machine, and 54-74 s at 512; the cell takes ``sdpa_blocked``, which
     the CPU tests hold to JAX), ``n_dev`` workers of one sequence of
@@ -5725,9 +5766,13 @@ def ssm_train_f32(cfg, n_dev=1, seq=256, steps=3, window=128) -> dict:
     from repro_torch.launch import train
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(cfg, dtype="float32", sliding_window=window)
-    name = (f"{cfg.name}-f32-l{cfg.n_layers}-w{window}-train-dp{n_dev}"
-            f"-t{seq}")
+    windowed = bool(cfg.sliding_window)
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              **({"sliding_window": window} if windowed
+                                 else {}))
+    name = (f"{cfg.name}-f32-l{cfg.n_layers}"
+            + (f"-w{window}" if windowed else "")
+            + f"-train-dp{n_dev}-t{seq}")
     runs = {}
     for device in (DEVICE, "cpu"):
         threads = torch.get_num_threads()
@@ -5760,9 +5805,10 @@ def ssm_train_f32(cfg, n_dev=1, seq=256, steps=3, window=128) -> dict:
     check(all(math.isfinite(v) for v in lc) and gap <= SSM_LOSS_RTOL,
           f"{name}: card losses {lc} vs CPU {lh} (rel gap {gap:.3g} > "
           f"{SSM_LOSS_RTOL})")
-    check(counts[6] == steps * n_dev * 2 * cfg.n_layers
-          and counts[8] == steps * n_dev * cfg.n_layers,
-          f"{name}: scan forward {counts[6]}, backward {counts[8]} launches")
+    check(cfg.family != "hybrid" or (
+        counts[6] == steps * n_dev * 2 * cfg.n_layers
+        and counts[8] == steps * n_dev * cfg.n_layers),
+        f"{name}: scan forward {counts[6]}, backward {counts[8]} launches")
     say(f"{name}: losses on the card {lc}, on the CPU {lh} (largest "
         f"relative gap {gap:.3g} <= {SSM_LOSS_RTOL}); card {wall:.2f} s, "
         f"CPU {cpu_s:.1f} s for {steps} steps; scan launches forward "
@@ -5788,7 +5834,8 @@ def ssm_train_cell(cfg, name, seq, n_dev=2, steps=3) -> dict:
     the scan's forward launched 2 x layers a worker a step (the forward and
     the remat recompute) and its backward once a layer. xLSTM's last step
     runs unprofiled and its busy share reads "not measured" (its step puts
-    about a million kernels on the card: its profile took 302 s)."""
+    about a million kernels on the card: its profile took 302 s). Phase
+    16d runs minicpm3 through it: no scan, its last step profiled."""
     import torch
 
     from repro_torch import tree as T
@@ -5797,7 +5844,7 @@ def ssm_train_cell(cfg, name, seq, n_dev=2, steps=3) -> dict:
     from repro_torch.optim import compression
     from repro_torch.optim.compression import CompressionConfig
     exe = importlib.import_module("repro_torch.collectives.tree_allreduce")
-    scan = profile = cfg.family == "hybrid"
+    scan, profile = cfg.family == "hybrid", cfg.family != "ssm"
     held = torch.cuda.memory_allocated()
     check(held < 1e9, f"{name}: {held} bytes still allocated before the "
           "model")
@@ -6063,17 +6110,472 @@ def ssm_phase() -> dict:
             "xlstm_train": xt, "scan_bwd": bwd}
 
 
+# -- phase 16: MLA, minicpm3-4b -----------------------------------------------
+
+MLA_CELL = "minicpm3-4b-serve-b4-p32768-g64"
+MLA_TRAIN_CELL = "minicpm3-4b-l24-train-dp2-b1-t4096-topk"
+MLA_BATCH, MLA_PROMPT, MLA_STEPS = 4, 32_768, 64
+MLA_TRAIN_DEPTH = 24
+# minicpm3-4b's attention: 40 heads, keys 64 + 32 wide, values 64, a latent
+# of 256 (src/repro_torch/configs/minicpm3_4b.py)
+MLA_H, MLA_ND, MLA_RD, MLA_VD, MLA_R = 40, 64, 32, 64, 256
+# The bfloat16 cell's last decode logits against a fresh prefill of the
+# same sequences, as a share of the largest logit: 2.93% was read on the
+# H100 (0.1582 of 5.406) after 64 steps, and the planted handoff faults
+# 19.07% (kr dropped) and 23.22% (ckv one position late); 5%, qwen3-32b's
+# gate, sits between them.
+SERVE_MLA_BF16_DIFF = 0.05
+# (BH, T, S, causal) of the tensor-core tile at (96, 64): the JAX test
+# shapes (causal), then bidirectional and ragged T and S
+MLA_TC_SHAPES = ([(bh, t, t, True) for bh, t, _ in FLASH_JAX_SHAPES]
+                 + [(bh, t, s, c) for bh, t, s, _, c in FLASH_MORE])
+# (B, n, H, r, rd) of the latent decode: JAX-test-like small shapes, n = 1,
+# n not a multiple of the split, two head groups
+MLA_DECODE_SHAPES = [(2, 1, 4, 32, 8), (2, 77, 4, 32, 8),
+                     (2, 700, 40, 256, 32), (1, 1, 40, 256, 32),
+                     (1, 333, 45, 256, 32)]
+
+
+def minicpm3(depth=None, dtype="bfloat16", **kw):
+    """minicpm3-4b at its published widths; ``depth`` cuts its stack."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS["minicpm3-4b"]
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
+                               dtype=dtype, **kw)
+
+
+def mla_scale() -> float:
+    """1 / sqrt(96) as the model rounds it (the width of MLA's keys)."""
+    from repro_torch.models.attention import _scale
+    return _scale(MLA_ND + MLA_RD)
+
+
+def _path_delta(before: dict) -> dict:
+    return {p: n - before[p] for p, n in read_paths().items()}
+
+
+def mla_prefill_checks(b=MLA_BATCH, t=MLA_PROMPT, h=MLA_H,
+                       heads=((0, 0), (3, 37)), chunk=2048,
+                       plain_rows=256) -> dict:
+    """Phase 16a, MLA's prefill on the tensor-core tile kernel at keys 96
+    wide and values 64 (the values a strided view of the up-projection, as
+    ``mla_forward`` passes them), bfloat16: the JAX test shapes, causal,
+    bidirectional and ragged, within 3e-2 of the bfloat16 plain version
+    and within ``FLASH_TC`` of the float32 one; the cell's layer (b, t,
+    h/h, 96|64) causal, checked on ``heads`` (batch, head) in
+    ``chunk``-row query blocks within ``FLASH_TC``. The planted fault, the
+    scores taken over the first 64 of the 96 columns, must fail the limit
+    on a JAX shape and at the cell. Times against the bound, the plain
+    version (query rows in blocks of ``plain_rows``) and
+    ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, sdpa)
+    from repro_torch.models.attention import causal_mask
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(96)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=DEVICE).to(bf)
+    f32 = lambda *xs: [x.float() for x in xs]
+    d, dv, scale = MLA_ND + MLA_RD, MLA_VD, mla_scale()
+    checks, faults, errs = {}, {}, []
+    for bh, tt, s, causal in MLA_TC_SHAPES:
+        q, k, v = rnd(bh, tt, 1, d), rnd(bh, s, 1, d), rnd(bh, s, 1,
+                                                            2 * dv)[..., dv:]
+        label = f"(96, 64) {(bh, tt, s, causal)}"
+        before = read_paths()
+        got = flash_attention_gqa(q, k, v, scale, causal)
+        check(_path_delta(before)["tile_tc"] == 1,
+              f"{label}: not on the tensor-core tile")
+        errs.append(flash_close(got, flash_attention_gqa_torch(
+            q, k, v, scale, causal), bf, label))
+        qf, kf, vf = f32(q, k, v)
+        want = flash_attention_gqa_torch(qf, kf, vf, scale, causal)
+        a32 = flash_attention_gqa_torch(qf, kf, vf.abs(), scale, causal)
+        checks[label] = flash_check(got, want, a32, label)
+        if (bh, tt) == FLASH_JAX_SHAPES[1][:2]:
+            lab = f"prefill {label}: the scores over 64 of the 96 columns"
+            faults[lab] = flash_fault_caught(flash_attention_gqa_torch(
+                qf[..., :64], kf[..., :64], vf, scale, causal), want, lab,
+                a32)
+    # the cell's layer
+    q, k = rnd(b, t, h, d), rnd(b, t, h, d)
+    kv = rnd(b, t, h, 2 * dv)
+    v = kv[..., dv:]
+    before = read_paths()
+    got = flash_attention_gqa(q, k, v, scale, causal=True)
+    check(_path_delta(before)["tile_tc"] == 1, "the cell's prefill layer is "
+          "not on the tensor-core tile")
+    e = []
+    for bb, hh in heads:
+        for r0 in range(0, t, chunk):
+            r1 = min(t, r0 + chunk)
+            qc, kc, vc = f32(q[bb:bb + 1, r0:r1, hh:hh + 1],
+                             k[bb:bb + 1, :r1, hh:hh + 1],
+                             v[bb:bb + 1, :r1, hh:hh + 1])
+            mask = causal_mask(r1 - r0, r1, offset=r0, device=DEVICE)[None]
+            want = sdpa(qc, kc, vc, mask, scale)
+            a32 = sdpa(qc, kc, vc.abs(), mask, scale)
+            e.append(flash_check(got[bb:bb + 1, r0:r1, hh:hh + 1], want, a32,
+                                 f"cell prefill b {bb} head {hh} rows "
+                                 f"{r0}:{r1}"))
+            if (bb, hh, r1) == (*heads[0], t):
+                lab = (f"prefill cell b {bb} head {hh} rows {r0}:{r1}: the "
+                       "scores over 64 of the 96 columns")
+                faults[lab] = flash_fault_caught(
+                    sdpa(qc[..., :64], kc[..., :64], vc, mask, scale), want,
+                    lab, a32)
+    checks[f"cell prefill ({b}, {t}, {h}/{h}, 96|64) causal, (batch, head) "
+           f"{list(heads)}"] = (max(x[0] for x in e), max(x[1] for x in e))
+    del got
+    out = {"ms": cuda_ms(lambda: flash_attention_gqa(q, k, v, scale, True),
+                         3, 1)}
+    out["plain_ms"] = cuda_ms(
+        lambda: plain_causal_rows(q, k, v, scale, plain_rows), 1, 0)
+    qs, ks, vs = sdpa_layout(q, k, v)
+    try:
+        out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, scale=scale), 3, 1)
+    except RuntimeError as ex:      # a yardstick, not a check
+        say(f"MLA prefill: scaled_dot_product_attention not measured "
+            f"({str(ex)[:120]})")
+        out["library_ms"] = None
+    out["bound_ms"], out["bound_by"] = flash_bound(
+        flash_work(b, t, t, h, h, d, True, 2, dv=dv), bf)
+    out["square_bound_ms"], _ = flash_bound(      # 128-wide keys, as padded
+        flash_work(b, t, t, h, h, 128, True, 2, dv=dv), bf)
+    del q, k, kv, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = max(max(errs), *(x[0] for x in checks.values()))
+    out["checks"] = [{"shape": lab, "max_abs_err": x[0],
+                      "err_over_limit": x[1]} for lab, x in checks.items()]
+    out["planted_faults"] = [{"fault": lab, "err_over_limit": r}
+                             for lab, r in faults.items()]
+    lib = ("not measured" if out["library_ms"] is None
+           else f"{out['library_ms']:.4f} ms")
+    say("MLA prefill on the tensor-core tile (96, 64), bfloat16 against the "
+        "float32 plain version within FLASH_TC: " + "; ".join(
+            f"{lab}: max |err| {x[0]:.4g}, {x[1]:.4g} x the limit"
+            for lab, x in checks.items()) + "; planted faults: " + "; ".join(
+            f"{lab}: {r:.4g} x the limit" for lab, r in faults.items()))
+    say(f"MLA prefill layer ({b}, {t}, {h}/{h}, 96|64) causal "
+        f"({nvidia_smi_line()}): {out['ms']:.4f} ms (bound "
+        f"{out['bound_ms']:.4f} ms, {out['bound_by']}; with the keys padded "
+        f"to 128 {out['square_bound_ms']:.4f} ms), plain "
+        f"{out['plain_ms']:.4f} ms, scaled_dot_product_attention {lib}")
+    return out
+
+
+def mla_narrow_checks() -> dict:
+    """Phase 16a, the CUDA-core paths with values narrower than keys:
+    the CUDA-core tile at the float32 gate's prefill layer (2, 128, 40/40,
+    96|64) within the JAX tests' 2e-5 and in bfloat16 at (2, 130, 4/2,
+    48|32) within ``FLASH_TIGHT``; the split decode at the non-absorbed
+    cell decode (4, 1, 40/40, 96|64) over 1, 2047 and 32,832 positions
+    within ``FLASH_TIGHT``. Returns the largest errors."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(64)
+    rnd = lambda dt, *shape: torch.randn(shape, generator=gen,
+                                         device=DEVICE).to(dt)
+    f32, bf = torch.float32, torch.bfloat16
+    cell = (1, 2047, MLA_PROMPT + MLA_STEPS)
+    out = {}
+    for dt, (b, t, h, hkv, d, dv), ns, path in (
+            (f32, (2, 128, 40, 40, 96, 64), (128,), "tile_simt"),
+            (bf, (2, 130, 4, 2, 48, 32), (130,), "tile_simt"),
+            (f32, (4, 1, 40, 40, 96, 64), cell, "decode_split"),
+            (bf, (4, 1, 40, 40, 96, 64), cell, "decode_split")):
+        cache_k = rnd(dt, b, max(ns), hkv, d)
+        cache_v = rnd(dt, b, max(ns), hkv, dv)
+        q = rnd(dt, b, t, h, d)
+        for n in ns:
+            kp, vp = cache_k[:, :n], cache_v[:, :n]
+            label = f"{path} {_dt_name(dt)} {(b, t, h, hkv, d, dv)} over {n}"
+            before = read_paths()
+            got = flash_attention_gqa(q, kp, vp, 0.125, t > 1)
+            check(_path_delta(before)[path] == 1, f"{label}: not on {path}")
+            want = flash_attention_gqa_torch(q.float(), kp.float(),
+                                             vp.float(), 0.125, t > 1)
+            out[label] = (flash_close(got, want, dt, label) if dt == f32
+                          else flash_check(got, want, None, label)[1])
+        del cache_k, cache_v
+    torch.cuda.empty_cache()
+    say("flash with values narrower than keys (float32: |err| within 2e-5; "
+        "bfloat16: err / FLASH_TIGHT): " + "; ".join(
+            f"{k}: {v:.4g}" for k, v in out.items()))
+    return out
+
+
+def mla_decode_checks(b=MLA_BATCH, n=MLA_PROMPT + MLA_STEPS, h=MLA_H,
+                      r=MLA_R, rd=MLA_RD) -> dict:
+    """Phase 16a, the latent decode kernel (``flash_mla_decode``) against
+    its plain version in float32 (``ref.flash_mla_decode_torch``): float32
+    inputs within the JAX tests' 2e-5, bfloat16 inputs within
+    ``FLASH_TIGHT`` (the kernel's arithmetic is float32, then one rounding
+    of its output, as the split decode's), at ``MLA_DECODE_SHAPES`` and at
+    the cell's last step (b, 1, h, r + rd) over n positions (a view of a
+    longer cache); two calls bitwise equal. Planted faults that must fail
+    the limit at the cell: the rope part of the scores left out, one
+    split's keys dropped, the values read 8 columns off. Times against
+    both bounds (bytes at the memory rate; operations at the bfloat16
+    tensor-core rate, and at the float32 CUDA-core rate this kernel runs
+    at), the plain version and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        mla_splits, split_chunk)
+    from repro_torch.kernels.flash_attention.ops import flash_mla_decode
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_mla_decode_torch, mla_keys, sdpa)
+    gen = torch.Generator(device=DEVICE).manual_seed(288)
+    rnd = lambda dt, *shape: torch.randn(shape, generator=gen,
+                                         device=DEVICE).to(dt)
+    scale = mla_scale()
+    checks, faults = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for bb, nn, hh, rr, rrd in MLA_DECODE_SHAPES:
+            ckv, kr = rnd(dt, bb, nn + 5, rr)[:, :nn], rnd(dt, bb, nn + 5,
+                                                           rrd)[:, :nn]
+            ql, qr = rnd(dt, bb, 1, hh, rr), rnd(dt, bb, 1, hh, rrd)
+            label = f"{_dt_name(dt)} {(bb, nn, hh, rr, rrd)}"
+            before = read_paths()
+            got = flash_mla_decode(ql, qr, ckv, kr, scale)
+            check(_path_delta(before)["mla_decode"] == 1,
+                  f"{label}: not on the latent decode")
+            want = flash_mla_decode_torch(ql.float(), qr.float(),
+                                          ckv.float(), kr.float(), scale,
+                                          mla_splits(bb, hh, nn))
+            checks[label] = ((flash_close(got, want, dt, label), 0.0)
+                             if dt == torch.float32 else
+                             flash_check(got, want, None, label))
+    # the cell's last step
+    bf = torch.bfloat16
+    cache_ckv, cache_kr = rnd(bf, b, n, r), rnd(bf, b, n, rd)
+    ckv, kr = cache_ckv[:, :n], cache_kr[:, :n]
+    ql, qr = rnd(bf, b, 1, h, r), rnd(bf, b, 1, h, rd)
+    got = flash_mla_decode(ql, qr, ckv, kr, scale)
+    check(torch.equal(got, flash_mla_decode(ql, qr, ckv, kr, scale)),
+          "the latent decode: two calls differ")
+    n_split = mla_splits(b, h, n)
+    f = [x.float() for x in (ql, qr, ckv, kr)]
+    want = flash_mla_decode_torch(*f, scale, n_split)
+    label = f"cell bfloat16 ({b}, 1, {h}, {r} + {rd}) over {n}"
+    checks[label] = flash_check(got, want, None, label)
+    chunk, s3 = split_chunk(n, n_split), min(3, n_split - 1)
+    qcat, keys = torch.cat(f[:2], -1), mla_keys(f[2], f[3])
+    kpos = torch.arange(n, device=DEVICE)[None, None, :]
+    for lab, faulty in (
+            ("decode: the rope part of the scores left out",
+             lambda: flash_mla_decode_torch(f[0], torch.zeros_like(f[1]),
+                                            f[2], f[3], scale, n_split)),
+            (f"decode: split {s3} of {n_split} ({chunk} keys) dropped",
+             lambda: sdpa(qcat, keys, f[2][:, :, None],
+                          ~((kpos >= s3 * chunk)
+                            & (kpos < (s3 + 1) * chunk)), scale)),
+            ("decode: the values read 8 columns off",
+             lambda: sdpa(qcat, keys, torch.roll(f[2], 8, -1)[:, :, None],
+                          None, scale))):
+        faults[lab] = flash_fault_caught(faulty(), want, lab)
+    del f, qcat, keys, want
+    out = {"n_split": n_split}
+    qs = torch.cat([ql, qr], -1).transpose(1, 2)
+    ks = torch.cat([ckv, kr], -1)[:, None]
+    vs = ckv[:, None]
+    for key, fn in (
+            ("ms", lambda: flash_mla_decode(ql, qr, ckv, kr, scale)),
+            ("plain_ms", lambda: flash_mla_decode_torch(ql, qr, ckv, kr,
+                                                        scale, n_split)),
+            ("library_ms", lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, scale=scale, enable_gqa=True))):
+        try:
+            out[key] = cuda_ms(fn, 20)
+            out[key.replace("ms", "device_ms")] = device_ms(fn, 20)
+        except RuntimeError as ex:      # the library call: a yardstick
+            check(key == "library_ms", f"the latent decode: {ex}")
+            say(f"MLA decode: scaled_dot_product_attention not measured "
+                f"({str(ex)[:120]})")
+            out[key], out["library_device_ms"] = None, None
+    nbytes = 2 * (b * n * (r + rd) + b * h * (r + rd) + b * h * r)
+    ops = 2 * b * h * n * (r + rd) + 2 * b * h * n * r
+    out["bytes"], out["operations"] = nbytes, ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out["bound_ms"] = max(t_bytes, ops / BF16_OPS_PER_S * 1e3)
+    out["bound_by"] = ("bytes" if t_bytes >= ops / BF16_OPS_PER_S * 1e3
+                       else "operations")
+    out["cuda_core_ops_ms"] = ops / FP32_OPS_PER_S * 1e3
+    del cache_ckv, cache_kr, ckv, kr, ql, qr, got, qs, ks, vs
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = max(x[0] for x in checks.values())
+    out["checks"] = [{"shape": lab, "max_abs_err": x[0],
+                      "err_over_limit": x[1]} for lab, x in checks.items()]
+    out["planted_faults"] = [{"fault": lab, "err_over_limit": x}
+                             for lab, x in faults.items()]
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    say("MLA latent decode against its float32 plain version (float32: "
+        "within 2e-5; bfloat16: FLASH_TIGHT): " + "; ".join(
+            f"{lab}: max |err| {x[0]:.4g}, {x[1]:.4g} x the limit"
+            for lab, x in checks.items()) + "; planted faults: " + "; ".join(
+            f"{lab}: {x:.4g} x the limit" for lab, x in faults.items()))
+    say(f"MLA latent decode ({b}, 1, {h}, {r} + {rd}) over {n} positions in "
+        f"{n_split} splits ({nvidia_smi_line()}): {out['ms']:.4f} ms per "
+        f"layer (device {out['device_ms']}), bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: {nbytes / 1e6:.1f} MB; {ops / 1e9:.2f} GFLOP "
+        f"take {ops / BF16_OPS_PER_S * 1e3:.4f} ms on the tensor cores, "
+        f"{out['cuda_core_ops_ms']:.4f} ms at the CUDA cores' float32 rate, "
+        f"this kernel's), plain {fmt(out['plain_ms'])}, "
+        f"scaled_dot_product_attention {fmt(out['library_ms'])}")
+    return out
+
+
+def handoff_kr_dropped(pre, caches, t: int) -> None:
+    """A planted fault: :func:`handoff` without MLA's rope keys (decode
+    starts from zero kr over the prompt)."""
+    handoff(pre, caches, t)
+    caches["layers"]["kr"].zero_()
+
+
+def handoff_ckv_shifted(pre, caches, t: int) -> None:
+    """A planted fault: :func:`handoff` with MLA's latent one position
+    late (position p's ckv in slot p + 1, slot 0 zero)."""
+    import torch
+    handoff(pre, caches, t)
+    with torch.inference_mode():
+        c = caches["layers"]["ckv"]
+        c[:, :, 1:t].copy_(pre["layers"]["ckv"][:, :, :t - 1])
+        c[:, :, 0].zero_()
+
+
+def mla_peak_reckoning(cfg, b, t, n_steps) -> dict:
+    """The serving cell's peak, reckoned from the code before the run:
+    weights, prefill and decode latent caches, the prefill's
+    all-position logits and the vocab mask's ``torch.where`` copy, the
+    last layer's largest transients (the MLP's three (b, t, d_ff) and the
+    flash call's q, k and kv)."""
+    cache = cfg.n_layers * b * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    parts = {"weights": 2 * cfg.param_count(),
+             "prefill caches": cache * t,
+             "decode caches": cache * (t + n_steps),
+             "all-position logits": b * t * cfg.padded_vocab * 2,
+             "vocab mask copy": b * t * cfg.padded_vocab * 2,
+             "layer transients": b * t * (3 * cfg.d_ff + 2 * cfg.n_heads * (
+                 cfg.qk_nope_dim + cfg.qk_rope_dim) + cfg.n_heads * (
+                 cfg.qk_nope_dim + cfg.v_head_dim)) * 2}
+    say(f"{MLA_CELL}: peak reckoned before the run: " + ", ".join(
+        f"{k} {v / 1e9:.2f} GB" for k, v in parts.items())
+        + f"; sum {sum(parts.values()) / 1e9:.2f} GB")
+    return parts
+
+
+def mla_phase() -> dict:
+    """Phase 16: MLA on minicpm3-4b. 16a the kernels before the model
+    allocates; 16b the float32 serving gate, both decode paths; 16c the
+    serving cell; 16d the float32 training gate and the training cell."""
+    import torch
+    t16 = time.perf_counter()
+    pre = mla_prefill_checks()
+    narrow = mla_narrow_checks()
+    dec = mla_decode_checks()
+    t16b = time.perf_counter()
+    gates = {}
+    for absorb in (True, False):
+        cfg = minicpm3(2, decode_absorb=absorb)
+        g = serve_f32(cfg, 2, 128, 8)
+        dec_path = "mla_decode" if absorb else "decode_split"
+        want = dict.fromkeys(g["paths"], 0)
+        want["tile_simt"], want[dec_path] = 2 * 2, 2 * 8
+        check(g["paths"] == want, f"minicpm3 float32 gate (absorb {absorb}):"
+              f" flash calls by kernel {g['paths']}, expected {want}")
+        gates[dec_path] = g
+    t16c = time.perf_counter()
+    cfg = minicpm3()
+    reckon = mla_peak_reckoning(cfg, MLA_BATCH, MLA_PROMPT, MLA_STEPS)
+    cell = serve_cell(cfg, MLA_CELL, MLA_BATCH, MLA_PROMPT, MLA_STEPS,
+                      SERVE_MLA_BF16_DIFF,
+                      faults=(handoff_kr_dropped, handoff_ckv_shifted))
+    say(f"{MLA_CELL}: peak {cell['peak']} bytes against "
+        f"{sum(reckon.values()):.4g} reckoned")
+    torch.cuda.empty_cache()
+    t16d = time.perf_counter()
+    ssm_train_f32(minicpm3(2))
+    tcfg = minicpm3(MLA_TRAIN_DEPTH)
+    n_par = tcfg.param_count()
+    say(f"{MLA_TRAIN_CELL}: {n_par:,} parameters at depth "
+        f"{MLA_TRAIN_DEPTH}; reckoned at the hymba cell's 26.6 bytes a "
+        f"parameter (42.36 GB at 1.59 B, PR 24): {26.6 * n_par / 1e9:.2f} GB")
+    train = ssm_train_cell(tcfg, MLA_TRAIN_CELL, 4096)
+    torch.cuda.empty_cache()
+    say(f"phase 16 wall: 16a {t16b - t16:.1f} s, 16b {t16c - t16b:.1f} s, "
+        f"16c {t16d - t16c:.1f} s, 16d {time.perf_counter() - t16d:.1f} s")
+    flash = {"route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "bitwise": False, "config": MLA_CELL, "dtype": "bfloat16",
+             "launches_per": f"served run: 1 prefill + {MLA_STEPS} decode "
+                             f"steps x {cell['n_layers']} layers"}
+    rows = [{"name": "flash_tile_tc", **flash,
+             "replaces": "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:69",
+             "mode": "MLA prefill, keys 96 wide, values 64",
+             "launches": cell["paths"]["tile_tc"],
+             "launches_by_path": cell["paths"],
+             "max_abs_err": pre["max_abs_err"],
+             "tol": {"bfloat16_vs_float32_plain": FLASH_TC, **FLASH_TOL},
+             "checks": pre["checks"], "planted_faults": pre["planted_faults"],
+             "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+             "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+             "padded_keys_bound_ms": pre["square_bound_ms"],
+             "library_ms": pre["library_ms"],
+             "library": "torch.nn.functional.scaled_dot_product_attention",
+             "narrow_value_checks": narrow,
+             "ms_per": f"prefill layer ({MLA_BATCH} x {MLA_PROMPT}, 40/40 "
+                       "heads, keys 96, values 64, causal)"},
+            {"name": "flash_mla_decode", **flash,
+             "replaces": "none (no TPU twin: the JAX package computes the "
+                         "absorbed decode in jnp, src/repro/models/"
+                         "attention.py:283-315)",
+             "launches": cell["paths"]["mla_decode"],
+             "max_abs_err": dec["max_abs_err"],
+             "tol": {"float32": FLASH_TOL["float32"],
+                     "bfloat16_vs_float32_plain": FLASH_TIGHT},
+             "checks": dec["checks"], "planted_faults": dec["planted_faults"],
+             "ms": dec["ms"], "device_ms": dec["device_ms"],
+             "plain_ms": dec["plain_ms"],
+             "plain_device_ms": dec["plain_device_ms"],
+             "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+             "cuda_core_ops_ms": dec["cuda_core_ops_ms"],
+             "bound_note": "bytes bound the card; this CUDA-core kernel is "
+                           "bound by operations at the float32 rate, about "
+                           "4x the byte bound",
+             "library_ms": dec["library_ms"],
+             "library_device_ms": dec["library_device_ms"],
+             "library": "torch.nn.functional.scaled_dot_product_attention "
+                        "(the latent cache as one key head, enable_gqa)",
+             "splits": dec["n_split"],
+             "ms_per": f"decode layer ({MLA_BATCH} x 1, 40 heads, over "
+                       f"{MLA_PROMPT + MLA_STEPS} positions of 256 + 32; two"
+                       " launches: splits and merge)"}]
+    return {"rows": rows, "cell": cell, "train": train, "gates": gates,
+            "prefill": pre, "decode": dec}
+
+
 def main(args: list[str]) -> int:
     import torch
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
                     ["--attention-rows"], ["--solve"], ["--reduce"],
                     ["--fleet"], ["--runtime"], ["--chaos"],
                     ["--chaos-loss-witness"], ["--dist"], ["--ssm"],
-                    ["--xlstm-witness"], ["--scan-rows"]):
+                    ["--xlstm-witness"], ["--scan-rows"], ["--mla"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
               f"--runtime | --chaos | --chaos-loss-witness | --dist | "
-              f"--ssm | --xlstm-witness | --scan-rows], got {args}",
+              f"--ssm | --xlstm-witness | --scan-rows | --mla], got {args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6144,6 +6646,13 @@ def main(args: list[str]) -> int:
         ssm = ssm_phase()
         say(f"phase 15 wall: {time.perf_counter() - t15:.1f} s")
         say(json.dumps({"kernels": [ssm["row"]]}))
+        say(smi)
+        return 0
+    if args == ["--mla"]:
+        t16 = time.perf_counter()
+        mla = mla_phase()
+        say(f"phase 16 wall: {time.perf_counter() - t16:.1f} s")
+        say(json.dumps({"kernels": mla["rows"]}))
         say(smi)
         return 0
 
@@ -6266,6 +6775,16 @@ def main(args: list[str]) -> int:
           "phase 14")
     ssm = ssm_phase()
     say(f"phase 15 wall: {time.perf_counter() - t15:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 16: MLA on minicpm3-4b, its prefill and latent decode kernels,
+    # served at full size and trained
+    t16 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 16: {held} bytes still allocated after "
+          "phase 15")
+    mla = mla_phase()
+    say(f"phase 16 wall: {time.perf_counter() - t16:.1f} s")
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -6511,6 +7030,7 @@ def main(args: list[str]) -> int:
         f"{scan_per_layer(hy['prefill_profile'], hy['n_layers'])}, decode "
         f"step {scan_per_layer(dp, hy['n_layers'])} (None: not profiled)")
     rows.append(ssm["row"])
+    rows.extend(mla["rows"])
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

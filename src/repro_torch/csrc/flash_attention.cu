@@ -1,10 +1,11 @@
 // Flash (online-softmax) attention for Hopper (sm_90a): the serving path's
 // attention, prefill and decode.
 //
-//   q (B, T, H, D), k and v (B, S, Hkv, D), float32 or bfloat16, each a
-//   strided view whose last dimension is contiguous -> o (B, T, H, D) in
-//   q's dtype. Query head h reads KV head h / (H / Hkv), so grouped K/V are
-//   never repeated; the (BH, T, D) layout is H = Hkv = 1. For every (b, h,
+//   q (B, T, H, D), k (B, S, Hkv, D) and v (B, S, Hkv, Dv), Dv <= D (MLA:
+//   keys 96 wide, values 64), float32 or bfloat16, each a strided view
+//   whose last dimension is contiguous -> o (B, T, H, Dv) in q's dtype.
+//   Query head h reads KV head h / (H / Hkv), so grouped K/V are never
+//   repeated; the (BH, T, D) layout is H = Hkv = 1. For every (b, h,
 //   query row): logits (q . k) * scale in float32, masked to key < S and,
 //   when causal, key <= row (positions aligned at 0, as the JAX oracle
 //   aligns them) and, with a sliding window w > 0 (causal, T == S only),
@@ -18,22 +19,26 @@
 // (128 x 128 block, VMEM-resident K/V panel) schedule; ragged query and key
 // tiles are masked here, so the wrapper pads nothing and never falls back.
 //
-// Three launch shapes; the wrapper picks one by T, dtype and D only and
-// counts each call once:
-//  * tensor-core tile kernel (T > 1, bfloat16, D 64 or 128; the serving
-//    cells' prefill): one block of 288 threads per (b, h, 128-row query
-//    tile), the longest causal tiles first. A producer warp loads the Q
-//    tile once and 128-key K and V tiles into a ring of 3 stages (D 64) or
-//    2 (D 128) by TMA (tensor maps over each strided view, 128-byte
-//    swizzle, zeros out of bounds), each stage guarded by a full and an
-//    empty mbarrier. Two consumer warpgroups of 64 rows each compute S =
+// Three launch shapes for attention; the wrapper picks one by T, dtype and
+// (D, Dv) only and counts each call once:
+//  * tensor-core tile kernel (T > 1, bfloat16, (D, Dv) (64, 64), (128,
+//    128) or (96, 64), a template on the pair; the serving cells' prefill):
+//    one block of 288 threads per (b, h, 128-row query tile), the longest
+//    causal tiles first. A producer warp loads the Q tile once and 128-key
+//    K and V tiles into a ring of 3 stages (Dv 64) or 2 (Dv 128) by TMA
+//    (tensor maps over each strided view, 128-byte swizzle, zeros out of
+//    bounds), each stage guarded by a full and an empty mbarrier. D 96
+//    loads as two 64-column panels, the second's columns 96-127 filled
+//    with zeros by the TMA (a box partly out of the map's bounds still
+//    delivers, and counts, all its bytes) and never read: S takes 6 k-steps
+//    of 16, not 8. Two consumer warpgroups of 64 rows each compute S =
 //    Q K^T with wgmma.m64n128k16 (bf16 operands from shared memory, float32
 //    accumulator), the online softmax on the accumulator fragment in
 //    registers (a row's max and sum over the four lanes that hold it, two
 //    shuffles; base-2 exponentials of logits pre-scaled by log2(e)), round
 //    P to bfloat16 in registers, where the accumulator layout is exactly
 //    wgmma's register-A layout, and compute O += P V with
-//    wgmma.m64n{D}k16 (V the transposed B operand). l sums the float32 P;
+//    wgmma.m64n{Dv}k16 (V the transposed B operand). l sums the float32 P;
 //    only P's product rounds it, as the plain version rounds its weights to
 //    v's dtype. Key tiles past the diagonal are never loaded, the window's
 //    band starts at its first tile, and only diagonal, ragged and band-edge
@@ -42,8 +47,9 @@
 //    whose band starts past the window's first key tile keeps m = -1e30
 //    and l = 0 there. Each weight takes one FMA and one ex2.approx.ftz,
 //    and O is rescaled only when a row's max moved.
-//  * CUDA-core tile kernel (T > 1, float32, or bfloat16 with D not 64 or
-//    128): one block of 256 threads per (b, h, 64-row query tile). The Q
+//  * CUDA-core tile kernel (T > 1, float32, or bfloat16 with (D, Dv) not
+//    a tensor-core pair): one block of 256 threads per (b, h, 64-row query
+//    tile). The Q
 //    tile and one 64-key K tile, then the V tile in the same buffer, sit in
 //    shared memory as float32 rows padded to an odd stride (conflict-free
 //    column reads). Thread (ty, tx) of the 16 x 16 grid holds rows ty + 16 i
@@ -65,8 +71,29 @@
 //    launch merges the splits in split order (no atomics: deterministic)
 //    and writes o. A decode passes the cache prefix k_all[:, :n] as a view,
 //    with no copy.
+// And one for MLA's absorbed decode, which has no TPU twin (the JAX package
+// computes it in jnp, src/repro/models/attention.py :: mla_decode):
+//  * latent decode (T = 1, float32 and bfloat16): q_lat (B, 1, H, r) and
+//    q_rope (B, 1, H, rd) over the latent cache ckv (B, n, r) and kr (B, n,
+//    rd), r <= 256 and rd <= 64 -> ctx_lat (B, 1, H, r): scores (q_lat . ckv
+//    + q_rope . kr) * scale in float32, the online softmax (expf), P ckv.
+//    Every head reads the same cache, so a block takes up to 40 heads of
+//    one sequence (8 warps of 5) over one split of the keys: each 64-key
+//    tile of ckv | kr (32 in float32) is staged once by cp.async, double-
+//    buffered, and serves both the scores (a lane two keys, a warp 5 heads,
+//    q rows read as float4 broadcasts) and P ckv (a thread two latent
+//    columns of 20 heads, keys in order). Grid (B ceil(H / 40), n_split);
+//    the split decode's merge launch folds the splits in split order, so two
+//    calls are bitwise equal. At minicpm3's cell (B 4, 40 heads, 256 + 32,
+//    n 32,832) a layer moves 75.6 MB (22.6 us at 3.35 TB/s, the card's
+//    bound) and does 5.7 GFLOP: 5.8 us on the tensor cores, but 85 us at
+//    the CUDA cores' float32 rate, so this kernel is bound by operations at
+//    about 4x the byte bound; the heads as the rows of mma.sync / wgmma
+//    products would lift that (a later redesign).
 //
-// Bound on the H100: prefill is bound by operations. At the qwen3-32b
+// Bound on the H100: prefill is bound by operations (minicpm3's MLA
+// prefill, (4, 32768, 40/40, 96|64) causal, 27.5 TFLOP a layer, 27.8 ms at
+// the bf16 rate). At the qwen3-32b
 // serving cell (B 4, T = S = 2048, 64 heads over 8 KV heads, D 128) the two
 // causal products are 275 GFLOP per layer: 0.28 ms at the bf16 tensor-core
 // rate (989 TFLOP/s), which only wgmma reaches; the CUDA-core kernel is
@@ -133,7 +160,7 @@ template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads)
 flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int B, int Tq,
-                  int S, int H, int G, int D, Strides sq, Strides sk,
+                  int S, int H, int G, int D, int Dv, Strides sq, Strides sk,
                   Strides sv, Strides so, int causal, int window,
                   float scale) {
   constexpr int W = 16 * DJ;
@@ -228,7 +255,7 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();                      // K is read and P is written
-    load_tile<T, W>(kv, vb, sv.t, k0, S, D, ld);
+    load_tile<T, W>(kv, vb, sv.t, k0, S, Dv, ld);   // zeros past Dv
     __syncthreads();
     const int n_c = min(kTile, S - k0);   // keys past S: p = 0 and v = 0
     for (int c = 0; c < n_c; ++c) {
@@ -254,7 +281,7 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) {
       const int d = tx + 16 * jj;
-      if (d < D) orow[d] = from_f<T>(acc[i][jj] / den);
+      if (d < Dv) orow[d] = from_f<T>(acc[i][jj] / den);
     }
   }
 }
@@ -262,7 +289,7 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DJ>
 cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
-                        int Tq, int S, int H, int G, int D, Strides sq,
+                        int Tq, int S, int H, int G, int D, int Dv, Strides sq,
                         Strides sk, Strides sv, Strides so, int causal,
                         int window, float scale, cudaStream_t stream) {
   const int ld = 16 * DJ + 1;
@@ -274,8 +301,8 @@ cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
   const long long blocks =
       static_cast<long long>(B) * H * ((Tq + kTile - 1) / kTile);
   flash_tile_kernel<T, DJ><<<static_cast<unsigned>(blocks), kThreads, smem,
-                             stream>>>(q, k, v, o, B, Tq, S, H, G, D, sq, sk,
-                                       sv, so, causal, window, scale);
+                             stream>>>(q, k, v, o, B, Tq, S, H, G, D, Dv, sq,
+                                       sk, sv, so, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -291,17 +318,27 @@ constexpr int kConsumers = 256;           // two warpgroups of 64 rows
 constexpr int kThreadsTc = kConsumers + 32;   // and one producer warp
 constexpr int kRowBytes = 128;            // 64 bf16: one swizzled row
 
-// Shared memory: the Q tile, then a ring of (K tile, V tile) stages, each as
-// D / 64 panels of 128-byte rows in the 128-byte swizzle (16-byte chunk c
-// of row r at chunk c ^ (r % 8)), every panel 1024-byte aligned.
-template <int D>
+// Shared memory: the Q tile, then a ring of (K tile, V tile) stages, Q and
+// K as ceil(DK / 64) panels and V as DV / 64 panels of 128-byte rows in the
+// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), every
+// panel 1024-byte aligned. DK 96 takes two panels, the second's columns
+// 96-127 zero-filled by the TMA (out of the tensor map's bounds) and never
+// read: the products stop at DK. (DK, DV) = (64, 64): 16 KB of Q and three
+// 32 KB stages; (128, 128): 32 KB of Q and two 64 KB stages; (96, 64): 32
+// KB of Q and three 48 KB stages (176 KB). deepseek-v2's (192, 128) would
+// fit two 80 KB stages beside 48 KB of Q.
+template <int DK, int DV>
 struct Layout {
-  static constexpr int kStages = D == 64 ? 3 : 2;   // K/V tiles in flight
-  static constexpr int kPanels = D / 64;
-  static constexpr int kQ = kPanels * kRows * kRowBytes;
-  static constexpr int kKv = kPanels * kKeys * kRowBytes;   // K or V
-  static constexpr int kStage = 2 * kKv;
+  static constexpr int kPanelsK = (DK + 63) / 64;
+  static constexpr int kPanelsV = DV / 64;
+  static constexpr int kStages = DV == 64 ? 3 : 2;  // K/V tiles in flight
+  static constexpr int kQ = kPanelsK * kRows * kRowBytes;
+  static constexpr int kK = kPanelsK * kKeys * kRowBytes;
+  static constexpr int kV = kPanelsV * kKeys * kRowBytes;
+  static constexpr int kStage = kK + kV;
   static constexpr int kBytes = kQ + kStages * kStage;
+  static_assert(DK % 16 == 0 && DV % 64 == 0 && DV <= 128 && DV <= DK,
+                "the tile kernel's widths");
 };
 
 struct Args {
@@ -487,13 +524,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const Args a) {
-  using L = Layout<D>;
-  constexpr int NP = L::kPanels;
+  using L = Layout<DK, DV>;
+  constexpr int NPK = L::kPanelsK, NPV = L::kPanelsV;
   extern __shared__ char smem_raw[];
   constexpr int kStages = L::kStages;
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages], qbar;
@@ -526,8 +563,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (warp == kConsumers / 32) {
     // the producer warp: Q once, then K and V tile by tile into the ring
     if (lane == 0) {
+      // a box partly out of bounds (DK 96's second panel, ragged rows)
+      // still delivers its whole bytes, the fill included
       mbar_expect_tx(&qbar, L::kQ);
-      for (int p = 0; p < NP; ++p)
+      for (int p = 0; p < NPK; ++p)
         tma_load(qs + p * kRows * kRowBytes, &tq, &qbar, p * 64, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
@@ -535,12 +574,12 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         char* ks = smem + L::kQ + s * L::kStage;
         const int k0 = (kt0 + it) * kKeys;
         mbar_expect_tx(&full[s], L::kStage);
-        for (int p = 0; p < NP; ++p) {
+        for (int p = 0; p < NPK; ++p)
           tma_load(ks + p * kKeys * kRowBytes, &tk, &full[s], p * 64, hk,
                    k0, b);
-          tma_load(ks + L::kKv + p * kKeys * kRowBytes, &tv, &full[s],
+        for (int p = 0; p < NPV; ++p)
+          tma_load(ks + L::kK + p * kKeys * kRowBytes, &tv, &full[s],
                    p * 64, hk, k0, b);
-        }
       }
     }
   } else {
@@ -550,9 +589,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int row0 = qmin + w * 16 + (lane >> 2);   // and row0 + 8
     const int col = 2 * (lane & 3);
     const uint32_t q_addr = smem_u32(qs) + wg * 64 * kRowBytes;
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     mbar_wait(&qbar, 0);
 
@@ -560,7 +599,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int s = it % kStages;
       const int k0 = (kt0 + it) * kKeys;
       const uint32_t k_addr = smem_u32(smem + L::kQ + s * L::kStage);
-      const uint32_t v_addr = k_addr + L::kKv;
+      const uint32_t v_addr = k_addr + L::kK;
       mbar_wait(&full[s], (it / kStages) & 1);
 
       // S = Q K^T: K-major A and B, 16 head dims a step; a step inside a
@@ -571,7 +610,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       pin(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DK / 16; ++kk)
         wgmma_ss_n128(
             sc,
             sw128_desc(q_addr + (kk >> 2) * kRows * kRowBytes + (kk & 3) * 32,
@@ -631,7 +670,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       // rescale O only where a row's max moved (alpha != 1)
       if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
+        for (int i = 0; i < DV / 8; ++i) {
           o[4 * i] *= alpha[0];
           o[4 * i + 1] *= alpha[0];
           o[4 * i + 2] *= alpha[1];
@@ -657,7 +696,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < kKeys / 16; ++j) {
         const uint64_t dv = sw128_desc(v_addr + j * 16 * kRowBytes,
                                        kKeys * kRowBytes, 1024);
-        if constexpr (D == 64)
+        if constexpr (DV == 64)
           wgmma_rs_n64(o, pa + 4 * j, dv);
         else
           wgmma_rs_n128(o, pa + 4 * j, dv);
@@ -675,7 +714,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const float den = fmaxf(l[r], 1e-30f);
       __nv_bfloat16* orow = a.o + b * a.so.b + row * a.so.t + h * a.so.h;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DV / 8; ++i)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + col) =
             __floats2bfloat162_rn(o[4 * i + 2 * r] / den,
                                   o[4 * i + 2 * r + 1] / den);
@@ -732,31 +771,39 @@ bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_d(const CUtensorMap& mq, const CUtensorMap& mk,
                      const CUtensorMap& mv, const Args& a,
                      cudaStream_t stream) {
-  const int smem = Layout<D>::kBytes + 1024;    // + alignment to 1024
+  const int smem = Layout<DK, DV>::kBytes + 1024;   // + alignment to 1024
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
       static_cast<long long>(a.B) * a.H * ((a.Tq + kRows - 1) / kRows);
-  flash_tc_kernel<D><<<static_cast<unsigned>(blocks), kThreadsTc, smem,
-                       stream>>>(mq, mk, mv, a);
+  flash_tc_kernel<DK, DV><<<static_cast<unsigned>(blocks), kThreadsTc, smem,
+                            stream>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
 
+// The (DK, DV) pairs built: (64, 64), (128, 128) and (96, 64).
+bool tc_dims(int D, int Dv) {
+  return (D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
+         (D == 96 && Dv == 64);
+}
+
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const Args& a, int D, int Hkv, cudaStream_t stream) {
+                   const Args& a, int D, int Dv, int Hkv,
+                   cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, D, a.H, a.Tq, a.B, a.sq, kRows) ||
+  if (!tc_dims(D, Dv) || !make_map(&mq, q, D, a.H, a.Tq, a.B, a.sq, kRows) ||
       !make_map(&mk, k, D, Hkv, a.S, a.B, a.sk, kKeys) ||
-      !make_map(&mv, v, D, Hkv, a.S, a.B, a.sv, kKeys))
+      !make_map(&mv, v, Dv, Hkv, a.S, a.B, a.sv, kKeys))
     return cudaErrorInvalidValue;
-  return D == 64 ? launch_d<64>(mq, mk, mv, a, stream)
-                 : launch_d<128>(mq, mk, mv, a, stream);
+  if (D == 64) return launch_d<64, 64>(mq, mk, mv, a, stream);
+  if (D == 96) return launch_d<96, 64>(mq, mk, mv, a, stream);
+  return launch_d<128, 128>(mq, mk, mv, a, stream);
 }
 
 }  // namespace tc
@@ -856,9 +903,9 @@ template <typename T, int DP, bool kVec>
 __global__ void __launch_bounds__(kThreadsDec)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, float* __restrict__ part_ml,
-                    float* __restrict__ part_acc, int H, int G, int D, int n,
-                    int chunk, int n_split, Strides sq, Strides sk,
-                    Strides sv, float scale) {
+                    float* __restrict__ part_acc, int H, int G, int D,
+                    int Dv, int n, int chunk, int n_split, Strides sq,
+                    Strides sk, Strides sv, float scale) {
   using Sh = DecodeShape<T, DP>;
   constexpr int KT = Sh::KT, RB = Sh::RB;
   constexpr int kSets = kThreadsDec / KT;         // head sets of the scores
@@ -903,7 +950,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int g = 0; g < kHeads; ++g) acc[g][0] = acc[g][1] = 0.f;
   if (n_t > 0) {
     stage_rows<T, KT, RB, kVec>(kv, kb, sk.t, k_lo, k_hi, D);
-    stage_rows<T, KT, RB, kVec>(kv + KT * RB, vb, sv.t, k_lo, k_hi, D);
+    stage_rows<T, KT, RB, kVec>(kv + KT * RB, vb, sv.t, k_lo, k_hi, Dv);
     cp_commit();
   }
   __syncthreads();
@@ -913,7 +960,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       char* nxt = kv + ((it + 1) & 1) * 2 * KT * RB;   // buffer
       const int k1 = k_lo + (it + 1) * KT;
       stage_rows<T, KT, RB, kVec>(nxt, kb, sk.t, k1, k_hi, D);
-      stage_rows<T, KT, RB, kVec>(nxt + KT * RB, vb, sv.t, k1, k_hi, D);
+      stage_rows<T, KT, RB, kVec>(nxt + KT * RB, vb, sv.t, k1, k_hi, Dv);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -1032,11 +1079,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ml[0] = ms[threadIdx.x];
     ml[1] = ls[threadIdx.x];
   }
-  for (int i = threadIdx.x; i < gn * D; i += kThreadsDec) {
-    const int g = i / D, d = i - g * D;
+  for (int i = threadIdx.x; i < gn * Dv; i += kThreadsDec) {
+    const int g = i / Dv, d = i - g * Dv;
     float x = 0.f;
     for (int ph = 0; ph < kPhases; ++ph) x += red[(ph * kHeads + g) * DP + d];
-    part_acc[((bh0 + g) * n_split + split) * D + d] = x;
+    part_acc[((bh0 + g) * n_split + split) * Dv + d] = x;
   }
 }
 
@@ -1067,7 +1114,7 @@ flash_merge_kernel(const float* __restrict__ part_ml,
 
 template <typename T, int DP>
 cudaError_t launch_dp(const T* q, const T* k, const T* v, T* o, int B, int n,
-                      int H, int G, int D, Strides sq, Strides sk,
+                      int H, int G, int D, int Dv, Strides sq, Strides sk,
                       Strides sv, Strides so, float scale, int n_split,
                       int chunk, float* part_ml, float* part_acc,
                       cudaStream_t stream) {
@@ -1076,6 +1123,7 @@ cudaError_t launch_dp(const T* q, const T* k, const T* v, T* o, int B, int n,
   const bool aligned =
       reinterpret_cast<unsigned long long>(k) % 16 == 0 &&
       reinterpret_cast<unsigned long long>(v) % 16 == 0 && D % vec == 0 &&
+      Dv % vec == 0 &&
       sk.b % vec == 0 && sk.t % vec == 0 && sk.h % vec == 0 &&
       sv.b % vec == 0 && sv.t % vec == 0 && sv.h % vec == 0;
   const int smem = DecodeShape<T, DP>::kBytes;
@@ -1088,18 +1136,18 @@ cudaError_t launch_dp(const T* q, const T* k, const T* v, T* o, int B, int n,
                       ((G + kHeads - 1) / kHeads),
                   static_cast<unsigned>(n_split));
   kern<<<grid, kThreadsDec, smem, stream>>>(q, k, v, part_ml, part_acc, H, G,
-                                            D, n, chunk, n_split, sq, sk, sv,
-                                            scale);
+                                            D, Dv, n, chunk, n_split, sq, sk,
+                                            sv, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_merge_kernel<T><<<static_cast<unsigned>(B) * H, kThreadsDec, 0,
-                          stream>>>(part_ml, part_acc, o, H, D, n_split, so);
+                          stream>>>(part_ml, part_acc, o, H, Dv, n_split, so);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q_, const void* k_, const void* v_, void* o_,
-                   int B, int n, int H, int Hkv, int D, Strides sq,
+                   int B, int n, int H, int Hkv, int D, int Dv, Strides sq,
                    Strides sk, Strides sv, Strides so, float scale,
                    int n_split, int chunk, float* part_ml, float* part_acc,
                    cudaStream_t stream) {
@@ -1109,26 +1157,327 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, void* o_,
   T* o = static_cast<T*>(o_);
   const int G = H / Hkv;
   if (D <= 32)
-    return launch_dp<T, 32>(q, k, v, o, B, n, H, G, D, sq, sk, sv, so, scale,
-                            n_split, chunk, part_ml, part_acc, stream);
+    return launch_dp<T, 32>(q, k, v, o, B, n, H, G, D, Dv, sq, sk, sv, so,
+                            scale, n_split, chunk, part_ml, part_acc, stream);
   if (D <= 64)
-    return launch_dp<T, 64>(q, k, v, o, B, n, H, G, D, sq, sk, sv, so, scale,
-                            n_split, chunk, part_ml, part_acc, stream);
+    return launch_dp<T, 64>(q, k, v, o, B, n, H, G, D, Dv, sq, sk, sv, so,
+                            scale, n_split, chunk, part_ml, part_acc, stream);
   if (D <= 128)
-    return launch_dp<T, 128>(q, k, v, o, B, n, H, G, D, sq, sk, sv, so,
+    return launch_dp<T, 128>(q, k, v, o, B, n, H, G, D, Dv, sq, sk, sv, so,
                              scale, n_split, chunk, part_ml, part_acc,
                              stream);
-  return launch_dp<T, 256>(q, k, v, o, B, n, H, G, D, sq, sk, sv, so, scale,
-                           n_split, chunk, part_ml, part_acc, stream);
+  return launch_dp<T, 256>(q, k, v, o, B, n, H, G, D, Dv, sq, sk, sv, so,
+                           scale, n_split, chunk, part_ml, part_acc, stream);
 }
 
 }  // namespace dec
 
+// ---------------------------------------------------------------------------
+// The latent (MLA) decode: all heads of a sequence over its one latent cache
+
+namespace mla {
+
+constexpr int kThreadsMla = 256;
+constexpr int kHeads = 40;                // heads of a block: 8 warps x 5
+constexpr int kWarpHeads = kHeads / 8;    // heads a warp scores
+constexpr int kMaxR = 256, kMaxRd = 64;   // latent and rope widths, at most
+constexpr int kMaxW = kMaxR + kMaxRd;
+
+template <typename T>
+struct Shape {
+  static constexpr int KT = sizeof(T) == 2 ? 64 : 32;   // keys of a tile
+  static constexpr int KJ = KT / 32;                     // keys a lane scores
+  static constexpr int NV = 16 / static_cast<int>(sizeof(T));   // a chunk
+  // a staged row: ckv | kr, padded to an odd number of 16-byte chunks
+  static constexpr int RB = kMaxW * static_cast<int>(sizeof(T)) + 16;
+  // q (kHeads x kMaxW), p (KT x kHeads), m, alpha, l: floats; 2 tiles
+  static constexpr int kFloats = kHeads * kMaxW + KT * kHeads + 3 * kHeads;
+  static constexpr int kBytes = 4 * kFloats + 2 * KT * RB;
+};
+
+// Keys [k0, min(k0 + KT, k_end)) of the latent cache into shared rows:
+// ckv's r columns, then kr's rd columns. 16-byte cp.async copies (kVec:
+// bases and strides 16-byte aligned), else element copies.
+template <typename T, bool kVec>
+__device__ __forceinline__ void stage_latent(char* dst, const T* ckv,
+                                             long long c_st, const T* kr,
+                                             long long kr_st, int k0,
+                                             int k_end, int r, int rd) {
+  using Sh = Shape<T>;
+  constexpr int KT = Sh::KT, RB = Sh::RB, NV = Sh::NV;
+  const int w = r + rd;
+  if (kVec) {
+    const int chunks = w / NV;
+    for (int i = threadIdx.x; i < KT * chunks; i += kThreadsMla) {
+      const int j = i / chunks, c = (i - j * chunks) * NV;
+      if (k0 + j >= k_end) continue;
+      const T* src = c < r ? ckv + (k0 + j) * c_st + c
+                           : kr + (k0 + j) * kr_st + (c - r);
+      dec::cp_async16(dst + j * RB + c * static_cast<int>(sizeof(T)), src);
+    }
+  } else {
+    for (int i = threadIdx.x; i < KT * w; i += kThreadsMla) {
+      const int j = i / w, c = i - j * w;
+      if (k0 + j >= k_end) continue;
+      reinterpret_cast<T*>(dst + j * RB)[c] =
+          c < r ? ckv[(k0 + j) * c_st + c] : kr[(k0 + j) * kr_st + (c - r)];
+    }
+  }
+}
+
+// a pair of consecutive elements of a staged row as floats
+__device__ __forceinline__ float2 pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+// Block (b, head group, split): the heads [g0, g0 + gn) of sequence b over
+// keys [split chunk, (split + 1) chunk). Warp w scores heads 5 w .. 5 w + 4
+// on lanes' keys (lane + 32 kj), the softmax takes a head a warp at a
+// time, and thread t accumulates heads 20 (t / 128) .. + 19 on latent
+// columns 2 (t % 128), + 1 over every key in order.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreadsMla)
+flash_mla_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
+                 const T* __restrict__ ckv, const T* __restrict__ kr,
+                 float* __restrict__ part_ml, float* __restrict__ part_acc,
+                 int H, int n, int r, int rd, int chunk, int n_split,
+                 long long ql_sb, long long ql_sh, long long qr_sb,
+                 long long qr_sh, long long c_sb, long long c_st,
+                 long long kr_sb, long long kr_st, float scale) {
+  using Sh = Shape<T>;
+  constexpr int KT = Sh::KT, KJ = Sh::KJ, RB = Sh::RB, NV = Sh::NV;
+  constexpr int kHalf = kHeads / 2;       // heads a thread accumulates
+  extern __shared__ __align__(16) char smem[];
+  float* qs = reinterpret_cast<float*>(smem);    // kHeads x kMaxW
+  float* ps = qs + kHeads * kMaxW;               // KT x kHeads: p[j][g]
+  float* ms = ps + KT * kHeads;                  // running max
+  float* as = ms + kHeads;                       // this tile's alpha
+  float* ls = as + kHeads;                       // running sum
+  char* tiles = reinterpret_cast<char*>(ls + kHeads);   // 2 x KT x RB
+
+  const int n_hg = (H + kHeads - 1) / kHeads;
+  const int hg = blockIdx.x % n_hg, b = blockIdx.x / n_hg;
+  const int g0 = hg * kHeads, gn = min(kHeads, H - g0);
+  const int split = blockIdx.y;
+  const int k_lo = split * chunk, k_hi = min(n, k_lo + chunk);
+  const int n_t = k_hi > k_lo ? (k_hi - k_lo + KT - 1) / KT : 0;
+  const int w = r + rd;
+  const T* cb = ckv + b * c_sb;
+  const T* kb = kr + b * kr_sb;
+
+  for (int i = threadIdx.x; i < kHeads * kMaxW; i += kThreadsMla) {
+    const int g = i / kMaxW, c = i - g * kMaxW;
+    float x = 0.f;
+    if (g < gn && c < r)
+      x = to_f(q_lat[b * ql_sb + (g0 + g) * ql_sh + c]);
+    else if (g < gn && c < w)
+      x = to_f(q_rope[b * qr_sb + (g0 + g) * qr_sh + (c - r)]);
+    qs[i] = x;
+  }
+  if (threadIdx.x < kHeads) {
+    ms[threadIdx.x] = kNegInf;
+    ls[threadIdx.x] = 0.f;
+  }
+  const int cp = threadIdx.x % (kThreadsMla / 2);   // latent columns 2 cp
+  const int half = threadIdx.x / (kThreadsMla / 2); // heads half kHalf ..
+  const bool has_col = 2 * cp < r;
+  float acc[kHalf][2];
+#pragma unroll
+  for (int g = 0; g < kHalf; ++g) acc[g][0] = acc[g][1] = 0.f;
+  if (n_t > 0) {
+    stage_latent<T, kVec>(tiles, cb, c_st, kb, kr_st, k_lo, k_hi, r, rd);
+    dec::cp_commit();
+  }
+  __syncthreads();
+
+  for (int it = 0; it < n_t; ++it) {
+    if (it + 1 < n_t) {                   // the next tile into the other
+      stage_latent<T, kVec>(tiles + ((it + 1) & 1) * KT * RB, cb, c_st, kb,
+                            kr_st, k_lo + (it + 1) * KT, k_hi, r, rd);
+      dec::cp_commit();
+      dec::cp_wait<1>();
+    } else {
+      dec::cp_wait<0>();
+    }
+    __syncthreads();
+    const char* ts = tiles + (it & 1) * KT * RB;
+    const int k0 = k_lo + it * KT;
+    const int nk = min(KT, k_hi - k0);
+
+    {  // scores: warp -> heads [5 warp, 5 warp + 5), lane -> keys lane + 32 kj
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      const float* qw = qs + warp * kWarpHeads * kMaxW;
+      float dot[kWarpHeads][KJ];
+#pragma unroll
+      for (int g = 0; g < kWarpHeads; ++g)
+#pragma unroll
+        for (int kj = 0; kj < KJ; ++kj) dot[g][kj] = 0.f;
+      for (int c = 0; c < w; c += NV) {
+        float x[KJ][NV];
+#pragma unroll
+        for (int kj = 0; kj < KJ; ++kj)
+          dec::load16(reinterpret_cast<const T*>(ts + (lane + 32 * kj) * RB) +
+                          c,
+                      x[kj]);
+#pragma unroll
+        for (int g = 0; g < kWarpHeads; ++g)
+#pragma unroll
+          for (int e = 0; e < NV; e += 4) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(qw + g * kMaxW + c + e);
+#pragma unroll
+            for (int kj = 0; kj < KJ; ++kj) {
+              dot[g][kj] = fmaf(qv.x, x[kj][e], dot[g][kj]);
+              dot[g][kj] = fmaf(qv.y, x[kj][e + 1], dot[g][kj]);
+              dot[g][kj] = fmaf(qv.z, x[kj][e + 2], dot[g][kj]);
+              dot[g][kj] = fmaf(qv.w, x[kj][e + 3], dot[g][kj]);
+            }
+          }
+      }
+#pragma unroll
+      for (int kj = 0; kj < KJ; ++kj) {   // keys past the range: -1e30
+        const int j = lane + 32 * kj;
+#pragma unroll
+        for (int g = 0; g < kWarpHeads; ++g)
+          ps[j * kHeads + warp * kWarpHeads + g] =
+              j < nk ? dot[g][kj] * scale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    {  // the online softmax: warp w takes heads w, w + 8, ...
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      for (int g = warp; g < gn; g += kThreadsMla / 32) {
+        float x[KJ], mx = kNegInf;
+#pragma unroll
+        for (int kj = 0; kj < KJ; ++kj) {
+          x[kj] = ps[(lane + 32 * kj) * kHeads + g];
+          mx = fmaxf(mx, x[kj]);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+        const float m_old = ms[g], m_new = fmaxf(m_old, mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int kj = 0; kj < KJ; ++kj) {
+          const float p = expf(x[kj] - m_new);
+          ps[(lane + 32 * kj) * kHeads + g] = p;
+          sum += p;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(kFull, sum, off);
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);
+          ms[g] = m_new;
+          as[g] = alpha;
+          ls[g] = ls[g] * alpha + sum;
+        }
+      }
+    }
+    __syncthreads();
+
+    if (has_col) {  // P ckv over the tile's keys, in key order
+#pragma unroll
+      for (int g = 0; g < kHalf; ++g) {
+        const int gg = half * kHalf + g;
+        const float al = gg < gn ? as[gg] : 0.f;
+        acc[g][0] *= al;
+        acc[g][1] *= al;
+      }
+      const T* col = reinterpret_cast<const T*>(ts) + 2 * cp;
+      for (int j = 0; j < nk; ++j) {
+        const float2 x = pair(reinterpret_cast<const T*>(
+            reinterpret_cast<const char*>(col) + j * RB));
+        const float* pj = ps + j * kHeads + half * kHalf;
+#pragma unroll
+        for (int g4 = 0; g4 < kHalf; g4 += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pj + g4);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[g4 + e][0] = fmaf(pv[e], x.x, acc[g4 + e][0]);
+            acc[g4 + e][1] = fmaf(pv[e], x.y, acc[g4 + e][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();                      // the tile and P are free
+  }
+
+  // this split's partial state; an empty split leaves m = -1e30, l = 0
+  const long long bh0 = static_cast<long long>(b) * H + g0;
+  if (threadIdx.x < gn) {
+    float* ml = part_ml + ((bh0 + threadIdx.x) * n_split + split) * 2;
+    ml[0] = ms[threadIdx.x];
+    ml[1] = ls[threadIdx.x];
+  }
+  if (has_col) {
+#pragma unroll
+    for (int g = 0; g < kHalf; ++g) {
+      const int gg = half * kHalf + g;
+      if (gg >= gn) continue;
+      float* dst = part_acc + ((bh0 + gg) * n_split + split) * r + 2 * cp;
+      dst[0] = acc[g][0];
+      dst[1] = acc[g][1];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q_lat_, const void* q_rope_, const void* ckv_,
+                   const void* kr_, void* o_, int B, int n, int H, int r,
+                   int rd, long long ql_sb, long long ql_sh, long long qr_sb,
+                   long long qr_sh, long long c_sb, long long c_st,
+                   long long kr_sb, long long kr_st, float scale,
+                   int n_split, int chunk, float* part_ml, float* part_acc,
+                   cudaStream_t stream) {
+  const T* q_lat = static_cast<const T*>(q_lat_);
+  const T* q_rope = static_cast<const T*>(q_rope_);
+  const T* ckv = static_cast<const T*>(ckv_);
+  const T* kr = static_cast<const T*>(kr_);
+  T* o = static_cast<T*>(o_);
+  // 16-byte copies when every ckv and kr row starts on a 16-byte boundary
+  const long long vec = 16 / sizeof(T);
+  const bool aligned =
+      reinterpret_cast<unsigned long long>(ckv) % 16 == 0 &&
+      reinterpret_cast<unsigned long long>(kr) % 16 == 0 && r % vec == 0 &&
+      rd % vec == 0 && c_sb % vec == 0 && c_st % vec == 0 &&
+      kr_sb % vec == 0 && kr_st % vec == 0;
+  const int smem = Shape<T>::kBytes;
+  auto kern = aligned ? flash_mla_kernel<T, true> : flash_mla_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(B) * ((H + kHeads - 1) / kHeads),
+                  static_cast<unsigned>(n_split));
+  kern<<<grid, kThreadsMla, smem, stream>>>(
+      q_lat, q_rope, ckv, kr, part_ml, part_acc, H, n, r, rd, chunk, n_split,
+      ql_sb, ql_sh, qr_sb, qr_sh, c_sb, c_st, kr_sb, kr_st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the merge of the split decode, over r columns of each (b, h)
+  const Strides so{static_cast<long long>(H) * r, 0, r};
+  dec::flash_merge_kernel<T><<<static_cast<unsigned>(B) * H,
+                               dec::kThreadsDec, 0, stream>>>(
+      part_ml, part_acc, o, H, r, n_split, so);
+  return cudaGetLastError();
+}
+
+}  // namespace mla
+
 template <typename T>
 int launch_simt(const void* q_, const void* k_, const void* v_, void* o_,
-                int B, int Tq, int S, int H, int Hkv, int D, Strides sq,
-                Strides sk, Strides sv, Strides so, int causal, int window,
-                float scale, void* stream_) {
+                int B, int Tq, int S, int H, int Hkv, int D, int Dv,
+                Strides sq, Strides sk, Strides sv, Strides so, int causal,
+                int window, float scale, void* stream_) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
@@ -1137,86 +1486,89 @@ int launch_simt(const void* q_, const void* k_, const void* v_, void* o_,
   const int G = H / Hkv;
   cudaError_t err;
   if (D <= 16)
-    err = launch_tile<T, 1>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                            causal, window, scale, stream);
+    err = launch_tile<T, 1>(q, k, v, o, B, Tq, S, H, G, D, Dv, sq, sk, sv,
+                            so, causal, window, scale, stream);
   else if (D <= 32)
-    err = launch_tile<T, 2>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                            causal, window, scale, stream);
+    err = launch_tile<T, 2>(q, k, v, o, B, Tq, S, H, G, D, Dv, sq, sk, sv,
+                            so, causal, window, scale, stream);
   else if (D <= 64)
-    err = launch_tile<T, 4>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                            causal, window, scale, stream);
+    err = launch_tile<T, 4>(q, k, v, o, B, Tq, S, H, G, D, Dv, sq, sk, sv,
+                            so, causal, window, scale, stream);
   else if (D <= 128)
-    err = launch_tile<T, 8>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                            causal, window, scale, stream);
+    err = launch_tile<T, 8>(q, k, v, o, B, Tq, S, H, G, D, Dv, sq, sk, sv,
+                            so, causal, window, scale, stream);
   else
-    err = launch_tile<T, 16>(q, k, v, o, B, Tq, S, H, G, D, sq, sk, sv, so,
-                             causal, window, scale, stream);
+    err = launch_tile<T, 16>(q, k, v, o, B, Tq, S, H, G, D, Dv, sq, sk, sv,
+                             so, causal, window, scale, stream);
   return static_cast<int>(err);
 }
 
-bool bad_shape(int B, int Tq, int S, int H, int Hkv, int D, int causal,
-               int window) {
+bool bad_shape(int B, int Tq, int S, int H, int Hkv, int D, int Dv,
+               int causal, int window) {
   return B < 1 || Tq < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv || D < 1 ||
-         D > 256 || window < 0 || (window > 0 && (!causal || Tq != S));
+         D > 256 || Dv < 1 || Dv > D || window < 0 ||
+         (window > 0 && (!causal || Tq != S));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Strides are in elements, for the (B, T, H, D) views q, o and the
-// (B, S, Hkv, D) views k, v; D is contiguous in all four.
+// Strides are in elements, for the (B, T, H, D) view q, the (B, T, H, Dv)
+// view o, the (B, S, Hkv, D) view k and the (B, S, Hkv, Dv) view v, Dv <= D;
+// the last dimension is contiguous in all four.
 
 // The CUDA-core tile kernel, any T (the wrapper sends it T > 1).
 int soar_flash_tile(const void* q, const void* k, const void* v, void* o,
                     int bf16, int B, int Tq, int S, int H, int Hkv, int D,
-                    long long q_sb, long long q_st, long long q_sh,
+                    int Dv, long long q_sb, long long q_st, long long q_sh,
                     long long k_sb, long long k_st, long long k_sh,
                     long long v_sb, long long v_st, long long v_sh,
                     long long o_sb, long long o_st, long long o_sh,
                     int causal, int window, float scale, void* stream) {
-  if (bad_shape(B, Tq, S, H, Hkv, D, causal, window))
+  if (bad_shape(B, Tq, S, H, Hkv, D, Dv, causal, window))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh},
       sv{v_sb, v_st, v_sh}, so{o_sb, o_st, o_sh};
   if (bf16)
-    return launch_simt<__nv_bfloat16>(q, k, v, o, B, Tq, S, H, Hkv, D, sq,
-                                      sk, sv, so, causal, window, scale,
+    return launch_simt<__nv_bfloat16>(q, k, v, o, B, Tq, S, H, Hkv, D, Dv,
+                                      sq, sk, sv, so, causal, window, scale,
                                       stream);
-  return launch_simt<float>(q, k, v, o, B, Tq, S, H, Hkv, D, sq, sk, sv, so,
-                            causal, window, scale, stream);
+  return launch_simt<float>(q, k, v, o, B, Tq, S, H, Hkv, D, Dv, sq, sk, sv,
+                            so, causal, window, scale, stream);
 }
 
-// The tensor-core tile kernel: bfloat16, D 64 or 128, q, k and v based and
-// strided on 16-byte multiples.
+// The tensor-core tile kernel: bfloat16, (D, Dv) (64, 64), (128, 128) or
+// (96, 64), q, k and v based and strided on 16-byte multiples.
 int soar_flash_tile_tc(const void* q, const void* k, const void* v, void* o,
-                       int B, int Tq, int S, int H, int Hkv, int D,
+                       int B, int Tq, int S, int H, int Hkv, int D, int Dv,
                        long long q_sb, long long q_st, long long q_sh,
                        long long k_sb, long long k_st, long long k_sh,
                        long long v_sb, long long v_st, long long v_sh,
                        long long o_sb, long long o_st, long long o_sh,
                        int causal, int window, float scale, void* stream) {
-  if (bad_shape(B, Tq, S, H, Hkv, D, causal, window) || (D != 64 && D != 128))
+  if (bad_shape(B, Tq, S, H, Hkv, D, Dv, causal, window) ||
+      !tc::tc_dims(D, Dv))
     return static_cast<int>(cudaErrorInvalidValue);
   const tc::Args a{static_cast<__nv_bfloat16*>(o), B, Tq, S, H, H / Hkv,
                    causal, window, scale * 1.4426950408889634f,
                    {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh},
                    {v_sb, v_st, v_sh}, {o_sb, o_st, o_sh}};
-  return static_cast<int>(
-      tc::launch(q, k, v, a, D, Hkv, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(tc::launch(q, k, v, a, D, Dv, Hkv,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 // The split decode: one query row (T = 1) over keys [0, n); n_split splits
 // of `chunk` keys (a multiple of 64); part_ml (B H n_split 2) and part_acc
-// (B H n_split D) float32 scratch.
+// (B H n_split Dv) float32 scratch.
 int soar_flash_decode(const void* q, const void* k, const void* v, void* o,
-                      int bf16, int B, int n, int H, int Hkv, int D,
+                      int bf16, int B, int n, int H, int Hkv, int D, int Dv,
                       long long q_sb, long long q_sh, long long k_sb,
                       long long k_st, long long k_sh, long long v_sb,
                       long long v_st, long long v_sh, long long o_sb,
                       long long o_sh, float scale, int n_split, int chunk,
                       void* part_ml, void* part_acc, void* stream) {
-  if (bad_shape(B, 1, n, H, Hkv, D, 0, 0) || n_split < 1 ||
+  if (bad_shape(B, 1, n, H, Hkv, D, Dv, 0, 0) || n_split < 1 ||
       n_split > 65535 || chunk < 1 || chunk % 64 ||
       static_cast<long long>(n_split) * chunk < n)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1227,11 +1579,41 @@ int soar_flash_decode(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return static_cast<int>(dec::launch<__nv_bfloat16>(
-        q, k, v, o, B, n, H, Hkv, D, sq, sk, sv, so, scale, n_split, chunk,
-        ml, acc, st));
-  return static_cast<int>(dec::launch<float>(q, k, v, o, B, n, H, Hkv, D, sq,
-                                             sk, sv, so, scale, n_split,
+        q, k, v, o, B, n, H, Hkv, D, Dv, sq, sk, sv, so, scale, n_split,
+        chunk, ml, acc, st));
+  return static_cast<int>(dec::launch<float>(q, k, v, o, B, n, H, Hkv, D, Dv,
+                                             sq, sk, sv, so, scale, n_split,
                                              chunk, ml, acc, st));
+}
+
+// The latent (MLA) decode: q_lat (B, 1, H, r) and q_rope (B, 1, H, rd) over
+// ckv (B, n, r) and kr (B, n, rd) -> o (B, 1, H, r), contiguous; r <= 256
+// and rd <= 64, multiples of 8; n_split splits of `chunk` keys (a multiple
+// of 64); part_ml (B H n_split 2) and part_acc (B H n_split r) float32
+// scratch.
+int soar_flash_mla_decode(const void* q_lat, const void* q_rope,
+                          const void* ckv, const void* kr, void* o, int bf16,
+                          int B, int n, int H, int r, int rd,
+                          long long ql_sb, long long ql_sh, long long qr_sb,
+                          long long qr_sh, long long c_sb, long long c_st,
+                          long long kr_sb, long long kr_st, float scale,
+                          int n_split, int chunk, void* part_ml,
+                          void* part_acc, void* stream) {
+  if (B < 1 || n < 1 || H < 1 || r < 8 || r > mla::kMaxR || r % 8 ||
+      rd < 8 || rd > mla::kMaxRd || rd % 8 || n_split < 1 ||
+      n_split > 65535 || chunk < 1 || chunk % 64 ||
+      static_cast<long long>(n_split) * chunk < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return static_cast<int>(mla::launch<__nv_bfloat16>(
+        q_lat, q_rope, ckv, kr, o, B, n, H, r, rd, ql_sb, ql_sh, qr_sb,
+        qr_sh, c_sb, c_st, kr_sb, kr_st, scale, n_split, chunk, ml, acc, st));
+  return static_cast<int>(mla::launch<float>(
+      q_lat, q_rope, ckv, kr, o, B, n, H, r, rd, ql_sb, ql_sh, qr_sb, qr_sh,
+      c_sb, c_st, kr_sb, kr_st, scale, n_split, chunk, ml, acc, st));
 }
 
 }  // extern "C"

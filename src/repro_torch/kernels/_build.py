@@ -47,12 +47,14 @@ _SIGNATURES = {
     "soar_topk_scratch": (_I, _I, ctypes.c_longlong, _I, _I, _P),
     "soar_topk_select": (_P, _I, _I, ctypes.c_longlong, _I, _P, _P, _P, _P),
     "soar_topk_compress": (_P, _I, _I, ctypes.c_longlong, _I) + (_P,) * 5,
-    "soar_flash_tile": (_P,) * 4 + (_I,) * 7 + (ctypes.c_longlong,) * 12
+    "soar_flash_tile": (_P,) * 4 + (_I,) * 8 + (ctypes.c_longlong,) * 12
     + (_I, _I, ctypes.c_float, _P),
-    "soar_flash_tile_tc": (_P,) * 4 + (_I,) * 6 + (ctypes.c_longlong,) * 12
+    "soar_flash_tile_tc": (_P,) * 4 + (_I,) * 7 + (ctypes.c_longlong,) * 12
     + (_I, _I, ctypes.c_float, _P),
-    "soar_flash_decode": (_P,) * 4 + (_I,) * 6 + (ctypes.c_longlong,) * 10
+    "soar_flash_decode": (_P,) * 4 + (_I,) * 7 + (ctypes.c_longlong,) * 10
     + (ctypes.c_float, _I, _I, _P, _P, _P),
+    "soar_flash_mla_decode": (_P,) * 5 + (_I,) * 6
+    + (ctypes.c_longlong,) * 8 + (ctypes.c_float, _I, _I, _P, _P, _P),
     "soar_ssm_scan": (_P,) * 9 + (_I,) * 4 + (ctypes.c_longlong,) * 8
     + (_P,),
     "soar_ssm_scan_bwd_plan": (_I,) * 4 + (_P,),

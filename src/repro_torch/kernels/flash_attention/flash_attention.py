@@ -2,24 +2,29 @@
 
 The port's counterpart of the Pallas ``flash_attention_pallas``. Its plain
 versions are in :mod:`repro_torch.kernels.flash_attention.ref`. It takes
-the model's layout, q (B, T, H, D) and k, v (B, S, Hkv, D), as strided
-views whose last dimension is contiguous (a decode passes the cache prefix
-``k_all[:, :n]`` with no copy), and writes a new contiguous (B, T, H, D).
-A sliding ``window`` w > 0 (causal self-attention, T == S) limits query
-row i to keys i - w < j <= i, and the kernels skip the key tiles outside
-that band.
+the model's layout, q (B, T, H, D), k (B, S, Hkv, D) and v (B, S, Hkv, Dv)
+with a value width Dv <= D of its own (MLA: keys 96 wide, values 64), as
+strided views whose last dimension is contiguous (a decode passes the
+cache prefix ``k_all[:, :n]`` with no copy; MLA's prefill the value half
+of its up-projection), and writes a new contiguous (B, T, H, Dv). A
+sliding ``window`` w > 0 (causal self-attention, T == S) limits query row
+i to keys i - w < j <= i, and the kernels skip the key tiles outside that
+band.
 
-Three kernels, chosen by T, dtype and D only (:func:`path_of`):
-``"tile_tc"`` (T > 1, bfloat16, D 64 or 128: ``wgmma`` products fed by a
-TMA ring, the softmax weights rounded to bfloat16 for the P.V product, as
-the plain version rounds them to v's dtype; its plain twin is
-``ref.flash_attention_tc_torch``), ``"tile_simt"`` (T > 1 otherwise:
-float32 products on the CUDA cores, weights kept in float32) and
-``"decode_split"`` (T = 1: the keys split over blocks, all query heads of
-a KV head in one block, partial states merged in split order by a second
-launch; its plain twin is ``ref.flash_decode_split_torch``). Each call
-counts once in ``.launches`` and once under its path in
-``.launches_by_path``.
+Three kernels, chosen by T, dtype and (D, Dv) only (:func:`path_of`):
+``"tile_tc"`` (T > 1, bfloat16, (D, Dv) one of ``TC_DIMS``: ``wgmma``
+products fed by a TMA ring, the softmax weights rounded to bfloat16 for
+the P.V product, as the plain version rounds them to v's dtype; its plain
+twin is ``ref.flash_attention_tc_torch``), ``"tile_simt"`` (T > 1
+otherwise: float32 products on the CUDA cores, weights kept in float32)
+and ``"decode_split"`` (T = 1: the keys split over blocks, all query heads
+of a KV head in one block, partial states merged in split order by a
+second launch; its plain twin is ``ref.flash_decode_split_torch``). A
+fourth, :func:`flash_mla_decode_cuda` (``"mla_decode"``), is MLA's
+absorbed decode: every head over one latent cache, split and merged the
+same way (plain twin ``ref.flash_mla_decode_torch``). Each call counts
+once in ``flash_attention_cuda.launches`` and once under its path in
+``flash_attention_cuda.launches_by_path``.
 """
 from __future__ import annotations
 
@@ -30,9 +35,15 @@ from .ref import check_window, split_chunk
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (64, 128)
+# (D, Dv) pairs of the tensor-core tile kernel: the dense family's square
+# heads and MLA's 96-wide keys over 64-wide values
+TC_DIMS = ((64, 64), (128, 128), (96, 64))
 _INT_MAX = 2 ** 31 - 1
-PATHS = ("tile_tc", "tile_simt", "decode_split")
+PATHS = ("tile_tc", "tile_simt", "decode_split", "mla_decode")
+# The latent decode's widths: r at most MLA_MAX_R and rd at most
+# MLA_MAX_RD, each a multiple of 8; a block takes up to MLA_HEADS heads.
+MLA_MAX_R, MLA_MAX_RD = 256, 64
+MLA_HEADS = 40
 # The split decode's grid: about two waves of the H100's 132 SMs, each
 # split at least SPLIT_MIN_KEYS keys; a block takes up to DECODE_HEADS
 # query heads of one KV head.
@@ -43,17 +54,19 @@ DECODE_HEADS = 8
 
 def geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              what: str = "flash_attention_cuda") -> tuple:
-    """The kernel's shape and stride arguments for q (B, T, H, D) and k, v
-    (B, S, Hkv, D): (B, T, S, H, Hkv, D, q strides (b, t, h), k strides,
-    v strides), in elements. Raises on what the kernel does not take."""
+    """The kernel's shape and stride arguments for q (B, T, H, D), k (B, S,
+    Hkv, D) and v (B, S, Hkv, Dv): (B, T, S, H, Hkv, D, Dv, q strides (b,
+    t, h), k strides, v strides), in elements. Raises on what the kernel
+    does not take."""
     if q.dtype not in _BF16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what} takes float32/bfloat16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+    if (q.ndim != 4 or k.ndim != 4 or v.ndim != 4
+            or k.shape[:3] != v.shape[:3] or not 0 < v.shape[3] <= k.shape[3]):
         raise ValueError(f"{what}: bad shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{what}: k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
@@ -67,15 +80,17 @@ def geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError(f"{what}: {name} needs a contiguous last "
                              f"dimension, got strides {t.stride()}")
-    return (B, T, S, H, Hkv, D, *q.stride()[:3], *k.stride()[:3],
+    return (B, T, S, H, Hkv, D, Dv, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3])
 
 
-def path_of(q: torch.Tensor) -> str:
-    """The kernel a call with query q (B, T, H, D) takes."""
+def path_of(q: torch.Tensor, dv: int | None = None) -> str:
+    """The kernel a call with query q (B, T, H, D) and values ``dv`` wide
+    (D when None) takes."""
     if q.shape[1] == 1:
         return "decode_split"
-    if q.dtype == torch.bfloat16 and q.shape[3] in TC_HEAD_DIMS:
+    d = q.shape[3]
+    if q.dtype == torch.bfloat16 and (d, dv or d) in TC_DIMS:
         return "tile_tc"
     return "tile_simt"
 
@@ -103,10 +118,10 @@ def decode_splits(n: int, blocks: int) -> int:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, causal: bool,
                          window: int = 0) -> torch.Tensor:
-    """Attention of q (B, T, H, D) over k, v (B, S, Hkv, D) on the card ->
-    (B, T, H, D) in q's dtype, within a sliding ``window`` when it is
-    positive. Counts each call in ``.launches`` and under its path in
-    ``.launches_by_path``."""
+    """Attention of q (B, T, H, D) over k (B, S, Hkv, D) and v (B, S, Hkv,
+    Dv) on the card -> (B, T, H, Dv) in q's dtype, within a sliding
+    ``window`` when it is positive. Counts each call in ``.launches`` and
+    under its path in ``.launches_by_path``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention_cuda needs q, k, v on one "
@@ -114,24 +129,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = geometry(q, k, v)
     check_window(q.shape[1], k.shape[1], causal, window,
                  "flash_attention_cuda")
-    path = path_of(q)
+    path = path_of(q, v.shape[3])
     if path == "tile_tc":
         check_tma(q, k, v)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                      device=q.device)
     lib = library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         if path == "decode_split":
-            B, _, S, H, Hkv, D = g[:6]
+            B, _, S, H, Hkv, D, Dv = g[:7]
             n = 1 if causal else S      # the one query sits at position 0
             n_split = decode_splits(n, B * Hkv * -(-(H // Hkv)
                                                   // DECODE_HEADS))
             ml = torch.empty((B, H, n_split, 2), dtype=torch.float32,
                              device=q.device)
-            acc = torch.empty((B, H, n_split, D), dtype=torch.float32,
+            acc = torch.empty((B, H, n_split, Dv), dtype=torch.float32,
                               device=q.device)
             err = lib.soar_flash_decode(
-                *ptrs, _BF16[q.dtype], B, n, H, Hkv, D, q.stride(0),
+                *ptrs, _BF16[q.dtype], B, n, H, Hkv, D, Dv, q.stride(0),
                 q.stride(2), *k.stride()[:3], *v.stride()[:3],
                 out.stride(0), out.stride(2), float(scale), n_split,
                 split_chunk(n, n_split), ml.data_ptr(), acc.data_ptr(),
@@ -152,3 +168,74 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
+
+
+def mla_geometry(q_lat, q_rope, ckv, kr,
+                 what: str = "flash_mla_decode_cuda") -> tuple:
+    """(B, n, H, r, rd) of the latent decode's q_lat (B, 1, H, r), q_rope
+    (B, 1, H, rd), ckv (B, n, r) and kr (B, n, rd). Raises on what the
+    kernel does not take."""
+    ts = (q_lat, q_rope, ckv, kr)
+    if q_lat.dtype not in _BF16 or any(t.dtype != q_lat.dtype for t in ts):
+        raise TypeError(f"{what} takes float32/bfloat16 inputs of one "
+                        f"dtype, got {[t.dtype for t in ts]}")
+    if q_lat.ndim != 4 or q_rope.ndim != 4 or ckv.ndim != 3 or kr.ndim != 3:
+        raise ValueError(f"{what}: bad shapes "
+                         f"{[tuple(t.shape) for t in ts]}")
+    B, T, H, r = q_lat.shape
+    n, rd = ckv.shape[1], kr.shape[2]
+    if (T != 1 or q_rope.shape[:3] != (B, 1, H) or ckv.shape != (B, n, r)
+            or kr.shape[:2] != (B, n) or min(B, H, n) < 1 or r % 8 or rd % 8
+            or not 0 < r <= MLA_MAX_R or not 0 < rd <= MLA_MAX_RD):
+        raise ValueError(f"{what}: needs q_lat (B, 1, H, r), q_rope (B, 1, "
+                         f"H, rd), ckv (B, n, r), kr (B, n, rd), r <= "
+                         f"{MLA_MAX_R} and rd <= {MLA_MAX_RD} multiples of "
+                         f"8, got {[tuple(t.shape) for t in ts]}")
+    if max(n, B * H) > _INT_MAX:
+        raise ValueError(f"{what}: too many positions for "
+                         f"{[tuple(t.shape) for t in ts]}")
+    for name, t in zip(("q_lat", "q_rope", "ckv", "kr"), ts):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last "
+                             f"dimension, got strides {t.stride()}")
+    return B, n, H, r, rd
+
+
+def mla_splits(b: int, h: int, n: int) -> int:
+    """Splits of the latent decode over ``n`` keys for ``b`` sequences of
+    ``h`` heads: its grid has b x ceil(h / MLA_HEADS) blocks a split."""
+    return decode_splits(n, b * -(-h // MLA_HEADS))
+
+
+def flash_mla_decode_cuda(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                          ckv: torch.Tensor, kr: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """MLA's absorbed decode on the card: q_lat (B, 1, H, r) and q_rope
+    (B, 1, H, rd) over the latent cache ckv (B, n, r), kr (B, n, rd) (views
+    of the cache prefix) -> ctx_lat (B, 1, H, r) in q_lat's dtype: softmax
+    over the n keys of (q_lat . ckv + q_rope . kr) * scale, then the
+    weights times ckv. Counts in ``flash_attention_cuda.launches`` and
+    under ``"mla_decode"``."""
+    for name, t in (("q_lat", q_lat), ("q_rope", q_rope), ("ckv", ckv),
+                    ("kr", kr)):
+        if t.device.type != "cuda" or t.device != q_lat.device:
+            raise ValueError(f"flash_mla_decode_cuda needs its inputs on one "
+                             f"CUDA device, got {name} on {t.device}")
+    B, n, H, r, rd = mla_geometry(q_lat, q_rope, ckv, kr)
+    n_split = mla_splits(B, H, n)
+    dev = q_lat.device
+    out = torch.empty((B, 1, H, r), dtype=q_lat.dtype, device=dev)
+    ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=dev)
+    acc = torch.empty((B, H, n_split, r), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = library().soar_flash_mla_decode(
+            q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
+            kr.data_ptr(), out.data_ptr(), _BF16[q_lat.dtype], B, n, H, r,
+            rd, q_lat.stride(0), q_lat.stride(2), q_rope.stride(0),
+            q_rope.stride(2), ckv.stride(0), ckv.stride(1), kr.stride(0),
+            kr.stride(1), float(scale), n_split, split_chunk(n, n_split),
+            ml.data_ptr(), acc.data_ptr(), stream_of(q_lat))
+    check(err, "flash attention launch (mla_decode)")
+    flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_path["mla_decode"] += 1
+    return out

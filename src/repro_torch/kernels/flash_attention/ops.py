@@ -2,13 +2,18 @@
 
 A CUDA tensor always launches the kernel; a CPU tensor runs the plain
 version. There is no option that sends a CUDA tensor to the plain version.
+Values may be narrower than keys (MLA's prefill: keys 96 wide, values
+64), and ``flash_mla_decode`` is MLA's absorbed decode over the latent
+cache.
 """
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention_cuda
-from .ref import flash_attention_gqa_torch, flash_attention_torch
+from .flash_attention import (flash_attention_cuda, flash_mla_decode_cuda,
+                              mla_geometry, mla_splits)
+from .ref import (flash_attention_gqa_torch, flash_attention_torch,
+                  flash_mla_decode_torch)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -29,10 +34,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """q (B, T, H, D) over k, v (B, S, Hkv, D) -> (B, T, H, D), query head h
-    on KV head h // (H / Hkv). k and v may be strided views (a cache
-    prefix). ``scale`` is a float or a 0-d float32 tensor. A ``window``
-    w > 0 (causal, T == S) limits row i to keys i - w < j <= i."""
+    """q (B, T, H, D) over k (B, S, Hkv, D) and v (B, S, Hkv, Dv), Dv <= D
+    -> (B, T, H, Dv), query head h on KV head h // (H / Hkv). k and v may
+    be strided views (a cache prefix). ``scale`` is a float or a 0-d
+    float32 tensor. A ``window`` w > 0 (causal, T == S) limits row i to
+    keys i - w < j <= i."""
     if q.device.type == "cpu":
         return flash_attention_gqa_torch(q, k, v, scale, causal, window)
     return flash_attention_cuda(q, k, v, float(scale), causal, window)
+
+
+def flash_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     ckv: torch.Tensor, kr: torch.Tensor,
+                     scale) -> torch.Tensor:
+    """MLA's absorbed decode: q_lat (B, 1, H, r) and q_rope (B, 1, H, rd)
+    over the latent cache prefix ckv (B, n, r), kr (B, n, rd) -> ctx_lat
+    (B, 1, H, r), the softmax of (q_lat . ckv + q_rope . kr) * scale
+    times ckv. ``scale`` is a float or a 0-d float32 tensor."""
+    if q_lat.device.type == "cpu":
+        B, n, H, _, _ = mla_geometry(q_lat, q_rope, ckv, kr,
+                                     "flash_mla_decode")
+        return flash_mla_decode_torch(q_lat, q_rope, ckv, kr, scale,
+                                      mla_splits(B, H, n))
+    return flash_mla_decode_cuda(q_lat, q_rope, ckv, kr, float(scale))

@@ -16,7 +16,12 @@ arithmetic for the tests: ``flash_attention_tc_torch`` that of the
 tensor-core tile kernel (online softmax over 128-key tiles in base 2,
 masked scores -inf, the weights rounded to bfloat16 before P.V, l summed
 from the float32 weights) and ``flash_decode_split_torch`` that of the split decode
-(float32 partial states per split of keys, merged in split order).
+(float32 partial states per split of keys, merged in split order);
+``flash_mla_decode_torch`` is the latent-attention decode kernel's
+(``flash_mla_decode``: all heads over one latent cache, scores
+``q_lat . ckv + q_rope . kr``, values ``ckv``), which splits and merges as
+the split decode does. Every version takes a value width Dv of its own,
+at most the key width D (MLA: keys 96 wide, values 64).
 """
 from __future__ import annotations
 
@@ -81,7 +86,8 @@ def sdpa(q, k, v, mask, scale) -> torch.Tensor:
 
 def flash_attention_gqa_torch(q, k, v, scale, causal: bool = True,
                               window: int = 0) -> torch.Tensor:
-    """q: (B, T, H, D); k, v: (B, S, Hkv, D) -> (B, T, H, D); with a
+    """q: (B, T, H, D); k: (B, S, Hkv, D), v: (B, S, Hkv, Dv) -> (B, T, H,
+    Dv); with a
     ``window`` w > 0 (causal, T == S) row i sees keys i - w < j <= i."""
     t, s = q.shape[1], k.shape[1]
     check_window(t, s, causal, window, "flash_attention_gqa_torch")
@@ -101,15 +107,15 @@ def flash_attention_gqa_torch(q, k, v, scale, causal: bool = True,
 
 def flash_attention_tc_torch(q, k, v, scale, causal: bool = True,
                              window: int = 0) -> torch.Tensor:
-    """q: (B, T, H, D); k, v: (B, S, Hkv, D) bfloat16 -> (B, T, H, D), in
-    the tensor-core tile kernel's arithmetic: scores s = q . k in float32,
-    masked to -inf; per 128-key tile the running max m of s c (c the
-    float32 scale * log2(e); m from -1e30), alpha = exp2(m - m_new), p =
-    exp2(s c - m_new) rounded once (the kernel's FMA), l = l alpha + sum(p)
-    in float32, acc = acc alpha + bf16(p) . v in float32; o = acc /
-    max(l, 1e-30) in q's dtype."""
+    """q: (B, T, H, D); k: (B, S, Hkv, D), v: (B, S, Hkv, Dv) bfloat16 ->
+    (B, T, H, Dv), in the tensor-core tile kernel's arithmetic: scores s =
+    q . k in float32, masked to -inf; per 128-key tile the running max m
+    of s c (c the float32 scale * log2(e); m from -1e30), alpha = exp2(m -
+    m_new), p = exp2(s c - m_new) rounded once (the kernel's FMA), l = l
+    alpha + sum(p) in float32, acc = acc alpha + bf16(p) . v in float32; o
+    = acc / max(l, 1e-30) in q's dtype."""
     B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     check_window(T, S, causal, window, "flash_attention_tc_torch")
     c = (torch.tensor(float(scale), dtype=torch.float32)
@@ -118,7 +124,7 @@ def flash_attention_tc_torch(q, k, v, scale, causal: bool = True,
     m = torch.full((B, Hkv, G, T), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, Hkv, G, T, D), dtype=torch.float32,
+    acc = torch.zeros((B, Hkv, G, T, Dv), dtype=torch.float32,
                       device=q.device)
     rows = torch.arange(T, device=q.device)[:, None]
     for k0 in range(0, S, TC_KEYS):
@@ -143,7 +149,7 @@ def flash_attention_tc_torch(q, k, v, scale, causal: bool = True,
             v[:, k0:k1].to(torch.float32))
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dv).to(q.dtype)
 
 
 def split_chunk(n: int, n_split: int) -> int:
@@ -154,14 +160,14 @@ def split_chunk(n: int, n_split: int) -> int:
 
 
 def flash_decode_split_torch(q, k, v, scale, n_split: int) -> torch.Tensor:
-    """q: (B, 1, H, D); k, v: (B, n, Hkv, D) -> (B, 1, H, D), in the split
-    decode's arithmetic: split s takes keys [s c, (s + 1) c), c =
-    ``split_chunk(n, n_split)``, and keeps its float32 max m_s, sum l_s and
-    unnormalised accumulator (an empty split m = -1e30, l = 0); the splits
-    are merged in order: o = sum_s acc_s e_s / max(sum_s l_s e_s, 1e-30),
-    e_s = exp(m_s - max m)."""
+    """q: (B, 1, H, D); k: (B, n, Hkv, D), v: (B, n, Hkv, Dv) -> (B, 1, H,
+    Dv), in the split decode's arithmetic: split s takes keys [s c, (s +
+    1) c), c = ``split_chunk(n, n_split)``, and keeps its float32 max m_s,
+    sum l_s and unnormalised accumulator (an empty split m = -1e30, l =
+    0); the splits are merged in order: o = sum_s acc_s e_s / max(sum_s
+    l_s e_s, 1e-30), e_s = exp(m_s - max m)."""
     B, _, H, D = q.shape
-    n, Hkv = k.shape[1], k.shape[2]
+    n, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     chunk = split_chunk(n, n_split)
     qf = q.to(torch.float32).reshape(B, Hkv, G, D)
@@ -171,7 +177,7 @@ def flash_decode_split_torch(q, k, v, scale, n_split: int) -> torch.Tensor:
         if lo >= hi:
             m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
             parts.append((m, torch.zeros_like(m),
-                          torch.zeros((B, Hkv, G, D), device=q.device)))
+                          torch.zeros((B, Hkv, G, Dv), device=q.device)))
             continue
         x = torch.einsum("bhgd,bshd->bhgs", qf,
                          k[:, lo:hi].to(torch.float32)) * scale
@@ -181,10 +187,28 @@ def flash_decode_split_torch(q, k, v, scale, n_split: int) -> torch.Tensor:
             "bhgs,bshd->bhgd", p, v[:, lo:hi].to(torch.float32))))
     mm = torch.stack([m for m, _, _ in parts]).amax(0)
     den = torch.zeros_like(mm)
-    out = torch.zeros((B, Hkv, G, D), device=q.device)
+    out = torch.zeros((B, Hkv, G, Dv), device=q.device)
     for m, ls, acc in parts:
         e = torch.exp(m - mm)
         den = den + ls * e
         out = out + acc * e[..., None]
     out = out / torch.clamp(den, min=1e-30)[..., None]
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def mla_keys(ckv, kr) -> torch.Tensor:
+    """The latent cache as one (B, n, 1, r + rd) key head: ckv | kr."""
+    return torch.cat([ckv, kr], -1)[:, :, None]
+
+
+def flash_mla_decode_torch(q_lat, q_rope, ckv, kr, scale,
+                           n_split: int) -> torch.Tensor:
+    """q_lat (B, 1, H, r), q_rope (B, 1, H, rd), ckv (B, n, r), kr (B, n,
+    rd) -> ctx_lat (B, 1, H, r) in q_lat's dtype, in the latent decode
+    kernel's arithmetic: every head over the one latent cache, scores
+    (q_lat . ckv + q_rope . kr) * scale in float32, values ckv; the keys
+    split and merged as ``flash_decode_split_torch`` does (one key head of
+    width r + rd, values its first r columns)."""
+    q = torch.cat([q_lat, q_rope], -1)
+    return flash_decode_split_torch(q, mla_keys(ckv, kr), ckv[:, :, None],
+                                    scale, n_split)

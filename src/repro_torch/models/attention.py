@@ -1,5 +1,6 @@
-"""Grouped-query attention: the port of the GQA part of the JAX package's
-``models/attention.py``, for training, prefill and decode.
+"""Attention: the port of the JAX package's ``models/attention.py``, GQA
+(with qk-norm and sliding windows) and MLA (multi-head latent attention,
+DeepSeek-V2 / MiniCPM3), for training, prefill and decode.
 
 Training is spelled in torch ops as the JAX model spells it in jnp:
 ``sdpa`` (the kernel's plain version, ``kernels.flash_attention.ref``)
@@ -9,7 +10,12 @@ sequences take; autograd runs through them. Prefill and decode run the
 flash-attention kernel (``kernels.flash_attention.ops``; its plain version
 on CPU tensors), windowed layers with the kernel's sliding window. Shapes:
 x (B, T, d); q (B, T, H, hd); k, v and the cache (B, S, Hkv, hd). MLA
-comes with a later slice.
+keeps a latent cache, ckv (B, S, r) and the shared rope key kr (B, S,
+rd); its keys are qk_nope_dim + qk_rope_dim wide and its values
+v_head_dim, so its scale is 1 / sqrt(qk_nope_dim + qk_rope_dim), not 1 /
+sqrt(hd). Its prefill runs the flash kernel with values narrower than
+keys, and its absorbed decode the latent decode kernel
+(``ops.flash_mla_decode``) over the cache.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ import math
 import numpy as np
 import torch
 
-from ..kernels.flash_attention.ops import flash_attention_gqa
+from ..kernels.flash_attention.ops import (flash_attention_gqa,
+                                           flash_mla_decode)
 from ..kernels.flash_attention.ref import sdpa  # noqa: F401  (re-exported)
 from .config import ModelConfig
 from .layers import (apply_rope, dense_init, dtype_of, rms_head_norm,
@@ -129,10 +136,10 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _scale(cfg: ModelConfig) -> float:
-    """1 / sqrt(hd) as the JAX model rounds it (float32), as a Python float
+def _scale(d: int) -> float:
+    """1 / sqrt(d) as the JAX model rounds it (float32), as a Python float
     computed on the host: a decode step never waits for the card."""
-    return float(np.float32(1) / np.sqrt(np.float32(cfg.hd)))
+    return float(np.float32(1) / np.sqrt(np.float32(d)))
 
 
 def gqa_forward(p, x, cfg: ModelConfig, causal: bool = True, window: int = 0,
@@ -147,7 +154,7 @@ def gqa_forward(p, x, cfg: ModelConfig, causal: bool = True, window: int = 0,
     positions = torch.arange(T, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
     if mode == "prefill":
-        out = flash_attention_gqa(q, k, v, _scale(cfg), causal=causal,
+        out = flash_attention_gqa(q, k, v, _scale(cfg.hd), causal=causal,
                                   window=window if causal else 0)
         return out.reshape(B, T, -1) @ p["w_o"], {"k": k, "v": v}
     if mode != "train":
@@ -193,7 +200,7 @@ def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig, window: int = 0):
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
     out = flash_attention_gqa(q, cache["k"][:, :n], cache["v"][:, :n],
-                              _scale(cfg), causal=False)
+                              _scale(cfg.hd), causal=False)
     return out.reshape(B, 1, -1) @ p["w_o"], cache
 
 
@@ -204,3 +211,155 @@ def gqa_cache_spec(cfg: ModelConfig, batch: int, seq: int, window: int = 0,
     shape = (batch, S, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 / MiniCPM3): latent-compressed KV
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig):
+    """The JAX tree's leaves: ``w_dq``, ``q_norm`` and ``w_uq`` (or ``w_q``
+    without ``q_lora_rank``), ``w_dkv``, ``kv_norm``, ``w_ukv``, ``w_o``."""
+    d, H = cfg.d_model, cfg.n_heads
+    nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    dt = dtype_of(cfg)
+    p = {}
+    if cfg.q_lora_rank:
+        p["w_dq"] = dense_init(gen, (d, cfg.q_lora_rank), dt)
+        p["q_norm"] = torch.ones((cfg.q_lora_rank,), dtype=dt,
+                                 device=gen.device)
+        p["w_uq"] = dense_init(gen, (cfg.q_lora_rank, H * (nd + rd)), dt)
+    else:
+        p["w_q"] = dense_init(gen, (d, H * (nd + rd)), dt)
+    p["w_dkv"] = dense_init(gen, (d, r + rd), dt)   # latent + shared k_rope
+    p["kv_norm"] = torch.ones((r,), dtype=dt, device=gen.device)
+    p["w_ukv"] = dense_init(gen, (r, H * (nd + vd)), dt)
+    p["w_o"] = dense_init(gen, (H * vd, d), dt)
+    return p
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(qk_nope_dim + qk_rope_dim), the width of MLA's keys."""
+    return _scale(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """(q_nope (B, T, H, nd), q_rope (B, T, H, rd)), q_rope rope'd."""
+    B, T, _ = x.shape
+    H, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        ql = rms_head_norm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
+        q = (ql @ p["w_uq"]).reshape(B, T, H, nd + rd)
+    else:
+        q = (x @ p["w_q"]).reshape(B, T, H, nd + rd)
+    cos, sin = rope_tables(positions, rd, cfg.rope_theta)
+    q_rope = apply_rope(q[..., nd:], cos[None, :, None, :],
+                        sin[None, :, None, :])
+    return q[..., :nd], q_rope
+
+
+def _mla_latent(p, x, cfg: ModelConfig, positions):
+    """(ckv (B, T, r) normed, kr (B, T, rd) rope'd: one head for all)."""
+    r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    ckv_kr = x @ p["w_dkv"]
+    ckv = rms_head_norm(p["kv_norm"], ckv_kr[..., :r], cfg.norm_eps)
+    cos, sin = rope_tables(positions, rd, cfg.rope_theta)
+    return ckv, apply_rope(ckv_kr[..., r:], cos[None], sin[None])
+
+
+def _mla_full(q_nope, q_rope, k_nope, kr):
+    """The shared rope head folded into every head's key: (q_nope |
+    q_rope) and (k_nope | kr), one dot over the concatenated width equal
+    to the two dots summed."""
+    B, T, H, _ = k_nope.shape
+    k_rope = kr[:, :, None, :].expand(B, T, H, kr.shape[-1])
+    return (torch.cat([q_nope, q_rope], -1), torch.cat([k_nope, k_rope], -1))
+
+
+def mla_forward(p, x, cfg: ModelConfig, causal: bool = True,
+                mode: str = "train"):
+    """Full-sequence MLA with the keys and values materialised. Returns
+    (out, {"ckv", "kr"}).
+
+    ``mode="train"`` spells the JAX function's two branches, which round
+    differently in bfloat16: ``sdpa_blocked`` over the concatenated keys
+    where the sequence tiles, else the two-einsum scores ``q_nope .
+    k_nope + q_rope . kr`` summed before the scale. ``mode="prefill"``
+    runs the flash kernel on the concatenated q and k, 96 wide at
+    minicpm3, and the values ``kv[..., nd:]``, a strided view 64 wide."""
+    B, T, _ = x.shape
+    H, nd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    positions = torch.arange(T, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, kr = _mla_latent(p, x, cfg, positions)
+    kv = (ckv @ p["w_ukv"]).reshape(B, T, H, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    scale = _mla_scale(cfg)
+    if mode == "prefill":
+        q_full, k_full = _mla_full(q_nope, q_rope, k_nope, kr)
+        out = flash_attention_gqa(q_full, k_full, v, scale, causal=causal)
+    elif mode != "train":
+        raise ValueError(f"mla_forward: mode {mode!r} is train or prefill")
+    elif _pick_block(T, T):
+        q_full, k_full = _mla_full(q_nope, q_rope, k_nope, kr)
+        out = sdpa_blocked(q_full, k_full, v, scale, causal=causal)
+    else:
+        logits = (torch.einsum("bthd,bshd->bhts", q_nope, k_nope)
+                  + torch.einsum("bthd,bsd->bhts", q_rope, kr)).to(
+                      torch.float32)
+        mask = (causal_mask(T, T, device=x.device) if causal else
+                torch.ones((T, T), dtype=torch.bool, device=x.device))
+        logits = torch.where(mask, logits * scale, NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bhts,bshd->bthd", w, v)
+    out = out.reshape(B, T, H * vd) @ p["w_o"]
+    return out, {"ckv": ckv, "kr": kr}
+
+
+def mla_decode(p, x, cache, pos: int, cfg: ModelConfig):
+    """Single-token decode over the latent cache ckv (B, S, r), kr (B, S,
+    rd). As ``gqa_decode``, the token's latent is written into ``cache``
+    in place at ``pos`` (a host int) and the same tensors are returned;
+    attention runs over the filled prefix ``[:pos + 1]``, views. With
+    ``cfg.decode_absorb`` W_uk is absorbed into the query (q_lat = q_nope
+    W_uk) and the latent decode kernel attends every head over the cache,
+    the context mapped back by W_uv; otherwise k_nope and v are
+    materialised from the cache prefix and the split decode runs on keys
+    nd + rd wide and values vd wide."""
+    B = x.shape[0]
+    S = cache["ckv"].shape[1]
+    pos = int(pos)
+    if not 0 <= pos < S:
+        raise ValueError(f"mla_decode: position {pos} outside a cache of "
+                         f"{S}")
+    H, nd, rd, vd, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                        cfg.v_head_dim, cfg.kv_lora_rank)
+    positions = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)   # (B,1,H,nd),(B,1,H,rd)
+    ckv_t, kr_t = _mla_latent(p, x, cfg, positions)  # (B,1,r),(B,1,rd)
+    cache["ckv"][:, pos] = ckv_t[:, 0]
+    cache["kr"][:, pos] = kr_t[:, 0]
+    ckv, kr = cache["ckv"][:, :pos + 1], cache["kr"][:, :pos + 1]
+    w_ukv = p["w_ukv"].reshape(r, H, nd + vd)
+    w_uk, w_uv = w_ukv[..., :nd], w_ukv[..., nd:]
+    scale = _mla_scale(cfg)
+    if cfg.decode_absorb:
+        q_lat = torch.einsum("bthd,rhd->bthr", q_nope, w_uk)   # (B,1,H,r)
+        ctx_lat = flash_mla_decode(q_lat, q_rope, ckv, kr, scale)
+        out = torch.einsum("bthr,rhd->bthd", ctx_lat, w_uv)
+    else:
+        k_nope = torch.einsum("bsr,rhd->bshd", ckv, w_uk)
+        v = torch.einsum("bsr,rhd->bshd", ckv, w_uv)
+        q_full, k_full = _mla_full(q_nope, q_rope, k_nope, kr)
+        out = flash_attention_gqa(q_full, k_full, v, scale, causal=False)
+    return out.reshape(B, 1, H * vd) @ p["w_o"], cache
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
+    """Zero latent caches: ckv (batch, seq, r), kr (batch, seq, rd)."""
+    dt = dtype_of(cfg)
+    return {"ckv": torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dt,
+                               device=device),
+            "kr": torch.zeros((batch, seq, cfg.qk_rope_dim), dtype=dt,
+                              device=device)}

@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense, hybrid and xLSTM families: the port of the JAX
-package's ``models/transformer.py`` for training, prefill and decode.
+"""Decoder-only LM, dense (GQA and MLA attention), hybrid and xLSTM
+families: the port of the JAX package's ``models/transformer.py`` for
+training, prefill and decode.
 
 The parameter tree has exactly the JAX pytree's leaves: ``embed_tokens``
 (padded_vocab, d), ``final_norm/scale``, ``lm_head`` (d, padded_vocab) and
@@ -10,13 +11,13 @@ stacked ``(L, ...)`` as ``jax.vmap(init_block)`` makes it; otherwise
 tree per layer, each of its kind and window: ``attn``, ``hybrid``
 (attention and Mamba heads side by side), ``m`` (mLSTM) or ``s`` (sLSTM),
 the last two a ``mix`` tree and no MLP. The forward walks the layers one
-by one, as ``lax.scan`` does. In training, ``cfg.remat`` wraps each block
-of the ``blocks`` list in ``torch.utils.checkpoint`` (JAX's
-``jax.checkpoint`` per block): the backward recomputes the block's
-forward, which changes no bit. The stacked path keeps every activation
-(JAX checkpoints its scan body too). Caches are the JAX trees:
-``{"prefix": [], "layers": {"k", "v": (L, B, S, Hkv, hd)}}`` for the
-stack, ``{"blocks": [...]}`` otherwise, each block's ``{"k", "v"}``,
+by one, as ``lax.scan`` does. In training, ``cfg.remat`` wraps each layer
+in ``torch.utils.checkpoint``, a stacked layer as JAX checkpoints its scan
+body and a block of the ``blocks`` list as JAX's ``jax.checkpoint`` per
+block: the backward recomputes the layer's forward, which changes no
+bit. Caches are the JAX trees: ``{"prefix": [], "layers": {"k", "v": (L,
+B, S, Hkv, hd)}}`` for the stack (MLA: ``{"ckv": (L, B, S, r), "kr": (L,
+B, S, rd)}``), ``{"blocks": [...]}`` otherwise, each block's ``{"k", "v"}``,
 ``{"attn": {"k", "v"}, "ssm": {"s"}}`` (hybrid), ``{"C", "n"}`` (m) or
 ``{"c", "n", "h"}`` (s), a windowed layer's k/v a ring of min(seq,
 window) slots; a decode step writes into them in place. Other families
@@ -28,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .attention import gqa_cache_spec, gqa_decode, gqa_forward, init_gqa
+from .attention import (gqa_cache_spec, gqa_decode, gqa_forward, init_gqa,
+                        init_mla, mla_cache_spec, mla_decode, mla_forward)
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, dtype_of, embed_init, init_mlp,
                      init_norm)
@@ -41,7 +43,6 @@ from .ssm import (init_mamba, init_mlstm, init_slstm, mamba_decode,
 _UNPORTED = (
     (lambda c: c.is_encoder_decoder, "encoder-decoder (ROADMAP A10: encdec)"),
     (lambda c: c.is_moe, "MoE (ROADMAP A10: moe)"),
-    (lambda c: c.attn_type == "mla", "MLA attention (ROADMAP A10: attention)"),
     (lambda c: c.family == "vlm" or c.n_prefix_embeds,
      "the VLM prefix (ROADMAP A10: transformer)"),
 )
@@ -52,8 +53,8 @@ def check_supported(cfg: ModelConfig) -> None:
     for test, what in _UNPORTED:
         if test(cfg):
             raise ValueError(f"{cfg.name}: {what} is not ported yet; the "
-                             f"port trains and serves the dense GQA, hybrid "
-                             f"and xLSTM families")
+                             f"port trains and serves the dense family (GQA "
+                             f"and MLA), the hybrid and the xLSTM families")
 
 
 def _layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -85,7 +86,8 @@ def init_block(gen, cfg: ModelConfig, kind: str = "attn"):
     if kind in ("m", "s"):
         p["mix"] = (init_mlstm if kind == "m" else init_slstm)(gen, cfg)
         return p
-    p["attn"] = init_gqa(gen, cfg)
+    p["attn"] = (init_mla if cfg.attn_type == "mla" and kind == "attn"
+                 else init_gqa)(gen, cfg)
     if kind == "hybrid":
         p["ssm"] = init_mamba(gen, cfg, d_out=cfg.d_model)
     if cfg.d_ff > 0:
@@ -147,7 +149,10 @@ def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
                  else fwd(p["mix"], h, cfg))
         return x + a, nc
     hybrid = kind == "hybrid"
-    if mode == "decode":
+    if cfg.attn_type == "mla" and not hybrid:
+        a, nc = (mla_decode(p["attn"], h, cache, pos, cfg) if mode == "decode"
+                 else mla_forward(p["attn"], h, cfg, mode=mode))
+    elif mode == "decode":
         a, nc = gqa_decode(p["attn"], h, cache["attn"] if hybrid else cache,
                            pos, cfg, window)
     else:
@@ -203,7 +208,12 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
     if uses_scan(cfg):
         stacked = None
         for i in range(cfg.n_layers):
-            x, nc = block_forward(_layer(params["layers"], i), x, cfg, mode)
+            lp = _layer(params["layers"], i)
+            if mode == "train" and cfg.remat:
+                x = checkpoint(_train_block, lp, x, cfg, "attn", 0,
+                               use_reentrant=False)
+                continue
+            x, nc = block_forward(lp, x, cfg, mode)
             if mode == "prefill":
                 stacked = _stack_into(stacked, nc, i, cfg.n_layers)
         if mode == "prefill":
@@ -245,14 +255,15 @@ def prefill(params, batch, cfg: ModelConfig):
 
 def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
     """One decode step. token: (B, 1) int; pos: the token's position (an
-    int). Writes each layer's k/v at ``pos`` (and each recurrent state) into
-    ``caches`` in place and returns (logits (B, 1, V), caches)."""
+    int). Writes each layer's k/v or latent at ``pos`` (and each recurrent
+    state) into ``caches`` in place and returns (logits (B, 1, V),
+    caches)."""
     check_supported(cfg)
     x = F.embedding(token, params["embed_tokens"])
     if uses_scan(cfg):
         stack = caches["layers"]
         for i in range(cfg.n_layers):
-            cache = {"k": stack["k"][i], "v": stack["v"][i]}
+            cache = {n: c[i] for n, c in stack.items()}
             x, _ = block_forward(_layer(params["layers"], i), x, cfg,
                                  "decode", cache=cache, pos=pos)
     else:
@@ -268,6 +279,8 @@ def _one_cache(cfg: ModelConfig, kind: str, window: int, batch: int,
     if kind in ("m", "s"):
         return (mlstm_state if kind == "m" else slstm_state)(cfg, batch,
                                                              device)
+    if cfg.attn_type == "mla" and kind == "attn":
+        return mla_cache_spec(cfg, batch, seq, device)
     c = gqa_cache_spec(cfg, batch, seq, window, device)
     if kind == "hybrid":
         return {"attn": c, "ssm": mamba_state(cfg, batch, device)}
@@ -283,7 +296,7 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
         return {"blocks": [_one_cache(cfg, kind, w, batch, seq, device)
                            for kind, w in zip(_layer_kinds(cfg),
                                               _layer_windows(cfg))]}
-    one = gqa_cache_spec(cfg, batch, seq, 0, "meta")
+    one = _one_cache(cfg, "attn", 0, batch, seq, "meta")
     return {"prefix": [], "layers": {
         k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
                        device=device) for k, t in one.items()}}

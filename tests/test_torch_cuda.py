@@ -626,7 +626,7 @@ def test_flash_tc_kernel_matches_plain(dev, d, b, t, s, h, hkv, causal,
     got = flash_attention_gqa(q, k, v, scale, causal, window)
     after = flash_attention_cuda.launches_by_path
     assert {p: after[p] - before[p] for p in after} == {
-        "tile_tc": 1, "tile_simt": 0, "decode_split": 0}
+        "tile_tc": 1, "tile_simt": 0, "decode_split": 0, "mla_decode": 0}
     assert got.dtype == bf and got.shape == q.shape
     tol = FLASH_TOL[bf]
     torch.testing.assert_close(
@@ -656,7 +656,7 @@ def test_flash_tc_kernel_on_model_and_cache_views(dev):
     x = torch.randn((2, 150, cfg.d_model), generator=gen,
                     device=dev).to(torch.bfloat16)
     q, k, v = attention._qkv(p, x, cfg, torch.arange(150, device=dev))
-    scale = attention._scale(cfg)
+    scale = attention._scale(cfg.hd)
     assert _flash_limit(flash_attention_gqa(q, k, v, scale, True), q, k, v,
                         scale, True, tc=True) <= 1.0
     qkv = torch.randn((2, 150, 8 * 128), generator=gen,
@@ -702,7 +702,7 @@ def test_flash_decode_split_matches_plain(dev, dtype, b, n, h, hkv, d):
     got = flash_attention_gqa(q, kp, vp, 0.125, causal=False)
     after = flash_attention_cuda.launches_by_path
     assert {p: after[p] - before[p] for p in after} == {
-        "tile_tc": 0, "tile_simt": 0, "decode_split": 1}
+        "tile_tc": 0, "tile_simt": 0, "decode_split": 1, "mla_decode": 0}
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(
         got, flash_attention_gqa_torch(q, kp, vp, 0.125, causal=False),
@@ -731,6 +731,202 @@ def test_flash_decode_split_on_a_ring(dev):
     assert _flash_limit(got, q, ring_k, ring_v, 0.125, False) <= 1.0
     assert torch.equal(got, flash_attention_gqa(q, ring_k, ring_v, 0.125,
                                                 causal=False))
+
+
+def _paths() -> dict:
+    """The flash file's calls by kernel so far."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    return dict(flash_attention_cuda.launches_by_path)
+
+
+def _path_delta(before: dict) -> dict:
+    return {p: n - before[p] for p, n in _paths().items()}
+
+
+@pytest.mark.parametrize("b,t,s,h,causal", [
+    (2, 64, 64, 4, True), (2, 128, 128, 4, True), (1, 200, 200, 2, True),
+    (3, 256, 256, 1, True), (2, 128, 128, 4, False), (2, 37, 101, 4, False),
+    (2, 130, 61, 4, True), (2, 300, 200, 5, True), (1, 5, 300, 2, True)])
+def test_flash_tc_kernel_mla_widths(dev, b, t, s, h, causal):
+    """The tensor-core tile kernel with keys 96 wide and values 64 (MLA's
+    prefill): the values a strided view of the up-projection, as
+    ``mla_forward`` passes them. Within 3e-2 of the bfloat16 plain
+    version and of its own arithmetic's plain twin, and within
+    ``FLASH_TC`` of the float32 plain version."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, flash_attention_tc_torch)
+    rng = np.random.default_rng(t * 3 + s)
+    bf = torch.bfloat16
+    q = torch.as_tensor(rng.normal(size=(b, t, h, 96)), device=dev).to(bf)
+    k = torch.as_tensor(rng.normal(size=(b, s, h, 96)), device=dev).to(bf)
+    kv = torch.as_tensor(rng.normal(size=(b, s, h, 128)), device=dev).to(bf)
+    v = kv[..., 64:]
+    scale = 96 ** -0.5
+    before = _paths()
+    got = flash_attention_gqa(q, k, v, scale, causal)
+    assert _path_delta(before) == {"tile_tc": 1, "tile_simt": 0,
+                                   "decode_split": 0, "mla_decode": 0}
+    assert got.dtype == bf and got.shape == (b, t, h, 64)
+    tol = FLASH_TOL[bf]
+    torch.testing.assert_close(
+        got, flash_attention_gqa_torch(q, k, v, scale, causal), rtol=tol,
+        atol=tol)
+    torch.testing.assert_close(
+        got, flash_attention_tc_torch(q, k, v, scale, causal), rtol=tol,
+        atol=tol)
+    assert _flash_limit(got, q, k, v, scale, causal, tc=True) <= 1.0
+    # a score width of 64 (the keys' last 32 columns left out) must fail
+    short = flash_attention_gqa_torch(q[..., :64].float(),
+                                      k[..., :64].float(), v.float(), scale,
+                                      causal).to(bf)
+    assert _flash_limit(short, q, k, v, scale, causal, tc=True) > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s,h,hkv,d,dv,causal", [
+    (2, 37, 101, 4, 2, 48, 32, False), (2, 130, 61, 4, 1, 96, 64, True),
+    (1, 200, 200, 2, 2, 40, 16, True), (2, 1, 77, 8, 2, 96, 64, False),
+    (2, 1, 1000, 40, 40, 96, 64, False), (1, 1, 300, 4, 1, 256, 128, False)])
+def test_flash_narrow_values_match_plain(dev, dtype, b, t, s, h, hkv, d, dv,
+                                         causal):
+    """The CUDA-core tile kernel (T > 1) and the split decode (T = 1) with
+    values narrower than keys, as MLA's float32 prefill and its
+    non-absorbed decode give them: within the JAX tests' tolerance of the
+    plain version, the decode within 2e-5 of its split arithmetic's twin
+    on float32 inputs, bfloat16 within ``FLASH_TIGHT`` of the float32
+    plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        DECODE_HEADS, decode_splits, path_of)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, flash_decode_split_torch)
+    rng = np.random.default_rng(t + s + d)
+    q = torch.as_tensor(rng.normal(size=(b, t, h, d)), device=dev).to(dtype)
+    k = torch.as_tensor(rng.normal(size=(b, s + 5, hkv, d)),
+                        device=dev).to(dtype)[:, :s]
+    v = torch.as_tensor(rng.normal(size=(b, s + 5, hkv, dv)),
+                        device=dev).to(dtype)[:, :s]
+    path = path_of(q, dv)
+    if path == "tile_tc":
+        pytest.skip("the tensor-core kernel's (96, 64): the test above")
+    before = _paths()
+    got = flash_attention_gqa(q, k, v, 0.125, causal)
+    delta = _path_delta(before)
+    assert delta[path] == 1 and sum(delta.values()) == 1
+    assert got.shape == (b, t, h, dv)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got, flash_attention_gqa_torch(q, k, v, 0.125, causal), rtol=tol,
+        atol=tol)
+    if t == 1:
+        n_split = decode_splits(s, b * hkv * -(-(h // hkv) // DECODE_HEADS))
+        f = [x.float() for x in (q, k, v)]
+        torch.testing.assert_close(
+            got.float(), flash_decode_split_torch(*f, 0.125, n_split),
+            rtol=2e-5 if dtype == torch.float32 else tol,
+            atol=2e-5 if dtype == torch.float32 else tol)
+    if dtype == torch.bfloat16:
+        assert _flash_limit(got, q, k, v, 0.125, causal) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,r,rd", [
+    (2, 1, 4, 32, 8), (2, 63, 4, 32, 8), (2, 65, 4, 32, 8),
+    (2, 1000, 5, 64, 16), (1, 200, 45, 256, 32), (4, 2112, 40, 256, 32),
+    (1, 777, 40, 256, 32), (2, 300, 128, 256, 64)])
+def test_flash_mla_decode_matches_plain(dev, dtype, b, n, h, r, rd):
+    """The latent decode on cache prefixes ``[:, :n]``: n = 1, tile edges,
+    one split and many, two head groups (45 and 128 heads), minicpm3's
+    widths (40 heads over 256 + 32). Within 2e-5 (float32) of its plain
+    version on float32 inputs, in bfloat16 within ``FLASH_TIGHT`` of it;
+    the plain version equals ``sdpa`` over the concatenated keys; two
+    calls give the same bits; one launch under ``"mla_decode"``."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        mla_splits)
+    from repro_torch.kernels.flash_attention.ops import flash_mla_decode
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_mla_decode_torch, mla_keys, sdpa)
+    rng = np.random.default_rng(n + h + r)
+    mk = lambda *shape: torch.as_tensor(rng.normal(size=shape),
+                                        device=dev).to(dtype)
+    ckv, kr = mk(b, n + 9, r)[:, :n], mk(b, n + 9, rd)[:, :n]
+    q_lat, q_rope = mk(b, 1, h, r), mk(b, 1, h, rd)
+    scale = 0.1
+    before = _paths()
+    got = flash_mla_decode(q_lat, q_rope, ckv, kr, scale)
+    assert _path_delta(before) == {"tile_tc": 0, "tile_simt": 0,
+                                   "decode_split": 0, "mla_decode": 1}
+    assert got.dtype == dtype and got.shape == (b, 1, h, r)
+    assert torch.equal(got, flash_mla_decode(q_lat, q_rope, ckv, kr, scale))
+    f = [x.float() for x in (q_lat, q_rope, ckv, kr)]
+    want = flash_mla_decode_torch(*f, scale, mla_splits(b, h, n))
+    plain = sdpa(torch.cat(f[:2], -1), mla_keys(f[2], f[3]),
+                 f[2][:, :, None], None, scale)
+    torch.testing.assert_close(want, plain, rtol=2e-5, atol=2e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        lim = 2.0 ** -8 * want.abs() + 2.0 ** -15
+        assert float(((got.float() - want).abs() / lim).max()) <= 1.0
+
+
+@pytest.mark.parametrize("absorb", [True, False])
+def test_mla_serving_on_card_equals_cpu(dev, absorb):
+    """Reduced minicpm3 at minicpm3's attention widths (keys 64 + 32,
+    values 64, latent 256), float32 (TF32 off): prefill and 4 decode steps
+    on the card against the CPU (logits at rtol 1e-4 with an atol of 1e-4
+    times the largest, equal tokens). The card's calls by kernel: the
+    prefill on the CUDA-core tile (float32), every decode layer on the
+    latent decode (absorbed) or the split decode; then in bfloat16 the
+    prefill on the tensor-core tile."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        ARCHS["minicpm3-4b"].reduced(dtype="float32"), d_model=256,
+        kv_lora_rank=256, q_lora_rank=64, qk_nope_dim=64, qk_rope_dim=32,
+        v_head_dim=64, decode_absorb=absorb)
+    params = api.init_fn(cfg, "cpu")(0)
+    card = T.tree_map(lambda w: w.detach().to(dev), params)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 12)))
+    before = _paths()
+    out = {}
+    for where, p, t in (("cpu", params, toks), ("card", card, toks.to(dev))):
+        tok, pre = steps.make_prefill_step(cfg)(p, {"tokens": t})
+        caches = api.init_caches(cfg, 2, 16, p["embed_tokens"].device)
+        for k in ("ckv", "kr"):
+            caches["layers"][k][:, :, :12] = pre["layers"][k]
+        toks_out, logits = [tok], []
+        for s in range(4):
+            with torch.inference_mode():
+                lg, caches = api.decode_fn(cfg)(p, caches, tok, 12 + s)
+            tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            toks_out.append(tok)
+            logits.append(lg)
+        out[where] = (torch.cat(toks_out, 1).cpu(),
+                      torch.cat(logits, 1).cpu())
+    dec = "mla_decode" if absorb else "decode_split"
+    want_paths = {"tile_tc": 0, "tile_simt": cfg.n_layers,
+                  "decode_split": 0, "mla_decode": 0}
+    want_paths[dec] = 4 * cfg.n_layers
+    assert _path_delta(before) == want_paths
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    want = out["cpu"][1]
+    torch.testing.assert_close(out["card"][1], want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bparams = T.tree_map(lambda w: w.detach().to(dev, torch.bfloat16),
+                         params)
+    before = _paths()
+    steps.make_prefill_step(bcfg)(bparams, {"tokens": toks.to(dev)})
+    assert _path_delta(before)["tile_tc"] == cfg.n_layers
 
 
 SCAN_SHAPES = [(1, 16, 8, 4), (2, 32, 16, 4), (3, 64, 24, 8), (2, 32, 16, 4),

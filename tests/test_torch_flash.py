@@ -164,15 +164,22 @@ def test_plain_gqa_offset_is_a_row_block_of_the_full_causal_call():
 
 def test_geometry_gives_the_kernel_strides_of_views():
     """What the launcher hands the kernel, checked here on CPU tensors:
-    elements strides of strided views, head grouping, and refusals."""
+    elements strides of strided views, head grouping, a value width of
+    its own (MLA's values, a view of the up-projection), and refusals."""
     cache = torch.zeros((3, 50, 2, 64), dtype=torch.bfloat16)
     q = torch.zeros((3, 1, 8, 64), dtype=torch.bfloat16)
     g = geometry(q, cache[:, :20], cache[:, :20])
-    assert g == (3, 1, 20, 8, 2, 64, 512, 512, 64, 6400, 128, 64, 6400,
+    assert g == (3, 1, 20, 8, 2, 64, 64, 512, 512, 64, 6400, 128, 64, 6400,
                  128, 64)
     x = torch.zeros((6, 10, 16))
-    assert geometry(x[:, :, None], x[:, :, None], x[:, :, None])[:6] == (
-        6, 10, 10, 1, 1, 16)
+    assert geometry(x[:, :, None], x[:, :, None], x[:, :, None])[:7] == (
+        6, 10, 10, 1, 1, 16, 16)
+    qm = torch.zeros((2, 7, 4, 96), dtype=torch.bfloat16)
+    kv = torch.zeros((2, 7, 4, 128), dtype=torch.bfloat16)
+    assert geometry(qm, qm, kv[..., 64:]) == (
+        2, 7, 7, 4, 4, 96, 64, 2688, 384, 96, 2688, 384, 96, 3584, 512, 128)
+    with pytest.raises(ValueError, match="bad shapes"):
+        geometry(q, cache[..., :32], cache)
     with pytest.raises(TypeError, match="float32/bfloat16"):
         geometry(q.half(), cache.half(), cache.half())
     with pytest.raises(ValueError, match="multiple of Hkv"):

@@ -213,8 +213,8 @@ def test_caches_from_jax_round_trip(dtype):
 
 
 @pytest.mark.parametrize("name,what", [
-    ("kimi-k2-1t-a32b", "MoE"), ("minicpm3-4b", "MLA"),
-    ("llava-next-34b", "VLM"), ("whisper-large-v3", "encoder-decoder")])
+    ("kimi-k2-1t-a32b", "MoE"), ("llava-next-34b", "VLM"),
+    ("whisper-large-v3", "encoder-decoder")])
 def test_other_families_raise_for_serving(name, what):
     cfg = ARCHS[name].reduced()
     for call in (lambda: api.prefill_fn(cfg), lambda: api.decode_fn(cfg),
@@ -226,25 +226,33 @@ def test_other_families_raise_for_serving(name, what):
             call()
 
 
-def test_training_keeps_sdpa_and_serving_takes_flash(monkeypatch):
+@pytest.mark.parametrize("name", ["qwen3-32b", "minicpm3-4b"])
+def test_training_keeps_sdpa_and_serving_takes_flash(monkeypatch, name):
     """Train mode never calls the flash kernel's dispatch; prefill and
-    decode never call ``sdpa``/``sdpa_blocked``."""
-    cfg = ARCHS["qwen3-32b"].reduced(dtype="float32")
+    decode never call ``sdpa``/``sdpa_blocked``. MLA's absorbed decode
+    takes the latent decode (``flash_mla_decode``) instead."""
+    cfg = ARCHS[name].reduced(dtype="float32")
     params = api.init_fn(cfg, "cpu")(0)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 9)))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     calls = []
     real = attention.flash_attention_gqa
+    real_mla = attention.flash_mla_decode
 
     def counted(*a, **kw):
         calls.append(a[0].shape[1])
         return real(*a, **kw)
 
+    def counted_mla(*a, **kw):
+        calls.append(("mla", a[2].shape[1]))
+        return real_mla(*a, **kw)
+
     def refuse(*a, **kw):
         raise AssertionError("sdpa on the serving path")
 
     monkeypatch.setattr(attention, "flash_attention_gqa", counted)
+    monkeypatch.setattr(attention, "flash_mla_decode", counted_mla)
     loss, _ = api.loss_fn(cfg)(params, batch)
     loss.backward()
     assert calls == []
@@ -253,7 +261,8 @@ def test_training_keeps_sdpa_and_serving_takes_flash(monkeypatch):
     tok, caches = steps.make_prefill_step(cfg)(params, batch)
     cache = api.init_caches(cfg, 2, 9, "cpu")
     steps.make_serve_step(cfg)(params, cache, tok, 8)
-    assert calls == [8] * cfg.n_layers + [1] * cfg.n_layers
+    decode = [("mla", 9) if cfg.attn_type == "mla" else 1]
+    assert calls == [8] * cfg.n_layers + decode * cfg.n_layers
 
 
 def test_input_specs_and_cell_supported():
