@@ -16,6 +16,9 @@
     python3 chip_smoke.py --xlstm-witness  # only xLSTM's gate readings
     python3 chip_smoke.py --scan-rows    # only the scan's rows, timed
     python3 chip_smoke.py --mla          # only phase 16, MLA (minicpm3)
+    python3 chip_smoke.py --mla-rows [FLASH_CU ...]  # only the flash
+                                         # rows, timed (in turns against
+                                         # other flash_attention.cu sources)
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -357,7 +360,9 @@ update to the CPU's, the readings ``CHAOS_LOSS_RTOL`` sits between.
 fresh-prefill readings after 1, 8 and 64 steps, with and without the
 states handed over, the readings ``SERVE_XLSTM_BF16_DIFF`` sits between.
 ``--scan-rows`` checks only row 6d and times the scan's rows and hymba's
-decode step, to compare with another checkout (see :func:`scan_rows`).
+decode step, to compare with another checkout (see :func:`scan_rows`);
+``--mla-rows`` times the flash rows 5m, 5md, 5, 5g and 5w and minicpm3's
+serving cell the same way (see :func:`mla_rows`).
 ``--solve`` runs phases 1-4 only and prints the solve's kernel rows;
 ``--fleet`` runs phases 1 and 11 and prints the loop's kernel cells;
 ``--runtime`` runs phases 1 and 12 and prints the runtime's cells;
@@ -2682,10 +2687,11 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     prefill's within ``gate`` of the largest logit, and a served run with
     each planted handoff fault of ``faults`` beyond it. Every prefill
     attention call must have run the tensor-core tile kernel and every
-    decode call the split decode, or MLA's latent decode
-    (``launches_by_path``). xLSTM has no
-    attention, so no call may there, and its prefill is not profiled (its
-    sequential sLSTM puts hundreds of thousands of small kernels in it).
+    decode call the split decode, or MLA's latent decode (on the tensor
+    cores in bfloat16 at minicpm3's widths; ``launches_by_path``). xLSTM
+    has no attention, so no call may there, and its prefill is not
+    profiled (its sequential sLSTM puts hundreds of thousands of small
+    kernels in it).
     With ``gate_steps`` the gate and the faults are also read after that
     many decode steps of another served run (a model that forgets its
     prompt within the ``n_steps`` steps would hide a broken handoff at
@@ -2693,6 +2699,8 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     import torch
 
     from repro_torch import tree as T
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        mla_tc_widths)
     from repro_torch.launch import steps
     from repro_torch.models import api
     held = torch.cuda.memory_allocated()
@@ -2718,9 +2726,11 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     want_paths = dict.fromkeys(paths, 0)
     if not xlstm:           # MLA's absorbed decode: the latent decode
         want_paths["tile_tc"] = cfg.n_layers
-        want_paths["mla_decode" if cfg.attn_type == "mla" and
-                   cfg.decode_absorb else "decode_split"] = (cfg.n_layers
-                                                             * n_steps)
+        dec = ("decode_split" if cfg.attn_type != "mla"
+               or not cfg.decode_absorb else "mla_decode_tc"
+               if cfg.dtype == "bfloat16" and mla_tc_widths(
+                   cfg.kv_lora_rank, cfg.qk_rope_dim) else "mla_decode")
+        want_paths[dec] = cfg.n_layers * n_steps
     check(paths == want_paths, f"{name}: flash calls by kernel {paths}, "
           f"expected {want_paths}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
@@ -6171,6 +6181,8 @@ def mla_prefill_checks(b=MLA_BATCH, t=MLA_PROMPT, h=MLA_H,
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_info)
     from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_gqa_torch, sdpa)
@@ -6245,8 +6257,12 @@ def mla_prefill_checks(b=MLA_BATCH, t=MLA_PROMPT, h=MLA_H,
         out["library_ms"] = None
     out["bound_ms"], out["bound_by"] = flash_bound(
         flash_work(b, t, t, h, h, d, True, 2, dv=dv), bf)
-    out["square_bound_ms"], _ = flash_bound(      # 128-wide keys, as padded
-        flash_work(b, t, t, h, h, 128, True, 2, dv=dv), bf)
+    # the exponentials alone: one ex2 a score on the special function unit
+    n_scores = b * h * t * (t + 1) // 2
+    out["ex2_floor_ms"] = n_scores / (SFU_EXP_PER_SM_CLOCK * H100_SMS
+                                      * sm_clock_hz()) * 1e3
+    out["kernel_info"] = {f"{pd}": kernel_info("tile_tc", *pd)
+                          for pd in ((64, 64), (96, 64), (128, 128))}
     del q, k, kv, v, qs, ks, vs
     torch.cuda.empty_cache()
     out["max_abs_err"] = max(max(errs), *(x[0] for x in checks.values()))
@@ -6263,9 +6279,11 @@ def mla_prefill_checks(b=MLA_BATCH, t=MLA_PROMPT, h=MLA_H,
             f"{lab}: {r:.4g} x the limit" for lab, r in faults.items()))
     say(f"MLA prefill layer ({b}, {t}, {h}/{h}, 96|64) causal "
         f"({nvidia_smi_line()}): {out['ms']:.4f} ms (bound "
-        f"{out['bound_ms']:.4f} ms, {out['bound_by']}; with the keys padded "
-        f"to 128 {out['square_bound_ms']:.4f} ms), plain "
-        f"{out['plain_ms']:.4f} ms, scaled_dot_product_attention {lib}")
+        f"{out['bound_ms']:.4f} ms, {out['bound_by']}; the exponentials "
+        f"alone {out['ex2_floor_ms']:.4f} ms at the SM clock), plain "
+        f"{out['plain_ms']:.4f} ms, scaled_dot_product_attention {lib}; "
+        f"the tile's registers, spills, blocks an SM, shared memory: "
+        f"{out['kernel_info']}")
     return out
 
 
@@ -6313,62 +6331,98 @@ def mla_narrow_checks() -> dict:
     return out
 
 
+# The latent decode on the tensor cores (bfloat16, ``"mla_decode_tc"``)
+# rounds each softmax weight p_j = 2^(s_j c - m) to bfloat16 before the
+# P.ckv product and sums l from the float32 p_j, as the tensor-core tile
+# does; its splits' partial states are float32 and merge in float32. So the
+# derivation of FLASH_TC holds for it as written: its float32 result is
+# sum_j p~_j v_j / l with |p~_j - p_j| <= u p_j (u = 2^-8), at most u A from
+# the exact o, A = sum_j p_j |v_j| / l the float32 plain attention over
+# |ckv|; the output's rounding adds u |want| + u^2 A; the float32
+# products, the merge's rescaling by 2^(m_s - M) (ex2.approx, relative
+# error below 2^-22) and the weights' FMA and ex2 stay under 2^-15 A and
+# the atol. Hence FLASH_TC: rtol 2^-8, arel 2^-8 + 2^-15, atol 2^-15. The
+# float32 latent decode (``"mla_decode"``, CUDA cores) keeps the JAX tests'
+# 2e-5.
+
+
 def mla_decode_checks(b=MLA_BATCH, n=MLA_PROMPT + MLA_STEPS, h=MLA_H,
                       r=MLA_R, rd=MLA_RD) -> dict:
-    """Phase 16a, the latent decode kernel (``flash_mla_decode``) against
-    its plain version in float32 (``ref.flash_mla_decode_torch``): float32
-    inputs within the JAX tests' 2e-5, bfloat16 inputs within
-    ``FLASH_TIGHT`` (the kernel's arithmetic is float32, then one rounding
-    of its output, as the split decode's), at ``MLA_DECODE_SHAPES`` and at
-    the cell's last step (b, 1, h, r + rd) over n positions (a view of a
-    longer cache); two calls bitwise equal. Planted faults that must fail
-    the limit at the cell: the rope part of the scores left out, one
-    split's keys dropped, the values read 8 columns off. Times against
-    both bounds (bytes at the memory rate; operations at the bfloat16
-    tensor-core rate, and at the float32 CUDA-core rate this kernel runs
-    at), the plain version and ``scaled_dot_product_attention``."""
+    """Phase 16a, the latent decode kernels (``flash_mla_decode``) against
+    the plain version in float32 (``ref.flash_mla_decode_torch``): float32
+    inputs on the CUDA cores within the JAX tests' 2e-5, bfloat16 inputs
+    on the tensor cores within ``FLASH_TC`` (derived above) and within
+    3e-2 of its own arithmetic's twin (``ref.flash_mla_decode_tc_torch``),
+    at ``MLA_DECODE_SHAPES`` and at the cell's last step (b, 1, h, r + rd)
+    over n positions (a view of a longer cache); two calls bitwise equal.
+    Planted faults that must fail the limit at the cell: the rope part of
+    the scores left out, one split's keys dropped, the values read 8
+    columns off. Times against the bound (bytes at the memory rate, or
+    operations at the bf16 tensor-core rate), the plain version and
+    ``scaled_dot_product_attention``; the float32 kernel (off the served
+    path) timed at the same shape."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.flash_attention import (
-        mla_splits, split_chunk)
+        kernel_info, mla_path_of, mla_splits, mla_tc_splits, split_chunk)
     from repro_torch.kernels.flash_attention.ops import flash_mla_decode
     from repro_torch.kernels.flash_attention.ref import (
-        flash_mla_decode_torch, mla_keys, sdpa)
+        flash_mla_decode_tc_torch, flash_mla_decode_torch, mla_keys, sdpa)
     gen = torch.Generator(device=DEVICE).manual_seed(288)
     rnd = lambda dt, *shape: torch.randn(shape, generator=gen,
                                          device=DEVICE).to(dt)
     scale = mla_scale()
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def a32_of(f):
+        """The float32 plain attention over |ckv| (FLASH_TC's A)."""
+        return sdpa(torch.cat(f[:2], -1), mla_keys(f[2], f[3]),
+                    f[2].abs()[:, :, None], None, scale)
+
     checks, faults = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (f32, bf):
         for bb, nn, hh, rr, rrd in MLA_DECODE_SHAPES:
             ckv, kr = rnd(dt, bb, nn + 5, rr)[:, :nn], rnd(dt, bb, nn + 5,
                                                            rrd)[:, :nn]
             ql, qr = rnd(dt, bb, 1, hh, rr), rnd(dt, bb, 1, hh, rrd)
-            label = f"{_dt_name(dt)} {(bb, nn, hh, rr, rrd)}"
+            path = mla_path_of(ql, qr)
+            label = f"{_dt_name(dt)} {(bb, nn, hh, rr, rrd)} {path}"
             before = read_paths()
             got = flash_mla_decode(ql, qr, ckv, kr, scale)
-            check(_path_delta(before)["mla_decode"] == 1,
-                  f"{label}: not on the latent decode")
-            want = flash_mla_decode_torch(ql.float(), qr.float(),
-                                          ckv.float(), kr.float(), scale,
-                                          mla_splits(bb, hh, nn))
-            checks[label] = ((flash_close(got, want, dt, label), 0.0)
-                             if dt == torch.float32 else
-                             flash_check(got, want, None, label))
+            check(_path_delta(before)[path] == 1,
+                  f"{label}: not on the latent decode {path}")
+            f = [x.float() for x in (ql, qr, ckv, kr)]
+            want = flash_mla_decode_torch(*f, scale, mla_splits(bb, hh, nn))
+            if dt == f32:
+                checks[label] = (flash_close(got, want, dt, label), 0.0)
+                continue
+            if path == "mla_decode":       # the CUDA cores: FLASH_TIGHT
+                checks[label] = flash_check(got, want, None, label)
+                continue
+            checks[label] = flash_check(got, want, a32_of(f), label)
+            flash_close(got, flash_mla_decode_tc_torch(
+                ql, qr, ckv, kr, scale, mla_tc_splits(bb, hh, nn)), dt,
+                f"{label} against its twin")
     # the cell's last step
-    bf = torch.bfloat16
-    cache_ckv, cache_kr = rnd(bf, b, n, r), rnd(bf, b, n, rd)
+    cache_ckv, cache_kr = rnd(bf, b, n + 64, r), rnd(bf, b, n + 64, rd)
     ckv, kr = cache_ckv[:, :n], cache_kr[:, :n]
     ql, qr = rnd(bf, b, 1, h, r), rnd(bf, b, 1, h, rd)
+    before = read_paths()
     got = flash_mla_decode(ql, qr, ckv, kr, scale)
+    check(_path_delta(before)["mla_decode_tc"] == 1,
+          "the cell's latent decode is not on the tensor cores")
     check(torch.equal(got, flash_mla_decode(ql, qr, ckv, kr, scale)),
           "the latent decode: two calls differ")
-    n_split = mla_splits(b, h, n)
+    n_split = mla_tc_splits(b, h, n)
     f = [x.float() for x in (ql, qr, ckv, kr)]
-    want = flash_mla_decode_torch(*f, scale, n_split)
+    want = flash_mla_decode_torch(*f, scale, mla_splits(b, h, n))
+    a32 = a32_of(f)
     label = f"cell bfloat16 ({b}, 1, {h}, {r} + {rd}) over {n}"
-    checks[label] = flash_check(got, want, None, label)
+    checks[label] = flash_check(got, want, a32, label)
+    flash_close(got, flash_mla_decode_tc_torch(ql, qr, ckv, kr, scale,
+                                               n_split), bf,
+                f"{label} against its twin")
     chunk, s3 = split_chunk(n, n_split), min(3, n_split - 1)
     qcat, keys = torch.cat(f[:2], -1), mla_keys(f[2], f[3])
     kpos = torch.arange(n, device=DEVICE)[None, None, :]
@@ -6383,35 +6437,50 @@ def mla_decode_checks(b=MLA_BATCH, n=MLA_PROMPT + MLA_STEPS, h=MLA_H,
             ("decode: the values read 8 columns off",
              lambda: sdpa(qcat, keys, torch.roll(f[2], 8, -1)[:, :, None],
                           None, scale))):
-        faults[lab] = flash_fault_caught(faulty(), want, lab)
-    del f, qcat, keys, want
-    out = {"n_split": n_split}
+        faults[lab] = flash_fault_caught(faulty(), want, lab, a32)
+    del f, qcat, keys, want, a32
+    out = {"n_split": n_split,
+           "kernel_info": kernel_info("mla_decode_tc", r, rd)}
     qs = torch.cat([ql, qr], -1).transpose(1, 2)
     ks = torch.cat([ckv, kr], -1)[:, None]
     vs = ckv[:, None]
+    f32_in = [x.float() for x in (ql, qr, ckv, kr)]
+    qs32, ks32, vs32 = qs.float(), ks.float(), vs.float()
+    before = read_paths()
+    flash_mla_decode(*f32_in, scale)
+    check(_path_delta(before)["mla_decode"] == 1,
+          "the float32 latent decode is not on the CUDA cores")
     for key, fn in (
             ("ms", lambda: flash_mla_decode(ql, qr, ckv, kr, scale)),
-            ("plain_ms", lambda: flash_mla_decode_torch(ql, qr, ckv, kr,
-                                                        scale, n_split)),
+            ("plain_ms", lambda: flash_mla_decode_torch(
+                ql, qr, ckv, kr, scale, mla_splits(b, h, n))),
             ("library_ms", lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, scale=scale, enable_gqa=True))):
+                qs, ks, vs, scale=scale, enable_gqa=True)),
+            ("f32_ms", lambda: flash_mla_decode(*f32_in, scale)),
+            ("f32_plain_ms", lambda: flash_mla_decode_torch(
+                *f32_in, scale, mla_splits(b, h, n))),
+            ("f32_library_ms", lambda: F.scaled_dot_product_attention(
+                qs32, ks32, vs32, scale=scale, enable_gqa=True))):
         try:
             out[key] = cuda_ms(fn, 20)
             out[key.replace("ms", "device_ms")] = device_ms(fn, 20)
         except RuntimeError as ex:      # the library call: a yardstick
-            check(key == "library_ms", f"the latent decode: {ex}")
+            check("library" in key, f"the latent decode: {ex}")
             say(f"MLA decode: scaled_dot_product_attention not measured "
                 f"({str(ex)[:120]})")
-            out[key], out["library_device_ms"] = None, None
-    nbytes = 2 * (b * n * (r + rd) + b * h * (r + rd) + b * h * r)
+            out[key], out[key.replace("ms", "device_ms")] = None, None
     ops = 2 * b * h * n * (r + rd) + 2 * b * h * n * r
-    out["bytes"], out["operations"] = nbytes, ops
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    out["bound_ms"] = max(t_bytes, ops / BF16_OPS_PER_S * 1e3)
-    out["bound_by"] = ("bytes" if t_bytes >= ops / BF16_OPS_PER_S * 1e3
-                       else "operations")
-    out["cuda_core_ops_ms"] = ops / FP32_OPS_PER_S * 1e3
-    del cache_ckv, cache_kr, ckv, kr, ql, qr, got, qs, ks, vs
+    for pre, elt, rate in (("", 2, BF16_OPS_PER_S),
+                           ("f32_", 4, FP32_OPS_PER_S)):
+        nbytes = elt * (b * n * (r + rd) + b * h * (r + rd) + b * h * r)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        out[pre + "bytes"], out["operations"] = nbytes, ops
+        out[pre + "bound_ms"] = max(t_bytes, t_ops)
+        out[pre + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out["padded_ops_ms"] = (2 * b * 48 * n * (2 * r + rd) / BF16_OPS_PER_S
+                            * 1e3)
+    del cache_ckv, cache_kr, ckv, kr, ql, qr, got, qs, ks, vs, f32_in
+    del qs32, ks32, vs32
     torch.cuda.empty_cache()
     out["max_abs_err"] = max(x[0] for x in checks.values())
     out["checks"] = [{"shape": lab, "max_abs_err": x[0],
@@ -6419,19 +6488,26 @@ def mla_decode_checks(b=MLA_BATCH, n=MLA_PROMPT + MLA_STEPS, h=MLA_H,
     out["planted_faults"] = [{"fault": lab, "err_over_limit": x}
                              for lab, x in faults.items()]
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
-    say("MLA latent decode against its float32 plain version (float32: "
-        "within 2e-5; bfloat16: FLASH_TIGHT): " + "; ".join(
+    say("MLA latent decode against its float32 plain version (float32 on "
+        "the CUDA cores: within 2e-5; bfloat16 on the tensor cores: "
+        "FLASH_TC): " + "; ".join(
             f"{lab}: max |err| {x[0]:.4g}, {x[1]:.4g} x the limit"
             for lab, x in checks.items()) + "; planted faults: " + "; ".join(
             f"{lab}: {x:.4g} x the limit" for lab, x in faults.items()))
-    say(f"MLA latent decode ({b}, 1, {h}, {r} + {rd}) over {n} positions in "
-        f"{n_split} splits ({nvidia_smi_line()}): {out['ms']:.4f} ms per "
-        f"layer (device {out['device_ms']}), bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}: {nbytes / 1e6:.1f} MB; {ops / 1e9:.2f} GFLOP "
-        f"take {ops / BF16_OPS_PER_S * 1e3:.4f} ms on the tensor cores, "
-        f"{out['cuda_core_ops_ms']:.4f} ms at the CUDA cores' float32 rate, "
-        f"this kernel's), plain {fmt(out['plain_ms'])}, "
-        f"scaled_dot_product_attention {fmt(out['library_ms'])}")
+    say(f"MLA latent decode on the tensor cores ({b}, 1, {h}, {r} + {rd}) "
+        f"over {n} positions in {n_split} splits ({nvidia_smi_line()}): "
+        f"{out['ms']:.4f} ms per layer, device {fmt(out['device_ms'])} "
+        f"(kernel and merge), bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: {out['bytes'] / 1e6:.1f} MB; {ops / 1e9:.2f} "
+        f"GFLOP take {ops / BF16_OPS_PER_S * 1e3:.4f} ms on the tensor "
+        f"cores, {out['padded_ops_ms']:.4f} with the heads padded to 48), "
+        f"plain {fmt(out['plain_ms'])}, scaled_dot_product_attention "
+        f"{fmt(out['library_ms'])}; {out['kernel_info']}")
+    say(f"MLA latent decode on the CUDA cores, float32, same shape: "
+        f"{fmt(out['f32_ms'])} (device {fmt(out['f32_device_ms'])}), bound "
+        f"{out['f32_bound_ms']:.4f} ms ({out['f32_bound_by']}), plain "
+        f"{fmt(out['f32_plain_ms'])}, scaled_dot_product_attention "
+        f"{fmt(out['f32_library_ms'])}")
     return out
 
 
@@ -6530,52 +6606,264 @@ def mla_phase() -> dict:
              "checks": pre["checks"], "planted_faults": pre["planted_faults"],
              "ms": pre["ms"], "plain_ms": pre["plain_ms"],
              "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
-             "padded_keys_bound_ms": pre["square_bound_ms"],
+             "ex2_floor_ms": pre["ex2_floor_ms"],
              "library_ms": pre["library_ms"],
              "library": "torch.nn.functional.scaled_dot_product_attention",
              "narrow_value_checks": narrow,
+             "kernel_info": pre["kernel_info"],
              "ms_per": f"prefill layer ({MLA_BATCH} x {MLA_PROMPT}, 40/40 "
                        "heads, keys 96, values 64, causal)"},
-            {"name": "flash_mla_decode", **flash,
+            {"name": "flash_mla_decode_tc", **flash,
              "replaces": "none (no TPU twin: the JAX package computes the "
                          "absorbed decode in jnp, src/repro/models/"
                          "attention.py:283-315)",
-             "launches": cell["paths"]["mla_decode"],
+             "launches": cell["paths"]["mla_decode_tc"],
              "max_abs_err": dec["max_abs_err"],
              "tol": {"float32": FLASH_TOL["float32"],
-                     "bfloat16_vs_float32_plain": FLASH_TIGHT},
+                     "bfloat16_vs_float32_plain": FLASH_TC},
              "checks": dec["checks"], "planted_faults": dec["planted_faults"],
              "ms": dec["ms"], "device_ms": dec["device_ms"],
              "plain_ms": dec["plain_ms"],
              "plain_device_ms": dec["plain_device_ms"],
              "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-             "cuda_core_ops_ms": dec["cuda_core_ops_ms"],
-             "bound_note": "bytes bound the card; this CUDA-core kernel is "
-                           "bound by operations at the float32 rate, about "
-                           "4x the byte bound",
              "library_ms": dec["library_ms"],
              "library_device_ms": dec["library_device_ms"],
              "library": "torch.nn.functional.scaled_dot_product_attention "
                         "(the latent cache as one key head, enable_gqa)",
-             "splits": dec["n_split"],
+             "splits": dec["n_split"], "kernel_info": dec["kernel_info"],
              "ms_per": f"decode layer ({MLA_BATCH} x 1, 40 heads, over "
                        f"{MLA_PROMPT + MLA_STEPS} positions of 256 + 32; two"
-                       " launches: splits and merge)"}]
+                       " launches: splits and merge)"},
+            {"name": "flash_mla_decode", **flash,
+             "replaces": "none (no TPU twin; the float32 form of the latent "
+                         "decode, off the served path)",
+             "dtype": "float32", "config": "minicpm3-4b-f32-l2-b2-p128-g8",
+             "launches": gates["mla_decode"]["paths"]["mla_decode"],
+             "max_abs_err": max(c["max_abs_err"] for c in dec["checks"]
+                                if c["shape"].startswith("float32")),
+             "tol": {"float32": FLASH_TOL["float32"]},
+             "ms": dec["f32_ms"], "device_ms": dec["f32_device_ms"],
+             "plain_ms": dec["f32_plain_ms"],
+             "plain_device_ms": dec["f32_plain_device_ms"],
+             "bound_ms": dec["f32_bound_ms"],
+             "bound_by": dec["f32_bound_by"],
+             "library_ms": dec["f32_library_ms"],
+             "library_device_ms": dec["f32_library_device_ms"],
+             "library": "torch.nn.functional.scaled_dot_product_attention "
+                        "(float32, the latent cache as one key head)",
+             "ms_per": f"decode layer in float32 at the cell's shape "
+                       f"({MLA_BATCH} x 1, 40 heads, over "
+                       f"{MLA_PROMPT + MLA_STEPS} positions of 256 + 32)",
+             "launches_per": "the absorbed float32 gate's card run: 8 "
+                             "decode steps x 2 layers"}]
     return {"rows": rows, "cell": cell, "train": train, "gates": gates,
             "prefill": pre, "decode": dec}
 
 
+MLA_ROWS_WINDOW = 1024       # hymba's windowed layers (row 5w)
+
+
+def tile_entry(lib):
+    """A function of (q, k, v, scale, causal, window) that calls library
+    ``lib``'s ``soar_flash_tile_tc`` as the package's wrapper calls it, with
+    no launch count (a measurement, not the main path)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    fn = lib.soar_flash_tile_tc
+    fn.argtypes = list(_build._SIGNATURES["soar_flash_tile_tc"])
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v, scale, causal, window=0):
+        out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                          device=q.device)
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), *FA.geometry(q, k, v),
+                        *out.stride()[:3], int(causal), int(window),
+                        float(scale), _build.stream_of(q)),
+                     "soar_flash_tile_tc")
+        return out
+    return call
+
+
+def other_tiles(sources: list[str]) -> dict:
+    """Each flash kernel source in ``sources`` (another checkout's
+    ``flash_attention.cu``), built with the package's flags in a temporary
+    directory (removed once loaded): {source: (tile entry, its
+    ``soar_flash_kernel_info`` or None)}."""
+    import ctypes
+    import tempfile
+
+    from repro_torch.kernels import _build
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        libs = [str(Path(tmp) / f"lib{n}.so") for n in range(len(sources))]
+        _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", src,
+                          "-o", so] for src, so in zip(sources, libs)])
+        for src, so in zip(sources, libs):
+            lib = ctypes.CDLL(so)
+            info = getattr(lib, "soar_flash_kernel_info", None)
+            if info is not None:
+                info.argtypes = list(
+                    _build._SIGNATURES["soar_flash_kernel_info"])
+                info.restype = ctypes.c_int
+            out[src] = (tile_entry(lib), info)
+    return out
+
+
+def turns(mine, other, reps: int, pairs: int = 10) -> tuple:
+    """``pairs`` pairs of CUDA-event times (each the mean of ``reps`` calls
+    after one), this package's and the other's, the order swapped every
+    pair: (mine, other, pairs that mine won)."""
+    a, b = [], []
+    for i in range(pairs):
+        for f, dst in ((mine, a), (other, b))[::1 if i % 2 == 0 else -1]:
+            dst.append(cuda_ms(f, reps, 1))
+    return a, b, sum(x < y for x, y in zip(a, b))
+
+
+def mla_rows(sources: list[str]) -> None:
+    """``--mla-rows [FLASH_CU ...]``: the flash rows of the package beside
+    this script, to compare two checkouts on one card (copy this script
+    into the other checkout's root and run both in one call, in turns):
+    rows 5m (MLA's prefill layer, keys 96, values 64), 5md (the latent
+    decode layer, its merge included), 5 (qwen3-32b's prefill layer), 5g
+    and 5w (hymba's global and windowed prefill layers), each by CUDA
+    events and the profiler's device time against its bound; where the
+    package reports them, the tile kernels' registers, spills and blocks an
+    SM; then ``MLA_CELL``'s time to first token and decode step (median of
+    its 64 steps after the prefill, through the bare entry points) and one
+    profiled decode step's device time and busy share. Each tile row is
+    also timed in 10 pairs of turns against each other flash kernel source
+    given (:func:`other_tiles`, :func:`turns`), whether its output equals
+    the package's bitwise said beside the times."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_gqa,
+                                                         flash_mla_decode)
+    from repro_torch.models import api
+    bf = torch.bfloat16
+    smi = nvidia_smi_line()
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=DEVICE).to(bf)
+    others = other_tiles(sources)
+    mine = tile_entry(_build.library())
+
+    def row(name, fn, reps, bound, args=None):
+        before = dict(FA.flash_attention_cuda.launches_by_path)
+        got = fn()
+        torch.cuda.synchronize()
+        paths = {p: n - before.get(p, 0) for p, n in
+                 FA.flash_attention_cuda.launches_by_path.items()
+                 if n != before.get(p, 0)}
+        ms, dev = cuda_ms(fn, reps, 1), device_ms(fn, max(2, reps // 2), 0)
+        say(f"mla rows of {SRC}: row {name} {ms:.4f} ms by CUDA events, "
+            "device " + ("not measured" if dev is None else f"{dev:.4f} ms")
+            + f" (bound {bound[0]:.4f} ms, {bound[1]}; "
+            f"{100 * bound[0] / (dev or ms):.1f}% of it); path {paths} "
+            f"({smi})")
+        for src, (other, _) in others.items() if args is not None else ():
+            same = torch.equal(got, other(*args))
+            a, b, won = turns(lambda: mine(*args), lambda: other(*args),
+                              max(2, reps // 2))
+            say(f"mla rows of {SRC}: row {name} in turns with {src} (output "
+                f"{'bitwise equal' if same else 'differs'}): this "
+                f"{', '.join(f'{x:.4f}' for x in a)} ms, that "
+                f"{', '.join(f'{x:.4f}' for x in b)} ms by CUDA events; this "
+                f"faster in {won} of {len(a)} pairs ({smi})")
+
+    b, t = MLA_BATCH, MLA_PROMPT
+    q, k = rnd(b, t, MLA_H, MLA_ND + MLA_RD), rnd(b, t, MLA_H,
+                                                  MLA_ND + MLA_RD)
+    v = rnd(b, t, MLA_H, 2 * MLA_VD)[..., MLA_VD:]
+    row("5m", lambda: flash_attention_gqa(q, k, v, mla_scale(), True), 5,
+        flash_bound(flash_work(b, t, t, MLA_H, MLA_H, MLA_ND + MLA_RD, True,
+                               2, dv=MLA_VD), bf),
+        (q, k, v, mla_scale(), True))
+    del q, k, v
+    n = MLA_PROMPT + MLA_STEPS
+    ckv, kr = rnd(b, n, MLA_R), rnd(b, n, MLA_RD)
+    ql, qr = rnd(b, 1, MLA_H, MLA_R), rnd(b, 1, MLA_H, MLA_RD)
+    nbytes = 2 * (b * n * (MLA_R + MLA_RD) + b * MLA_H * (2 * MLA_R
+                                                          + MLA_RD))
+    row("5md", lambda: flash_mla_decode(ql, qr, ckv, kr, mla_scale()), 50,
+        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    kernel_profile(lambda: flash_mla_decode(ql, qr, ckv, kr, mla_scale()),
+                   f"mla rows of {SRC}: row 5md", top=3, host=False)
+    del ckv, kr, ql, qr
+    for name, (bb, tt, h, hkv, d, w) in (
+            ("5", (SERVE_BATCH, SERVE_PROMPT, 64, 8, 128, 0)),
+            ("5g", (HYBRID_BATCH, HYBRID_PROMPT, 25, 5, 64, 0)),
+            ("5w", (HYBRID_BATCH, HYBRID_PROMPT, 25, 5, 64,
+                    MLA_ROWS_WINDOW))):
+        q, k, v = rnd(bb, tt, h, d), rnd(bb, tt, hkv, d), rnd(bb, tt, hkv, d)
+        row(name, lambda: flash_attention_gqa(q, k, v, d ** -0.5, True, w),
+            10 if tt < 4096 else 5,
+            flash_bound(flash_work(bb, tt, tt, h, hkv, d, True, 2, window=w),
+                        bf), (q, k, v, d ** -0.5, True, w))
+        del q, k, v
+    torch.cuda.empty_cache()
+    if hasattr(FA, "kernel_info"):
+        for kernel, x, y in (("tile_tc", 64, 64), ("tile_tc", 96, 64),
+                             ("tile_tc", 128, 128),
+                             ("mla_decode_tc", MLA_R, MLA_RD)):
+            say(f"mla rows of {SRC}: {kernel} at ({x}, {y}): "
+                f"{FA.kernel_info(kernel, x, y)}")
+    for src, (_, info) in others.items():
+        for x, y in ((64, 64), (96, 64), (128, 128)) if info else ():
+            got = (ctypes.c_int * 4)()
+            _build.check(info(0, x, y, ctypes.addressof(got)),
+                         f"{src}: kernel info")
+            say(f"mla rows of {src}: tile_tc at ({x}, {y}): registers "
+                f"{got[0]}, spill bytes {got[1]}, blocks an SM {got[2]}, "
+                f"shared memory {got[3]}")
+    cfg = minicpm3()
+    params = api.init_fn(cfg, DEVICE)(0)
+    prompts = _prompts(cfg, MLA_BATCH, MLA_PROMPT, 0, DEVICE)
+    greedy_run(cfg, params, prompts, 2, timed=True)         # warm-up
+    toks, _, _, caches, tm = greedy_run(cfg, params, prompts, MLA_STEPS,
+                                        timed=True)
+    from repro_torch.launch import steps
+    serve_step = steps.make_serve_step(cfg)
+    prof = kernel_profile(lambda: serve_step(params, caches, toks[:, -1:],
+                                             MLA_PROMPT + MLA_STEPS - 1),
+                          f"mla rows of {SRC}: {MLA_CELL} one decode step",
+                          top=6)
+    del params, prompts, caches
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(tm["step_s"]) * 1e3
+    say(f"mla rows of {SRC}: {MLA_CELL} TTFT {tm['prefill_s']:.4f} s, "
+        f"decode median {step_ms:.4f} ms a step (min "
+        f"{min(tm['step_s']) * 1e3:.4f}, max {max(tm['step_s']) * 1e3:.4f})"
+        + ("" if prof is None else
+           f"; one profiled step: device {prof[1]:.4f} ms of "
+           f"{prof[0]:.4f} ms wall ({100 * prof[1] / prof[0]:.1f}% busy)")
+        + f" ({smi})")
+
+
 def main(args: list[str]) -> int:
     import torch
+    sources = args[1:] if args[:1] == ["--mla-rows"] else []
+    args = args[:len(args) - len(sources)]
     if args not in ([], ["--lr-witness"], ["--bf16-witness"],
                     ["--attention-rows"], ["--solve"], ["--reduce"],
                     ["--fleet"], ["--runtime"], ["--chaos"],
                     ["--chaos-loss-witness"], ["--dist"], ["--ssm"],
-                    ["--xlstm-witness"], ["--scan-rows"], ["--mla"]):
+                    ["--xlstm-witness"], ["--scan-rows"], ["--mla"],
+                    ["--mla-rows"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
               f"--runtime | --chaos | --chaos-loss-witness | --dist | "
-              f"--ssm | --xlstm-witness | --scan-rows | --mla], got {args}",
+              f"--ssm | --xlstm-witness | --scan-rows | --mla | "
+              f"--mla-rows [FLASH_CU ...]], got {args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6640,6 +6928,9 @@ def main(args: list[str]) -> int:
         return 0
     if args == ["--scan-rows"]:
         scan_rows()
+        return 0
+    if args == ["--mla-rows"]:
+        mla_rows([str(Path(x).resolve()) for x in sources])
         return 0
     if args == ["--ssm"]:
         t15 = time.perf_counter()

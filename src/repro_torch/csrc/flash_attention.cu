@@ -23,16 +23,20 @@
 // (D, Dv) only and counts each call once:
 //  * tensor-core tile kernel (T > 1, bfloat16, (D, Dv) (64, 64), (128,
 //    128) or (96, 64), a template on the pair; the serving cells' prefill):
-//    one block of 288 threads per (b, h, 128-row query tile), the longest
-//    causal tiles first. A producer warp loads the Q tile once and 128-key
-//    K and V tiles into a ring of 3 stages (Dv 64) or 2 (Dv 128) by TMA
-//    (tensor maps over each strided view, 128-byte swizzle, zeros out of
-//    bounds), each stage guarded by a full and an empty mbarrier. D 96
-//    loads as two 64-column panels, the second's columns 96-127 filled
-//    with zeros by the TMA (a box partly out of the map's bounds still
-//    delivers, and counts, all its bytes) and never read: S takes 6 k-steps
-//    of 16, not 8. Two consumer warpgroups of 64 rows each compute S =
-//    Q K^T with wgmma.m64n128k16 (bf16 operands from shared memory, float32
+//    one block of 288 threads per (b, h, 128-row query tile), head-major
+//    and each head's longest causal tiles first, so the blocks in flight
+//    read the same K/V through L2 (tile-major, 132 heads at once
+//    streamed their K/V from device memory: at MLA's 40/40 heads nearly
+//    at the memory's rate). A producer warp (one thread of it issuing)
+//    loads the Q tile once and 128-key K and V tiles into a ring of 4
+//    stages (Dv 64) or 3 (Dv 128) by TMA (tensor maps over each strided
+//    view, zeros out of bounds), each stage guarded by a full and an empty
+//    mbarrier. Q and K load as 64-column panels in the 128-byte swizzle
+//    and, at D 96, a last 32-column panel in the 64-byte swizzle (its own
+//    tensor map and wgmma descriptors), so
+//    no byte is loaded that the products do not read: a (96, 64) stage is
+//    40 KB. Two consumer warpgroups of 64 rows each compute S = Q K^T with
+//    wgmma.m64n128k16 (bf16 operands from shared memory, float32
 //    accumulator), the online softmax on the accumulator fragment in
 //    registers (a row's max and sum over the four lanes that hold it, two
 //    shuffles; base-2 exponentials of logits pre-scaled by log2(e)), round
@@ -46,7 +50,13 @@
 //    its weight 2^(s c - m) is 0 whatever the row's running max, so a row
 //    whose band starts past the window's first key tile keeps m = -1e30
 //    and l = 0 there. Each weight takes one FMA and one ex2.approx.ftz,
-//    and O is rescaled only when a row's max moved.
+//    and O is rescaled only when a row's max moved. Each warpgroup works
+//    in series (S, its softmax, P V, each waited for); the two overlap
+//    only as the SM's warp schedulers interleave them. The warpgroup index
+//    is taken from lane 0 by a shuffle, so the compiler knows it uniform
+//    across the warp (without it every row ran 2.5-4.5% slower, PERF.md).
+//    At the MLA prefill cell the products are 27.8 ms at the bf16 rate and
+//    the exponentials alone about 20-23 ms.
 //  * CUDA-core tile kernel (T > 1, float32, or bfloat16 with (D, Dv) not
 //    a tensor-core pair): one block of 256 threads per (b, h, 64-row query
 //    tile). The Q
@@ -71,25 +81,41 @@
 //    launch merges the splits in split order (no atomics: deterministic)
 //    and writes o. A decode passes the cache prefix k_all[:, :n] as a view,
 //    with no copy.
-// And one for MLA's absorbed decode, which has no TPU twin (the JAX package
-// computes it in jnp, src/repro/models/attention.py :: mla_decode):
-//  * latent decode (T = 1, float32 and bfloat16): q_lat (B, 1, H, r) and
-//    q_rope (B, 1, H, rd) over the latent cache ckv (B, n, r) and kr (B, n,
-//    rd), r <= 256 and rd <= 64 -> ctx_lat (B, 1, H, r): scores (q_lat . ckv
-//    + q_rope . kr) * scale in float32, the online softmax (expf), P ckv.
-//    Every head reads the same cache, so a block takes up to 40 heads of
-//    one sequence (8 warps of 5) over one split of the keys: each 64-key
-//    tile of ckv | kr (32 in float32) is staged once by cp.async, double-
+// And two for MLA's absorbed decode, which has no TPU twin (the JAX package
+// computes it in jnp, src/repro/models/attention.py :: mla_decode): q_lat
+// (B, 1, H, r) and q_rope (B, 1, H, rd) over the latent cache ckv (B, n, r)
+// and kr (B, n, rd), r <= 256 and rd <= 64 -> ctx_lat (B, 1, H, r):
+// scores (q_lat . ckv + q_rope . kr) * scale in float32, the online
+// softmax, P ckv. Every head reads the same cache, so a block takes many
+// heads of one sequence over one split of the keys and stages each 64-key
+// tile of ckv | kr once for both products.
+//  * latent decode on the tensor cores (bfloat16 with r a multiple of 64
+//    up to 256 and rd 32 or 64, minicpm3's 256 + 32; the served path): a
+//    block of 160 threads takes up to 64 heads of one sequence over one
+//    split. The heads are the M rows of wgmma products, one consumer
+//    warpgroup: S = Q [ckv | kr]^T (m64n64k16, Q written once into the
+//    swizzled layout, the tile K-major) and O += P ckv (m64n64k16 a
+//    64-column ckv panel, P rounded to bfloat16 in registers as the A
+//    operand, the panel MN-major); the softmax in base 2 on the S fragment
+//    (ex2.approx, as the tile kernel). A loader warp keeps a ring of 4
+//    tiles in flight by TMA (r / 64 ckv boxes in the 128-byte swizzle and
+//    one kr box, zeros past n) on mbarriers. One wave of blocks (B
+//    ceil(H / 64) splits about 132), so a split is about n B / 132 keys;
+//    the splits' float32 partials merge in split order in base 2 by a
+//    merge kernel of its own (deterministic). At minicpm3's cell (B 4, 40
+//    heads, 256 + 32, n 32,832) a layer moves 75.6 MB (22.6 us at 3.35
+//    TB/s): bound by bytes, its 5.7 GFLOP 5.8 us at the bf16 rate (9.2 with
+//    the heads padded to 64). Staging by one bulk copy a row and part, or
+//    by one warp's 16-byte cp.async copies, and products by mma.sync with
+//    one warp a 16-head group were slower (PERF.md).
+//  * latent decode on the CUDA cores (float32, and bfloat16 at other
+//    widths: the float32 gates and reduced configs):
+//    a block takes up to 40 heads (8 warps of 5) over one split; each
+//    64-key tile (32 in float32) is staged once by cp.async, double-
 //    buffered, and serves both the scores (a lane two keys, a warp 5 heads,
 //    q rows read as float4 broadcasts) and P ckv (a thread two latent
 //    columns of 20 heads, keys in order). Grid (B ceil(H / 40), n_split);
-//    the split decode's merge launch folds the splits in split order, so two
-//    calls are bitwise equal. At minicpm3's cell (B 4, 40 heads, 256 + 32,
-//    n 32,832) a layer moves 75.6 MB (22.6 us at 3.35 TB/s, the card's
-//    bound) and does 5.7 GFLOP: 5.8 us on the tensor cores, but 85 us at
-//    the CUDA cores' float32 rate, so this kernel is bound by operations at
-//    about 4x the byte bound; the heads as the rows of mma.sync / wgmma
-//    products would lift that (a later redesign).
+//    the split decode's merge launch folds the splits in split order.
 //
 // Bound on the H100: prefill is bound by operations (minicpm3's MLA
 // prefill, (4, 32768, 40/40, 96|64) causal, 27.5 TFLOP a layer, 27.8 ms at
@@ -100,10 +126,17 @@
 // capped at the float32 rate (67 TFLOP/s). Decode is bound by bytes: the KV
 // prefix, 34.6 MB per layer at 2112 positions, 10 us at 3.35 TB/s, which the
 // split decode reads once with about two waves of blocks in flight. What the
-// design still gives up: ping-pong scheduling of the two warpgroups (one's
-// softmax under the other's products), a persistent grid, and a TMA store
-// of the output. Issuing the next tile's S together with this tile's P V
-// inside a warpgroup was measured slower on the H100 (PERF.md).
+// designs still give up: ordering the two warpgroups against each other
+// (FA3's ping-pong: named barriers, the next S issued before this tile's
+// softmax; at (96, 64) it won 7-8 of 10 pairs of turns by about 1%, at
+// (64, 64) it lost 4% on hymba's windowed layers and at (128, 128) 30%,
+// with spills: nine warps or twelve leave ptxas 168 registers a thread,
+// and a producer warpgroup with setmaxnreg moved no row, PERF.md), a third
+// consumer warpgroup, a persistent grid, a TMA store of the output, and a
+// polynomial exp2 on the FMA pipe beside the special function unit; in
+// the latent decode, overlapping one tile's
+// softmax with the next tile's S, the merge folded into the last block of
+// each sequence, and the split decode's own move to the tensor cores.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -307,37 +340,40 @@ cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core tile kernel (bfloat16, D 64 or 128)
+// The tensor-core tile kernel (bfloat16; (D, Dv) (64, 64), (128, 128), (96,
+// 64))
 
 namespace tc {
 
 constexpr int kRows = 128;                // query rows of a block
 constexpr int kKeys = 128;                // keys of a K/V tile
-constexpr int kMaxStages = 3;             // K/V tiles in flight, at most
+constexpr int kMaxStages = 4;             // K/V tiles in flight, at most
 constexpr int kConsumers = 256;           // two warpgroups of 64 rows
 constexpr int kThreadsTc = kConsumers + 32;   // and one producer warp
 constexpr int kRowBytes = 128;            // 64 bf16: one swizzled row
 
-// Shared memory: the Q tile, then a ring of (K tile, V tile) stages, Q and
-// K as ceil(DK / 64) panels and V as DV / 64 panels of 128-byte rows in the
-// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), every
-// panel 1024-byte aligned. DK 96 takes two panels, the second's columns
-// 96-127 zero-filled by the TMA (out of the tensor map's bounds) and never
-// read: the products stop at DK. (DK, DV) = (64, 64): 16 KB of Q and three
-// 32 KB stages; (128, 128): 32 KB of Q and two 64 KB stages; (96, 64): 32
-// KB of Q and three 48 KB stages (176 KB). deepseek-v2's (192, 128) would
-// fit two 80 KB stages beside 48 KB of Q.
+// Shared memory: the Q tile, then a ring of (K tile, V tile) stages. Q and
+// K are DK / 64 panels of 64 columns (128-byte rows in the 128-byte
+// swizzle) and, where DK % 64 is 32, one panel of 32 columns (64-byte rows
+// in the 64-byte swizzle), so no column is loaded that the products do not
+// read; V is DV / 64 panels of 64 columns. Every panel starts on a
+// 1024-byte boundary. (64, 64): 16 KB of Q and four 32 KB stages; (128,
+// 128): 32 KB of Q and three 64 KB stages (225 KB with the alignment);
+// (96, 64): 24 KB of Q and four 40 KB stages (184 KB). deepseek-v2's (192,
+// 128) would fit two 80 KB stages beside 48 KB of Q.
 template <int DK, int DV>
 struct Layout {
-  static constexpr int kPanelsK = (DK + 63) / 64;
+  static constexpr int kPanelsK = DK / 64;        // 64-column panels of Q, K
+  static constexpr bool kHalfK = DK % 64 == 32;   // and a 32-column one
   static constexpr int kPanelsV = DV / 64;
-  static constexpr int kStages = DV == 64 ? 3 : 2;  // K/V tiles in flight
-  static constexpr int kQ = kPanelsK * kRows * kRowBytes;
-  static constexpr int kK = kPanelsK * kKeys * kRowBytes;
-  static constexpr int kV = kPanelsV * kKeys * kRowBytes;
+  static constexpr int kStages = DV == 64 ? 4 : 3;  // K/V tiles in flight
+  static constexpr int kQ = kRows * DK * 2;
+  static constexpr int kK = kKeys * DK * 2;
+  static constexpr int kV = kKeys * DV * 2;
   static constexpr int kStage = kK + kV;
   static constexpr int kBytes = kQ + kStages * kStage;
-  static_assert(DK % 16 == 0 && DV % 64 == 0 && DV <= 128 && DV <= DK,
+  static_assert(DK % 32 == 0 && DV % 64 == 0 && DV <= 128 && DV <= DK &&
+                    kStages <= kMaxStages,
                 "the tile kernel's widths");
 };
 
@@ -363,21 +399,25 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                :: "r"(smem_u32(bar)) : "memory");
 }
 
-// Returns once the barrier's phase of this parity has completed.
+// Returns once the barrier's phase of this parity has completed. A phase
+// that never completes (a fault of the protocol) traps after 2^26 tries, a
+// launch failure the wrapper raises, rather than hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   const uint32_t a = smem_u32(bar);
   uint32_t done;
+  int tries = 0;
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (!done && ++tries == (1 << 26)) __trap();
   } while (!done);
 }
 
-// One TMA box (64 d, 1 head, rows, 1 batch) at coordinates (c0..c3) of a
-// (D, heads, rows, B) tensor map into shared memory; completes on bar.
+// One TMA box (64 or 32 d, 1 head, rows, 1 batch) at coordinates (c0..c3)
+// of a (D, heads, rows, B) tensor map into shared memory; completes on bar.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int c0, int c1,
                                          int c2, int c3) {
@@ -389,13 +429,23 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma matrix descriptor of a tile in the 128-byte swizzle: start address,
-// leading and stride byte offsets (in 16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma matrix descriptor: start address, leading and stride byte offsets
+// (in 16-byte units) and the swizzle (1: 128-byte, 2: 64-byte).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t mode) {
   return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return smem_desc(addr, lbo, sbo, 1);
+}
+
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return smem_desc(addr, lbo, sbo, 2);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -410,12 +460,18 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// Keeps the compiler from moving accumulator registers across the
-// asynchronous products.
+// Keeps the compiler from moving registers that an asynchronous product
+// writes or reads across its issue and its wait.
 template <int N>
 __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 // 2^x by the special function unit, subnormal results flushed to zero
@@ -524,24 +580,166 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S = Q K^T for warpgroup wg's 64 query rows (issued, not waited for):
+// K-major A and B, 16 head dims a k-step. A step inside a panel row
+// advances the start address by 32 bytes; the 32-column panel takes the
+// 64-byte swizzle's descriptors (8-row groups of 512 bytes).
+template <int DK>
+__device__ __forceinline__ void issue_qk(float (&sc)[kKeys / 2],
+                                         uint32_t q_addr, uint32_t k_addr,
+                                         int wg) {
+  constexpr int kWide = 4 * (DK / 64);    // k-steps in 64-column panels
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    uint64_t da, db;
+    if (kk < kWide) {
+      da = sw128_desc(q_addr + (kk >> 2) * kRows * kRowBytes +
+                          wg * 64 * kRowBytes + (kk & 3) * 32,
+                      16, 1024);
+      db = sw128_desc(k_addr + (kk >> 2) * kKeys * kRowBytes + (kk & 3) * 32,
+                      16, 1024);
+    } else {
+      const int j = kk - kWide;
+      da = sw64_desc(q_addr + (DK / 64) * kRows * kRowBytes + wg * 64 * 64 +
+                         j * 32,
+                     16, 512);
+      db = sw64_desc(k_addr + (DK / 64) * kKeys * kRowBytes + j * 32, 16,
+                     512);
+    }
+    wgmma_ss_n128(sc, da, db, kk > 0);
+  }
+}
+
+// O += P V (issued, not waited for): P from registers in wgmma's register-A
+// layout, V MN-major (head dims contiguous), 16 keys a step of 2048 bytes;
+// its 64-dim panels kKeys x 128 bytes apart.
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
+                                         const uint32_t (&pa)[kKeys / 4],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int j = 0; j < kKeys / 16; ++j) {
+    const uint64_t dv = sw128_desc(v_addr + j * 16 * kRowBytes,
+                                   kKeys * kRowBytes, 1024);
+    if constexpr (DV == 64)
+      wgmma_rs_n64(o, pa + 4 * j, dv);
+    else
+      wgmma_rs_n128(o, pa + 4 * j, dv);
+  }
+}
+
+// Where a warpgroup's rows sit in the S fragment: sc[4 i + e] holds row
+// row0 + 8 (e / 2), key k0 + 8 i + col + e % 2.
+struct Rows {
+  int qmin, qmax, row0, col;
+};
+
+// The online softmax of one key tile on the S fragment, in place: the
+// element mask only where the tile crosses the diagonal, the key end or the
+// band's lower edge (a masked score becomes -inf, whose weight is 0
+// whatever the row's max); then, base 2, the max m of the scaled logits
+// (from -1e30), alpha = 2^(m - m_new), p = 2^(s c - m_new) by one FMA and
+// ex2 written over s, and l = l alpha + sum(p).
+__device__ __forceinline__ void softmax_tile(float (&sc)[kKeys / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             const Args& a, const Rows& rw,
+                                             int k0) {
+  const bool edge = (a.causal && k0 + kKeys - 1 > rw.qmin) ||
+                    k0 + kKeys > a.S ||
+                    (a.window > 0 && k0 <= rw.qmax - a.window);
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) {
+      const int key = k0 + 8 * (i >> 2) + rw.col + (i & 1);
+      const int row = rw.row0 + 8 * ((i >> 1) & 1);
+      if (key >= a.S || (a.causal && key > row) ||
+          (a.window > 0 && key <= row - a.window))
+        sc[i] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i)
+      mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m[r], mx * a.scale_log2);
+    alpha[r] = ex2(m[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2(fmaf(sc[4 * i + 2 * r + e], a.scale_log2, -m_new));
+        sc[4 * i + 2 * r + e] = p;
+        sum += p;
+      }
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    l[r] = l[r] * alpha[r] + sum;
+    m[r] = m_new;
+  }
+}
+
+// O rescaled only where a row's max moved (alpha != 1).
+template <int DV>
+__device__ __forceinline__ void rescale(float (&o)[DV / 2],
+                                        const float (&alpha)[2]) {
+  if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i) {
+      o[4 * i] *= alpha[0];
+      o[4 * i + 1] *= alpha[0];
+      o[4 * i + 2] *= alpha[1];
+      o[4 * i + 3] *= alpha[1];
+    }
+  }
+}
+
+// P in bfloat16 as wgmma's register A: k-step j (keys 16 j ..) takes the
+// accumulator's column blocks 2 j and 2 j + 1, rows row0 and row0 + 8.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kKeys / 4],
+                                       const float (&sc)[kKeys / 2]) {
+#pragma unroll
+  for (int j = 0; j < kKeys / 16; ++j) {
+    pa[4 * j + 0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+    pa[4 * j + 1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+    pa[4 * j + 2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+    pa[4 * j + 3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
 template <int DK, int DV>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tq2,
                 const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tk2,
                 const __grid_constant__ CUtensorMap tv, const Args a) {
   using L = Layout<DK, DV>;
   constexpr int NPK = L::kPanelsK, NPV = L::kPanelsV;
-  extern __shared__ char smem_raw[];
   constexpr int kStages = L::kStages;
+  extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages], qbar;
   const uint32_t raw = smem_u32(smem_raw);
   char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
   char* qs = smem;
 
-  const int n_bh = a.B * a.H;
+  // head-major: a head's query tiles run one after another, longest
+  // first, so the blocks in flight share their K/V through L2 (with the
+  // tiles major, 132 heads' K/V streamed from memory at once)
   const int n_qt = (a.Tq + kRows - 1) / kRows;
-  const int bh = blockIdx.x % n_bh;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / n_bh);
+  const int bh = static_cast<int>(blockIdx.x / n_qt);
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x % n_qt);
   const int b = bh / a.H, h = bh - b * a.H, hk = h / a.G;
   const int q0 = qt * kRows;
   const int q_last = min(a.Tq, q0 + kRows) - 1;
@@ -549,6 +747,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int kt0 = a.window > 0 ? max(0, q0 - a.window + 1) / kKeys : 0;
   const int n_tiles = (s_end + kKeys - 1) / kKeys - kt0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the warpgroup, taken from lane 0 so that the compiler sees it uniform
+  // across the warp
+  const int wgi = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -560,14 +761,18 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == kConsumers / 32) {
-    // the producer warp: Q once, then K and V tile by tile into the ring
+  if (wgi == kConsumers / 128) {
+    // the producer warp: one thread loads Q once, then K and V tile by tile
+    // into the ring
     if (lane == 0) {
-      // a box partly out of bounds (DK 96's second panel, ragged rows)
-      // still delivers its whole bytes, the fill included
+      // a box partly out of bounds (ragged rows) still delivers its whole
+      // bytes, the zero fill included
       mbar_expect_tx(&qbar, L::kQ);
       for (int p = 0; p < NPK; ++p)
         tma_load(qs + p * kRows * kRowBytes, &tq, &qbar, p * 64, h, q0, b);
+      if (L::kHalfK)
+        tma_load(qs + NPK * kRows * kRowBytes, &tq2, &qbar, NPK * 64, h, q0,
+                 b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
@@ -577,148 +782,70 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         for (int p = 0; p < NPK; ++p)
           tma_load(ks + p * kKeys * kRowBytes, &tk, &full[s], p * 64, hk,
                    k0, b);
+        if (L::kHalfK)
+          tma_load(ks + NPK * kKeys * kRowBytes, &tk2, &full[s], NPK * 64,
+                   hk, k0, b);
         for (int p = 0; p < NPV; ++p)
           tma_load(ks + L::kK + p * kKeys * kRowBytes, &tv, &full[s],
                    p * 64, hk, k0, b);
       }
     }
-  } else {
-    // a consumer warpgroup: query rows [qmin, qmin + 64)
-    const int wg = warp >> 2, w = warp & 3;
-    const int qmin = q0 + wg * 64, qmax = qmin + 63;
-    const int row0 = qmin + w * 16 + (lane >> 2);   // and row0 + 8
-    const int col = 2 * (lane & 3);
-    const uint32_t q_addr = smem_u32(qs) + wg * 64 * kRowBytes;
-    float o[DV / 2];
-#pragma unroll
-    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    mbar_wait(&qbar, 0);
+    return;
+  }
 
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages;
-      const int k0 = (kt0 + it) * kKeys;
-      const uint32_t k_addr = smem_u32(smem + L::kQ + s * L::kStage);
-      const uint32_t v_addr = k_addr + L::kK;
-      mbar_wait(&full[s], (it / kStages) & 1);
+  // a consumer warpgroup: query rows [qmin, qmin + 64)
+  const int wg = wgi, w = warp & 3;
+  Rows rw;
+  rw.qmin = q0 + wg * 64;
+  rw.qmax = rw.qmin + 63;
+  rw.row0 = rw.qmin + w * 16 + (lane >> 2);   // and row0 + 8
+  rw.col = 2 * (lane & 3);
+  const uint32_t q_addr = smem_u32(qs);
+  const uint32_t ring = smem_u32(smem + L::kQ);
+  // sc is zeroed once: every S product's first k-step overwrites it
+  float o[DV / 2], sc[kKeys / 2];
+  uint32_t pa[kKeys / 4];
+  zero(o);
+  zero(sc);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  mbar_wait(&qbar, 0);
 
-      // S = Q K^T: K-major A and B, 16 head dims a step; a step inside a
-      // 128-byte row advances the start address by 32 bytes
-      float sc[kKeys / 2];
-#pragma unroll
-      for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
-      pin(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk)
-        wgmma_ss_n128(
-            sc,
-            sw128_desc(q_addr + (kk >> 2) * kRows * kRowBytes + (kk & 3) * 32,
-                       16, 1024),
-            sw128_desc(k_addr + (kk >> 2) * kKeys * kRowBytes + (kk & 3) * 32,
-                       16, 1024),
-            kk > 0);
-      wgmma_commit();
-      wgmma_wait0();
-      pin(sc);
-
-      // the element mask only where a tile crosses the diagonal, the key
-      // end or the band's lower edge: a masked score becomes -inf, whose
-      // weight is 0 whatever the row's max. sc[4 i + e] holds row row0 +
-      // 8 (e / 2), key k0 + 8 i + col + e % 2.
-      const bool edge = (a.causal && k0 + kKeys - 1 > qmin) ||
-                        k0 + kKeys > a.S ||
-                        (a.window > 0 && k0 <= qmax - a.window);
-      if (edge) {
-#pragma unroll
-        for (int i = 0; i < kKeys / 2; ++i) {
-          const int key = k0 + 8 * (i >> 2) + col + (i & 1);
-          const int row = row0 + 8 * ((i >> 1) & 1);
-          if (key >= a.S || (a.causal && key > row) ||
-              (a.window > 0 && key <= row - a.window))
-            sc[i] = -INFINITY;
-        }
-      }
-      // base 2: the max m of the scaled logits (from -1e30), alpha =
-      // 2^(m - m_new), p = 2^(s c - m_new) by one FMA and ex2
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int i = 0; i < kKeys / 8; ++i)
-          mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-        const float m_new = fmaxf(m[r], mx * a.scale_log2);
-        alpha[r] = ex2(m[r] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < kKeys / 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p =
-                ex2(fmaf(sc[4 * i + 2 * r + e], a.scale_log2, -m_new));
-            sc[4 * i + 2 * r + e] = p;
-            sum += p;
-          }
-        sum += __shfl_xor_sync(kFull, sum, 1);
-        sum += __shfl_xor_sync(kFull, sum, 2);
-        l[r] = l[r] * alpha[r] + sum;
-        m[r] = m_new;
-      }
-      // rescale O only where a row's max moved (alpha != 1)
-      if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
-#pragma unroll
-        for (int i = 0; i < DV / 8; ++i) {
-          o[4 * i] *= alpha[0];
-          o[4 * i + 1] *= alpha[0];
-          o[4 * i + 2] *= alpha[1];
-          o[4 * i + 3] *= alpha[1];
-        }
-      }
-
-      // P in bfloat16 as wgmma's register A: k-step j (keys 16 j ..) takes
-      // accumulator column blocks 2 j and 2 j + 1, rows row0 and row0 + 8
-      uint32_t pa[kKeys / 4];
-#pragma unroll
-      for (int j = 0; j < kKeys / 16; ++j) {
-        pa[4 * j + 0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
-        pa[4 * j + 1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
-        pa[4 * j + 2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
-        pa[4 * j + 3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
-      }
-      // O += P V: V MN-major (head dims contiguous), 16 keys a step of
-      // 2048 bytes; its 64-dim panels kKeys x 128 bytes apart
-      pin(o);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < kKeys / 16; ++j) {
-        const uint64_t dv = sw128_desc(v_addr + j * 16 * kRowBytes,
-                                       kKeys * kRowBytes, 1024);
-        if constexpr (DV == 64)
-          wgmma_rs_n64(o, pa + 4 * j, dv);
-        else
-          wgmma_rs_n128(o, pa + 4 * j, dv);
-      }
-      wgmma_commit();
-      wgmma_wait0();
-      pin(o);
-      if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[s]);
-    }
+  // S, its softmax, then P V, each waited for
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t k_addr = ring + s * L::kStage;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    pin(sc);
+    wgmma_fence();
+    issue_qk<DK>(sc, q_addr, k_addr, wg);
+    wgmma_commit();
+    wgmma_wait0();
+    pin(sc);
+    softmax_tile(sc, m, l, alpha, a, rw, (kt0 + it) * kKeys);
+    rescale<DV>(o, alpha);
+    pack_p(pa, sc);
+    pin(o);
+    pin(pa);
+    wgmma_fence();
+    issue_pv<DV>(o, pa, k_addr + L::kK);
+    wgmma_commit();
+    wgmma_wait0();
+    pin(o);
+    pin(pa);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[s]);
+  }
 
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= a.Tq) continue;
-      const float den = fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* orow = a.o + b * a.so.b + row * a.so.t + h * a.so.h;
+  for (int r = 0; r < 2; ++r) {
+    const int row = rw.row0 + 8 * r;
+    if (row >= a.Tq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = a.o + b * a.so.b + row * a.so.t + h * a.so.h;
 #pragma unroll
-      for (int i = 0; i < DV / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + col) =
-            __floats2bfloat162_rn(o[4 * i + 2 * r] / den,
-                                  o[4 * i + 2 * r + 1] / den);
-    }
+    for (int i = 0; i < DV / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + rw.col) =
+          __floats2bfloat162_rn(o[4 * i + 2 * r] / den,
+                                o[4 * i + 2 * r + 1] / den);
   }
 }
 
@@ -749,10 +876,11 @@ EncodeTiled encode_tiled() {
 }
 
 // A (D, heads, rows, B) tensor map of a strided bf16 view (element
-// strides st), box (64, 1, box_rows, 1), 128-byte swizzle, zeros out of
-// bounds. The caller has checked 16-byte alignment of base and strides.
+// strides st), box (cols, 1, box_rows, 1): 64 columns in the 128-byte
+// swizzle or 32 in the 64-byte one, zeros out of bounds. The caller has
+// checked 16-byte alignment of base and strides.
 bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
-              int B, Strides st, int box_rows) {
+              int B, Strides st, int cols, int box_rows) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -762,20 +890,28 @@ bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * 2,
                                  static_cast<cuuint64_t>(st.t) * 2,
                                  static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<void*>(base), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DK, int DV>
-cudaError_t launch_d(const CUtensorMap& mq, const CUtensorMap& mk,
-                     const CUtensorMap& mv, const Args& a,
+constexpr int smem_bytes() {
+  return Layout<DK, DV>::kBytes + 1024;   // + alignment to 1024
+}
+
+// maps: q, q's 32-column panel, k, k's 32-column panel, v.
+template <int DK, int DV>
+cudaError_t launch_d(const CUtensorMap* m, const Args& a,
                      cudaStream_t stream) {
-  const int smem = Layout<DK, DV>::kBytes + 1024;   // + alignment to 1024
+  const int smem = smem_bytes<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -783,7 +919,7 @@ cudaError_t launch_d(const CUtensorMap& mq, const CUtensorMap& mk,
   const long long blocks =
       static_cast<long long>(a.B) * a.H * ((a.Tq + kRows - 1) / kRows);
   flash_tc_kernel<DK, DV><<<static_cast<unsigned>(blocks), kThreadsTc, smem,
-                            stream>>>(mq, mk, mv, a);
+                            stream>>>(m[0], m[1], m[2], m[3], m[4], a);
   return cudaGetLastError();
 }
 
@@ -796,14 +932,55 @@ bool tc_dims(int D, int Dv) {
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const Args& a, int D, int Dv, int Hkv,
                    cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
-  if (!tc_dims(D, Dv) || !make_map(&mq, q, D, a.H, a.Tq, a.B, a.sq, kRows) ||
-      !make_map(&mk, k, D, Hkv, a.S, a.B, a.sk, kKeys) ||
-      !make_map(&mv, v, Dv, Hkv, a.S, a.B, a.sv, kKeys))
+  CUtensorMap m[5];
+  const bool half = D % 64 == 32;
+  if (!tc_dims(D, Dv) ||
+      !make_map(&m[0], q, D, a.H, a.Tq, a.B, a.sq, 64, kRows) ||
+      !make_map(&m[2], k, D, Hkv, a.S, a.B, a.sk, 64, kKeys) ||
+      !make_map(&m[4], v, Dv, Hkv, a.S, a.B, a.sv, 64, kKeys) ||
+      (half && (!make_map(&m[1], q, D, a.H, a.Tq, a.B, a.sq, 32, kRows) ||
+                !make_map(&m[3], k, D, Hkv, a.S, a.B, a.sk, 32, kKeys))))
     return cudaErrorInvalidValue;
-  if (D == 64) return launch_d<64, 64>(mq, mk, mv, a, stream);
-  if (D == 96) return launch_d<96, 64>(mq, mk, mv, a, stream);
-  return launch_d<128, 128>(mq, mk, mv, a, stream);
+  if (!half) {                            // the kernel reads no half panel
+    m[1] = m[0];
+    m[3] = m[2];
+  }
+  if (D == 64) return launch_d<64, 64>(m, a, stream);
+  if (D == 96) return launch_d<96, 64>(m, a, stream);
+  return launch_d<128, 128>(m, a, stream);
+}
+
+// out: registers a thread, local (spill) bytes a thread, blocks an SM at
+// the launch's shared memory, and that shared memory (dynamic + static).
+template <typename K>
+cudaError_t kernel_info(K kern, int threads, int smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
+                                                      smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = blocks;
+  out[3] = smem + static_cast<int>(attr.sharedSizeBytes);
+  return err;
+}
+
+cudaError_t info(int D, int Dv, int* out) {
+  if (D == 64 && Dv == 64)
+    return kernel_info(flash_tc_kernel<64, 64>, kThreadsTc,
+                       smem_bytes<64, 64>(), out);
+  if (D == 96 && Dv == 64)
+    return kernel_info(flash_tc_kernel<96, 64>, kThreadsTc,
+                       smem_bytes<96, 64>(), out);
+  if (D == 128 && Dv == 128)
+    return kernel_info(flash_tc_kernel<128, 128>, kThreadsTc,
+                       smem_bytes<128, 128>(), out);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tc
@@ -1473,6 +1650,429 @@ cudaError_t launch(const void* q_lat_, const void* q_rope_, const void* ckv_,
 
 }  // namespace mla
 
+// ---------------------------------------------------------------------------
+// The latent (MLA) decode on the tensor cores (bfloat16): the heads as the
+// M rows of wgmma products
+
+namespace mtc {
+
+constexpr int kKeys = 64;                 // keys of a staged tile
+constexpr int kHeads = 64;                // heads of a block: wgmma's M rows
+constexpr int kThreads = 128 + 32;        // a consumer warpgroup, a loader
+constexpr int kStages = 4;                // tiles in flight
+constexpr int kPanel = kKeys * 128;       // a 64-column panel of a tile
+constexpr int kMergeThreads = 256;
+constexpr int kMaxSplits = 1024;          // the merge's shared weights
+
+struct Args {
+  const __nv_bfloat16 *q_lat, *q_rope;
+  float *part_ml, *part_acc;
+  int H, n, r, rd, chunk, n_split;
+  long long ql_sb, ql_sh, qr_sb, qr_sh;
+  float scale_log2;                       // scale * log2(e)
+};
+
+// The widths this kernel takes: r a multiple of 64 up to 256 (ckv as
+// 64-column panels in the 128-byte swizzle), rd 32 (a panel in the 64-byte
+// swizzle) or 64.
+bool widths(int r, int rd) {
+  return r >= 64 && r <= 256 && r % 64 == 0 && (rd == 32 || rd == 64);
+}
+
+// A tile (and the Q block) in shared memory: RP panels of 64 ckv columns,
+// 64 rows of 128 bytes each, then one panel of kr's RD columns (rows of 2 RD
+// bytes), every panel in the swizzle of its row width.
+template <int RP, int RD>
+struct Tile {
+  static constexpr int kBytes = RP * kPanel + kKeys * 2 * RD;
+  static constexpr int kSbo = 8 * 2 * RD;   // 8 rows of the kr panel
+  static constexpr int kPad = 1024;         // 1024-byte alignment
+};
+
+// Byte offset of 16-byte chunk c of row g in a swizzled panel of `rowb`
+// (128 or 64) bytes a row: the chunk index XOR the row's bits 7.. of its
+// address, as the TMA writes and wgmma reads it.
+__device__ __forceinline__ int swz(int g, int c, int rowb) {
+  return rowb == 128 ? g * 128 + ((c ^ (g & 7)) << 4)
+                     : g * 64 + ((c ^ ((g >> 1) & 3)) << 4);
+}
+
+// One TMA box (cols, 64 rows, 1 batch) at (c0, c1, c2) of a (cols, n, B)
+// tensor map into shared memory; completes on bar.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// d (+)= A B: A (64 x 16) and B (16 x 64, K-major) from shared memory by
+// descriptor; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The descriptor of k-step kk (16 columns) of a Q block or a tile at addr:
+// the first 4 RP steps in the ckv panels, then RD / 16 in the kr panel.
+template <int RP, int RD>
+__device__ __forceinline__ uint64_t kstep_desc(uint32_t addr, int kk) {
+  using T = Tile<RP, RD>;
+  if (kk < 4 * RP)
+    return tc::sw128_desc(addr + (kk >> 2) * kPanel + (kk & 3) * 32, 16,
+                          1024);
+  const uint32_t kr = addr + RP * kPanel + (kk - 4 * RP) * 32;
+  return RD == 64 ? tc::sw128_desc(kr, 16, T::kSbo)
+                  : tc::sw64_desc(kr, 16, T::kSbo);
+}
+
+// Block (b, head group, split): heads [g0, g0 + gn) of sequence b over keys
+// [split chunk, min(n, (split + 1) chunk)). A loader warp brings each
+// 64-key tile of ckv | kr by TMA (RP + 1 boxes, zeros past n) into a ring
+// of kStages on a full and an empty mbarrier. The consumer warpgroup takes
+// the block's heads (up to 64, zero rows past gn) as the M rows of wgmma:
+// S = Q [ckv | kr]^T (m64n64k16, Q and the tile K-major from shared
+// memory), the online softmax in base 2 on the S fragment (a row's max and
+// sum over its quad; keys past the split -inf), P rounded to bfloat16 in
+// registers, O += P ckv (m64n64k16 a ckv panel, A from registers, the
+// panel MN-major); O (64 x r) in registers. It writes its float32 m (in
+// the base-2 units of the scaled logits), l and unnormalised O.
+template <int RP, int RD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_mla_tc_kernel(const __grid_constant__ CUtensorMap tckv,
+                    const __grid_constant__ CUtensorMap tkr, const Args a) {
+  using T = Tile<RP, RD>;
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const uint32_t raw = smem_u32(smem_raw);
+  char* ring = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  char* qs = ring + kStages * T::kBytes;
+  const int n_hg = (a.H + kHeads - 1) / kHeads;
+  const int hg = blockIdx.x % n_hg, b = blockIdx.x / n_hg;
+  const int g0 = hg * kHeads, gn = min(kHeads, a.H - g0);
+  const int split = blockIdx.y;
+  const int k_lo = split * a.chunk, k_hi = min(a.n, k_lo + a.chunk);
+  const int n_t = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // Q: the block's heads as bfloat16 rows q_lat | q_rope in the tile's
+  // swizzled panels, zeros past gn heads
+  constexpr int kChunks = 8 * RP + RD / 8;  // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < kHeads * kChunks; i += kThreads) {
+    const int g = i / kChunks, c = i - g * kChunks;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (g < gn)
+      x = *reinterpret_cast<const uint4*>(
+          c < 8 * RP ? a.q_lat + b * a.ql_sb + (g0 + g) * a.ql_sh + 8 * c
+                     : a.q_rope + b * a.qr_sb + (g0 + g) * a.qr_sh +
+                           8 * (c - 8 * RP));
+    char* dst = c < 8 * RP ? qs + (c >> 3) * kPanel + swz(g, c & 7, 128)
+                           : qs + RP * kPanel + swz(g, c - 8 * RP, 2 * RD);
+    *reinterpret_cast<uint4*>(dst) = x;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], 1);        // the consumer warpgroup's
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Q's stores reach wgmma's reads (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp == 4) {
+    // the loader warp: tile by tile, RP ckv boxes and one kr box
+    if (lane == 0) {
+      for (int it = 0; it < n_t; ++it) {
+        const int s = it % kStages;
+        tc::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        char* dst = ring + s * T::kBytes;
+        const int k0 = k_lo + it * kKeys;
+        tc::mbar_expect_tx(&full[s], T::kBytes);
+        for (int p = 0; p < RP; ++p)
+          tma_load3(dst + p * kPanel, &tckv, &full[s], 64 * p, k0, b);
+        tma_load3(dst + RP * kPanel, &tkr, &full[s], 0, k0, b);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: sc[4 i + e] holds head row0 + 8 (e / 2), key
+  // 8 i + col + e % 2 of the tile; o[p][4 i + e] head row0 + 8 (e / 2),
+  // latent column 64 p + 8 i + col + e % 2
+  const int row0 = warp * 16 + (lane >> 2), col = 2 * (lane & 3);
+  const uint32_t q_addr = smem_u32(qs), ring_a = smem_u32(ring);
+  const float c = a.scale_log2;
+  float o[RP][32], sc[32];
+  uint32_t pa[16];
+#pragma unroll
+  for (int p = 0; p < RP; ++p) tc::zero(o[p]);
+  tc::zero(sc);                           // each S's first step overwrites
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_t; ++it) {
+    const int s = it % kStages;
+    const uint32_t tile = ring_a + s * T::kBytes;
+    tc::mbar_wait(&full[s], (it / kStages) & 1);
+    tc::pin(sc);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * RP + RD / 16; ++kk)
+      wgmma_ss_n64(sc, kstep_desc<RP, RD>(q_addr, kk),
+                   kstep_desc<RP, RD>(tile, kk), kk > 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait0();
+    tc::pin(sc);
+    const int nk = min(kKeys, k_hi - (k_lo + it * kKeys));
+    if (nk < kKeys) {                     // keys past the split: -inf
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (8 * (i >> 2) + col + (i & 1) >= nk) sc[i] = -INFINITY;
+    }
+    // base 2: alpha = 2^(m - m_new), p = 2^(s c - m_new) by one FMA and ex2
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * rr], sc[4 * i + 2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[rr], mx * c);
+      alpha[rr] = tc::ex2(m[rr] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = tc::ex2(fmaf(sc[4 * i + 2 * rr + e], c, -m_new));
+          sc[4 * i + 2 * rr + e] = p;
+          sum += p;
+        }
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      l[rr] = l[rr] * alpha[rr] + sum;
+      m[rr] = m_new;
+    }
+    if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int p = 0; p < RP; ++p)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          o[p][4 * i] *= alpha[0];
+          o[p][4 * i + 1] *= alpha[0];
+          o[p][4 * i + 2] *= alpha[1];
+          o[p][4 * i + 3] *= alpha[1];
+        }
+    }
+    // P in bfloat16 as wgmma's register A: k-step j (keys 16 j ..) takes
+    // the accumulator's column blocks 2 j and 2 j + 1
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pa[4 * j + 0] = tc::pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+      pa[4 * j + 1] = tc::pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+      pa[4 * j + 2] = tc::pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+      pa[4 * j + 3] = tc::pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+    }
+#pragma unroll
+    for (int p = 0; p < RP; ++p) tc::pin(o[p]);
+    tc::pin(pa);
+    tc::wgmma_fence();
+    // O += P ckv: each 64-column panel MN-major (latent columns
+    // contiguous), 16 keys a k-step of 2048 bytes
+#pragma unroll
+    for (int p = 0; p < RP; ++p)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        tc::wgmma_rs_n64(o[p], pa + 4 * j,
+                         tc::sw128_desc(tile + p * kPanel + j * 16 * 128,
+                                        kPanel, 1024));
+    tc::wgmma_commit();
+    tc::wgmma_wait0();
+#pragma unroll
+    for (int p = 0; p < RP; ++p) tc::pin(o[p]);
+    tc::pin(pa);
+    if (threadIdx.x == 0) tc::mbar_arrive(&empty[s]);
+  }
+
+  // this split's partial state; an empty split leaves m = -1e30, l = 0
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int hh = row0 + 8 * rr;
+    if (hh >= gn) continue;
+    const long long row =
+        (static_cast<long long>(b) * a.H + g0 + hh) * a.n_split + split;
+    if ((lane & 3) == 0) {
+      a.part_ml[2 * row] = m[rr];
+      a.part_ml[2 * row + 1] = l[rr];
+    }
+    float* dst = a.part_acc + row * a.r;
+#pragma unroll
+    for (int p = 0; p < RP; ++p)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float2*>(dst + 64 * p + 8 * i + col) =
+            make_float2(o[p][4 * i + 2 * rr], o[p][4 * i + 2 * rr + 1]);
+  }
+}
+
+// o[b, 0, h] = sum_s acc_s 2^(m_s - M) / max(sum_s l_s 2^(m_s - M), 1e-30),
+// M = max_s m_s, the splits folded in order (two calls give the same bits);
+// m in the base-2 units of the scaled logits.
+__global__ void __launch_bounds__(kMergeThreads)
+flash_mla_merge_kernel(const float* __restrict__ part_ml,
+                       const float* __restrict__ part_acc,
+                       __nv_bfloat16* __restrict__ o, int r, int n_split) {
+  __shared__ float ms[kMaxSplits], ls[kMaxSplits];
+  const long long bh = blockIdx.x;
+  const float* ml = part_ml + bh * n_split * 2;
+  const float* acc = part_acc + bh * n_split * r;
+  for (int s = threadIdx.x; s < n_split; s += blockDim.x) {
+    ms[s] = ml[2 * s];
+    ls[s] = ml[2 * s + 1];
+  }
+  __syncthreads();
+  float mm = kNegInf;
+  for (int s = 0; s < n_split; ++s) mm = fmaxf(mm, ms[s]);
+  __syncthreads();
+  for (int s = threadIdx.x; s < n_split; s += blockDim.x)
+    ms[s] = tc::ex2(ms[s] - mm);           // the split's weight
+  __syncthreads();
+  float ll = 0.f;
+  for (int s = 0; s < n_split; ++s) ll = fmaf(ls[s], ms[s], ll);
+  const float den = fmaxf(ll, 1e-30f);
+  for (int d = threadIdx.x; d < r; d += blockDim.x) {
+    float x = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_split; ++s)
+      x = fmaf(acc[static_cast<long long>(s) * r + d], ms[s], x);
+    o[bh * r + d] = __float2bfloat16(x / den);
+  }
+}
+
+// A (cols, n, B) tensor map of a strided bf16 (B, n, cols) view (element
+// strides st_n, st_b), box (box_cols, 64, 1) in the swizzle of its row
+// width (128 or 64 bytes), zeros out of bounds.
+bool make_map3(CUtensorMap* map, const void* base, int cols, int box_cols,
+               int n, int B, long long st_n, long long st_b) {
+  const tc::EncodeTiled enc = tc::encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st_n) * 2,
+                                 static_cast<cuuint64_t>(st_b) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), kKeys, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int RP, int RD>
+constexpr int smem_bytes() {
+  return (kStages + 1) * Tile<RP, RD>::kBytes + Tile<RP, RD>::kPad;
+}
+
+// Runs f.template run<RP, RD>() for the widths (r, rd); widths() first.
+template <typename F>
+cudaError_t with_widths(int r, int rd, const F& f) {
+  if (rd == 64) {
+    switch (r / 64) {
+      case 1: return f.template run<1, 64>();
+      case 2: return f.template run<2, 64>();
+      case 3: return f.template run<3, 64>();
+      default: return f.template run<4, 64>();
+    }
+  }
+  switch (r / 64) {
+    case 1: return f.template run<1, 32>();
+    case 2: return f.template run<2, 32>();
+    case 3: return f.template run<3, 32>();
+    default: return f.template run<4, 32>();
+  }
+}
+
+struct Launch {
+  const CUtensorMap &mc, &mk;
+  const Args& a;
+  int B;
+  __nv_bfloat16* o;
+  cudaStream_t stream;
+  template <int RP, int RD>
+  cudaError_t run() const {
+    const int smem = smem_bytes<RP, RD>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_mla_tc_kernel<RP, RD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>(B) * ((a.H + kHeads - 1) / kHeads),
+                    static_cast<unsigned>(a.n_split));
+    flash_mla_tc_kernel<RP, RD><<<grid, kThreads, smem, stream>>>(mc, mk, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_mla_merge_kernel<<<static_cast<unsigned>(B) * a.H,
+                             a.r < kMergeThreads ? a.r : kMergeThreads, 0,
+                             stream>>>(
+        a.part_ml, a.part_acc, o, a.r, a.n_split);
+    return cudaGetLastError();
+  }
+};
+
+struct Info {
+  int* out;
+  template <int RP, int RD>
+  cudaError_t run() const {
+    return tc::kernel_info(flash_mla_tc_kernel<RP, RD>, kThreads,
+                           smem_bytes<RP, RD>(), out);
+  }
+};
+
+cudaError_t launch(const Args& a, const void* ckv, const void* kr,
+                   long long c_sb, long long c_st, long long kr_sb,
+                   long long kr_st, int B, __nv_bfloat16* o,
+                   cudaStream_t stream) {
+  CUtensorMap mc, mk;
+  if (!widths(a.r, a.rd) ||
+      !make_map3(&mc, ckv, a.r, 64, a.n, B, c_st, c_sb) ||
+      !make_map3(&mk, kr, a.rd, a.rd, a.n, B, kr_st, kr_sb))
+    return cudaErrorInvalidValue;
+  return with_widths(a.r, a.rd, Launch{mc, mk, a, B, o, stream});
+}
+
+cudaError_t info(int r, int rd, int* out) {
+  if (!widths(r, rd)) return cudaErrorInvalidValue;
+  return with_widths(r, rd, Info{out});
+}
+
+}  // namespace mtc
+
 template <typename T>
 int launch_simt(const void* q_, const void* k_, const void* v_, void* o_,
                 int B, int Tq, int S, int H, int Hkv, int D, int Dv,
@@ -1586,11 +2186,11 @@ int soar_flash_decode(const void* q, const void* k, const void* v, void* o,
                                              chunk, ml, acc, st));
 }
 
-// The latent (MLA) decode: q_lat (B, 1, H, r) and q_rope (B, 1, H, rd) over
-// ckv (B, n, r) and kr (B, n, rd) -> o (B, 1, H, r), contiguous; r <= 256
-// and rd <= 64, multiples of 8; n_split splits of `chunk` keys (a multiple
-// of 64); part_ml (B H n_split 2) and part_acc (B H n_split r) float32
-// scratch.
+// The latent (MLA) decode on the CUDA cores: q_lat (B, 1, H, r) and q_rope
+// (B, 1, H, rd) over ckv (B, n, r) and kr (B, n, rd) -> o (B, 1, H, r),
+// contiguous; r <= 256 and rd <= 64, multiples of 8; n_split splits of
+// `chunk` keys (a multiple of 64); part_ml (B H n_split 2) and part_acc (B H
+// n_split r) float32 scratch.
 int soar_flash_mla_decode(const void* q_lat, const void* q_rope,
                           const void* ckv, const void* kr, void* o, int bf16,
                           int B, int n, int H, int r, int rd,
@@ -1614,6 +2214,60 @@ int soar_flash_mla_decode(const void* q_lat, const void* q_rope,
   return static_cast<int>(mla::launch<float>(
       q_lat, q_rope, ckv, kr, o, B, n, H, r, rd, ql_sb, ql_sh, qr_sb, qr_sh,
       c_sb, c_st, kr_sb, kr_st, scale, n_split, chunk, ml, acc, st));
+}
+
+// The latent decode on the tensor cores, bfloat16: the arguments of
+// soar_flash_mla_decode but the dtype, r a multiple of 64 up to 256 and rd
+// 32 or 64, every input based and strided on 16-byte multiples, n_split <=
+// 1024; m in part_ml is in base-2 units.
+int soar_flash_mla_decode_tc(const void* q_lat, const void* q_rope,
+                             const void* ckv, const void* kr, void* o, int B,
+                             int n, int H, int r, int rd, long long ql_sb,
+                             long long ql_sh, long long qr_sb,
+                             long long qr_sh, long long c_sb, long long c_st,
+                             long long kr_sb, long long kr_st, float scale,
+                             int n_split, int chunk, void* part_ml,
+                             void* part_acc, void* stream) {
+  const auto off16 = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 != 0;
+  };
+  if (B < 1 || n < 1 || H < 1 || !mtc::widths(r, rd) || n_split < 1 ||
+      n_split > mtc::kMaxSplits || chunk < 1 || chunk % 64 ||
+      static_cast<long long>(n_split) * chunk < n || off16(q_lat) ||
+      off16(q_rope) || off16(ckv) || off16(kr) || ql_sb % 8 || ql_sh % 8 ||
+      qr_sb % 8 || qr_sh % 8 || c_sb % 8 || c_st % 8 || kr_sb % 8 ||
+      kr_st % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  mtc::Args a{};
+  a.q_lat = static_cast<const __nv_bfloat16*>(q_lat);
+  a.q_rope = static_cast<const __nv_bfloat16*>(q_rope);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.H = H;
+  a.n = n;
+  a.r = r;
+  a.rd = rd;
+  a.chunk = chunk;
+  a.n_split = n_split;
+  a.ql_sb = ql_sb;
+  a.ql_sh = ql_sh;
+  a.qr_sb = qr_sb;
+  a.qr_sh = qr_sh;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  return static_cast<int>(mtc::launch(a, ckv, kr, c_sb, c_st, kr_sb, kr_st,
+                                      B, static_cast<__nv_bfloat16*>(o),
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+// What the compiler and the occupancy calculator give a kernel: out[0..3]
+// = registers a thread, local (spill) bytes a thread, blocks an SM, shared
+// memory a block. kernel 0: the tensor-core tile at (D, Dv) = (x, y); 1:
+// the latent decode on the tensor cores at (r, rd) = (x, y).
+int soar_flash_kernel_info(int kernel, int x, int y, void* out) {
+  int* o = static_cast<int*>(out);
+  if (kernel == 0) return static_cast<int>(tc::info(x, y, o));
+  if (kernel == 1) return static_cast<int>(mtc::info(x, y, o));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -55,6 +55,9 @@ _SIGNATURES = {
     + (ctypes.c_float, _I, _I, _P, _P, _P),
     "soar_flash_mla_decode": (_P,) * 5 + (_I,) * 6
     + (ctypes.c_longlong,) * 8 + (ctypes.c_float, _I, _I, _P, _P, _P),
+    "soar_flash_mla_decode_tc": (_P,) * 5 + (_I,) * 5
+    + (ctypes.c_longlong,) * 8 + (ctypes.c_float, _I, _I, _P, _P, _P),
+    "soar_flash_kernel_info": (_I, _I, _I, _P),
     "soar_ssm_scan": (_P,) * 9 + (_I,) * 4 + (ctypes.c_longlong,) * 8
     + (_P,),
     "soar_ssm_scan_bwd_plan": (_I,) * 4 + (_P,),

@@ -19,14 +19,22 @@ twin is ``ref.flash_attention_tc_torch``), ``"tile_simt"`` (T > 1
 otherwise: float32 products on the CUDA cores, weights kept in float32)
 and ``"decode_split"`` (T = 1: the keys split over blocks, all query heads
 of a KV head in one block, partial states merged in split order by a
-second launch; its plain twin is ``ref.flash_decode_split_torch``). A
-fourth, :func:`flash_mla_decode_cuda` (``"mla_decode"``), is MLA's
-absorbed decode: every head over one latent cache, split and merged the
-same way (plain twin ``ref.flash_mla_decode_torch``). Each call counts
+second launch; its plain twin is ``ref.flash_decode_split_torch``).
+:func:`flash_mla_decode_cuda` is MLA's absorbed decode, every head over
+one latent cache, split and merged, by dtype and widths
+(:func:`mla_path_of`): ``"mla_decode_tc"`` (bfloat16 with r a multiple of
+64 and rd 32 or 64, :func:`mla_tc_widths`, minicpm3's among them: the heads as
+the rows of wgmma products fed by TMA, the weights rounded to bfloat16 for
+P.ckv, one wave of blocks, its own merge in base 2; plain twin
+``ref.flash_mla_decode_tc_torch``) and ``"mla_decode"`` (float32, and
+bfloat16 at other widths: the CUDA cores, merged as the split decode;
+plain twin ``ref.flash_mla_decode_torch``). Each call counts
 once in ``flash_attention_cuda.launches`` and once under its path in
 ``flash_attention_cuda.launches_by_path``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -39,11 +47,18 @@ MAX_HEAD_DIM = 256
 # heads and MLA's 96-wide keys over 64-wide values
 TC_DIMS = ((64, 64), (128, 128), (96, 64))
 _INT_MAX = 2 ** 31 - 1
-PATHS = ("tile_tc", "tile_simt", "decode_split", "mla_decode")
+PATHS = ("tile_tc", "tile_simt", "decode_split", "mla_decode",
+         "mla_decode_tc")
 # The latent decode's widths: r at most MLA_MAX_R and rd at most
-# MLA_MAX_RD, each a multiple of 8; a block takes up to MLA_HEADS heads.
+# MLA_MAX_RD, each a multiple of 8; a block of the float32 kernel takes up
+# to MLA_HEADS heads, one of the tensor-core kernel up to MLA_TC_HEADS.
 MLA_MAX_R, MLA_MAX_RD = 256, 64
 MLA_HEADS = 40
+MLA_TC_HEADS = 64
+# The tensor-core latent decode's grid: one wave, a block an SM of the
+# H100's 132; its merge keeps at most MLA_TC_MAX_SPLITS splits' weights.
+MLA_TC_BLOCKS = 132
+MLA_TC_MAX_SPLITS = 1024
 # The split decode's grid: about two waves of the H100's 132 SMs, each
 # split at least SPLIT_MIN_KEYS keys; a block takes up to DECODE_HEADS
 # query heads of one KV head.
@@ -95,17 +110,23 @@ def path_of(q: torch.Tensor, dv: int | None = None) -> str:
     return "tile_simt"
 
 
-def check_tma(q, k, v, what: str = "flash_attention_cuda") -> None:
-    """Raise unless q, k and v start on 16-byte boundaries and every
-    stride is a multiple of 16 bytes, as the tensor-core tile kernel's TMA
-    tensor maps need."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def check_aligned(named, what: str) -> None:
+    """Raise unless every (name, tensor) starts on a 16-byte boundary with
+    every stride but the last a multiple of 16 bytes."""
+    for name, t in named:
         esz = t.element_size()
-        if t.data_ptr() % 16 or any(s * esz % 16 for s in t.stride()[:3]):
+        if t.data_ptr() % 16 or any(s * esz % 16 for s in t.stride()[:-1]):
             raise ValueError(f"{what}: the tensor-core kernel needs {name} "
                              f"16-byte aligned with strides of 16-byte "
                              f"multiples, got {t.data_ptr() % 16} bytes off "
                              f"and strides {t.stride()}")
+
+
+def check_tma(q, k, v, what: str = "flash_attention_cuda") -> None:
+    """Raise unless q, k and v start on 16-byte boundaries and every
+    stride is a multiple of 16 bytes, as the tensor-core tile kernel's TMA
+    tensor maps need."""
+    check_aligned((("q", q), ("k", k), ("v", v)), what)
 
 
 def decode_splits(n: int, blocks: int) -> int:
@@ -202,9 +223,55 @@ def mla_geometry(q_lat, q_rope, ckv, kr,
 
 
 def mla_splits(b: int, h: int, n: int) -> int:
-    """Splits of the latent decode over ``n`` keys for ``b`` sequences of
-    ``h`` heads: its grid has b x ceil(h / MLA_HEADS) blocks a split."""
+    """Splits of the float32 latent decode over ``n`` keys for ``b``
+    sequences of ``h`` heads: its grid has b x ceil(h / MLA_HEADS) blocks a
+    split."""
     return decode_splits(n, b * -(-h // MLA_HEADS))
+
+
+def mla_tc_splits(b: int, h: int, n: int) -> int:
+    """Splits of the tensor-core latent decode over ``n`` keys for ``b``
+    sequences of ``h`` heads: about ``MLA_TC_BLOCKS`` blocks in all (its
+    grid has b x ceil(h / MLA_TC_HEADS) blocks a split), each split at
+    least ``SPLIT_MIN_KEYS`` keys, at least one split and at most
+    ``MLA_TC_MAX_SPLITS``."""
+    blocks = b * -(-h // MLA_TC_HEADS)
+    return max(1, min(round(MLA_TC_BLOCKS / blocks), n // SPLIT_MIN_KEYS,
+                      MLA_TC_MAX_SPLITS))
+
+
+def mla_tc_widths(r: int, rd: int) -> bool:
+    """Whether the tensor-core latent decode takes a latent ``r`` and a
+    rope width ``rd`` wide: r a multiple of 64 up to 256, rd 32 or 64."""
+    return 0 < r <= MLA_MAX_R and r % 64 == 0 and rd in (32, 64)
+
+
+def mla_path_of(q_lat: torch.Tensor, q_rope: torch.Tensor) -> str:
+    """The latent decode kernel a call with ``q_lat`` and ``q_rope`` takes:
+    by dtype and widths."""
+    tc = (q_lat.dtype == torch.bfloat16
+          and mla_tc_widths(q_lat.shape[-1], q_rope.shape[-1]))
+    return "mla_decode_tc" if tc else "mla_decode"
+
+
+def mla_splits_of(q_lat: torch.Tensor, q_rope: torch.Tensor, n: int) -> int:
+    """The splits the latent decode kernel of this call takes."""
+    b, _, h, _ = q_lat.shape
+    return (mla_tc_splits if mla_path_of(q_lat, q_rope) == "mla_decode_tc"
+            else mla_splits)(b, h, n)
+
+
+def kernel_info(kernel: str, x: int, y: int) -> dict:
+    """What the compiler and the occupancy calculator give a kernel on this
+    card: ``"tile_tc"`` at (D, Dv) = (x, y), or ``"mla_decode_tc"`` at (r,
+    rd) = (x, y): registers a thread, spill (local) bytes a thread, blocks
+    an SM and shared memory a block."""
+    out = (ctypes.c_int * 4)()
+    which = {"tile_tc": 0, "mla_decode_tc": 1}[kernel]
+    check(library().soar_flash_kernel_info(which, x, y, ctypes.addressof(out)),
+          f"kernel info ({kernel} at {x}, {y})")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm",
+                     "smem_bytes"), out))
 
 
 def flash_mla_decode_cuda(q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -214,28 +281,39 @@ def flash_mla_decode_cuda(q_lat: torch.Tensor, q_rope: torch.Tensor,
     (B, 1, H, rd) over the latent cache ckv (B, n, r), kr (B, n, rd) (views
     of the cache prefix) -> ctx_lat (B, 1, H, r) in q_lat's dtype: softmax
     over the n keys of (q_lat . ckv + q_rope . kr) * scale, then the
-    weights times ckv. Counts in ``flash_attention_cuda.launches`` and
-    under ``"mla_decode"``."""
+    weights times ckv. bfloat16 at the widths :func:`mla_tc_widths` takes
+    runs the tensor-core kernel (inputs 16-byte aligned with strides of
+    16-byte multiples, else it raises), everything else the CUDA-core one.
+    Counts in ``flash_attention_cuda.launches`` and under its path."""
     for name, t in (("q_lat", q_lat), ("q_rope", q_rope), ("ckv", ckv),
                     ("kr", kr)):
         if t.device.type != "cuda" or t.device != q_lat.device:
             raise ValueError(f"flash_mla_decode_cuda needs its inputs on one "
                              f"CUDA device, got {name} on {t.device}")
     B, n, H, r, rd = mla_geometry(q_lat, q_rope, ckv, kr)
-    n_split = mla_splits(B, H, n)
+    path = mla_path_of(q_lat, q_rope)
+    if path == "mla_decode_tc":
+        check_aligned((("q_lat", q_lat), ("q_rope", q_rope), ("ckv", ckv),
+                       ("kr", kr)), "flash_mla_decode_cuda")
+    n_split = mla_splits_of(q_lat, q_rope, n)
     dev = q_lat.device
     out = torch.empty((B, 1, H, r), dtype=q_lat.dtype, device=dev)
     ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=dev)
     acc = torch.empty((B, H, n_split, r), dtype=torch.float32, device=dev)
+    lib = library()
+    ptrs = (q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
+            kr.data_ptr(), out.data_ptr())
+    rest = (B, n, H, r, rd, q_lat.stride(0), q_lat.stride(2),
+            q_rope.stride(0), q_rope.stride(2), ckv.stride(0), ckv.stride(1),
+            kr.stride(0), kr.stride(1), float(scale), n_split,
+            split_chunk(n, n_split), ml.data_ptr(), acc.data_ptr(),
+            stream_of(q_lat))
     with torch.cuda.device(dev):
-        err = library().soar_flash_mla_decode(
-            q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
-            kr.data_ptr(), out.data_ptr(), _BF16[q_lat.dtype], B, n, H, r,
-            rd, q_lat.stride(0), q_lat.stride(2), q_rope.stride(0),
-            q_rope.stride(2), ckv.stride(0), ckv.stride(1), kr.stride(0),
-            kr.stride(1), float(scale), n_split, split_chunk(n, n_split),
-            ml.data_ptr(), acc.data_ptr(), stream_of(q_lat))
-    check(err, "flash attention launch (mla_decode)")
+        if path == "mla_decode_tc":
+            err = lib.soar_flash_mla_decode_tc(*ptrs, *rest)
+        else:
+            err = lib.soar_flash_mla_decode(*ptrs, _BF16[q_lat.dtype], *rest)
+    check(err, f"flash attention launch ({path})")
     flash_attention_cuda.launches += 1
-    flash_attention_cuda.launches_by_path["mla_decode"] += 1
+    flash_attention_cuda.launches_by_path[path] += 1
     return out

@@ -17,11 +17,14 @@ tensor-core tile kernel (online softmax over 128-key tiles in base 2,
 masked scores -inf, the weights rounded to bfloat16 before P.V, l summed
 from the float32 weights) and ``flash_decode_split_torch`` that of the split decode
 (float32 partial states per split of keys, merged in split order);
-``flash_mla_decode_torch`` is the latent-attention decode kernel's
-(``flash_mla_decode``: all heads over one latent cache, scores
+``flash_mla_decode_torch`` is the float32 latent-attention decode
+kernel's (``flash_mla_decode``: all heads over one latent cache, scores
 ``q_lat . ckv + q_rope . kr``, values ``ckv``), which splits and merges as
-the split decode does. Every version takes a value width Dv of its own,
-at most the key width D (MLA: keys 96 wide, values 64).
+the split decode does; ``flash_mla_decode_tc_torch`` is the bfloat16
+tensor-core latent decode's (64-key tiles in base 2, the weights rounded
+to bfloat16 before P.ckv, the splits merged in base 2). Every version
+takes a value width Dv of its own, at most the key width D (MLA: keys 96
+wide, values 64).
 """
 from __future__ import annotations
 
@@ -212,3 +215,59 @@ def flash_mla_decode_torch(q_lat, q_rope, ckv, kr, scale,
     q = torch.cat([q_lat, q_rope], -1)
     return flash_decode_split_torch(q, mla_keys(ckv, kr), ckv[:, :, None],
                                     scale, n_split)
+
+
+def flash_mla_decode_tc_torch(q_lat, q_rope, ckv, kr, scale,
+                              n_split: int) -> torch.Tensor:
+    """q_lat (B, 1, H, r), q_rope (B, 1, H, rd), ckv (B, n, r), kr (B, n,
+    rd) -> ctx_lat (B, 1, H, r) in q_lat's dtype, in the tensor-core latent
+    decode kernel's arithmetic: scores s = q_lat . ckv + q_rope . kr in
+    float32; split i takes keys [i c, (i + 1) c), c = ``split_chunk(n,
+    n_split)``, in 64-key tiles: the running max m of s x (x the float32
+    scale * log2(e); m from -1e30), alpha = exp2(m - m_new), p = exp2(s x
+    - m_new) rounded once (the kernel's FMA), l = l alpha + sum(p) in
+    float32, acc = acc alpha + bf16(p) . ckv in float32 (keys past the
+    split -inf: weight 0). The splits merge in order in base 2: o = sum_s
+    acc_s e_s / max(sum_s l_s e_s, 1e-30), e_s = exp2(m_s - max m) (an
+    empty split m = -1e30, l = 0)."""
+    B, _, H, r = q_lat.shape
+    n = ckv.shape[1]
+    dev = q_lat.device
+    chunk = split_chunk(n, n_split)
+    x = (torch.tensor(float(scale), dtype=torch.float32)
+         * torch.tensor(LOG2E, dtype=torch.float32)).to(dev)
+    q = torch.cat([q_lat, q_rope], -1)[:, 0].to(torch.float32)   # (B, H, w)
+    pad = n_split * chunk - n             # every split chunk keys, masked
+    keys = torch.nn.functional.pad(torch.cat([ckv, kr], -1).to(
+        torch.float32), (0, 0, 0, pad))
+    vals = torch.nn.functional.pad(ckv.to(torch.float32), (0, 0, 0, pad))
+    keys = keys.reshape(B, n_split, chunk, -1)
+    vals = vals.reshape(B, n_split, chunk, r)
+    m = torch.full((B, n_split, H), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, n_split, H, r), dtype=torch.float32, device=dev)
+    split_lo = torch.arange(n_split, device=dev)[:, None] * chunk
+    for k0 in range(0, chunk, SPLIT_ALIGN):
+        k1 = k0 + SPLIT_ALIGN
+        sc = torch.einsum("bhw,bskw->bshk", q, keys[:, :, k0:k1])
+        kpos = split_lo + torch.arange(k0, k1, device=dev)[None, :]
+        sc = torch.where((kpos < n)[None, :, None, :], sc, -torch.inf)
+        m_new = torch.maximum(m, sc.amax(-1) * x)
+        alpha = torch.exp2(m - m_new)
+        y = sc.to(torch.float64) * x.to(torch.float64) - m_new[..., None].to(
+            torch.float64)
+        p = torch.exp2(y.to(torch.float32))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bshk,bskr->bshr", p.to(torch.bfloat16).to(torch.float32),
+            vals[:, :, k0:k1])
+        m = m_new
+    e = torch.exp2(m - m.amax(1, keepdim=True))
+    den = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    out = torch.zeros((B, H, r), dtype=torch.float32, device=dev)
+    for s in range(n_split):              # in split order
+        den = den + l[:, s] * e[:, s]
+        out = out + acc[:, s] * e[:, s, :, None]
+    out = out / torch.clamp(den, min=1e-30)[..., None]
+    return out[:, None].to(q_lat.dtype)

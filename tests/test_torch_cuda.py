@@ -626,7 +626,8 @@ def test_flash_tc_kernel_matches_plain(dev, d, b, t, s, h, hkv, causal,
     got = flash_attention_gqa(q, k, v, scale, causal, window)
     after = flash_attention_cuda.launches_by_path
     assert {p: after[p] - before[p] for p in after} == {
-        "tile_tc": 1, "tile_simt": 0, "decode_split": 0, "mla_decode": 0}
+        "tile_tc": 1, "tile_simt": 0, "decode_split": 0, "mla_decode": 0,
+        "mla_decode_tc": 0}
     assert got.dtype == bf and got.shape == q.shape
     tol = FLASH_TOL[bf]
     torch.testing.assert_close(
@@ -702,7 +703,8 @@ def test_flash_decode_split_matches_plain(dev, dtype, b, n, h, hkv, d):
     got = flash_attention_gqa(q, kp, vp, 0.125, causal=False)
     after = flash_attention_cuda.launches_by_path
     assert {p: after[p] - before[p] for p in after} == {
-        "tile_tc": 0, "tile_simt": 0, "decode_split": 1, "mla_decode": 0}
+        "tile_tc": 0, "tile_simt": 0, "decode_split": 1, "mla_decode": 0,
+        "mla_decode_tc": 0}
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(
         got, flash_attention_gqa_torch(q, kp, vp, 0.125, causal=False),
@@ -767,7 +769,8 @@ def test_flash_tc_kernel_mla_widths(dev, b, t, s, h, causal):
     before = _paths()
     got = flash_attention_gqa(q, k, v, scale, causal)
     assert _path_delta(before) == {"tile_tc": 1, "tile_simt": 0,
-                                   "decode_split": 0, "mla_decode": 0}
+                                   "decode_split": 0, "mla_decode": 0,
+                                   "mla_decode_tc": 0}
     assert got.dtype == bf and got.shape == (b, t, h, 64)
     tol = FLASH_TOL[bf]
     torch.testing.assert_close(
@@ -835,29 +838,40 @@ def test_flash_narrow_values_match_plain(dev, dtype, b, t, s, h, hkv, d, dv,
 @pytest.mark.parametrize("b,n,h,r,rd", [
     (2, 1, 4, 32, 8), (2, 63, 4, 32, 8), (2, 65, 4, 32, 8),
     (2, 1000, 5, 64, 16), (1, 200, 45, 256, 32), (4, 2112, 40, 256, 32),
-    (1, 777, 40, 256, 32), (2, 300, 128, 256, 64)])
+    (1, 777, 40, 256, 32), (2, 300, 128, 256, 64), (2, 333, 16, 256, 32),
+    (3, 1029, 40, 256, 32), (1, 70, 20, 72, 8), (2, 400, 40, 64, 64),
+    (1, 129, 8, 192, 32)])
 def test_flash_mla_decode_matches_plain(dev, dtype, b, n, h, r, rd):
     """The latent decode on cache prefixes ``[:, :n]``: n = 1, tile edges,
-    one split and many, two head groups (45 and 128 heads), minicpm3's
-    widths (40 heads over 256 + 32). Within 2e-5 (float32) of its plain
-    version on float32 inputs, in bfloat16 within ``FLASH_TIGHT`` of it;
-    the plain version equals ``sdpa`` over the concatenated keys; two
-    calls give the same bits; one launch under ``"mla_decode"``."""
+    ragged n, one split and many, one head group and several (16, 40, 45
+    and 128 heads), minicpm3's widths (40 heads over 256 + 32). float32,
+    and bfloat16 at widths the tensor cores do not take, on the CUDA cores
+    (``"mla_decode"``): float32 within 2e-5 of its plain version, bfloat16
+    within ``FLASH_TIGHT`` of the float32 one; bfloat16 with r a multiple
+    of 64 and rd 32 or 64 on the tensor cores (``"mla_decode_tc"``) within
+    ``FLASH_TC`` of the float32 plain version and within 3e-2 of its own
+    arithmetic's plain twin. The plain version equals ``sdpa`` over the
+    concatenated keys; two calls give the same bits; one launch under its
+    path."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        mla_splits)
+        mla_path_of, mla_splits, mla_tc_splits)
     from repro_torch.kernels.flash_attention.ops import flash_mla_decode
     from repro_torch.kernels.flash_attention.ref import (
-        flash_mla_decode_torch, mla_keys, sdpa)
+        flash_mla_decode_tc_torch, flash_mla_decode_torch, mla_keys, sdpa)
     rng = np.random.default_rng(n + h + r)
     mk = lambda *shape: torch.as_tensor(rng.normal(size=shape),
                                         device=dev).to(dtype)
     ckv, kr = mk(b, n + 9, r)[:, :n], mk(b, n + 9, rd)[:, :n]
     q_lat, q_rope = mk(b, 1, h, r), mk(b, 1, h, rd)
     scale = 0.1
+    path = mla_path_of(q_lat, q_rope)
+    assert (path == "mla_decode_tc") == (
+        dtype == torch.bfloat16 and r % 64 == 0 and rd in (32, 64))
     before = _paths()
     got = flash_mla_decode(q_lat, q_rope, ckv, kr, scale)
-    assert _path_delta(before) == {"tile_tc": 0, "tile_simt": 0,
-                                   "decode_split": 0, "mla_decode": 1}
+    want_paths = dict.fromkeys(before, 0)
+    want_paths[path] = 1
+    assert _path_delta(before) == want_paths
     assert got.dtype == dtype and got.shape == (b, 1, h, r)
     assert torch.equal(got, flash_mla_decode(q_lat, q_rope, ckv, kr, scale))
     f = [x.float() for x in (q_lat, q_rope, ckv, kr)]
@@ -867,9 +881,77 @@ def test_flash_mla_decode_matches_plain(dev, dtype, b, n, h, r, rd):
     torch.testing.assert_close(want, plain, rtol=2e-5, atol=2e-5)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-    else:
+    elif path == "mla_decode":
         lim = 2.0 ** -8 * want.abs() + 2.0 ** -15
         assert float(((got.float() - want).abs() / lim).max()) <= 1.0
+    else:
+        a32 = sdpa(torch.cat(f[:2], -1), mla_keys(f[2], f[3]),
+                   f[2].abs()[:, :, None], None, scale)
+        lim = (2.0 ** -8 * want.abs() + (2.0 ** -8 + 2.0 ** -15) * a32
+               + 2.0 ** -15)
+        assert float(((got.float() - want).abs() / lim).max()) <= 1.0
+        twin = flash_mla_decode_tc_torch(q_lat, q_rope, ckv, kr, scale,
+                                         mla_tc_splits(b, h, n))
+        torch.testing.assert_close(got, twin, rtol=FLASH_TOL[dtype],
+                                   atol=FLASH_TOL[dtype])
+
+
+def test_flash_mla_decode_tc_refuses_unaligned_and_reports(dev):
+    """The tensor-core latent decode raises on a cache view off a 16-byte
+    boundary (its bulk copies need one) and counts nothing; the occupancy
+    and register readings of both redesigned kernels are sane."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_info)
+    from repro_torch.kernels.flash_attention.ops import flash_mla_decode
+    bf = torch.bfloat16
+    ckv = torch.zeros((2, 50, 264), dtype=bf, device=dev)[:, :, 8:]
+    kr = torch.zeros((2, 50, 32), dtype=bf, device=dev)
+    ql = torch.zeros((2, 1, 40, 256), dtype=bf, device=dev)
+    qr = torch.zeros((2, 1, 40, 32), dtype=bf, device=dev)
+    flash_mla_decode(ql, qr, ckv, kr, 0.1)        # 16 bytes off: aligned
+    odd = torch.zeros((2, 50, 260), dtype=bf, device=dev)[:, :, 4:]
+    before = _paths()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mla_decode(ql, qr, odd, kr, 0.1)
+    assert _path_delta(before) == dict.fromkeys(before, 0)
+    for kernel, x, y in (("tile_tc", 64, 64), ("tile_tc", 96, 64),
+                         ("tile_tc", 128, 128), ("mla_decode_tc", 256, 32)):
+        info = kernel_info(kernel, x, y)
+        assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 255
+        assert 0 < info["smem_bytes"] <= 232_448
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (96, 64), (128, 128)])
+@pytest.mark.parametrize("b,t,s,h,hkv,causal,window", [
+    (2, 300, 200, 4, 2, True, 0), (2, 130, 61, 4, 1, True, 0),
+    (2, 37, 101, 4, 2, False, 0), (2, 333, 333, 5, 1, True, 100),
+    (1, 1100, 1100, 2, 2, True, 1024)])
+def test_flash_tc_kernel_pairs_against_twin(dev, d, dv, b, t, s, h, hkv,
+                                            causal, window):
+    """The tensor-core tile's three (D, Dv) pairs, causal and ragged,
+    bidirectional, windowed: within ``FLASH_TC`` of the float32 plain
+    version and within 3e-2 of its arithmetic's twin
+    ``flash_attention_tc_torch``; one launch on the tile."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_tc_torch)
+    rng = np.random.default_rng(t + s + d + window)
+    bf = torch.bfloat16
+    q = torch.as_tensor(rng.normal(size=(b, t, h, d)), device=dev).to(bf)
+    k = torch.as_tensor(rng.normal(size=(b, s, hkv, d)), device=dev).to(bf)
+    v = torch.as_tensor(rng.normal(size=(b, s, hkv, 2 * dv)),
+                        device=dev).to(bf)[..., dv:]
+    scale = d ** -0.5
+    before = _paths()
+    got = flash_attention_gqa(q, k, v, scale, causal, window)
+    want_paths = dict.fromkeys(before, 0)
+    want_paths["tile_tc"] = 1
+    assert _path_delta(before) == want_paths
+    assert got.shape == (b, t, h, dv)
+    assert _flash_limit(got, q, k, v, scale, causal, window, tc=True) <= 1.0
+    torch.testing.assert_close(
+        got, flash_attention_tc_torch(q, k, v, scale, causal, window),
+        rtol=FLASH_TOL[bf], atol=FLASH_TOL[bf])
 
 
 @pytest.mark.parametrize("absorb", [True, False])
@@ -914,7 +996,7 @@ def test_mla_serving_on_card_equals_cpu(dev, absorb):
                       torch.cat(logits, 1).cpu())
     dec = "mla_decode" if absorb else "decode_split"
     want_paths = {"tile_tc": 0, "tile_simt": cfg.n_layers,
-                  "decode_split": 0, "mla_decode": 0}
+                  "decode_split": 0, "mla_decode": 0, "mla_decode_tc": 0}
     want_paths[dec] = 4 * cfg.n_layers
     assert _path_delta(before) == want_paths
     assert torch.equal(out["card"][0], out["cpu"][0])
