@@ -7,11 +7,14 @@
   prefill_fn(cfg)(params, batch) -> (last_logits, caches)
   decode_fn(cfg)(params, caches, token, pos) -> (logits, caches), the
       caches written in place
-  init_caches(cfg, batch, seq, device) -> zero caches (stacked, or one per
-      block for the hybrid family)
+  init_caches(cfg, batch, seq, device) -> zero caches (an MoE model's
+      dense prefix blocks one each in ``prefix``, then the stack; or one
+      per block for the hybrid and xLSTM families)
   input_specs(cfg, shape, mode, device) -> batch of zeros
-  params_from_jax(tree_of_numpy) / params_to_numpy(params): 1:1 by key;
-  caches_from_jax / caches_to_numpy likewise for caches
+  params_from_jax(tree_of_numpy) / params_to_numpy(params): 1:1 by key,
+      lists kept lists (an MoE model's ``prefix`` blocks, the ``blocks``
+      list) and an MoE layer's ``moe/{router, experts, shared}`` leaves as
+      they are; caches_from_jax / caches_to_numpy likewise for caches
 """
 from __future__ import annotations
 
@@ -113,9 +116,10 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def params_from_jax(tree, device="cuda"):
     """A JAX parameter pytree (numpy or JAX arrays) -> the port's params,
-    built by walking the JAX tree, so its lists (hymba's ``blocks``) stay
-    lists in JAX's leaf order. Empty containers (the JAX tree's
-    ``prefix: []``) carry no leaves and are dropped."""
+    built by walking the JAX tree, so its lists (hymba's ``blocks``, an MoE
+    model's ``prefix`` blocks) stay lists in JAX's leaf order. Empty
+    containers (a dense model's ``prefix: []``) carry no leaves and are
+    dropped."""
     return T.tree_map(lambda a: _to_tensor(a, device).requires_grad_(),
                       _drop_empty(tree))
 
@@ -132,7 +136,7 @@ def _drop_empty(tree):
 
 def caches_from_jax(tree, device="cuda"):
     """A JAX cache tree (numpy or JAX arrays) -> the port's caches, the same
-    keys (``prefix: []`` included)."""
+    keys (``prefix``, empty or one cache a dense prefix block, included)."""
     return T.tree_map(lambda a: _to_tensor(a, device), tree)
 
 

@@ -118,3 +118,19 @@ def apply_mlp(p, x, cfg: ModelConfig):
     else:  # gelu, tanh approximation as jax.nn.gelu(approximate=True)
         h = F.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]
+
+
+def mlp_einsum(ws, x, cfg: ModelConfig):
+    """Batched-expert MLP: ws leaves have a leading expert axis E.
+
+    x: (E, C, d) -> (E, C, d), one batched product per weight over the
+    experts (``ecd,edf->ecf``; the JAX package computes it outside any
+    Pallas kernel).
+    """
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(torch.bmm(x, ws["w_gate"])) * torch.bmm(x, ws["w_up"])
+    elif cfg.mlp_type == "relu2":
+        h = torch.square(F.relu(torch.bmm(x, ws["w_up"])))
+    else:  # gelu, tanh approximation
+        h = F.gelu(torch.bmm(x, ws["w_up"]), approximate="tanh")
+    return torch.bmm(h, ws["w_down"])

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense (GQA and MLA attention), hybrid and xLSTM
+"""Decoder-only LM, dense (GQA and MLA attention), MoE, hybrid and xLSTM
 families: the port of the JAX package's ``models/transformer.py`` for
 training, prefill and decode.
 
@@ -6,7 +6,9 @@ The parameter tree has exactly the JAX pytree's leaves: ``embed_tokens``
 (padded_vocab, d), ``final_norm/scale``, ``lm_head`` (d, padded_vocab) and
 the layers, with ``x @ W`` layouts. Where ``uses_scan(cfg)`` (deep
 homogeneous dense stacks) they are the stack ``layers/...``, each leaf
-stacked ``(L, ...)`` as ``jax.vmap(init_block)`` makes it; otherwise
+stacked ``(L, ...)`` as ``jax.vmap(init_block)`` makes it (an MoE
+model's first ``moe_dense_prefix`` blocks, dense, stand unstacked ahead of
+it in the list ``prefix``, and the stack holds the MoE tail); otherwise
 (hymba: hybrid blocks, sliding windows; xLSTM) the list ``blocks``, one
 tree per layer, each of its kind and window: ``attn``, ``hybrid``
 (attention and Mamba heads side by side), ``m`` (mLSTM) or ``s`` (sLSTM),
@@ -15,9 +17,12 @@ by one, as ``lax.scan`` does. In training, ``cfg.remat`` wraps each layer
 in ``torch.utils.checkpoint``, a stacked layer as JAX checkpoints its scan
 body and a block of the ``blocks`` list as JAX's ``jax.checkpoint`` per
 block: the backward recomputes the layer's forward, which changes no
-bit. Caches are the JAX trees: ``{"prefix": [], "layers": {"k", "v": (L,
-B, S, Hkv, hd)}}`` for the stack (MLA: ``{"ckv": (L, B, S, r), "kr": (L,
-B, S, rd)}``), ``{"blocks": [...]}`` otherwise, each block's ``{"k", "v"}``,
+bit. An MoE block's FFN is ``moe`` in place of ``mlp`` (``models/moe.py``);
+``forward`` sums the blocks' load-balance losses into its aux. Caches are
+the JAX trees: ``{"prefix": [...], "layers": {"k", "v": (L, B, S, Hkv,
+hd)}}`` for the stack (MLA: ``{"ckv": (L, B, S, r), "kr": (L, B, S,
+rd)}``; ``prefix`` one cache a prefix block, empty without one),
+``{"blocks": [...]}`` otherwise, each block's ``{"k", "v"}``,
 ``{"attn": {"k", "v"}, "ssm": {"s"}}`` (hybrid), ``{"C", "n"}`` (m) or
 ``{"c", "n", "h"}`` (s), a windowed layer's k/v a ring of min(seq,
 window) slots; a decode step writes into them in place. Other families
@@ -34,6 +39,7 @@ from .attention import (gqa_cache_spec, gqa_decode, gqa_forward, init_gqa,
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, dtype_of, embed_init, init_mlp,
                      init_norm)
+from .moe import init_moe, moe_forward
 from .ssm import (init_mamba, init_mlstm, init_slstm, mamba_decode,
                   mamba_forward, mamba_state, mlstm_decode, mlstm_forward,
                   mlstm_state, slstm_decode, slstm_forward, slstm_state)
@@ -42,7 +48,6 @@ from .ssm import (init_mamba, init_mlstm, init_slstm, mamba_decode,
 # port trains and serves every other config
 _UNPORTED = (
     (lambda c: c.is_encoder_decoder, "encoder-decoder (ROADMAP A10: encdec)"),
-    (lambda c: c.is_moe, "MoE (ROADMAP A10: moe)"),
     (lambda c: c.family == "vlm" or c.n_prefix_embeds,
      "the VLM prefix (ROADMAP A10: transformer)"),
 )
@@ -54,7 +59,8 @@ def check_supported(cfg: ModelConfig) -> None:
         if test(cfg):
             raise ValueError(f"{cfg.name}: {what} is not ported yet; the "
                              f"port trains and serves the dense family (GQA "
-                             f"and MLA), the hybrid and the xLSTM families")
+                             f"and MLA), MoE (dense dispatch), the hybrid and "
+                             f"the xLSTM families")
 
 
 def _layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -79,9 +85,10 @@ def uses_scan(cfg: ModelConfig) -> bool:
             and not cfg.sliding_window)
 
 
-def init_block(gen, cfg: ModelConfig, kind: str = "attn"):
+def init_block(gen, cfg: ModelConfig, kind: str = "attn", moe: bool = False):
     """kind: attn | hybrid (attention and Mamba heads on the same input) |
-    m | s (xLSTM's mixers, no MLP)."""
+    m | s (xLSTM's mixers, no MLP). ``moe``: the FFN is ``moe`` (an MoE
+    layer) in place of ``mlp``."""
     p = {"ln1": init_norm(cfg, gen.device)}
     if kind in ("m", "s"):
         p["mix"] = (init_mlstm if kind == "m" else init_slstm)(gen, cfg)
@@ -92,23 +99,36 @@ def init_block(gen, cfg: ModelConfig, kind: str = "attn"):
         p["ssm"] = init_mamba(gen, cfg, d_out=cfg.d_model)
     if cfg.d_ff > 0:
         p["ln2"] = init_norm(cfg, gen.device)
-        p["mlp"] = init_mlp(gen, cfg, cfg.d_ff)
+        if moe:
+            p["moe"] = init_moe(gen, cfg)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, cfg.d_ff)
     return p
 
 
 def _stack_into(out, block, i: int, n: int):
     """Write ``block`` into slot ``i`` of the stacked tree ``out`` (made at
-    i = 0 with ``n`` slots): the stack never exists twice, as it would with
-    one ``torch.stack`` over all the blocks."""
+    i = 0 with ``n`` slots), taking its leaves out of ``block`` one by one:
+    the stack never exists twice, as it would with one ``torch.stack`` over
+    all the blocks, and of the block only the leaf being copied (a stack
+    of one is the block's own leaves, viewed with a leading axis: kimi-k2's
+    MoE layer is 33.8 GB)."""
     if isinstance(block, dict):
         out = {} if out is None else out
-        for k, v in block.items():
-            out[k] = _stack_into(out.get(k), v, i, n)
+        for k in list(block):
+            out[k] = _stack_into(out.get(k), block.pop(k), i, n)
         return out
+    if n == 1:
+        return block[None]
     if out is None:
         out = block.new_empty((n,) + tuple(block.shape))
     out[i] = block
     return out
+
+
+def _n_prefix(cfg: ModelConfig) -> int:
+    """The dense blocks ahead of an MoE model's MoE layers."""
+    return cfg.moe_dense_prefix if cfg.is_moe else 0
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator):
@@ -122,32 +142,38 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab),
                                        dt)
+    n_prefix = _n_prefix(cfg)
     if not uses_scan(cfg):
-        params["blocks"] = [init_block(gen, cfg, kind)
-                            for kind in _layer_kinds(cfg)]
+        params["blocks"] = [
+            init_block(gen, cfg, kind, moe=cfg.is_moe and i >= n_prefix)
+            for i, kind in enumerate(_layer_kinds(cfg))]
         return params
-    layers = None
-    for i in range(cfg.n_layers):
-        layers = _stack_into(layers, init_block(gen, cfg), i, cfg.n_layers)
+    if n_prefix:
+        params["prefix"] = [init_block(gen, cfg) for _ in range(n_prefix)]
+    layers, tail = None, cfg.n_layers - n_prefix
+    for i in range(tail):
+        layers = _stack_into(layers, init_block(gen, cfg, moe=cfg.is_moe),
+                             i, tail)
     params["layers"] = layers
     return params
 
 
 def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
                   pos=None, kind: str = "attn", window: int = 0):
-    """One block; x (B, T, d). Returns (x, cache): the block's keys and
-    values (train, prefill; a hybrid block adds the Mamba state,
+    """One block; x (B, T, d). Returns (x, cache, aux): the block's keys
+    and values (train, prefill; a hybrid block adds the Mamba state,
     ``{"attn": {"k", "v"}, "ssm": {"s"}}``; an xLSTM block its final
-    state) or its cache, written in place (decode). A hybrid block adds
-    the mean of its attention and Mamba heads, both reading the same
-    normed input."""
+    state) or its cache, written in place (decode), and an MoE block's
+    load-balance loss (None for any other block). A hybrid block adds the
+    mean of its attention and Mamba heads, both reading the same normed
+    input."""
     h = apply_norm(p["ln1"], x, cfg)
     if kind in ("m", "s"):
         fwd, dec = ((mlstm_forward, mlstm_decode) if kind == "m"
                     else (slstm_forward, slstm_decode))
         a, nc = (dec(p["mix"], h, cache, cfg) if mode == "decode"
                  else fwd(p["mix"], h, cfg))
-        return x + a, nc
+        return x + a, nc, None
     hybrid = kind == "hybrid"
     if cfg.attn_type == "mla" and not hybrid:
         a, nc = (mla_decode(p["attn"], h, cache, pos, cfg) if mode == "decode"
@@ -166,14 +192,24 @@ def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
         nc = {"attn": nc, "ssm": sc}
     else:
         x = x + a
-    if "mlp" in p:
+    aux = None
+    if "moe" in p:
+        y, aux = moe_forward(p["moe"], apply_norm(p["ln2"], x, cfg), cfg)
+        x = x + y
+    elif "mlp" in p:
         x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
-    return x, nc
+    return x, nc, aux
 
 
 def _train_block(p, x, cfg: ModelConfig, kind: str, window: int):
-    """A block's output in train mode (what ``checkpoint`` recomputes)."""
-    return block_forward(p, x, cfg, "train", kind=kind, window=window)[0]
+    """A block's output and aux in train mode (what ``checkpoint``
+    recomputes)."""
+    x, _, aux = block_forward(p, x, cfg, "train", kind=kind, window=window)
+    return x, aux
+
+
+def _add_aux(aux, a):
+    return aux if a is None else aux + a
 
 
 def _layer(tree, i: int):
@@ -204,39 +240,50 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
         raise ValueError(f"forward: mode {mode!r} is train or prefill")
     check_supported(cfg)
     x = _embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = None
     if uses_scan(cfg):
-        stacked = None
-        for i in range(cfg.n_layers):
+        # the dense prefix blocks unstacked, as JAX runs them (no remat)
+        prefix = []
+        for bp in params.get("prefix", []):
+            x, nc, a = block_forward(bp, x, cfg, mode)
+            aux = _add_aux(aux, a)
+            prefix.append(nc)
+        stacked, tail = None, cfg.n_layers - _n_prefix(cfg)
+        for i in range(tail):
             lp = _layer(params["layers"], i)
             if mode == "train" and cfg.remat:
-                x = checkpoint(_train_block, lp, x, cfg, "attn", 0,
-                               use_reentrant=False)
+                x, a = checkpoint(_train_block, lp, x, cfg, "attn", 0,
+                                  use_reentrant=False)
+                aux = _add_aux(aux, a)
                 continue
-            x, nc = block_forward(lp, x, cfg, mode)
+            x, nc, a = block_forward(lp, x, cfg, mode)
+            aux = _add_aux(aux, a)
             if mode == "prefill":
-                stacked = _stack_into(stacked, nc, i, cfg.n_layers)
+                stacked = _stack_into(stacked, nc, i, tail)
         if mode == "prefill":
-            caches = {"prefix": [], "layers": stacked}
+            caches = {"prefix": prefix, "layers": stacked}
     else:
         blocks = []
         for bp, kind, w in zip(params["blocks"], _layer_kinds(cfg),
                                _layer_windows(cfg)):
             if mode == "train" and cfg.remat:
-                x = checkpoint(_train_block, bp, x, cfg, kind, w,
-                               use_reentrant=False)
+                x, a = checkpoint(_train_block, bp, x, cfg, kind, w,
+                                  use_reentrant=False)
+                aux = _add_aux(aux, a)
                 continue
-            x, nc = block_forward(bp, x, cfg, mode, kind=kind, window=w)
+            x, nc, a = block_forward(bp, x, cfg, mode, kind=kind, window=w)
+            aux = _add_aux(aux, a)
             if mode == "prefill":
                 blocks.append(nc)
         if mode == "prefill":
             caches = {"blocks": blocks}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _lm_logits(params, x, cfg), aux, caches
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    """Next-token cross-entropy. batch: tokens (B, T), labels (B, T)."""
+    """Next-token cross-entropy (+ 0.01 x the MoE aux). batch: tokens (B,
+    T), labels (B, T)."""
     logits, aux, _ = forward(params, batch, cfg)
     labels = batch["labels"]
     lf = logits.to(torch.float32)
@@ -261,16 +308,18 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
     check_supported(cfg)
     x = F.embedding(token, params["embed_tokens"])
     if uses_scan(cfg):
+        for bp, c in zip(params.get("prefix", []), caches["prefix"]):
+            x, _, _ = block_forward(bp, x, cfg, "decode", cache=c, pos=pos)
         stack = caches["layers"]
-        for i in range(cfg.n_layers):
+        for i in range(cfg.n_layers - _n_prefix(cfg)):
             cache = {n: c[i] for n, c in stack.items()}
-            x, _ = block_forward(_layer(params["layers"], i), x, cfg,
-                                 "decode", cache=cache, pos=pos)
+            x, _, _ = block_forward(_layer(params["layers"], i), x, cfg,
+                                    "decode", cache=cache, pos=pos)
     else:
         for bp, c, kind, w in zip(params["blocks"], caches["blocks"],
                                   _layer_kinds(cfg), _layer_windows(cfg)):
-            x, _ = block_forward(bp, x, cfg, "decode", cache=c, pos=pos,
-                                 kind=kind, window=w)
+            x, _, _ = block_forward(bp, x, cfg, "decode", cache=c, pos=pos,
+                                    kind=kind, window=w)
     return _lm_logits(params, x, cfg), caches
 
 
@@ -288,15 +337,20 @@ def _one_cache(cfg: ModelConfig, kind: str, window: int, batch: int,
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
-    """Zero caches for a ``seq``-token context: the stacked (L, ...) tree,
-    allocated (JAX only broadcasts one layer's), or one cache per block, a
-    windowed layer's k/v min(seq, window) slots."""
+    """Zero caches for a ``seq``-token context: one cache a dense prefix
+    block and the stacked (L, ...) tree of the rest, allocated (JAX only
+    broadcasts one layer's), or one cache per block, a windowed layer's
+    k/v min(seq, window) slots."""
     check_supported(cfg)
     if not uses_scan(cfg):
         return {"blocks": [_one_cache(cfg, kind, w, batch, seq, device)
                            for kind, w in zip(_layer_kinds(cfg),
                                               _layer_windows(cfg))]}
     one = _one_cache(cfg, "attn", 0, batch, seq, "meta")
-    return {"prefix": [], "layers": {
-        k: torch.zeros((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
-                       device=device) for k, t in one.items()}}
+    n_prefix = _n_prefix(cfg)
+    return {"prefix": [_one_cache(cfg, "attn", 0, batch, seq, device)
+                       for _ in range(n_prefix)],
+            "layers": {k: torch.zeros((cfg.n_layers - n_prefix,)
+                                      + tuple(t.shape), dtype=t.dtype,
+                                      device=device)
+                       for k, t in one.items()}}

@@ -125,12 +125,12 @@ def test_init_tree_matches_jax_and_converter_round_trips(name):
 
 
 @pytest.mark.parametrize("name,what", [
-    ("kimi-k2-1t-a32b", "MoE"), ("deepseek-v2-236b", "MoE"),
     ("llava-next-34b", "VLM"), ("whisper-large-v3", "encoder-decoder")])
 def test_other_families_raise_naming_the_roadmap(name, what):
-    """None of them trains or initialises (hymba, xLSTM and minicpm3 do:
-    tests/test_torch_ssm_train.py, tests/test_torch_xlstm.py,
-    tests/test_torch_mla.py)."""
+    """None of them trains or initialises (hymba, xLSTM, minicpm3 and the
+    MoE configs do: tests/test_torch_ssm_train.py,
+    tests/test_torch_xlstm.py, tests/test_torch_mla.py,
+    tests/test_torch_moe.py)."""
     cfg = ARCHS[name].reduced()
     calls = [lambda: api.loss_fn(cfg), lambda: api.init_fn(cfg, "cpu")]
     for call in calls:
