@@ -22,7 +22,8 @@
 // Three launch shapes for attention; the wrapper picks one by T, dtype and
 // (D, Dv) only and counts each call once:
 //  * tensor-core tile kernel (T > 1, bfloat16, (D, Dv) (64, 64), (128,
-//    128) or (96, 64), a template on the pair; the serving cells' prefill):
+//    128), (96, 64) or (112, 112), a template on the pair; the serving
+//    cells' prefill):
 //    one block of 288 threads per (b, h, 128-row query tile), head-major
 //    and each head's longest causal tiles first, so the blocks in flight
 //    read the same K/V through L2 (tile-major, 132 heads at once
@@ -35,8 +36,14 @@
 //    and, at D 96, a last 32-column panel in the 64-byte swizzle (its own
 //    tensor map and wgmma descriptors), so
 //    no byte is loaded that the products do not read: a (96, 64) stage is
-//    40 KB. Two consumer warpgroups of 64 rows each compute S = Q K^T with
-//    wgmma.m64n128k16 (bf16 operands from shared memory, float32
+//    40 KB. At (112, 112) the maps keep the true width 112 and the second
+//    64-column box of Q, K and V carries 48 columns and 16 zeros of TMA's
+//    fill (no device memory read for them): the (128, 128) layout, S over
+//    7 k-steps (the 8th would read zeros only) and O by m64n112k16, which
+//    reads the second V panel's first 48 columns (faster than m64n128k16
+//    over the padding in 8 of 10 pairs of turns, 4 fewer registers, no
+//    spill; PERF.md). Two consumer warpgroups of 64 rows each compute S =
+//    Q K^T with wgmma.m64n128k16 (bf16 operands from shared memory, float32
 //    accumulator), the online softmax on the accumulator fragment in
 //    registers (a row's max and sum over the four lanes that hold it, two
 //    shuffles; base-2 exponentials of logits pre-scaled by log2(e)), round
@@ -341,7 +348,7 @@ cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
 
 // ---------------------------------------------------------------------------
 // The tensor-core tile kernel (bfloat16; (D, Dv) (64, 64), (128, 128), (96,
-// 64))
+// 64), (112, 112))
 
 namespace tc {
 
@@ -353,27 +360,31 @@ constexpr int kThreadsTc = kConsumers + 32;   // and one producer warp
 constexpr int kRowBytes = 128;            // 64 bf16: one swizzled row
 
 // Shared memory: the Q tile, then a ring of (K tile, V tile) stages. Q and
-// K are DK / 64 panels of 64 columns (128-byte rows in the 128-byte
-// swizzle) and, where DK % 64 is 32, one panel of 32 columns (64-byte rows
-// in the 64-byte swizzle), so no column is loaded that the products do not
-// read; V is DV / 64 panels of 64 columns. Every panel starts on a
-// 1024-byte boundary. (64, 64): 16 KB of Q and four 32 KB stages; (128,
-// 128): 32 KB of Q and three 64 KB stages (225 KB with the alignment);
-// (96, 64): 24 KB of Q and four 40 KB stages (184 KB). deepseek-v2's (192,
-// 128) would fit two 80 KB stages beside 48 KB of Q.
+// K are panels of 64 columns (128-byte rows in the 128-byte swizzle) and,
+// where DK % 64 is 32, one panel of 32 columns (64-byte rows in the 64-byte
+// swizzle), so no column is loaded that the products do not read; V is
+// panels of 64 columns. A width that ends part way into a 64-column panel
+// (112) is padded to the panel's end (kPadK, kPadV) by the tensor map's
+// zero fill. Every panel starts on a 1024-byte boundary. (64, 64): 16 KB
+// of Q and four 32 KB stages; (128, 128) and (112, 112): 32 KB of Q and
+// three 64 KB stages (225 KB with the alignment); (96, 64): 24 KB of Q and
+// four 40 KB stages (184 KB). deepseek-v2's (192, 128) would fit two 80 KB
+// stages beside 48 KB of Q.
 template <int DK, int DV>
 struct Layout {
-  static constexpr int kPanelsK = DK / 64;        // 64-column panels of Q, K
-  static constexpr bool kHalfK = DK % 64 == 32;   // and a 32-column one
-  static constexpr int kPanelsV = DV / 64;
-  static constexpr int kStages = DV == 64 ? 4 : 3;  // K/V tiles in flight
-  static constexpr int kQ = kRows * DK * 2;
-  static constexpr int kK = kKeys * DK * 2;
-  static constexpr int kV = kKeys * DV * 2;
+  static constexpr bool kHalfK = DK % 64 == 32;   // a 32-column panel last
+  static constexpr int kPadK = kHalfK ? DK : (DK + 63) / 64 * 64;
+  static constexpr int kPadV = (DV + 63) / 64 * 64;
+  static constexpr int kPanelsK = kPadK / 64;     // 64-column panels of Q, K
+  static constexpr int kPanelsV = kPadV / 64;
+  static constexpr int kStages = kPadV == 64 ? 4 : 3;  // K/V tiles in flight
+  static constexpr int kQ = kRows * kPadK * 2;
+  static constexpr int kK = kKeys * kPadK * 2;
+  static constexpr int kV = kKeys * kPadV * 2;
   static constexpr int kStage = kK + kV;
   static constexpr int kBytes = kQ + kStages * kStage;
-  static_assert(DK % 32 == 0 && DV % 64 == 0 && DV <= 128 && DV <= DK &&
-                    kStages <= kMaxStages,
+  static_assert(DK % 16 == 0 && (DV == 64 || DV == 112 || DV == 128) &&
+                    DV <= DK && kStages <= kMaxStages,
                 "the tile kernel's widths");
 };
 
@@ -580,15 +591,49 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A B: A (64 x 16) from registers (a: four bf16 pairs in the
+// accumulator's layout), B (16 x 112) MN-major (transposed) in shared
+// memory: the second 64-dim panel read in its first 48 columns.
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // S = Q K^T for warpgroup wg's 64 query rows (issued, not waited for):
-// K-major A and B, 16 head dims a k-step. A step inside a panel row
-// advances the start address by 32 bytes; the 32-column panel takes the
-// 64-byte swizzle's descriptors (8-row groups of 512 bytes).
-template <int DK>
+// K-major A and B, 16 head dims a k-step, DK / 16 steps (a zero-padded
+// panel's padding is never read). A step inside a panel row advances the
+// start address by 32 bytes; the 32-column panel takes the 64-byte
+// swizzle's descriptors (8-row groups of 512 bytes).
+template <int DK, int NPK>
 __device__ __forceinline__ void issue_qk(float (&sc)[kKeys / 2],
                                          uint32_t q_addr, uint32_t k_addr,
                                          int wg) {
-  constexpr int kWide = 4 * (DK / 64);    // k-steps in 64-column panels
+  constexpr int kWide = 4 * NPK;          // k-steps in 64-column panels
 #pragma unroll
   for (int kk = 0; kk < DK / 16; ++kk) {
     uint64_t da, db;
@@ -600,11 +645,10 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kKeys / 2],
                       16, 1024);
     } else {
       const int j = kk - kWide;
-      da = sw64_desc(q_addr + (DK / 64) * kRows * kRowBytes + wg * 64 * 64 +
+      da = sw64_desc(q_addr + NPK * kRows * kRowBytes + wg * 64 * 64 +
                          j * 32,
                      16, 512);
-      db = sw64_desc(k_addr + (DK / 64) * kKeys * kRowBytes + j * 32, 16,
-                     512);
+      db = sw64_desc(k_addr + NPK * kKeys * kRowBytes + j * 32, 16, 512);
     }
     wgmma_ss_n128(sc, da, db, kk > 0);
   }
@@ -612,7 +656,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kKeys / 2],
 
 // O += P V (issued, not waited for): P from registers in wgmma's register-A
 // layout, V MN-major (head dims contiguous), 16 keys a step of 2048 bytes;
-// its 64-dim panels kKeys x 128 bytes apart.
+// its 64-dim panels kKeys x 128 bytes apart. At DV 112 the product reads
+// the second panel's first 48 columns (its zero fill never enters O).
 template <int DV>
 __device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
                                          const uint32_t (&pa)[kKeys / 4],
@@ -623,6 +668,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
                                    kKeys * kRowBytes, 1024);
     if constexpr (DV == 64)
       wgmma_rs_n64(o, pa + 4 * j, dv);
+    else if constexpr (DV == 112)
+      wgmma_rs_n112(o, pa + 4 * j, dv);
     else
       wgmma_rs_n128(o, pa + 4 * j, dv);
   }
@@ -765,8 +812,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // the producer warp: one thread loads Q once, then K and V tile by tile
     // into the ring
     if (lane == 0) {
-      // a box partly out of bounds (ragged rows) still delivers its whole
-      // bytes, the zero fill included
+      // a box partly out of bounds (ragged rows, the columns past 112)
+      // still delivers its whole bytes, the zero fill included
       mbar_expect_tx(&qbar, L::kQ);
       for (int p = 0; p < NPK; ++p)
         tma_load(qs + p * kRows * kRowBytes, &tq, &qbar, p * 64, h, q0, b);
@@ -817,7 +864,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&full[s], (it / kStages) & 1);
     pin(sc);
     wgmma_fence();
-    issue_qk<DK>(sc, q_addr, k_addr, wg);
+    issue_qk<DK, NPK>(sc, q_addr, k_addr, wg);
     wgmma_commit();
     wgmma_wait0();
     pin(sc);
@@ -877,8 +924,10 @@ EncodeTiled encode_tiled() {
 
 // A (D, heads, rows, B) tensor map of a strided bf16 view (element
 // strides st), box (cols, 1, box_rows, 1): 64 columns in the 128-byte
-// swizzle or 32 in the 64-byte one, zeros out of bounds. The caller has
-// checked 16-byte alignment of base and strides.
+// swizzle or 32 in the 64-byte one, zeros out of bounds (rows past the
+// end, and columns past D: a map declared wider than D would read the next
+// head's first columns). The caller has checked 16-byte alignment of base
+// and strides.
 bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
               int B, Strides st, int cols, int box_rows) {
   const EncodeTiled enc = encode_tiled();
@@ -923,10 +972,10 @@ cudaError_t launch_d(const CUtensorMap* m, const Args& a,
   return cudaGetLastError();
 }
 
-// The (DK, DV) pairs built: (64, 64), (128, 128) and (96, 64).
+// The (DK, DV) pairs built: (64, 64), (128, 128), (96, 64) and (112, 112).
 bool tc_dims(int D, int Dv) {
   return (D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
-         (D == 96 && Dv == 64);
+         (D == 96 && Dv == 64) || (D == 112 && Dv == 112);
 }
 
 cudaError_t launch(const void* q, const void* k, const void* v,
@@ -947,6 +996,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   if (D == 64) return launch_d<64, 64>(m, a, stream);
   if (D == 96) return launch_d<96, 64>(m, a, stream);
+  if (D == 112) return launch_d<112, 112>(m, a, stream);
   return launch_d<128, 128>(m, a, stream);
 }
 
@@ -980,6 +1030,9 @@ cudaError_t info(int D, int Dv, int* out) {
   if (D == 128 && Dv == 128)
     return kernel_info(flash_tc_kernel<128, 128>, kThreadsTc,
                        smem_bytes<128, 128>(), out);
+  if (D == 112 && Dv == 112)
+    return kernel_info(flash_tc_kernel<112, 112>, kThreadsTc,
+                       smem_bytes<112, 112>(), out);
   return cudaErrorInvalidValue;
 }
 
@@ -2138,8 +2191,8 @@ int soar_flash_tile(const void* q, const void* k, const void* v, void* o,
                             so, causal, window, scale, stream);
 }
 
-// The tensor-core tile kernel: bfloat16, (D, Dv) (64, 64), (128, 128) or
-// (96, 64), q, k and v based and strided on 16-byte multiples.
+// The tensor-core tile kernel: bfloat16, (D, Dv) (64, 64), (128, 128), (96,
+// 64) or (112, 112), q, k and v based and strided on 16-byte multiples.
 int soar_flash_tile_tc(const void* q, const void* k, const void* v, void* o,
                        int B, int Tq, int S, int H, int Hkv, int D, int Dv,
                        long long q_sb, long long q_st, long long q_sh,

@@ -44,8 +44,9 @@ from .ref import check_window, split_chunk
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 # (D, Dv) pairs of the tensor-core tile kernel: the dense family's square
-# heads and MLA's 96-wide keys over 64-wide values
-TC_DIMS = ((64, 64), (128, 128), (96, 64))
+# heads, MLA's 96-wide keys over 64-wide values and kimi-k2's 112 (padded
+# to 128 on the chip by the tensor maps' zero fill)
+TC_DIMS = ((64, 64), (128, 128), (96, 64), (112, 112))
 _INT_MAX = 2 ** 31 - 1
 PATHS = ("tile_tc", "tile_simt", "decode_split", "mla_decode",
          "mla_decode_tc")

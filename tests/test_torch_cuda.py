@@ -915,20 +915,22 @@ def test_flash_mla_decode_tc_refuses_unaligned_and_reports(dev):
         flash_mla_decode(ql, qr, odd, kr, 0.1)
     assert _path_delta(before) == dict.fromkeys(before, 0)
     for kernel, x, y in (("tile_tc", 64, 64), ("tile_tc", 96, 64),
-                         ("tile_tc", 128, 128), ("mla_decode_tc", 256, 32)):
+                         ("tile_tc", 128, 128), ("tile_tc", 112, 112),
+                         ("mla_decode_tc", 256, 32)):
         info = kernel_info(kernel, x, y)
         assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 255
         assert 0 < info["smem_bytes"] <= 232_448
 
 
-@pytest.mark.parametrize("d,dv", [(64, 64), (96, 64), (128, 128)])
+@pytest.mark.parametrize("d,dv", [(64, 64), (96, 64), (128, 128),
+                                  (112, 112)])
 @pytest.mark.parametrize("b,t,s,h,hkv,causal,window", [
     (2, 300, 200, 4, 2, True, 0), (2, 130, 61, 4, 1, True, 0),
     (2, 37, 101, 4, 2, False, 0), (2, 333, 333, 5, 1, True, 100),
     (1, 1100, 1100, 2, 2, True, 1024)])
 def test_flash_tc_kernel_pairs_against_twin(dev, d, dv, b, t, s, h, hkv,
                                             causal, window):
-    """The tensor-core tile's three (D, Dv) pairs, causal and ragged,
+    """The tensor-core tile's four (D, Dv) pairs, causal and ragged,
     bidirectional, windowed: within ``FLASH_TC`` of the float32 plain
     version and within 3e-2 of its arithmetic's twin
     ``flash_attention_tc_torch``; one launch on the tile."""

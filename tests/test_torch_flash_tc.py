@@ -68,7 +68,8 @@ def _over_limit(got, q, k, v, scale, causal, window=0, mask=None):
     return float(((got.to(torch.float32) - want).abs() / lim).max())
 
 
-@pytest.mark.parametrize("bh,t,d", [(4, 128, 64), (1, 200, 128)])
+@pytest.mark.parametrize("bh,t,d", [(4, 128, 64), (1, 200, 128),
+                                    (2, 200, 112)])
 def test_tc_plain_matches_jax_on_its_test_shapes(bh, t, d):
     """The JAX test shapes at the head dims the tensor-core kernel takes,
     causal, bfloat16: against the Pallas kernel (interpret mode) and the
@@ -85,7 +86,7 @@ def test_tc_plain_matches_jax_on_its_test_shapes(bh, t, d):
                                    rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 112])
 @pytest.mark.parametrize("b,t,s,h,hkv,causal,window", [
     (2, 37, 101, 4, 2, False, 0), (2, 130, 61, 4, 1, True, 0),
     (1, 5, 300, 2, 2, True, 0), (2, 150, 150, 8, 2, True, 0),
@@ -141,6 +142,39 @@ def test_planted_tile_faults_exceed_the_limit(window):
         faulty = sdpa(*f, mask[None], scale).bfloat16()
         assert _over_limit(faulty, q, k, v, scale, True, window,
                            good[None]) > 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_next_heads_columns_at_112_exceed_the_limit(causal):
+    """At (112, 112) the kernel's tensor maps keep the view's width 112 and
+    TMA fills columns 112-127 of the second panel with zeros. A map
+    declared 128 wide over the 112-wide view would read there the next
+    head's first 16 columns (of q and of k) and add their product to
+    every score; that fault, rounded to bfloat16 as the kernel's output
+    is, fails the limit the plain tile arithmetic meets."""
+    rng = np.random.default_rng(112 + causal)
+    b, t, h, hkv, d = 1, 200, 4, 2, 112
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, t, n, d)).astype(
+        np.float32)).bfloat16() for n in (h, hkv, hkv))
+    scale = d ** -0.5
+    got = flash_attention_tc_torch(q, k, v, scale, causal)
+    assert _over_limit(got, q, k, v, scale, causal) <= 1.0
+    # what a 128-wide map reads: the row's next 16 elements, head h + 1's
+    # first columns (the last head's: the next row's head 0; past the
+    # tensor's end, zeros here)
+    def wide(x):
+        flat = torch.cat([x.reshape(-1), x.new_zeros(16)])
+        n_b, n_t, n_h, _ = x.shape
+        return torch.as_strided(flat, (n_b, n_t, n_h, 128),
+                                (n_t * n_h * d, n_h * d, d, 1))
+    wide_q, wide_k = wide(q), wide(k)
+    assert torch.equal(wide_q[..., :d], q) and torch.equal(wide_k[..., :d], k)
+    assert torch.equal(wide_q[:, :, 0, d:], q[:, :, 1, :16])
+    assert torch.equal(wide_k[:, :, 0, d:], k[:, :, 1, :16])
+    assert torch.equal(wide_q[:, :-1, -1, d:], q[:, 1:, 0, :16])
+    faulty = flash_attention_gqa_torch(wide_q.float(), wide_k.float(),
+                                       v.float(), scale, causal).bfloat16()
+    assert _over_limit(faulty, q, k, v, scale, causal) > 1.0
 
 
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 1000])
@@ -222,6 +256,13 @@ def test_path_and_tma_checks_on_cpu_tensors():
     assert path_of(torch.zeros(2, 9, 4, 64, dtype=bf)) == "tile_tc"
     assert path_of(torch.zeros(2, 9, 4, 64, dtype=f32)) == "tile_simt"
     assert path_of(torch.zeros(2, 9, 4, 48, dtype=bf)) == "tile_simt"
+    # kimi-k2's head width: bfloat16 on the tensor cores at (112, 112)
+    # only; float32, and values narrower than 112, on the CUDA cores
+    assert path_of(torch.zeros(1, 9, 64, 112, dtype=bf)) == "tile_tc"
+    assert path_of(torch.zeros(1, 9, 64, 112, dtype=bf), 112) == "tile_tc"
+    assert path_of(torch.zeros(1, 9, 64, 112, dtype=f32)) == "tile_simt"
+    assert path_of(torch.zeros(1, 9, 64, 112, dtype=bf), 96) == "tile_simt"
+    assert path_of(torch.zeros(1, 1, 64, 112, dtype=bf)) == "decode_split"
     # the q, k, v of a fused projection, sliced: strided, 16-byte multiples
     qkv = torch.zeros(2, 40, 12 * 64, dtype=bf).view(2, 40, 12, 64)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
@@ -234,3 +275,7 @@ def test_path_and_tma_checks_on_cpu_tensors():
     strided = torch.zeros(2, 40, 3, 68, dtype=bf)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
         check_tma(q, strided, strided)
+    # 112 bf16 values are 224 bytes: heads and rows of a 112-wide
+    # projection stay on 16-byte multiples
+    qkv = torch.zeros(1, 40, 80 * 112, dtype=bf).view(1, 40, 80, 112)
+    check_tma(qkv[:, :, :64], qkv[:, :, 64:72], qkv[:, :, 72:])
