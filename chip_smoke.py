@@ -20,6 +20,8 @@
                                          # rows, timed (in turns against
                                          # other flash_attention.cu sources)
     python3 chip_smoke.py --moe          # only phase 17, MoE (kimi-k2)
+    python3 chip_smoke.py --vlm          # only phase 18's llava parts
+    python3 chip_smoke.py --encdec       # only phase 18's whisper parts
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -42,7 +44,10 @@ kernel, xLSTM served and trained) and MLA (minicpm3-4b served through
 the flash kernel at keys 96 and values 64 and the latent decode kernel,
 and trained) and MoE (kimi-k2 served through its dense prefix and one
 384-expert layer by the dense dispatch, its attention on the
-tensor-core tile and the split decode at head width 112). It builds the CUDA
+tensor-core tile and the split decode at head width 112) and the last two
+configs of the zoo (llava-next-34b's image prefix ahead of its tokens,
+whisper-large-v3's encoder and decoder with cross attention), served at
+published width through the flash kernels. It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -381,6 +386,41 @@ plain torch version on the inputs the paths give it. Phases:
    expert left out, the top-k weights not renormalised) must exceed; the
    decode step against the floor of all weights read once.
 
+18. the VLM prefix and the encoder-decoder, everything of phase 17 freed
+   first. 18a, before the models allocate: the flash kernel in bfloat16
+   at their shapes against the plain version in float32 on the same
+   inputs (``FLASH_TC`` on the tensor-core tile, ``FLASH_TIGHT`` on the
+   split decode), with planted faults beyond the limits: whisper's encoder
+   layer (4, 32768, 20/20, 64) non-causal (row 5e; two (batch, head)
+   pairs in 2048-row blocks), cross attention's prefill (4, 8) over 32,768
+   frames (5x; 8 of the tile's 128 rows: a tile row past T stored over
+   the next batch row planted), the decoder's self prefill (4, 8) causal
+   (5xs; the diagonal one key late), cross decode (4, 1) over 32,768 (5xd;
+   a split dropped) and self decode over 72 keys (5sd; the newest key
+   dropped); the 30-s window of 1,500 frames, non-causal at T = 8 and T =
+   1,500, drawn so every real score lies near -8 (the zero keys past S
+   let in, the first key tile skipped); llava's prefill
+   layer (1, 4096, 56/8, 128) causal, G = 7 (5l; the diagonal one key
+   late) and its decode over 4,097 and 4,160 positions (5ld; a split
+   dropped); each timed against its bound, the plain version and
+   ``scaled_dot_product_attention``. 18b, float32 (TF32 off), against the
+   CPU (``serve_f32``: tokens equal, logits rtol 1e-4) and a fresh prefill
+   (1e-3): ``llava-next-34b-f32-l4-b2-p128-g8`` (published widths, 4
+   layers, 16 prefix embeddings and 112 tokens, 8 steps) and
+   ``whisper-large-v3-f32-l4-b2-f1500-t8-g8`` (4 encoder and 4 decoder
+   layers, 1,500 frames, 8 tokens, 8 steps). 18c:
+   ``llava-next-34b-serve-b1-p4096-g64``, all 60 layers in bfloat16, one
+   request of 2,880 image embeddings and 1,216 tokens, decode from
+   position 4,096 on; 18d: ``whisper-large-v3-serve-b4-f32768-t8-g64``, 32
+   + 32 layers, 4 requests of 32,768 frames and 8 tokens, the self k/v
+   handed into 448 slots and the cross caches handed over uncopied. Both
+   with phase 10's checks (launches by path, and for whisper by role; no
+   cache allocated by a step; the peak within its reckoning; the
+   decode-vs-fresh-prefill gate ``SERVE_BF16_DIFF`` after 1 and 64 steps)
+   and planted faults beyond the gate: llava's decode rope positions
+   counted without the prefix; whisper's cross attention reading the next
+   layer's cross cache, its self-cache handoff one slot late.
+
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
@@ -405,7 +445,8 @@ serving cell the same way (see :func:`mla_rows`).
 runs phases 1 and 14 and prints the rank cells; ``--ssm`` runs phases 1
 and 15 and prints the backward scan's kernel row; ``--mla`` runs phases 1
 and 16 and prints the MLA rows; ``--moe`` runs phases 1 and 17 and prints
-kimi-k2's attention rows.
+kimi-k2's attention rows; ``--vlm`` and ``--encdec`` run phase 1 and
+phase 18's llava or whisper parts and print their rows.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -2482,19 +2523,22 @@ def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
 
 
 class LogitsCheck:
-    """Swaps ``transformer._lm_logits`` for a wrapper that ANDs
-    ``isfinite(logits).all()`` into a flag on the device (no sync) and
-    keeps the last position's real-vocab logits of the latest call (the
-    padding columns hold -1e30)."""
+    """Swaps ``transformer._lm_logits`` (the encoder-decoder's
+    ``encdec._logits`` for ``cfg.is_encoder_decoder``) for a wrapper that
+    ANDs ``isfinite(logits).all()`` into a flag on the device (no sync)
+    and keeps the last position's real-vocab logits of the latest call
+    (the padding columns hold -1e30)."""
 
-    def __init__(self, transformer):
-        self.mod = transformer
+    def __init__(self, cfg):
+        from repro_torch.models import encdec, transformer
+        self.mod, self.name = ((encdec, "_logits") if cfg.is_encoder_decoder
+                               else (transformer, "_lm_logits"))
         self.finite = None
         self.last = None
 
     def __enter__(self):
         import torch
-        orig = self._orig = self.mod._lm_logits
+        orig = self._orig = getattr(self.mod, self.name)
 
         def wrapped(params, x, cfg):
             out = orig(params, x, cfg)
@@ -2507,55 +2551,24 @@ class LogitsCheck:
             self.last = out[:, -1, :cfg.vocab].clone()
             return out
 
-        self.mod._lm_logits = wrapped
+        setattr(self.mod, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        self.mod._lm_logits = self._orig
-
-
-def handoff(pre, caches, t: int) -> None:
-    """Copy a ``t``-token prefill's caches into decode caches, in place:
-    the stacked layers' k/v (and an MoE model's prefix blocks') into
-    positions [0, t); per block, position p
-    of a k/v of S slots into slot p % S for the last min(t, S) positions
-    (a global layer: [0, t); a windowed layer's ring: the last S), and the
-    Mamba and xLSTM states as they are."""
-    import torch
-    with torch.inference_mode():
-        if "layers" in caches:                   # k, v; MLA: ckv, kr
-            for pb, cb in zip(pre["prefix"], caches["prefix"]):
-                for n, c in cb.items():          # MoE's dense prefix blocks
-                    c[:, :t].copy_(pb[n])
-            for n, c in caches["layers"].items():
-                c[:, :, :t].copy_(pre["layers"][n])
-            return
-        for pb, cb in zip(pre["blocks"], caches["blocks"]):
-            if "attn" not in cb:                 # an xLSTM block's state
-                for n, state in cb.items():
-                    state.copy_(pb[n])
-                continue
-            for n in ("k", "v"):
-                dst = cb["attn"][n]
-                s, lo = dst.shape[1], max(0, t - dst.shape[1])
-                pos = torch.arange(lo, t, device=dst.device) % s
-                dst.index_copy_(1, pos, pb["attn"][n][:, lo:t])
-            cb["ssm"]["s"].copy_(pb["ssm"]["s"])
+        setattr(self.mod, self.name, self._orig)
 
 
 def handoff_state_dropped(pre, caches, t: int) -> None:
-    """A planted fault: :func:`handoff` without the Mamba states (decode
+    """A planted fault: the handoff without the Mamba states (decode
     starts from zero states)."""
-    handoff(pre, caches, t)
     for cb in caches["blocks"]:
         cb["ssm"]["s"].zero_()
 
 
 def handoff_ring_first(pre, caches, t: int) -> None:
-    """A planted fault: :func:`handoff` with each windowed ring holding the
+    """A planted fault: the handoff with each windowed ring holding the
     prompt's first S positions in slots 0..S-1 instead of its last S."""
     import torch
-    handoff(pre, caches, t)
     with torch.inference_mode():
         for pb, cb in zip(pre["blocks"], caches["blocks"]):
             for n in ("k", "v"):
@@ -2564,38 +2577,51 @@ def handoff_ring_first(pre, caches, t: int) -> None:
                     cb["attn"][n].copy_(pb["attn"][n][:, :s])
 
 
+def as_batch(prompts) -> dict:
+    """A batch dict: ``prompts`` itself, or ``{"tokens": prompts}``."""
+    return prompts if isinstance(prompts, dict) else {"tokens": prompts}
+
+
 def greedy_run(cfg, params, prompts, n_steps: int, timed=False,
-               hand=None):
-    """The serving loop: ``make_prefill_step``, the prefill caches handed
-    to ``init_caches(cfg, B, T + n_steps)`` (:func:`handoff`), then ``n_steps``
-    ``make_serve_step``s. Returns (tokens (B, 1 + n_steps), the last
-    decode logits (B, V) float32, the prefill's last logits, caches,
-    timings). Untimed, ``LogitsCheck`` checks every call's logits and
-    keeps the last ones; ``timed`` runs the bare entry points, synchronised
-    around each step, and returns no logits."""
+               hand=None, fns=None):
+    """The serving loop: ``make_prefill_step`` of ``prompts`` (a token
+    tensor or a batch dict: a VLM's ``prefix_embeds``, the
+    encoder-decoder's ``frames``), the prefill caches handed over by
+    ``api.decode_caches`` (then ``hand(pre, caches, start)``, a planted
+    fault, when given), then ``n_steps`` ``make_serve_step``s at positions
+    ``start`` = ``api.decode_start`` on.
+    Returns (tokens (B, 1 + n_steps), the last decode logits (B, V)
+    float32, the prefill's last logits, caches, timings). Untimed,
+    ``LogitsCheck`` checks every call's logits and keeps the last ones;
+    ``timed`` runs the bare entry points, synchronised around each step,
+    and returns no logits. ``fns``: the (prefill, serve) steps to run, as
+    a server keeps them (default: made anew; the encoder-decoder's step
+    builds its position tables on its first call)."""
     import contextlib
 
     import torch
 
     from repro_torch import tree as T
     from repro_torch.launch import steps
-    from repro_torch.models import api, transformer
-    b, t = prompts.shape
-    prefill_step = steps.make_prefill_step(cfg)
-    serve_step = steps.make_serve_step(cfg)
+    from repro_torch.models import api
+    batch = as_batch(prompts)
+    t = api.decode_start(batch)
+    prefill_step, serve_step = fns or (steps.make_prefill_step(cfg),
+                                       steps.make_serve_step(cfg))
     tm, pre_logits, last = {}, None, None
     with (contextlib.nullcontext() if timed
-          else LogitsCheck(transformer)) as lc:
+          else LogitsCheck(cfg)) as lc:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tok, pre = prefill_step(params, {"tokens": prompts})
+        tok, pre = prefill_step(params, batch)
         torch.cuda.synchronize()
         tm["prefill_s"] = time.perf_counter() - t0
         tm["prefill_peak"] = torch.cuda.max_memory_allocated()
         if not timed:
             pre_logits = lc.last.to(torch.float32)
-        caches = api.init_caches(cfg, b, t + n_steps, prompts.device)
-        (hand or handoff)(pre, caches, t)
+        caches = api.decode_caches(cfg, pre, batch, n_steps)
+        if hand is not None:
+            hand(pre, caches, t)
         del pre
         ptrs = [x.data_ptr() for x in T.leaves(caches)]
         toks, walls = [tok], []
@@ -2619,7 +2645,8 @@ def greedy_run(cfg, params, prompts, n_steps: int, timed=False,
 
 
 def fresh_prefill_logits(cfg, params, prompts, toks):
-    """The last logits of one prefill of the prompts extended by every
+    """The last logits of one prefill of the prompts (a token tensor or a
+    batch dict, its prefix embeddings or frames kept) extended by every
     decoded token but the last (the sequence the last decode step saw).
     xLSTM's mLSTM takes whole chunks only: the sequence is then padded at
     its end to a chunk multiple (the model is causal, so the padding
@@ -2628,12 +2655,14 @@ def fresh_prefill_logits(cfg, params, prompts, toks):
     import torch
 
     from repro_torch.models import api, transformer
+    batch = as_batch(prompts)
+    prompts = batch["tokens"]
     seq = torch.cat([prompts, toks[:, :-1].to(prompts.dtype)], 1)
     n = seq.shape[1]
     pad = -n % min(cfg.chunk_size, n) if cfg.family == "ssm" else 0
     with torch.inference_mode():
         if not pad:
-            logits, _ = api.prefill_fn(cfg)(params, {"tokens": seq})
+            logits, _ = api.prefill_fn(cfg)(params, dict(batch, tokens=seq))
             return logits[:, -1, :cfg.vocab].to(torch.float32)
         seq = torch.cat([seq, seq[:, :pad]], 1)
         logits, _, _ = transformer.forward(params, {"tokens": seq}, cfg,
@@ -2650,7 +2679,7 @@ def _prompts(cfg, b, t, seed, device):
 
 
 def serve_f32(cfg, b, t, n_steps, cpu=True, name=None,
-              fresh_gate=True) -> dict:
+              fresh_gate=True, make_batch=None) -> dict:
     """Phases 9b and 10b, consistency: ``cfg`` in float32 (TF32 off). Its
     last decode logits against a fresh prefill of the extended sequences
     (within 1e-3 of the largest logit; with ``fresh_gate`` False only
@@ -2658,7 +2687,8 @@ def serve_f32(cfg, b, t, n_steps, cpu=True, name=None,
     keeps)
     and, with ``cpu``, the whole run against the same run on the CPU
     (logits at rtol 1e-4 with an atol of 1e-4 times the largest logit,
-    equal tokens)."""
+    equal tokens). ``make_batch(cfg, b, t, seed, device)`` makes the
+    prompts (default: ``t`` random tokens)."""
     import torch
 
     from repro_torch import tree as T
@@ -2668,7 +2698,7 @@ def serve_f32(cfg, b, t, n_steps, cpu=True, name=None,
     cfg = dataclasses.replace(cfg, dtype="float32")
     name = name or f"{cfg.name}-f32-l{cfg.n_layers}-b{b}-p{t}-g{n_steps}"
     params = api.init_fn(cfg, DEVICE)(0)
-    prompts = _prompts(cfg, b, t, 7, DEVICE)
+    prompts = (make_batch or _prompts)(cfg, b, t, 7, DEVICE)
     reset_counts()
     toks, last, pre, caches, _ = greedy_run(cfg, params, prompts, n_steps)
     fresh = fresh_prefill_logits(cfg, params, prompts, toks)
@@ -2692,8 +2722,9 @@ def serve_f32(cfg, b, t, n_steps, cpu=True, name=None,
     torch.set_num_threads(os.cpu_count() or 1)
     try:
         t0 = time.perf_counter()
-        ctoks, clast, cpre, _, _ = greedy_run(cfg, cpu, prompts.cpu(),
-                                              n_steps)
+        ctoks, clast, cpre, _, _ = greedy_run(
+            cfg, cpu, {k: x.cpu() for k, x in as_batch(prompts).items()},
+            n_steps)
         cpu_s = time.perf_counter() - t0
     finally:
         torch.set_num_threads(threads)
@@ -2723,7 +2754,7 @@ _KERNEL_NAMES = ("level fold", "color level", "segment reduce",
 
 def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
                faults=(), gate_steps=None, watch=None, fresh=None,
-               extra=None) -> dict:
+               extra=None, make_batch=None) -> dict:
     """Phases 9c and 10c, the serving cell ``name``: ``cfg`` at full
     width and depth in bfloat16, ``b`` requests of ``t`` tokens, one
     prefill step and ``n_steps`` greedy serve steps, counted (each kernel
@@ -2749,7 +2780,11 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     With ``gate_steps`` the gate and the faults are also read after that
     many decode steps of another served run (a model that forgets its
     prompt within the ``n_steps`` steps would hide a broken handoff at
-    their end)."""
+    their end). ``make_batch(cfg, b, t, seed, device)`` makes the prompts
+    (default: ``t`` random tokens; a VLM's prefix embeddings, the
+    encoder-decoder's frames). The encoder-decoder's prefill calls the
+    flash kernel once an encoder layer and twice a decoder layer (self
+    and cross attention), each decode step twice a decoder layer."""
     import torch
 
     from repro_torch import tree as T
@@ -2765,15 +2800,24 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     params = api.init_fn(cfg, DEVICE)(0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = _prompts(cfg, b, t, 0, DEVICE)
+    prompts = as_batch((make_batch or _prompts)(cfg, b, t, 0, DEVICE))
+    start = api.decode_start(prompts)
     say(f"{name}: params {T.size(params):,} ({T.nbytes(params) / 1e9:.2f} "
-        f"GB) in {init_s:.1f} s; prompts {tuple(prompts.shape)}")
-    # the main path, counted, every call's logits checked
+        f"GB) in {init_s:.1f} s; prompts " + ", ".join(
+            f"{k} {tuple(x.shape)}" for k, x in prompts.items()))
+    # the main path, counted, every call's logits checked; one pair of
+    # steps for every run, as a server keeps them
+    fns = prefill_step, serve_step = (steps.make_prefill_step(cfg),
+                                      steps.make_serve_step(cfg))
     reset_counts()
     with watch or contextlib.nullcontext():
-        toks, last, _, caches, _ = greedy_run(cfg, params, prompts, n_steps)
+        toks, last, _, caches, _ = greedy_run(cfg, params, prompts, n_steps,
+                                              fns=fns)
     counts, paths = read_counts(), read_paths()
-    want = cfg.n_layers * (1 + n_steps)
+    pre_calls, dec_calls = ((cfg.n_encoder_layers + 2 * cfg.n_layers,
+                             2 * cfg.n_layers) if cfg.is_encoder_decoder
+                            else (cfg.n_layers, cfg.n_layers))
+    want = pre_calls + dec_calls * n_steps
     launched = ", ".join(f"{_KERNEL_NAMES[i]} {counts[i]}" for i in kernels)
     check(all(counts[i] == want for i in kernels),
           f"{name}: launches {launched}, expected {want} each")
@@ -2783,12 +2827,12 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
         widths = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
                   if cfg.attn_type == "mla" else (cfg.hd, cfg.hd))
         want_paths["tile_tc" if cfg.dtype == "bfloat16" and widths in TC_DIMS
-                   else "tile_simt"] = cfg.n_layers
+                   else "tile_simt"] = pre_calls
         dec = ("decode_split" if cfg.attn_type != "mla"
                or not cfg.decode_absorb else "mla_decode_tc"
                if cfg.dtype == "bfloat16" and mla_tc_widths(
                    cfg.kv_lora_rank, cfg.qk_rope_dim) else "mla_decode")
-        want_paths[dec] = cfg.n_layers * n_steps
+        want_paths[dec] = dec_calls * n_steps
     check(paths == want_paths, f"{name}: flash calls by kernel {paths}, "
           f"expected {want_paths}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
@@ -2798,21 +2842,18 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
     torch.cuda.empty_cache()
     # the same run again, timed through the bare entry points
     ttoks, _, _, caches, tm = greedy_run(cfg, params, prompts, n_steps,
-                                         timed=True)
+                                         timed=True, fns=fns)
     peak = torch.cuda.max_memory_allocated()
     check(torch.equal(ttoks, toks), f"{name}: the timed run's tokens differ "
           "from the counted run's")
     # one more decode step, then one prefill, under the profiler
-    serve_step = steps.make_serve_step(cfg)
     tok = toks[:, -1:]
     dprof = kernel_profile(lambda: serve_step(params, caches, tok,
-                                              t + n_steps - 1),
+                                              start + n_steps - 1),
                            f"{name} one decode step", top=8, host_top=12)
     del caches
     torch.cuda.empty_cache()
-    prefill_step = steps.make_prefill_step(cfg)
-    pprof = (kernel_profile(lambda: prefill_step(params,
-                                                 {"tokens": prompts}),
+    pprof = (kernel_profile(lambda: prefill_step(params, prompts),
                             f"{name} one prefill", top=12)
              if not xlstm else None)
     torch.cuda.empty_cache()
@@ -2831,7 +2872,7 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
         try:
             with watch or contextlib.nullcontext():
                 ftoks, flast, _, fc, _ = greedy_run(cfg, params, prompts, n,
-                                                    hand=hand)
+                                                    hand=hand, fns=fns)
         finally:
             if hasattr(hand, "undo"):
                 hand.undo()
@@ -2868,8 +2909,8 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
                 f"{k} {100 * r:.2f}%" for k, r in fault_diffs.items()))
     step_s = statistics.median(tm["step_s"])
     say(f"{name} ({nvidia_smi_line()}): tokens in [0, {cfg.vocab}), "
-        f"logits finite; launches {launched} (each = {cfg.n_layers} x (1 + "
-        f"{n_steps})), flash calls by kernel {paths}; prefill (time to first token) {tm['prefill_s']:.4f} "
+        f"logits finite; launches {launched} (each = {pre_calls} + "
+        f"{dec_calls} x {n_steps}), flash calls by kernel {paths}; prefill (time to first token) {tm['prefill_s']:.4f} "
         f"s, {b * t / tm['prefill_s']:.1f} tokens/s; decode median "
         f"{step_s * 1e3:.4f} ms per step (min "
         f"{min(tm['step_s']) * 1e3:.4f}, max {max(tm['step_s']) * 1e3:.4f}),"
@@ -3346,18 +3387,20 @@ def window_cell_shapes(b=HYBRID_BATCH, t=HYBRID_PROMPT, h=25, hkv=5, d=64,
     return out
 
 
-def plain_causal_rows(q, k, v, scale, rows=512):
+def plain_causal_rows(q, k, v, scale, rows=512, causal=True):
     """The float32-softmax plain version of causal attention, query rows in
-    blocks of ``rows`` against keys [0, r1): the plain version of a layer
-    whose (T, T) scores do not fit on the card at once."""
-    import torch
-
+    blocks of ``rows`` against keys [0, r1) (with ``causal`` False, every
+    key): the plain version of a layer whose (T, S) scores do not fit on
+    the card at once."""
     from repro_torch.kernels.flash_attention.ref import sdpa
     from repro_torch.models.attention import causal_mask
     t = q.shape[1]
     out = q.new_empty(q.shape[:3] + v.shape[3:])
     for r0 in range(0, t, rows):
         r1 = min(t, r0 + rows)
+        if not causal:
+            out[:, r0:r1] = sdpa(q[:, r0:r1], k, v, None, scale)
+            continue
         out[:, r0:r1] = sdpa(q[:, r0:r1], k[:, :r1], v[:, :r1], causal_mask(
             r1 - r0, r1, offset=r0, device=q.device)[None], scale)
     return out
@@ -6037,9 +6080,8 @@ def ssm_train_cell(cfg, name, seq, n_dev=2, steps=3) -> dict:
 
 
 def handoff_xlstm_states_dropped(pre, caches, t: int) -> None:
-    """A planted fault: :func:`handoff` without the xLSTM states (decode
+    """A planted fault: the handoff without the xLSTM states (decode
     starts from zero states)."""
-    handoff(pre, caches, t)
     for cb in caches["blocks"]:
         for state in cb.values():
             state.zero_()
@@ -6055,8 +6097,8 @@ def xlstm_witness(steps=(1, 8, 64)) -> None:
 
     from repro_torch.models import api
     torch.backends.cuda.matmul.allow_tf32 = False
-    for dtype, hands in (("bfloat16", (handoff, handoff_xlstm_states_dropped)),
-                         ("float32", (handoff,))):
+    for dtype, hands in (("bfloat16", (None, handoff_xlstm_states_dropped)),
+                         ("float32", (None,))):
         cfg = xlstm(dtype=dtype)
         params = api.init_fn(cfg, DEVICE)(0)
         prompts = _prompts(cfg, XLSTM_BATCH, XLSTM_PROMPT, 0, DEVICE)
@@ -6068,7 +6110,8 @@ def xlstm_witness(steps=(1, 8, 64)) -> None:
                 fresh = fresh_prefill_logits(cfg, params, prompts, toks)
                 r = float((last - fresh).abs().max()) / float(
                     fresh.abs().max())
-                say(f"xlstm witness: {dtype}, {hand.__name__}, {n} decode "
+                say(f"xlstm witness: {dtype}, "
+                    f"{getattr(hand, '__name__', 'handoff')}, {n} decode "
                     f"steps: last decode vs fresh prefill {100 * r:.4f}% of "
                     "the largest logit")
                 torch.cuda.empty_cache()
@@ -6581,17 +6624,15 @@ def mla_decode_checks(b=MLA_BATCH, n=MLA_PROMPT + MLA_STEPS, h=MLA_H,
 
 
 def handoff_kr_dropped(pre, caches, t: int) -> None:
-    """A planted fault: :func:`handoff` without MLA's rope keys (decode
+    """A planted fault: the handoff without MLA's rope keys (decode
     starts from zero kr over the prompt)."""
-    handoff(pre, caches, t)
     caches["layers"]["kr"].zero_()
 
 
 def handoff_ckv_shifted(pre, caches, t: int) -> None:
-    """A planted fault: :func:`handoff` with MLA's latent one position
+    """A planted fault: the handoff with MLA's latent one position
     late (position p's ckv in slot p + 1, slot 0 zero)."""
     import torch
-    handoff(pre, caches, t)
     with torch.inference_mode():
         c = caches["layers"]["ckv"]
         c[:, :, 1:t].copy_(pre["layers"]["ckv"][:, :, :t - 1])
@@ -7429,22 +7470,22 @@ def moe_f32_gate(cfg, b=4, t=128, n_steps=8, name=KIMI_GATE) -> dict:
 
 
 class DecodeFault:
-    """A planted fault of the MoE layer in decode only: :func:`handoff`,
-    then ``attr`` of ``models.moe`` swapped for ``make(real)`` until
-    ``undo`` (the fresh prefill it is held against runs without it)."""
+    """A planted fault in decode only: after the handoff, ``attr`` of
+    ``models.<module>`` (the MoE layer's by default) swapped for
+    ``make(real)`` until ``undo`` (the fresh prefill it is held against
+    runs without it)."""
 
-    def __init__(self, name: str, attr: str, make):
+    def __init__(self, name: str, attr: str, make, module: str = "moe"):
         self.__name__, self.attr, self.make = name, attr, make
+        self.module = f"repro_torch.models.{module}"
 
     def __call__(self, pre, caches, t: int) -> None:
-        from repro_torch.models import moe
-        handoff(pre, caches, t)
-        self.real = getattr(moe, self.attr)
-        setattr(moe, self.attr, self.make(self.real))
+        mod = importlib.import_module(self.module)
+        self.real = getattr(mod, self.attr)
+        setattr(mod, self.attr, self.make(self.real))
 
     def undo(self) -> None:
-        from repro_torch.models import moe
-        setattr(moe, self.attr, self.real)
+        setattr(importlib.import_module(self.module), self.attr, self.real)
 
 
 def _no_shared(real):
@@ -7617,6 +7658,587 @@ def moe_phase() -> dict:
             "prefill_drops": prefill_drops}
 
 
+# -- phase 18: the VLM prefix (llava) and the encoder-decoder (whisper) ------
+
+LLAVA_CELL = "llava-next-34b-serve-b1-p4096-g64"
+LLAVA_GATE = "llava-next-34b-f32-l4-b2-p128-g8"
+WHISPER_CELL = "whisper-large-v3-serve-b4-f32768-t8-g64"
+WHISPER_GATE = "whisper-large-v3-f32-l4-b2-f1500-t8-g8"
+# llava's cell: one request, the anyres stub's 2,880 image embeddings and
+# 1,216 text tokens (4,096 positions), 64 greedy steps; its float32 gate
+# 16 embeddings and 112 tokens
+LLAVA_BATCH, LLAVA_PROMPT, LLAVA_PREFIX, LLAVA_STEPS = 1, 4096, 2880, 64
+LLAVA_GATE_PREFIX = 16
+LLAVA_H, LLAVA_HKV, LLAVA_D = 56, 8, 128
+# whisper's cell: prefill_32k's 32,768 frames with the batch cut from 32 to
+# 4 (its cross caches: 21.47 GB at 4, 172 GB at 32), input_specs' 8
+# prompt tokens, 64 greedy steps; its own 30-s window is 1,500 frames
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_TOKENS, WHISPER_STEPS = (4, 32_768,
+                                                               8, 64)
+WHISPER_WINDOW = 1_500
+WHISPER_H, WHISPER_D = 20, 64
+# the tensor-core tile's query rows a block and keys a K/V tile
+# (csrc/flash_attention.cu: kRows, kKeys)
+TC_ROWS, TC_KEYS = 128, 128
+# the flash calls of the encoder-decoder by role (the new rows of PERF.md's
+# kernel table): the encoder (5e), cross attention's prefill (5x), the
+# decoder's self-attention prefill (5xs), cross and self decode (5xd, 5sd)
+ENCDEC_ROLES = ("5e", "5x", "5xs", "5xd", "5sd")
+# phase 18a's 30-s window draws q with this mean in every element and k
+# with its negative: each real score's mean is -mean^2 D scale = -sqrt(D)
+# (-8 at D 64), its spread about sqrt(3). A kernel that let in the zero
+# keys past S (what the tile's tensor map reads there) would weigh each by
+# exp(0), far above the real keys, and its output would fail FLASH_TC;
+# with centred draws it stays within (tests/test_torch_flash_tc.py holds
+# both on the plain version).
+WINDOW_SCORE_MEAN = 1.0
+
+
+def llava(depth=None, dtype="bfloat16"):
+    """llava-next-34b at its published widths, ``depth`` layers (all 60
+    when None)."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS["llava-next-34b"]
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
+                               dtype=dtype)
+
+
+def whisper(depth=None, dtype="bfloat16"):
+    """whisper-large-v3 at its published widths, ``depth`` encoder and
+    ``depth`` decoder layers (32 each when None)."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS["whisper-large-v3"]
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
+                               n_encoder_layers=depth or cfg.n_encoder_layers,
+                               dtype=dtype)
+
+
+def vlm_batch(p: int):
+    """``make_batch`` of a VLM's serving: ``p`` image embeddings (the
+    vision stub's output, standard deviation 0.02 as the token embeddings)
+    in the model dtype ahead of ``t - p`` random tokens, made on the host
+    from ``seed`` (the CPU run of a float32 gate gets the same)."""
+    def make(cfg, b, t, seed, device):
+        import torch
+        gen = torch.Generator().manual_seed(seed)
+        pre = 0.02 * torch.randn((b, p, cfg.d_model), generator=gen)
+        return {"prefix_embeds": pre.to(device=device,
+                                        dtype=getattr(torch, cfg.dtype)),
+                "tokens": _prompts(cfg, b, t - p, seed, device)}
+    return make
+
+
+def encdec_batch(frames: int):
+    """``make_batch`` of the encoder-decoder's serving: ``frames`` frame
+    embeddings (the audio stub's output, standard normal) in the model
+    dtype and ``t`` random prompt tokens, made on the host from ``seed``."""
+    def make(cfg, b, t, seed, device):
+        import torch
+        gen = torch.Generator().manual_seed(seed)
+        f = torch.randn((b, frames, cfg.d_model), generator=gen)
+        return {"frames": f.to(device=device,
+                               dtype=getattr(torch, cfg.dtype)),
+                "tokens": _prompts(cfg, b, t, seed, device)}
+    return make
+
+
+class EncdecRoles:
+    """Swaps ``encdec.flash_attention_gqa`` for a wrapper that counts each
+    call by its role (``ENCDEC_ROLES``), read from the call itself: a
+    causal call is the decoder's self prefill; keys not ``frames`` long
+    are self decode's cache prefix; over the frames, T = 1 is cross
+    decode, T = S the encoder, else cross prefill. One dict a ``with``
+    block in ``runs``, then the real dispatch."""
+
+    def __init__(self, frames: int):
+        self.frames, self.runs = frames, []
+
+    def __enter__(self):
+        from repro_torch.models import encdec
+        real = self._real = encdec.flash_attention_gqa
+        counts = dict.fromkeys(ENCDEC_ROLES, 0)
+        self.runs.append(counts)
+
+        def call(q, k, v, scale, causal=True, window=0):
+            t, s = q.shape[1], k.shape[1]
+            role = ("5xs" if causal else "5sd" if s != self.frames else
+                    "5xd" if t == 1 else "5e" if t == s else "5x")
+            check(role != "5sd" or t == 1, f"a non-causal call of {t} rows "
+                  f"over {s} keys, not the {self.frames} frames")
+            counts[role] += 1
+            return real(q, k, v, scale, causal, window)
+
+        encdec.flash_attention_gqa = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import encdec
+        encdec.flash_attention_gqa = self._real
+
+
+def _bf16_randn(gen, *shape, mean=0.0):
+    import torch
+    return (torch.randn(shape, generator=gen, device=DEVICE) + mean).to(
+        torch.bfloat16)
+
+
+def fault_keys_past_s(c):
+    """Keys [S, S rounded up to the K/V tile) let in: the tile's tensor
+    map over (D, heads, S, B) fills them, and their values, with zeros, so
+    each weighs exp(0) and adds nothing to P.V. Seen only where the real
+    scores lie well below 0 (``WINDOW_SCORE_MEAN``)."""
+    import torch
+    z = c["kc"].new_zeros((1, -c["k"].shape[1] % TC_KEYS, 1,
+                           c["kc"].shape[3]))
+    return c["sdpa"](c["qc"], torch.cat([c["kc"], z], 1),
+                     torch.cat([c["vc"], z], 1), None, c["scale"])
+
+
+def fault_first_tile_skipped(c):
+    """The first K/V tile's keys left out."""
+    mask = None if c["mask"] is None else c["mask"][..., TC_KEYS:]
+    return c["sdpa"](c["qc"], c["kc"][:, TC_KEYS:], c["vc"][:, TC_KEYS:],
+                     mask, c["scale"])
+
+
+def fault_row_past_t(c):
+    """Row 0 of batch row bi (>= 1) overwritten by a tile row past T of
+    batch row bi - 1 (the next row in the output's layout): a zero query
+    (TMA's fill past T) weighs every key alike, so it stores the mean of
+    that row's values."""
+    out = c["want"].clone()
+    out[:, 0] = c["v"][c["bi"] - 1, :, c["kv"]].float().mean(0)
+    return out
+
+
+def fault_diagonal_shifted(c):
+    """The causal diagonal one key late: row i sees key i + 1."""
+    from repro_torch.models.attention import causal_mask
+    r0, r1 = c["r0"], c["r1"]
+    return c["sdpa"](c["qc"], c["kc"], c["vc"], causal_mask(
+        r1 - r0, c["n"], offset=r0 + 1, device=c["qc"].device)[None],
+        c["scale"])
+
+
+def fault_split_dropped(c):
+    """One split of the split decode's keys left out (split 3, or the
+    last)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        DECODE_HEADS, decode_splits)
+    from repro_torch.kernels.flash_attention.ref import split_chunk
+    b, _, h, _ = c["q"].shape
+    hkv, n = c["k"].shape[2], c["n"]
+    n_split = decode_splits(n, b * hkv * -(-(h // hkv) // DECODE_HEADS))
+    chunk, s3 = split_chunk(n, n_split), min(3, n_split - 1)
+    kpos = torch.arange(n, device=c["qc"].device)[None, None, :]
+    keep = ~((kpos >= s3 * chunk) & (kpos < (s3 + 1) * chunk))
+    return c["sdpa"](c["qc"], c["kc"], c["vc"], keep, c["scale"])
+
+
+def fault_newest_key_dropped(c):
+    """The newest key (the decoded token's own) left out."""
+    return c["sdpa"](c["qc"], c["kc"][:, :-1], c["vc"][:, :-1], None,
+                     c["scale"])
+
+
+def flash_row(label, q, k, v, causal, pairs=None, chunk=2048, faults=(),
+              plain_rows=512, reps=3) -> dict:
+    """One flash call of phase 18a, bfloat16: the kernel's output held
+    against the plain version in float32 on the same inputs, (batch, head)
+    by (batch, head) of ``pairs`` (every pair when None) in ``chunk``-row
+    query blocks, within ``FLASH_TC`` on the tensor-core tile, else
+    ``FLASH_TIGHT``; each planted fault ``(name, (bi, hh, r0), fn)``,
+    ``fn(context) -> float32 output`` of that block, beyond the limit.
+    Times (CUDA events; a decode call also the profiler's device time)
+    of the kernel, the plain version (query rows in blocks of
+    ``plain_rows`` where the (T, S) scores are large) and
+    ``scaled_dot_product_attention``, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import path_of
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_gqa_torch, sdpa)
+    from repro_torch.models.attention import _scale, causal_mask
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g, scale = h // hkv, _scale(d)
+    path = path_of(q, v.shape[3])
+    tc = path == "tile_tc"
+    before = read_paths()
+    got = flash_attention_gqa(q, k, v, scale, causal=causal)
+    check(_path_delta(before) == {**dict.fromkeys(before, 0), path: 1},
+          f"{label}: not on {path} alone ({_path_delta(before)})")
+    pairs = pairs or [(bi, hh) for bi in range(b) for hh in range(h)]
+    errs, planted = [], {}
+    for bi, hh in pairs:
+        kv = hh // g
+        for r0 in range(0, t, chunk):
+            r1 = min(t, r0 + chunk)
+            n = r1 if causal else s
+            qc, kc, vc = (x.float() for x in (
+                q[bi:bi + 1, r0:r1, hh:hh + 1], k[bi:bi + 1, :n, kv:kv + 1],
+                v[bi:bi + 1, :n, kv:kv + 1]))
+            mask = (causal_mask(r1 - r0, n, offset=r0,
+                                device=q.device)[None] if causal else None)
+            want = sdpa(qc, kc, vc, mask, scale)
+            a32 = sdpa(qc, kc, vc.abs(), mask, scale) if tc else None
+            errs.append(flash_check(got[bi:bi + 1, r0:r1, hh:hh + 1], want,
+                                    a32, f"{label} ({bi}, {hh}) rows "
+                                    f"{r0}:{r1}"))
+            ctx = dict(q=q, k=k, v=v, bi=bi, hh=hh, kv=kv, r0=r0, r1=r1,
+                       n=n, qc=qc, kc=kc, vc=vc, mask=mask, want=want,
+                       scale=scale, sdpa=sdpa)
+            for name, at, fn in faults:
+                if at == (bi, hh, r0):
+                    planted[name] = flash_fault_caught(
+                        fn(ctx), want, f"{label}: {name}", a32)
+    check(len(planted) == len(faults), f"{label}: planted {sorted(planted)}"
+          f" of {[f[0] for f in faults]}")
+    del got
+    out = {"label": label, "path": path, "shape": [b, t, s, h, hkv, d],
+           "causal": causal, "max_abs_err": max(e[0] for e in errs),
+           "err_over_limit": max(e[1] for e in errs),
+           "limit": "FLASH_TC" if tc else "FLASH_TIGHT",
+           "planted_faults": [{"fault": k_, "err_over_limit": r}
+                              for k_, r in planted.items()]}
+    big = b * h * t * s > 2 ** 28
+    qs, ks, vs = sdpa_layout(q, k, v)
+    fns = {"ms": lambda: flash_attention_gqa(q, k, v, scale, causal),
+           "plain_ms": (lambda: plain_causal_rows(q, k, v, scale, plain_rows,
+                                                  causal)) if big else
+           (lambda: flash_attention_gqa_torch(q, k, v, scale, causal)),
+           "library_ms": lambda: F.scaled_dot_product_attention(
+               qs, ks, vs, is_causal=causal, scale=scale, enable_gqa=True)}
+    for key, fn in fns.items():
+        n_reps = 1 if key == "plain_ms" and big else reps
+        try:
+            out[key] = cuda_ms(fn, n_reps, 1)
+        except RuntimeError as ex:      # the library call: a yardstick
+            check(key == "library_ms", f"{label}: {key} raised {ex}")
+            say(f"{label}: scaled_dot_product_attention not measured "
+                f"({str(ex)[:120]})")
+            out[key] = None
+        if t == 1 and out[key] is not None:
+            out[key.replace("ms", "device_ms")] = device_ms(fn, 20)
+    del qs, ks, vs
+    out["bound_ms"], out["bound_by"] = flash_bound(
+        flash_work(b, t, s, h, hkv, d, causal, 2), torch.bfloat16)
+    torch.cuda.empty_cache()
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    dev = (f" (device {fmt(out.get('device_ms'))}, plain "
+           f"{fmt(out.get('plain_device_ms'))}, library "
+           f"{fmt(out.get('library_device_ms'))})" if t == 1 else "")
+    say(f"{label} ({nvidia_smi_line()}): {path} {out['ms']:.4f} ms (bound "
+        f"{out['bound_ms']:.4f} ms, {out['bound_by']}), plain "
+        f"{fmt(out['plain_ms'])}, scaled_dot_product_attention "
+        f"{fmt(out['library_ms'])}{dev}; max |err| "
+        f"{out['max_abs_err']:.4g}, {out['err_over_limit']:.4g} x "
+        f"{out['limit']}; planted faults: " + ("; ".join(
+            f"{k_} {r:.4g} x" for k_, r in planted.items()) or "none"))
+    return out
+
+
+def encdec_attention_rows(b=WHISPER_BATCH, s=WHISPER_FRAMES,
+                          t=WHISPER_TOKENS, n=WHISPER_STEPS,
+                          window=WHISPER_WINDOW, h=WHISPER_H, d=WHISPER_D,
+                          heads=((0, 0), (3, 17))) -> dict:
+    """Phase 18a, whisper's attention in bfloat16 at (b, ., h/h, d): the
+    encoder layer (b, s) non-causal (row 5e; ``heads`` in 2048-row
+    blocks), cross attention's prefill (b, t) over s frames (5x), the
+    decoder's self prefill (b, t) causal (5xs), cross decode (b, 1) over s
+    (5xd) and self decode over t + n keys (5sd); then the 30-s window, s =
+    ``window`` (not a multiple of the K/V tile), non-causal at T = t and
+    T = ``window``, q and k drawn with means +-``WINDOW_SCORE_MEAN``.
+    Planted faults: the zero keys past S let in and the first key tile
+    skipped (at ``window``), a tile row past T stored over the next
+    batch row (T = t), the diagonal one key late (5xs), one split dropped
+    (5xd), the newest key dropped (5sd)."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(64)
+    rows = {}
+    q = _bf16_randn(gen, b, s, h, d)
+    k, v = _bf16_randn(gen, b, s, h, d), _bf16_randn(gen, b, s, h, d)
+    rows["5e"] = flash_row(f"whisper encoder ({b}, {s}, {h}/{h}, {d}) "
+                           "non-causal", q, k, v, False, pairs=list(heads))
+    del q
+    qx = _bf16_randn(gen, b, t, h, d)
+    rows["5x"] = flash_row(
+        f"whisper cross prefill ({b}, {t}, {h}/{h}, {d}) over {s}", qx, k, v,
+        False, faults=[("a tile row past T stored over the next batch row",
+                        (1, 5, 0), fault_row_past_t)])
+    q1 = _bf16_randn(gen, b, 1, h, d)
+    rows["5xd"] = flash_row(
+        f"whisper cross decode ({b}, 1, {h}/{h}, {d}) over {s}", q1, k, v,
+        False, faults=[("one split's keys dropped", (2, 7, 0),
+                        fault_split_dropped)])
+    del k, v
+    torch.cuda.empty_cache()
+    ks, vs = _bf16_randn(gen, b, t, h, d), _bf16_randn(gen, b, t, h, d)
+    rows["5xs"] = flash_row(
+        f"whisper self prefill ({b}, {t}, {h}/{h}, {d}) causal", qx, ks, vs,
+        True, faults=[("the diagonal one key late", (0, 3, 0),
+                       fault_diagonal_shifted)])
+    kd, vd = (_bf16_randn(gen, b, t + n, h, d) for _ in range(2))
+    rows["5sd"] = flash_row(
+        f"whisper self decode ({b}, 1, {h}/{h}, {d}) over {t + n}", q1, kd,
+        vd, False, faults=[("the newest key dropped", (1, 11, 0),
+                            fault_newest_key_dropped)])
+    # the 30-s window: keys not a multiple of the K/V tile, every real
+    # score near -8 (WINDOW_SCORE_MEAN), so zero keys let in past S would
+    # outweigh them
+    m = WINDOW_SCORE_MEAN
+    qw, kw = (_bf16_randn(gen, b, window, h, d, mean=x) for x in (m, -m))
+    vw = _bf16_randn(gen, b, window, h, d)
+    past = [("keys past S let in", (0, 2, 0), fault_keys_past_s),
+            ("the first key tile skipped", (0, 2, 0),
+             fault_first_tile_skipped)]
+    rows["5e-1500"] = flash_row(
+        f"whisper encoder ({b}, {window}, {h}/{h}, {d}) non-causal", qw, kw,
+        vw, False, pairs=[(0, 2), (3, 19)], faults=past)
+    qxw = _bf16_randn(gen, b, t, h, d, mean=m)
+    rows["5x-1500"] = flash_row(
+        f"whisper cross prefill ({b}, {t}, {h}/{h}, {d}) over {window}",
+        qxw, kw, vw, False, faults=past + [
+            ("a tile row past T stored over the next batch row", (1, 5, 0),
+             fault_row_past_t)])
+    return rows
+
+
+def llava_attention_rows(t=LLAVA_PROMPT, h=LLAVA_H, hkv=LLAVA_HKV,
+                         d=LLAVA_D, n=LLAVA_STEPS, heads=((0, 0), (0, 41)))\
+        -> dict:
+    """Phase 18a, llava's attention in bfloat16: the prefill layer (1, t,
+    h/hkv, d) causal (row 5l, G = 7; ``heads`` in 2048-row blocks, the
+    diagonal one key late planted), and the split decode (5ld) over t + 1
+    and t + n positions of one cache (one split dropped planted)."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    q = _bf16_randn(gen, 1, t, h, d)
+    k, v = _bf16_randn(gen, 1, t, hkv, d), _bf16_randn(gen, 1, t, hkv, d)
+    rows = {"5l": flash_row(
+        f"llava prefill (1, {t}, {h}/{hkv}, {d}) causal", q, k, v, True,
+        pairs=list(heads), faults=[("the diagonal one key late", (0, 0, 0),
+                                    fault_diagonal_shifted)],
+        plain_rows=256)}
+    del q, k, v
+    ck, cv = (_bf16_randn(gen, 1, t + n, hkv, d) for _ in range(2))
+    q1 = _bf16_randn(gen, 1, 1, h, d)
+    rows["5ld-first"] = flash_row(
+        f"llava decode (1, 1, {h}/{hkv}, {d}) over {t + 1}", q1,
+        ck[:, :t + 1], cv[:, :t + 1], False)
+    rows["5ld"] = flash_row(
+        f"llava decode (1, 1, {h}/{hkv}, {d}) over {t + n}", q1, ck, cv,
+        False, faults=[("one split's keys dropped", (0, 9, 0),
+                        fault_split_dropped)])
+    return rows
+
+
+def handoff_cross_next_layer(pre, caches, t: int) -> None:
+    """A planted fault: the handoff with each decoder layer's cross
+    attention reading the next layer's cross cache (the last layer the
+    first's)."""
+    import torch
+    cross = caches["dec"]["cross"]
+    with torch.inference_mode():
+        caches["dec"]["cross"] = {n: torch.roll(c, -1, 0)
+                                  for n, c in cross.items()}
+
+
+def handoff_self_shifted(pre, caches, t: int) -> None:
+    """A planted fault: the handoff with the prompt's self k/v one slot
+    late, in [1, t + 1) (slot 0 zero; the first decode step writes over
+    the last prompt token's)."""
+    import torch
+    with torch.inference_mode():
+        for n, c in caches["dec"]["self"].items():
+            c[:, :, 1:t + 1].copy_(pre["dec"]["self"][n])
+            c[:, :, 0].zero_()
+
+
+def _rope_without(p: int):
+    """``make`` of a decode fault: rope positions ``p`` less (a VLM's
+    decode counting only its text)."""
+    return lambda real: (lambda positions, dim, theta: real(
+        positions - p, dim, theta))
+
+
+def encdec_peak_reckoning(cfg, b, s, t, n_steps, name) -> dict:
+    """The whisper cell's peak, reckoned from the code before the run:
+    weights; the frames; the encoder at its fullest (the residual, the
+    normed input, q, k, v and the attention's output, (b, s, d) each; the
+    MLP's up-projection and its GELU, (b, s, d_ff) each); the cross caches
+    stacked and one layer's k/v before the copy; the decode caches' 448
+    self slots; the all-position logits."""
+    d, f = cfg.d_model, cfg.d_ff
+    weights = 2 * (cfg.param_count()
+                   + (cfg.padded_vocab - cfg.vocab) * d)
+    x = 2 * b * s * d
+    parts = {"weights": weights, "frames": x,
+             "encoder activations": 6 * x + 2 * 2 * b * s * f,
+             "cross caches": cfg.n_layers * 2 * x,
+             "one layer's cross k/v": 2 * x,
+             "self caches": cfg.n_layers * 2 * 2 * b * 448 * d,
+             "logits": 2 * 2 * b * t * cfg.padded_vocab}
+    say(f"{name}: peak reckoned before the run: " + ", ".join(
+        f"{k} {v / 1e9:.2f} GB" for k, v in parts.items())
+        + f"; sum {sum(parts.values()) / 1e9:.2f} GB")
+    return parts
+
+
+def vlm_peak_reckoning(cfg, b, t, n_steps, name) -> dict:
+    """The llava cell's peak, reckoned from the code before the run:
+    weights (the padded vocab's embedding and head); prefill and decode
+    caches (the handoff holds both); the prefill's largest transients (the
+    MLP's three (t, d_ff), rope's float32 q and k and their halves, the
+    residual and its norm); the all-position logits and the padding
+    mask's copy of them."""
+    d = cfg.d_model
+    weights = 2 * (cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab)
+                   * d)
+    kv = cfg.n_layers * b * 2 * cfg.n_kv_heads * cfg.hd * 2
+    qk = b * t * (cfg.n_heads + cfg.n_kv_heads) * cfg.hd * 4
+    parts = {"weights": weights, "prefill caches": kv * t,
+             "decode caches": kv * (t + n_steps),
+             "MLP hidden": 2 * 3 * b * t * cfg.d_ff,
+             "rope temporaries": 3 * qk,
+             "residual": 2 * 4 * b * t * d,
+             "all-position logits": 2 * 2 * b * t * cfg.padded_vocab}
+    say(f"{name}: peak reckoned before the run: " + ", ".join(
+        f"{k} {v / 1e9:.2f} GB" for k, v in parts.items())
+        + f"; sum {sum(parts.values()) / 1e9:.2f} GB")
+    return parts
+
+
+def vlm_encdec_phase(vlm=True, enc=True) -> dict:
+    """Phase 18: llava's VLM prefix (``vlm``) and whisper's
+    encoder-decoder (``enc``). 18a the flash kernel at their shapes before
+    the models allocate; 18b the float32 gates; 18c and 18d the serving
+    cells."""
+    import torch
+    t18 = time.perf_counter()
+    att = {}
+    if enc:
+        att.update(encdec_attention_rows())
+    if vlm:
+        att.update(llava_attention_rows())
+    t18b = time.perf_counter()
+    gates = {}
+    if vlm:
+        gates[LLAVA_GATE] = serve_f32(
+            llava(4, "float32"), 2, 128, 8, name=LLAVA_GATE,
+            make_batch=vlm_batch(LLAVA_GATE_PREFIX))
+        torch.cuda.empty_cache()
+    if enc:
+        gates[WHISPER_GATE] = serve_f32(
+            whisper(4, "float32"), 2, WHISPER_TOKENS, 8, name=WHISPER_GATE,
+            make_batch=encdec_batch(WHISPER_WINDOW))
+        torch.cuda.empty_cache()
+    t18c = time.perf_counter()
+    cells, reckon, roles = {}, {}, EncdecRoles(WHISPER_FRAMES)
+    if vlm:
+        cfg = llava()
+        reckon[LLAVA_CELL] = vlm_peak_reckoning(
+            cfg, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_STEPS, LLAVA_CELL)
+        cells[LLAVA_CELL] = serve_cell(
+            cfg, LLAVA_CELL, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_STEPS,
+            SERVE_BF16_DIFF, gate_steps=1, make_batch=vlm_batch(LLAVA_PREFIX),
+            faults=(DecodeFault("decode_rope_positions_without_the_prefix",
+                                "rope_tables", _rope_without(LLAVA_PREFIX),
+                                module="attention"),))
+        torch.cuda.empty_cache()
+    t18d = time.perf_counter()
+    if enc:
+        cfg = whisper()
+        reckon[WHISPER_CELL] = encdec_peak_reckoning(
+            cfg, WHISPER_BATCH, WHISPER_FRAMES, WHISPER_TOKENS,
+            WHISPER_STEPS, WHISPER_CELL)
+        cells[WHISPER_CELL] = serve_cell(
+            cfg, WHISPER_CELL, WHISPER_BATCH, WHISPER_TOKENS, WHISPER_STEPS,
+            SERVE_BF16_DIFF, gate_steps=1, watch=roles,
+            make_batch=encdec_batch(WHISPER_FRAMES),
+            faults=(handoff_cross_next_layer, handoff_self_shifted))
+        torch.cuda.empty_cache()
+        L = cfg.n_layers
+        want = {"5e": cfg.n_encoder_layers, "5x": L, "5xs": L,
+                "5xd": L * WHISPER_STEPS, "5sd": L * WHISPER_STEPS}
+        check(roles.runs[0] == want, f"{WHISPER_CELL}: flash calls by role "
+              f"{roles.runs[0]}, expected {want}")
+    for name, cell in cells.items():
+        total = sum(reckon[name].values())
+        check(cell["peak"] <= total, f"{name}: peak {cell['peak']} bytes "
+              f"beyond the {total} reckoned")
+        say(f"{name} ({nvidia_smi_line()}): time to first token "
+            f"{cell['prefill_s']:.4f} s, decode median "
+            f"{cell['step_s'] * 1e3:.4f} ms a step, busy share of a decode "
+            "step " + ("not measured" if cell["busy"] is None else
+                       f"{100 * cell['busy']:.1f}%") + ", of a prefill "
+            + ("not measured" if cell["prefill_busy"] is None else
+               f"{100 * cell['prefill_busy']:.1f}%")
+            + f"; peak {cell['peak']} bytes of {total} reckoned")
+    say(f"phase 18 wall: 18a {t18b - t18:.1f} s, 18b {t18c - t18b:.1f} s, "
+        f"18c {t18d - t18c:.1f} s, 18d {time.perf_counter() - t18d:.1f} s")
+    return {"rows": encdec_rows(att, cells, roles), "cells": cells,
+            "gates": gates, "attention": att}
+
+
+def encdec_rows(att: dict, cells: dict, roles) -> list:
+    """The kernels line's rows of phase 18: one a row of ``att`` that a
+    served path runs (5e, 5x, 5xs, 5xd, 5sd, 5l, 5ld; the 1,500-frame
+    window's rows and llava's first decode join their row's checks), with
+    its launches in the served run."""
+    flash = {"route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:69",
+             "bitwise": False, "dtype": "bfloat16",
+             "library": "torch.nn.functional.scaled_dot_product_attention"}
+    names = {"tile_tc": "flash_tile_tc", "decode_split": "flash_decode_split"}
+    per = {"5e": "encoder layer", "5x": "cross attention prefill layer",
+           "5xs": "decoder self-attention prefill layer",
+           "5xd": "cross attention decode layer",
+           "5sd": "self-attention decode layer",
+           "5l": "prefill layer", "5ld": "decode layer"}
+    extra = {"5e": ["5e-1500"], "5x": ["5x-1500"], "5ld": ["5ld-first"]}
+    rows = []
+    for key, mode in per.items():
+        if key not in att:
+            continue
+        r = att[key]
+        cell, steps = ((WHISPER_CELL, WHISPER_STEPS) if key in ENCDEC_ROLES
+                       else (LLAVA_CELL, LLAVA_STEPS))
+        if cell not in cells:
+            launches = None
+        elif key in ENCDEC_ROLES:
+            launches = roles.runs[0][key]
+        else:
+            launches = cells[cell]["paths"][r["path"]]
+        checks = [att[x] for x in [key] + extra.get(key, [])]
+        row = {"name": names[r["path"]], **flash, "row": key,
+               "mode": f"{cell.split('-serve')[0]} {mode}", "config": cell,
+               "launches": launches,
+               "max_abs_err": max(c["max_abs_err"] for c in checks),
+               "tol": {"bfloat16_vs_float32_plain": FLASH_TC if r["path"]
+                       == "tile_tc" else FLASH_TIGHT},
+               "checks": [{k: c[k] for k in ("label", "max_abs_err",
+                                             "err_over_limit")}
+                          for c in checks],
+               "planted_faults": [f for c in checks
+                                  for f in c["planted_faults"]],
+               "ms_per": r["label"],
+               "launches_per": f"served run: 1 prefill + {steps} decode "
+                               "steps"}
+        row.update({k: r.get(k) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "plain_device_ms", "library_device_ms")
+            if k in r})
+        rows.append(row)
+    return rows
+
+
 def main(args: list[str]) -> int:
     import torch
     sources = args[1:] if args[:1] == ["--mla-rows"] else []
@@ -7626,12 +8248,13 @@ def main(args: list[str]) -> int:
                     ["--fleet"], ["--runtime"], ["--chaos"],
                     ["--chaos-loss-witness"], ["--dist"], ["--ssm"],
                     ["--xlstm-witness"], ["--scan-rows"], ["--mla"],
-                    ["--mla-rows"], ["--moe"]):
+                    ["--mla-rows"], ["--moe"], ["--vlm"], ["--encdec"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
               f"--runtime | --chaos | --chaos-loss-witness | --dist | "
               f"--ssm | --xlstm-witness | --scan-rows | --mla | "
-              f"--mla-rows [FLASH_CU ...] | --moe], got {args}",
+              f"--mla-rows [FLASH_CU ...] | --moe | --vlm | --encdec], got "
+              f"{args}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -7719,6 +8342,14 @@ def main(args: list[str]) -> int:
         moe_rows = moe_phase()["rows"]
         say(f"phase 17 wall: {time.perf_counter() - t17:.1f} s")
         say(json.dumps({"kernels": moe_rows}))
+        say(smi)
+        return 0
+    if args in (["--vlm"], ["--encdec"]):
+        t18 = time.perf_counter()
+        rows18 = vlm_encdec_phase(vlm=args == ["--vlm"],
+                                  enc=args == ["--encdec"])["rows"]
+        say(f"phase 18 wall: {time.perf_counter() - t18:.1f} s")
+        say(json.dumps({"kernels": rows18}))
         say(smi)
         return 0
 
@@ -7861,6 +8492,17 @@ def main(args: list[str]) -> int:
           "phase 16")
     moe = moe_phase()
     say(f"phase 17 wall: {time.perf_counter() - t17:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 18: the VLM prefix (llava-next-34b) and the encoder-decoder
+    # (whisper-large-v3), served at published width through the flash
+    # kernels
+    t18 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 18: {held} bytes still allocated after "
+          "phase 17")
+    vlm_enc = vlm_encdec_phase()
+    say(f"phase 18 wall: {time.perf_counter() - t18:.1f} s")
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -8108,6 +8750,7 @@ def main(args: list[str]) -> int:
     rows.append(ssm["row"])
     rows.extend(mla["rows"])
     rows.extend(moe["rows"])
+    rows.extend(vlm_enc["rows"])
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -25,8 +25,11 @@ rd)}``; ``prefix`` one cache a prefix block, empty without one),
 ``{"blocks": [...]}`` otherwise, each block's ``{"k", "v"}``,
 ``{"attn": {"k", "v"}, "ssm": {"s"}}`` (hybrid), ``{"C", "n"}`` (m) or
 ``{"c", "n", "h"}`` (s), a windowed layer's k/v a ring of min(seq,
-window) slots; a decode step writes into them in place. Other families
-raise ``ValueError``.
+window) slots; a decode step writes into them in place. A VLM (llava)
+is the dense stack with its image embeddings, ``prefix_embeds``, ahead of
+the tokens: every position after them, the rope positions of prefill and
+each decode step's ``pos`` among them, counts them. The encoder-decoder
+family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -43,25 +46,6 @@ from .moe import init_moe, moe_forward
 from .ssm import (init_mamba, init_mlstm, init_slstm, mamba_decode,
                   mamba_forward, mamba_state, mlstm_decode, mlstm_forward,
                   mlstm_state, slstm_decode, slstm_forward, slstm_state)
-
-# what each unported part of the model zoo waits for (ROADMAP.md, A10); the
-# port trains and serves every other config
-_UNPORTED = (
-    (lambda c: c.is_encoder_decoder, "encoder-decoder (ROADMAP A10: encdec)"),
-    (lambda c: c.family == "vlm" or c.n_prefix_embeds,
-     "the VLM prefix (ROADMAP A10: transformer)"),
-)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for any family the port does not run yet."""
-    for test, what in _UNPORTED:
-        if test(cfg):
-            raise ValueError(f"{cfg.name}: {what} is not ported yet; the "
-                             f"port trains and serves the dense family (GQA "
-                             f"and MLA), MoE (dense dispatch), the hybrid and "
-                             f"the xLSTM families")
-
 
 def _layer_kinds(cfg: ModelConfig) -> list[str]:
     """Each layer's block kind: attn, hybrid (attention and Mamba heads on
@@ -133,7 +117,6 @@ def _n_prefix(cfg: ModelConfig) -> int:
 
 def init_params(cfg: ModelConfig, gen: torch.Generator):
     """The parameter tree, drawn from ``gen`` on ``gen.device``."""
-    check_supported(cfg)
     dt = dtype_of(cfg)
     params = {
         "embed_tokens": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dt),
@@ -219,7 +202,12 @@ def _layer(tree, i: int):
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    return F.embedding(batch["tokens"], params["embed_tokens"])
+    """tokens (B, T) -> (B, T, d); a VLM's ``prefix_embeds`` (B, P, d),
+    cast to the embedding dtype, come ahead of them (B, P + T, d)."""
+    x = F.embedding(batch["tokens"], params["embed_tokens"])
+    if cfg.n_prefix_embeds and "prefix_embeds" in batch:
+        x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 def _lm_logits(params, x, cfg: ModelConfig):
@@ -238,7 +226,6 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
     caches); caches are None in train mode."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode {mode!r} is train or prefill")
-    check_supported(cfg)
     x = _embed_inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = None
@@ -283,15 +270,23 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
 
 def loss_fn(params, batch, cfg: ModelConfig):
     """Next-token cross-entropy (+ 0.01 x the MoE aux). batch: tokens (B,
-    T), labels (B, T)."""
+    T), labels (B, T); a VLM's prefix positions have no labels, and their
+    logits are dropped."""
     logits, aux, _ = forward(params, batch, cfg)
-    labels = batch["labels"]
+    if cfg.n_prefix_embeds and "prefix_embeds" in batch:
+        logits = logits[:, batch["prefix_embeds"].shape[1]:, :]
+    nll = _nll(logits, batch["labels"])
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+
+def _nll(logits, labels):
+    """The mean cross-entropy of ``labels`` under ``logits``, in float32,
+    over the labels >= 0 (a negative label is masked)."""
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    nll = ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+    return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def prefill(params, batch, cfg: ModelConfig):
@@ -304,8 +299,7 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
     """One decode step. token: (B, 1) int; pos: the token's position (an
     int). Writes each layer's k/v or latent at ``pos`` (and each recurrent
     state) into ``caches`` in place and returns (logits (B, 1, V),
-    caches)."""
-    check_supported(cfg)
+    caches). A VLM's ``pos`` counts its prefix positions."""
     x = F.embedding(token, params["embed_tokens"])
     if uses_scan(cfg):
         for bp, c in zip(params.get("prefix", []), caches["prefix"]):
@@ -341,7 +335,6 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
     block and the stacked (L, ...) tree of the rest, allocated (JAX only
     broadcasts one layer's), or one cache per block, a windowed layer's
     k/v min(seq, window) slots."""
-    check_supported(cfg)
     if not uses_scan(cfg):
         return {"blocks": [_one_cache(cfg, kind, w, batch, seq, device)
                            for kind, w in zip(_layer_kinds(cfg),

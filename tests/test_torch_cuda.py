@@ -1619,3 +1619,97 @@ if __name__ == "__main__":
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(_dist_rank, args=(int(sys.argv[2]), f"{tmp}/store",
                                    sys.argv[3]), nprocs=int(sys.argv[2]))
+
+
+@pytest.mark.parametrize("t", [8, 1])
+@pytest.mark.parametrize("s", [1_500, 4_096])
+def test_flash_short_queries_over_long_keys_non_causal(dev, t, s):
+    """whisper's cross attention: t query rows over s frames, non-causal,
+    bfloat16 at head width 64 (20 heads, one KV head each): t = 8 on the
+    tensor-core tile (8 of a tile's 64 rows; the tile's rows past t must
+    not reach the next batch row's output, and keys past a ragged s are
+    masked), within ``FLASH_TC`` of the float32 plain version and within
+    3e-2 of its twin; t = 1 on the split decode within ``FLASH_TIGHT``
+    and 3e-2 of its twin. q is drawn with mean 1 and k with mean -1, so
+    every real score lies near -8 and the zero keys a tile reads past s
+    would outweigh them if let in (``tests/test_torch_flash_tc.py``)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        DECODE_HEADS, decode_splits)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_tc_torch, flash_decode_split_torch)
+    rng = np.random.default_rng(s + t)
+    bf = torch.bfloat16
+    b, h, d = 3, 20, 64
+    q = torch.as_tensor(rng.normal(1.0, size=(b, t, h, d)), device=dev).to(bf)
+    k = torch.as_tensor(rng.normal(-1.0, size=(b, s, h, d)),
+                        device=dev).to(bf)
+    v = torch.as_tensor(rng.normal(size=(b, s, h, d)), device=dev).to(bf)
+    scale = d ** -0.5
+    before = _paths()
+    got = flash_attention_gqa(q, k, v, scale, causal=False)
+    path = "tile_tc" if t > 1 else "decode_split"
+    want_paths = dict.fromkeys(before, 0)
+    want_paths[path] = 1
+    assert _path_delta(before) == want_paths
+    assert got.shape == (b, t, h, d)
+    assert _flash_limit(got, q, k, v, scale, False, tc=t > 1) <= 1.0
+    twin = (flash_attention_tc_torch(q, k, v, scale, False) if t > 1 else
+            flash_decode_split_torch(q.float(), k.float(), v.float(), scale,
+                                     decode_splits(s, b * h * -(
+                                         -1 // DECODE_HEADS))))
+    torch.testing.assert_close(got.float(), twin.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.parametrize("name", ["llava-next-34b", "whisper-large-v3"])
+def test_vlm_and_encdec_serving_on_card_equals_cpu(dev, name):
+    """Reduced llava (8 prefix embeddings ahead of 12 tokens) and reduced
+    whisper (40 frames, 8 tokens) in float32 (TF32 off): prefill and 4
+    greedy decode steps on the card against the CPU, logits at rtol 1e-4
+    with an atol of 1e-4 times the largest, equal tokens; the card's calls
+    by kernel: every prefill attention on the CUDA-core tile, every decode
+    one on the split decode."""
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[name].reduced(dtype="float32")
+    params = api.init_fn(cfg, "cpu")(0)
+    card = T.tree_map(lambda w: w.detach().to(dev), params)
+    rng = np.random.default_rng(2)
+    if cfg.is_encoder_decoder:
+        batch = {"frames": torch.as_tensor(rng.normal(
+            size=(2, 40, cfg.d_model)), dtype=torch.float32)}
+        t, calls = 8, cfg.n_encoder_layers + 2 * cfg.n_layers
+    else:
+        batch = {"prefix_embeds": torch.as_tensor(0.02 * rng.normal(
+            size=(2, cfg.n_prefix_embeds, cfg.d_model)), dtype=torch.float32)}
+        t, calls = 12, cfg.n_layers
+    batch["tokens"] = torch.as_tensor(rng.integers(0, cfg.vocab, (2, t)))
+    n = api.decode_start(batch)
+    before = _paths()
+    out = {}
+    for where, p in (("cpu", params), ("card", card)):
+        bt = {k: x.to(p["embed_tokens"].device) for k, x in batch.items()}
+        tok, pre = steps.make_prefill_step(cfg)(p, bt)
+        caches = api.decode_caches(cfg, pre, bt, 4)
+        toks_out, logits = [tok], []
+        for s in range(4):
+            with torch.inference_mode():
+                lg, caches = api.decode_fn(cfg)(p, caches, tok, n + s)
+            tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            toks_out.append(tok)
+            logits.append(lg)
+        out[where] = (torch.cat(toks_out, 1).cpu(),
+                      torch.cat(logits, 1).cpu())
+    want_paths = dict.fromkeys(before, 0)
+    want_paths["tile_simt"] = calls
+    want_paths["decode_split"] = 4 * (2 if cfg.is_encoder_decoder else 1) \
+        * cfg.n_layers
+    assert _path_delta(before) == want_paths
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    want = out["cpu"][1]
+    torch.testing.assert_close(out["card"][1], want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))

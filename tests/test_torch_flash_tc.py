@@ -144,6 +144,35 @@ def test_planted_tile_faults_exceed_the_limit(window):
                            good[None]) > 1.0
 
 
+@pytest.mark.parametrize("t", [8, 1500])
+@pytest.mark.parametrize("mean,seen", [(1.0, True), (0.0, False)])
+def test_zero_keys_past_a_ragged_s_show_only_below_zero_scores(t, mean,
+                                                               seen):
+    """whisper's 30-s window, S = 1,500 keys (36 short of a key tile),
+    non-causal: the tile's tensor map reads zeros past S, so a kernel that
+    let those keys in would weigh each by exp(0) and add nothing to P.V.
+    With q drawn with mean 1 and k with mean -1 (every real score near
+    -8, as ``chip_smoke.py``'s phase 18a and the card test draw them) that
+    output fails the limit the tile arithmetic meets; with centred draws
+    it stays within, so such draws could not see the fault."""
+    rng = np.random.default_rng(t)
+    b, s, h, d = 1, 1500, 2, 64
+    q = torch.from_numpy(rng.normal(mean, size=(b, t, h, d)).astype(
+        np.float32)).bfloat16()
+    k = torch.from_numpy(rng.normal(-mean, size=(b, s, h, d)).astype(
+        np.float32)).bfloat16()
+    v = torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
+        np.float32)).bfloat16()
+    scale = d ** -0.5
+    assert _over_limit(flash_attention_tc_torch(q, k, v, scale, False),
+                       q, k, v, scale, False) <= 1.0
+    z = torch.zeros((b, -s % TC_KEYS, h, d), dtype=torch.bfloat16)
+    assert z.shape[1] == 36
+    f = [x.float() for x in (q, torch.cat([k, z], 1), torch.cat([v, z], 1))]
+    faulty = flash_attention_gqa_torch(*f, scale, False).bfloat16()
+    assert (_over_limit(faulty, q, k, v, scale, False) > 1.0) == seen
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_next_heads_columns_at_112_exceed_the_limit(causal):
     """At (112, 112) the kernel's tensor maps keep the view's width 112 and

@@ -99,6 +99,12 @@ _DIST_PATH = ("repro_torch.launch.mesh",)
 _MOE_PATH = ("repro_torch.models.moe", "repro_torch.configs.kimi_k2_1t_a32b",
              "repro_torch.configs.deepseek_v2_236b")
 
+# the encoder-decoder and the configs of the two families it and the VLM
+# prefix serve
+_ENCDEC_PATH = ("repro_torch.models.encdec",
+                "repro_torch.configs.whisper_large_v3",
+                "repro_torch.configs.llava_next_34b")
+
 # the rest of the numpy core
 _CORE_REST = ("repro_torch.core.soar_fast", "repro_torch.core.brute",
               "repro_torch.core.bottleneck", "repro_torch.core.budget",
@@ -111,10 +117,10 @@ def test_port_imports_without_jax_or_repro():
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
          *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
          *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH, *_CORE_REST,
-         *_DIST_PATH, *_SSM_PATH, *_MOE_PATH],
+         *_DIST_PATH, *_SSM_PATH, *_MOE_PATH, *_ENCDEC_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 82     # every module imported
+    assert int(out.stdout.split()[-1]) == 83     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

@@ -124,18 +124,16 @@ def test_init_tree_matches_jax_and_converter_round_trips(name):
                                                   T.leaves(again)))
 
 
-@pytest.mark.parametrize("name,what", [
-    ("llava-next-34b", "VLM"), ("whisper-large-v3", "encoder-decoder")])
-def test_other_families_raise_naming_the_roadmap(name, what):
-    """None of them trains or initialises (hymba, xLSTM, minicpm3 and the
-    MoE configs do: tests/test_torch_ssm_train.py,
-    tests/test_torch_xlstm.py, tests/test_torch_mla.py,
-    tests/test_torch_moe.py)."""
-    cfg = ARCHS[name].reduced()
-    calls = [lambda: api.loss_fn(cfg), lambda: api.init_fn(cfg, "cpu")]
-    for call in calls:
-        with pytest.raises(ValueError, match=f"{what}.*ROADMAP A10"):
-            call()
+@pytest.mark.parametrize("name", ["llava-next-34b", "whisper-large-v3"])
+def test_train_refuses_vlm_and_encdec_naming_the_roadmap(name):
+    """The trainer's data pipeline makes tokens only: ``launch/train.py
+    --arch`` of the VLM or the encoder-decoder raises ``ValueError`` naming
+    ROADMAP before it builds anything (both serve:
+    tests/test_torch_vlm.py, tests/test_torch_encdec.py)."""
+    from repro_torch.launch import train
+    with pytest.raises(ValueError, match="ROADMAP"):
+        train.main(["--arch", name, "--reduced", "--device", "cpu",
+                    "--steps", "1"])
 
 
 def test_configs_are_copies():

@@ -580,9 +580,12 @@ def test_expert_leaves_are_drawn_expert_by_expert():
 
 @pytest.mark.parametrize("name", [KIMI, DEEPSEEK])
 def test_moe_configs_are_supported(name):
-    """The published configs pass ``check_supported``; the reduced ones
-    run ``init_fn``, ``prefill_fn``, ``decode_fn`` and ``loss_fn``."""
-    transformer.check_supported(ARCHS[name])
+    """The published configs take ``input_specs`` (on the meta device, no
+    allocation); the reduced ones run ``init_fn``, ``prefill_fn``,
+    ``decode_fn`` and ``loss_fn``."""
+    spec = api.input_specs(ARCHS[name], api.SHAPES["prefill_32k"],
+                           device="meta")
+    assert tuple(spec["tokens"].shape) == (32, 32_768)
     cfg = ARCHS[name].reduced(dtype="float32")
     params = api.init_fn(cfg, "cpu")(0)
     _, tt = _tokens(cfg, 2, 6, 0)

@@ -212,17 +212,73 @@ def test_caches_from_jax_round_trip(dtype):
                                       a.view(np.uint8), err_msg=k)
 
 
-@pytest.mark.parametrize("name,what", [
-    ("llava-next-34b", "VLM"), ("whisper-large-v3", "encoder-decoder")])
-def test_other_families_raise_for_serving(name, what):
-    cfg = ARCHS[name].reduced()
-    for call in (lambda: api.prefill_fn(cfg), lambda: api.decode_fn(cfg),
-                 lambda: api.init_caches(cfg, 1, 8, "cpu"),
-                 lambda: steps.make_prefill_step(cfg),
-                 lambda: steps.make_serve_step(cfg),
-                 lambda: api.input_specs(cfg, api.SHAPES["decode_32k"])):
-        with pytest.raises(ValueError, match=f"{what}.*ROADMAP A10"):
-            call()
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_config_serves_at_reduced_size(name):
+    """Every config of the zoo passes ``init_fn`` and serves on the CPU at
+    its reduced size through ``launch/steps.py``: a prefill of
+    ``input_specs``' prefill batch (random tokens; a VLM's prefix
+    embeddings, whisper's frames), its caches handed over by
+    ``api.decode_caches`` (whisper's self k/v into its 448 slots, its
+    cross caches as they are), 3 greedy steps from ``api.decode_start``
+    on; tokens in the vocab, logits finite."""
+    cfg = ARCHS[name].reduced(dtype="float32")
+    params = api.init_fn(cfg, "cpu")(0)
+    batch = api.input_specs(cfg, api.ShapeSpec("s", 32, 2, "prefill"),
+                            device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch["tokens"] = torch.randint(0, cfg.vocab, batch["tokens"].shape,
+                                    generator=gen)
+    for key in ("prefix_embeds", "frames"):
+        if key in batch:
+            batch[key] = torch.randn(batch[key].shape, generator=gen)
+    tok, pre = steps.make_prefill_step(cfg)(params, batch)
+    n = api.decode_start(batch)
+    caches = api.decode_caches(cfg, pre, batch, 3)
+    toks = [tok]
+    for s in range(3):
+        with torch.inference_mode():
+            logits, out = api.decode_fn(cfg)(params, caches, tok, n + s)
+        assert out is caches and torch.isfinite(logits[..., :cfg.vocab]).all()
+        tok = steps._greedy(logits)
+        toks.append(tok)
+    toks = torch.cat(toks, 1)
+    assert toks.shape == (2, 4) and 0 <= int(toks.min()) and \
+        int(toks.max()) < cfg.vocab
+
+
+@pytest.mark.parametrize("name", [
+    "granite-20b", "qwen3-32b", "minicpm3-4b", "llava-next-34b",
+    "hymba-1.5b", "whisper-large-v3"])
+def test_decode_caches_continue_the_prefill(name):
+    """``api.decode_caches`` hands a prefill over so that decoding goes on
+    where it stopped: after 3 greedy steps from ``api.decode_start``, the
+    last step's logits equal a fresh prefill's of the prompt extended by
+    the 3 tokens the steps were fed (float32, rtol 1e-4 with an atol of 1e-4 times the
+    largest logit). The MoE configs (a decode step routes other pairs than
+    the prefill drops) and xLSTM (whole chunks only) are left out."""
+    cfg = ARCHS[name].reduced(dtype="float32")
+    params = api.init_fn(cfg, "cpu")(0)
+    batch = api.input_specs(cfg, api.ShapeSpec("s", 40, 2, "prefill"),
+                            device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch["tokens"] = torch.randint(0, cfg.vocab, batch["tokens"].shape,
+                                    generator=gen)
+    for key in ("prefix_embeds", "frames"):
+        if key in batch:
+            batch[key] = torch.randn(batch[key].shape, generator=gen)
+    tok, pre = steps.make_prefill_step(cfg)(params, batch)
+    caches = api.decode_caches(cfg, pre, batch, 3)
+    n, toks = api.decode_start(batch), [tok]
+    for s in range(3):
+        with torch.inference_mode():
+            logits, _ = api.decode_fn(cfg)(params, caches, toks[-1], n + s)
+        toks.append(steps._greedy(logits))
+    seq = torch.cat([batch["tokens"]] + [t.long() for t in toks[:3]], 1)
+    with torch.inference_mode():
+        fresh, _ = api.prefill_fn(cfg)(params, dict(batch, tokens=seq))
+    want = fresh[:, -1, :cfg.vocab]
+    torch.testing.assert_close(logits[:, -1, :cfg.vocab], want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("name", ["qwen3-32b", "minicpm3-4b"])
