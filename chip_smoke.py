@@ -22,6 +22,8 @@
     python3 chip_smoke.py --moe          # only phase 17, MoE (kimi-k2)
     python3 chip_smoke.py --vlm          # only phase 18's llava parts
     python3 chip_smoke.py --encdec       # only phase 18's whisper parts
+    python3 chip_smoke.py --sharded      # only phase 19, sharding and
+                                         # expert parallelism (4 ranks)
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -47,7 +49,9 @@ and trained) and MoE (kimi-k2 served through its dense prefix and one
 tensor-core tile and the split decode at head width 112) and the last two
 configs of the zoo (llava-next-34b's image prefix ahead of its tokens,
 whisper-large-v3's encoder and decoder with cross attention), served at
-published width through the flash kernels. It builds the CUDA
+published width through the flash kernels, and sharding (MoE's two
+expert-parallel lowerings at kimi-k2's published widths on four ranks,
+the training step over a (2, 2) device mesh). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -307,21 +311,22 @@ plain torch version on the inputs the paths give it. Phases:
    kernels' layout). 15b: a float32 hymba-1.5b of 2 layers at its
    published widths (the window cut to 128 so 256 tokens cross it; TF32
    off), 3 trainer steps on the card and on the CPU, losses within 1e-4;
-   then ``hymba-1.5b-train-dp2-b2-t4096-topk``: hymba-1.5b at full width
-   and depth in bfloat16, 2 workers on the card, one 4,096-token sequence
-   each, top-k 1%, remat on, 3 steps (step 1 split by phase, step 2 under
+   then ``hymba-1.5b-l16-train-dp2-b2-t4096-topk``: hymba-1.5b at full
+   width in bfloat16, depth cut to 16 (PR 31), 2 workers on the card,
+   one 4,096-token sequence each, top-k 1%, remat on, 3 steps (step 1 split by phase, step 2 under
    the profiler, device activity only), then step 2 again from the state
    before it, kept on the host, bitwise. Checks: finite losses, the first
-   near ln(vocab), 64 scan forward launches a worker's step (32 and the
-   remat recompute) and 32 backward, the top-k and segment-reduce kernels
+   near ln(vocab), 2 x 16 scan forward launches a worker's step (the
+   layers and the remat recompute) and 16 backward, the top-k and segment-reduce kernels
    ran. 15c: a float32 xlstm-125m of 2 layers, 2 prompts of 248 and 8
    steps against a fresh prefill (1e-3) and the CPU (rtol 1e-4); then
    ``xlstm-125m-serve-b4-p4096-g64`` (full size, bfloat16) with phase 10's
    checks that apply, the decode-vs-fresh-prefill gate
    (``SERVE_XLSTM_BF16_DIFF``, 5%) read after 1 step and after 64, and
    the states dropped at the handoff beyond it after 1 step. 15d:
-   ``xlstm-125m-train-dp2-b2-t2048-topk``, 3 steps and the resumed one,
-   as 15b's cell (no scan; its step is not profiled).
+   ``xlstm-125m-l6-train-dp2-b2-t2048-topk`` (depth cut to 6, PR 31), 3
+   steps and the resumed one, as 15b's cell (no scan; its step is not
+   profiled).
 
 16. MLA, everything of phase 15 freed first. 16a, before the model
    allocates: the tensor-core tile kernel at keys 96 wide and values 64
@@ -341,16 +346,16 @@ plain torch version on the inputs the paths give it. Phases:
    layers at its published widths (TF32 off), 2 prompts of 128 and 8
    steps, with ``decode_absorb`` on and off: against a fresh prefill
    (1e-3) and the CPU (rtol 1e-4), every call on its kernel. 16c:
-   ``minicpm3-4b-serve-b4-p32768-g64``, minicpm3-4b at full width and
-   depth (62 layers) in bfloat16, ``prefill_32k``'s batch cut to 4, with
-   phase 10's checks: 62 prefill calls on the tensor-core tile, 62 x 64
-   on the latent decode and none elsewhere, the decode-vs-fresh-prefill
-   gate ``SERVE_MLA_BF16_DIFF`` and two planted handoff faults beyond it
+   ``minicpm3-4b-l31-serve-b4-p32768-g64``, minicpm3-4b at full width,
+   depth cut to 31 of 62 (PR 31), in bfloat16, ``prefill_32k``'s batch
+   cut to 4, with phase 10's checks: 31 prefill calls on the tensor-core
+   tile, 31 x 64 on the latent decode and none elsewhere, the
+   decode-vs-fresh-prefill gate ``SERVE_MLA_BF16_DIFF`` and two planted handoff faults beyond it
    (kr dropped, ckv one position late), the peak against its reckoning.
    16d: the float32 training gate (2 layers, T 256, one worker, against
-   the CPU), then ``minicpm3-4b-l24-train-dp2-b1-t4096-topk``: published
-   widths, depth cut to 24, bfloat16, 2 workers of one 4,096-token
-   sequence, top-k 1%, remat on (the stacked path's checkpoint, MLA's
+   the CPU), then ``minicpm3-4b-l12-train-dp2-b1-t4096-topk``: published
+   widths, depth cut to 12 (24 before PR 31), bfloat16, 2 workers of one
+   4,096-token sequence, top-k 1%, remat on (the stacked path's checkpoint, MLA's
    blocked branch), 3 steps (step 1 split by phase, step 2 profiled) and
    the resumed one, bitwise.
 
@@ -409,10 +414,12 @@ plain torch version on the inputs the paths give it. Phases:
    layers, 16 prefix embeddings and 112 tokens, 8 steps) and
    ``whisper-large-v3-f32-l4-b2-f1500-t8-g8`` (4 encoder and 4 decoder
    layers, 1,500 frames, 8 tokens, 8 steps). 18c:
-   ``llava-next-34b-serve-b1-p4096-g64``, all 60 layers in bfloat16, one
-   request of 2,880 image embeddings and 1,216 tokens, decode from
-   position 4,096 on; 18d: ``whisper-large-v3-serve-b4-f32768-t8-g64``, 32
-   + 32 layers, 4 requests of 32,768 frames and 8 tokens, the self k/v
+   ``llava-next-34b-l30-serve-b1-p4096-g64``, 30 of its 60 layers (cut in
+   PR 31) in bfloat16, one request of 2,880 image embeddings and 1,216
+   tokens, decode from position 4,096 on; 18d:
+   ``whisper-large-v3-l16-serve-b4-f32768-t8-g64``, 16 + 16 of its 32 + 32
+   layers (cut in PR 31), 4 requests of 32,768 frames and 8 tokens, the
+   self k/v
    handed into 448 slots and the cross caches handed over uncopied. Both
    with phase 10's checks (launches by path, and for whisper by role; no
    cache allocated by a step; the peak within its reckoning; the
@@ -420,6 +427,42 @@ plain torch version on the inputs the paths give it. Phases:
    and planted faults beyond the gate: llava's decode rope positions
    counted without the prefix; whisper's cross attention reading the next
    layer's cross cache, its self-cache handoff one slot late.
+
+19. sharding and expert parallelism, everything of phase 18 freed first:
+   4 processes under ``python -m torch.distributed.run``
+   (``--sharded-rank``), all on this card, over gloo (their messages
+   staged through pinned host memory by ``collectives.axis_ops``), one
+   process group for two meshes. 19a, ``kimi-k2-moe-ep1x4-b1-p4096``:
+   kimi-k2's MoE layer at its published widths (d 7168, 384 experts of
+   2048, top-8, one shared expert, bfloat16; each expert drawn from a seed
+   of its own), one prompt of 4,096 tokens. This process first runs the
+   dense dispatch of the whole layer (33.8 GB of experts; its peak printed
+   beside its reckoning) at capacity factor 1.25 and at the smallest
+   listed factor that drops nothing, keeps the results on the host and
+   frees the layer; then each rank of a (1, 4) mesh holds 96 experts
+   (8.45 GB). Replicated EP: each rank's routed pairs, their experts and
+   slots bitwise the dense dispatch's (its bins are the dense C), y
+   within ``_ep_over``'s limit (derived from the bfloat16 products, the
+   scatter-add and the sum over the four columns), aux within 4 float32
+   ulps; a2a EP at the smallest factor at which it drops nothing, against
+   the dropless dense dispatch; three planted faults beyond those limits
+   (a rank's expert slice off by one, one rank's sum over ``model`` left
+   out, the return all-to-all sent to the wrong peer); per mode the wall of
+   a call and its split into the exchanges (their bytes and those staged
+   through the host) and the local experts' GEMMs, beside the dense
+   call's time. 19b, on a (2, 2) mesh: ``qwen3-32b-l1-mesh2x2-b2-t512``
+   (qwen3-32b at its published widths and depth 1, bfloat16, the
+   trainer cell's config, 2 x 512 tokens, AdamW at lr 1e-3 from step 2,000)
+   and ``deepseek-v2-e8-l2-mesh2x2-b4-t16`` (deepseek-v2 reduced to 8
+   experts, top-2, one shared expert, float32, through each EP lowering
+   inside the step): ``launch.sharded``'s step, parameters and moments
+   sharded by ``param_pspecs``, against one process's ``make_train_step``
+   on rank 0 after the others free the card (``sharded.step_gaps``:
+   loss, gradient norm, first moments and parameters within limits
+   derived from the changed summation order); one dp shard's gradient
+   dropped must exceed them. The peaks of each step are reckoned and
+   printed before it runs; the four ranks' reckoned peaks must stay below
+   75 GB together.
 
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
@@ -446,7 +489,8 @@ runs phases 1 and 14 and prints the rank cells; ``--ssm`` runs phases 1
 and 15 and prints the backward scan's kernel row; ``--mla`` runs phases 1
 and 16 and prints the MLA rows; ``--moe`` runs phases 1 and 17 and prints
 kimi-k2's attention rows; ``--vlm`` and ``--encdec`` run phase 1 and
-phase 18's llava or whisper parts and print their rows.
+phase 18's llava or whisper parts and print their rows; ``--sharded``
+runs phases 1 and 19.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -5174,18 +5218,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(outdir: Path, small: bool = False, timeout: int = 600) -> float:
-    """``DIST_RANKS`` ranks of ``dist_rank`` under torchrun, all on this
-    process's device, over gloo on the loopback interface; raises unless
-    every rank exits 0 (their output in ``OUT/ranks.log``). Returns the
-    wall seconds. torchrun starts each rank in a session of its own: past
-    ``timeout`` it is asked to stop them, and every rank still alive
+def run_ranks(outdir: Path, small: bool = False, timeout: int = 600,
+              nproc: int = DIST_RANKS, body: str = "--dist-rank",
+              label: str = "phase 14") -> float:
+    """``nproc`` ranks of the ``body`` flag's rank function (``dist_rank``
+    for phase 14, ``sharded_rank`` for phase 19) under torchrun, all on
+    this process's device, over gloo on the loopback interface; raises
+    unless every rank exits 0 (their output in ``OUT/ranks.log``). Returns
+    the wall seconds. torchrun starts each rank in a session of its own:
+    past ``timeout`` it is asked to stop them, and every rank still alive
     (``OUT/pid<r>``) is killed."""
     import signal
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-           "--node-rank", "0", "--nproc-per-node", str(DIST_RANKS),
+           "--node-rank", "0", "--nproc-per-node", str(nproc),
            "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
-           str(ROOT / "chip_smoke.py"), "--dist-rank", str(outdir),
+           str(ROOT / "chip_smoke.py"), body, str(outdir),
            "cuda:0" if DEVICE == "cuda" else DEVICE,
            "small" if small else "full"]
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
@@ -5217,7 +5264,7 @@ def run_ranks(outdir: Path, small: bool = False, timeout: int = 600) -> float:
         own = ("" if first is None else "\n".join(
             ln for ln in text.splitlines()
             if ln.startswith(f"[rank{first.group(1)}]:"))[-6000:])
-        raise CheckFailed(f"phase 14: the ranks failed (torchrun exit "
+        raise CheckFailed(f"{label}: the ranks failed (torchrun exit "
                           f"{p.returncode}; timeout {timeout} s); the first "
                           f"failed rank's output:\n{own}\nthe log's "
                           f"end:\n{text[-3000:]}")
@@ -5431,9 +5478,12 @@ def dist_phase(small: bool = False) -> dict:
 
 # -- phase 15: the SSM family trains (hymba) and xLSTM runs ------------------
 
-HYMBA_TRAIN_CELL = "hymba-1.5b-train-dp2-b2-t4096-topk"
+# the training cells' depths, cut to fit phase 19 in the script's time
+# (PERF.md section 4): hymba 32 -> 16, xLSTM 12 -> 6 (PR 31)
+HYMBA_TRAIN_DEPTH, XLSTM_TRAIN_DEPTH = 16, 6
+HYMBA_TRAIN_CELL = "hymba-1.5b-l16-train-dp2-b2-t4096-topk"
 XLSTM_SERVE_CELL = "xlstm-125m-serve-b4-p4096-g64"
-XLSTM_TRAIN_CELL = "xlstm-125m-train-dp2-b2-t2048-topk"
+XLSTM_TRAIN_CELL = "xlstm-125m-l6-train-dp2-b2-t2048-topk"
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_STEPS = 4, 4096, 64
 # (B, T, D, N): the JAX test shapes, T = 1, T = 77 and 45 (not multiples of
 # the kernel's 32-step runs), N = 5 and 32 (two and eight lanes a channel)
@@ -6182,14 +6232,14 @@ def ssm_phase() -> dict:
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd_err)
     t15b = time.perf_counter()
     ssm_train_f32(hymba(2))
-    hy = ssm_train_cell(hymba(), HYMBA_TRAIN_CELL, 4096)
+    hy = ssm_train_cell(hymba(HYMBA_TRAIN_DEPTH), HYMBA_TRAIN_CELL, 4096)
     t15c = time.perf_counter()
     serve_f32(xlstm(2), 2, 248, 8)
     xs = serve_cell(xlstm(), XLSTM_SERVE_CELL, XLSTM_BATCH, XLSTM_PROMPT,
                     XLSTM_STEPS, SERVE_XLSTM_BF16_DIFF, kernels=(),
                     faults=(handoff_xlstm_states_dropped,), gate_steps=1)
     t15d = time.perf_counter()
-    xt = ssm_train_cell(xlstm(), XLSTM_TRAIN_CELL, 2048)
+    xt = ssm_train_cell(xlstm(XLSTM_TRAIN_DEPTH), XLSTM_TRAIN_CELL, 2048)
     torch.cuda.empty_cache()
     say(f"phase 15 wall: 15a {t15b - t15:.1f} s, 15b {t15c - t15b:.1f} s, "
         f"15c {t15d - t15c:.1f} s, 15d {time.perf_counter() - t15d:.1f} s")
@@ -6234,10 +6284,12 @@ def ssm_phase() -> dict:
 
 # -- phase 16: MLA, minicpm3-4b -----------------------------------------------
 
-MLA_CELL = "minicpm3-4b-serve-b4-p32768-g64"
-MLA_TRAIN_CELL = "minicpm3-4b-l24-train-dp2-b1-t4096-topk"
+MLA_CELL = "minicpm3-4b-l31-serve-b4-p32768-g64"
+MLA_TRAIN_CELL = "minicpm3-4b-l12-train-dp2-b1-t4096-topk"
 MLA_BATCH, MLA_PROMPT, MLA_STEPS = 4, 32_768, 64
-MLA_TRAIN_DEPTH = 24
+# the cells' depths, cut to fit phase 19 in the script's time (PERF.md
+# section 4): serving 62 -> 31, training 24 -> 12 (PR 31)
+MLA_SERVE_DEPTH, MLA_TRAIN_DEPTH = 31, 12
 # minicpm3-4b's attention: 40 heads, keys 64 + 32 wide, values 64, a latent
 # of 256 (src/repro_torch/configs/minicpm3_4b.py)
 MLA_H, MLA_ND, MLA_RD, MLA_VD, MLA_R = 40, 64, 32, 64, 256
@@ -6681,7 +6733,7 @@ def mla_phase() -> dict:
               f" flash calls by kernel {g['paths']}, expected {want}")
         gates[dec_path] = g
     t16c = time.perf_counter()
-    cfg = minicpm3()
+    cfg = minicpm3(MLA_SERVE_DEPTH)
     reckon = mla_peak_reckoning(cfg, MLA_BATCH, MLA_PROMPT, MLA_STEPS)
     cell = serve_cell(cfg, MLA_CELL, MLA_BATCH, MLA_PROMPT, MLA_STEPS,
                       SERVE_MLA_BF16_DIFF,
@@ -7660,9 +7712,12 @@ def moe_phase() -> dict:
 
 # -- phase 18: the VLM prefix (llava) and the encoder-decoder (whisper) ------
 
-LLAVA_CELL = "llava-next-34b-serve-b1-p4096-g64"
+# the served cells' depths, cut to fit phase 19 in the script's time
+# (PERF.md section 4): llava 60 -> 30, whisper 32 + 32 -> 16 + 16 (PR 31)
+LLAVA_DEPTH, WHISPER_DEPTH = 30, 16
+LLAVA_CELL = "llava-next-34b-l30-serve-b1-p4096-g64"
 LLAVA_GATE = "llava-next-34b-f32-l4-b2-p128-g8"
-WHISPER_CELL = "whisper-large-v3-serve-b4-f32768-t8-g64"
+WHISPER_CELL = "whisper-large-v3-l16-serve-b4-f32768-t8-g64"
 WHISPER_GATE = "whisper-large-v3-f32-l4-b2-f1500-t8-g8"
 # llava's cell: one request, the anyres stub's 2,880 image embeddings and
 # 1,216 text tokens (4,096 positions), 64 greedy steps; its float32 gate
@@ -8140,7 +8195,7 @@ def vlm_encdec_phase(vlm=True, enc=True) -> dict:
     t18c = time.perf_counter()
     cells, reckon, roles = {}, {}, EncdecRoles(WHISPER_FRAMES)
     if vlm:
-        cfg = llava()
+        cfg = llava(LLAVA_DEPTH)
         reckon[LLAVA_CELL] = vlm_peak_reckoning(
             cfg, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_STEPS, LLAVA_CELL)
         cells[LLAVA_CELL] = serve_cell(
@@ -8152,7 +8207,7 @@ def vlm_encdec_phase(vlm=True, enc=True) -> dict:
         torch.cuda.empty_cache()
     t18d = time.perf_counter()
     if enc:
-        cfg = whisper()
+        cfg = whisper(WHISPER_DEPTH)
         reckon[WHISPER_CELL] = encdec_peak_reckoning(
             cfg, WHISPER_BATCH, WHISPER_FRAMES, WHISPER_TOKENS,
             WHISPER_STEPS, WHISPER_CELL)
@@ -8239,6 +8294,707 @@ def encdec_rows(att: dict, cells: dict, roles) -> list:
     return rows
 
 
+# -- phase 19: sharding and expert parallelism --------------------------------
+
+SHARDED_RANKS = 4
+EP_CELL = "kimi-k2-moe-ep1x4-b1-p4096"
+EP_TOKENS = 4_096            # one prompt
+EP_SEED = 19
+# capacity factors tried, smallest first, for the runs that must drop nothing
+EP_FACTORS = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0, 8.0)
+STEP_CELL = "qwen3-32b-l1-mesh2x2-b2-t512"
+MOE_STEP_CELL = "deepseek-v2-e8-l2-mesh2x2-b4-t16"
+STEP_PRESET = 2_000          # AdamW's step count before the checked step:
+#                              cosine_lr is 1 there (at 0 it is 0)
+STEP_LR = 1e-3               # moves a bfloat16 weight of 0.02 by about 4
+#                              units in the last place (1e-5 moves none)
+STEP_SEED = 5
+BF16_U = 2.0 ** -8           # bfloat16 unit roundoff
+F32_U = 2.0 ** -24
+
+
+def ep_config(small: bool = False, cf: float = 1.25):
+    """kimi-k2's MoE layer at its published widths: d 7168, 384 experts of
+    2048, top-8, one shared expert, bfloat16, ``cf`` the capacity factor
+    (small: the same family at widths the CPU runs)."""
+    from repro_torch.configs import ARCHS
+    if small:
+        return ARCHS["kimi-k2-1t-a32b"].reduced(
+            n_experts=16, top_k=4, d_ff_expert=32, capacity_factor=cf,
+            dtype="bfloat16")
+    return kimi(capacity_factor=cf)
+
+
+def ep_layer(cfg, lo: int, hi: int, n_tokens: int, device):
+    """The layer with experts ``lo``..``hi`` - 1 and the prompt: each
+    expert's three weights drawn from a generator seeded ``EP_SEED`` x
+    1000 + e (so the parent's dense layer and each rank's shard hold the
+    same experts), the router, the shared expert and x (1, n_tokens, d)
+    from one seeded ``EP_SEED``."""
+    import torch
+
+    from repro_torch.models.layers import dense_init, init_mlp
+    d, f, dt = cfg.d_model, cfg.d_ff_expert, getattr(torch, cfg.dtype)
+    shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    ex = {k: torch.empty((hi - lo,) + s, dtype=dt, device=device)
+          for k, s in shapes.items()}
+    for e in range(lo, hi):
+        g = torch.Generator(device=device).manual_seed(EP_SEED * 1000 + e)
+        for k, s in shapes.items():
+            ex[k][e - lo] = dense_init(g, s, dt)
+    g = torch.Generator(device=device).manual_seed(EP_SEED)
+    p = {"router": {"w": dense_init(g, (d, cfg.n_experts), torch.float32,
+                                    scale=0.1)},
+         "experts": ex,
+         "shared": init_mlp(g, cfg, cfg.n_shared_experts * f)}
+    x = torch.randn((1, n_tokens, d), generator=g, device=device).to(dt)
+    return p, x
+
+
+def ep_dense_run(p, x, cfg) -> dict:
+    """The dense dispatch of ``x``, its routing and, per (token, column),
+    S = the sum over the token's kept pairs of |gate weight x expert
+    output|, the magnitudes the EP limit is drawn from."""
+    import torch
+
+    from repro_torch.models import moe
+    seen = {}
+
+    def route(*a, _real=moe.route):
+        seen["route"] = _real(*a)
+        return seen["route"]
+
+    def bins(*a, _real=moe._sort_into_bins):
+        seen["bins"] = _real(*a)
+        return seen["bins"]
+
+    def experts(*a, _real=moe.mlp_einsum):
+        seen["ybuf"] = _real(*a)
+        return seen["ybuf"]
+
+    with torch.inference_mode(), swapped(moe, "route", route), \
+            swapped(moe, "_sort_into_bins", bins), \
+            swapped(moe, "mlp_einsum", experts):
+        y, aux = moe._moe_forward_dense(p, x, cfg)
+        _, gate_w, eidx = seen["route"]
+        order, dest, keep = seen["bins"]
+        E, C = seen["ybuf"].shape[:2]
+        n, k, d = eidx.shape[0], cfg.top_k, x.shape[-1]
+        slot = torch.empty_like(dest).index_put_((order,), dest)  # by pair
+        kept = slot < E * C
+        rows = seen["ybuf"].reshape(E * C, d)[slot.clamp(max=E * C - 1)]
+        mag = (rows.abs().float() * (gate_w.reshape(-1, 1).abs()
+                                     * kept[:, None]))
+        S = mag.view(n, k, d).sum(1)
+        del rows, mag
+    return {"y": y.reshape(n, d), "aux": float(aux), "S": S,
+            "assign": eidx.reshape(-1), "slot": torch.where(kept, slot, -1),
+            "C": C, "drops": int((~kept).sum())}
+
+
+def ep_loads(eidx, cfg, G: int) -> tuple[int, int]:
+    """(the most pairs one rank's 1 / G of the tokens sends one group of
+    E / G experts, the most pairs one expert gets) under ``eidx``."""
+    import torch
+    n, k = eidx.shape[0] // cfg.top_k, cfg.top_k
+    grp = (eidx.view(G, n // G * k) // (cfg.n_experts // G))
+    send = max(int(torch.bincount(r, minlength=G).max()) for r in grp)
+    per = int(torch.bincount(eidx, minlength=cfg.n_experts).max())
+    return send, per
+
+
+def ep_capacities(n: int, cfg, G: int, cf: float) -> tuple[int, int]:
+    """The a2a lowering's (c_send, c_exp) for JAX's N = ``n`` on G ranks
+    at dp 1 (``moe._moe_forward_ep_a2a``'s expressions)."""
+    n_loc, k, e_loc = n // G, cfg.top_k, cfg.n_experts // G
+    c_send = max(1, math.ceil(n_loc * k * cf / G))
+    return c_send, max(1, math.ceil(G * c_send * cf / e_loc))
+
+
+def ep_reckoning(cfg, n: int, c: int, G: int) -> dict:
+    """Bytes reckoned for the parent's dense layer and a rank's shard: the
+    expert stack, router, shared expert and prompt, the dispatch buffers
+    at capacity ``c`` (x and y rows, the gate/up outputs, the pairs' rows
+    and the captured expert outputs), and on a rank the EP buffers."""
+    el = 2                                   # bfloat16
+    d, f, E, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.top_k
+    experts = 3 * E * d * f * el
+    fixed = d * E * 4 + 3 * d * f * el + n * d * el
+    dense = (2 * (E * c + 1) * d + 3 * E * c * f + 3 * n * k * d) * el \
+        + 2 * n * k * d * 4 + 2 * n * d * 4
+    rank = experts // G + fixed + (2 * (E // G) * c * d + 3 * (E // G) * c
+                                   * f + (2 + 2 * G) * n * d) * el
+    return {"dense_gb": (experts + fixed + dense) / 1e9,
+            "rank_gb": rank / 1e9, "ranks_gb": G * rank / 1e9}
+
+
+def ep_reference(path: Path, small: bool) -> dict:
+    """19a's parent part: the dense dispatch of the layer on this card, at
+    capacity factor 1.25 and at the smallest listed factor that drops
+    nothing, with the smallest factor at which the a2a lowering drops
+    nothing; the references to ``path``, the layer freed."""
+    import torch
+    G = SHARDED_RANKS
+    cfg = ep_config(small)
+    n = 256 if small else EP_TOKENS
+    reck = ep_reckoning(cfg, n, max(1, math.ceil(
+        n * cfg.top_k / cfg.n_experts * cfg.capacity_factor)), G)
+    say(f"{EP_CELL}: reckoned peak of the dense layer "
+        f"{reck['dense_gb']:.2f} GB, of a rank "
+        f"{reck['rank_gb']:.2f} GB, of the {G} ranks "
+        f"{reck['ranks_gb']:.2f} GB; never resident together")
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    p, x = ep_layer(cfg, 0, cfg.n_experts, n, DEVICE)
+    ref = ep_dense_run(p, x, cfg)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" \
+        else None
+    send, per = ep_loads(ref["assign"], cfg, G)
+    cf_a2a = next(cf for cf in EP_FACTORS
+                  if ep_capacities(n, cfg, G, cf)[0] >= send
+                  and ep_capacities(n, cfg, G, cf)[1] >= per)
+    cf_dense = next(cf for cf in EP_FACTORS if math.ceil(
+        n * cfg.top_k / cfg.n_experts * cf) >= per)
+    dcfg = dataclasses.replace(cfg, capacity_factor=cf_dense)
+    dl = ep_dense_run(p, x, dcfg)
+    check(dl["drops"] == 0, f"{EP_CELL}: the dropless dense run dropped "
+          f"{dl['drops']} pairs")
+    from repro_torch.models import moe
+    with torch.inference_mode():
+        ms = (cuda_ms(lambda: moe._moe_forward_dense(p, x, cfg), 3)
+              if DEVICE == "cuda" else None)
+    torch.save({"y": ref["y"].cpu(), "S": ref["S"].cpu(), "aux": ref["aux"],
+                "assign": ref["assign"].cpu(), "slot": ref["slot"].cpu(),
+                "C": ref["C"], "y_dl": dl["y"].cpu(), "S_dl": dl["S"].cpu(),
+                "aux_dl": dl["aux"], "cf_a2a": cf_a2a}, path)
+    out = {"drops": ref["drops"], "pairs": n * cfg.top_k, "C": ref["C"],
+           "send_max": send, "expert_max": per, "cf_a2a": cf_a2a,
+           "cf_dense_dropless": cf_dense, "dense_ms": ms, "peak_gb": peak,
+           **reck}
+    del p, x, ref, dl
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    say(f"{EP_CELL}: the dense layer's peak at factor 1.25 " + (
+        "not measured" if peak is None else f"{peak:.2f} GB") +
+        f" (reckoned {reck['dense_gb']:.2f} GB)")
+    return out
+
+
+def _ep_over(y, ref_y, S, k: int) -> float:
+    """The largest |y - ref| over its limit, elementwise: bfloat16 EP
+    against the dense dispatch of the same pairs. Each pair's product
+    with its gate weight is rounded (u S), the scatter-add of a column's
+    pairs rounds after each add (at most k - 1 adds: (k - 1) u S), each
+    expert output may round differently where the batched GEMMs' blocking
+    follows the number of experts (2 u S), the float32 sum over the
+    columns and the shared expert's add round once each on both sides (4 u
+    |y|): u ((k + 2) S + 4 |y|), u = 2^-8, plus u S to spare."""
+    import torch
+    ref_y = ref_y.to(y.device).float()
+    lim = BF16_U * ((k + 3) * S.to(y.device) + 4 * ref_y.abs()) + 1e-30
+    return float(((y.reshape(ref_y.shape).float() - ref_y).abs()
+                  / lim).max())
+
+
+def ep_rank_cell(mesh, device, ref: dict, small: bool) -> dict:
+    """19a on one rank of the (1, G) mesh: its E / G experts; replicated
+    EP at factor 1.25 against the dense dispatch (its pairs' experts and
+    slots bitwise the dense dispatch's, y within :func:`_ep_over`, aux
+    within 4 float32 ulps: the mean over the columns of equal values);
+    a2a at ``ref["cf_a2a"]`` against the dropless dense dispatch (aux from
+    other summation orders: (2 N + E) u32 relative); the planted faults;
+    the times."""
+    import torch
+
+    from repro_torch.collectives import axis_ops as ops
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import axis_rules, make_rules
+    cfg = ep_config(small)
+    G = mesh.mesh.shape[1]
+    r = mesh.get_coordinate()[1]
+    E_loc, k = cfg.n_experts // G, cfg.top_k
+    n = ref["y"].shape[0]
+    p, x = ep_layer(cfg, r * E_loc, (r + 1) * E_loc, n, device)
+    rules = make_rules(multi_pod=False)
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == \
+        "cuda" else (lambda: None)
+
+    def run(mode, c, params=None):
+        moe.EP_MODE = mode
+        try:
+            with torch.inference_mode(), axis_rules(rules, mesh):
+                check(moe.ep_mode(n, c) == mode, f"19a: {mode} not taken")
+                return moe.moe_forward(params or p, x, c)
+        finally:
+            moe.EP_MODE = "replicated"
+
+    def timed(mode, c) -> dict:
+        walls = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            run(mode, c)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        gemm = [0.0]
+
+        def experts(*a, _real=moe.mlp_einsum):
+            sync()
+            t0 = time.perf_counter()
+            out = _real(*a)
+            sync()
+            gemm[0] += time.perf_counter() - t0
+            return out
+        with ops.exchange_log() as log, swapped(moe, "mlp_einsum", experts):
+            sync()
+            t0 = time.perf_counter()
+            run(mode, c)
+            sync()
+            logged = time.perf_counter() - t0
+        return {"wall_ms": 1e3 * statistics.median(walls),
+                "logged_wall_ms": 1e3 * logged,
+                "exchange_ms": 1e3 * sum(e["s"] for e in log),
+                "exchanges": len(log),
+                "exchange_bytes": sum(e["bytes"] for e in log),
+                "staged_bytes": sum(e["staged_bytes"] for e in log),
+                "gemm_ms": 1e3 * gemm[0]}
+
+    out = {"rank": r}
+    # -- replicated at 1.25: the dense dispatch's pairs, bit for bit
+    seen = {}
+
+    def bins(ids, nb, cap, _real=moe._sort_into_bins):
+        seen.setdefault("bins", (ids, nb, cap, _real(ids, nb, cap)))
+        return seen["bins"][3]
+    with swapped(moe, "_sort_into_bins", bins):
+        y, aux = run("replicated", cfg)
+    ids, nb, cap, (order, dest, keep) = seen["bins"]
+    check(nb == E_loc and cap == ref["C"], f"19a rank {r}: bins ({nb}, "
+          f"{cap}), the dense dispatch's ({E_loc} local, {ref['C']})")
+    R = E_loc * cap
+    slot = torch.empty_like(dest).index_put_((order,), dest)
+    mine = torch.where(ids < E_loc, ids + r * E_loc, -1).cpu()
+    got_slot = torch.where(slot < R, slot + r * R, -1).cpu()
+    lo, hi = r * E_loc, (r + 1) * E_loc
+    a = ref["assign"]
+    want = torch.where((a >= lo) & (a < hi), a, -1)
+    want_slot = torch.where((ref["slot"] >= lo * cap)
+                            & (ref["slot"] < hi * cap), ref["slot"], -1)
+    check(torch.equal(mine, want) and torch.equal(got_slot, want_slot),
+          f"19a rank {r}: the replicated EP's pairs, experts or slots are "
+          f"not the dense dispatch's")
+    out["kept"] = int((got_slot >= 0).sum())
+    out["routed"] = int((mine >= 0).sum())
+    out["replicated_over"] = _ep_over(y, ref["y"], ref["S"], k)
+    out["replicated_aux_over"] = abs(float(aux) - ref["aux"]) / (
+        4 * F32_U * abs(ref["aux"]))
+    # -- a2a at a factor that drops nothing
+    acfg = dataclasses.replace(cfg, capacity_factor=ref["cf_a2a"])
+    y2, aux2 = run("a2a", acfg)
+    out["a2a_over"] = _ep_over(y2, ref["y_dl"], ref["S_dl"], k)
+    out["a2a_aux_over"] = abs(float(aux2) - ref["aux_dl"]) / (
+        (2 * n + cfg.n_experts) * F32_U * abs(ref["aux_dl"]))
+    del y, y2
+    # -- planted faults
+    off = dict(p, experts={kk: torch.roll(w, 1, 0) if r == 1 else w
+                           for kk, w in p["experts"].items()})
+    yf, _ = run("replicated", cfg, off)
+    out["fault_expert_slice_off_by_one"] = _ep_over(yf, ref["y"], ref["S"],
+                                                    k)
+    del off, yf
+
+    def psum_skipped(t, ax, _real=ops.psum):
+        total = _real(t, ax)        # rank 2 still joins the exchange
+        return t if r == 2 else total
+    with swapped(ops, "psum", psum_skipped):
+        yf, _ = run("replicated", cfg)
+    out["fault_sum_skipped_on_rank_2"] = _ep_over(yf, ref["y"], ref["S"], k)
+    calls = [0]
+
+    def wrong_peer(t, ax, _real=ops.all_to_all):
+        calls[0] += 1
+        return _real(t.roll(1, 0) if calls[0] == 3 else t, ax)
+    with swapped(ops, "all_to_all", wrong_peer):
+        yf, _ = run("a2a", acfg)
+    out["fault_return_to_wrong_peer"] = _ep_over(yf, ref["y_dl"],
+                                                 ref["S_dl"], k)
+    del yf
+    out["replicated"] = timed("replicated", cfg)
+    out["a2a"] = timed("a2a", acfg)
+    if device.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    del p, x
+    return out
+
+
+def step_cells(small: bool) -> list:
+    """19b's cells: (name, config, AdamW, batch, seq, [EP modes], fault)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.optim import adamw
+    moe_cfg = ARCHS["deepseek-v2-236b"].reduced(
+        n_experts=8, top_k=2, d_ff_expert=32, n_shared_experts=1,
+        capacity_factor=8.0, dtype="float32")
+    qwen = (ARCHS["qwen3-32b"].reduced() if small else
+            dataclasses.replace(ARCHS["qwen3-32b"], n_layers=1))
+    return [(STEP_CELL, qwen, adamw.AdamWConfig(lr=STEP_LR),
+             2, 32 if small else 512, [None], True),
+            (MOE_STEP_CELL, moe_cfg, adamw.AdamWConfig(), 4, 16,
+             ["replicated", "a2a"], False)]
+
+
+def step_reckoning(cfg, ocfg, b: int, t: int, mesh_shape=(2, 2)) -> dict:
+    """Bytes reckoned for a rank of the sharded step and for one process:
+    a rank holds its shards of the parameters and both moments, the
+    parameters gathered whole and their whole gradients (until each is
+    reduce-scattered), and its block's logits (bfloat16, and float32 twice
+    for the loss); one process the whole of each, the whole batch's."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import map_specs
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 mesh=np.empty(mesh_shape, np.int8))
+    params = steps.abstract_state(cfg)
+    specs = steps.param_pspecs(params, steps.rules_for(mesh))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh_shape))
+    mom = torch.tensor([], dtype=getattr(torch, ocfg.moment_dtype))
+    whole, shards = [0], [0]
+
+    def count(spec, leaf):
+        n = leaf.numel()
+        split = 1
+        for e in spec:
+            for a in (e if isinstance(e, tuple) else (e,)):
+                split *= sizes.get(a, 1)
+        whole[0] += n * leaf.element_size()
+        shards[0] += n // split * (leaf.element_size()
+                                   + 2 * mom.element_size())
+    map_specs(count, specs, params)
+    logits = b // mesh_shape[0] * t * cfg.padded_vocab * (2 + 4 + 4)
+    rank = shards[0] + 2 * whole[0] + logits
+    one = whole[0] * (2 + 2 * mom.element_size()
+                      / params["embed_tokens"].element_size()) \
+        + logits * mesh_shape[0]
+    return {"rank_gb": rank / 1e9, "ranks_gb": rank * mesh_shape[0]
+            * mesh_shape[1] / 1e9, "single_gb": one / 1e9,
+            "params_gb": whole[0] / 1e9}
+
+
+def _step_state(cfg, ocfg, b, t, mesh, rules, shape, device):
+    import torch
+
+    from repro_torch.launch import sharded, steps
+    from repro_torch.models import api
+    params = api.init_fn(cfg, device)(0)
+    p = sharded.shard(params, mesh, steps.param_pspecs(params, rules))
+    del params
+    o = sharded.init_opt(p, ocfg, STEP_PRESET)
+    g = torch.Generator().manual_seed(STEP_SEED)
+    toks = torch.randint(0, cfg.vocab, (b, t + 1), generator=g).to(device)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    return p, o, batch, sharded.shard(batch, mesh, steps.batch_pspecs(
+        batch, mesh, shape))
+
+
+def step_rank_cells(mesh, device, small: bool) -> dict:
+    """19b on one rank of the (2, 2) mesh: each cell's sharded step, its
+    parameters, ``m`` and ``v`` gathered to rank 0's host; the planted
+    fault's ``m``; then, the card freed on every rank, rank 0 runs one
+    process's ``make_train_step`` on the whole batch and holds the sharded
+    step to it (``sharded.step_gaps``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.collectives import axis_ops as ops
+    from repro_torch.launch import sharded, steps
+    from repro_torch.models import api, moe
+    from repro_torch.optim import adamw
+    rank = dist.get_rank()
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == \
+        "cuda" else (lambda: None)
+    res = {}
+    for name, cfg, ocfg, b, t, modes, fault in step_cells(small):
+        shape = api.ShapeSpec(name, t, b, "train")
+        rules = steps.rules_for(mesh, shape)
+        step = sharded.ShardedTrainStep(cfg, ocfg, mesh, rules)
+        cell, host = {}, {}
+        runs = [(m, False) for m in modes] + ([(modes[0], True)] if fault
+                                              else [])
+        for mode, planted in runs:
+            key = ("fault" if planted else "") + (mode or "dense")
+            p, o, batch, bs = _step_state(cfg, ocfg, b, t, mesh, rules,
+                                          shape, device)
+            real = sharded._reduce_to_shard
+
+            def dropped(g, *a, _real=real):
+                # dp rank 1's gradient never reaches the reduce-scatter
+                return _real(g.zero_() if a[-1].rank == 1 else g, *a)
+            moe.EP_MODE = mode or "replicated"
+            try:
+                check(step.ep({k: v.to_local() for k, v in bs.items()})
+                      == mode, f"19b {name}: EP mode {mode} not taken")
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(device)
+                with swapped(sharded, "_reduce_to_shard",
+                             dropped if planted else real), \
+                        ops.exchange_log() as log:
+                    sync()
+                    t0 = time.perf_counter()
+                    p, o, out = step(p, o, bs)
+                    sync()
+                    wall = time.perf_counter() - t0
+            finally:
+                moe.EP_MODE = "replicated"
+            run = {k: float(v) for k, v in out.items()}
+            run.update(wall_s=wall, exchange_s=sum(e["s"] for e in log),
+                       staged_bytes=sum(e["staged_bytes"] for e in log),
+                       gathers=sum(e["op"] == "all_gather" for e in log),
+                       all_to_alls=sum(e["op"] == "all_to_all" for e in log))
+            if device.type == "cuda":
+                run["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+            cell[key] = run
+            # to rank 0's host: the parameters and first moments (v is
+            # the same gradient squared; the CPU tests read it); of the
+            # planted fault only the loss and the norm
+            trees = {} if planted else {"params": p, "m": o["m"]}
+            got = {"loss": run["loss"], "grad_norm": run["grad_norm"]}
+            for tag, tree in trees.items():
+                got[tag] = {}
+                for path, d in T.leaves_with_paths(tree):
+                    full = sharded.gather_to(d, 0)
+                    if rank == 0:
+                        got[tag][path] = full.cpu()
+                    del full
+            host[key] = got
+            del p, o, bs, trees
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            cell.update(_step_reference(cfg, ocfg, batch, host, modes,
+                                        fault, b * t, device, sync))
+        del batch, host
+        dist.barrier()
+        res[name] = cell
+    return res
+
+
+def _step_reference(cfg, ocfg, batch, host, modes, fault, n_tokens, device,
+                    sync) -> dict:
+    """Rank 0: one process's ``make_train_step`` on the whole batch, and
+    each sharded run's readings over their limits."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.launch import sharded, steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = api.init_fn(cfg, device)(0)
+    opt = adamw.init(params, ocfg)
+    opt["step"] = torch.tensor(STEP_PRESET, dtype=torch.int32,
+                               device=device)
+    sync()
+    t0 = time.perf_counter()
+    params, opt, out = steps.make_train_step(cfg, ocfg)(params, opt, batch)
+    sync()
+    wall = time.perf_counter() - t0
+    flat = lambda tree: {p: v.detach() for p, v in T.leaves_with_paths(tree)}
+    ref = {"loss": float(out["loss"]), "grad_norm": float(out["grad_norm"]),
+           "params": flat(params), "m": flat(opt["m"]), "v": flat(opt["v"]),
+           "before": flat(api.init_fn(cfg, device)(0))}
+    lr = ocfg.lr * float(adamw.cosine_lr(torch.tensor(STEP_PRESET), 2000,
+                                         100_000))
+    gap = lambda got: sharded.step_gaps(ref, got, cfg, ocfg, n_tokens, lr,
+                                        STEP_PRESET + 1)
+    res = {"single_wall_s": wall, "single_loss": ref["loss"],
+           "single_grad_norm": ref["grad_norm"],
+           "limit": sharded.step_limit(cfg, n_tokens)}
+    if device.type == "cuda":
+        res["single_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    for mode in modes:
+        res[f"gaps_{mode or 'dense'}"] = gap(host[mode or "dense"])
+    if fault:
+        res["gaps_fault_dp_shard_dropped"] = gap(
+            host[f"fault{modes[0] or 'dense'}"])
+    del params, opt, ref
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def sharded_rank(outdir: str, device: str, size: str) -> int:
+    """One rank of phase 19 (``chip_smoke.py --sharded-rank OUT DEVICE
+    SIZE`` under torchrun, ``SHARDED_RANKS`` ranks): 19a on a (1, 4) mesh,
+    19b on a (2, 2) mesh of the same process group; results to
+    ``OUT/rank<r>.json``. A failed check raises, and the rank exits
+    non-zero."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.device_mesh import init_device_mesh
+    out = Path(outdir)
+    (out / f"pid{os.environ['RANK']}").write_text(str(os.getpid()))
+    device = torch.device(device)
+    small = size == "small"
+    if device.type == "cuda":
+        # before the mesh, which would set cuda:LOCAL_RANK otherwise (C19)
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo")
+    try:
+        rank = dist.get_rank()
+        res = {"rank": rank, "world": dist.get_world_size(),
+               "backend": str(dist.get_backend())}
+        t0 = time.perf_counter()
+        ep_mesh = init_device_mesh(device.type, (1, SHARDED_RANKS),
+                                   mesh_dim_names=("data", "model"))
+        res["ep"] = ep_rank_cell(ep_mesh, device,
+                                 torch.load(out / "ep_ref.pt"), small)
+        res["ep_s"] = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        t0 = time.perf_counter()
+        step_mesh = init_device_mesh(device.type, (2, SHARDED_RANKS // 2),
+                                     mesh_dim_names=("data", "model"))
+        res["step"] = step_rank_cells(step_mesh, device, small)
+        res["step_s"] = time.perf_counter() - t0
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(small: bool = False) -> dict:
+    """Phase 19: 19a, expert parallelism at kimi-k2's published MoE
+    widths (the parent's dense dispatch first, then 4 ranks); 19b, the
+    sharded training step, dense and MoE with EP inside. The ranks share
+    this card over gloo (``run_ranks``), their messages staged through
+    pinned host memory."""
+    import torch
+    t_ref = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        dense = ep_reference(tmp / "ep_ref.pt", small)
+        for name, cfg, ocfg, b, t, _, _ in step_cells(small):
+            r = step_reckoning(cfg, ocfg, b, t)
+            say(f"19b {name}: reckoned peak of a rank {r['rank_gb']:.2f} GB "
+                f"(its shards, the {r['params_gb']:.2f} GB of parameters "
+                f"gathered and their gradients whole, its logits), of the "
+                f"{SHARDED_RANKS} ranks {r['ranks_gb']:.2f} GB; one "
+                f"process's step {r['single_gb']:.2f} GB")
+            check(r["ranks_gb"] < 75, f"19b {name}: the ranks' reckoned "
+                  f"peaks pass 75 GB together")
+        t_ranks = time.perf_counter()
+        if DEVICE == "cuda":
+            held = torch.cuda.memory_allocated()
+            check(held < 1e9, f"phase 19: {held} bytes held by the parent "
+                  "before the ranks start")
+        ranks_s = run_ranks(tmp, small, timeout=900, nproc=SHARDED_RANKS,
+                            body="--sharded-rank", label="phase 19")
+        got = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(SHARDED_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check([g["rank"] for g in got] == list(range(SHARDED_RANKS))
+          and all(g["backend"] == "gloo" for g in got),
+          "phase 19: ranks or backend")
+    ep = [g["ep"] for g in got]
+    # -- 19a
+    worst = lambda key: max(e[key] for e in ep)
+    for key in ("replicated_over", "replicated_aux_over", "a2a_over",
+                "a2a_aux_over"):
+        check(worst(key) <= 1.0, f"19a {EP_CELL}: {key} {worst(key):.4g}")
+    for key in ("fault_expert_slice_off_by_one",
+                "fault_sum_skipped_on_rank_2", "fault_return_to_wrong_peer"):
+        check(worst(key) > 1.0, f"19a {EP_CELL}: planted {key} within the "
+              f"limit ({worst(key):.4g})")
+    check(sum(e["routed"] for e in ep) == dense["pairs"]
+          and dense["pairs"] - sum(e["kept"] for e in ep) == dense["drops"],
+          "19a: the ranks' routed and kept pairs are not the dense "
+          "dispatch's")
+    say(f"19a {EP_CELL}: pairs {dense['pairs']}, dense C {dense['C']}, "
+        f"dropped {dense['drops']} (bitwise the dense dispatch's on every "
+        f"rank); readings over their limits: replicated y "
+        f"{worst('replicated_over'):.4f}, aux "
+        f"{worst('replicated_aux_over'):.4f}; a2a at factor "
+        f"{dense['cf_a2a']} (no drop) y {worst('a2a_over'):.4f}, aux "
+        f"{worst('a2a_aux_over'):.4f}; planted faults: expert slice off by "
+        f"one {worst('fault_expert_slice_off_by_one'):.1f}, sum over model "
+        f"skipped on rank 2 {worst('fault_sum_skipped_on_rank_2'):.1f}, "
+        f"return all-to-all to the wrong peer "
+        f"{worst('fault_return_to_wrong_peer'):.1f}")
+    for mode in ("replicated", "a2a"):
+        t = [e[mode] for e in ep]
+        say(f"19a {EP_CELL} {mode}: wall of a call "
+            f"{max(x['wall_ms'] for x in t):.2f} ms (the slowest rank's "
+            f"median of 3); one logged call "
+            f"{max(x['logged_wall_ms'] for x in t):.2f} ms: "
+            f"{t[0]['exchanges']} exchanges "
+            f"{max(x['exchange_ms'] for x in t):.2f} ms, "
+            f"{t[0]['exchange_bytes'] / 1e6:.1f} MB a rank, "
+            f"{t[0]['staged_bytes'] / 1e6:.1f} MB staged through the host; "
+            f"the local experts' GEMMs "
+            f"{max(x['gemm_ms'] for x in t):.2f} ms; the dense call on one "
+            f"process " + ("not measured" if dense["dense_ms"] is None else
+                           f"{dense['dense_ms']:.2f} ms")
+            + (f" ({nvidia_smi_line()})" if DEVICE == "cuda" else ""))
+    # -- 19b
+    cells = {}
+    for name, _, _, _, _, modes, fault in step_cells(small):
+        mine = [g["step"][name] for g in got]
+        ref = mine[0]
+        for mode in modes:
+            key = mode or "dense"
+            for m in mine[1:]:
+                check(m[key]["loss"] == ref[key]["loss"]
+                      and m[key]["grad_norm"] == ref[key]["grad_norm"],
+                      f"19b {name} {key}: ranks disagree")
+            g = ref[f"gaps_{key}"]
+            check(max(g.values()) <= 1.0, f"19b {name} {key}: readings over "
+                  f"the limit {ref['limit']:.3g}: {g}")
+        if fault:
+            g = ref["gaps_fault_dp_shard_dropped"]
+            check(g["grad_norm"] > 1.0,
+                  f"19b {name}: the dropped dp shard is within the limit: "
+                  f"{g}")
+        for mode in modes:
+            key = mode or "dense"
+            r = max(mine, key=lambda m: m[key]["wall_s"])[key]
+            peaks = [m[key]["peak_gb"] for m in mine if "peak_gb" in m[key]]
+            peak = (f"{max(peaks):.2f} GB" if peaks else "not measured")
+            say(f"19b {name} ({key}): loss {ref[key]['loss']:.6f} (one "
+                f"process {ref['single_loss']:.6f}), grad norm "
+                f"{ref[key]['grad_norm']:.6f} ({ref['single_grad_norm']:.6f}"
+                f"); readings over the limit {ref['limit']:.4g}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in
+                            ref[f"gaps_{key}"].items())
+                + f"; the step {r['wall_s']:.3f} s (one process "
+                f"{ref['single_wall_s']:.3f} s), exchanges "
+                f"{r['exchange_s']:.3f} s ({r['gathers']} all-gathers, "
+                f"{r['all_to_alls']} all-to-alls, "
+                f"{r['staged_bytes'] / 1e9:.3f} GB staged), peak of a rank "
+                f"{peak}" + (f" ({nvidia_smi_line()})"
+                                    if DEVICE == "cuda" else ""))
+        if fault:
+            say(f"19b {name}: planted fault, dp rank 1's gradient dropped: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in
+                            ref["gaps_fault_dp_shard_dropped"].items()))
+        cells[name] = ref
+    say(f"phase 19 wall: the dense reference {t_ranks - t_ref:.1f} s, the "
+        f"ranks {ranks_s:.1f} s (19a {max(g['ep_s'] for g in got):.1f} s, "
+        f"19b {max(g['step_s'] for g in got):.1f} s)")
+    return {"ep": {"dense": dense, "ranks": ep}, "step": cells}
+
+
 def main(args: list[str]) -> int:
     import torch
     sources = args[1:] if args[:1] == ["--mla-rows"] else []
@@ -8248,12 +9004,14 @@ def main(args: list[str]) -> int:
                     ["--fleet"], ["--runtime"], ["--chaos"],
                     ["--chaos-loss-witness"], ["--dist"], ["--ssm"],
                     ["--xlstm-witness"], ["--scan-rows"], ["--mla"],
-                    ["--mla-rows"], ["--moe"], ["--vlm"], ["--encdec"]):
+                    ["--mla-rows"], ["--moe"], ["--vlm"], ["--encdec"],
+                    ["--sharded"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
               f"--runtime | --chaos | --chaos-loss-witness | --dist | "
               f"--ssm | --xlstm-witness | --scan-rows | --mla | "
-              f"--mla-rows [FLASH_CU ...] | --moe | --vlm | --encdec], got "
+              f"--mla-rows [FLASH_CU ...] | --moe | --vlm | --encdec | "
+              f"--sharded], got "
               f"{args}",
               file=sys.stderr)
         return 2
@@ -8350,6 +9108,13 @@ def main(args: list[str]) -> int:
                                   enc=args == ["--encdec"])["rows"]
         say(f"phase 18 wall: {time.perf_counter() - t18:.1f} s")
         say(json.dumps({"kernels": rows18}))
+        say(smi)
+        return 0
+
+    if args == ["--sharded"]:
+        t19 = time.perf_counter()
+        sharded_phase()
+        say(f"phase 19 wall: {time.perf_counter() - t19:.1f} s")
         say(smi)
         return 0
 
@@ -8475,7 +9240,7 @@ def main(args: list[str]) -> int:
     torch.cuda.empty_cache()
 
     # phase 16: MLA on minicpm3-4b, its prefill and latent decode kernels,
-    # served at full size and trained
+    # served (depth 31) and trained
     t16 = time.perf_counter()
     held = torch.cuda.memory_allocated()
     check(held < 1e9, f"phase 16: {held} bytes still allocated after "
@@ -8503,6 +9268,15 @@ def main(args: list[str]) -> int:
           "phase 17")
     vlm_enc = vlm_encdec_phase()
     say(f"phase 18 wall: {time.perf_counter() - t18:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 19: sharding and expert parallelism, 4 ranks on this card
+    t19 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 19: {held} bytes still allocated after "
+          "phase 18")
+    sharded_phase()
+    say(f"phase 19 wall: {time.perf_counter() - t19:.1f} s")
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -8764,4 +9538,6 @@ if __name__ == "__main__":
         sys.exit(runtime_probes(sys.argv[2]))
     if sys.argv[1:2] == ["--dist-rank"]:
         sys.exit(dist_rank(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(*sys.argv[2:5]))
     sys.exit(main(sys.argv[1:]))

@@ -500,6 +500,19 @@ class Link:
         dist.all_gather(outs, src, group=self.group)
         return [o.to(t.device) for o in outs]
 
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (size, ...): row ``i`` to group rank ``i``; returns the
+        rows received, stacked in the senders' rank order, on ``t``'s
+        device."""
+        if t.shape[0] != self.size:
+            raise ValueError(f"all_to_all sends one row a rank: leading dim "
+                             f"{t.shape[0]}, group of {self.size}")
+        src = _pinned(t) if self.staged else t.contiguous()
+        out = (torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+               if self.staged else torch.empty_like(src))
+        dist.all_to_all_single(out, src, group=self.group)
+        return out.to(t.device)
+
     def gather(self, t: torch.Tensor, dst: int = 0) -> torch.Tensor | None:
         """Every rank's ``t`` stacked ``(size, ...)`` in rank order on
         group rank ``dst`` (in host memory when staged), None elsewhere."""

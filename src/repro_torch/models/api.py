@@ -69,13 +69,24 @@ def _module(cfg: ModelConfig):
     return encdec if cfg.is_encoder_decoder else transformer
 
 
+class _MetaDraws:
+    """Stands in for a Generator on the meta device, which torch has not:
+    the initializers then make leaves with shapes and dtypes only."""
+    device = torch.device("meta")
+
+
 def init_fn(cfg: ModelConfig, device="cuda"):
-    """``init(seed)`` -> params on ``device`` (a seed or a Generator on it)."""
+    """``init(seed)`` -> params on ``device`` (a seed or a Generator on it;
+    on the meta device the seed is not read and nothing is drawn)."""
     mod = _module(cfg)
 
     def init(seed):
-        gen = seed if isinstance(seed, torch.Generator) else \
-            torch.Generator(device=device).manual_seed(int(seed))
+        if torch.device(device).type == "meta":
+            gen = _MetaDraws()
+        elif isinstance(seed, torch.Generator):
+            gen = seed
+        else:
+            gen = torch.Generator(device=device).manual_seed(int(seed))
         with torch.no_grad():
             params = mod.init_params(cfg, gen)
         return T.tree_map(lambda p: p.requires_grad_(), params)

@@ -25,6 +25,8 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":       # ``api.init_fn`` on the meta device
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return x.mul_(std).to(dtype)

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import checkpoint_context
 from .attention import (gqa_cache_spec, gqa_decode, gqa_forward, init_gqa,
                         init_mla, mla_cache_spec, mla_decode, mla_forward)
 from .config import ModelConfig
@@ -241,7 +242,8 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
             lp = _layer(params["layers"], i)
             if mode == "train" and cfg.remat:
                 x, a = checkpoint(_train_block, lp, x, cfg, "attn", 0,
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  context_fn=checkpoint_context)
                 aux = _add_aux(aux, a)
                 continue
             x, nc, a = block_forward(lp, x, cfg, mode)
@@ -256,7 +258,8 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
                                _layer_windows(cfg)):
             if mode == "train" and cfg.remat:
                 x, a = checkpoint(_train_block, bp, x, cfg, kind, w,
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  context_fn=checkpoint_context)
                 aux = _add_aux(aux, a)
                 continue
             x, nc, a = block_forward(bp, x, cfg, mode, kind=kind, window=w)

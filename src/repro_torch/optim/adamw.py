@@ -47,11 +47,13 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def update(grads: Any, opt_state: dict, params: Any, cfg: AdamWConfig,
-           lr_scale: float = 1.0):
+           lr_scale: float = 1.0, grad_norm: torch.Tensor | None = None):
     """Returns (params, opt_state, grad_norm), params and moments updated
-    in place."""
+    in place. ``grad_norm``, where given, is the norm of the whole
+    gradient that ``grads`` are shards of (the sharded step's); otherwise
+    ``global_norm(grads)``."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     s32 = step.to(torch.float32)

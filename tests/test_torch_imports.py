@@ -105,6 +105,11 @@ _ENCDEC_PATH = ("repro_torch.models.encdec",
                 "repro_torch.configs.whisper_large_v3",
                 "repro_torch.configs.llava_next_34b")
 
+# sharding, the expert-parallel collectives and the sharded step
+_SHARD_PATH = ("repro_torch.parallel", "repro_torch.parallel.sharding",
+               "repro_torch.collectives.axis_ops",
+               "repro_torch.launch.sharded")
+
 # the rest of the numpy core
 _CORE_REST = ("repro_torch.core.soar_fast", "repro_torch.core.brute",
               "repro_torch.core.bottleneck", "repro_torch.core.budget",
@@ -117,10 +122,10 @@ def test_port_imports_without_jax_or_repro():
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
          *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
          *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH, *_CORE_REST,
-         *_DIST_PATH, *_SSM_PATH, *_MOE_PATH, *_ENCDEC_PATH],
+         *_DIST_PATH, *_SSM_PATH, *_MOE_PATH, *_ENCDEC_PATH, *_SHARD_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 83     # every module imported
+    assert int(out.stdout.split()[-1]) == 87     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
