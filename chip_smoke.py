@@ -24,6 +24,7 @@
     python3 chip_smoke.py --encdec       # only phase 18's whisper parts
     python3 chip_smoke.py --sharded      # only phase 19, sharding and
                                          # expert parallelism (4 ranks)
+    python3 chip_smoke.py --roofline     # only phase 20, the roofline
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -51,7 +52,9 @@ configs of the zoo (llava-next-34b's image prefix ahead of its tokens,
 whisper-large-v3's encoder and decoder with cross attention), served at
 published width through the flash kernels, and sharding (MoE's two
 expert-parallel lowerings at kimi-k2's published widths on four ranks,
-the training step over a (2, 2) device mesh). It builds the CUDA
+the training step over a (2, 2) device mesh), and the roofline of a
+prefill and a training step against the card (``launch.roofline``'s
+counts and the H100's peaks). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -164,15 +167,17 @@ plain torch version on the inputs the paths give it. Phases:
    (layer 0 global, layer 1 windowed; TF32 off), 2 prompts of 1,280 tokens
    and 8 decode steps: the last decode logits within 1e-3 of the largest
    logit of a fresh prefill, tokens and logits equal to the same run on
-   the CPU (rtol 1e-4); the same at all 32 layers, 2 prompts of 2,048 and
-   64 steps, card only. Then the cell ``hymba-1.5b-serve-b4-p32768-g64``:
-   hymba-1.5b at full width and depth in bfloat16, 4 prompts of 32,768
+   the CPU (rtol 1e-4); the same at the cell's 16 layers, 2 prompts of
+   2,048 and 64 steps, card only. Then the cell
+   ``hymba-1.5b-l16-serve-b4-p32768-g64``: hymba-1.5b at full width in
+   bfloat16, depth cut to 16 of 32 (layers 0 and 15 global, the rest
+   windowed), 4 prompts of 32,768
    tokens, ``make_prefill_step``, the caches handed to
    ``init_caches(cfg, 4, 32832)`` (global layers' k/v by position,
    windowed layers' last 1,024 positions into ring slot p % 1024, the
    Mamba states as they are), 64 ``make_serve_step``s. Checks: tokens in
-   [0, vocab), every logit finite, 32 x 65 flash (32 on the tensor-core
-   tile kernel, 32 x 64 on the split decode) and 32 x 65 scan launches,
+   [0, vocab), every logit finite, 16 x 65 flash (16 on the tensor-core
+   tile kernel, 16 x 64 on the split decode) and 16 x 65 scan launches,
    no decode step allocates a cache, the last decode logits
    within 20% of the largest logit of a fresh prefill's (hymba's own
    bfloat16 noise reaches 9%; see ``SERVE_HYBRID_BF16_DIFF``), and two
@@ -311,20 +316,22 @@ plain torch version on the inputs the paths give it. Phases:
    kernels' layout). 15b: a float32 hymba-1.5b of 2 layers at its
    published widths (the window cut to 128 so 256 tokens cross it; TF32
    off), 3 trainer steps on the card and on the CPU, losses within 1e-4;
-   then ``hymba-1.5b-l16-train-dp2-b2-t4096-topk``: hymba-1.5b at full
-   width in bfloat16, depth cut to 16 (PR 31), 2 workers on the card,
+   then ``hymba-1.5b-l4-train-dp2-b2-t4096-topk``: hymba-1.5b at full
+   width in bfloat16, depth cut to 4 (layer 0 global), 2 workers on the card,
    one 4,096-token sequence each, top-k 1%, remat on, 3 steps (step 1 split by phase, step 2 under
    the profiler, device activity only), then step 2 again from the state
    before it, kept on the host, bitwise. Checks: finite losses, the first
-   near ln(vocab), 2 x 16 scan forward launches a worker's step (the
-   layers and the remat recompute) and 16 backward, the top-k and segment-reduce kernels
-   ran. 15c: a float32 xlstm-125m of 2 layers, 2 prompts of 248 and 8
+   near ln(vocab), 2 x 4 scan forward launches a worker's step (the
+   layers and the remat recompute) and 4 backward, the top-k and
+   segment-reduce kernels ran. 15c: a float32 xlstm-125m of 2 layers, 2
+   prompts of 248 and 8
    steps against a fresh prefill (1e-3) and the CPU (rtol 1e-4); then
-   ``xlstm-125m-serve-b4-p4096-g64`` (full size, bfloat16) with phase 10's
+   ``xlstm-125m-l4-serve-b4-p4096-g64`` (published widths, depth cut to 4
+   of 12: m, s, m, s; bfloat16) with phase 10's
    checks that apply, the decode-vs-fresh-prefill gate
    (``SERVE_XLSTM_BF16_DIFF``, 5%) read after 1 step and after 64, and
    the states dropped at the handoff beyond it after 1 step. 15d:
-   ``xlstm-125m-l6-train-dp2-b2-t2048-topk`` (depth cut to 6, PR 31), 3
+   ``xlstm-125m-l2-train-dp2-b2-t2048-topk`` (depth cut to 2: m, s), 3
    steps and the resumed one, as 15b's cell (no scan; its step is not
    profiled).
 
@@ -346,15 +353,15 @@ plain torch version on the inputs the paths give it. Phases:
    layers at its published widths (TF32 off), 2 prompts of 128 and 8
    steps, with ``decode_absorb`` on and off: against a fresh prefill
    (1e-3) and the CPU (rtol 1e-4), every call on its kernel. 16c:
-   ``minicpm3-4b-l31-serve-b4-p32768-g64``, minicpm3-4b at full width,
-   depth cut to 31 of 62 (PR 31), in bfloat16, ``prefill_32k``'s batch
-   cut to 4, with phase 10's checks: 31 prefill calls on the tensor-core
-   tile, 31 x 64 on the latent decode and none elsewhere, the
+   ``minicpm3-4b-l4-serve-b4-p32768-g64``, minicpm3-4b at full width,
+   depth cut to 4 of 62, in bfloat16, ``prefill_32k``'s batch
+   cut to 4, with phase 10's checks: 4 prefill calls on the tensor-core
+   tile, 4 x 64 on the latent decode and none elsewhere, the
    decode-vs-fresh-prefill gate ``SERVE_MLA_BF16_DIFF`` and two planted handoff faults beyond it
    (kr dropped, ckv one position late), the peak against its reckoning.
-   16d: the float32 training gate (2 layers, T 256, one worker, against
-   the CPU), then ``minicpm3-4b-l12-train-dp2-b1-t4096-topk``: published
-   widths, depth cut to 12 (24 before PR 31), bfloat16, 2 workers of one
+   16d: the float32 training gate (1 layer, T 256, one worker, against
+   the CPU), then ``minicpm3-4b-l4-train-dp2-b1-t4096-topk``: published
+   widths, depth cut to 4, bfloat16, 2 workers of one
    4,096-token sequence, top-k 1%, remat on (the stacked path's checkpoint, MLA's
    blocked branch), 3 steps (step 1 split by phase, step 2 profiled) and
    the resumed one, bitwise.
@@ -414,11 +421,11 @@ plain torch version on the inputs the paths give it. Phases:
    layers, 16 prefix embeddings and 112 tokens, 8 steps) and
    ``whisper-large-v3-f32-l4-b2-f1500-t8-g8`` (4 encoder and 4 decoder
    layers, 1,500 frames, 8 tokens, 8 steps). 18c:
-   ``llava-next-34b-l30-serve-b1-p4096-g64``, 30 of its 60 layers (cut in
-   PR 31) in bfloat16, one request of 2,880 image embeddings and 1,216
+   ``llava-next-34b-l8-serve-b1-p4096-g64``, 8 of its 60 layers in
+   bfloat16, one request of 2,880 image embeddings and 1,216
    tokens, decode from position 4,096 on; 18d:
-   ``whisper-large-v3-l16-serve-b4-f32768-t8-g64``, 16 + 16 of its 32 + 32
-   layers (cut in PR 31), 4 requests of 32,768 frames and 8 tokens, the
+   ``whisper-large-v3-l4-serve-b4-f32768-t8-g64``, 4 + 4 of its 32 + 32
+   layers, 4 requests of 32,768 frames and 8 tokens, the
    self k/v
    handed into 448 slots and the cross caches handed over uncopied. Both
    with phase 10's checks (launches by path, and for whisper by role; no
@@ -464,6 +471,27 @@ plain torch version on the inputs the paths give it. Phases:
    printed before it runs; the four ranks' reckoned peaks must stay below
    75 GB together.
 
+20. the roofline, everything of phase 19 freed first, each cell's bound
+   from ``launch.roofline`` (its counts from ``launch.dryrun.
+   count_unsharded``: one process, the CPU path at the cell's shape on
+   fake tensors, a kernel's plain version counted as its kernel; the
+   peaks those of an H100 SXM at 700 W, whatever the card's limit). 20a:
+   the card's name, power limit, SM count and memory beside the module's
+   constants. 20b: ``qwen3-32b-serve-b4-p2048-g64``'s prefill, timed in
+   phase 9 (the median of 3 synchronised ``make_prefill_step`` calls
+   after a warm-up; ``--roofline`` times it on its own qwen3-32b). 20c:
+   phase 8's worker step at ``qwen3-32b-l1-dp2-topk``, one worker's loss
+   and gradient on its 1 x 512 block, the median of 3. Each prints
+   ``compute_s``, ``memory_s``, the bound that binds, the measured time,
+   ``share = bound / measured`` and ``model_flops / (measured x
+   PEAK_FLOPS)``, the compute roof at the peak of the step's matmul dtype
+   (bfloat16 here); the share must stay at most ``ROOFLINE_GATE`` (1.05,
+   the bound being a floor on the time), and the measured time divided by
+   100, a planted fault, must exceed it. 20d: 20b's device time by aten
+   operator (the profiler) beside the counter's rows of the same names,
+   and the rows with no counterpart on the other side (the card runs the
+   flash kernel, the counter its plain version); printed only.
+
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
@@ -490,7 +518,7 @@ and 15 and prints the backward scan's kernel row; ``--mla`` runs phases 1
 and 16 and prints the MLA rows; ``--moe`` runs phases 1 and 17 and prints
 kimi-k2's attention rows; ``--vlm`` and ``--encdec`` run phase 1 and
 phase 18's llava or whisper parts and print their rows; ``--sharded``
-runs phases 1 and 19.
+runs phases 1 and 19; ``--roofline`` runs phases 1 and 20.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -520,8 +548,12 @@ SRC = ROOT / "src"
 # segments instead of fragmenting (read when torch first touches the card)
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+if (SRC / "repro_torch").is_dir():      # main refuses to run without it
+    sys.path.insert(0, str(SRC))
+    # the card's peaks (H100 SXM at 700 W), one source for every bound here
+    from repro_torch.launch.roofline import FP32_FLOPS as FP32_OPS_PER_S
+    from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.roofline import PEAK_FLOPS as BF16_OPS_PER_S
 
 
 class CheckFailed(RuntimeError):
@@ -535,6 +567,18 @@ def check(cond, what: str) -> None:
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+STARTED = time.perf_counter()
+
+
+def progress(text: str) -> None:
+    """``say`` a phase's wall, and write it to standard error with the
+    seconds since the script started, so that a run cut at its time limit
+    shows on either stream how far it got."""
+    say(text)
+    print(f"chip_smoke at {time.perf_counter() - STARTED:.1f} s: {text}",
+          file=sys.stderr, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -761,8 +805,9 @@ def time_kernels(folds, colors):
         solve = lambda: [cuda(*a, **kw) for a, kw in calls]
         out[name] = dict(
             ms=cuda_ms(solve, 20), device_ms=device_ms(solve, 5),
+            # warm: compare_kernels ran the plain versions on these calls
             plain_ms=cuda_ms(lambda: [plain(*a, **kw) for a, kw in calls],
-                             3, warmup=1),
+                             1, warmup=0),
             nbytes=nb, ops=no, levels=levels)
     for v in out.values():
         t_bytes = v["nbytes"] / HBM_BYTES_PER_S * 1e3
@@ -2037,9 +2082,21 @@ def lr_witness(steps: int = 5, widths=WITNESS_WIDTHS) -> None:
         torch.cuda.empty_cache()
 
 
-def _ckpt_arrays(d: Path, step: int) -> dict:
+def _same_checkpoints(a: Path, b: Path, step: int) -> bool:
+    """Whether the checkpoints of ``step`` under ``a`` and ``b`` hold the
+    same keys with bitwise equal arrays (read one key at a time)."""
     import numpy as np
-    return dict(np.load(d / f"step_{step:08d}" / "arrays.npz"))
+    raw = lambda x: np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+    name = f"step_{step:08d}/arrays.npz"
+    with np.load(a / name) as x, np.load(b / name) as y:
+        if sorted(x.files) != sorted(y.files):
+            return False
+        for key in x.files:
+            u, v = x[key], y[key]
+            if (u.dtype != v.dtype or u.shape != v.shape
+                    or not np.array_equal(raw(u), raw(v))):
+                return False
+    return True
 
 
 def trainer_e2e() -> dict:
@@ -2106,21 +2163,25 @@ def trainer_e2e() -> dict:
         n_checked, n_plain, n_launch = tc.n_checked, tc.n_plain, lc.n
         del lc
         torch.cuda.empty_cache()
-        # resume from the step-3 checkpoint in a fresh directory
+        # resume from the step-3 checkpoint in a fresh directory (its
+        # files linked: a save renames a new directory into place and
+        # never writes into an old one)
+        t_resume = time.perf_counter()
         shutil.copytree(tmp / "a" / "step_00000003",
-                        tmp / "b" / "step_00000003")
+                        tmp / "b" / "step_00000003", copy_function=os.link)
         resumed = train.main(args + ["--ckpt-dir", str(tmp / "b"),
                                      "--resume"])
         check(resumed == losses[3:],
               f"{name}: resumed losses {resumed} != {losses[3:]}")
-        a, b = _ckpt_arrays(tmp / "a", 5), _ckpt_arrays(tmp / "b", 5)
-        check(sorted(a) == sorted(b) and all(
-            a[key].tobytes() == b[key].tobytes() for key in a),
-            f"{name}: resumed state != uninterrupted state")
+        check(_same_checkpoints(tmp / "a", tmp / "b", 5),
+              f"{name}: resumed state != uninterrupted state")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     say(f"{name}: losses {losses}; main {wall:.2f} s for 5 steps with 2 "
-        f"checkpoints; launches level fold {counts[0]}, color level "
+        f"checkpoints (the checks and timings after it "
+        f"{t_resume - t0 - wall:.2f} s, the resume "
+        f"{time.perf_counter() - t_resume:.2f} s); launches level fold "
+        f"{counts[0]}, color level "
         f"{counts[1]}, segment reduce {counts[2]}, top-k select {counts[3]}; "
         f"{n_launch} reduce launches == plain bitwise; {n_checked} leaves "
         f"with exact thresholds ({n_plain} also == plain); restore == save "
@@ -2136,7 +2197,6 @@ def trainer_e2e() -> dict:
 
 SERVE_CELL = "qwen3-32b-serve-b4-p2048-g64"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 64
-BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 # bfloat16 outputs are also held, elementwise, to the plain version computed
 # in float32 from the same bfloat16 inputs: |got - want| <= rtol |want| +
@@ -2976,7 +3036,12 @@ def serve_cell(cfg, name, b, t, n_steps, gate, kernels=(5,),
 
 # -- phase 10: hybrid serving (hymba-1.5b) ------------------------------------
 
-HYBRID_CELL = "hymba-1.5b-serve-b4-p32768-g64"
+# the served cell's depth, cut to keep the script well inside its time
+# limit (PERF.md section 4): 32 -> 16, global layers 0 and 15, the rest
+# windowed
+HYBRID_DEPTH = 16
+HYBRID_GLOBAL = 2             # layers 0 and 15 of the 16
+HYBRID_CELL = "hymba-1.5b-l16-serve-b4-p32768-g64"
 HYBRID_BATCH, HYBRID_PROMPT, HYBRID_STEPS = 4, 32_768, 64
 HYMBA_WINDOW, HYMBA_DI, HYMBA_N = 1024, 3200, 16
 SCAN_TOL = 1e-5               # tests/test_kernels.py (rtol = atol)
@@ -3627,6 +3692,7 @@ def solve_phases() -> list:
 
     from repro_torch.core import build_forest, bt, rpa, sample_load
 
+    t2 = time.perf_counter()
     t = bt(4096, "exponential")
     bt_trees = [t] * 64
     bt_loads = [sample_load(t, "power-law", seed=s) for s in range(64)]
@@ -3660,11 +3726,15 @@ def solve_phases() -> list:
                 f"({v['bound_by']})")
 
     # phase 3: the main path, full size
+    t3 = time.perf_counter()
     _, bt_launches = run_config(SOLVE_CELLS[0], bt_trees, bt_loads, None, 64,
                                 (0, 21, 42, 63))
     # phase 4: the ragged path, with overrides
+    t4 = time.perf_counter()
     _, rp_launches = run_config(SOLVE_CELLS[1], rp_trees, rp_loads, rp_avail,
                                 16, (0, 5, 10, 15), overrides=True)
+    progress(f"phase 2-4 wall: 2 {t3 - t2:.1f} s, 3 {t4 - t3:.1f} s, 4 "
+             f"{time.perf_counter() - t4:.1f} s")
 
     rows = []
     for i, (name, src, replaces, entry) in enumerate((
@@ -4087,7 +4157,7 @@ def probe_in_fresh_process(probes) -> list:
     try:
         out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
                               "--runtime-probes", str(path)],
-                             capture_output=True, text=True, timeout=600)
+                             capture_output=True, text=True, timeout=240)
     finally:
         path.unlink(missing_ok=True)
     check(out.returncode == 0,
@@ -4417,8 +4487,12 @@ def trainer_fail() -> dict:
 
 def runtime_phase() -> dict:
     """Phase 12: both cells; per kernel row, their launches."""
+    t0 = time.perf_counter()
     orch = runtime_orchestrator()
+    t1 = time.perf_counter()
     fail = trainer_fail()
+    progress(f"phase 12 wall: {RUNTIME_CELLS[0]} {t1 - t0:.1f} s, "
+             f"{RUNTIME_CELLS[1]} {time.perf_counter() - t1:.1f} s")
     cell = lambda i: {"launches": orch["on_path"][i],
                       "launches_by_event": {k: v[i] for k, v in
                                             orch["launches"].items()},
@@ -4881,8 +4955,12 @@ def chaos_train(seed=0) -> dict:
 
 def chaos_phase(fleet_kw=None) -> dict:
     """Phase 13: both cells; per kernel row, their launches."""
+    t0 = time.perf_counter()
     fl = chaos_fleet(**(fleet_kw or {}))
+    t1 = time.perf_counter()
     tr = chaos_train()
+    progress(f"phase 13 wall: {CHAOS_CELLS[0]} {t1 - t0:.1f} s, "
+             f"{CHAOS_CELLS[1]} {time.perf_counter() - t1:.1f} s")
     return {"levelfold": {CHAOS_CELLS[0]: {"launches": fl["launches"][0]},
                           CHAOS_CELLS[1]: {"launches": tr["counts"][0]}},
             "color_level": {CHAOS_CELLS[0]: {"launches": fl["launches"][1]},
@@ -4906,7 +4984,7 @@ DIST_CELLS = ("dist8-dp8-k2-d6.5m", "e2e100m-dist8-topk-fail2",
               "chaos-train-dist8-e8")
 DIST_RANKS = 8
 DIST_D = 6_553_600          # values a rank: a 25 MiB float32 bucket
-DIST_REPS = 10              # timed calls a program and dtype
+DIST_REPS = 5               # timed calls a program and dtype
 DIST_GATHER_STEP = 3        # the trainer step whose sent rows are gathered
 DIST_SKIP_STEP = 3          # the control run's step without its update
 DIST_TRAIN_ARGS = ["--arch", "qwen3-32b", "--preset-100m", "--global-batch",
@@ -5218,7 +5296,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(outdir: Path, small: bool = False, timeout: int = 600,
+def run_ranks(outdir: Path, small: bool = False, timeout: int = 300,
               nproc: int = DIST_RANKS, body: str = "--dist-rank",
               label: str = "phase 14") -> float:
     """``nproc`` ranks of the ``body`` flag's rank function (``dist_rank``
@@ -5478,12 +5556,13 @@ def dist_phase(small: bool = False) -> dict:
 
 # -- phase 15: the SSM family trains (hymba) and xLSTM runs ------------------
 
-# the training cells' depths, cut to fit phase 19 in the script's time
-# (PERF.md section 4): hymba 32 -> 16, xLSTM 12 -> 6 (PR 31)
-HYMBA_TRAIN_DEPTH, XLSTM_TRAIN_DEPTH = 16, 6
-HYMBA_TRAIN_CELL = "hymba-1.5b-l16-train-dp2-b2-t4096-topk"
-XLSTM_SERVE_CELL = "xlstm-125m-serve-b4-p4096-g64"
-XLSTM_TRAIN_CELL = "xlstm-125m-l6-train-dp2-b2-t2048-topk"
+# the cells' depths, cut to keep the script well inside its time limit
+# (PERF.md section 4): hymba training 32 -> 4, xLSTM serving 12 -> 4 and
+# training 12 -> 2 (each keeps both of its block kinds)
+HYMBA_TRAIN_DEPTH, XLSTM_SERVE_DEPTH, XLSTM_TRAIN_DEPTH = 4, 4, 2
+HYMBA_TRAIN_CELL = "hymba-1.5b-l4-train-dp2-b2-t4096-topk"
+XLSTM_SERVE_CELL = "xlstm-125m-l4-serve-b4-p4096-g64"
+XLSTM_TRAIN_CELL = "xlstm-125m-l2-train-dp2-b2-t2048-topk"
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_STEPS = 4, 4096, 64
 # (B, T, D, N): the JAX test shapes, T = 1, T = 77 and 45 (not multiples of
 # the kernel's 32-step runs), N = 5 and 32 (two and eight lanes a channel)
@@ -6186,7 +6265,7 @@ def scan_rows() -> None:
     from repro_torch.kernels.ssm_scan import ssm_scan as m
     from repro_torch.models import api
     row = scan_decode_row()
-    cfg = hymba()
+    cfg = hymba(HYBRID_DEPTH)
     params = api.init_fn(cfg, DEVICE)(0)
     prompts = _prompts(cfg, HYBRID_BATCH, HYBRID_PROMPT, 0, DEVICE)
     greedy_run(cfg, params, prompts, 2, timed=True)         # warm-up
@@ -6235,14 +6314,16 @@ def ssm_phase() -> dict:
     hy = ssm_train_cell(hymba(HYMBA_TRAIN_DEPTH), HYMBA_TRAIN_CELL, 4096)
     t15c = time.perf_counter()
     serve_f32(xlstm(2), 2, 248, 8)
-    xs = serve_cell(xlstm(), XLSTM_SERVE_CELL, XLSTM_BATCH, XLSTM_PROMPT,
-                    XLSTM_STEPS, SERVE_XLSTM_BF16_DIFF, kernels=(),
+    xs = serve_cell(xlstm(XLSTM_SERVE_DEPTH), XLSTM_SERVE_CELL, XLSTM_BATCH,
+                    XLSTM_PROMPT, XLSTM_STEPS, SERVE_XLSTM_BF16_DIFF,
+                    kernels=(),
                     faults=(handoff_xlstm_states_dropped,), gate_steps=1)
     t15d = time.perf_counter()
     xt = ssm_train_cell(xlstm(XLSTM_TRAIN_DEPTH), XLSTM_TRAIN_CELL, 2048)
     torch.cuda.empty_cache()
-    say(f"phase 15 wall: 15a {t15b - t15:.1f} s, 15b {t15c - t15b:.1f} s, "
-        f"15c {t15d - t15c:.1f} s, 15d {time.perf_counter() - t15d:.1f} s")
+    t15e = time.perf_counter()
+    progress(f"phase 15 wall: 15a {t15b - t15:.1f} s, 15b {t15c - t15b:.1f} "
+             f"s, 15c {t15d - t15c:.1f} s, 15d {t15e - t15d:.1f} s")
     row = {"name": "ssm_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/ssm_scan.cu",
            "replaces": "none (no TPU twin: the JAX package differentiates "
@@ -6284,12 +6365,12 @@ def ssm_phase() -> dict:
 
 # -- phase 16: MLA, minicpm3-4b -----------------------------------------------
 
-MLA_CELL = "minicpm3-4b-l31-serve-b4-p32768-g64"
-MLA_TRAIN_CELL = "minicpm3-4b-l12-train-dp2-b1-t4096-topk"
+MLA_CELL = "minicpm3-4b-l4-serve-b4-p32768-g64"
+MLA_TRAIN_CELL = "minicpm3-4b-l4-train-dp2-b1-t4096-topk"
 MLA_BATCH, MLA_PROMPT, MLA_STEPS = 4, 32_768, 64
-# the cells' depths, cut to fit phase 19 in the script's time (PERF.md
-# section 4): serving 62 -> 31, training 24 -> 12 (PR 31)
-MLA_SERVE_DEPTH, MLA_TRAIN_DEPTH = 31, 12
+# the cells' depths, cut to keep the script well inside its time limit
+# (PERF.md section 4): serving and training 62 -> 4
+MLA_SERVE_DEPTH, MLA_TRAIN_DEPTH = 4, 4
 # minicpm3-4b's attention: 40 heads, keys 64 + 32 wide, values 64, a latent
 # of 256 (src/repro_torch/configs/minicpm3_4b.py)
 MLA_H, MLA_ND, MLA_RD, MLA_VD, MLA_R = 40, 64, 32, 64, 256
@@ -6742,7 +6823,7 @@ def mla_phase() -> dict:
         f"{sum(reckon.values()):.4g} reckoned")
     torch.cuda.empty_cache()
     t16d = time.perf_counter()
-    ssm_train_f32(minicpm3(2))
+    ssm_train_f32(minicpm3(1))
     tcfg = minicpm3(MLA_TRAIN_DEPTH)
     n_par = tcfg.param_count()
     say(f"{MLA_TRAIN_CELL}: {n_par:,} parameters at depth "
@@ -6750,8 +6831,9 @@ def mla_phase() -> dict:
         f"parameter (42.36 GB at 1.59 B, PR 24): {26.6 * n_par / 1e9:.2f} GB")
     train = ssm_train_cell(tcfg, MLA_TRAIN_CELL, 4096)
     torch.cuda.empty_cache()
-    say(f"phase 16 wall: 16a {t16b - t16:.1f} s, 16b {t16c - t16b:.1f} s, "
-        f"16c {t16d - t16c:.1f} s, 16d {time.perf_counter() - t16d:.1f} s")
+    t16e = time.perf_counter()
+    progress(f"phase 16 wall: 16a {t16b - t16:.1f} s, 16b {t16c - t16b:.1f} "
+             f"s, 16c {t16d - t16c:.1f} s, 16d {t16e - t16d:.1f} s")
     flash = {"route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
              "bitwise": False, "config": MLA_CELL, "dtype": "bfloat16",
@@ -7658,8 +7740,8 @@ def moe_phase() -> dict:
         "TB/s)" + ("" if dp is None else f"; a profiled step's device time "
                    f"{dp[1]:.4f} ms ({floor_ms / dp[1] * 100:.1f}% of it the "
                    "floor)"))
-    say(f"phase 17 wall: 17a {t17b - t17:.1f} s, 17b {t17c - t17b:.1f} s, "
-        f"17c {time.perf_counter() - t17c:.1f} s")
+    progress(f"phase 17 wall: 17a {t17b - t17:.1f} s, 17b {t17c - t17b:.1f} "
+             f"s, 17c {time.perf_counter() - t17c:.1f} s")
     pre, dec = att["prefill"], att["decode"]
     flash = {"route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -7712,12 +7794,12 @@ def moe_phase() -> dict:
 
 # -- phase 18: the VLM prefix (llava) and the encoder-decoder (whisper) ------
 
-# the served cells' depths, cut to fit phase 19 in the script's time
-# (PERF.md section 4): llava 60 -> 30, whisper 32 + 32 -> 16 + 16 (PR 31)
-LLAVA_DEPTH, WHISPER_DEPTH = 30, 16
-LLAVA_CELL = "llava-next-34b-l30-serve-b1-p4096-g64"
+# the served cells' depths, cut to keep the script well inside its time
+# limit (PERF.md section 4): llava 60 -> 8, whisper 32 + 32 -> 4 + 4
+LLAVA_DEPTH, WHISPER_DEPTH = 8, 4
+LLAVA_CELL = "llava-next-34b-l8-serve-b1-p4096-g64"
 LLAVA_GATE = "llava-next-34b-f32-l4-b2-p128-g8"
-WHISPER_CELL = "whisper-large-v3-l16-serve-b4-f32768-t8-g64"
+WHISPER_CELL = "whisper-large-v3-l4-serve-b4-f32768-t8-g64"
 WHISPER_GATE = "whisper-large-v3-f32-l4-b2-f1500-t8-g8"
 # llava's cell: one request, the anyres stub's 2,880 image embeddings and
 # 1,216 text tokens (4,096 positions), 64 greedy steps; its float32 gate
@@ -8234,8 +8316,9 @@ def vlm_encdec_phase(vlm=True, enc=True) -> dict:
             + ("not measured" if cell["prefill_busy"] is None else
                f"{100 * cell['prefill_busy']:.1f}%")
             + f"; peak {cell['peak']} bytes of {total} reckoned")
-    say(f"phase 18 wall: 18a {t18b - t18:.1f} s, 18b {t18c - t18b:.1f} s, "
-        f"18c {t18d - t18c:.1f} s, 18d {time.perf_counter() - t18d:.1f} s")
+    t18e = time.perf_counter()
+    progress(f"phase 18 wall: 18a {t18b - t18:.1f} s, 18b {t18c - t18b:.1f} "
+             f"s, 18c {t18d - t18c:.1f} s, 18d {t18e - t18d:.1f} s")
     return {"rows": encdec_rows(att, cells, roles), "cells": cells,
             "gates": gates, "attention": att}
 
@@ -8898,7 +8981,7 @@ def sharded_phase(small: bool = False) -> dict:
             held = torch.cuda.memory_allocated()
             check(held < 1e9, f"phase 19: {held} bytes held by the parent "
                   "before the ranks start")
-        ranks_s = run_ranks(tmp, small, timeout=900, nproc=SHARDED_RANKS,
+        ranks_s = run_ranks(tmp, small, timeout=400, nproc=SHARDED_RANKS,
                             body="--sharded-rank", label="phase 19")
         got = [json.loads((tmp / f"rank{r}.json").read_text())
                for r in range(SHARDED_RANKS)]
@@ -8989,10 +9072,248 @@ def sharded_phase(small: bool = False) -> dict:
                 + ", ".join(f"{k} {v:.2f}" for k, v in
                             ref["gaps_fault_dp_shard_dropped"].items()))
         cells[name] = ref
-    say(f"phase 19 wall: the dense reference {t_ranks - t_ref:.1f} s, the "
-        f"ranks {ranks_s:.1f} s (19a {max(g['ep_s'] for g in got):.1f} s, "
-        f"19b {max(g['step_s'] for g in got):.1f} s)")
+    ep_s, step_s = (max(g[k] for g in got) for k in ("ep_s", "step_s"))
+    progress(f"phase 19 wall: the dense reference {t_ranks - t_ref:.1f} s, "
+             f"the ranks {ranks_s:.1f} s (19a {ep_s:.1f} s, 19b {step_s:.1f} "
+             "s)")
     return {"ep": {"dense": dense, "ranks": ep}, "step": cells}
+
+
+# -- phase 20: the roofline ---------------------------------------------------
+
+ROOFLINE_GATE = 1.05         # share = bound / measured: above it the count
+#                              is wrong (the bound is a floor on the time)
+ROOFLINE_REPS = 3            # timed runs a cell, the median read
+L1_SHARD = 512               # one worker's 1 x 512 of phase 8's 2 x 512
+
+
+def roofline_card(smi: str) -> dict:
+    """Phase 20a: the card beside ``launch/roofline.py``'s constants."""
+    import torch
+
+    from repro_torch.launch import roofline
+    props = torch.cuda.get_device_properties(0)
+    limit = re.search(r"([\d.]+)\s*W\s*$", smi)
+    watts = float(limit.group(1)) if limit else None
+    say(f"phase 20a: {smi}; {props.multi_processor_count} SMs, "
+        f"{props.total_memory} bytes of device memory; the port's peaks "
+        f"(launch/roofline.py: NVIDIA H100 SXM, 700 W, dense): bfloat16 "
+        f"{roofline.PEAK_FLOPS:.4g} FLOP/s, float32 {roofline.FP32_FLOPS:.4g}"
+        f" FLOP/s, HBM {roofline.HBM_BW:.4g} B/s and {roofline.HBM_BYTES:.4g}"
+        f" B, NVLink {roofline.LINK_BW:.4g} B/s one way")
+    if watts is None or watts < 700:
+        say("phase 20a: the card's power limit is "
+            + ("not read" if watts is None else f"{watts} W")
+            + ": the shares below are against the published peaks at 700 W")
+    return {"sms": props.multi_processor_count,
+            "total_memory": props.total_memory, "power_limit_w": watts}
+
+
+def profile_by_op(fn, label: str):
+    """Device ms and calls by aten operator of one ``fn()`` under
+    ``torch.profiler`` (each operator's own kernels), and the device ms of
+    the kernels no aten operator launched (the port's ``ctypes``
+    launches), by kernel; None where no device time is recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+    except Exception as e:      # a measurement, not a check
+        say(f"{label}: profile not measured ({type(e).__name__}: {e})")
+        return None
+    ops = {e.key: (e.self_device_time_total / 1e3, e.count) for e in ev
+           if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+           and e.self_device_time_total > 0}
+    kernels = {e.key: (e.self_device_time_total / 1e3, e.count) for e in ev
+               if e.device_type == DeviceType.CUDA}
+    busy = sum(ms for ms, _ in kernels.values())
+    if busy <= 0:
+        say(f"{label}: profile not measured (no device time recorded)")
+        return None
+    return {"ops": ops, "kernels": kernels, "busy_ms": busy,
+            "outside_ops_ms": busy - sum(ms for ms, _ in ops.values())}
+
+
+def prefill_reading(params, cfg, b: int = SERVE_BATCH,
+                    t: int = SERVE_PROMPT) -> dict:
+    """20b's reading of ``SERVE_CELL``'s prefill: ``make_prefill_step`` on
+    the cell's prompts, one warm-up, then ``ROOFLINE_REPS`` synchronised
+    runs (their median) and one under the profiler (20d)."""
+    import torch
+
+    from repro_torch.launch import steps
+    prompts = as_batch(_prompts(cfg, b, t, 0, DEVICE))
+    step = steps.make_prefill_step(cfg)
+    step(params, prompts)
+    runs = []
+    for _ in range(ROOFLINE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, prompts)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    prof = profile_by_op(lambda: step(params, prompts), f"{SERVE_CELL} 20d")
+    return {"s": statistics.median(runs), "runs_s": runs, "profile": prof}
+
+
+def worker_reading(cfg) -> dict:
+    """20c's reading of phase 8's worker step at ``qwen3-32b-l1-dp2-topk``:
+    one worker's loss and gradient on its 1 x 512 block of phase 8's first
+    batch, one warm-up, then the median of ``ROOFLINE_REPS`` synchronised
+    runs."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import api
+    params = api.init_fn(cfg, DEVICE)(0)
+    batch = SyntheticLM(cfg, DataConfig(2, L1_SHARD, seed=0),
+                        device=DEVICE).batch(0)
+    shard = {k: v[:1] for k, v in batch.items()}
+    lfn, leaves = api.loss_fn(cfg), T.leaves(params)
+
+    def step():
+        loss, _ = lfn(params, shard)
+        torch.autograd.grad(loss, leaves)
+
+    step()
+    runs = []
+    for _ in range(ROOFLINE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    del params, leaves
+    torch.cuda.empty_cache()
+    return {"s": statistics.median(runs), "runs_s": runs}
+
+
+def roofline_gate(label: str, counter, measured_s: float,
+                  model_flops: float) -> dict:
+    """The cell's roofline terms from ``counter`` (one process, the CPU
+    path at the cell's shape on fake tensors) against its measured time:
+    the share bound / measured must stay at most ``ROOFLINE_GATE``, and a
+    planted fault, the measured time divided by 100, must exceed it. The
+    compute roof is the peak of the step's own matmul dtype."""
+    import torch
+
+    from repro_torch.launch import roofline
+    by_dtype = roofline.flops_by_dtype(counter.records)
+    f32 = by_dtype.get("f32", 0.0) > by_dtype.get("bf16", 0.0)
+    if f32:
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              f"{label}: float32 matmuls with TF32 on: FP32_FLOPS is not "
+              "their peak")
+    peak = roofline.FP32_FLOPS if f32 else roofline.PEAK_FLOPS
+    terms = roofline.roofline_terms(counter.stats(), 1, peak)
+    bound = terms["step_time_lower_bound_s"]
+    share = bound / measured_s
+    planted = bound / (measured_s / 100)
+    mfu = model_flops / (measured_s * roofline.PEAK_FLOPS)
+    say(f"{label}: counted {terms['flops_per_device']:.6g} dot FLOP "
+        f"({', '.join(f'{k} {v:.6g}' for k, v in by_dtype.items())}), "
+        f"{terms['memory_bytes_per_device']:.6g} bytes; compute_s "
+        f"{terms['compute_s']:.6g} at {peak:.4g} FLOP/s "
+        f"({'float32' if f32 else 'bfloat16'} peak), memory_s "
+        f"{terms['memory_s']:.6g}; the {terms['bottleneck']} bound "
+        f"{bound:.6g} s against {measured_s:.6g} s measured: share "
+        f"{share:.4f}; model_flops {model_flops:.6g}, model_flops / "
+        f"(measured x PEAK_FLOPS) {mfu:.4f}; planted fault (measured / "
+        f"100): share {planted:.4f} ({nvidia_smi_line()})")
+    check(share <= ROOFLINE_GATE, f"{label}: share {share:.4f} > "
+          f"{ROOFLINE_GATE}: the bound exceeds the measured time")
+    check(planted > ROOFLINE_GATE, f"{label}: the planted fault's share "
+          f"{planted:.4f} passes the gate")
+    return {"compute_s": terms["compute_s"], "memory_s": terms["memory_s"],
+            "bottleneck": terms["bottleneck"], "bound_s": bound,
+            "measured_s": measured_s, "share": share, "peak": peak,
+            "model_flops": model_flops, "model_flops_share": mfu,
+            "planted_share": planted, "flops_by_dtype": by_dtype,
+            "memory_bytes": terms["memory_bytes_per_device"]}
+
+
+def print_op_rows(label: str, prof, counter, top: int = 12) -> None:
+    """20d: the profiler's device ms by aten operator beside the
+    counter's rows of the same names (calls, bytes, FLOPs), and the rows
+    that have no counterpart on the other side: the card runs the flash
+    kernel (launched outside any aten operator), the counter its plain
+    version as one ``kernel.*`` row a call. Printed only."""
+    mine: dict = {}
+    for r in counter.records:
+        if r.bytes or r.flops:
+            name = r.op.replace("aten.", "aten::", 1)
+            n, b, f = mine.get(name, (0, 0, 0.0))
+            mine[name] = (n + 1, b + r.bytes, f + r.flops)
+    if prof is None:
+        say(f"{label} 20d: device time by op not measured")
+        return
+    ops = sorted(prof["ops"].items(), key=lambda kv: -kv[1][0])
+    say(f"{label} 20d: device busy {prof['busy_ms']:.4f} ms, "
+        f"{prof['outside_ops_ms']:.4f} ms of it launched outside aten "
+        "operators (kernels: " + "; ".join(
+            f"{k[:50]} {ms:.4f} ms ({n})" for k, (ms, n) in sorted(
+                prof["kernels"].items(), key=lambda kv: -kv[1][0])
+            if "flash" in k or "ssm" in k) + ")")
+    for name, (ms, n) in ops[:top]:
+        c = mine.get(name)
+        say(f"  {name:<28} device {ms:10.4f} ms ({n:5d} calls) | counter "
+            + ("none" if c is None else
+               f"{c[0]} calls, {c[1] / 1e9:.4f} GB, {c[2] / 1e12:.4f} TFLOP"))
+    say(f"{label} 20d: on the card only: " + ", ".join(
+        name for name, _ in ops if name not in mine))
+    say(f"{label} 20d: counted only: " + ", ".join(
+        f"{name} ({c[0]} calls, {c[1] / 1e9:.4f} GB, {c[2] / 1e12:.4f} "
+        f"TFLOP)" for name, c in sorted(mine.items(), key=lambda kv: -kv[1][1])
+        if name not in prof["ops"]))
+
+
+def roofline_phase(smi: str, prefill: dict | None = None) -> dict:
+    """Phase 20: the roofline of two cells against the card. 20a the card;
+    20b ``SERVE_CELL``'s prefill (``prefill``: phase 9's reading in a whole
+    run, else timed here on its own qwen3-32b); 20c phase 8's worker step;
+    20d 20b's device time by operator beside the counter's rows."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import api
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 20: {held} bytes still allocated before it")
+    out = {"card": roofline_card(smi)}
+    qwen = ARCHS["qwen3-32b"]
+    if prefill is None:
+        params = api.init_fn(qwen, DEVICE)(0)
+        prefill = prefill_reading(params, qwen)
+        del params
+        torch.cuda.empty_cache()
+    shape = api.ShapeSpec(SERVE_CELL, SERVE_PROMPT, SERVE_BATCH, "prefill")
+    t0 = time.perf_counter()
+    counted = dryrun.count_unsharded(qwen, shape, "prefill")
+    say(f"20b {SERVE_CELL}: prefill counted in {time.perf_counter() - t0:.1f}"
+        f" s on fake tensors ({len(counted.records)} operators); measured "
+        f"{[round(s, 6) for s in prefill['runs_s']]} s")
+    out["prefill"] = roofline_gate(
+        f"20b {SERVE_CELL} prefill", counted, prefill["s"],
+        roofline.model_flops(qwen, shape, "prefill"))
+    l1 = dataclasses.replace(qwen, n_layers=1)
+    worker = worker_reading(l1)
+    wshape = api.ShapeSpec("qwen3-32b-l1-dp2-topk", L1_SHARD, 1, "train")
+    wcount = dryrun.count_unsharded(l1, wshape, "grads")
+    say(f"20c qwen3-32b-l1-dp2-topk: one worker's loss and gradient "
+        f"(1 x {L1_SHARD}), measured {[round(s, 6) for s in worker['runs_s']]}"
+        " s")
+    out["worker"] = roofline_gate(
+        "20c qwen3-32b-l1-dp2-topk worker step", wcount, worker["s"],
+        roofline.model_flops(l1, wshape, "train"))
+    print_op_rows(f"{SERVE_CELL} prefill", prefill["profile"], counted)
+    return out
 
 
 def main(args: list[str]) -> int:
@@ -9005,13 +9326,13 @@ def main(args: list[str]) -> int:
                     ["--chaos-loss-witness"], ["--dist"], ["--ssm"],
                     ["--xlstm-witness"], ["--scan-rows"], ["--mla"],
                     ["--mla-rows"], ["--moe"], ["--vlm"], ["--encdec"],
-                    ["--sharded"]):
+                    ["--sharded"], ["--roofline"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
               f"--runtime | --chaos | --chaos-loss-witness | --dist | "
               f"--ssm | --xlstm-witness | --scan-rows | --mla | "
               f"--mla-rows [FLASH_CU ...] | --moe | --vlm | --encdec | "
-              f"--sharded], got "
+              f"--sharded | --roofline], got "
               f"{args}",
               file=sys.stderr)
         return 2
@@ -9023,16 +9344,15 @@ def main(args: list[str]) -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
               "root of a checkout", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import _build
 
     # phase 1: device
     smi = nvidia_smi_line()
     _build.library()
-    say(f"device: {smi}; torch {torch.__version__} CUDA "
-        f"{torch.version.cuda}; kernels built and loaded in "
-        f"{_build.build_seconds:.2f} s")
+    progress(f"device: {smi}; torch {torch.__version__} CUDA "
+             f"{torch.version.cuda}; kernels built and loaded in "
+             f"{_build.build_seconds:.2f} s")
     if args == ["--lr-witness"]:
         lr_witness()
         return 0
@@ -9063,13 +9383,13 @@ def main(args: list[str]) -> int:
     if args == ["--chaos"]:
         t13 = time.perf_counter()
         say(json.dumps({"chaos": chaos_phase()}))
-        say(f"phase 13 wall: {time.perf_counter() - t13:.1f} s")
+        progress(f"phase 13 wall: {time.perf_counter() - t13:.1f} s")
         say(smi)
         return 0
     if args == ["--dist"]:
         t14 = time.perf_counter()
         say(json.dumps({"dist": dist_phase()}))
-        say(f"phase 14 wall: {time.perf_counter() - t14:.1f} s")
+        progress(f"phase 14 wall: {time.perf_counter() - t14:.1f} s")
         say(smi)
         return 0
     if args == ["--xlstm-witness"]:
@@ -9084,21 +9404,21 @@ def main(args: list[str]) -> int:
     if args == ["--ssm"]:
         t15 = time.perf_counter()
         ssm = ssm_phase()
-        say(f"phase 15 wall: {time.perf_counter() - t15:.1f} s")
+        progress(f"phase 15 wall: {time.perf_counter() - t15:.1f} s")
         say(json.dumps({"kernels": [ssm["row"]]}))
         say(smi)
         return 0
     if args == ["--mla"]:
         t16 = time.perf_counter()
         mla = mla_phase()
-        say(f"phase 16 wall: {time.perf_counter() - t16:.1f} s")
+        progress(f"phase 16 wall: {time.perf_counter() - t16:.1f} s")
         say(json.dumps({"kernels": mla["rows"]}))
         say(smi)
         return 0
     if args == ["--moe"]:
         t17 = time.perf_counter()
         moe_rows = moe_phase()["rows"]
-        say(f"phase 17 wall: {time.perf_counter() - t17:.1f} s")
+        progress(f"phase 17 wall: {time.perf_counter() - t17:.1f} s")
         say(json.dumps({"kernels": moe_rows}))
         say(smi)
         return 0
@@ -9106,7 +9426,7 @@ def main(args: list[str]) -> int:
         t18 = time.perf_counter()
         rows18 = vlm_encdec_phase(vlm=args == ["--vlm"],
                                   enc=args == ["--encdec"])["rows"]
-        say(f"phase 18 wall: {time.perf_counter() - t18:.1f} s")
+        progress(f"phase 18 wall: {time.perf_counter() - t18:.1f} s")
         say(json.dumps({"kernels": rows18}))
         say(smi)
         return 0
@@ -9114,7 +9434,13 @@ def main(args: list[str]) -> int:
     if args == ["--sharded"]:
         t19 = time.perf_counter()
         sharded_phase()
-        say(f"phase 19 wall: {time.perf_counter() - t19:.1f} s")
+        progress(f"phase 19 wall: {time.perf_counter() - t19:.1f} s")
+        say(smi)
+        return 0
+    if args == ["--roofline"]:
+        t20 = time.perf_counter()
+        say(json.dumps({"roofline": roofline_phase(smi)}))
+        progress(f"phase 20 wall: {time.perf_counter() - t20:.1f} s")
         say(smi)
         return 0
 
@@ -9125,19 +9451,27 @@ def main(args: list[str]) -> int:
         return 0
 
     # phase 5 (random shapes) and phase 6 with phase 5 on its launches
+    t5 = time.perf_counter()
     sr_err = check_segment_reduce_random()
     sr_launches, sr = reduce_path()
     sr_err = max(sr_err, sr["max_abs_err"])
     torch.cuda.empty_cache()
+    progress(f"phase 5-6 wall: {time.perf_counter() - t5:.1f} s")
 
     # phase 7: the top-k kernel, before the trainer allocates anything
+    t7 = time.perf_counter()
     tk_err = check_topk_random()
     tk = topk_full_size()
     tk["max_abs_err"] = max(tk_err, tk["max_abs_err"])
+    progress(f"phase 7 wall: {time.perf_counter() - t7:.1f} s")
     # phase 8: the trainer
+    t8 = time.perf_counter()
     l1 = trainer_l1()
+    t8b = time.perf_counter()
     e2e = trainer_e2e()
     torch.cuda.empty_cache()
+    progress(f"phase 8 wall: qwen3-32b-l1-dp2-topk {t8b - t8:.1f} s, "
+             f"e2e100m-dp8-topk {time.perf_counter() - t8b:.1f} s")
 
     # phase 9: serving. 9a: the flash kernel before the model allocates;
     # 9b: the float32 consistency run, then the cell at full size
@@ -9153,9 +9487,11 @@ def main(args: list[str]) -> int:
     f32_gate = serve_f32(dataclasses.replace(qwen, n_layers=4), 2, 128, 8)
     t9c = time.perf_counter()
     cell = serve_cell(qwen, SERVE_CELL, SERVE_BATCH, SERVE_PROMPT,
-                      SERVE_STEPS, SERVE_BF16_DIFF)
-    say(f"phase 9 wall: 9a {t9b - t9:.1f} s, float32 consistency "
-        f"{t9c - t9b:.1f} s, {SERVE_CELL} {time.perf_counter() - t9c:.1f} s")
+                      SERVE_STEPS, SERVE_BF16_DIFF, extra=lambda p: {
+                          "roofline": prefill_reading(p, qwen)})
+    t9d = time.perf_counter()
+    progress(f"phase 9 wall: 9a {t9b - t9:.1f} s, float32 consistency "
+             f"{t9c - t9b:.1f} s, {SERVE_CELL} {t9d - t9c:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 10: hybrid serving. 10a: the scan and the windowed flash
@@ -9173,14 +9509,15 @@ def main(args: list[str]) -> int:
     hr = hymba_attention_rows()
     t10b = time.perf_counter()
     serve_f32(hymba(2), 2, 1280, 8)
-    serve_f32(hymba(), 2, 2048, 64, cpu=False)
+    serve_f32(hymba(HYBRID_DEPTH), 2, 2048, 64, cpu=False)
     t10c = time.perf_counter()
-    hy = serve_cell(hymba(), HYBRID_CELL, HYBRID_BATCH, HYBRID_PROMPT,
-                    HYBRID_STEPS, SERVE_HYBRID_BF16_DIFF, kernels=(5, 6),
+    hy = serve_cell(hymba(HYBRID_DEPTH), HYBRID_CELL, HYBRID_BATCH,
+                    HYBRID_PROMPT, HYBRID_STEPS, SERVE_HYBRID_BF16_DIFF,
+                    kernels=(5, 6),
                     faults=(handoff_ring_first, handoff_state_dropped))
-    say(f"phase 10 wall: 10a {t10b - t10:.1f} s, float32 consistency "
-        f"{t10c - t10b:.1f} s, {HYBRID_CELL} {time.perf_counter() - t10c:.1f}"
-        " s")
+    t10d = time.perf_counter()
+    progress(f"phase 10 wall: 10a {t10b - t10:.1f} s, float32 consistency "
+             f"{t10c - t10b:.1f} s, {HYBRID_CELL} {t10d - t10c:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 11: the congestion/fleet penalty loop, on the solve's kernels
@@ -9191,7 +9528,7 @@ def main(args: list[str]) -> int:
     fleet = fleet_phase()
     for row in rows[:2]:
         row["cells"].update(fleet[row["name"]])
-    say(f"phase 11 wall: {time.perf_counter() - t11:.1f} s")
+    progress(f"phase 11 wall: {time.perf_counter() - t11:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 12: the runtime, its solves on the same kernels
@@ -9202,7 +9539,7 @@ def main(args: list[str]) -> int:
     runtime = runtime_phase()
     for row in rows[:2]:
         row["cells"].update(runtime[row["name"]])
-    say(f"phase 12 wall: {time.perf_counter() - t12:.1f} s")
+    progress(f"phase 12 wall: {time.perf_counter() - t12:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 13: the chaos harness over the runtime, and training under it
@@ -9214,7 +9551,7 @@ def main(args: list[str]) -> int:
     for row in rows[:2]:
         row["cells"].update(chaos[row["name"]])
     say(json.dumps({"chaos": chaos["chaos"]}))
-    say(f"phase 13 wall: {time.perf_counter() - t13:.1f} s")
+    progress(f"phase 13 wall: {time.perf_counter() - t13:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 14: the rank executor, one process a rank, all on this card
@@ -9226,7 +9563,7 @@ def main(args: list[str]) -> int:
     for row in rows[:2]:
         row["cells"].update(dist[row["name"]])
     say(json.dumps({"dist": dist["dist"]}))
-    say(f"phase 14 wall: {time.perf_counter() - t14:.1f} s")
+    progress(f"phase 14 wall: {time.perf_counter() - t14:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 15: the backward scan kernel, hymba training, xLSTM serving and
@@ -9236,17 +9573,17 @@ def main(args: list[str]) -> int:
     check(held < 1e9, f"phase 15: {held} bytes still allocated after "
           "phase 14")
     ssm = ssm_phase()
-    say(f"phase 15 wall: {time.perf_counter() - t15:.1f} s")
+    progress(f"phase 15 wall: {time.perf_counter() - t15:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 16: MLA on minicpm3-4b, its prefill and latent decode kernels,
-    # served (depth 31) and trained
+    # served (depth 4) and trained
     t16 = time.perf_counter()
     held = torch.cuda.memory_allocated()
     check(held < 1e9, f"phase 16: {held} bytes still allocated after "
           "phase 15")
     mla = mla_phase()
-    say(f"phase 16 wall: {time.perf_counter() - t16:.1f} s")
+    progress(f"phase 16 wall: {time.perf_counter() - t16:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 17: MoE on kimi-k2, its attention kernels at head width 112 and
@@ -9256,7 +9593,7 @@ def main(args: list[str]) -> int:
     check(held < 1e9, f"phase 17: {held} bytes still allocated after "
           "phase 16")
     moe = moe_phase()
-    say(f"phase 17 wall: {time.perf_counter() - t17:.1f} s")
+    progress(f"phase 17 wall: {time.perf_counter() - t17:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 18: the VLM prefix (llava-next-34b) and the encoder-decoder
@@ -9267,7 +9604,7 @@ def main(args: list[str]) -> int:
     check(held < 1e9, f"phase 18: {held} bytes still allocated after "
           "phase 17")
     vlm_enc = vlm_encdec_phase()
-    say(f"phase 18 wall: {time.perf_counter() - t18:.1f} s")
+    progress(f"phase 18 wall: {time.perf_counter() - t18:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 19: sharding and expert parallelism, 4 ranks on this card
@@ -9276,7 +9613,14 @@ def main(args: list[str]) -> int:
     check(held < 1e9, f"phase 19: {held} bytes still allocated after "
           "phase 18")
     sharded_phase()
-    say(f"phase 19 wall: {time.perf_counter() - t19:.1f} s")
+    progress(f"phase 19 wall: {time.perf_counter() - t19:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 20: the roofline of the prefill timed in phase 9 and of phase
+    # 8's worker step, against the card
+    t20 = time.perf_counter()
+    say(json.dumps({"roofline": roofline_phase(smi, cell["roofline"])}))
+    progress(f"phase 20 wall: {time.perf_counter() - t20:.1f} s")
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -9414,22 +9758,24 @@ def main(args: list[str]) -> int:
                  "ms_per": f"windowed prefill layer ({HYBRID_BATCH} x "
                            f"{HYBRID_PROMPT}, 25/5 heads of 64, window "
                            f"{HYMBA_WINDOW})",
-                 "launches_per": served(hy, HYBRID_STEPS) + " (29 of the 32 "
-                                 "prefill calls windowed)",
+                 "launches_per": served(hy, HYBRID_STEPS) + (
+                     f" ({HYBRID_DEPTH - HYBRID_GLOBAL} of the "
+                     f"{HYBRID_DEPTH} prefill calls windowed)"),
                  "library": "torch.nn.functional.scaled_dot_product_attention"
                             " (band mask, memory-efficient backend)"})
     for key, kernel, path, per, tol in (
             ("global_prefill", "flash_tile_tc", "tile_tc",
              f"global causal prefill layer ({HYBRID_BATCH} x "
-             f"{HYBRID_PROMPT}, 25/5 heads of 64; 3 of the 32 prefill "
-             "calls)", tc_tol),
+             f"{HYBRID_PROMPT}, 25/5 heads of 64; {HYBRID_GLOBAL} of the "
+             f"{HYBRID_DEPTH} prefill calls)", tc_tol),
             ("global_decode", "flash_decode_split", "decode_split",
              f"global decode layer ({HYBRID_BATCH} x 1 over "
              f"{HYBRID_PROMPT + HYBRID_STEPS} positions; 3 of the 32 calls "
              "a step)", tight_tol),
             ("window_decode", "flash_decode_split", "decode_split",
              f"windowed decode layer ({HYBRID_BATCH} x 1 over the "
-             f"{HYMBA_WINDOW}-slot ring; 29 of the 32 calls a step)",
+             f"{HYMBA_WINDOW}-slot ring; {HYBRID_DEPTH - HYBRID_GLOBAL} of "
+             f"the {HYBRID_DEPTH} calls a step)",
              tight_tol)):
         r = hr[key]
         dev = {k: r[k] for k in ("device_ms", "plain_device_ms",
@@ -9499,16 +9845,22 @@ def main(args: list[str]) -> int:
         f"of {cell['step_s'] * 1e3:.4f} ms per step; device busy over one "
         "decode step " + ("not measured" if cell["busy"] is None else
                           f"{100 * cell['busy']:.1f}%") + f" ({smi})")
-    pre_hy = (wf["ms"] * 29 + hr["global_prefill"]["ms"] * 3
+    check(HYBRID_GLOBAL == sum(i < HYBRID_DEPTH
+                               for i in hymba().global_attn_layers),
+          f"{HYBRID_CELL}: HYBRID_GLOBAL is not the config's count")
+    n_win = HYBRID_DEPTH - HYBRID_GLOBAL
+    pre_hy = (wf["ms"] * n_win + hr["global_prefill"]["ms"] * HYBRID_GLOBAL
               + sc["ms"] * hy["n_layers"]) / 1e3
-    say(f"{HYBRID_CELL}: the flash tile kernel (29 windowed and 3 global "
-        f"layers) and the scan (32) take {pre_hy:.4f} s of the "
-        f"{hy['prefill_s']:.4f} s prefill "
+    dec_hy = (hr["global_decode"]["ms"] * HYBRID_GLOBAL
+              + hr["window_decode"]["ms"] * n_win)
+    say(f"{HYBRID_CELL}: the flash tile kernel ({n_win} windowed and "
+        f"{HYBRID_GLOBAL} global layers) and the scan ({hy['n_layers']}) "
+        f"take {pre_hy:.4f} s of the {hy['prefill_s']:.4f} s prefill "
         f"({100 * pre_hy / hy['prefill_s']:.1f}%); decode attention "
-        f"{hr['global_decode']['ms'] * 3 + hr['window_decode']['ms'] * 29:.4f}"
-        f" ms of {hy['step_s'] * 1e3:.4f} ms per step; device busy over one "
-        "decode step " + ("not measured" if hy["busy"] is None else
-                          f"{100 * hy['busy']:.1f}%") + ", over one prefill "
+        f"{dec_hy:.4f} ms of {hy['step_s'] * 1e3:.4f} ms per step; device "
+        "busy over one decode step " + (
+            "not measured" if hy["busy"] is None else
+            f"{100 * hy['busy']:.1f}%") + ", over one prefill "
         + ("not measured" if hy["prefill_busy"] is None else
            f"{100 * hy['prefill_busy']:.1f}%") + f" ({smi})")
     dp = hy["decode_profile"]

@@ -45,6 +45,7 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from .tree_allreduce import Link
 
@@ -76,9 +77,10 @@ def axis(mesh, names) -> Axis:
     if idx != sorted(idx):
         raise ValueError(f"axes {names} are not in the mesh's order "
                          f"{all_names}")
-    ranks = mesh.mesh
-    key = (tuple(ranks.shape), tuple(ranks.flatten().tolist()), all_names,
-           names)
+    with _disable_current_modes():      # host metadata, never a fake tensor
+        ranks = mesh.mesh
+        key = (tuple(ranks.shape), tuple(ranks.flatten().tolist()),
+               all_names, names)
     if key not in _GROUPS:
         if len(names) == 1:
             group = mesh.get_group(names[0])
@@ -87,7 +89,8 @@ def axis(mesh, names) -> Axis:
             size = 1
             for i in idx:
                 size *= ranks.shape[i]
-            rows = ranks.permute(rest + idx).reshape(-1, size).tolist()
+            with _disable_current_modes():
+                rows = ranks.permute(rest + idx).reshape(-1, size).tolist()
             group, _ = dist.new_subgroups_by_enumeration(rows)
         _GROUPS[key] = group
     group = _GROUPS[key]
@@ -95,12 +98,20 @@ def axis(mesh, names) -> Axis:
                 dist.get_rank(group))
 
 
+def forget_groups() -> None:
+    """Drop the groups :func:`axis` made: after the default process group
+    is destroyed they are dead, and a new group of the same layout would
+    find them (``launch.dryrun`` makes and destroys a group a cell)."""
+    _GROUPS.clear()
+
+
 # -- exchanges ----------------------------------------------------------------
 
 @contextlib.contextmanager
 def exchange_log():
-    """Collect ``{"op", "axis", "bytes", "staged_bytes", "s"}`` for each
-    exchange made while open: the bytes of its result on this rank, those
+    """Collect ``{"op", "axis", "bytes", "operand_bytes", "staged_bytes",
+    "s"}`` for each exchange made while open: the bytes of its result and
+    of its operand (what this rank sends) on this rank, those
     copied through pinned host memory (the input out and the result back;
     0 when not staged), its seconds with the device synchronised at both
     edges."""
@@ -126,6 +137,7 @@ def _timed(op: str, ax: Axis, t: torch.Tensor, run):
     got = sent * ax.size if op == "all_gather" else sent
     staged = Link(ax.group, t.device).staged
     records.append({"op": op, "axis": ax.names, "bytes": got,
+                    "operand_bytes": sent,
                     "staged_bytes": sent + got if staged else 0,
                     "s": time.perf_counter() - t0})
     return out

@@ -435,7 +435,8 @@ class Link:
     writes host memory, so under gloo every slab of a CUDA tensor is staged
     explicitly through a pinned host buffer; CPU tensors travel as they
     are. The staging is chosen by the backend's name. Peers are named by
-    their rank in the group.
+    their rank in the group. The ``fake`` backend (a dry run's process
+    group, ``launch.dryrun``) moves nothing, so nothing is staged.
     """
 
     def __init__(self, group, device):
@@ -444,6 +445,8 @@ class Link:
         self.backend = str(dist.get_backend(group))
         if self.backend == "gloo":
             self.staged = self.device.type == "cuda"
+        elif self.backend == "fake":
+            self.staged = False
         elif self.backend == "nccl":
             if self.device.type != "cuda":
                 raise ValueError(f"an NCCL group sends CUDA tensors, got "
@@ -451,7 +454,8 @@ class Link:
             self.staged = False
         else:
             raise ValueError(f"backend {self.backend!r}: the rank executor "
-                             f"runs over gloo or nccl")
+                             f"runs over gloo or nccl (or a dry run's "
+                             f"fake group)")
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
 

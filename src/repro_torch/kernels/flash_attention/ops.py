@@ -1,7 +1,8 @@
 """Flash attention: shape checks and device dispatch.
 
 A CUDA tensor always launches the kernel; a CPU tensor runs the plain
-version. There is no option that sends a CUDA tensor to the plain version.
+version (a counter counts it as the kernel: ``kernels.plain``). There is
+no option that sends a CUDA tensor to the plain version.
 Values may be narrower than keys (MLA's prefill: keys 96 wide, values
 64), and ``flash_mla_decode`` is MLA's absorbed decode over the latent
 cache.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..plain import kernel_call
 from .flash_attention import (flash_attention_cuda, flash_mla_decode_cuda,
                               mla_geometry, mla_splits)
 from .ref import (flash_attention_gqa_torch, flash_attention_torch,
@@ -24,7 +26,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"bad shapes {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal)
+        with kernel_call("flash_attention", q, k, v) as done:
+            return done(flash_attention_torch(q, k, v, causal))
     d = q.shape[2]
     out = flash_attention_cuda(q[:, :, None], k[:, :, None], v[:, :, None],
                                1.0 / (d ** 0.5), causal)
@@ -40,7 +43,9 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 tensor. A ``window`` w > 0 (causal, T == S) limits row i to
     keys i - w < j <= i."""
     if q.device.type == "cpu":
-        return flash_attention_gqa_torch(q, k, v, scale, causal, window)
+        with kernel_call("flash_attention", q, k, v) as done:
+            return done(flash_attention_gqa_torch(q, k, v, scale, causal,
+                                                  window))
     return flash_attention_cuda(q, k, v, float(scale), causal, window)
 
 
@@ -54,6 +59,8 @@ def flash_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if q_lat.device.type == "cpu":
         B, n, H, _, _ = mla_geometry(q_lat, q_rope, ckv, kr,
                                      "flash_mla_decode")
-        return flash_mla_decode_torch(q_lat, q_rope, ckv, kr, scale,
-                                      mla_splits(B, H, n))
+        with kernel_call("flash_mla_decode", q_lat, q_rope, ckv,
+                         kr) as done:
+            return done(flash_mla_decode_torch(q_lat, q_rope, ckv, kr, scale,
+                                               mla_splits(B, H, n)))
     return flash_mla_decode_cuda(q_lat, q_rope, ckv, kr, float(scale))

@@ -1,19 +1,31 @@
 """Selective-SSM scan: shape checks and device dispatch.
 
 A CUDA tensor always launches the kernels; a CPU tensor runs the plain
-versions. There is no option that sends a CUDA tensor to the plain
-version. Under autograd (grad enabled and an input that requires it) the
-scan is :class:`SSMScan`, whose backward is the backward kernel on the
-card and ``ssm_chunk_scan_bwd_torch`` on the CPU; otherwise it is one
-forward launch, as in serving.
+versions (a counter counts each as its kernel: ``kernels.plain``). There
+is no option that sends a CUDA tensor to the plain version. Under
+autograd (grad enabled and an input that requires it) the scan is
+:class:`SSMScan`, whose backward is the backward kernel on the card and
+``ssm_chunk_scan_bwd_torch`` on the CPU; otherwise it is one forward
+launch, as in serving.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ..plain import kernel_call
 from .ref import ssm_chunk_scan_bwd_torch, ssm_chunk_scan_torch
 from .ssm_scan import (scan_checkpoints, ssm_chunk_scan_bwd_cuda,
                        ssm_chunk_scan_cuda)
+
+
+def scan_flops(u, bv, backward: bool = False) -> float:
+    """The plain versions' dot FLOPs: a step's ``<s_t, C_t>_N`` is 2 B D N
+    (y); the backward's three contractions a step (gcv, gu, gbv) 6 B D N.
+    On fake tensors (a dry run) the wrappers give them to the counter
+    without running the loop over T (``kernels.plain``)."""
+    b, t, d = u.shape
+    return (6.0 if backward else 2.0) * b * t * d * bv.shape[-1]
 
 
 class SSMScan(torch.autograd.Function):
@@ -29,7 +41,11 @@ class SSMScan(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         if u.device.type == "cpu":
             ctx.save_for_backward(u, delta, bv, cv, a, s0, None)
-            return ssm_chunk_scan_torch(u, delta, bv, cv, a, s0)
+            with kernel_call("ssm_scan", u, delta, bv, cv, a, s0) as done:
+                if is_fake(u):
+                    return done((torch.empty_like(u), torch.empty_like(s0)),
+                                flops=scan_flops(u, bv))
+                return done(ssm_chunk_scan_torch(u, delta, bv, cv, a, s0))
         ck = scan_checkpoints(u, bv)
         ctx.save_for_backward(u, delta, bv, cv, a, s0, ck)
         return ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0, ck=ck)
@@ -41,7 +57,14 @@ class SSMScan(torch.autograd.Function):
         if gy is None:
             gy = torch.zeros_like(u)
         if u.device.type == "cpu":
-            return ssm_chunk_scan_bwd_torch(u, delta, bv, cv, a, s0, gy, gs)
+            with kernel_call("ssm_scan_bwd", u, delta, bv, cv, a, s0, gy,
+                             gs) as done:
+                if is_fake(u):
+                    return done(tuple(map(torch.empty_like, (
+                        u, delta, bv, cv, a, s0))), flops=scan_flops(
+                            u, bv, backward=True))
+                return done(ssm_chunk_scan_bwd_torch(u, delta, bv, cv, a, s0,
+                                                     gy, gs))
         return ssm_chunk_scan_bwd_cuda(u, delta, bv, cv, a, s0, gy, gs,
                                        ck=ck)
 
@@ -75,8 +98,11 @@ def ssm_chunk_scan(u, delta, bv, cv, a, s0, s_out=None):
                              "under autograd")
         return SSMScan.apply(u, delta, bv, cv, a, s0)
     if u.device.type == "cpu":
-        y, s = ssm_chunk_scan_torch(u, delta, bv, cv, a, s0)
-        if s_out is None:
-            return y, s
-        return y, s_out.copy_(s)
+        with kernel_call("ssm_scan", u, delta, bv, cv, a, s0) as done:
+            if is_fake(u):
+                return done((torch.empty_like(u), torch.empty_like(s0)
+                             if s_out is None else s_out),
+                            flops=scan_flops(u, bv))
+            y, s = ssm_chunk_scan_torch(u, delta, bv, cv, a, s0)
+            return done((y, s) if s_out is None else (y, s_out.copy_(s)))
     return ssm_chunk_scan_cuda(u, delta, bv, cv, a, s0, s_out)

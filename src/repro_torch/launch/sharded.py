@@ -1,7 +1,9 @@
 """The training step over a device mesh, one rank a device: the port's
 twin of the JAX package's ``jit(make_train_step, in_shardings=(named(mesh,
 param_pspecs), named(mesh, opt_pspecs), named(mesh, batch_pspecs)))``
-(``launch/dryrun.py:70-89``).
+(``launch/dryrun.py:70-89``); :class:`ShardedServeStep` is the twin of
+its prefill and decode ``jit``s, which the dry run (``launch.dryrun``)
+runs.
 
 At rest the parameters and AdamW's ``m`` and ``v`` are DTensors placed by
 ``steps.param_pspecs`` and ``steps.opt_pspecs``, the batch by
@@ -225,6 +227,83 @@ class ShardedTrainStep:
                 o_local["step"], mesh, opt_state["step"].placements,
                 run_check=False)
         return params, opt_state, out
+
+
+#: cache leaves whose dimension after the batch is the sequence: a rank
+#: serves its block of positions of these
+SEQ_CACHES = ("k", "v", "ckv", "kr")
+
+
+class ShardedServeStep:
+    """The serving steps over a device mesh, the port's twin of the JAX
+    package's ``jit(make_prefill_step, in_shardings=(named(mesh,
+    param_pspecs), named(mesh, batch_pspecs)))`` and ``jit(make_serve_step,
+    in_shardings=(params, named(mesh, cache_pspecs), P(), P()))``
+    (``launch/dryrun.py:94-122``). ``mode`` is ``"prefill"`` or
+    ``"decode"``.
+
+    Every rank gathers the parameters whole (``gather_tree``; under expert
+    parallelism the MoE ``router/w`` and expert leaves stay this rank's
+    shards, as in :class:`ShardedTrainStep`) and, under ``axis_rules(rules,
+    mesh)``, runs ``make_prefill_step`` on its block of the batch, or
+    ``make_serve_step`` on its block of the caches with its rows of the
+    token: ``step(params, caches, token, pos)``, ``token`` this rank's
+    rows (B / dp, 1), ``pos`` a host int within its block. A cache keeps
+    this rank's block of its batch rows and, for the k/v-like leaves
+    (``SEQ_CACHES``), of its positions; a recurrent state sharded on a
+    feature dimension is gathered whole first, since the gathered
+    parameters expect it whole. Each rank attends over its own block of
+    positions and its result is its block's: the step reckons a rank's
+    work and memory (``launch.dryrun``); unlike JAX's it does not combine
+    the positions of the ``model`` ranks into one softmax."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules, mode: str):
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"mode {mode!r} is prefill or decode")
+        self.cfg, self.mesh, self.rules, self.mode = cfg, mesh, rules, mode
+        self.fn = (steps.make_prefill_step(cfg) if mode == "prefill"
+                   else steps.make_serve_step(cfg))
+
+    def _params(self, params, n_tokens: int):
+        ep = (moe.ep_mode(n_tokens, self.cfg, self.mesh, self.rules)
+              if self.cfg.is_moe else None)
+        named = T.leaves_with_paths(params)
+        return T.unflatten(
+            {p: (d.to_local() if ep is not None and EP_LEAVES.fullmatch(p)
+                 else gather(d)) for p, d in named}, like=params)
+
+    def __call__(self, params, data, token=None, pos: int | None = None):
+        with torch.no_grad():
+            if self.mode == "prefill":
+                local = {k: v.to_local() for k, v in data.items()}
+                n = local["tokens"].numel()
+            else:
+                local = T.unflatten(
+                    {p: self._cache_block(p, d)
+                     for p, d in T.leaves_with_paths(data)}, like=data)
+                n = token.numel()
+            used = self._params(params, n)
+        with axis_rules(self.rules, self.mesh):
+            if self.mode == "prefill":
+                return self.fn(used, local)
+            return self.fn(used, local, token, pos)
+
+    def _cache_block(self, path: str, d) -> torch.Tensor:
+        """This rank's block of cache leaf ``d``: its batch rows and, for a
+        ``SEQ_CACHES`` leaf, its positions; any other sharded dimension
+        gathered."""
+        names = path.split("/")
+        stacked = any(n in ("layers", "dec") for n in names)
+        b_dim = 1 if stacked and d.ndim >= 2 else 0
+        keep = {b_dim} | ({b_dim + 1} if names[-1] in SEQ_CACHES else set())
+        local = d.to_local()
+        mesh = d.device_mesh
+        for i in reversed(range(mesh.ndim)):
+            pl = d.placements[i]
+            if pl.is_shard() and pl.dim not in keep:
+                ax = ops.axis(mesh, mesh.mesh_dim_names[i])
+                local = ops.all_gather(local, ax, pl.dim)
+        return local
 
 
 def init_opt(params, ocfg: adamw.AdamWConfig, step: int = 0) -> dict:

@@ -285,17 +285,21 @@ def parse_failures(spec: str | None) -> dict[int, list[int]]:
 
 def config_from_args(args) -> ModelConfig:
     """The config ``--arch`` names, cut by ``--preset-100m`` or
-    ``--reduced``. Raises ``ValueError`` for a VLM and the encoder-decoder:
-    the data pipeline makes tokens only, no image embeddings or audio
-    frames (their training waits: ROADMAP.md, queue A item 4b)."""
+    ``--reduced``. A VLM trains text-only, as the JAX trainer trains it:
+    the data pipeline makes tokens and no image embeddings, so the batch
+    holds no ``prefix_embeds`` and ``loss_fn`` takes no prefix. Raises
+    ``ValueError`` for the encoder-decoder, whose ``loss_fn`` reads audio
+    frames the pipeline does not make; the JAX trainer cannot train it
+    either (its ``encdec.loss_fn`` reads ``batch["frames"]``). Training it
+    on frames waits (ROADMAP.md, queue A item 4b)."""
     cfg = ARCHS[args.arch]
-    if cfg.is_encoder_decoder or cfg.n_prefix_embeds:
-        what = ("audio frames" if cfg.is_encoder_decoder
-                else "image prefix embeddings")
+    if cfg.is_encoder_decoder:
         raise ValueError(f"{cfg.name}: the trainer's data pipeline makes "
-                         f"tokens only, no {what}; training this family "
-                         f"waits (ROADMAP.md, queue A item 4b); it serves "
-                         f"through launch.steps")
+                         f"tokens only, no audio frames, and the "
+                         f"encoder-decoder's loss reads frames (so does the "
+                         f"JAX trainer's: encdec.loss_fn reads "
+                         f"batch['frames']); training it waits (ROADMAP.md, "
+                         f"queue A item 4b); it serves through launch.steps")
     if args.preset_100m:
         return cfg.reduced(n_layers=8, d_model=512, n_heads=8, n_kv_heads=8,
                            d_ff=2048, vocab=32_768, head_dim=0)

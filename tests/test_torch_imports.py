@@ -110,6 +110,11 @@ _SHARD_PATH = ("repro_torch.parallel", "repro_torch.parallel.sharding",
                "repro_torch.collectives.axis_ops",
                "repro_torch.launch.sharded")
 
+# the dry run, the roofline, the op breakdown, and the kernels' plain
+# versions as the counter sees them
+_DRYRUN_PATH = ("repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                "repro_torch.launch.profile_ops", "repro_torch.kernels.plain")
+
 # the rest of the numpy core
 _CORE_REST = ("repro_torch.core.soar_fast", "repro_torch.core.brute",
               "repro_torch.core.bottleneck", "repro_torch.core.budget",
@@ -122,10 +127,11 @@ def test_port_imports_without_jax_or_repro():
         [sys.executable, "-c", _BLOCKED, str(ROOT / "chip_smoke.py"),
          *_SOLVE_PATH, *_REDUCE_PATH, *_TRAIN_PATH, *_SERVE_PATH,
          *_HYBRID_PATH, *_FLEET_PATH, *_RUNTIME_PATH, *_CORE_REST,
-         *_DIST_PATH, *_SSM_PATH, *_MOE_PATH, *_ENCDEC_PATH, *_SHARD_PATH],
+         *_DIST_PATH, *_SSM_PATH, *_MOE_PATH, *_ENCDEC_PATH, *_SHARD_PATH,
+         *_DRYRUN_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 87     # every module imported
+    assert int(out.stdout.split()[-1]) == 91     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

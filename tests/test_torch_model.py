@@ -125,15 +125,40 @@ def test_init_tree_matches_jax_and_converter_round_trips(name):
 
 
 @pytest.mark.parametrize("name", ["llava-next-34b", "whisper-large-v3"])
-def test_train_refuses_vlm_and_encdec_naming_the_roadmap(name):
-    """The trainer's data pipeline makes tokens only: ``launch/train.py
-    --arch`` of the VLM or the encoder-decoder raises ``ValueError`` naming
-    ROADMAP before it builds anything (both serve:
-    tests/test_torch_vlm.py, tests/test_torch_encdec.py)."""
+def test_train_refuses_vlm_and_encdec_naming_the_roadmap(name, monkeypatch):
+    """The trainer's data pipeline makes tokens only. The encoder-decoder's
+    loss reads audio frames, so ``launch/train.py --arch
+    whisper-large-v3`` raises ``ValueError`` naming ROADMAP before it
+    builds anything (the JAX trainer fails there too: its
+    ``encdec.loss_fn`` reads ``batch["frames"]``). The VLM is not refused:
+    it trains text-only, as the JAX trainer trains it, and ``train.main``
+    on reduced llava gives the JAX ``train.main``'s losses from the same
+    parameters and batches. Both configs are made float32 in both
+    packages, so the losses are held to the trainer tests' float32 rtol
+    1e-5 (both serve: tests/test_torch_vlm.py, tests/test_torch_encdec.py).
+    """
+    from repro.launch import train as J_train
     from repro_torch.launch import train
-    with pytest.raises(ValueError, match="ROADMAP"):
-        train.main(["--arch", name, "--reduced", "--device", "cpu",
-                    "--steps", "1"])
+    if name == "whisper-large-v3":
+        with pytest.raises(ValueError, match="ROADMAP"):
+            train.main(["--arch", name, "--reduced", "--device", "cpu",
+                        "--steps", "1"])
+        return
+    monkeypatch.setitem(J_ARCHS, name, dataclasses.replace(
+        J_ARCHS[name], dtype="float32"))
+    monkeypatch.setitem(ARCHS, name, dataclasses.replace(
+        ARCHS[name], dtype="float32"))
+    argv = ["--arch", name, "--reduced", "--steps", "3", "--global-batch",
+            "2", "--seq", "32"]
+    jlosses = J_train.main(argv)
+    jparams = J.init_fn(J_ARCHS[name].reduced())(jax.random.PRNGKey(0))
+    monkeypatch.setattr(train.api, "init_fn", lambda cfg, device: (
+        lambda seed: api.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                         device)))
+    losses = train.main(argv + ["--device", "cpu"])
+    assert len(losses) == len(jlosses) == 3
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    assert losses[-1] < losses[0]
 
 
 def test_configs_are_copies():
