@@ -2566,6 +2566,7 @@ def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
     v_["decode_bound_ms"], v_["decode_bound_by"] = flash_bound(
         flash_work(b, 1, cache, h, hkv, d, False, 2), bf)
     v_["decode_splits"] = n_split
+    v_.update(merge_lse_rows(q1, ck, cv, scale, (t, cache)))
     del ck, cv, q1, qs, ks, vs
     torch.cuda.empty_cache()
     # one long-context call, compared on sampled heads in row chunks
@@ -2624,6 +2625,93 @@ def flash_serving_shapes(b=SERVE_BATCH, t=SERVE_PROMPT, h=64, hkv=8, d=128,
         f"causal {v_['long_ms']:.4f} ms (bound {v_['long_bound_ms']:.4f} "
         f"ms; nvidia-smi beside it: {v_['long_clocks']})")
     return v_
+
+
+def lse_limit(q32, k32, scale, n: int, want):
+    """The limit of the split decode's lse (float32, written by the
+    merge) against its plain twin's on the same bfloat16 values in
+    float32: the max score's dot of D products may round differently
+    (D u32 of sum_d |q_d k_d| scale, A below), each split's sum of up to n
+    exponentials (n u32 relative, so absolute in the log) and the expf
+    and logf roundings and the merge's few operations (8 u32), and the
+    result's own rounding (2 u32 |lse|)."""
+    import torch
+    d = q32.shape[-1]
+    g = q32.shape[2] // k32.shape[2]
+    qa = q32.abs().reshape(q32.shape[0], k32.shape[2], g, d)
+    a = torch.einsum("bhgd,bshd->bhgs", qa, k32.abs()).amax(-1) * scale
+    return ((d + 2) * F32_U * a.reshape(want.shape) + (n + 8) * F32_U
+            + 2 * F32_U * want.abs())
+
+
+def merge_lse_rows(q1, ck, cv, scale, lengths) -> dict:
+    """The split decode's merge with its lse output (the sharded decode's
+    combine reads it) over cache prefixes of ``lengths``: the output the
+    bits of the call without it, the lse within ``lse_limit`` of the plain
+    twin's; a planted fault (one split left out of the twin's lse) beyond
+    it. Then the decode over the whole cache timed with and without lse."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        DECODE_HEADS, decode_splits)
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_gqa,
+                                                         flash_decode_lse)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_decode_split_torch, split_chunk)
+    b, _, h, _ = q1.shape
+    hkv = ck.shape[2]
+    out = {"lse_checks": []}
+    for n in lengths:
+        kp, vp = ck[:, :n], cv[:, :n]
+        plain = flash_attention_gqa(q1, kp, vp, scale, causal=False)
+        got, lse = flash_decode_lse(q1, kp, vp, scale)
+        # on the card one kernel both ways (a CPU tensor's plain versions
+        # differ: sdpa without lse, the split twin with it)
+        check(torch.equal(plain, got) or not q1.is_cuda, f"merge with lse "
+              f"over {n}: the output is not the bits of the merge without "
+              "it")
+        q32, k32, v32 = (x.float() for x in (q1, kp, vp))
+        ns = decode_splits(n, b * hkv * -(-(h // hkv) // DECODE_HEADS))
+        _, want = flash_decode_split_torch(q32, k32, v32, scale, ns,
+                                           lse=True)
+        lim = lse_limit(q32, k32, scale, n, want)
+        over = float(((lse - want).abs() / lim).max())
+        check(over <= 1.0, f"merge lse over {n}: {over:.4g} x the limit")
+        row = {"n": n, "splits": ns,
+               "max_abs_err": float((lse - want).abs().max()),
+               "err_over_limit": over}
+        if ns > 1:
+            # the twin's lse with split 1's keys left out
+            c = split_chunk(n, ns)
+            keep = torch.ones(n, dtype=torch.bool, device=q1.device)
+            keep[c:2 * c] = False
+            _, bad = flash_decode_split_torch(q32, k32[:, keep], v32[:, keep],
+                                              scale, ns, lse=True)
+            fault = float(((lse - bad).abs() / lim).max())
+            check(fault > 1.0, f"merge lse over {n}: one split left out is "
+                  f"within the limit ({fault:.4g})")
+            row["fault_split_left_out_over_limit"] = fault
+        out["lse_checks"].append(row)
+        del plain, got, lse, q32, k32, v32, want
+    fns = {"merge_lse_ms": lambda: flash_decode_lse(q1, ck, cv, scale),
+           "merge_nolse_ms": lambda: flash_attention_gqa(q1, ck, cv, scale,
+                                                         False)}
+    for rep in range(2):                     # interleaved, twice
+        for key, fn in fns.items():
+            out.setdefault(key, []).append(cuda_ms(fn, 20))
+            out.setdefault(key.replace("_ms", "_device_ms"), []).append(
+                device_ms(fn, 20))
+    say("split decode's merge with lse: " + "; ".join(
+        f"over {r['n']} ({r['splits']} splits) max |err| "
+        f"{r['max_abs_err']:.4g}, {r['err_over_limit']:.4g} x the limit"
+        + (f", one split left out {r['fault_split_left_out_over_limit']:.4g}"
+           " x" if "fault_split_left_out_over_limit" in r else "")
+        for r in out["lse_checks"])
+        + f"; decode over {ck.shape[1]} with lse {out['merge_lse_ms']} ms, "
+        f"without {out['merge_nolse_ms']} ms (device "
+        f"{out['merge_lse_device_ms']} / {out['merge_nolse_device_ms']} ms; "
+        f"{nvidia_smi_line()})")
+    return out
 
 
 class LogitsCheck:
@@ -4984,7 +5072,7 @@ DIST_CELLS = ("dist8-dp8-k2-d6.5m", "e2e100m-dist8-topk-fail2",
               "chaos-train-dist8-e8")
 DIST_RANKS = 8
 DIST_D = 6_553_600          # values a rank: a 25 MiB float32 bucket
-DIST_REPS = 5               # timed calls a program and dtype
+DIST_REPS = 3               # timed calls a program and dtype
 DIST_GATHER_STEP = 3        # the trainer step whose sent rows are gathered
 DIST_SKIP_STEP = 3          # the control run's step without its update
 DIST_TRAIN_ARGS = ["--arch", "qwen3-32b", "--preset-100m", "--global-batch",
@@ -6000,7 +6088,7 @@ def _train_state(cfg, n_dev, device, seed=0):
     return params, ocfg, opt, ef
 
 
-def ssm_train_f32(cfg, n_dev=1, seq=256, steps=3, window=128) -> dict:
+def ssm_train_f32(cfg, n_dev=1, seq=256, steps=2, window=128) -> dict:
     """Phases 15b and 16d, consistency: ``cfg`` in float32 (TF32 off), a
     windowed model's window cut to ``window``, so that ``seq`` crosses it
     (at hymba's 1,024 the CPU twin took 117 s at 1,280 tokens on the chip
@@ -8385,7 +8473,29 @@ EP_TOKENS = 4_096            # one prompt
 EP_SEED = 19
 # capacity factors tried, smallest first, for the runs that must drop nothing
 EP_FACTORS = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0, 8.0)
-STEP_CELL = "qwen3-32b-l1-mesh2x2-b2-t512"
+STEP_CELL = "qwen3-32b-l4-mesh2x2-b2-t512"
+STEP_DEPTH = 4
+SERVE_SHARD_CELL = "qwen3-32b-l4-mesh2x2-serve-b2-p512-g8"
+SERVE_SHARD_PROMPT = 512
+SERVE_SHARD_STEPS = 8         # bfloat16 decode steps
+# The float32 gate's decode steps and the planted fault's: each sharded
+# float32 step moves about 8 GB a rank through gloo's host staging (8-11
+# s on an H100 machine's host, PERF.md §6), so the gate takes 2 (the
+# fewest that keep the caches' 512 + g positions even, so that ``model``
+# splits them) and the fault 1 (it moves the first step's logits by 1e-1
+# of the largest)
+SERVE_SHARD_F32_STEPS = 2
+SERVE_SHARD_FAULT_STEPS = 1
+SERVE_SHARD_SEED = 23
+# 19c's float32 gate on the sharded logits against one process's, as a
+# share of the largest logit. The two differ by the order of float32 sums
+# (the MLP's partial products summed over model, the attention merged
+# over the blocks of positions, the vocabulary's blocks): a reordered sum
+# of n terms moves by at most 2 n u32 of their magnitudes, about 2 sqrt(n)
+# u32 for terms of random sign, 2.3e-5 for n the 25,600-wide MLP; through
+# four layers and the head the limit allows 2^-10 = 9.8e-4, 40 times that
+# and still 100 times under a block of positions left out of the merge.
+SERVE_SHARD_F32 = 2.0 ** -10
 MOE_STEP_CELL = "deepseek-v2-e8-l2-mesh2x2-b4-t16"
 STEP_PRESET = 2_000          # AdamW's step count before the checked step:
 #                              cosine_lr is 1 there (at 0 it is 0)
@@ -8711,60 +8821,115 @@ def ep_rank_cell(mesh, device, ref: dict, small: bool) -> dict:
 
 
 def step_cells(small: bool) -> list:
-    """19b's cells: (name, config, AdamW, batch, seq, [EP modes], fault)."""
+    """19b's cells: (name, config, AdamW, batch, seq, [EP modes], planted
+    faults). The faults run on the small MoE cell, each a step of its own:
+    a dp rank's gradient dropped from the reduce-scatter, and ``model``'s
+    copies summed where a rank takes its own slice (qwen3-32b has no such
+    leaf: on a ``model`` of 2 each of its ``model``-sharded leaves is
+    tensor-parallel, so its gradient is never a copy; deepseek-v2's MLA,
+    shared expert and dense prefix attention compute alike on both
+    ``model`` ranks). A step of the qwen3-32b cell takes 15-23 s of gloo
+    on the card; one of the MoE cell under a second."""
     from repro_torch.configs import ARCHS
     from repro_torch.optim import adamw
     moe_cfg = ARCHS["deepseek-v2-236b"].reduced(
         n_experts=8, top_k=2, d_ff_expert=32, n_shared_experts=1,
         capacity_factor=8.0, dtype="float32")
     qwen = (ARCHS["qwen3-32b"].reduced() if small else
-            dataclasses.replace(ARCHS["qwen3-32b"], n_layers=1))
+            dataclasses.replace(ARCHS["qwen3-32b"], n_layers=STEP_DEPTH))
     return [(STEP_CELL, qwen, adamw.AdamWConfig(lr=STEP_LR),
-             2, 32 if small else 512, [None], True),
+             2, 32 if small else 512, [None], ()),
             (MOE_STEP_CELL, moe_cfg, adamw.AdamWConfig(), 4, 16,
-             ["replicated", "a2a"], False)]
+             ["replicated", "a2a"], ("dp", "model"))]
 
 
 def step_reckoning(cfg, ocfg, b: int, t: int, mesh_shape=(2, 2)) -> dict:
-    """Bytes reckoned for a rank of the sharded step and for one process:
-    a rank holds its shards of the parameters and both moments, the
-    parameters gathered whole and their whole gradients (until each is
-    reduce-scattered), and its block's logits (bfloat16, and float32 twice
-    for the loss); one process the whole of each, the whole batch's."""
+    """Bytes reckoned for a rank of the sharded step (``rank_gb``), for
+    the whole-gather step it replaced (``whole_gather_gb``: every leaf
+    gathered whole and its whole gradient held until its reduce-scatter;
+    printed only, that step is not run) and for one process.
+
+    A rank of the layer-gather step holds its shards of the parameters,
+    of both moments and of their gradients (a stacked leaf's gradient
+    accumulates over its layers); at once, one layer's leaves as the layer
+    uses them (a tensor-parallel leaf its ``model`` shard, the others
+    whole) and their whole gradients, and the largest leaf outside the
+    layers and its gradient (the head, alive while the last layer
+    recomputes); the remat boundaries (L N d in the model dtype); its
+    block's logits over its vocabulary columns (in the model dtype and
+    three float32 copies: the cast, its exp, the gradient); one layer's
+    activations and their gradients (six float32 (N, d) of the norms and
+    the residual sums, q, k and v in the model dtype and float32 for rope,
+    three float32 (N, ff) of the MLP, the attention's float32 scores and
+    weights (B, H, T, T) three times, at a rank's widths); and AdamW's
+    float32 temporaries of its largest shard (four)."""
     import types
 
     import numpy as np
     import torch
 
+    from repro_torch import tree as T
     from repro_torch.launch import steps
-    from repro_torch.models import api
+    from repro_torch.parallel import layer_gather as lg
     from repro_torch.parallel.sharding import map_specs
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  mesh=np.empty(mesh_shape, np.int8))
+    dp, m = mesh_shape
     params = steps.abstract_state(cfg)
     specs = steps.param_pspecs(params, steps.rules_for(mesh))
     sizes = dict(zip(mesh.mesh_dim_names, mesh_shape))
     mom = torch.tensor([], dtype=getattr(torch, ocfg.moment_dtype))
-    whole, shards = [0], [0]
+    elt = params["embed_tokens"].element_size()
+    split_of = {}
 
     def count(spec, leaf):
-        n = leaf.numel()
         split = 1
         for e in spec:
             for a in (e if isinstance(e, tuple) else (e,)):
                 split *= sizes.get(a, 1)
-        whole[0] += n * leaf.element_size()
-        shards[0] += n // split * (leaf.element_size()
-                                   + 2 * mom.element_size())
+        split_of[id(leaf)] = split
     map_specs(count, specs, params)
-    logits = b // mesh_shape[0] * t * cfg.padded_vocab * (2 + 4 + 4)
-    rank = shards[0] + 2 * whole[0] + logits
-    one = whole[0] * (2 + 2 * mom.element_size()
-                      / params["embed_tokens"].element_size()) \
-        + logits * mesh_shape[0]
-    return {"rank_gb": rank / 1e9, "ranks_gb": rank * mesh_shape[0]
-            * mesh_shape[1] / 1e9, "single_gb": one / 1e9,
-            "params_gb": whole[0] / 1e9}
+    flat = dict(T.leaves_with_paths(params))
+    nb = lambda x: x.numel() * x.element_size()
+    whole = sum(nb(x) for x in flat.values())
+    shard = {p: x.numel() // split_of[id(x)] for p, x in flat.items()}
+    shards = sum(n * (elt + 2 * mom.element_size() + elt)
+                 for n in shard.values())
+    # a tensor-parallel leaf as its layer uses it: its model shard
+    heads_ok = cfg.n_heads % m == 0 and (
+        cfg.n_kv_heads % m == 0
+        or (cfg.n_heads // cfg.n_kv_heads) % (cfg.n_heads // m) == 0)
+    tp = lambda p: (lg.MLP_LEAVES.fullmatch(p) or (
+        heads_ok and lg.ATTN_LEAVES.fullmatch(p)
+        and not p.endswith(("norm", "w_k", "w_v")))
+        or (heads_ok and cfg.n_kv_heads % m == 0
+            and p.endswith(("attn/w_k", "attn/w_v")))
+        or p in ("embed_tokens", "lm_head"))
+    used = lambda p, x: nb(x) // (m if tp(p) else 1)
+    layer = sum(used(p, x) // x.shape[0] for p, x in flat.items()
+                if p.startswith("layers/"))
+    rest = max(used(p, x) for p, x in flat.items()
+               if not p.startswith("layers/"))
+    rows = b // dp
+    n, d = rows * t, cfg.d_model
+    h = cfg.n_heads // m if heads_ok else cfg.n_heads
+    kv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1) \
+        if heads_ok else cfg.n_kv_heads
+    ff, vocab = cfg.d_ff // m, cfg.padded_vocab // m
+    acts = (n * (6 * d * 4 + (h + 2 * kv) * cfg.hd * (elt + 4)
+                 + 3 * ff * 4) + 3 * rows * h * t * t * 4)
+    adam = 4 * 4 * max(shard.values())
+    rank = (shards + 2 * (layer + rest) + cfg.n_layers * n * d * elt
+            + n * vocab * (elt + 3 * 4) + 2 * acts + adam)
+    logits_whole = n * cfg.padded_vocab * (elt + 4 + 4)
+    gather_whole = (sum(n_ * (elt + 2 * mom.element_size())
+                        for n_ in shard.values()) + 2 * whole
+                    + logits_whole)
+    one = whole * (2 + 2 * mom.element_size() / elt) + logits_whole * dp
+    return {"rank_gb": rank / 1e9, "ranks_gb": rank * dp * m / 1e9,
+            "whole_gather_gb": gather_whole / 1e9,
+            "single_gb": one / 1e9, "params_gb": whole / 1e9,
+            "layer_gb": layer / 1e9, "rest_gb": rest / 1e9}
 
 
 def _step_state(cfg, ocfg, b, t, mesh, rules, shape, device):
@@ -8797,35 +8962,40 @@ def step_rank_cells(mesh, device, small: bool) -> dict:
     from repro_torch.collectives import axis_ops as ops
     from repro_torch.launch import sharded, steps
     from repro_torch.models import api, moe
-    from repro_torch.optim import adamw
+    from repro_torch.parallel import layer_gather as lg
     rank = dist.get_rank()
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == \
         "cuda" else (lambda: None)
     res = {}
-    for name, cfg, ocfg, b, t, modes, fault in step_cells(small):
+    for name, cfg, ocfg, b, t, modes, faults in step_cells(small):
         shape = api.ShapeSpec(name, t, b, "train")
         rules = steps.rules_for(mesh, shape)
         step = sharded.ShardedTrainStep(cfg, ocfg, mesh, rules)
         cell, host = {}, {}
-        runs = [(m, False) for m in modes] + ([(modes[0], True)] if fault
-                                              else [])
+        runs = [(m, None) for m in modes] + [(modes[0], f) for f in faults]
         for mode, planted in runs:
-            key = ("fault" if planted else "") + (mode or "dense")
+            key = f"fault_{planted}" if planted else (mode or "dense")
             p, o, batch, bs = _step_state(cfg, ocfg, b, t, mesh, rules,
                                           shape, device)
-            real = sharded._reduce_to_shard
+            real, own = lg.reduce_to_shard, lg.take_own
 
             def dropped(g, *a, _real=real):
-                # dp rank 1's gradient never reaches the reduce-scatter
+                # group rank 1's gradient never reaches the reduce-scatter
                 return _real(g.zero_() if a[-1].rank == 1 else g, *a)
+
+            def summed(g, *a, _real=real):
+                # model's equal copies summed, not this rank's slice taken
+                return _real(g, *a)
             moe.EP_MODE = mode or "replicated"
             try:
                 check(step.ep({k: v.to_local() for k, v in bs.items()})
                       == mode, f"19b {name}: EP mode {mode} not taken")
                 if device.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(device)
-                with swapped(sharded, "_reduce_to_shard",
-                             dropped if planted else real), \
+                with swapped(lg, "reduce_to_shard",
+                             dropped if planted == "dp" else real), \
+                        swapped(lg, "take_own",
+                                summed if planted == "model" else own), \
                         ops.exchange_log() as log:
                     sync()
                     t0 = time.perf_counter()
@@ -8861,14 +9031,14 @@ def step_rank_cells(mesh, device, small: bool) -> dict:
         dist.barrier()
         if rank == 0:
             cell.update(_step_reference(cfg, ocfg, batch, host, modes,
-                                        fault, b * t, device, sync))
+                                        faults, b * t, device, sync))
         del batch, host
         dist.barrier()
         res[name] = cell
     return res
 
 
-def _step_reference(cfg, ocfg, batch, host, modes, fault, n_tokens, device,
+def _step_reference(cfg, ocfg, batch, host, modes, faults, n_tokens, device,
                     sync) -> dict:
     """Rank 0: one process's ``make_train_step`` on the whole batch, and
     each sharded run's readings over their limits."""
@@ -8904,12 +9074,224 @@ def _step_reference(cfg, ocfg, batch, host, modes, fault, n_tokens, device,
         res["single_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     for mode in modes:
         res[f"gaps_{mode or 'dense'}"] = gap(host[mode or "dense"])
-    if fault:
-        res["gaps_fault_dp_shard_dropped"] = gap(
-            host[f"fault{modes[0] or 'dense'}"])
+    for f in faults:
+        res[f"gaps_fault_{f}"] = gap(host[f"fault_{f}"])
     del params, opt, ref
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return res
+
+
+def serve_shard_cfg(small: bool, dtype: str):
+    """19c's model: qwen3-32b at published widths, cut to ``STEP_DEPTH``
+    layers (reduced on a CPU rehearsal), in ``dtype``."""
+    from repro_torch.configs import ARCHS
+    base = (ARCHS["qwen3-32b"].reduced() if small else
+            dataclasses.replace(ARCHS["qwen3-32b"], n_layers=STEP_DEPTH))
+    return dataclasses.replace(base, dtype=dtype)
+
+
+def serve_rank_cell(mesh, device, small: bool, out: Path) -> dict:
+    """19c on one rank of the (2, 2) mesh, float32 then bfloat16: the
+    parameters placed by ``param_pspecs`` (drawn on the card one rank at
+    a time), a sharded prefill of the batch's rows, the hand-off into
+    decode caches placed by ``cache_pspecs`` (positions split over
+    ``model``), greedy sharded decode steps (``SERVE_SHARD_F32_STEPS``
+    in float32, ``SERVE_SHARD_STEPS`` in bfloat16); in float32 also
+    ``SERVE_SHARD_FAULT_STEPS`` from the same caches with the last
+    ``model`` rank's block left out of the merge. Each
+    rank's tokens and whole logits to ``OUT/serve_<dtype>_rank<r>.pt``;
+    rank 0 then runs one process's serve on the whole batch and compares
+    (:func:`serve_shard_compare`)."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.collectives import axis_ops as ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.launch import sharded, steps
+    from repro_torch.models import api
+    from repro_torch.parallel import layer_gather as lg
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cuda = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else \
+        (lambda: None)
+    b, t = 2, 32 if small else SERVE_SHARD_PROMPT
+    res, ref32 = {}, None
+    for dtype in ("float32", "bfloat16"):
+        g = SERVE_SHARD_F32_STEPS if dtype == "float32" else \
+            SERVE_SHARD_STEPS
+        cfg = serve_shard_cfg(small, dtype)
+        shape = api.ShapeSpec(SERVE_SHARD_CELL, t, b, "prefill")
+        rules = steps.rules_for(mesh, shape)
+        for r in range(world):          # one rank's whole draw at a time
+            if r == rank:
+                full = api.init_fn(cfg, device)(SERVE_SHARD_SEED)
+                with torch.no_grad():
+                    p = sharded.shard(full, mesh,
+                                      steps.param_pspecs(full, rules))
+                del full
+                if cuda:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        gen = torch.Generator().manual_seed(SERVE_SHARD_SEED)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, t),
+                                         generator=gen).to(device)}
+        bsh = sharded.shard(batch, mesh, steps.batch_pspecs(batch, mesh,
+                                                            shape))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        before = dict(flash_attention_cuda.launches_by_path)
+        pre = sharded.ShardedServeStep(cfg, mesh, rules, "prefill",
+                                       keep_logits=True)
+        with ops.exchange_log() as log:
+            sync()
+            t0 = time.perf_counter()
+            tok, pc = pre(p, bsh)
+            sync()
+            prefill_s = time.perf_counter() - t0
+        whole = api.decode_caches(cfg, sharded.gather_tree(pc), batch, g)
+        del pc
+        caches = sharded.shard(whole, mesh, steps.cache_pspecs(whole, mesh,
+                                                               shape))
+        del whole
+        kept = (T.tree_map(lambda d: d.to_local().clone(), caches)
+                if dtype == "float32" else None)
+        dec = sharded.ShardedServeStep(cfg, mesh, rules, "decode",
+                                       keep_logits=True)
+        toks, logits, step_s = [tok], [pre.logits.float()], []
+        merges = []
+        real = lg.combine
+
+        def counted(*a, _real=real):
+            merges.append(a[0] is not None)
+            return _real(*a)
+        with ops.exchange_log() as dlog, swapped(lg, "combine", counted):
+            for i in range(g):
+                sync()
+                t0 = time.perf_counter()
+                tok, _ = dec(p, caches, tok, t + i)
+                sync()
+                step_s.append(time.perf_counter() - t0)
+                toks.append(tok)
+                logits.append(dec.logits.float())
+        paths = {k: v - before[k] for k, v in
+                 flash_attention_cuda.launches_by_path.items()}
+        run = {"prefill_s": prefill_s, "step_s": step_s,
+               "prefill_exchange_s": sum(e["s"] for e in log),
+               "decode_exchange_s": sum(e["s"] for e in dlog),
+               "decode_staged_gb": sum(e["staged_bytes"] for e in dlog)
+               / 1e9, "merges": sum(merges), "merges_of": len(merges),
+               "paths": paths}
+        if cuda:
+            run["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        fault = []
+        if kept is not None:
+            for d, k in zip(T.leaves(caches), T.leaves(kept)):
+                d.to_local().copy_(k)
+            del kept
+            tok = toks[0]
+            merge = lg.merge_parts
+            drop = functools.partial(_drop_last_block, merge)
+            with swapped(lg, "merge_parts", drop):
+                for i in range(SERVE_SHARD_FAULT_STEPS):
+                    tok, _ = dec(p, caches, tok, t + i)
+                    fault.append(dec.logits.float().cpu())
+        torch.save({"tokens": torch.cat(toks, 1).cpu(),
+                    "logits": torch.stack(logits).cpu(),
+                    "fault": (torch.stack(fault) if fault else None),
+                    "coord": list(mesh.get_coordinate())},
+                   out / f"serve_{dtype}_rank{rank}.pt")
+        del p, caches, bsh, dec, pre, toks, logits
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            run.update(serve_shard_compare(cfg, batch, SERVE_SHARD_STEPS,
+                                           device, out, dtype, ref32))
+            ref32 = run.pop("ref32", ref32)
+        dist.barrier()
+        res[dtype] = run
+    return res
+
+
+def _drop_last_block(merge, outs, lses):
+    """The planted fault: the last ``model`` rank's block left out of the
+    merge."""
+    return merge(outs[:-1], lses[:-1])
+
+
+def serve_shard_compare(cfg, batch, g: int, device, out: Path, dtype: str,
+                        ref32) -> dict:
+    """Rank 0: one process's ``make_prefill_step`` and ``g`` greedy
+    ``make_serve_step``s on the whole batch, and the sharded run's tokens
+    and logits against them (its steps, the first of the ``g``). Float32:
+    the tokens equal at every step, the logits within ``SERVE_SHARD_F32``
+    of the largest; the planted fault beyond it. Bfloat16: the logits
+    within three times the bfloat16 noise floor (one process's bfloat16
+    logits against its float32 ones, as a share of the largest), over
+    the steps whose inputs agree in both pairs."""
+    import torch
+
+    from repro_torch.models import api
+    params = api.init_fn(cfg, device)(SERVE_SHARD_SEED)
+    greedy = lambda lo: torch.argmax(lo[:, -1], -1).to(torch.int32)[:, None]
+    with torch.inference_mode():      # make_prefill_step's, keeping logits
+        lo, pre = api.prefill_fn(cfg)(params, batch)
+        logits, toks = [lo[:, -1].float()], [greedy(lo)]
+        caches = api.decode_caches(cfg, pre, batch, g)
+        del pre
+        t = batch["tokens"].shape[1]
+        for i in range(g):
+            lo, _ = api.decode_fn(cfg)(params, caches, toks[-1], t + i)
+            logits.append(lo[:, -1].float())
+            toks.append(greedy(lo))
+    del params, caches
+    ref_t = torch.cat(toks, 1).cpu()
+    v = cfg.vocab                                 # padding columns: -1e30
+    ref_l = torch.stack(logits)[..., :v].cpu()   # (g + 1, B, V)
+    parts = [torch.load(out / f"serve_{dtype}_rank{r}.pt")
+             for r in range(SHARDED_RANKS)]
+    rows = {}
+    for prt in parts:
+        d, m = prt["coord"]
+        if (d, 0) in rows:
+            check(torch.equal(prt["tokens"], rows[(d, 0)]["tokens"])
+                  and torch.equal(prt["logits"], rows[(d, 0)]["logits"]),
+                  f"19c {dtype}: model ranks of dp block {d} disagree")
+        rows.setdefault((d, m), prt)
+    got_t = torch.cat([rows[(d, 0)]["tokens"] for d in range(2)])
+    got_l = torch.cat([rows[(d, 0)]["logits"] for d in range(2)], 1)[..., :v]
+    ref_t, ref_l = ref_t[:, :got_t.shape[1]], ref_l[:got_l.shape[0]]
+    scale = float(ref_l.abs().max())
+    same = (got_t == ref_t).all(0)
+    agree = int(torch.cumprod(same.int(), 0).sum())   # steps that agree
+    res = {"tokens_equal": bool(same.all()), "steps_agree": agree,
+           "tokens": got_t.tolist(), "ref_tokens": ref_t.tolist(),
+           "max_logit": scale}
+    upto = min(agree + 1, ref_l.shape[0])            # inputs agree there
+    res["logit_gap"] = float((got_l[:upto] - ref_l[:upto]).abs().max()
+                             / scale)
+    if dtype == "float32":
+        res["ref32"] = (torch.cat(toks, 1).cpu(),
+                        torch.stack(logits)[..., :v].cpu())
+        f = torch.cat([rows[(d, 0)]["fault"] for d in range(2)], 1)[..., :v]
+        n = f.shape[0]
+        res["fault_gap"] = float((f - ref_l[1:n + 1]).abs().max() / scale)
+    else:
+        t32, l32 = ref32                     # one process's, g steps
+        both = torch.cumprod(((t32 == ref_t).all(0) & same).int(), 0)
+        n = min(upto, int(both.sum()) + 1)
+        noise = float((ref_l[:n] - l32[:n]).abs().max()
+                      / float(l32[:n].abs().max()))
+        res["logit_gap"] = float((got_l[:n] - ref_l[:n]).abs().max()
+                                 / scale)
+        res["steps_compared"] = n
+        res["bf16_noise"] = noise
+        res["bf16_limit"] = 3 * noise
     return res
 
 
@@ -8949,6 +9331,12 @@ def sharded_rank(outdir: str, device: str, size: str) -> int:
                                      mesh_dim_names=("data", "model"))
         res["step"] = step_rank_cells(step_mesh, device, small)
         res["step_s"] = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res["serve"] = serve_rank_cell(step_mesh, device, small, out)
+        res["serve_s"] = time.perf_counter() - t0
         (out / f"rank{rank}.json").write_text(json.dumps(res))
         dist.barrier()
     finally:
@@ -8967,13 +9355,18 @@ def sharded_phase(small: bool = False) -> dict:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
     try:
         dense = ep_reference(tmp / "ep_ref.pt", small)
+        reckoned = {}
         for name, cfg, ocfg, b, t, _, _ in step_cells(small):
-            r = step_reckoning(cfg, ocfg, b, t)
-            say(f"19b {name}: reckoned peak of a rank {r['rank_gb']:.2f} GB "
-                f"(its shards, the {r['params_gb']:.2f} GB of parameters "
-                f"gathered and their gradients whole, its logits), of the "
-                f"{SHARDED_RANKS} ranks {r['ranks_gb']:.2f} GB; one "
-                f"process's step {r['single_gb']:.2f} GB")
+            r = reckoned[name] = step_reckoning(cfg, ocfg, b, t)
+            say(f"19b {name}: reckoned peak of a rank {r['rank_gb']:.3f} GB "
+                f"(its shards, moments and gradients, one layer of "
+                f"{r['layer_gb']:.3f} GB as used and the {r['rest_gb']:.3f} "
+                f"GB head, each with its gradient, the activations and its "
+                f"logits), of the {SHARDED_RANKS} ranks {r['ranks_gb']:.2f} "
+                f"GB; the whole-gather step's {r['whole_gather_gb']:.3f} GB "
+                f"a rank (the {r['params_gb']:.2f} GB of parameters gathered "
+                f"and their gradients whole; not run); one process's step "
+                f"{r['single_gb']:.2f} GB")
             check(r["ranks_gb"] < 75, f"19b {name}: the ranks' reckoned "
                   f"peaks pass 75 GB together")
         t_ranks = time.perf_counter()
@@ -9032,7 +9425,7 @@ def sharded_phase(small: bool = False) -> dict:
             + (f" ({nvidia_smi_line()})" if DEVICE == "cuda" else ""))
     # -- 19b
     cells = {}
-    for name, _, _, _, _, modes, fault in step_cells(small):
+    for name, _, _, _, _, modes, faults in step_cells(small):
         mine = [g["step"][name] for g in got]
         ref = mine[0]
         for mode in modes:
@@ -9044,16 +9437,31 @@ def sharded_phase(small: bool = False) -> dict:
             g = ref[f"gaps_{key}"]
             check(max(g.values()) <= 1.0, f"19b {name} {key}: readings over "
                   f"the limit {ref['limit']:.3g}: {g}")
-        if fault:
-            g = ref["gaps_fault_dp_shard_dropped"]
+        for fault in faults:
+            g = ref[f"gaps_fault_{fault}"]
             check(g["grad_norm"] > 1.0,
-                  f"19b {name}: the dropped dp shard is within the limit: "
-                  f"{g}")
+                  f"19b {name}: the planted fault ({fault}) is within the "
+                  f"limit: {g}")
+        if name == STEP_CELL and DEVICE == "cuda":
+            lim = reckoned[name]["rank_gb"]
+            peaks = [m[key]["peak_gb"] for m in mine for key in
+                     [modes[0] or "dense"]]
+            check(max(peaks) <= lim, f"19b {name}: a rank's peak "
+                  f"{max(peaks):.3f} GB passes its reckoning {lim:.3f} GB")
         for mode in modes:
             key = mode or "dense"
             r = max(mine, key=lambda m: m[key]["wall_s"])[key]
             peaks = [m[key]["peak_gb"] for m in mine if "peak_gb" in m[key]]
             peak = (f"{max(peaks):.2f} GB" if peaks else "not measured")
+            rk = reckoned[name]
+            if name == STEP_CELL:
+                say(f"19b {name} ({key}): each rank's peak "
+                    + ", ".join("not measured" if "peak_gb" not in m[key]
+                                else f"{m[key]['peak_gb']:.3f}"
+                                for m in mine)
+                    + f" GB, reckoned {rk['rank_gb']:.3f} GB, the "
+                    f"whole-gather step's reckoning "
+                    f"{rk['whole_gather_gb']:.3f} GB")
             say(f"19b {name} ({key}): loss {ref[key]['loss']:.6f} (one "
                 f"process {ref['single_loss']:.6f}), grad norm "
                 f"{ref[key]['grad_norm']:.6f} ({ref['single_grad_norm']:.6f}"
@@ -9067,16 +9475,78 @@ def sharded_phase(small: bool = False) -> dict:
                 f"{r['staged_bytes'] / 1e9:.3f} GB staged), peak of a rank "
                 f"{peak}" + (f" ({nvidia_smi_line()})"
                                     if DEVICE == "cuda" else ""))
-        if fault:
-            say(f"19b {name}: planted fault, dp rank 1's gradient dropped: "
+        for fault in faults:
+            what = {"dp": "dp rank 1's gradient dropped",
+                    "model": "model's copies summed, not the own slice "
+                             "taken"}[fault]
+            say(f"19b {name}: planted fault, {what}: "
                 + ", ".join(f"{k} {v:.2f}" for k, v in
-                            ref["gaps_fault_dp_shard_dropped"].items()))
+                            ref[f"gaps_fault_{fault}"].items()))
         cells[name] = ref
-    ep_s, step_s = (max(g[k] for g in got) for k in ("ep_s", "step_s"))
+    serve = serve_shard_phase([g["serve"] for g in got], small)
+    ep_s, step_s, serve_s = (max(g[k] for g in got)
+                             for k in ("ep_s", "step_s", "serve_s"))
     progress(f"phase 19 wall: the dense reference {t_ranks - t_ref:.1f} s, "
              f"the ranks {ranks_s:.1f} s (19a {ep_s:.1f} s, 19b {step_s:.1f} "
-             "s)")
-    return {"ep": {"dense": dense, "ranks": ep}, "step": cells}
+             f"s, 19c {serve_s:.1f} s)")
+    return {"ep": {"dense": dense, "ranks": ep}, "step": cells,
+            "serve": serve}
+
+
+def serve_shard_phase(ranks: list, small: bool) -> dict:
+    """19c's checks and lines from the ranks' results (rank 0 holds the
+    comparisons with one process's serve)."""
+    cfg = serve_shard_cfg(small, "bfloat16")
+    ref = ranks[0]
+    smi = f" ({nvidia_smi_line()})" if DEVICE == "cuda" else ""
+    for dtype in ("float32", "bfloat16"):
+        r = ref[dtype]
+        n = SERVE_SHARD_F32_STEPS if dtype == "float32" else \
+            SERVE_SHARD_STEPS
+        for m in ranks:
+            g = m[dtype]
+            check(g["merges"] == g["merges_of"] == cfg.n_layers * n,
+                  f"19c {dtype}: {g['merges']} of {g['merges_of']} decode "
+                  f"attentions launched the merge with lse, not "
+                  f"{cfg.n_layers} layers x {n} steps")
+            check(g["paths"]["decode_split"] == cfg.n_layers * n
+                  or DEVICE != "cuda",
+                  f"19c {dtype}: decode_split launches {g['paths']}")
+        peaks = [m[dtype].get("peak_gb") for m in ranks]
+        say(f"19c {SERVE_SHARD_CELL} {dtype}: prefill "
+            f"{max(m[dtype]['prefill_s'] for m in ranks):.3f} s (exchanges "
+            f"{max(m[dtype]['prefill_exchange_s'] for m in ranks):.3f} s), "
+            f"decode steps "
+            + ", ".join(f"{max(m[dtype]['step_s'][i] for m in ranks):.3f}"
+                        for i in range(n))
+            + f" s (exchanges "
+            f"{max(m[dtype]['decode_exchange_s'] for m in ranks):.3f} s, "
+            f"{r['decode_staged_gb']:.3f} GB staged on rank 0), each "
+            f"rank's peak " + ", ".join(
+                "not measured" if x is None else f"{x:.3f}" for x in peaks)
+            + f" GB; tokens equal to one process's {r['tokens_equal']} "
+            f"({r['steps_agree']} of {n + 1} steps agree), "
+            f"logits gap {r['logit_gap']:.4g} of the largest "
+            f"{r['max_logit']:.4f}" + smi)
+    f32, bf = ref["float32"], ref["bfloat16"]
+    check(f32["tokens_equal"], f"19c float32: tokens {f32['tokens']} are "
+          f"not one process's {f32['ref_tokens']}")
+    check(f32["logit_gap"] <= SERVE_SHARD_F32, f"19c float32: logits gap "
+          f"{f32['logit_gap']:.4g} passes {SERVE_SHARD_F32:.4g}")
+    check(f32["fault_gap"] > SERVE_SHARD_F32, f"19c float32: the last "
+          f"model rank's block left out of the merge is within the gate "
+          f"({f32['fault_gap']:.4g})")
+    check(bf["logit_gap"] <= bf["bf16_limit"], f"19c bfloat16: logits gap "
+          f"{bf['logit_gap']:.4g} passes three times the bfloat16 noise "
+          f"floor {bf['bf16_limit']:.4g}")
+    say(f"19c {SERVE_SHARD_CELL}: float32 gate {SERVE_SHARD_F32:.4g} of the "
+        f"largest logit, read {f32['logit_gap']:.4g}; the planted fault "
+        f"(model rank 1's block left out of the merge) "
+        f"{f32['fault_gap']:.4g}; bfloat16 gap {bf['logit_gap']:.4g} "
+        f"against a limit of three times one process's bfloat16 noise "
+        f"floor {bf['bf16_noise']:.4g} (its bfloat16 logits against its "
+        f"float32 ones)")
+    return {"float32": f32, "bfloat16": bf}
 
 
 # -- phase 20: the roofline ---------------------------------------------------
@@ -9725,6 +10195,11 @@ def main(args: list[str]) -> int:
                  "device_ms": fl["decode_device_ms"],
                  "plain_device_ms": fl["decode_plain_device_ms"],
                  "library_device_ms": fl["decode_library_device_ms"],
+                 "lse_checks": fl["lse_checks"],
+                 "merge_lse_ms": fl["merge_lse_ms"],
+                 "merge_nolse_ms": fl["merge_nolse_ms"],
+                 "merge_lse_device_ms": fl["merge_lse_device_ms"],
+                 "merge_nolse_device_ms": fl["merge_nolse_device_ms"],
                  "config": SERVE_CELL, "dtype": "bfloat16",
                  "ms_per": f"decode layer ({SERVE_BATCH} x 1 over "
                            f"{SERVE_PROMPT + SERVE_STEPS} positions, two "

@@ -24,7 +24,10 @@ The operations and their backward (each a ``torch.autograd.Function``):
   own_slice(x, axis)                 this rank's 1/G of dim 0 of a value
                                      every rank holds alike; backward:
                                      all-gather of the gradient
-  psum(x, axis)                      the sum; backward: the identity
+  psum(x, axis)                      the sum (a reduce-scatter and an
+                                     all-gather where G > 2 and x's
+                                     values split into G chunks);
+                                     backward: the identity
   pmean(x, axis)                     the mean; backward: scaled by 1/G
   varying(x, axis)                   the identity; backward: psum (JAX's
                                      ``pcast(..., to="varying")``)
@@ -204,10 +207,26 @@ class _OwnSlice(torch.autograd.Function):
         return torch.cat(_gather(g.contiguous(), ctx.ax)), None
 
 
+def _sum_over(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The sum over the ranks of their ``x``, in rank order, accumulated in
+    float32 and rounded once. Over more than two ranks, where ``x``'s
+    values split into ``ax.size`` equal chunks, a reduce-scatter (each
+    rank sums its chunk of every rank's ``x``) and an all-gather of the
+    sums: the same sums as one all-gather and a sum of every copy, with
+    ``ax.size`` times fewer bytes held and summed a rank. Over two, the
+    one all-gather moves and holds no more, in one exchange."""
+    n = x.numel()
+    if ax.size <= 2 or n % ax.size:
+        return ordered_sum(_gather(x, ax), x.dtype)
+    got = _exchange(x.reshape(ax.size, n // ax.size), ax)
+    mine = ordered_sum(list(got), x.dtype)
+    return torch.cat(_gather(mine, ax)).reshape(x.shape)
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
-        return ordered_sum(_gather(x, ax), x.dtype)
+        return _sum_over(x, ax)
 
     @staticmethod
     def backward(ctx, g):
@@ -234,7 +253,7 @@ class _Varying(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ordered_sum(_gather(g.contiguous(), ctx.ax), g.dtype), None
+        return _sum_over(g.contiguous(), ctx.ax), None
 
 
 class _AllToAll(torch.autograd.Function):

@@ -1318,12 +1318,16 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // o[b, 0, h] = sum_s acc_s exp(m_s - M) / max(sum_s l_s exp(m_s - M),
-// 1e-30), M = max_s m_s, the splits taken in order.
+// 1e-30), M = max_s m_s, the splits taken in order. With `lse` (B H
+// float32, or null) also lse[b, h] = M + log(sum_s l_s exp(m_s - M)), the
+// log of the softmax's denominator over all the keys: what a caller needs
+// to merge this output with another one over other keys.
 template <typename T>
 __global__ void __launch_bounds__(kThreadsDec)
 flash_merge_kernel(const float* __restrict__ part_ml,
                    const float* __restrict__ part_acc, T* __restrict__ o,
-                   int H, int D, int n_split, Strides so) {
+                   int H, int D, int n_split, Strides so,
+                   float* __restrict__ lse) {
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const float* ml = part_ml + static_cast<long long>(bh) * n_split * 2;
   const float* acc = part_acc + static_cast<long long>(bh) * n_split * D;
@@ -1332,6 +1336,7 @@ flash_merge_kernel(const float* __restrict__ part_ml,
   float ll = 0.f;
   for (int s = 0; s < n_split; ++s)
     ll = fmaf(ml[2 * s + 1], expf(ml[2 * s] - mm), ll);
+  if (lse != nullptr && threadIdx.x == 0) lse[bh] = mm + logf(ll);
   const float den = fmaxf(ll, 1e-30f);
   T* orow = o + b * so.b + h * so.h;
   for (int d = threadIdx.x; d < D; d += kThreadsDec) {
@@ -1347,7 +1352,7 @@ cudaError_t launch_dp(const T* q, const T* k, const T* v, T* o, int B, int n,
                       int H, int G, int D, int Dv, Strides sq, Strides sk,
                       Strides sv, Strides so, float scale, int n_split,
                       int chunk, float* part_ml, float* part_acc,
-                      cudaStream_t stream) {
+                      float* lse, cudaStream_t stream) {
   // 16-byte copies when every K and V row starts on a 16-byte boundary
   const long long vec = 16 / sizeof(T);
   const bool aligned =
@@ -1371,7 +1376,8 @@ cudaError_t launch_dp(const T* q, const T* k, const T* v, T* o, int B, int n,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_merge_kernel<T><<<static_cast<unsigned>(B) * H, kThreadsDec, 0,
-                          stream>>>(part_ml, part_acc, o, H, Dv, n_split, so);
+                          stream>>>(part_ml, part_acc, o, H, Dv, n_split, so,
+                                    lse);
   return cudaGetLastError();
 }
 
@@ -1380,7 +1386,7 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, void* o_,
                    int B, int n, int H, int Hkv, int D, int Dv, Strides sq,
                    Strides sk, Strides sv, Strides so, float scale,
                    int n_split, int chunk, float* part_ml, float* part_acc,
-                   cudaStream_t stream) {
+                   float* lse, cudaStream_t stream) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
@@ -1388,16 +1394,19 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, void* o_,
   const int G = H / Hkv;
   if (D <= 32)
     return launch_dp<T, 32>(q, k, v, o, B, n, H, G, D, Dv, sq, sk, sv, so,
-                            scale, n_split, chunk, part_ml, part_acc, stream);
+                            scale, n_split, chunk, part_ml, part_acc, lse,
+                            stream);
   if (D <= 64)
     return launch_dp<T, 64>(q, k, v, o, B, n, H, G, D, Dv, sq, sk, sv, so,
-                            scale, n_split, chunk, part_ml, part_acc, stream);
+                            scale, n_split, chunk, part_ml, part_acc, lse,
+                            stream);
   if (D <= 128)
     return launch_dp<T, 128>(q, k, v, o, B, n, H, G, D, Dv, sq, sk, sv, so,
-                             scale, n_split, chunk, part_ml, part_acc,
+                             scale, n_split, chunk, part_ml, part_acc, lse,
                              stream);
   return launch_dp<T, 256>(q, k, v, o, B, n, H, G, D, Dv, sq, sk, sv, so,
-                           scale, n_split, chunk, part_ml, part_acc, stream);
+                           scale, n_split, chunk, part_ml, part_acc, lse,
+                           stream);
 }
 
 }  // namespace dec
@@ -1697,7 +1706,7 @@ cudaError_t launch(const void* q_lat_, const void* q_rope_, const void* ckv_,
   const Strides so{static_cast<long long>(H) * r, 0, r};
   dec::flash_merge_kernel<T><<<static_cast<unsigned>(B) * H,
                                dec::kThreadsDec, 0, stream>>>(
-      part_ml, part_acc, o, H, r, n_split, so);
+      part_ml, part_acc, o, H, r, n_split, so, nullptr);
   return cudaGetLastError();
 }
 
@@ -2213,14 +2222,16 @@ int soar_flash_tile_tc(const void* q, const void* k, const void* v, void* o,
 
 // The split decode: one query row (T = 1) over keys [0, n); n_split splits
 // of `chunk` keys (a multiple of 64); part_ml (B H n_split 2) and part_acc
-// (B H n_split Dv) float32 scratch.
+// (B H n_split Dv) float32 scratch; lse (B H) float32, or null for no
+// log-sum-exp output.
 int soar_flash_decode(const void* q, const void* k, const void* v, void* o,
                       int bf16, int B, int n, int H, int Hkv, int D, int Dv,
                       long long q_sb, long long q_sh, long long k_sb,
                       long long k_st, long long k_sh, long long v_sb,
                       long long v_st, long long v_sh, long long o_sb,
                       long long o_sh, float scale, int n_split, int chunk,
-                      void* part_ml, void* part_acc, void* stream) {
+                      void* part_ml, void* part_acc, void* lse,
+                      void* stream) {
   if (bad_shape(B, 1, n, H, Hkv, D, Dv, 0, 0) || n_split < 1 ||
       n_split > 65535 || chunk < 1 || chunk % 64 ||
       static_cast<long long>(n_split) * chunk < n)
@@ -2229,14 +2240,15 @@ int soar_flash_decode(const void* q, const void* k, const void* v, void* o,
       sv{v_sb, v_st, v_sh}, so{o_sb, 0, o_sh};
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return static_cast<int>(dec::launch<__nv_bfloat16>(
         q, k, v, o, B, n, H, Hkv, D, Dv, sq, sk, sv, so, scale, n_split,
-        chunk, ml, acc, st));
+        chunk, ml, acc, ls, st));
   return static_cast<int>(dec::launch<float>(q, k, v, o, B, n, H, Hkv, D, Dv,
                                              sq, sk, sv, so, scale, n_split,
-                                             chunk, ml, acc, st));
+                                             chunk, ml, acc, ls, st));
 }
 
 // The latent (MLA) decode on the CUDA cores: q_lat (B, 1, H, r) and q_rope

@@ -52,7 +52,7 @@ _SIGNATURES = {
     "soar_flash_tile_tc": (_P,) * 4 + (_I,) * 7 + (ctypes.c_longlong,) * 12
     + (_I, _I, ctypes.c_float, _P),
     "soar_flash_decode": (_P,) * 4 + (_I,) * 7 + (ctypes.c_longlong,) * 10
-    + (ctypes.c_float, _I, _I, _P, _P, _P),
+    + (ctypes.c_float, _I, _I, _P, _P, _P, _P),
     "soar_flash_mla_decode": (_P,) * 5 + (_I,) * 6
     + (ctypes.c_longlong,) * 8 + (ctypes.c_float, _I, _I, _P, _P, _P),
     "soar_flash_mla_decode_tc": (_P,) * 5 + (_I,) * 5

@@ -139,11 +139,13 @@ def decode_splits(n: int, blocks: int) -> int:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, causal: bool,
-                         window: int = 0) -> torch.Tensor:
+                         window: int = 0, lse: bool = False):
     """Attention of q (B, T, H, D) over k (B, S, Hkv, D) and v (B, S, Hkv,
     Dv) on the card -> (B, T, H, Dv) in q's dtype, within a sliding
-    ``window`` when it is positive. Counts each call in ``.launches`` and
-    under its path in ``.launches_by_path``."""
+    ``window`` when it is positive. With ``lse`` (the split decode only)
+    -> (out, lse), lse (B, H) float32 the log of each head's softmax
+    denominator, written by the merge. Counts each call in ``.launches``
+    and under its path in ``.launches_by_path``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention_cuda needs q, k, v on one "
@@ -152,6 +154,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_window(q.shape[1], k.shape[1], causal, window,
                  "flash_attention_cuda")
     path = path_of(q, v.shape[3])
+    if lse and path != "decode_split":
+        raise ValueError(f"flash_attention_cuda: lse is the split decode's "
+                         f"output, not {path}'s")
     if path == "tile_tc":
         check_tma(q, k, v)
     out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
@@ -168,11 +173,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              device=q.device)
             acc = torch.empty((B, H, n_split, Dv), dtype=torch.float32,
                               device=q.device)
+            lse_out = (torch.empty((B, H), dtype=torch.float32,
+                                   device=q.device) if lse else None)
             err = lib.soar_flash_decode(
                 *ptrs, _BF16[q.dtype], B, n, H, Hkv, D, Dv, q.stride(0),
                 q.stride(2), *k.stride()[:3], *v.stride()[:3],
                 out.stride(0), out.stride(2), float(scale), n_split,
                 split_chunk(n, n_split), ml.data_ptr(), acc.data_ptr(),
+                None if lse_out is None else lse_out.data_ptr(),
                 stream_of(q))
         elif path == "tile_tc":
             err = lib.soar_flash_tile_tc(
@@ -185,7 +193,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(err, f"flash attention launch ({path})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_path[path] += 1
-    return out
+    return (out, lse_out) if lse else out
 
 
 flash_attention_cuda.launches = 0

@@ -12,10 +12,11 @@ from __future__ import annotations
 import torch
 
 from ..plain import kernel_call
-from .flash_attention import (flash_attention_cuda, flash_mla_decode_cuda,
-                              mla_geometry, mla_splits)
+from .flash_attention import (DECODE_HEADS, decode_splits,
+                              flash_attention_cuda, flash_mla_decode_cuda,
+                              geometry, mla_geometry, mla_splits)
 from .ref import (flash_attention_gqa_torch, flash_attention_torch,
-                  flash_mla_decode_torch)
+                  flash_decode_split_torch, flash_mla_decode_torch)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,6 +48,24 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return done(flash_attention_gqa_torch(q, k, v, scale, causal,
                                                   window))
     return flash_attention_cuda(q, k, v, float(scale), causal, window)
+
+
+def flash_decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split decode with its merge's log-sum-exp: q (B, 1, H, D) over
+    k (B, n, Hkv, D), v (B, n, Hkv, Dv) -> (out (B, 1, H, Dv), lse (B, H)
+    float32), lse the log of each head's softmax denominator over the n
+    keys, what merging ``out`` with another block's needs. On a CPU
+    tensor the plain twin ``flash_decode_split_torch`` with the kernel's
+    splits."""
+    if q.device.type == "cpu":
+        B, _, n, H, Hkv = geometry(q, k, v)[:5]
+        n_split = decode_splits(n, B * Hkv * -(-(H // Hkv) // DECODE_HEADS))
+        with kernel_call("flash_attention", q, k, v) as done:
+            out, lse = flash_decode_split_torch(q, k, v, scale, n_split,
+                                                lse=True)
+            return done(out), lse
+    return flash_attention_cuda(q, k, v, float(scale), False, lse=True)
 
 
 def flash_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,

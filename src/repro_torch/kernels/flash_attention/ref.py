@@ -162,13 +162,16 @@ def split_chunk(n: int, n_split: int) -> int:
     return -(-tiles // n_split) * SPLIT_ALIGN
 
 
-def flash_decode_split_torch(q, k, v, scale, n_split: int) -> torch.Tensor:
+def flash_decode_split_torch(q, k, v, scale, n_split: int,
+                             lse: bool = False):
     """q: (B, 1, H, D); k: (B, n, Hkv, D), v: (B, n, Hkv, Dv) -> (B, 1, H,
     Dv), in the split decode's arithmetic: split s takes keys [s c, (s +
     1) c), c = ``split_chunk(n, n_split)``, and keeps its float32 max m_s,
     sum l_s and unnormalised accumulator (an empty split m = -1e30, l =
     0); the splits are merged in order: o = sum_s acc_s e_s / max(sum_s
-    l_s e_s, 1e-30), e_s = exp(m_s - max m)."""
+    l_s e_s, 1e-30), e_s = exp(m_s - max m). With ``lse`` -> (o, lse),
+    lse (B, H) float32 = max m + log(sum_s l_s e_s), as the merge writes
+    it."""
     B, _, H, D = q.shape
     n, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
@@ -196,7 +199,10 @@ def flash_decode_split_torch(q, k, v, scale, n_split: int) -> torch.Tensor:
         den = den + ls * e
         out = out + acc * e[..., None]
     out = out / torch.clamp(den, min=1e-30)[..., None]
-    return out.reshape(B, 1, H, Dv).to(q.dtype)
+    out = out.reshape(B, 1, H, Dv).to(q.dtype)
+    if lse:
+        return out, (mm + torch.log(den)).reshape(B, H)
+    return out
 
 
 def mla_keys(ckv, kr) -> torch.Tensor:

@@ -25,8 +25,10 @@ compiler to ask, so it runs the step as one rank of the mesh would:
   ``torch.distributed._tools.mem_tracker.MemTracker``: training through
   ``launch.sharded.ShardedTrainStep`` (AdamW's moments bfloat16 above
   1e11 parameters and float32 below, as JAX's), prefill and decode
-  through ``ShardedServeStep`` (decode at the last position of this
-  rank's block of the caches).
+  through ``ShardedServeStep`` (decode at the sequence's last position,
+  where every ``model`` rank's block of the caches is full). The steps
+  gather the parameters a layer at a time and split the dense products
+  and the vocabulary over ``model`` (``parallel.layer_gather``).
 
 A cell's record, ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``,
 is JAX's: ``status`` (``ok``; ``skipped`` with ``api.cell_supported``'s
@@ -175,11 +177,11 @@ def _cell_args(cfg, shape, mesh, rules, ocfg):
 
 
 def _last_position(caches, shape: api.ShapeSpec) -> int:
-    """The last position of this rank's block of ``caches``: the fewest
-    positions a ``SEQ_CACHES`` leaf holds here, less one (the sequence's
-    last when no leaf has positions)."""
-    held = [d.to_local().shape[1 + any(n in ("layers", "dec")
-                                       for n in p.split("/"))]
+    """The sequence's last position the caches hold: the fewest positions
+    of a ``SEQ_CACHES`` leaf (whole, not this rank's block), less one
+    (the sequence's last when no leaf has positions). There every
+    ``model`` rank's block of a full-attention cache is filled."""
+    held = [d.shape[1 + any(n in ("layers", "dec") for n in p.split("/"))]
             for p, d in T.leaves_with_paths(caches)
             if p.split("/")[-1] in sharded.SEQ_CACHES]
     return (min(held) if held else shape.seq_len) - 1

@@ -1,43 +1,51 @@
-"""The training step over a device mesh, one rank a device: the port's
-twin of the JAX package's ``jit(make_train_step, in_shardings=(named(mesh,
-param_pspecs), named(mesh, opt_pspecs), named(mesh, batch_pspecs)))``
-(``launch/dryrun.py:70-89``); :class:`ShardedServeStep` is the twin of
-its prefill and decode ``jit``s, which the dry run (``launch.dryrun``)
-runs.
+"""The training and serving steps over a device mesh, one rank a device:
+the port's twins of the JAX package's ``jit(make_train_step,
+in_shardings=(named(mesh, param_pspecs), named(mesh, opt_pspecs),
+named(mesh, batch_pspecs)))`` (``launch/dryrun.py:70-89``) and of its
+prefill and decode ``jit``s (:class:`ShardedServeStep`), which the dry run
+(``launch.dryrun``) runs.
 
 At rest the parameters and AdamW's ``m`` and ``v`` are DTensors placed by
 ``steps.param_pspecs`` and ``steps.opt_pspecs``, the batch by
-``steps.batch_pspecs`` (:func:`shard` builds them from whole tensors with
-no message: each rank keeps its slice, the slice JAX's ``NamedSharding``
-puts on the device of the same mesh coordinate). A step
+``steps.batch_pspecs``, the caches by ``steps.cache_pspecs`` (:func:`shard`
+builds them from whole tensors with no message: each rank keeps its
+slice, the slice JAX's ``NamedSharding`` puts on the device of the same
+mesh coordinate). A training step
 
-1. gathers each parameter it needs whole (FSDP-style all-gathers over the
-   mesh axes that shard it); under expert parallelism
+1. hands the model this rank's shards under a ``layer_gather.Plan``: each
+   layer gathers its own shards inside its body (under
+   ``torch.utils.checkpoint`` where ``cfg.remat``, so the recompute gathers
+   again), the GQA attention's and the MLP's products split over
+   ``model`` (column-parallel ``w_q``/``w_k``/``w_v``/``w_gate``/``w_up``,
+   row-parallel ``w_o``/``w_down`` and one sum over ``model``), the
+   embedding and the head split the vocabulary over ``model``; MLA, the
+   SSM mixers and MoE's dense dispatch gather their ``model`` shards too
+   and compute alike on every ``model`` rank; under expert parallelism
    (``moe.ep_mode``) the MoE ``router/w`` and expert leaves stay this
    rank's shards, which the EP lowerings take as they are;
 2. runs ``make_train_step``'s loss on this rank's block of the batch
    under ``axis_rules(rules, mesh)``, and differentiates this rank's share
    of the global loss: its nll weighted by its share of the batch's
    labels, plus the aux term of ``loss_fn`` (the EP collectives' transposes
-   give each rank its share of that);
-3. reduce-scatters each gathered leaf's gradient over the dp axes to this
-   rank's shard of it: the sum over dp ranks in their order, accumulated
-   in float32 (the copies across ``model`` are equal);
-4. takes the global gradient norm from every leaf's shards, each
+   give each rank its share of that); each layer's gather takes its
+   gradient back to this rank's shard as the backward reaches it
+   (reduce-scattered over the dp axes, summed in dp-rank order in
+   float32; over ``model`` this rank's slice where the ranks computed
+   alike, the sum where they computed parts), so no whole gradient is
+   held;
+3. takes the global gradient norm from every leaf's shards, each
    replicated copy counted once, summed in rank order;
-5. runs AdamW on the shards, in place.
+4. runs AdamW on the shards, in place.
 
 Its loss and updated parameters equal one process's ``make_train_step``
 on the whole batch to rounding: the gradient's sums over tokens run per
-rank and then over ranks, and the GEMMs see other row counts
+rank and then over ranks, and the GEMMs see other row and column counts
 (:func:`step_gaps` holds the two within derived limits). A MoE config
 whose EP conditions fail under the mesh runs the dense dispatch on every
 rank's block, which is JAX's dense dispatch only with one dp rank: the
 step refuses it otherwise.
 """
 from __future__ import annotations
-
-import re
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate
@@ -46,26 +54,13 @@ from .. import tree as T
 from ..collectives import axis_ops as ops
 from ..models import api, moe
 from ..models.config import ModelConfig
+from ..models.transformer import _layer_windows
 from ..optim import adamw
+from ..parallel import layer_gather as lg
+from ..parallel.layer_gather import local_slice
 from ..parallel.sharding import axis_rules, map_specs, placements
 from . import steps
 from .mesh import dp_axes
-
-#: the MoE leaves the EP lowerings take as this rank's shards
-EP_LEAVES = re.compile(r".*(router/w|experts/w_(gate|up|down))$")
-
-
-def local_slice(t: torch.Tensor, mesh, pls, coord) -> torch.Tensor:
-    """The block of ``t`` that placements ``pls`` put at mesh coordinate
-    ``coord``: DTensor splits a dimension mesh dimension by mesh dimension,
-    the first the major one (its sizes must divide)."""
-    for size, pl, c in zip(mesh.mesh.shape, pls, coord):
-        if pl.is_shard():
-            if t.shape[pl.dim] % size:
-                raise ValueError(f"dimension {pl.dim} of {tuple(t.shape)} "
-                                 f"does not split over {size} ranks")
-            t = t.chunk(size, pl.dim)[c]
-    return t
 
 
 def shard(tree, mesh, spec_tree):
@@ -119,21 +114,10 @@ def gather_to(d, dst: int = 0):
     return full
 
 
-def _reduce_to_shard(g, mesh, pls, coord, dp_dims, dpa):
-    """This rank's shard of the sum over the dp ranks of their ``g``: each
-    rank sends every dp peer that peer's shard of its ``g`` (one
-    all-to-all), then sums what it receives in dp-rank order."""
-    if dpa.size == 1:
-        return local_slice(g, mesh, pls, coord).contiguous()
-    parts = []
-    for j in range(dpa.size):
-        c, rest = list(coord), j
-        for i in reversed(dp_dims):
-            c[i], rest = rest % mesh.mesh.shape[i], rest // mesh.mesh.shape[i]
-        parts.append(local_slice(g, mesh, pls, c))
-    with torch.no_grad():
-        got = ops.all_to_all(torch.stack(parts), dpa)
-    return ops.ordered_sum(list(got), g.dtype)
+def _plan(cfg, mesh, params, train: bool, ep) -> lg.Plan:
+    return lg.Plan(cfg, mesh, {p: d.placements for p, d in
+                               T.leaves_with_paths(params)}, train=train,
+                   ep=ep)
 
 
 class ShardedTrainStep:
@@ -142,7 +126,7 @@ class ShardedTrainStep:
     opt_pspecs)`` and ``named(mesh, batch_pspecs)``; parameters and moments
     are updated in place; ``out`` = ``{"loss", "grad_norm", "nll", "aux"}``,
     equal on every rank. Every rank of ``mesh`` calls it with its own
-    shards."""
+    shards. ``plan`` is the last step's ``layer_gather.Plan``."""
 
     def __init__(self, cfg: ModelConfig, ocfg: adamw.AdamWConfig, mesh,
                  rules):
@@ -150,9 +134,9 @@ class ShardedTrainStep:
         self.lfn = api.loss_fn(cfg)
         names = tuple(mesh.mesh_dim_names)
         self.dp = dp_axes(mesh)
-        self.dp_dims = [names.index(a) for a in self.dp]
         self.dpa = ops.axis(mesh, self.dp)
         self.every = ops.axis(mesh, names)
+        self.plan = None
 
     def ep(self, batch_local) -> str | None:
         """The MoE lowering this step's tokens take (None: dense)."""
@@ -171,18 +155,13 @@ class ShardedTrainStep:
         mesh, coord = self.mesh, self.mesh.get_coordinate()
         with torch.no_grad():
             blocal = {k: v.to_local() for k, v in batch.items()}
-        ep = self.ep(blocal)
+        plan = self.plan = _plan(self.cfg, mesh, params, True,
+                                 self.ep(blocal))
         named = list(T.leaves_with_paths(params))
-        keep = [ep is not None and EP_LEAVES.fullmatch(p) is not None
-                for p, _ in named]
-        with torch.no_grad():
-            used = [(d.to_local() if k else gather(d)).detach()
-                    for (_, d), k in zip(named, keep)]
-        for t in used:
-            t.requires_grad_()
+        used = [d.to_local().detach().requires_grad_() for _, d in named]
         local_params = T.unflatten({p: t for (p, _), t in zip(named, used)},
                                    like=params)
-        with axis_rules(self.rules, mesh):
+        with axis_rules(self.rules, mesh), lg.installed(plan):
             loss, metrics = self.lfn(local_params, blocal)
             nll = metrics["nll"]
             count = (blocal["labels"] >= 0).sum().to(torch.float32)
@@ -190,20 +169,19 @@ class ShardedTrainStep:
             share = count / torch.clamp(counts, min=1.0)
             grads = list(torch.autograd.grad(nll * share + (loss - nll),
                                              used))
-        del local_params, used          # the gathered parameters
+        del local_params, used
+        missed = [p for p, _ in named
+                  if p not in plan.seen and plan.role(p) != "keep"]
+        if missed:
+            raise RuntimeError(f"leaves the model read past the layer "
+                               f"gather (their gradients are not reduced): "
+                               f"{missed}")
         with torch.no_grad():
-            out_g, sq = [], torch.zeros((), dtype=torch.float32,
-                                        device=loss.device)
-            for i, ((path, d), k) in enumerate(zip(named, keep)):
-                g, grads[i] = grads[i], None     # free each whole gradient
-                pls = d.placements
-                gs = g if k else _reduce_to_shard(
-                    g, mesh, pls, coord, self.dp_dims, self.dpa)
-                del g
-                out_g.append(gs)
-                if all(c == 0 for c, pl in zip(coord, pls)
+            sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+            for (path, d), g in zip(named, grads):
+                if all(c == 0 for c, pl in zip(coord, d.placements)
                        if pl.is_replicate()):
-                    sq = sq + torch.sum(torch.square(gs.to(torch.float32)))
+                    sq = sq + torch.sum(torch.square(g.to(torch.float32)))
             gnorm = torch.sqrt(ops.psum(sq.reshape(1), self.every)[0])
             nll_all = ops.psum((nll.detach() * share).reshape(1),
                                self.dpa)[0]
@@ -212,8 +190,9 @@ class ShardedTrainStep:
                    "aux": metrics["aux"].detach()}
             p_local = T.unflatten({p: d.to_local() for p, d in named},
                                   like=params)
-            g_local = T.unflatten({p: g for (p, _), g in zip(named, out_g)},
+            g_local = T.unflatten({p: g for (p, _), g in zip(named, grads)},
                                   like=params)
+            del grads
             step = opt_state["step"].to_local()
             o_local = {"m": T.tree_map(lambda d: d.to_local(),
                                        opt_state["m"]),
@@ -229,8 +208,7 @@ class ShardedTrainStep:
         return params, opt_state, out
 
 
-#: cache leaves whose dimension after the batch is the sequence: a rank
-#: serves its block of positions of these
+#: cache leaves whose dimension after the batch is the sequence
 SEQ_CACHES = ("k", "v", "ckv", "kr")
 
 
@@ -240,70 +218,146 @@ class ShardedServeStep:
     param_pspecs), named(mesh, batch_pspecs)))`` and ``jit(make_serve_step,
     in_shardings=(params, named(mesh, cache_pspecs), P(), P()))``
     (``launch/dryrun.py:94-122``). ``mode`` is ``"prefill"`` or
-    ``"decode"``.
+    ``"decode"``; both return ``(token, caches)``, ``token`` this rank's
+    rows (B / dp, 1) int32 of the greedy next token, equal on the ``model``
+    ranks.
 
-    Every rank gathers the parameters whole (``gather_tree``; under expert
-    parallelism the MoE ``router/w`` and expert leaves stay this rank's
-    shards, as in :class:`ShardedTrainStep`) and, under ``axis_rules(rules,
-    mesh)``, runs ``make_prefill_step`` on its block of the batch, or
-    ``make_serve_step`` on its block of the caches with its rows of the
-    token: ``step(params, caches, token, pos)``, ``token`` this rank's
-    rows (B / dp, 1), ``pos`` a host int within its block. A cache keeps
-    this rank's block of its batch rows and, for the k/v-like leaves
-    (``SEQ_CACHES``), of its positions; a recurrent state sharded on a
-    feature dimension is gathered whole first, since the gathered
-    parameters expect it whole. Each rank attends over its own block of
-    positions and its result is its block's: the step reckons a rank's
-    work and memory (``launch.dryrun``); unlike JAX's it does not combine
-    the positions of the ``model`` ranks into one softmax."""
+    Under a ``layer_gather.Plan`` each layer gathers its shards in its
+    body (the MLP split over ``model``; the attention whole on every
+    ``model`` rank; under expert parallelism the MoE ``router/w`` and
+    expert leaves stay this rank's shards), and the head splits the
+    vocabulary over ``model``: the next token is the argmax across the
+    vocabulary's blocks (the largest value, the lower index on a tie, as
+    ``jnp.argmax``).
 
-    def __init__(self, cfg: ModelConfig, mesh, rules, mode: str):
+    ``step(params, batch)`` (prefill) runs on this rank's block of the
+    batch and returns the caches as DTensors placed by ``cache_pspecs``,
+    each rank keeping its block. ``step(params, caches, token, pos)``
+    (decode) takes the caches placed so, this rank's token rows and
+    ``pos``, the sequence's own position (a host int), and writes the
+    token into the caches in place. The k/v of a full-attention layer stay
+    this rank's block of positions: the rank whose block holds ``pos``
+    writes there, each rank attends over the filled part of its block,
+    and the ``model`` ranks merge by log-sum-exp (``gqa_decode``; the
+    encoder-decoder's self and cross attention alike). The other cache
+    leaves are gathered whole over their sharded dimensions other than the
+    batch (MLA's latent ``ckv``/``kr``, a windowed layer's ring, the
+    recurrent states), written, and this rank's block written back. ``keep_logits``: the last
+    position's logits, whole, in ``.logits`` after each call."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules, mode: str,
+                 keep_logits: bool = False):
         if mode not in ("prefill", "decode"):
             raise ValueError(f"mode {mode!r} is prefill or decode")
         self.cfg, self.mesh, self.rules, self.mode = cfg, mesh, rules, mode
-        self.fn = (steps.make_prefill_step(cfg) if mode == "prefill"
-                   else steps.make_serve_step(cfg))
+        self.fn = (api.prefill_fn(cfg) if mode == "prefill"
+                   else api.decode_fn(cfg))
+        self.keep_logits, self.logits = keep_logits, None
 
-    def _params(self, params, n_tokens: int):
-        ep = (moe.ep_mode(n_tokens, self.cfg, self.mesh, self.rules)
-              if self.cfg.is_moe else None)
-        named = T.leaves_with_paths(params)
-        return T.unflatten(
-            {p: (d.to_local() if ep is not None and EP_LEAVES.fullmatch(p)
-                 else gather(d)) for p, d in named}, like=params)
+    def _ep(self, n_tokens: int):
+        return (moe.ep_mode(n_tokens, self.cfg, self.mesh, self.rules)
+                if self.cfg.is_moe else None)
 
     def __call__(self, params, data, token=None, pos: int | None = None):
-        with torch.no_grad():
+        with torch.inference_mode():
+            used = T.tree_map(lambda d: d.to_local(), params)
             if self.mode == "prefill":
                 local = {k: v.to_local() for k, v in data.items()}
-                n = local["tokens"].numel()
-            else:
-                local = T.unflatten(
-                    {p: self._cache_block(p, d)
-                     for p, d in T.leaves_with_paths(data)}, like=data)
-                n = token.numel()
-            used = self._params(params, n)
-        with axis_rules(self.rules, self.mesh):
-            if self.mode == "prefill":
-                return self.fn(used, local)
-            return self.fn(used, local, token, pos)
+                plan = _plan(self.cfg, self.mesh, params, False,
+                             self._ep(local["tokens"].numel()))
+                with axis_rules(self.rules, self.mesh), lg.installed(plan):
+                    logits, caches = self.fn(used, local)
+                    tok = self._token(logits, plan)
+                return tok, self._place(caches, data["tokens"])
+            plan = _plan(self.cfg, self.mesh, params, False,
+                         self._ep(token.numel()))
+            back, blocks = [], {}
+            for p, d in T.leaves_with_paths(data):
+                blocks[p] = self._cache_block(p, d, back, plan)
+            local = T.unflatten(blocks, like=data)
+            with axis_rules(self.rules, self.mesh), lg.installed(plan):
+                logits, _ = self.fn(used, local, token, pos)
+                tok = self._token(logits, plan)
+            coord = self.mesh.get_coordinate()
+            for d, whole, pls in back:
+                d.to_local().copy_(local_slice(whole, self.mesh, pls, coord))
+            return tok, data
 
-    def _cache_block(self, path: str, d) -> torch.Tensor:
-        """This rank's block of cache leaf ``d``: its batch rows and, for a
-        ``SEQ_CACHES`` leaf, its positions; any other sharded dimension
-        gathered."""
+    def _token(self, logits, plan) -> torch.Tensor:
+        last = logits[:, -1]
+        if self.keep_logits:
+            self.logits = (ops.all_gather(last.contiguous(), plan.model, -1)
+                           if plan.vocab else last.clone())
+        return lg.argmax(last).to(torch.int32)[:, None]
+
+    def _place(self, caches, tokens):
+        """A prefill's caches (this rank's batch rows, every position) as
+        DTensors placed by ``cache_pspecs``: each rank keeps its block."""
+        mesh = self.mesh
+        dp = [i for i, a in enumerate(mesh.mesh_dim_names)
+              if a in dp_axes(mesh)]
+        rows = 1
+        for i in dp:
+            if tokens.placements[i].is_shard():
+                rows *= mesh.mesh.shape[i]
+        coord = mesh.get_coordinate()
+
+        def whole_shape(path, t):
+            names = path.split("/")
+            stacked = any(n in ("layers", "dec") for n in names)
+            shape = list(t.shape)
+            shape[1 if stacked and t.ndim >= 2 else 0] *= rows
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+
+        meta = steps.map_with_path(whole_shape, caches)
+        specs = steps.cache_pspecs(meta, mesh, None)
+
+        def one(spec, t, m):
+            pls = placements(mesh, spec, t.ndim)
+            mine = tuple(Replicate() if i in dp else pl
+                         for i, pl in enumerate(pls))
+            local = local_slice(t, mesh, mine, coord).contiguous()
+            return DTensor.from_local(local, mesh, pls, run_check=False,
+                                      shape=m.shape, stride=m.stride())
+
+        return map_specs(one, specs, caches, meta)
+
+    def _cache_block(self, path: str, d, back: list, plan) -> torch.Tensor:
+        """This rank's block of cache leaf ``d``: its batch rows and, for
+        a full-attention layer's k/v, its block of positions (noted in the
+        plan's ``blocks`` where ``model`` splits them); any other sharded
+        dimension gathered (``back`` notes the leaf, to write its block
+        back)."""
         names = path.split("/")
         stacked = any(n in ("layers", "dec") for n in names)
         b_dim = 1 if stacked and d.ndim >= 2 else 0
-        keep = {b_dim} | ({b_dim + 1} if names[-1] in SEQ_CACHES else set())
+        block = (names[-1] in ("k", "v")
+                 and not self._ring(names, d.shape[b_dim + 1]))
+        keep = {b_dim} | ({b_dim + 1} if block else set())
         local = d.to_local()
         mesh = d.device_mesh
+        if block and "model" in mesh.mesh_dim_names:
+            pl = d.placements[mesh.mesh_dim_names.index("model")]
+            if pl.is_shard() and pl.dim == b_dim + 1:
+                plan.blocks[local.shape[b_dim + 1]] = d.shape[b_dim + 1]
+        gathered = [Replicate()] * mesh.ndim
         for i in reversed(range(mesh.ndim)):
             pl = d.placements[i]
             if pl.is_shard() and pl.dim not in keep:
                 ax = ops.axis(mesh, mesh.mesh_dim_names[i])
                 local = ops.all_gather(local, ax, pl.dim)
+                gathered[i] = pl
+        if any(pl.is_shard() for pl in gathered):
+            back.append((d, local, tuple(gathered)))
         return local
+
+    def _ring(self, names, s: int) -> bool:
+        """Whether the k/v at ``names`` (a leaf of the ``blocks`` list) is
+        a windowed layer's ring of ``s`` slots."""
+        if names[0] != "blocks":
+            return False
+        w = _layer_windows(self.cfg)[int(names[1])]
+        return bool(w) and w < s + 1
 
 
 def init_opt(params, ocfg: adamw.AdamWConfig, step: int = 0) -> dict:

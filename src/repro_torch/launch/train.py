@@ -291,15 +291,16 @@ def config_from_args(args) -> ModelConfig:
     ``ValueError`` for the encoder-decoder, whose ``loss_fn`` reads audio
     frames the pipeline does not make; the JAX trainer cannot train it
     either (its ``encdec.loss_fn`` reads ``batch["frames"]``). Training it
-    on frames waits (ROADMAP.md, queue A item 4b)."""
+    on frames is beyond the JAX package (ROADMAP.md, former item 4b)."""
     cfg = ARCHS[args.arch]
     if cfg.is_encoder_decoder:
         raise ValueError(f"{cfg.name}: the trainer's data pipeline makes "
                          f"tokens only, no audio frames, and the "
                          f"encoder-decoder's loss reads frames (so does the "
                          f"JAX trainer's: encdec.loss_fn reads "
-                         f"batch['frames']); training it waits (ROADMAP.md, "
-                         f"queue A item 4b); it serves through launch.steps")
+                         f"batch['frames']); training it on frames is beyond "
+                         f"the JAX package (ROADMAP.md, former item 4b); it "
+                         f"serves through launch.steps")
     if args.preset_100m:
         return cfg.reduced(n_layers=8, d_model=512, n_heads=8, n_kv_heads=8,
                            d_ff=2048, vocab=32_768, head_dim=0)

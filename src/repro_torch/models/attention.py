@@ -25,8 +25,10 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention.ops import (flash_attention_gqa,
+                                           flash_decode_lse,
                                            flash_mla_decode)
 from ..kernels.flash_attention.ref import sdpa  # noqa: F401  (re-exported)
+from ..parallel import layer_gather as lg
 from .config import ModelConfig
 from .layers import (apply_rope, dense_init, dtype_of, rms_head_norm,
                      rope_tables)
@@ -123,11 +125,14 @@ def init_gqa(gen, cfg: ModelConfig):
 
 
 def _qkv(p, x, cfg: ModelConfig, positions):
+    """q (B, T, H, hd), k and v (B, T, Hkv, hd), rope'd; the head counts
+    those of the projections' columns (split over ``model``, a rank's
+    heads)."""
     B, T, _ = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["w_q"]).reshape(B, T, H, hd)
-    k = (x @ p["w_k"]).reshape(B, T, Hkv, hd)
-    v = (x @ p["w_v"]).reshape(B, T, Hkv, hd)
+    hd = cfg.hd
+    q = (x @ p["w_q"]).reshape(B, T, -1, hd)
+    k = (x @ p["w_k"]).reshape(B, T, -1, hd)
+    v = (x @ p["w_v"]).reshape(B, T, -1, hd)
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
@@ -185,11 +190,27 @@ def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig, window: int = 0):
     n = pos + 1, or min(pos + 1, S) for the ring. JAX masks the slots past
     ``pos`` to -1e30 instead; their weights exp(-1e30 - m) are exactly 0, so
     the two agree.
+
+    Where the ``model`` ranks of a mesh hold blocks of the cache's
+    positions (``layer_gather.decode_block``: this rank's from ``start``),
+    ``pos`` is the sequence's own: the rank whose block holds it writes the
+    token's k/v, each rank attends over the filled part of its block, n =
+    clamp(pos + 1 - start, 0, S), with the split decode's log-sum-exp (a
+    rank with n = 0 launches nothing), and the ranks' outputs merge by
+    log-sum-exp (``layer_gather.combine``).
     """
     B = x.shape[0]
     S = cache["k"].shape[1]
     pos = int(pos)
     q, k, v = _qkv(p, x, cfg, torch.full((1,), pos, device=x.device))
+    start = None if window and window < S + 1 else lg.decode_block(S)
+    if start is not None:
+        if 0 <= pos - start < S:
+            cache["k"][:, pos - start] = k[:, 0]
+            cache["v"][:, pos - start] = v[:, 0]
+        out = block_decode(q, cache["k"], cache["v"], pos + 1 - start,
+                           _scale(cfg.hd))
+        return out.reshape(B, 1, -1) @ p["w_o"], cache
     if window and window < S + 1:
         slot, n = pos % S, min(pos + 1, S)
     else:
@@ -202,6 +223,19 @@ def gqa_decode(p, x, cache, pos: int, cfg: ModelConfig, window: int = 0):
     out = flash_attention_gqa(q, cache["k"][:, :n], cache["v"][:, :n],
                               _scale(cfg.hd), causal=False)
     return out.reshape(B, 1, -1) @ p["w_o"], cache
+
+
+def block_decode(q, k, v, n: int, scale) -> torch.Tensor:
+    """q (B, 1, H, D) over the first n positions (clamped to [0, S]) of
+    this rank's block of a cache, k (B, S, Hkv, D), v (B, S, Hkv, Dv), the
+    ``model`` ranks' blocks then merged by log-sum-exp
+    (``layer_gather.combine``) -> (B, 1, H, Dv). The split decode with its
+    merge's lse; a rank with no filled position launches nothing."""
+    n = min(max(n, 0), k.shape[1])
+    out, lse = (flash_decode_lse(q, k[:, :n], v[:, :n], scale) if n
+                else (None, None))
+    return lg.combine(out, lse, q.shape[:3] + v.shape[3:], q.dtype,
+                      q.device)
 
 
 def gqa_cache_spec(cfg: ModelConfig, batch: int, seq: int, window: int = 0,

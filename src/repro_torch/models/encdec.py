@@ -37,7 +37,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention_gqa
-from .attention import _pick_block, _scale, causal_mask, sdpa, sdpa_blocked
+from ..parallel import layer_gather as lg
+from ..parallel.sharding import checkpoint_context
+from .attention import (_pick_block, _scale, block_decode, causal_mask,
+                        sdpa, sdpa_blocked)
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, dense_init, dtype_of, embed_init,
                      init_mlp, init_norm)
@@ -136,6 +139,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 
 
 def _enc_block(p, x, cfg: ModelConfig, mode: str):
+    p = lg.layer(p, "enc_layers")
     h = apply_norm(p["ln1"], x, cfg)
     k, v = _kv(p["attn"], h, cfg)
     x = x + _attend(p["attn"], h, k, v, cfg, False, mode)
@@ -153,15 +157,17 @@ def encode(params, frames, cfg: ModelConfig, mode: str = "train",
     for i in range(cfg.n_encoder_layers):
         p = _layer(params["enc_layers"], i)
         if mode == "train" and cfg.remat:
-            x = checkpoint(_enc_block, p, x, cfg, mode, use_reentrant=False)
+            x = checkpoint(_enc_block, p, x, cfg, mode, use_reentrant=False,
+                           context_fn=checkpoint_context)
         else:
             x = _enc_block(p, x, cfg, mode)
-    return apply_norm(params["enc_norm"], x, cfg)
+    return apply_norm(lg.layer(params["enc_norm"], "enc_norm"), x, cfg)
 
 
 def _dec_block(p, x, enc_out, cfg: ModelConfig, mode: str):
     """One decoder layer over the whole prompt (train, prefill). Returns
     (x, its self and cross keys and values)."""
+    p = lg.layer(p, "dec_layers")
     h = apply_norm(p["ln1"], x, cfg)
     k1, v1 = _kv(p["self"], h, cfg)
     x = x + _attend(p["self"], h, k1, v1, cfg, True, mode)
@@ -179,18 +185,38 @@ def _train_dec_block(p, x, enc_out, cfg: ModelConfig):
 def _decode_layer(p, x, cache, pos: int, cfg: ModelConfig):
     """One decoder layer of a decode step: the token's self k/v written at
     ``pos`` in place, attention over the self prefix and all the cross
-    cache."""
+    cache. Where the ``model`` ranks of a mesh hold blocks of a cache's
+    positions (``layer_gather.decode_block``), ``pos`` is the sequence's
+    own: the rank whose self block holds it writes there."""
     sk, sv = cache["self"]["k"], cache["self"]["v"]
+    p = lg.layer(p, "dec_layers")
     h = apply_norm(p["ln1"], x, cfg)
     k1, v1 = _kv(p["self"], h, cfg)
-    sk[:, pos] = k1[:, 0]
-    sv[:, pos] = v1[:, 0]
-    x = x + _attend(p["self"], h, sk[:, :pos + 1], sv[:, :pos + 1], cfg,
-                    False, "decode")
+    start = lg.decode_block(sk.shape[1])
+    at = pos if start is None else pos - start
+    if start is None or 0 <= at < sk.shape[1]:
+        sk[:, at] = k1[:, 0]
+        sv[:, at] = v1[:, 0]
+    x = x + _decode_attend(p["self"], h, sk, sv, pos + 1, cfg)
     h = apply_norm(p["lnx"], x, cfg)
-    x = x + _attend(p["cross"], h, cache["cross"]["k"], cache["cross"]["v"],
-                    cfg, False, "decode")
+    x = x + _decode_attend(p["cross"], h, cache["cross"]["k"],
+                           cache["cross"]["v"], None, cfg)
     return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+
+
+def _decode_attend(p, h, k, v, n: int | None, cfg: ModelConfig):
+    """h (B, 1, d) over the first ``n`` positions of the cache k, v (all
+    of them where ``n`` is None); where the ``model`` ranks hold blocks of
+    its positions, over the filled part of this rank's block, merged by
+    log-sum-exp (``attention.block_decode``)."""
+    start = lg.decode_block(k.shape[1])
+    if start is None:
+        return _attend(p, h, k[:, :n], v[:, :n], cfg, False, "decode")
+    B = h.shape[0]
+    q = (h @ p["w_q"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+    n = k.shape[1] if n is None else n - start
+    return (block_decode(q, k, v, n, _scale(cfg.hd)).reshape(B, 1, -1)
+            @ p["w_o"])
 
 
 def _decode_blocks(params, x, enc_out, cfg: ModelConfig, mode: str,
@@ -209,7 +235,8 @@ def _decode_blocks(params, x, enc_out, cfg: ModelConfig, mode: str,
         p = _layer(params["dec_layers"], i)
         if mode == "train" and cfg.remat:
             x = checkpoint(_train_dec_block, p, x, enc_out, cfg,
-                           use_reentrant=False)
+                           use_reentrant=False,
+                           context_fn=checkpoint_context)
             continue
         x, nc = _dec_block(p, x, enc_out, cfg, mode)
         if mode == "prefill":
@@ -219,17 +246,24 @@ def _decode_blocks(params, x, enc_out, cfg: ModelConfig, mode: str,
 
 def _logits(params, x, cfg: ModelConfig):
     """The tied head; the padded vocab columns set to -1e30."""
-    logits = x @ params["embed_tokens"].T
+    logits = x @ lg.layer(params["embed_tokens"], "embed_tokens").T
     if cfg.padded_vocab != cfg.vocab:
         pad = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
         logits = torch.where(pad, logits, -1e30)   # in logits' dtype
     return logits
 
 
+def _head(params, x, cfg: ModelConfig):
+    """The final norm, then the tied head."""
+    norm = lg.layer(params["final_norm"], "final_norm")
+    return _logits(params, apply_norm(norm, x, cfg), cfg)
+
+
 def _embed_tokens(params, tokens, cfg: ModelConfig, tables=None):
     T = tokens.shape[1]
     dt = dtype_of(cfg)
-    return (F.embedding(tokens, params["embed_tokens"])
+    return (F.embedding(tokens, lg.layer(params["embed_tokens"],
+                                        "embed_tokens"))
             + _positions(T, cfg.d_model, dt, tokens.device, tables)[None])
 
 
@@ -239,7 +273,7 @@ def loss_fn(params, batch, cfg: ModelConfig, tables=None):
     enc_out = encode(params, batch["frames"], cfg, "train", tables)
     x = _embed_tokens(params, batch["tokens"], cfg, tables)
     x, _ = _decode_blocks(params, x, enc_out, cfg, "train")
-    logits = _logits(params, apply_norm(params["final_norm"], x, cfg), cfg)
+    logits = _head(params, x, cfg)
     nll = _nll(logits, batch["labels"])
     return nll, {"nll": nll, "aux": torch.zeros((), device=nll.device)}
 
@@ -251,7 +285,7 @@ def prefill(params, batch, cfg: ModelConfig, tables=None):
     enc_out = encode(params, batch["frames"], cfg, "prefill", tables)
     x = _embed_tokens(params, batch["tokens"], cfg, tables)
     x, caches = _decode_blocks(params, x, enc_out, cfg, "prefill")
-    logits = _logits(params, apply_norm(params["final_norm"], x, cfg), cfg)
+    logits = _head(params, x, cfg)
     return logits[:, -1:, :], {"dec": caches}
 
 
@@ -261,17 +295,19 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig,
     ``WHISPER_MAX_TARGET``). Writes each layer's self k/v at ``pos`` into
     ``caches`` in place and returns (logits (B, 1, V), caches).
     ``tables``: see :func:`_positions`."""
-    pos, slots = int(pos), caches["dec"]["self"]["k"].shape[2]
+    pos = int(pos)
+    slots = lg.whole_length(caches["dec"]["self"]["k"].shape[2])
     if not 0 <= pos < slots:
         raise ValueError(f"encdec decode: position {pos} outside a self "
                          f"cache of {slots}")
     dt = dtype_of(cfg)
     posv = _positions(WHISPER_MAX_TARGET, cfg.d_model, dt, token.device,
                       tables)
-    x = F.embedding(token, params["embed_tokens"]) + posv[pos]
+    x = (F.embedding(token, lg.layer(params["embed_tokens"], "embed_tokens"))
+         + posv[pos])
     x, _ = _decode_blocks(params, x, None, cfg, "decode",
                           caches=caches["dec"], pos=pos)
-    logits = _logits(params, apply_norm(params["final_norm"], x, cfg), cfg)
+    logits = _head(params, x, cfg)
     return logits, caches
 
 

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import layer_gather as lg
 from ..parallel.sharding import checkpoint_context
 from .attention import (gqa_cache_spec, gqa_decode, gqa_forward, init_gqa,
                         init_mla, mla_cache_spec, mla_decode, mla_forward)
@@ -143,14 +144,19 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 
 
 def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
-                  pos=None, kind: str = "attn", window: int = 0):
+                  pos=None, kind: str = "attn", window: int = 0,
+                  path: str = "layers"):
     """One block; x (B, T, d). Returns (x, cache, aux): the block's keys
     and values (train, prefill; a hybrid block adds the Mamba state,
     ``{"attn": {"k", "v"}, "ssm": {"s"}}``; an xLSTM block its final
     state) or its cache, written in place (decode), and an MoE block's
     load-balance loss (None for any other block). A hybrid block adds the
     mean of its attention and Mamba heads, both reading the same normed
-    input."""
+    input. ``path`` is the block's place in the parameter tree: over a
+    mesh its shards are gathered here (``layer_gather.layer``), and the
+    GQA attention and the MLP split over ``model`` where the plan says so
+    (``tp_in``/``tp_out``); without a plan both are the identity."""
+    p = lg.layer(p, path)
     h = apply_norm(p["ln1"], x, cfg)
     if kind in ("m", "s"):
         fwd, dec = ((mlstm_forward, mlstm_decode) if kind == "m"
@@ -166,7 +172,9 @@ def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
         a, nc = gqa_decode(p["attn"], h, cache["attn"] if hybrid else cache,
                            pos, cfg, window)
     else:
-        a, nc = gqa_forward(p["attn"], h, cfg, window=window, mode=mode)
+        a, nc = gqa_forward(p["attn"], lg.tp_in(h, "attn"), cfg,
+                            window=window, mode=mode)
+        a = lg.tp_out(a, "attn")
     if hybrid:
         if mode == "decode":
             s, sc = mamba_decode(p["ssm"], h, cache["ssm"], cfg)
@@ -181,14 +189,17 @@ def block_forward(p, x, cfg: ModelConfig, mode: str = "train", cache=None,
         y, aux = moe_forward(p["moe"], apply_norm(p["ln2"], x, cfg), cfg)
         x = x + y
     elif "mlp" in p:
-        x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+        h = lg.tp_in(apply_norm(p["ln2"], x, cfg), "mlp")
+        x = x + lg.tp_out(apply_mlp(p["mlp"], h, cfg), "mlp")
     return x, nc, aux
 
 
-def _train_block(p, x, cfg: ModelConfig, kind: str, window: int):
+def _train_block(p, x, cfg: ModelConfig, kind: str, window: int,
+                 path: str = "layers"):
     """A block's output and aux in train mode (what ``checkpoint``
-    recomputes)."""
-    x, _, aux = block_forward(p, x, cfg, "train", kind=kind, window=window)
+    recomputes, the gather of its shards included)."""
+    x, _, aux = block_forward(p, x, cfg, "train", kind=kind, window=window,
+                              path=path)
     return x, aux
 
 
@@ -202,22 +213,39 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _embed(params, tokens):
+    """The token embeddings: over a vocab-parallel mesh this rank's rows
+    looked up and summed over ``model`` (``layer_gather.embed``)."""
+    if lg.vocab() is not None:
+        return lg.embed(params["embed_tokens"], tokens)
+    return F.embedding(tokens, lg.layer(params["embed_tokens"],
+                                       "embed_tokens"))
+
+
 def _embed_inputs(params, batch, cfg: ModelConfig):
     """tokens (B, T) -> (B, T, d); a VLM's ``prefix_embeds`` (B, P, d),
     cast to the embedding dtype, come ahead of them (B, P + T, d)."""
-    x = F.embedding(batch["tokens"], params["embed_tokens"])
+    x = _embed(params, batch["tokens"])
     if cfg.n_prefix_embeds and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
     return x
 
 
 def _lm_logits(params, x, cfg: ModelConfig):
-    x = apply_norm(params["final_norm"], x, cfg)
-    head = (params["embed_tokens"].T if cfg.tie_embeddings
-            else params["lm_head"])
-    logits = x @ head
+    """The logits, over a vocab-parallel mesh this rank's columns."""
+    x = apply_norm(lg.layer(params["final_norm"], "final_norm"), x, cfg)
+    tied = cfg.tie_embeddings
+    shard = params["embed_tokens" if tied else "lm_head"]
+    v = lg.vocab()
+    if v is not None:
+        logits = lg.head(x, shard, tied)
+    else:
+        head = lg.layer(shard, "embed_tokens" if tied else "lm_head")
+        logits = x @ (head.T if tied else head)
     if cfg.padded_vocab != cfg.vocab:  # mask padding columns out of softmax
-        pad = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
+        lo = 0 if v is None else v[1]
+        pad = torch.arange(lo, lo + logits.shape[-1],
+                           device=x.device) < cfg.vocab
         logits = torch.where(pad, logits, -1e30)   # in logits' dtype
     return logits
 
@@ -233,8 +261,8 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
     if uses_scan(cfg):
         # the dense prefix blocks unstacked, as JAX runs them (no remat)
         prefix = []
-        for bp in params.get("prefix", []):
-            x, nc, a = block_forward(bp, x, cfg, mode)
+        for j, bp in enumerate(params.get("prefix", [])):
+            x, nc, a = block_forward(bp, x, cfg, mode, path=f"prefix/{j}")
             aux = _add_aux(aux, a)
             prefix.append(nc)
         stacked, tail = None, cfg.n_layers - _n_prefix(cfg)
@@ -242,7 +270,7 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
             lp = _layer(params["layers"], i)
             if mode == "train" and cfg.remat:
                 x, a = checkpoint(_train_block, lp, x, cfg, "attn", 0,
-                                  use_reentrant=False,
+                                  "layers", use_reentrant=False,
                                   context_fn=checkpoint_context)
                 aux = _add_aux(aux, a)
                 continue
@@ -254,15 +282,17 @@ def forward(params, batch, cfg: ModelConfig, mode: str = "train"):
             caches = {"prefix": prefix, "layers": stacked}
     else:
         blocks = []
-        for bp, kind, w in zip(params["blocks"], _layer_kinds(cfg),
-                               _layer_windows(cfg)):
+        for j, (bp, kind, w) in enumerate(zip(params["blocks"],
+                                              _layer_kinds(cfg),
+                                              _layer_windows(cfg))):
             if mode == "train" and cfg.remat:
                 x, a = checkpoint(_train_block, bp, x, cfg, kind, w,
-                                  use_reentrant=False,
+                                  f"blocks/{j}", use_reentrant=False,
                                   context_fn=checkpoint_context)
                 aux = _add_aux(aux, a)
                 continue
-            x, nc, a = block_forward(bp, x, cfg, mode, kind=kind, window=w)
+            x, nc, a = block_forward(bp, x, cfg, mode, kind=kind, window=w,
+                                     path=f"blocks/{j}")
             aux = _add_aux(aux, a)
             if mode == "prefill":
                 blocks.append(nc)
@@ -284,7 +314,10 @@ def loss_fn(params, batch, cfg: ModelConfig):
 
 def _nll(logits, labels):
     """The mean cross-entropy of ``labels`` under ``logits``, in float32,
-    over the labels >= 0 (a negative label is masked)."""
+    over the labels >= 0 (a negative label is masked); over a
+    vocab-parallel mesh ``layer_gather.vocab_nll``."""
+    if lg.vocab() is not None:
+        return lg.vocab_nll(logits, labels)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
@@ -303,20 +336,23 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig):
     int). Writes each layer's k/v or latent at ``pos`` (and each recurrent
     state) into ``caches`` in place and returns (logits (B, 1, V),
     caches). A VLM's ``pos`` counts its prefix positions."""
-    x = F.embedding(token, params["embed_tokens"])
+    x = _embed(params, token)
     if uses_scan(cfg):
-        for bp, c in zip(params.get("prefix", []), caches["prefix"]):
-            x, _, _ = block_forward(bp, x, cfg, "decode", cache=c, pos=pos)
+        for j, (bp, c) in enumerate(zip(params.get("prefix", []),
+                                        caches["prefix"])):
+            x, _, _ = block_forward(bp, x, cfg, "decode", cache=c, pos=pos,
+                                    path=f"prefix/{j}")
         stack = caches["layers"]
         for i in range(cfg.n_layers - _n_prefix(cfg)):
             cache = {n: c[i] for n, c in stack.items()}
             x, _, _ = block_forward(_layer(params["layers"], i), x, cfg,
                                     "decode", cache=cache, pos=pos)
     else:
-        for bp, c, kind, w in zip(params["blocks"], caches["blocks"],
-                                  _layer_kinds(cfg), _layer_windows(cfg)):
+        for j, (bp, c, kind, w) in enumerate(zip(
+                params["blocks"], caches["blocks"], _layer_kinds(cfg),
+                _layer_windows(cfg))):
             x, _, _ = block_forward(bp, x, cfg, "decode", cache=c, pos=pos,
-                                    kind=kind, window=w)
+                                    kind=kind, window=w, path=f"blocks/{j}")
     return _lm_logits(params, x, cfg), caches
 
 

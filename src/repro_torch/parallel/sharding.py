@@ -29,6 +29,8 @@ from typing import Any
 
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from . import layer_gather
+
 _STATE = threading.local()
 
 
@@ -95,11 +97,19 @@ def axis_rules(rules: AxisRules | None, mesh=None):
 
 def checkpoint_context():
     """``torch.utils.checkpoint``'s ``context_fn``: the recompute in the
-    backward runs under the rules and mesh installed at the forward. The
-    backward of CUDA tensors runs on autograd's own threads, which see no
-    rules; a recomputed MoE layer would take the dense dispatch there."""
-    return contextlib.nullcontext(), axis_rules(current_rules(),
-                                                current_mesh())
+    backward runs under the rules, mesh and layer-gather plan
+    (``layer_gather.installed``) installed at the forward. The backward of
+    CUDA tensors runs on autograd's own threads, which see none of them; a
+    recomputed MoE layer would take the dense dispatch there, and a layer
+    would not gather its shards."""
+    return contextlib.nullcontext(), _recompute(
+        current_rules(), current_mesh(), layer_gather.current())
+
+
+@contextlib.contextmanager
+def _recompute(rules, mesh, plan):
+    with axis_rules(rules, mesh), layer_gather.installed(plan):
+        yield
 
 
 def current_rules() -> AxisRules | None:

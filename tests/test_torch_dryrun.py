@@ -34,8 +34,12 @@ train0|train1|serve``, 8 host devices, a directly built
   ``main`` exits naming the cell), not a crash.
 * One full-size cell, qwen3-32b's ``decode_32k`` on the (16, 16) mesh of
   256 fake ranks: ``ok``, its argument bytes this rank's shards (reckoned
-  here from the specs), its peak above the whole parameters (the sharded
-  serve step gathers every leaf whole: ROADMAP's item on whole gathers).
+  here from the specs), its peak within the card and far below the whole
+  parameters (the serve step gathers a layer at a time).
+* The dense configs' training dot FLOPs a device are JAX's plus the k/v
+  projections of the KV head a rank's query heads read (``_kv_term``),
+  and each reduced train cell's peak stays within its layer-gather
+  reckoning, itself below the whole-gather one.
 """
 import json
 import math
@@ -108,6 +112,7 @@ def _port_main(out: str, which: str) -> None:
         s = run.stats
         res[f"{name}/{kind}"] = {
             "args": run.memory["argument_bytes"],
+            "peak": run.memory["peak_bytes"],
             "totals": [sum(r[0] for r in mem) == s.memory_bytes,
                        sum(r[0] for r in coll) == s.collective_bytes,
                        sum(r[0] for r in flop) == s.flops],
@@ -219,16 +224,91 @@ def test_rows_sum_to_the_stats_and_to_the_exchange_log(runs, name, kind):
     assert got["collective_bytes"] == got["logged_operand_bytes"] > 0
 
 
-def test_no_tensor_parallelism_dot_flops_are_model_times_jax(runs):
-    """The sharded steps run the whole model on a rank's block of the
-    batch (parameters gathered whole), where JAX's partitioned step splits
-    every product over ``model``: the port's training FLOPs a device are
-    ``model`` times JAX's, exactly, for the dense configs."""
+DENSE = ("qwen3-32b", "granite-20b", "nemotron-4-340b", "llava-next-34b")
+
+
+def _kv_term(name: str) -> int:
+    """The port's training dot FLOPs a device beyond JAX's: the k and v
+    projections. Where ``model`` does not divide the KV heads (2 or 1 of
+    them over 4 ranks here), JAX's partitioned step splits their
+    ``Hkv * hd`` columns over ``model`` and a rank computes ``Hkv hd / m``
+    of them; the port's rank computes the one KV head its query heads read
+    (``hd`` columns). Each of the two products is counted four times a
+    layer (the forward, remat's recompute, and the backward's two
+    products), 2 N d flops a column each: 16 L N d (hd - Hkv hd / m), N
+    a rank's tokens."""
+    cfg, shape = ARCHS[name].reduced(), SHAPES["train"]
+    m = MESH["model"]
+    if cfg.n_kv_heads % m == 0:
+        return 0
+    n = shape.global_batch // MESH["data"] * shape.seq_len
+    cols = cfg.hd - cfg.n_kv_heads * cfg.hd // m
+    return 16 * cfg.n_layers * n * cfg.d_model * cols
+
+
+def test_dense_training_dot_flops_are_jax_and_the_kv_heads(runs):
+    """With the heads, the MLP width and the vocabulary split over
+    ``model`` (``parallel.layer_gather``), the dense configs' training dot
+    FLOPs a device equal JAX's partitioned step's plus ``_kv_term``, the
+    k/v projections of the KV head a rank's query heads read (the
+    embedding lookup has no dot)."""
     port, jax_ = runs
-    for name in ("qwen3-32b", "granite-20b", "nemotron-4-340b",
-                 "llava-next-34b"):
+    for name in DENSE:
         key = f"{name}/train"
-        assert port[key]["flops"] == MESH["model"] * jax_[key]["flops"], key
+        assert port[key]["flops"] == jax_[key]["flops"] + _kv_term(name), \
+            (key, port[key]["flops"], jax_[key]["flops"], _kv_term(name))
+        assert _kv_term(name) > 0
+
+
+def _train_reckoning(name: str, args: int, tp: bool) -> int:
+    """Bytes reckoned for one rank of the reduced train cell (bfloat16
+    parameters, float32 moments, remat), with the layer gather and tensor
+    parallelism (``tp``) or with every leaf gathered whole (the step before
+    the layer gather): ``args`` (its shards, moments and batch block); the
+    gathered parameters and their whole gradients, one layer and the
+    largest leaf outside the layers (``tp``) or the whole model; the remat
+    boundaries, L N d bfloat16; the logits over a rank's vocabulary
+    columns, bfloat16 and three float32 copies (the cast, its exp and the
+    gradient); and one layer's activations and their gradients (twice):
+    six float32 (N, d) tensors of the norms and residual sums, q, k and v
+    in bfloat16 and in float32 (rope), three float32 (N, ff) of the MLP and
+    three float32 score tensors (B, H, T, T), at a rank's widths."""
+    cfg, shape = ARCHS[name].reduced(), SHAPES["train"]
+    m, b = MESH["model"], 2
+    rows, t = shape.global_batch // MESH["data"], shape.seq_len
+    n, d = rows * t, cfg.d_model
+    params = steps.abstract_state(cfg)
+    nb = lambda x: x.numel() * x.element_size()
+    flat = dict(T.leaves_with_paths(params))
+    whole = sum(nb(x) for x in flat.values())
+    if tp:
+        layer = sum(nb(x) // x.shape[0] for p, x in flat.items()
+                    if p.startswith("layers/"))
+        rest = max(nb(x) for p, x in flat.items()
+                   if not p.startswith("layers/"))
+        heads = cfg.n_heads // m
+        kv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1)
+        ff, vocab = cfg.d_ff // m, cfg.padded_vocab // m
+    else:
+        layer, rest = whole, 0
+        heads, kv, ff, vocab = (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+                                cfg.padded_vocab)
+    acts = (n * (6 * d * 4 + (heads + 2 * kv) * cfg.hd * (b + 4)
+                 + 3 * ff * 4) + 3 * rows * heads * t * t * 4)
+    return (args + 2 * (layer + rest) + cfg.n_layers * n * d * b
+            + n * vocab * (b + 3 * 4) + 2 * acts)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_reduced_train_peak_within_its_reckoning(runs, name):
+    """A rank's peak (MemTracker's, counts from shapes) of the reduced
+    train cell stays within the layer-gather reckoning, which lies below
+    the whole-gather reckoning."""
+    got = runs[0][f"{name}/train"]
+    mine = _train_reckoning(name, got["args"], tp=True)
+    assert got["peak"] <= mine < _train_reckoning(name, got["args"],
+                                                  tp=False), \
+        (got["peak"], mine)
 
 
 def test_full_size_cell_on_256_fake_ranks(runs):
@@ -248,13 +328,18 @@ def test_full_size_cell_on_256_fake_ranks(runs):
     mem = rec["memory"]
     assert mem["argument_bytes"] == want
     whole = sum(p.numel() * p.element_size() for p in T.leaves(params))
-    assert mem["peak_bytes"] > whole > 60e9 and mem["fits"] is False
+    # a layer at a time: far below the whole parameters, within the card
+    assert whole > 60e9 and mem["peak_bytes"] < 0.2 * whole
+    assert mem["fits"] is True
     r = rec["roofline"]
     assert r["bottleneck"] == "memory" and r["flops_global"] == 256 * r[
         "flops_per_device"]
     assert math.isclose(rec["useful_flops_ratio"],
                         rec["model_flops"] / r["flops_global"])
-    assert {e["op"] for e in rec["exchanges"]} == {"all_gather"}
+    # the layers' gathers; the embedding's and head's rows travel over dp
+    # (a decode step's tokens are fewer than d_model), one all-to-all each
+    assert {e["op"] for e in rec["exchanges"]} == {"all_gather",
+                                                  "all_to_all"}
 
 
 def test_planted_spec_gives_error_and_main_names_the_cell(runs):

@@ -107,6 +107,7 @@ _ENCDEC_PATH = ("repro_torch.models.encdec",
 
 # sharding, the expert-parallel collectives and the sharded step
 _SHARD_PATH = ("repro_torch.parallel", "repro_torch.parallel.sharding",
+               "repro_torch.parallel.layer_gather",
                "repro_torch.collectives.axis_ops",
                "repro_torch.launch.sharded")
 
@@ -131,7 +132,7 @@ def test_port_imports_without_jax_or_repro():
          *_DRYRUN_PATH],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == 91     # every module imported
+    assert int(out.stdout.split()[-1]) == 92     # every module imported
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

@@ -84,4 +84,5 @@ def test_main_runs_a_production_cell_on_fake_ranks(tmp_path):
         assert section in out
     coll = out.split("-- collectives --")[1].split("-- top")[0]
     assert coll.split()[0] == "all-gather"
-    assert "[launch/sharded.py:" in coll    # the parameters' whole gathers
+    # the parameters gathered a layer at a time
+    assert "[parallel/layer_gather.py:" in coll

@@ -16,11 +16,19 @@ updated parameter elementwise by how far AdamW's direction can move for a
 gradient within that limit. Against JAX (XLA sums in its own order) the
 same limits hold; so do the loss at rtol 1e-5 and the metrics.
 
-The sharded step runs dense, and MoE with each EP lowering inside (the
-expert and router leaves left sharded on ``model``); a planted fault, one
-dp shard's gradient dropped from the reduce-scatter, must exceed the
-limit. The ranks are one spawn for the module (this file run as ``python
-tests/test_torch_train_step.py --ranks IN OUT``).
+The sharded step keeps the parameters sharded: each layer gathers its
+shards inside its body (``parallel.layer_gather``), qwen3-32b's GQA
+projections, MLP and vocabulary split over ``model`` (tensor
+parallelism), deepseek-v2's MLA and shared expert computed alike on both
+``model`` ranks. It runs dense with remat on and off (held to one
+process's step and to JAX's), and MoE with each EP lowering inside (the
+expert and router leaves left sharded on ``model``). Two planted faults
+must exceed the limit: one dp shard's gradient dropped from the
+reduce-scatter, and ``model``'s equal copies summed where a rank takes
+its own slice. With remat, the most bytes of gathered parameters alive
+at once stay within one layer's whole bytes plus the largest leaf outside
+the layers. The ranks are one spawn for the module (this file run as
+``python tests/test_torch_train_step.py --ranks OUT``).
 """
 import os
 import subprocess
@@ -42,6 +50,7 @@ from repro_torch import tree as T
 from repro_torch.configs import ARCHS
 from repro_torch.launch import sharded, steps
 from repro_torch.models import api, moe
+from repro_torch.parallel import layer_gather
 from repro_torch.optim import adamw
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,10 +58,15 @@ PRESET = 2_000
 B, T_SEQ = 4, 16
 MOE_KW = dict(n_experts=8, top_k=2, d_ff_expert=32, n_shared_experts=1,
               capacity_factor=8.0)
-CASES = {"dense": ("qwen3-32b", {}), "moe": ("deepseek-v2-236b", MOE_KW)}
-SHARDED = {"dense": ("dense", None, False), "moe-replicated":
-           ("moe", "replicated", False), "moe-a2a": ("moe", "a2a", False),
-           "dense-fault": ("dense", None, True)}
+CASES = {"dense": ("qwen3-32b", {}), "moe": ("deepseek-v2-236b", MOE_KW),
+         "dense-noremat": ("qwen3-32b", {"remat": False})}
+# name -> (case, EP lowering, planted fault)
+SHARDED = {"dense": ("dense", None, None),
+           "dense-noremat": ("dense-noremat", None, None),
+           "moe-replicated": ("moe", "replicated", None),
+           "moe-a2a": ("moe", "a2a", None),
+           "dense-fault": ("dense", None, "dp"),
+           "moe-model-fault": ("moe", "replicated", "model")}
 
 
 @pytest.fixture(autouse=True)
@@ -183,22 +197,32 @@ def _rank_body(rank, world, store, out_dir):
                     assert torch.equal(x.to_local(), y.to_local())
                 o = o2
             step = sharded.ShardedTrainStep(cfg, ocfg, mesh, rules)
-            real = sharded._reduce_to_shard
+            real = layer_gather.reduce_to_shard
+            own = layer_gather.take_own
 
             def dropped(g, *a, _real=real):
-                dpa = a[-1]                  # dp rank 1 sends no gradient
-                return _real(torch.zeros_like(g) if dpa.rank == 1 else g,
+                ax = a[-1]                   # group rank 1 sends no gradient
+                return _real(torch.zeros_like(g) if ax.rank == 1 else g,
                              *a)
+
+            def summed(g, *a, _real=real):   # model's copies summed
+                return _real(g, *a)
             moe.EP_MODE = mode or "replicated"
-            sharded._reduce_to_shard = dropped if fault else real
+            layer_gather.reduce_to_shard = dropped if fault == "dp" else real
+            layer_gather.take_own = summed if fault == "model" else own
             try:
                 assert step.ep({k: v.to_local() for k, v in b.items()}) \
                     == mode
                 p, o, out = step(p, o, b)
             finally:
-                sharded._reduce_to_shard = real
+                layer_gather.reduce_to_shard = real
+                layer_gather.take_own = own
                 moe.EP_MODE = "replicated"
             res = {f"out|{k}": v.numpy() for k, v in out.items()}
+            res["gathered_peak"] = np.asarray(step.plan.gathered["peak"])
+            res["roles"] = np.asarray(sorted(
+                f"{path}:{step.plan.role(path)}"
+                for path, _ in T.leaves_with_paths(p)))
             for tag, tree in (("params", p), ("m", o["m"]), ("v", o["v"])):
                 for path, t in T.leaves_with_paths(
                         sharded.gather_tree(tree)):
@@ -265,6 +289,92 @@ def test_dropped_dp_shard_exceeds_the_limit(ranks):
     assert gaps["m"] > 10 and gaps["grad_norm"] > 10, gaps
     assert gaps["loss"] <= 1.0, gaps             # the forward is untouched
 
+
+def test_summing_models_copies_exceeds_the_limit(ranks):
+    """The leaves every ``model`` rank computes with alike (MLA's, the
+    shared expert's, the norms') take this rank's slice of the gradient;
+    summing the copies instead doubles their gradients."""
+    gaps = _gaps(_single("moe"), _got(ranks["moe-model-fault"][0]), "moe")
+    assert gaps["m"] > 10 and gaps["grad_norm"] > 10, gaps
+    assert gaps["loss"] <= 1.0, gaps
+
+
+def test_roles_split_the_dense_products_over_model(ranks):
+    """qwen3-32b reduced (4 heads, 2 KV heads, d_ff 128) on model 2: the
+    GQA projections and the MLP tensor-parallel, the vocabulary split,
+    the qk norms' gradients summed over model; deepseek-v2's MLA leaves
+    gathered whole, its experts kept under EP."""
+    roles = dict(r.split(":") for r in ranks["dense"][0]["roles"])
+    for leaf in ("w_q", "w_k", "w_v", "w_o"):
+        assert roles[f"layers/attn/{leaf}"] == "tp"
+    for leaf in ("w_gate", "w_up", "w_down"):
+        assert roles[f"layers/mlp/{leaf}"] == "tp"
+    assert roles["layers/attn/q_norm"] == roles["layers/attn/k_norm"] \
+        == "partial"
+    assert roles["embed_tokens"] == roles["lm_head"] == "tp"
+    assert roles["layers/ln1/scale"] == roles["final_norm/scale"] == "whole"
+    moe_roles = dict(r.split(":") for r in ranks["moe-a2a"][0]["roles"])
+    assert moe_roles["layers/attn/w_ukv"] == "whole"
+    assert moe_roles["layers/moe/experts/w_up"] == "keep"
+    assert moe_roles["prefix/0/mlp/w_up"] == "tp"
+
+
+def _layer_bytes(params) -> tuple[int, int]:
+    """(one layer's whole bytes, the largest leaf outside the layers):
+    the stack's bytes over its depth, or a prefix block's, whichever is
+    more; the EP-kept expert leaves left out (never gathered)."""
+    flat = dict(T.leaves_with_paths(params))
+    nb = lambda t: t.numel() * t.element_size()
+    stack = sum(nb(t) // t.shape[0] for p, t in flat.items()
+                if p.startswith("layers/") and "experts/" not in p)
+    prefix = {}
+    for p, t in flat.items():
+        if p.startswith(("prefix/", "blocks/")):
+            key = "/".join(p.split("/")[:2])
+            prefix[key] = prefix.get(key, 0) + nb(t)
+    rest = max(nb(t) for p, t in flat.items()
+               if not p.startswith(("layers/", "prefix/", "blocks/")))
+    return max([stack, *prefix.values()]), rest
+
+
+@pytest.mark.parametrize("name", ["dense", "moe-replicated", "moe-a2a"])
+def test_gathered_parameters_alive_at_once_are_one_layer(ranks, name):
+    """With remat, the most bytes of gathered parameters alive on a rank
+    at once stay within one layer's whole bytes plus the largest leaf
+    outside the layers (the head, gathered for the logits, is alive while
+    the last layer recomputes)."""
+    _, _, params, _, _ = _port_state(SHARDED[name][0])
+    layer, rest = _layer_bytes(params)
+    for r in range(4):
+        peak = int(ranks[name][r]["gathered_peak"])
+        assert 0 < peak <= layer + rest, (r, peak, layer, rest)
+
+
+def test_sharded_step_equals_jax(ranks):
+    """The sharded dense step (layer gather, tensor parallelism, the
+    vocabulary split) against JAX's own ``make_train_step`` on the same
+    parameters and batch, within the same limits."""
+    from repro.parallel.sharding import _path_str
+    cfg, ocfg, params, opt, batch = _port_state("dense")
+    jcfg, jocfg = _cfg("dense", J_ARCHS), J_adamw.AdamWConfig()
+    flat = _flat(params)
+    shape = J_api.init_fn(jcfg)(jax.random.PRNGKey(0))
+    paths, treedef = jax.tree_util.tree_flatten_with_path(shape)
+    jparams = jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray(flat[_path_str(p)].numpy()) for p, _ in paths])
+    jopt = J_adamw.init(jparams, jocfg)
+    jopt["step"] = jnp.asarray(PRESET, jnp.int32)
+    jbatch = {k: jnp.asarray(v.numpy(), jnp.int32) for k, v in batch.items()}
+    jp, jo, jout = jax.jit(J_steps.make_train_step(jcfg, jocfg))(
+        jparams, jopt, jbatch)
+    as_t = lambda tree: {k: torch.tensor(np.asarray(v)) for k, v in
+                         _flat_jax(tree).items()}
+    ref = {"loss": float(jout["loss"]), "grad_norm": float(jout["grad_norm"]),
+           "params": as_t(jp), "m": as_t(jo["m"]), "v": as_t(jo["v"]),
+           "before": {k: v.clone() for k, v in flat.items()}}
+    for name in ("dense", "dense-noremat"):
+        gaps = _gaps(ref, _got(ranks[name][0]), "dense")
+        assert max(gaps.values()) <= 1.0, (name, gaps)
 
 def test_sharded_step_refuses_dense_dispatch_over_dp_blocks():
     """A MoE config whose EP conditions fail on a mesh with several dp
