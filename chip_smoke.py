@@ -25,6 +25,7 @@
     python3 chip_smoke.py --sharded      # only phase 19, sharding and
                                          # expert parallelism (4 ranks)
     python3 chip_smoke.py --roofline     # only phase 20, the roofline
+    python3 chip_smoke.py --deepseek     # only phase 21, deepseek-v2
 
 Drives the port's paths at full size on the card: the batched
 placement solve (``repro_torch.engine.solve_batch``) and the congestion/
@@ -54,7 +55,9 @@ published width through the flash kernels, and sharding (MoE's two
 expert-parallel lowerings at kimi-k2's published widths on four ranks,
 the training step over a (2, 2) device mesh), and the roofline of a
 prefill and a training step against the card (``launch.roofline``'s
-counts and the H100's peaks). It builds the CUDA
+counts and the H100's peaks), and deepseek-v2 served at published width
+(its prefill on the tensor-core tile's (192, 128) pair, its absorbed
+decode on the latent decode at rank 512). It builds the CUDA
 kernels from ``src/repro_torch/csrc`` and holds every kernel against its
 plain torch version on the inputs the paths give it. Phases:
 
@@ -492,6 +495,32 @@ plain torch version on the inputs the paths give it. Phases:
    and the rows with no counterpart on the other side (the card runs the
    flash kernel, the counter its plain version); printed only.
 
+21. deepseek-v2, everything of phase 20 freed first. 21a, before the
+   model allocates: its prefill layer (1, 32768, 128/128, keys 192,
+   values 128) causal in bfloat16 on the tensor-core tile's (192, 128)
+   pair, checked on two heads in 2048-row chunks within ``FLASH_TC`` of
+   the float32 plain version, with the diagonal one key late and the rope
+   columns 128-191 of q and k left out of the scores planted beyond it;
+   the tensor-core latent decode at (1, 1, 128, 512 + 64) over 1, 2,048
+   and 32,832 positions within ``FLASH_TC`` of the float32 plain version
+   and 3e-2 of its twin, with a split dropped, O's columns 256-511 taken
+   from the first warpgroup's and kr left out planted beyond it; the
+   CUDA-core latent decode at the same shape in float32 within 2e-5, the
+   latent columns 256-511 read from 0-255 planted beyond it; each timed
+   against its bound, its plain version and
+   ``scaled_dot_product_attention``; both tensor-core kernels' registers,
+   spills and blocks an SM. 21b: ``deepseek-v2-f32-l2-e16-b4-p128-g8``
+   (published widths in float32, TF32 off, 2 layers: the dense prefix
+   and one MoE layer, the experts cut to 16, top-6 with both shared
+   experts; 4 prompts of 128, 8 greedy steps), card against CPU as 17b.
+   21c: ``deepseek-v2-l2-serve-b1-p32768-g64``: published widths in
+   bfloat16, depth 2 (5.36 B parameters), one prompt of 32,768 and 64
+   greedy steps, with 17c's checks: 2 prefill calls on the tensor-core
+   tile and 2 x 64 on the tensor-core latent decode, none elsewhere; the
+   gate ``SERVE_MOE_BF16_DIFF``, which three planted decode faults (kr
+   dropped, ckv one position late, one shared expert left out) must
+   exceed; the decode step against the floor of all weights read once.
+
 ``--lr-witness`` runs none of the phases: it builds the kernels and prints
 the losses of the l1 trainer configuration at the trainer's lr 3e-4 and
 at 1e-5, with and without compression, and without compression at
@@ -518,7 +547,8 @@ and 15 and prints the backward scan's kernel row; ``--mla`` runs phases 1
 and 16 and prints the MLA rows; ``--moe`` runs phases 1 and 17 and prints
 kimi-k2's attention rows; ``--vlm`` and ``--encdec`` run phase 1 and
 phase 18's llava or whisper parts and print their rows; ``--sharded``
-runs phases 1 and 19; ``--roofline`` runs phases 1 and 20.
+runs phases 1 and 19; ``--roofline`` runs phases 1 and 20; ``--deepseek``
+runs phases 1 and 21 and prints deepseek-v2's rows.
 
 Any failed check raises and exits nonzero. Only when every phase passed
 does it print the kernels JSON line, the card's name and power limit, and
@@ -6846,18 +6876,25 @@ def mla_decode_checks(b=MLA_BATCH, n=MLA_PROMPT + MLA_STEPS, h=MLA_H,
 
 def handoff_kr_dropped(pre, caches, t: int) -> None:
     """A planted fault: the handoff without MLA's rope keys (decode
-    starts from zero kr over the prompt)."""
+    starts from zero kr over the prompt), in the stack and in any dense
+    prefix layer."""
     caches["layers"]["kr"].zero_()
+    for c in caches.get("prefix", []):
+        c["kr"].zero_()
 
 
 def handoff_ckv_shifted(pre, caches, t: int) -> None:
     """A planted fault: the handoff with MLA's latent one position
-    late (position p's ckv in slot p + 1, slot 0 zero)."""
+    late (position p's ckv in slot p + 1, slot 0 zero), in the stack and
+    in any dense prefix layer."""
     import torch
     with torch.inference_mode():
         c = caches["layers"]["ckv"]
         c[:, :, 1:t].copy_(pre["layers"]["ckv"][:, :, :t - 1])
         c[:, :, 0].zero_()
+        for c, p in zip(caches.get("prefix", []), pre.get("prefix", [])):
+            c["ckv"][:, 1:t].copy_(p["ckv"][:, :t - 1])
+            c["ckv"][:, 0].zero_()
 
 
 def mla_peak_reckoning(cfg, b, t, n_steps) -> dict:
@@ -7552,7 +7589,7 @@ def moe_dropless(p, x, cfg, pin=None, notes=None):
     return y.reshape(B, T, d), torch.zeros((), device=x.device)
 
 
-def prefill_peaks(params, cfg, prompts) -> dict:
+def prefill_peaks(params, cfg, prompts, cell=KIMI_CELL) -> dict:
     """One prefill of ``prompts`` with the card's allocation read around
     it and around each of its leaf calls (q/k/v and rope, flash
     attention, the dense MLP, the MoE layer, the lm head): each call's
@@ -7592,14 +7629,14 @@ def prefill_peaks(params, cfg, prompts) -> dict:
     with torch.inference_mode():
         api.prefill_fn(cfg)(params, {"tokens": prompts})
     out["prefill"] = torch.cuda.max_memory_allocated() - base
-    say(f"{KIMI_CELL}: a prefill's peak allocation above the weights and "
+    say(f"{cell}: a prefill's peak allocation above the weights and "
         "what was held at its start, and each call's above its entry: "
         + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in out.items())
         + f" (held at the start {base / 1e9:.2f} GB)")
     return {"prefill_peaks": out, "prefill_base": base}
 
 
-def moe_decode_times(params, cfg) -> dict:
+def moe_decode_times(params, cfg, name=KIMI_CELL) -> dict:
     """The MoE layer of a batch-1 decode step on the cell's weights, by
     CUDA events and the profiler's device time: the whole layer
     (``moe_forward``) and the experts' batched products alone
@@ -7627,7 +7664,7 @@ def moe_decode_times(params, cfg) -> dict:
             out[f"{key}_device_ms"] = device_ms(fn, 10)
             out[f"{key}_floor_ms"] = nbytes[key] / HBM_BYTES_PER_S * 1e3
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-    say(f"{KIMI_CELL}: the decode step's MoE layer ({nvidia_smi_line()}): "
+    say(f"{name}: the decode step's MoE layer ({nvidia_smi_line()}): "
         + "; ".join(f"{key} {out[key + '_ms']:.4f} ms by events, device "
                     f"{fmt(out[key + '_device_ms'])}, floor "
                     f"{out[key + '_floor_ms']:.4f} ms ({nbytes[key] / 1e9:.2f}"
@@ -7682,7 +7719,8 @@ def moe_f32_gate(cfg, b=4, t=128, n_steps=8, name=KIMI_GATE) -> dict:
           f"{[c['drops'] for c in cpu]} on the CPU")
     want = dict.fromkeys(g["paths"], 0)
     want["tile_simt"] = 2 * cfg.n_layers
-    want["decode_split"] = n_steps * cfg.n_layers
+    want["mla_decode" if cfg.attn_type == "mla" and cfg.decode_absorb
+         else "decode_split"] = n_steps * cfg.n_layers
     check(g["paths"] == want, f"{name}: flash calls by kernel "
           f"{g['paths']}, expected {want}")
     say(f"{name}: expert ids equal on the card and the CPU in all {calls} "
@@ -7730,19 +7768,23 @@ MOE_FAULTS = (DecodeFault("decode_shared_expert_left_out", "apply_mlp",
                           _unnormalised))
 
 
-def moe_peak_reckoning(cfg, b, t, n_steps) -> dict:
+def moe_peak_reckoning(cfg, b, t, n_steps, name=KIMI_CELL) -> dict:
     """The serving cell's peak, reckoned from the code before the run:
-    weights; prefill and decode caches; the prefill's MoE layer at its
-    fullest (the (E C + 1, d) input buffer and the (E, C, d) output, the
-    (F, d) gather of the pairs' rows or the combine's two (F, d), the
-    experts' three (E, C, f)); the dense prefix MLP's three (t, d_ff); the
-    all-position logits (no vocab-mask copy: kimi-k2's vocab is its padded
-    vocab)."""
+    weights; prefill and decode caches (MLA's latent ckv | kr a position);
+    the prefill's MoE layer at its fullest (the (E C + 1, d) input buffer
+    and the (E, C, d) output, the (F, d) gather of the pairs' rows or the
+    combine's two (F, d), the experts' three (E, C, f)); the dense prefix
+    MLP's three (t, d_ff); the all-position logits (no vocab-mask copy:
+    kimi-k2's and deepseek-v2's vocabularies are their padded ones); MLA's
+    prefill transients (q, the concatenated q and k, the up-projected
+    k_nope | v, the output)."""
     from repro_torch.models import moe
     d, f, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     n = b * t
     C, F = moe.expert_capacity(n, cfg), n * cfg.top_k
-    kv = cfg.n_layers * b * 2 * cfg.n_kv_heads * cfg.hd * 2
+    mla = cfg.attn_type == "mla"
+    kv = cfg.n_layers * b * 2 * ((cfg.kv_lora_rank + cfg.qk_rope_dim) if mla
+                                 else 2 * cfg.n_kv_heads * cfg.hd)
     parts = {"weights": 2 * cfg.param_count(),
              "prefill caches": kv * t, "decode caches": kv * (t + n_steps),
              "dispatch buffers": 2 * (2 * E * C + 1) * d,
@@ -7750,29 +7792,29 @@ def moe_peak_reckoning(cfg, b, t, n_steps) -> dict:
              "expert hidden": 2 * 3 * E * C * f,
              "prefix MLP": 2 * 3 * n * cfg.d_ff,
              "all-position logits": 2 * n * cfg.padded_vocab}
-    say(f"{KIMI_CELL}: peak reckoned before the run (N {n}, F {F}, C {C}): "
+    if mla:
+        qk, vd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+        parts["MLA prefill transients"] = 2 * n * cfg.n_heads * (
+            3 * qk + cfg.qk_nope_dim + 2 * vd)
+    say(f"{name}: peak reckoned before the run (N {n}, F {F}, C {C}): "
         + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in parts.items())
         + f"; sum {sum(parts.values()) / 1e9:.2f} GB")
     return parts
 
 
-def moe_phase() -> dict:
-    """Phase 17: MoE on kimi-k2. 17a the attention kernels at its shapes
-    and the dispatch's integer parts before the model allocates; 17b the
-    float32 gate; 17c the serving cell."""
+def moe_serve_cell(cfg, name, b, t, n_steps, faults) -> dict:
+    """Phase 17c's serving cell on an MoE config: the peak reckoned first
+    (:func:`moe_peak_reckoning`), then ``serve_cell`` with the routing
+    logged, each fresh prefill dropless with the compared token on its
+    decode step's experts (a swap allowed only at a near-tie), the gate
+    ``SERVE_MOE_BF16_DIFF`` after 1 step and after ``n_steps`` with the
+    planted ``faults`` beyond it; then no decode drop, the prefill's drops
+    printed, the peak within its reckoning, and the decode step against
+    the floor of all weights read once."""
     import torch
 
     from repro_torch.models import moe
-    t17 = time.perf_counter()
-    att = kimi_attention_rows(KIMI_PROMPT, KIMI_H, KIMI_HKV, KIMI_D,
-                              KIMI_PROMPT + KIMI_STEPS)
-    disp = moe_dispatch_checks(kimi(), KIMI_PROMPT)
-    t17b = time.perf_counter()
-    gate = moe_f32_gate(kimi(2, "float32", n_experts=16))
-    torch.cuda.empty_cache()
-    t17c = time.perf_counter()
-    cfg = kimi()
-    reckon = moe_peak_reckoning(cfg, KIMI_BATCH, KIMI_PROMPT, KIMI_STEPS)
+    reckon = moe_peak_reckoning(cfg, b, t, n_steps, name)
     # the counted run's and each gate run's routing; each fresh prefill
     # runs dropless, the compared token on its decode step's experts
     log, notes = RoutingLog(), []
@@ -7782,25 +7824,24 @@ def moe_phase() -> dict:
         return swapped(moe, "_moe_forward_dense", functools.partial(
             moe_dropless, pin=pin, notes=notes))
 
-    cell = serve_cell(cfg, KIMI_CELL, KIMI_BATCH, KIMI_PROMPT, KIMI_STEPS,
-                      SERVE_MOE_BF16_DIFF, faults=MOE_FAULTS, gate_steps=1,
-                      watch=log, fresh=fresh,
+    cell = serve_cell(cfg, name, b, t, n_steps, SERVE_MOE_BF16_DIFF,
+                      faults=faults, gate_steps=1, watch=log, fresh=fresh,
                       extra=lambda params: {
-                          **moe_decode_times(params, cfg),
+                          **moe_decode_times(params, cfg, name),
                           **prefill_peaks(params, cfg, _prompts(
-                              cfg, KIMI_BATCH, KIMI_PROMPT, 0, DEVICE))})
+                              cfg, b, t, 0, DEVICE), name)})
     flips = [n for n in notes if n["own"] != n["pinned"]]
-    say(f"{KIMI_CELL}: the compared token's experts, decode against the "
+    say(f"{name}: the compared token's experts, decode against the "
         f"fresh prefill's own, in {len(notes)} comparisons: "
         + ("all equal" if not flips else "; ".join(
             f"{n['pinned']} vs {n['own']} (gap {n['gap']:.3g})"
             for n in flips)))
-    check(all(n["gap"] <= MOE_NEAR_TIE for n in flips), f"{KIMI_CELL}: a "
+    check(all(n["gap"] <= MOE_NEAR_TIE for n in flips), f"{name}: a "
           f"decode step chose experts beyond a near-tie ({flips})")
     drops = log.drops(DEVICE)
     moe_layers = cfg.n_layers - cfg.moe_dense_prefix
-    check(len(drops) == moe_layers * (1 + KIMI_STEPS) and not any(
-        drops[moe_layers:]), f"{KIMI_CELL}: drops by MoE call {drops}; "
+    check(len(drops) == moe_layers * (1 + n_steps) and not any(
+        drops[moe_layers:]), f"{name}: drops by MoE call {drops}; "
         "a decode token's top-k experts are distinct, so none may drop")
     first = log.calls[0]
     C, k = first["capacity"], cfg.top_k
@@ -7810,16 +7851,16 @@ def moe_phase() -> dict:
         "dropped": drops[0], "experts_over": int((load > C).sum()),
         "largest_load": int(load.max()),
         "last_token_dropped": int((~first["kept"][-k:]).sum())}
-    say(f"{KIMI_CELL}: the prefill's MoE layer: {prefill_drops} (the "
+    say(f"{name}: the prefill's MoE layer: {prefill_drops} (the "
         "stable sort puts the last token's pairs last in every expert; "
         "decode is held against a fresh prefill through moe_dropless, "
         "which drops none)")
     peak, total = cell["peak"], sum(reckon.values())
-    check(peak <= total, f"{KIMI_CELL}: peak {peak} bytes beyond the "
+    check(peak <= total, f"{name}: peak {peak} bytes beyond the "
           f"{total} reckoned")
     floor_ms = reckon["weights"] / HBM_BYTES_PER_S * 1e3
     dp = cell["decode_profile"]
-    say(f"{KIMI_CELL} ({nvidia_smi_line()}): prefill drops {drops[0]} of "
+    say(f"{name} ({nvidia_smi_line()}): prefill drops {drops[0]} of "
         f"{prefill_drops['pairs']} pairs (capacity {C} an expert), "
         f"decode drops 0; peak {peak} bytes of {total} reckoned; decode "
         f"median {cell['step_s'] * 1e3:.4f} ms a step against the floor of "
@@ -7828,6 +7869,28 @@ def moe_phase() -> dict:
         "TB/s)" + ("" if dp is None else f"; a profiled step's device time "
                    f"{dp[1]:.4f} ms ({floor_ms / dp[1] * 100:.1f}% of it the "
                    "floor)"))
+    return {"cell": cell, "drops": drops, "reckon": reckon,
+            "prefill_drops": prefill_drops}
+
+
+def moe_phase() -> dict:
+    """Phase 17: MoE on kimi-k2. 17a the attention kernels at its shapes
+    and the dispatch's integer parts before the model allocates; 17b the
+    float32 gate; 17c the serving cell."""
+    import torch
+    t17 = time.perf_counter()
+    att = kimi_attention_rows(KIMI_PROMPT, KIMI_H, KIMI_HKV, KIMI_D,
+                              KIMI_PROMPT + KIMI_STEPS)
+    disp = moe_dispatch_checks(kimi(), KIMI_PROMPT)
+    t17b = time.perf_counter()
+    gate = moe_f32_gate(kimi(2, "float32", n_experts=16))
+    torch.cuda.empty_cache()
+    t17c = time.perf_counter()
+    cfg = kimi()
+    c = moe_serve_cell(cfg, KIMI_CELL, KIMI_BATCH, KIMI_PROMPT, KIMI_STEPS,
+                       MOE_FAULTS)
+    cell, drops, reckon = c["cell"], c["drops"], c["reckon"]
+    prefill_drops = c["prefill_drops"]
     progress(f"phase 17 wall: 17a {t17b - t17:.1f} s, 17b {t17c - t17b:.1f} "
              f"s, 17c {time.perf_counter() - t17c:.1f} s")
     pre, dec = att["prefill"], att["decode"]
@@ -9786,6 +9849,386 @@ def roofline_phase(smi: str, prefill: dict | None = None) -> dict:
     return out
 
 
+# -- phase 21: deepseek-v2 (MLA at rank 512 and the (192, 128) tile) --------
+
+DEEPSEEK_CELL = "deepseek-v2-l2-serve-b1-p32768-g64"
+DEEPSEEK_GATE = "deepseek-v2-f32-l2-e16-b4-p128-g8"
+DEEPSEEK_BATCH, DEEPSEEK_PROMPT, DEEPSEEK_STEPS = 1, 32_768, 64
+# deepseek-v2's attention (src/repro_torch/configs/deepseek_v2_236b.py):
+# 128 heads, keys 128 + 64 wide, values 128, a latent of 512 + 64
+DS_H, DS_ND, DS_RD, DS_VD, DS_R = 128, 128, 64, 128, 512
+
+
+def deepseek(depth=2, dtype="bfloat16", **kw):
+    """deepseek-v2 at its published widths, cut to ``depth`` layers (the
+    dense prefix layer and depth - 1 MoE layers)."""
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS["deepseek-v2-236b"], n_layers=depth,
+                               dtype=dtype, **kw)
+
+
+def _one_shared_left_out(real):
+    """deepseek-v2's two shared experts are one MLP of twice the width:
+    the second's hidden units left out."""
+    def mlp(p, x, cfg):
+        f = cfg.d_ff_expert
+        return real({k: w[:f] if k == "w_down" else w[:, :f]
+                     for k, w in p.items()}, x, cfg)
+    return mlp
+
+
+DEEPSEEK_FAULTS = (handoff_kr_dropped, handoff_ckv_shifted,
+                   DecodeFault("decode_one_shared_expert_left_out",
+                               "apply_mlp", _one_shared_left_out))
+
+
+def deepseek_prefill_rows(t=DEEPSEEK_PROMPT, h=DS_H, heads=(0, 77),
+                          chunk=2048, plain_rows=128) -> dict:
+    """Phase 21a, deepseek-v2's prefill layer (1, t, h/h, keys 192, values
+    128) causal in bfloat16 on the tensor-core tile's (192, 128) pair
+    (the values a strided view of the up-projection, as ``mla_forward``
+    passes them), checked on ``heads`` in ``chunk``-row query blocks
+    against the float32 plain version within ``FLASH_TC``, two planted
+    faults beyond it (the diagonal one key late; the rope columns 128-191
+    of q and k left out of the scores); timed against the bound, the plain
+    version (query rows in blocks of ``plain_rows``) and
+    ``scaled_dot_product_attention``; the tile's ``kernel_info``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_info)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import sdpa
+    from repro_torch.models.attention import _scale, causal_mask
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 references
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(192)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=DEVICE).to(bf)
+    f32 = lambda *xs: [x.float() for x in xs]
+    d, dv, scale = DS_ND + DS_RD, DS_VD, _scale(DS_ND + DS_RD)
+    checks, faults, e = {}, {}, []
+    q, k = rnd(1, t, h, d), rnd(1, t, h, d)
+    kv = rnd(1, t, h, DS_ND + dv)
+    v = kv[..., DS_ND:]
+    before = read_paths()
+    got = flash_attention_gqa(q, k, v, scale, causal=True)
+    check(_path_delta(before) == {**dict.fromkeys(before, 0),
+                                  "tile_tc": 1},
+          f"deepseek-v2 prefill layer: not on the tensor-core tile alone "
+          f"({_path_delta(before)})")
+    for hh in heads:
+        for r0 in range(0, t, chunk):
+            r1 = min(t, r0 + chunk)
+            qc, kc, vc = f32(q[:, r0:r1, hh:hh + 1], k[:, :r1, hh:hh + 1],
+                             v[:, :r1, hh:hh + 1])
+            mask = causal_mask(r1 - r0, r1, offset=r0, device=DEVICE)[None]
+            want = sdpa(qc, kc, vc, mask, scale)
+            a32 = sdpa(qc, kc, vc.abs(), mask, scale)
+            e.append(flash_check(got[:, r0:r1, hh:hh + 1], want, a32,
+                                 f"deepseek-v2 prefill head {hh} rows "
+                                 f"{r0}:{r1}"))
+            # the faults in the first block, whose short rows show them
+            if (hh, r0) == (heads[0], 0):
+                lab = (f"prefill head {hh} rows {r0}:{r1}: the diagonal "
+                       "one key late")
+                faults[lab] = flash_fault_caught(sdpa(
+                    qc, kc, vc, causal_mask(r1 - r0, r1, offset=r0 + 1,
+                                            device=DEVICE)[None], scale),
+                    want, lab, a32)
+                lab = (f"prefill head {hh} rows {r0}:{r1}: the rope columns "
+                       f"{DS_ND}-{d - 1} of q and k left out of the scores")
+                faults[lab] = flash_fault_caught(sdpa(
+                    qc[..., :DS_ND], kc[..., :DS_ND], vc, mask, scale), want,
+                    lab, a32)
+    checks[f"prefill (1, {t}, {h}/{h}, {d}|{dv}) causal, heads "
+           f"{list(heads)}"] = (max(x[0] for x in e), max(x[1] for x in e))
+    del got
+    out = {"ms": cuda_ms(lambda: flash_attention_gqa(q, k, v, scale, True),
+                         3, 1)}
+    out["plain_ms"] = cuda_ms(
+        lambda: plain_causal_rows(q, k, v, scale, plain_rows), 1, 0)
+    qs, ks, vs = sdpa_layout(q, k, v)
+    try:
+        out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, scale=scale), 3, 1)
+    except RuntimeError as ex:      # a yardstick, not a check
+        say(f"deepseek-v2 prefill: scaled_dot_product_attention not "
+            f"measured ({str(ex)[:120]})")
+        out["library_ms"] = None
+    out["bound_ms"], out["bound_by"] = flash_bound(
+        flash_work(1, t, t, h, h, d, True, 2, dv=dv), bf)
+    # the exponentials alone: one ex2 a score on the special function unit
+    out["ex2_floor_ms"] = (h * t * (t + 1) // 2 / (
+        SFU_EXP_PER_SM_CLOCK * H100_SMS * sm_clock_hz()) * 1e3)
+    out["kernel_info"] = kernel_info("tile_tc", d, dv)
+    del q, k, kv, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = max(x[0] for x in checks.values())
+    out["checks"] = [{"shape": lab, "max_abs_err": x[0],
+                      "err_over_limit": x[1]} for lab, x in checks.items()]
+    out["planted_faults"] = [{"fault": lab, "err_over_limit": r}
+                             for lab, r in faults.items()]
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    say("deepseek-v2 prefill on the tensor-core tile (192, 128), bfloat16 "
+        "against the float32 plain version within FLASH_TC: " + "; ".join(
+            f"{lab}: max |err| {x[0]:.4g}, {x[1]:.4g} x the limit"
+            for lab, x in checks.items()) + "; planted faults: " + "; ".join(
+            f"{lab}: {r:.4g} x the limit" for lab, r in faults.items()))
+    say(f"deepseek-v2 prefill layer (1, {t}, {h}/{h}, {d}|{dv}) causal "
+        f"({nvidia_smi_line()}): {out['ms']:.4f} ms (bound "
+        f"{out['bound_ms']:.4f} ms, {out['bound_by']}; the exponentials "
+        f"alone {out['ex2_floor_ms']:.4f} ms at the SM clock), plain "
+        f"{out['plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{fmt(out['library_ms'])}; the tile's registers, spills, blocks an "
+        f"SM, shared memory: {out['kernel_info']}")
+    return out
+
+
+def deepseek_decode_rows(h=DS_H, r=DS_R, rd=DS_RD,
+                         n=DEEPSEEK_PROMPT + DEEPSEEK_STEPS) -> dict:
+    """Phase 21a, deepseek-v2's absorbed decode at rank 512: the
+    tensor-core latent decode (bfloat16, two warpgroups a block) at (1, 1,
+    h, r + rd) over 1, 2,048 and ``n`` positions of one cache (views),
+    within ``FLASH_TC`` of the float32 plain version and within 3e-2 of
+    its own arithmetic's twin, two calls bitwise, three planted faults
+    beyond ``FLASH_TC`` at n (a split dropped; O's columns 256-511 taken
+    from the first warpgroup's; kr left out); the CUDA-core latent decode
+    in float32 at the same shape within 2e-5 of its plain version, the
+    latent columns 256-511 read from 0-255 planted beyond it. Each timed
+    against its bound (bytes at the memory rate, or operations at the
+    rate of its dtype), its plain version and
+    ``scaled_dot_product_attention`` over one (r + rd)-wide key head;
+    ``kernel_info`` of the tensor-core kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_info, mla_splits, mla_tc_splits, split_chunk)
+    from repro_torch.kernels.flash_attention.ops import flash_mla_decode
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_mla_decode_tc_torch, flash_mla_decode_torch, mla_keys, sdpa)
+    from repro_torch.models.attention import _scale
+    gen = torch.Generator(device=DEVICE).manual_seed(512)
+    bf, f32 = torch.bfloat16, torch.float32
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=DEVICE).to(bf)
+    scale = _scale(DS_ND + DS_RD)
+    cache_ckv, cache_kr = rnd(1, n + 64, r), rnd(1, n + 64, rd)
+    ql, qr = rnd(1, 1, h, r), rnd(1, 1, h, rd)
+    checks, faults = {}, {}
+
+    def attend(f, vals=None, mask=None):
+        """The float32 plain attention of f = (q_lat, q_rope, ckv, kr)
+        over the latent as one key head; values ckv (or ``vals``)."""
+        return sdpa(torch.cat(f[:2], -1), mla_keys(f[2], f[3]),
+                    (f[2] if vals is None else vals)[:, :, None], mask,
+                    scale)
+
+    for nn in (1, 2048, n):
+        ckv, kr = cache_ckv[:, :nn], cache_kr[:, :nn]
+        before = read_paths()
+        got = flash_mla_decode(ql, qr, ckv, kr, scale)
+        check(_path_delta(before)["mla_decode_tc"] == 1,
+              f"deepseek-v2 latent decode over {nn}: not on the tensor "
+              "cores")
+        f = [x.float() for x in (ql, qr, ckv, kr)]
+        want = flash_mla_decode_torch(*f, scale, mla_splits(1, h, nn, r))
+        a32 = attend(f, f[2].abs())
+        label = f"decode tc (1, 1, {h}, {r} + {rd}) over {nn}"
+        checks[label] = flash_check(got, want, a32, label)
+        n_split = mla_tc_splits(1, h, nn)
+        flash_close(got, flash_mla_decode_tc_torch(ql, qr, ckv, kr, scale,
+                                                   n_split), bf,
+                    f"{label} against its twin")
+    check(torch.equal(got, flash_mla_decode(ql, qr, ckv, kr, scale)),
+          "the deepseek-v2 latent decode: two calls differ")
+    chunk, s3 = split_chunk(n, n_split), min(3, n_split - 1)
+    kpos = torch.arange(n, device=DEVICE)[None, None, :]
+    for lab, faulty in (
+            (f"decode tc: split {s3} of {n_split} ({chunk} keys) dropped",
+             lambda: attend(f, mask=~((kpos >= s3 * chunk)
+                                      & (kpos < (s3 + 1) * chunk)))),
+            ("decode tc: O's columns 256-511 taken from the first "
+             "warpgroup's",
+             lambda: torch.cat([want[..., :256], want[..., :256]], -1)),
+            ("decode tc: kr left out of the scores",
+             lambda: flash_mla_decode_torch(f[0], torch.zeros_like(f[1]),
+                                            f[2], f[3], scale, n_split))):
+        faults[lab] = flash_fault_caught(faulty(), want, lab, a32)
+    tc = {"splits": n_split,
+          "kernel_info": kernel_info("mla_decode_tc", r, rd)}
+    # the CUDA-core kernel in float32 at the same shape
+    f32_in = [x.float() for x in (ql, qr, ckv, kr)]
+    before = read_paths()
+    got32 = flash_mla_decode(*f32_in, scale)
+    check(_path_delta(before)["mla_decode"] == 1,
+          "the float32 latent decode is not on the CUDA cores")
+    want32 = flash_mla_decode_torch(*f32_in, scale, mla_splits(1, h, n, r))
+    label = f"decode f32 (1, 1, {h}, {r} + {rd}) over {n}"
+    checks[label] = (flash_close(got32, want32, f32, label), 0.0)
+    bad = torch.cat([want32[..., :256], want32[..., :256]], -1)
+    lab = "decode f32: the latent columns 256-511 read from 0-255"
+    ratio = float(((bad - want32).abs() / (FLASH_TOL["float32"] * (
+        1 + want32.abs()))).max())
+    check(ratio > 1.0, f"the planted fault '{lab}' passes 2e-5 ({ratio})")
+    faults[lab] = ratio
+    del got32, want32, bad, f, want, a32
+    qs = torch.cat([ql, qr], -1).transpose(1, 2)
+    ks = torch.cat([ckv, kr], -1)[:, None]
+    vs = ckv[:, None]
+    qs32, ks32, vs32 = qs.float(), ks.float(), vs.float()
+    ops = 2 * h * n * (r + rd) + 2 * h * n * r
+    splits, f32_out = mla_splits(1, h, n, r), {}
+    for pre, out, args in (("", tc, (ql, qr, ckv, kr)),
+                           ("f32_", f32_out, f32_in)):
+        qq, kk, vv = (qs, ks, vs) if not pre else (qs32, ks32, vs32)
+        for key, fn in (
+                ("ms", lambda: flash_mla_decode(*args, scale)),
+                ("plain_ms", lambda: flash_mla_decode_torch(*args, scale,
+                                                            splits)),
+                ("library_ms", lambda: F.scaled_dot_product_attention(
+                    qq, kk, vv, scale=scale, enable_gqa=True))):
+            try:
+                out[key] = cuda_ms(fn, 20)
+                out[key.replace("ms", "device_ms")] = device_ms(fn, 20)
+            except RuntimeError as ex:      # the library call: a yardstick
+                check("library" in key, f"the latent decode: {ex}")
+                say(f"deepseek-v2 decode: scaled_dot_product_attention not "
+                    f"measured ({str(ex)[:120]})")
+                out[key], out[key.replace("ms", "device_ms")] = None, None
+        elt, rate = (2, BF16_OPS_PER_S) if not pre else (4, FP32_OPS_PER_S)
+        nbytes = elt * (n * (r + rd) + h * (r + rd) + h * r)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        out["bytes"], out["operations"] = nbytes, ops
+        out["bound_ms"] = max(t_bytes, t_ops)
+        out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    del cache_ckv, cache_kr, ckv, kr, ql, qr, got, qs, ks, vs, f32_in
+    del qs32, ks32, vs32
+    torch.cuda.empty_cache()
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    say("deepseek-v2 latent decode at rank 512 against its float32 plain "
+        "version (bfloat16 on the tensor cores: FLASH_TC; float32 on the "
+        "CUDA cores: within 2e-5): " + "; ".join(
+            f"{lab}: max |err| {x[0]:.4g}, {x[1]:.4g} x the limit"
+            for lab, x in checks.items()) + "; planted faults: " + "; ".join(
+            f"{lab}: {x:.4g} x the limit" for lab, x in faults.items()))
+    for what, o in (("on the tensor cores, bfloat16", tc),
+                    ("on the CUDA cores, float32", f32_out)):
+        say(f"deepseek-v2 latent decode {what} (1, 1, {h}, {r} + {rd}) "
+            f"over {n} positions ({nvidia_smi_line()}): {o['ms']:.4f} ms a "
+            f"layer, device {fmt(o['device_ms'])} (kernel and merge), bound "
+            f"{o['bound_ms']:.4f} ms ({o['bound_by']}: "
+            f"{o['bytes'] / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), plain "
+            f"{fmt(o['plain_ms'])} (device {fmt(o['plain_device_ms'])}), "
+            f"scaled_dot_product_attention {fmt(o['library_ms'])} (device "
+            f"{fmt(o['library_device_ms'])})"
+            + (f"; {n_split} splits; {tc['kernel_info']}" if o is tc
+               else ""))
+    return {"tc": tc, "f32": f32_out,
+            "max_abs_err": max(x[0] for x in checks.values()),
+            "checks": [{"shape": lab, "max_abs_err": x[0],
+                        "err_over_limit": x[1]} for lab, x in checks.items()],
+            "planted_faults": [{"fault": lab, "err_over_limit": x}
+                               for lab, x in faults.items()]}
+
+
+def deepseek_phase() -> dict:
+    """Phase 21: deepseek-v2. 21a the (192, 128) prefill tile and both
+    latent decodes at rank 512 before the model allocates; 21b the float32
+    gate; 21c the serving cell."""
+    import torch
+    t21 = time.perf_counter()
+    pre = deepseek_prefill_rows()
+    dec = deepseek_decode_rows()
+    t21b = time.perf_counter()
+    gate = moe_f32_gate(deepseek(2, "float32", n_experts=16),
+                        name=DEEPSEEK_GATE)
+    torch.cuda.empty_cache()
+    t21c = time.perf_counter()
+    cfg = deepseek()
+    c = moe_serve_cell(cfg, DEEPSEEK_CELL, DEEPSEEK_BATCH, DEEPSEEK_PROMPT,
+                       DEEPSEEK_STEPS, DEEPSEEK_FAULTS)
+    cell = c["cell"]
+    torch.cuda.empty_cache()
+    progress(f"phase 21 wall: 21a {t21b - t21:.1f} s, 21b {t21c - t21b:.1f} "
+             f"s, 21c {time.perf_counter() - t21c:.1f} s")
+    flash = {"route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "bitwise": False, "config": DEEPSEEK_CELL, "dtype": "bfloat16",
+             "library": "torch.nn.functional.scaled_dot_product_attention",
+             "launches_per": f"served run: 1 prefill + {DEEPSEEK_STEPS} "
+                             f"decode steps x {cell['n_layers']} layers"}
+    checks, tc, f32 = dec["checks"], dec["tc"], dec["f32"]
+    none = ("none (no TPU twin: the JAX package computes the absorbed "
+            "decode in jnp, src/repro/models/attention.py:283-315)")
+    rows = [{"name": "flash_tile_tc", **flash,
+             "replaces": "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:69",
+             "mode": "deepseek-v2 MLA prefill, keys 192, values 128",
+             "tol": {"bfloat16_vs_float32_plain": FLASH_TC},
+             "launches": cell["paths"]["tile_tc"],
+             "launches_by_path": cell["paths"],
+             "max_abs_err": pre["max_abs_err"], "checks": pre["checks"],
+             "planted_faults": pre["planted_faults"],
+             "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+             "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+             "ex2_floor_ms": pre["ex2_floor_ms"],
+             "library_ms": pre["library_ms"],
+             "kernel_info": pre["kernel_info"],
+             "ms_per": f"prefill layer (1 x {DEEPSEEK_PROMPT}, {DS_H}/{DS_H} "
+                       "heads, keys 192, values 128, causal)"},
+            {"name": "flash_mla_decode_tc", **flash, "replaces": none,
+             "mode": "deepseek-v2 latent decode, r 512 + 64",
+             "tol": {"bfloat16_vs_float32_plain": FLASH_TC},
+             "launches": cell["paths"]["mla_decode_tc"],
+             "max_abs_err": max(x["max_abs_err"] for x in checks
+                                if x["shape"].startswith("decode tc")),
+             "checks": [x for x in checks
+                        if x["shape"].startswith("decode tc")],
+             "planted_faults": [x for x in dec["planted_faults"]
+                                if x["fault"].startswith("decode tc")],
+             "ms": tc["ms"], "device_ms": tc["device_ms"],
+             "plain_ms": tc["plain_ms"],
+             "plain_device_ms": tc["plain_device_ms"],
+             "bound_ms": tc["bound_ms"], "bound_by": tc["bound_by"],
+             "library_ms": tc["library_ms"],
+             "library_device_ms": tc["library_device_ms"],
+             "splits": tc["splits"], "kernel_info": tc["kernel_info"],
+             "library": "torch.nn.functional.scaled_dot_product_attention "
+                        "(the latent cache as one key head, enable_gqa)",
+             "ms_per": f"decode layer (1 x 1, {DS_H} heads, over "
+                       f"{DEEPSEEK_PROMPT + DEEPSEEK_STEPS} positions of "
+                       "512 + 64; two launches: splits and merge)"},
+            {"name": "flash_mla_decode", **flash,
+             "replaces": "none (no TPU twin; the float32 form of the latent "
+                         "decode, off the served path)",
+             "mode": "deepseek-v2 latent decode, r 512 + 64, float32",
+             "dtype": "float32", "config": DEEPSEEK_GATE,
+             "tol": {"float32": FLASH_TOL["float32"]},
+             "launches": gate["paths"]["mla_decode"],
+             "max_abs_err": max(x["max_abs_err"] for x in checks
+                                if x["shape"].startswith("decode f32")),
+             "planted_faults": [x for x in dec["planted_faults"]
+                                if x["fault"].startswith("decode f32")],
+             "ms": f32["ms"], "device_ms": f32["device_ms"],
+             "plain_ms": f32["plain_ms"],
+             "plain_device_ms": f32["plain_device_ms"],
+             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+             "library_ms": f32["library_ms"],
+             "library_device_ms": f32["library_device_ms"],
+             "library": "torch.nn.functional.scaled_dot_product_attention "
+                        "(float32, the latent cache as one key head)",
+             "ms_per": f"decode layer in float32 (1 x 1, {DS_H} heads, over "
+                       f"{DEEPSEEK_PROMPT + DEEPSEEK_STEPS} positions of "
+                       "512 + 64)",
+             "launches_per": "the float32 gate's card run: 8 decode steps x "
+                             "2 layers"}]
+    return {"rows": rows, "cell": cell, "gate": gate, "prefill": pre,
+            "decode": dec}
+
+
 def main(args: list[str]) -> int:
     import torch
     sources = args[1:] if args[:1] == ["--mla-rows"] else []
@@ -9796,13 +10239,13 @@ def main(args: list[str]) -> int:
                     ["--chaos-loss-witness"], ["--dist"], ["--ssm"],
                     ["--xlstm-witness"], ["--scan-rows"], ["--mla"],
                     ["--mla-rows"], ["--moe"], ["--vlm"], ["--encdec"],
-                    ["--sharded"], ["--roofline"]):
+                    ["--sharded"], ["--roofline"], ["--deepseek"]):
         print(f"usage: chip_smoke.py [--lr-witness | --bf16-witness | "
               f"--attention-rows | --solve | --reduce | --fleet | "
               f"--runtime | --chaos | --chaos-loss-witness | --dist | "
               f"--ssm | --xlstm-witness | --scan-rows | --mla | "
               f"--mla-rows [FLASH_CU ...] | --moe | --vlm | --encdec | "
-              f"--sharded | --roofline], got "
+              f"--sharded | --roofline | --deepseek], got "
               f"{args}",
               file=sys.stderr)
         return 2
@@ -9890,6 +10333,13 @@ def main(args: list[str]) -> int:
         moe_rows = moe_phase()["rows"]
         progress(f"phase 17 wall: {time.perf_counter() - t17:.1f} s")
         say(json.dumps({"kernels": moe_rows}))
+        say(smi)
+        return 0
+    if args == ["--deepseek"]:
+        t21 = time.perf_counter()
+        ds_rows = deepseek_phase()["rows"]
+        progress(f"phase 21 wall: {time.perf_counter() - t21:.1f} s")
+        say(json.dumps({"kernels": ds_rows}))
         say(smi)
         return 0
     if args in (["--vlm"], ["--encdec"]):
@@ -10091,6 +10541,17 @@ def main(args: list[str]) -> int:
     t20 = time.perf_counter()
     say(json.dumps({"roofline": roofline_phase(smi, cell["roofline"])}))
     progress(f"phase 20 wall: {time.perf_counter() - t20:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 21: deepseek-v2, its (192, 128) prefill tile and rank-512
+    # latent decodes, served at published width (depth 2)
+    t21 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"phase 21: {held} bytes still allocated after "
+          "phase 20")
+    deep = deepseek_phase()
+    progress(f"phase 21 wall: {time.perf_counter() - t21:.1f} s")
+    torch.cuda.empty_cache()
 
     rows.append({"name": "segment_reduce", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_reduce.cu",
@@ -10352,6 +10813,7 @@ def main(args: list[str]) -> int:
     rows.extend(mla["rows"])
     rows.extend(moe["rows"])
     rows.extend(vlm_enc["rows"])
+    rows.extend(deep["rows"])
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

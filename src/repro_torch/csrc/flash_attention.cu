@@ -22,15 +22,18 @@
 // Three launch shapes for attention; the wrapper picks one by T, dtype and
 // (D, Dv) only and counts each call once:
 //  * tensor-core tile kernel (T > 1, bfloat16, (D, Dv) (64, 64), (128,
-//    128), (96, 64) or (112, 112), a template on the pair; the serving
-//    cells' prefill):
-//    one block of 288 threads per (b, h, 128-row query tile), head-major
+//    128), (96, 64), (112, 112) or (192, 128), a template on the pair; the
+//    serving cells' prefill):
+//    one block of 288 threads (256 at (192, 128), below) per (b, h,
+//    128-row query tile), head-major
 //    and each head's longest causal tiles first, so the blocks in flight
 //    read the same K/V through L2 (tile-major, 132 heads at once
 //    streamed their K/V from device memory: at MLA's 40/40 heads nearly
 //    at the memory's rate). A producer warp (one thread of it issuing)
-//    loads the Q tile once and 128-key K and V tiles into a ring of 4
-//    stages (Dv 64) or 3 (Dv 128) by TMA (tensor maps over each strided
+//    loads the Q tile once and 128-key K and V tiles into a ring of as
+//    many stages as shared memory holds, at most 4 (4 at Dv 64, 3 at (128,
+//    128), 2 at deepseek-v2's (192, 128): S over 12 k-steps of three
+//    64-column panels) by TMA (tensor maps over each strided
 //    view, zeros out of bounds), each stage guarded by a full and an empty
 //    mbarrier. Q and K load as 64-column panels in the 128-byte swizzle
 //    and, at D 96, a last 32-column panel in the 64-byte swizzle (its own
@@ -91,23 +94,32 @@
 // And two for MLA's absorbed decode, which has no TPU twin (the JAX package
 // computes it in jnp, src/repro/models/attention.py :: mla_decode): q_lat
 // (B, 1, H, r) and q_rope (B, 1, H, rd) over the latent cache ckv (B, n, r)
-// and kr (B, n, rd), r <= 256 and rd <= 64 -> ctx_lat (B, 1, H, r):
+// and kr (B, n, rd), r <= 512 and rd <= 64 -> ctx_lat (B, 1, H, r):
 // scores (q_lat . ckv + q_rope . kr) * scale in float32, the online
 // softmax, P ckv. Every head reads the same cache, so a block takes many
 // heads of one sequence over one split of the keys and stages each 64-key
 // tile of ckv | kr once for both products.
-//  * latent decode on the tensor cores (bfloat16 with r a multiple of 64
-//    up to 256 and rd 32 or 64, minicpm3's 256 + 32; the served path): a
-//    block of 160 threads takes up to 64 heads of one sequence over one
-//    split. The heads are the M rows of wgmma products, one consumer
-//    warpgroup: S = Q [ckv | kr]^T (m64n64k16, Q written once into the
-//    swizzled layout, the tile K-major) and O += P ckv (m64n64k16 a
-//    64-column ckv panel, P rounded to bfloat16 in registers as the A
-//    operand, the panel MN-major); the softmax in base 2 on the S fragment
-//    (ex2.approx, as the tile kernel). A loader warp keeps a ring of 4
-//    tiles in flight by TMA (r / 64 ckv boxes in the 128-byte swizzle and
-//    one kr box, zeros past n) on mbarriers. One wave of blocks (B
-//    ceil(H / 64) splits about 132), so a split is about n B / 132 keys;
+//  * latent decode on the tensor cores (bfloat16 with r 64, 128, 192, 256
+//    or 512 and rd 32 or 64, minicpm3's 256 + 32 and deepseek-v2's 512 +
+//    64; the served path): a block takes up to 64 heads of one sequence
+//    over one split. The heads are the M rows of wgmma products: S = Q
+//    [ckv | kr]^T (m64n64k16, Q written once into the swizzled layout, the
+//    tile K-major) and O += P ckv (m64n64k16 a 64-column ckv panel, P
+//    rounded to bfloat16 in registers as the A operand, the panel
+//    MN-major); the softmax in base 2 on the S fragment (ex2.approx, as the
+//    tile kernel). Up to r 256 one consumer warpgroup holds O and a loader
+//    warp keeps a ring of 4 tiles in flight (160 threads); at r 512 O's
+//    64 x 512 float32 would need 256 registers a thread, so two consumer
+//    warpgroups each hold 256 of its columns, warpgroup 0 computes S and
+//    the softmax and hands P and the rows' rescale to warpgroup 1 through
+//    shared memory, the ring holds 2 tiles (Q, 2 tiles and P 230,400
+//    bytes), and warpgroup 1's first thread refills it (256 threads: a
+//    loader warp would leave 168 registers a thread, and warpgroup 0
+//    spilled). Each tile comes by TMA (r / 64 ckv boxes in the 128-byte
+//    swizzle and one kr box, zeros past n) on mbarriers. One wave of
+//    blocks (B ceil(H / 64) splits about 132), so a split is about n B /
+//    132 keys (deepseek-v2's decode: 2 head groups x 66 splits, 38.1 MB a
+//    layer, 11.4 us at 3.35 TB/s);
 //    the splits' float32 partials merge in split order in base 2 by a
 //    merge kernel of its own (deterministic). At minicpm3's cell (B 4, 40
 //    heads, 256 + 32, n 32,832) a layer moves 75.6 MB (22.6 us at 3.35
@@ -117,12 +129,13 @@
 //    one warp a 16-head group were slower (PERF.md).
 //  * latent decode on the CUDA cores (float32, and bfloat16 at other
 //    widths: the float32 gates and reduced configs):
-//    a block takes up to 40 heads (8 warps of 5) over one split; each
-//    64-key tile (32 in float32) is staged once by cp.async, double-
-//    buffered, and serves both the scores (a lane two keys, a warp 5 heads,
-//    q rows read as float4 broadcasts) and P ckv (a thread two latent
-//    columns of 20 heads, keys in order). Grid (B ceil(H / 40), n_split);
-//    the split decode's merge launch folds the splits in split order.
+//    a block takes up to 40 heads (8 warps of 5) over one split, 32 (8
+//    warps of 4) where r is past 256; each 64-key tile (32 in float32) is
+//    staged once by cp.async, double-buffered, and serves both the scores
+//    (a lane two keys, a warp its heads, q rows read as float4 broadcasts)
+//    and P ckv (a thread two latent columns of 20 heads, or four of 16
+//    past r 256, keys in order). Grid (B ceil(H / heads), n_split); the
+//    split decode's merge launch folds the splits in split order.
 //
 // Bound on the H100: prefill is bound by operations (minicpm3's MLA
 // prefill, (4, 32768, 40/40, 96|64) causal, 27.5 TFLOP a layer, 27.8 ms at
@@ -348,7 +361,7 @@ cudaError_t launch_tile(const T* q, const T* k, const T* v, T* o, int B,
 
 // ---------------------------------------------------------------------------
 // The tensor-core tile kernel (bfloat16; (D, Dv) (64, 64), (128, 128), (96,
-// 64), (112, 112))
+// 64), (112, 112), (192, 128))
 
 namespace tc {
 
@@ -365,11 +378,14 @@ constexpr int kRowBytes = 128;            // 64 bf16: one swizzled row
 // swizzle), so no column is loaded that the products do not read; V is
 // panels of 64 columns. A width that ends part way into a 64-column panel
 // (112) is padded to the panel's end (kPadK, kPadV) by the tensor map's
-// zero fill. Every panel starts on a 1024-byte boundary. (64, 64): 16 KB
-// of Q and four 32 KB stages; (128, 128) and (112, 112): 32 KB of Q and
-// three 64 KB stages (225 KB with the alignment); (96, 64): 24 KB of Q and
-// four 40 KB stages (184 KB). deepseek-v2's (192, 128) would fit two 80 KB
-// stages beside 48 KB of Q.
+// zero fill. Every panel starts on a 1024-byte boundary. The ring takes as
+// many stages as the block's shared memory holds beside Q, at most 4:
+// (64, 64): 16 KB of Q and four 32 KB stages; (128, 128) and (112, 112):
+// 32 KB of Q and three 64 KB stages (225 KB with the alignment); (96, 64):
+// 24 KB of Q and four 40 KB stages (184 KB); deepseek-v2's (192, 128): 48
+// KB of Q and two 80 KB stages (209 KB).
+constexpr int kSmemBlock = 232448;        // shared memory a block may use
+constexpr int kSmemStatic = 128;          // the kernel's mbarriers, rounded
 template <int DK, int DV>
 struct Layout {
   static constexpr bool kHalfK = DK % 64 == 32;   // a 32-column panel last
@@ -377,14 +393,24 @@ struct Layout {
   static constexpr int kPadV = (DV + 63) / 64 * 64;
   static constexpr int kPanelsK = kPadK / 64;     // 64-column panels of Q, K
   static constexpr int kPanelsV = kPadV / 64;
-  static constexpr int kStages = kPadV == 64 ? 4 : 3;  // K/V tiles in flight
   static constexpr int kQ = kRows * kPadK * 2;
   static constexpr int kK = kKeys * kPadK * 2;
   static constexpr int kV = kKeys * kPadV * 2;
   static constexpr int kStage = kK + kV;
+  static constexpr int kFit = (kSmemBlock - kSmemStatic - 1024 - kQ) / kStage;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kBytes = kQ + kStages * kStage;
+  // At (192, 128) no producer warp: nine warps leave ptxas 168 registers
+  // a thread, where the consumers' O, S and P and the softmax spill (as at
+  // (128, 128)); with eight it may use 255. The first thread issues Q and
+  // the ring's first tiles, and whichever warpgroup is second to finish
+  // with a stage refills it (a counter a stage), so neither waits for the
+  // other. The other pairs keep their producer warp, their instructions
+  // as measured.
+  static constexpr bool kNoLoader = DK == 192;
+  static constexpr int kThreads = kNoLoader ? kConsumers : kThreadsTc;
   static_assert(DK % 16 == 0 && (DV == 64 || DV == 112 || DV == 128) &&
-                    DV <= DK && kStages <= kMaxStages,
+                    DV <= DK && kStages >= 2,
                 "the tile kernel's widths");
 };
 
@@ -477,6 +503,15 @@ template <int N>
 __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// Gives r values that the compiler need not keep: placed before a product
+// whose first step overwrites r (scale_d = 0), it ends r's old values'
+// lives at their last read instead of keeping them across the loop.
+template <int N>
+__device__ __forceinline__ void fresh(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]) :: "memory");
 }
 
 template <int N>
@@ -766,7 +801,7 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
 }
 
 template <int DK, int DV>
-__global__ void __launch_bounds__(kThreadsTc, 1)
+__global__ void __launch_bounds__(Layout<DK, DV>::kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tq2,
                 const __grid_constant__ CUtensorMap tk,
@@ -777,6 +812,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kStages = L::kStages;
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages], qbar;
+  __shared__ int freed[kMaxStages];       // warpgroups done with a stage
   const uint32_t raw = smem_u32(smem_raw);
   char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
   char* qs = smem;
@@ -802,13 +838,35 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);            // one arrival per warpgroup
+      freed[s] = 0;
     }
     mbar_init(&qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wgi == kConsumers / 128) {
+  // (no producer warp) tile it's K and V into its stage
+  const auto load_kv = [&](int it) {
+    const int s = it % kStages;
+    char* ks = smem + L::kQ + s * L::kStage;
+    const int k0 = (kt0 + it) * kKeys;
+    mbar_expect_tx(&full[s], L::kStage);
+    for (int p = 0; p < NPK; ++p)
+      tma_load(ks + p * kKeys * kRowBytes, &tk, &full[s], p * 64, hk, k0, b);
+    for (int p = 0; p < NPV; ++p)
+      tma_load(ks + L::kK + p * kKeys * kRowBytes, &tv, &full[s], p * 64, hk,
+               k0, b);
+  };
+  if constexpr (L::kNoLoader) {
+    static_assert(!L::kHalfK, "a 32-column panel needs the producer warp");
+    if (threadIdx.x == 0) {               // Q, then the ring's first tiles
+      mbar_expect_tx(&qbar, L::kQ);
+      for (int p = 0; p < NPK; ++p)
+        tma_load(qs + p * kRows * kRowBytes, &tq, &qbar, p * 64, h, q0, b);
+      for (int it = 0; it < n_tiles && it < kStages; ++it) load_kv(it);
+    }
+    __syncwarp();
+  } else if (wgi == kConsumers / 128) {
     // the producer warp: one thread loads Q once, then K and V tile by tile
     // into the ring
     if (lane == 0) {
@@ -879,7 +937,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait0();
     pin(o);
     pin(pa);
-    if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[s]);
+    if constexpr (L::kNoLoader) {
+      // the second warpgroup done with stage s refills it: both have read
+      // it (their products waited for); the fences order the reads and the
+      // counter before the refill
+      if ((threadIdx.x & 127) == 0) {
+        __threadfence_block();
+        if (atomicAdd(&freed[s], 1) == 1) {
+          freed[s] = 0;
+          __threadfence_block();
+          if (it + kStages < n_tiles) load_kv(it + kStages);
+        }
+      }
+      __syncwarp();
+    } else if ((threadIdx.x & 127) == 0) {
+      mbar_arrive(&empty[s]);
+    }
   }
 
 #pragma unroll
@@ -967,15 +1040,18 @@ cudaError_t launch_d(const CUtensorMap* m, const Args& a,
   if (err != cudaSuccess) return err;
   const long long blocks =
       static_cast<long long>(a.B) * a.H * ((a.Tq + kRows - 1) / kRows);
-  flash_tc_kernel<DK, DV><<<static_cast<unsigned>(blocks), kThreadsTc, smem,
-                            stream>>>(m[0], m[1], m[2], m[3], m[4], a);
+  flash_tc_kernel<DK, DV><<<static_cast<unsigned>(blocks),
+                            Layout<DK, DV>::kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], a);
   return cudaGetLastError();
 }
 
-// The (DK, DV) pairs built: (64, 64), (128, 128), (96, 64) and (112, 112).
+// The (DK, DV) pairs built: (64, 64), (128, 128), (96, 64), (112, 112)
+// and (192, 128).
 bool tc_dims(int D, int Dv) {
   return (D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
-         (D == 96 && Dv == 64) || (D == 112 && Dv == 112);
+         (D == 96 && Dv == 64) || (D == 112 && Dv == 112) ||
+         (D == 192 && Dv == 128);
 }
 
 cudaError_t launch(const void* q, const void* k, const void* v,
@@ -997,6 +1073,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (D == 64) return launch_d<64, 64>(m, a, stream);
   if (D == 96) return launch_d<96, 64>(m, a, stream);
   if (D == 112) return launch_d<112, 112>(m, a, stream);
+  if (D == 192) return launch_d<192, 128>(m, a, stream);
   return launch_d<128, 128>(m, a, stream);
 }
 
@@ -1022,17 +1099,23 @@ cudaError_t kernel_info(K kern, int threads, int smem, int* out) {
 
 cudaError_t info(int D, int Dv, int* out) {
   if (D == 64 && Dv == 64)
-    return kernel_info(flash_tc_kernel<64, 64>, kThreadsTc,
+    return kernel_info(flash_tc_kernel<64, 64>, Layout<64, 64>::kThreads,
                        smem_bytes<64, 64>(), out);
   if (D == 96 && Dv == 64)
-    return kernel_info(flash_tc_kernel<96, 64>, kThreadsTc,
+    return kernel_info(flash_tc_kernel<96, 64>, Layout<96, 64>::kThreads,
                        smem_bytes<96, 64>(), out);
   if (D == 128 && Dv == 128)
-    return kernel_info(flash_tc_kernel<128, 128>, kThreadsTc,
+    return kernel_info(flash_tc_kernel<128, 128>,
+                       Layout<128, 128>::kThreads,
                        smem_bytes<128, 128>(), out);
   if (D == 112 && Dv == 112)
-    return kernel_info(flash_tc_kernel<112, 112>, kThreadsTc,
+    return kernel_info(flash_tc_kernel<112, 112>,
+                       Layout<112, 112>::kThreads,
                        smem_bytes<112, 112>(), out);
+  if (D == 192 && Dv == 128)
+    return kernel_info(flash_tc_kernel<192, 128>,
+                       Layout<192, 128>::kThreads,
+                       smem_bytes<192, 128>(), out);
   return cudaErrorInvalidValue;
 }
 
@@ -1417,13 +1500,19 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, void* o_,
 namespace mla {
 
 constexpr int kThreadsMla = 256;
-constexpr int kHeads = 40;                // heads of a block: 8 warps x 5
-constexpr int kWarpHeads = kHeads / 8;    // heads a warp scores
-constexpr int kMaxR = 256, kMaxRd = 64;   // latent and rope widths, at most
-constexpr int kMaxW = kMaxR + kMaxRd;
+constexpr int kMaxRd = 64;                // rope width, at most
 
-template <typename T>
+// A block's shape at latent widths up to R (256 or 512). R 256: 40 heads
+// (8 warps x 5), a thread 2 latent columns of 20 heads. R 512: 32 heads (8
+// warps x 4), so the heads' q rows (576 wide) and two tiles fit in shared
+// memory (float32: 73,728 + 2 x 74,240 bytes; bfloat16 231,808 of 232,448
+// in all), a thread 4 latent columns (two pairs 256 apart) of 16 heads.
+template <typename T, int R>
 struct Shape {
+  static constexpr int kHeads = R <= 256 ? 40 : 32;   // heads of a block
+  static constexpr int kWarpHeads = kHeads / 8;       // heads a warp scores
+  static constexpr int kMaxW = R + kMaxRd;            // a staged row, at most
+  static constexpr int kPairs = R / 256;   // column pairs a thread holds
   static constexpr int KT = sizeof(T) == 2 ? 64 : 32;   // keys of a tile
   static constexpr int KJ = KT / 32;                     // keys a lane scores
   static constexpr int NV = 16 / static_cast<int>(sizeof(T));   // a chunk
@@ -1432,17 +1521,18 @@ struct Shape {
   // q (kHeads x kMaxW), p (KT x kHeads), m, alpha, l: floats; 2 tiles
   static constexpr int kFloats = kHeads * kMaxW + KT * kHeads + 3 * kHeads;
   static constexpr int kBytes = 4 * kFloats + 2 * KT * RB;
+  static_assert(kBytes <= 232448, "the latent decode's shared memory");
 };
 
 // Keys [k0, min(k0 + KT, k_end)) of the latent cache into shared rows:
 // ckv's r columns, then kr's rd columns. 16-byte cp.async copies (kVec:
 // bases and strides 16-byte aligned), else element copies.
-template <typename T, bool kVec>
+template <typename T, int R, bool kVec>
 __device__ __forceinline__ void stage_latent(char* dst, const T* ckv,
                                              long long c_st, const T* kr,
                                              long long kr_st, int k0,
                                              int k_end, int r, int rd) {
-  using Sh = Shape<T>;
+  using Sh = Shape<T, R>;
   constexpr int KT = Sh::KT, RB = Sh::RB, NV = Sh::NV;
   const int w = r + rd;
   if (kVec) {
@@ -1476,11 +1566,11 @@ __device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
 }
 
 // Block (b, head group, split): the heads [g0, g0 + gn) of sequence b over
-// keys [split chunk, (split + 1) chunk). Warp w scores heads 5 w .. 5 w + 4
+// keys [split chunk, (split + 1) chunk). Warp w scores heads kWarpHeads w ..
 // on lanes' keys (lane + 32 kj), the softmax takes a head a warp at a
-// time, and thread t accumulates heads 20 (t / 128) .. + 19 on latent
-// columns 2 (t % 128), + 1 over every key in order.
-template <typename T, bool kVec>
+// time, and thread t accumulates heads kHeads / 2 (t / 128) .. on latent
+// columns 2 (t % 128) + 256 c, + 1 (c < kPairs) over every key in order.
+template <typename T, int R, bool kVec>
 __global__ void __launch_bounds__(kThreadsMla)
 flash_mla_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
                  const T* __restrict__ ckv, const T* __restrict__ kr,
@@ -1489,8 +1579,10 @@ flash_mla_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
                  long long ql_sb, long long ql_sh, long long qr_sb,
                  long long qr_sh, long long c_sb, long long c_st,
                  long long kr_sb, long long kr_st, float scale) {
-  using Sh = Shape<T>;
+  using Sh = Shape<T, R>;
   constexpr int KT = Sh::KT, KJ = Sh::KJ, RB = Sh::RB, NV = Sh::NV;
+  constexpr int kHeads = Sh::kHeads, kWarpHeads = Sh::kWarpHeads;
+  constexpr int kMaxW = Sh::kMaxW, kPairs = Sh::kPairs;
   constexpr int kHalf = kHeads / 2;       // heads a thread accumulates
   extern __shared__ __align__(16) char smem[];
   float* qs = reinterpret_cast<float*>(smem);    // kHeads x kMaxW
@@ -1525,20 +1617,24 @@ flash_mla_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
   }
   const int cp = threadIdx.x % (kThreadsMla / 2);   // latent columns 2 cp
   const int half = threadIdx.x / (kThreadsMla / 2); // heads half kHalf ..
-  const bool has_col = 2 * cp < r;
-  float acc[kHalf][2];
+  bool has_col[kPairs];
 #pragma unroll
-  for (int g = 0; g < kHalf; ++g) acc[g][0] = acc[g][1] = 0.f;
+  for (int c = 0; c < kPairs; ++c) has_col[c] = 2 * cp + 256 * c < r;
+  float acc[kHalf][2 * kPairs];
+#pragma unroll
+  for (int g = 0; g < kHalf; ++g)
+#pragma unroll
+    for (int e = 0; e < 2 * kPairs; ++e) acc[g][e] = 0.f;
   if (n_t > 0) {
-    stage_latent<T, kVec>(tiles, cb, c_st, kb, kr_st, k_lo, k_hi, r, rd);
+    stage_latent<T, R, kVec>(tiles, cb, c_st, kb, kr_st, k_lo, k_hi, r, rd);
     dec::cp_commit();
   }
   __syncthreads();
 
   for (int it = 0; it < n_t; ++it) {
     if (it + 1 < n_t) {                   // the next tile into the other
-      stage_latent<T, kVec>(tiles + ((it + 1) & 1) * KT * RB, cb, c_st, kb,
-                            kr_st, k_lo + (it + 1) * KT, k_hi, r, rd);
+      stage_latent<T, R, kVec>(tiles + ((it + 1) & 1) * KT * RB, cb, c_st,
+                               kb, kr_st, k_lo + (it + 1) * KT, k_hi, r, rd);
       dec::cp_commit();
       dec::cp_wait<1>();
     } else {
@@ -1549,7 +1645,8 @@ flash_mla_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
     const int k0 = k_lo + it * KT;
     const int nk = min(KT, k_hi - k0);
 
-    {  // scores: warp -> heads [5 warp, 5 warp + 5), lane -> keys lane + 32 kj
+    {  // scores: warp -> heads [kWarpHeads warp, +kWarpHeads), lane -> keys
+       // lane + 32 kj
       const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
       const float* qw = qs + warp * kWarpHeads * kMaxW;
       float dot[kWarpHeads][KJ];
@@ -1623,15 +1720,17 @@ flash_mla_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
     }
     __syncthreads();
 
-    if (has_col) {  // P ckv over the tile's keys, in key order
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) {   // P ckv over the tile's keys, in
+      if (!has_col[c]) continue;          // key order
 #pragma unroll
       for (int g = 0; g < kHalf; ++g) {
         const int gg = half * kHalf + g;
         const float al = gg < gn ? as[gg] : 0.f;
-        acc[g][0] *= al;
-        acc[g][1] *= al;
+        acc[g][2 * c] *= al;
+        acc[g][2 * c + 1] *= al;
       }
-      const T* col = reinterpret_cast<const T*>(ts) + 2 * cp;
+      const T* col = reinterpret_cast<const T*>(ts) + 2 * cp + 256 * c;
       for (int j = 0; j < nk; ++j) {
         const float2 x = pair(reinterpret_cast<const T*>(
             reinterpret_cast<const char*>(col) + j * RB));
@@ -1642,8 +1741,8 @@ flash_mla_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
           const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            acc[g4 + e][0] = fmaf(pv[e], x.x, acc[g4 + e][0]);
-            acc[g4 + e][1] = fmaf(pv[e], x.y, acc[g4 + e][1]);
+            acc[g4 + e][2 * c] = fmaf(pv[e], x.x, acc[g4 + e][2 * c]);
+            acc[g4 + e][2 * c + 1] = fmaf(pv[e], x.y, acc[g4 + e][2 * c + 1]);
           }
         }
       }
@@ -1658,16 +1757,50 @@ flash_mla_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
     ml[0] = ms[threadIdx.x];
     ml[1] = ls[threadIdx.x];
   }
-  if (has_col) {
+#pragma unroll
+  for (int c = 0; c < kPairs; ++c) {
+    if (!has_col[c]) continue;
 #pragma unroll
     for (int g = 0; g < kHalf; ++g) {
       const int gg = half * kHalf + g;
       if (gg >= gn) continue;
-      float* dst = part_acc + ((bh0 + gg) * n_split + split) * r + 2 * cp;
-      dst[0] = acc[g][0];
-      dst[1] = acc[g][1];
+      float* dst = part_acc + ((bh0 + gg) * n_split + split) * r + 2 * cp +
+                   256 * c;
+      dst[0] = acc[g][2 * c];
+      dst[1] = acc[g][2 * c + 1];
     }
   }
+}
+
+template <typename T, int R>
+cudaError_t launch_r(const T* q_lat, const T* q_rope, const T* ckv,
+                     const T* kr, int B, int n, int H, int r, int rd,
+                     long long ql_sb, long long ql_sh, long long qr_sb,
+                     long long qr_sh, long long c_sb, long long c_st,
+                     long long kr_sb, long long kr_st, float scale,
+                     int n_split, int chunk, float* part_ml, float* part_acc,
+                     cudaStream_t stream) {
+  // 16-byte copies when every ckv and kr row starts on a 16-byte boundary
+  const long long vec = 16 / sizeof(T);
+  const bool aligned =
+      reinterpret_cast<unsigned long long>(ckv) % 16 == 0 &&
+      reinterpret_cast<unsigned long long>(kr) % 16 == 0 && r % vec == 0 &&
+      rd % vec == 0 && c_sb % vec == 0 && c_st % vec == 0 &&
+      kr_sb % vec == 0 && kr_st % vec == 0;
+  using Sh = Shape<T, R>;
+  const int smem = Sh::kBytes;
+  auto kern = aligned ? flash_mla_kernel<T, R, true>
+                      : flash_mla_kernel<T, R, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(B) *
+                      ((H + Sh::kHeads - 1) / Sh::kHeads),
+                  static_cast<unsigned>(n_split));
+  kern<<<grid, kThreadsMla, smem, stream>>>(
+      q_lat, q_rope, ckv, kr, part_ml, part_acc, H, n, r, rd, chunk, n_split,
+      ql_sb, ql_sh, qr_sb, qr_sh, c_sb, c_st, kr_sb, kr_st, scale);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1683,24 +1816,15 @@ cudaError_t launch(const void* q_lat_, const void* q_rope_, const void* ckv_,
   const T* ckv = static_cast<const T*>(ckv_);
   const T* kr = static_cast<const T*>(kr_);
   T* o = static_cast<T*>(o_);
-  // 16-byte copies when every ckv and kr row starts on a 16-byte boundary
-  const long long vec = 16 / sizeof(T);
-  const bool aligned =
-      reinterpret_cast<unsigned long long>(ckv) % 16 == 0 &&
-      reinterpret_cast<unsigned long long>(kr) % 16 == 0 && r % vec == 0 &&
-      rd % vec == 0 && c_sb % vec == 0 && c_st % vec == 0 &&
-      kr_sb % vec == 0 && kr_st % vec == 0;
-  const int smem = Shape<T>::kBytes;
-  auto kern = aligned ? flash_mla_kernel<T, true> : flash_mla_kernel<T, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(B) * ((H + kHeads - 1) / kHeads),
-                  static_cast<unsigned>(n_split));
-  kern<<<grid, kThreadsMla, smem, stream>>>(
-      q_lat, q_rope, ckv, kr, part_ml, part_acc, H, n, r, rd, chunk, n_split,
-      ql_sb, ql_sh, qr_sb, qr_sh, c_sb, c_st, kr_sb, kr_st, scale);
-  err = cudaGetLastError();
+  const cudaError_t err =
+      r <= 256 ? launch_r<T, 256>(q_lat, q_rope, ckv, kr, B, n, H, r, rd,
+                                  ql_sb, ql_sh, qr_sb, qr_sh, c_sb, c_st,
+                                  kr_sb, kr_st, scale, n_split, chunk,
+                                  part_ml, part_acc, stream)
+               : launch_r<T, 512>(q_lat, q_rope, ckv, kr, B, n, H, r, rd,
+                                  ql_sb, ql_sh, qr_sb, qr_sh, c_sb, c_st,
+                                  kr_sb, kr_st, scale, n_split, chunk,
+                                  part_ml, part_acc, stream);
   if (err != cudaSuccess) return err;
   // the merge of the split decode, over r columns of each (b, h)
   const Strides so{static_cast<long long>(H) * r, 0, r};
@@ -1720,11 +1844,10 @@ namespace mtc {
 
 constexpr int kKeys = 64;                 // keys of a staged tile
 constexpr int kHeads = 64;                // heads of a block: wgmma's M rows
-constexpr int kThreads = 128 + 32;        // a consumer warpgroup, a loader
-constexpr int kStages = 4;                // tiles in flight
 constexpr int kPanel = kKeys * 128;       // a 64-column panel of a tile
 constexpr int kMergeThreads = 256;
 constexpr int kMaxSplits = 1024;          // the merge's shared weights
+constexpr int kBarP = 1, kBarFree = 2;    // named barriers of the hand-over
 
 struct Args {
   const __nv_bfloat16 *q_lat, *q_rope;
@@ -1734,11 +1857,12 @@ struct Args {
   float scale_log2;                       // scale * log2(e)
 };
 
-// The widths this kernel takes: r a multiple of 64 up to 256 (ckv as
+// The widths this kernel takes: r 64, 128, 192, 256 or 512 (ckv as
 // 64-column panels in the 128-byte swizzle), rd 32 (a panel in the 64-byte
 // swizzle) or 64.
 bool widths(int r, int rd) {
-  return r >= 64 && r <= 256 && r % 64 == 0 && (rd == 32 || rd == 64);
+  return ((r >= 64 && r <= 256 && r % 64 == 0) || r == 512) &&
+         (rd == 32 || rd == 64);
 }
 
 // A tile (and the Q block) in shared memory: RP panels of 64 ckv columns,
@@ -1749,6 +1873,27 @@ struct Tile {
   static constexpr int kBytes = RP * kPanel + kKeys * 2 * RD;
   static constexpr int kSbo = 8 * 2 * RD;   // 8 rows of the kr panel
   static constexpr int kPad = 1024;         // 1024-byte alignment
+};
+
+// How a block splits its work at RP ckv panels. Up to 4 panels one consumer
+// warpgroup holds O (64 heads x r float32) in its registers beside a ring
+// of 4 tiles that a loader warp fills. At 8 (r 512) O would take 256
+// registers a thread: two consumer warpgroups each hold 4 panels (128
+// registers a thread); warpgroup 0 computes S and its softmax and hands P
+// (bfloat16, as the register-A fragments of its threads: 8 KB) and each
+// row's rescale to warpgroup 1 through shared memory; Q, a ring of 2 tiles
+// and P take 230,400 bytes with the alignment (DeepSeek's FlashMLA splits
+// O so). There the first thread of warpgroup 1, idle while 0 computes S,
+// issues the loads: a loader warp would make nine warps, which leave
+// ptxas 168 registers a thread, and warpgroup 0 holds O's 128, S's 32 and
+// P's 16 (256 threads leave 255).
+template <int RP>
+struct Split {
+  static constexpr int kWG = RP > 4 ? 2 : 1;      // consumer warpgroups
+  static constexpr int kPanelsWG = RP / kWG;      // O's panels a warpgroup
+  static constexpr int kStages = RP > 4 ? 2 : 4;  // tiles in flight
+  static constexpr int kThreads = kWG > 1 ? 256 : 128 + 32;
+  static constexpr int kP = kWG > 1 ? 16 * 128 * 4 : 0;   // P handed over
 };
 
 // Byte offset of 16-byte chunk c of row g in a swizzled panel of `rowb`
@@ -1808,27 +1953,46 @@ __device__ __forceinline__ uint64_t kstep_desc(uint32_t addr, int kk) {
                   : tc::sw64_desc(kr, 16, T::kSbo);
 }
 
+// Named barriers among the consumer warpgroups (id 0 is __syncthreads'):
+// an arrival that does not wait, and a wait for `count` threads' arrivals.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // Block (b, head group, split): heads [g0, g0 + gn) of sequence b over keys
-// [split chunk, min(n, (split + 1) chunk)). A loader warp brings each
+// [split chunk, min(n, (split + 1) chunk)). A loader warp (at two
+// warpgroups, warpgroup 1's first thread after its product) brings each
 // 64-key tile of ckv | kr by TMA (RP + 1 boxes, zeros past n) into a ring
-// of kStages on a full and an empty mbarrier. The consumer warpgroup takes
+// of kStages on a full and an empty mbarrier. Consumer warpgroup 0 takes
 // the block's heads (up to 64, zero rows past gn) as the M rows of wgmma:
 // S = Q [ckv | kr]^T (m64n64k16, Q and the tile K-major from shared
 // memory), the online softmax in base 2 on the S fragment (a row's max and
 // sum over its quad; keys past the split -inf), P rounded to bfloat16 in
-// registers, O += P ckv (m64n64k16 a ckv panel, A from registers, the
-// panel MN-major); O (64 x r) in registers. It writes its float32 m (in
-// the base-2 units of the scaled logits), l and unnormalised O.
+// registers; each consumer warpgroup then computes O += P ckv over its
+// kPanelsWG panels (m64n64k16 a ckv panel, A from registers, the panel
+// MN-major), its part of O (64 x r) in registers. With two warpgroups, 1
+// takes P and the rescale from 0 through shared memory (named barriers:
+// kBarP "P written", kBarFree "P read"); splitting O's columns changes no
+// rounding. It writes its float32 m (in the base-2 units of the scaled
+// logits), l and unnormalised O.
 template <int RP, int RD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Split<RP>::kThreads, 1)
 flash_mla_tc_kernel(const __grid_constant__ CUtensorMap tckv,
                     const __grid_constant__ CUtensorMap tkr, const Args a) {
   using T = Tile<RP, RD>;
+  using W = Split<RP>;
+  constexpr int kStages = W::kStages, kPW = W::kPanelsWG;
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ float alpha_s[W::kWG > 1 ? 2 * 128 : 1];
   const uint32_t raw = smem_u32(smem_raw);
   char* ring = smem_raw + (((raw + 1023u) & ~1023u) - raw);
   char* qs = ring + kStages * T::kBytes;
+  uint32_t* p_s = reinterpret_cast<uint32_t*>(qs + T::kBytes);
   const int n_hg = (a.H + kHeads - 1) / kHeads;
   const int hg = blockIdx.x % n_hg, b = blockIdx.x / n_hg;
   const int g0 = hg * kHeads, gn = min(kHeads, a.H - g0);
@@ -1840,7 +2004,7 @@ flash_mla_tc_kernel(const __grid_constant__ CUtensorMap tckv,
   // Q: the block's heads as bfloat16 rows q_lat | q_rope in the tile's
   // swizzled panels, zeros past gn heads
   constexpr int kChunks = 8 * RP + RD / 8;  // 16-byte chunks of a row
-  for (int i = threadIdx.x; i < kHeads * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < kHeads * kChunks; i += W::kThreads) {
     const int g = i / kChunks, c = i - g * kChunks;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (g < gn)
@@ -1855,7 +2019,7 @@ flash_mla_tc_kernel(const __grid_constant__ CUtensorMap tckv,
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       tc::mbar_init(&full[s], 1);
-      tc::mbar_init(&empty[s], 1);        // the consumer warpgroup's
+      tc::mbar_init(&empty[s], W::kWG);   // one arrival a warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1863,33 +2027,39 @@ flash_mla_tc_kernel(const __grid_constant__ CUtensorMap tckv,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  if (warp == 4) {
-    // the loader warp: tile by tile, RP ckv boxes and one kr box
-    if (lane == 0) {
-      for (int it = 0; it < n_t; ++it) {
-        const int s = it % kStages;
-        tc::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-        char* dst = ring + s * T::kBytes;
-        const int k0 = k_lo + it * kKeys;
-        tc::mbar_expect_tx(&full[s], T::kBytes);
-        for (int p = 0; p < RP; ++p)
-          tma_load3(dst + p * kPanel, &tckv, &full[s], 64 * p, k0, b);
-        tma_load3(dst + RP * kPanel, &tkr, &full[s], 0, k0, b);
-      }
+  // tile it into its stage once the stage is free: RP ckv boxes, one kr box
+  const auto load = [&](int it) {
+    const int s = it % kStages;
+    tc::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+    char* dst = ring + s * T::kBytes;
+    const int k0 = k_lo + it * kKeys;
+    tc::mbar_expect_tx(&full[s], T::kBytes);
+    for (int p = 0; p < RP; ++p)
+      tma_load3(dst + p * kPanel, &tckv, &full[s], 64 * p, k0, b);
+    tma_load3(dst + RP * kPanel, &tkr, &full[s], 0, k0, b);
+  };
+  if constexpr (W::kWG == 1) {
+    if (warp == 4) {                      // the loader warp, tile by tile
+      if (lane == 0)
+        for (int it = 0; it < n_t; ++it) load(it);
+      return;
     }
-    return;
+  } else if (threadIdx.x == 128) {        // the ring's first tiles
+    for (int it = 0; it < n_t && it < kStages; ++it) load(it);
   }
 
-  // the consumer warpgroup: sc[4 i + e] holds head row0 + 8 (e / 2), key
+  // a consumer warpgroup wg: sc[4 i + e] holds head row0 + 8 (e / 2), key
   // 8 i + col + e % 2 of the tile; o[p][4 i + e] head row0 + 8 (e / 2),
-  // latent column 64 p + 8 i + col + e % 2
-  const int row0 = warp * 16 + (lane >> 2), col = 2 * (lane & 3);
+  // latent column 64 (kPW wg + p) + 8 i + col + e % 2
+  const int wg = W::kWG > 1 ? __shfl_sync(kFull, warp >> 2, 0) : 0;
+  const int tw = threadIdx.x & 127;       // the thread in its warpgroup
+  const int row0 = (warp & 3) * 16 + (lane >> 2), col = 2 * (lane & 3);
   const uint32_t q_addr = smem_u32(qs), ring_a = smem_u32(ring);
   const float c = a.scale_log2;
-  float o[RP][32], sc[32];
+  float o[kPW][32], sc[32];
   uint32_t pa[16];
 #pragma unroll
-  for (int p = 0; p < RP; ++p) tc::zero(o[p]);
+  for (int p = 0; p < kPW; ++p) tc::zero(o[p]);
   tc::zero(sc);                           // each S's first step overwrites
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
@@ -1897,50 +2067,81 @@ flash_mla_tc_kernel(const __grid_constant__ CUtensorMap tckv,
     const int s = it % kStages;
     const uint32_t tile = ring_a + s * T::kBytes;
     tc::mbar_wait(&full[s], (it / kStages) & 1);
-    tc::pin(sc);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 * RP + RD / 16; ++kk)
-      wgmma_ss_n64(sc, kstep_desc<RP, RD>(q_addr, kk),
-                   kstep_desc<RP, RD>(tile, kk), kk > 0);
-    tc::wgmma_commit();
-    tc::wgmma_wait0();
-    tc::pin(sc);
-    const int nk = min(kKeys, k_hi - (k_lo + it * kKeys));
-    if (nk < kKeys) {                     // keys past the split: -inf
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        if (8 * (i >> 2) + col + (i & 1) >= nk) sc[i] = -INFINITY;
-    }
-    // base 2: alpha = 2^(m - m_new), p = 2^(s c - m_new) by one FMA and ex2
     float alpha[2];
+    if (wg == 0) {
+      if constexpr (W::kWG > 1)           // S's registers not kept across
+        tc::fresh(sc);                    // P ckv
+      else
+        tc::pin(sc);
+      tc::wgmma_fence();
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float mx = -INFINITY;
+      for (int kk = 0; kk < 4 * RP + RD / 16; ++kk)
+        wgmma_ss_n64(sc, kstep_desc<RP, RD>(q_addr, kk),
+                     kstep_desc<RP, RD>(tile, kk), kk > 0);
+      tc::wgmma_commit();
+      tc::wgmma_wait0();
+      tc::pin(sc);
+      const int nk = min(kKeys, k_hi - (k_lo + it * kKeys));
+      if (nk < kKeys) {                   // keys past the split: -inf
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * rr], sc[4 * i + 2 * rr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m[rr], mx * c);
-      alpha[rr] = tc::ex2(m[rr] - m_new);
-      float sum = 0.f;
+        for (int i = 0; i < 32; ++i)
+          if (8 * (i >> 2) + col + (i & 1) >= nk) sc[i] = -INFINITY;
+      }
+      // base 2: alpha = 2^(m - m_new), p = 2^(s c - m_new) by one FMA and
+      // ex2
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = -INFINITY;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = tc::ex2(fmaf(sc[4 * i + 2 * rr + e], c, -m_new));
-          sc[4 * i + 2 * rr + e] = p;
-          sum += p;
-        }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      l[rr] = l[rr] * alpha[rr] + sum;
-      m[rr] = m_new;
+        for (int i = 0; i < 8; ++i)
+          mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * rr], sc[4 * i + 2 * rr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m[rr], mx * c);
+        alpha[rr] = tc::ex2(m[rr] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = tc::ex2(fmaf(sc[4 * i + 2 * rr + e], c, -m_new));
+            sc[4 * i + 2 * rr + e] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        l[rr] = l[rr] * alpha[rr] + sum;
+        m[rr] = m_new;
+      }
+      // P in bfloat16 as wgmma's register A: k-step j (keys 16 j ..) takes
+      // the accumulator's column blocks 2 j and 2 j + 1
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pa[4 * j + 0] = tc::pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+        pa[4 * j + 1] = tc::pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+        pa[4 * j + 2] = tc::pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+        pa[4 * j + 3] = tc::pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+      }
+      if (W::kWG > 1) {                   // hand P and alpha to warpgroup 1
+        if (it > 0) named_sync(kBarFree, 256);   // it has read the last
+#pragma unroll
+        for (int j = 0; j < 16; ++j) p_s[j * 128 + tw] = pa[j];
+        alpha_s[2 * tw] = alpha[0];
+        alpha_s[2 * tw + 1] = alpha[1];
+        __threadfence_block();
+        named_arrive(kBarP, 256);
+      }
+    } else {                              // take them from warpgroup 0
+      named_sync(kBarP, 256);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) pa[j] = p_s[j * 128 + tw];
+      alpha[0] = alpha_s[2 * tw];
+      alpha[1] = alpha_s[2 * tw + 1];
+      if (it + 1 < n_t) named_arrive(kBarFree, 256);
     }
     if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int p = 0; p < RP; ++p)
+      for (int p = 0; p < kPW; ++p)
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           o[p][4 * i] *= alpha[0];
@@ -1949,34 +2150,32 @@ flash_mla_tc_kernel(const __grid_constant__ CUtensorMap tckv,
           o[p][4 * i + 3] *= alpha[1];
         }
     }
-    // P in bfloat16 as wgmma's register A: k-step j (keys 16 j ..) takes
-    // the accumulator's column blocks 2 j and 2 j + 1
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      pa[4 * j + 0] = tc::pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
-      pa[4 * j + 1] = tc::pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
-      pa[4 * j + 2] = tc::pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
-      pa[4 * j + 3] = tc::pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
-    }
-#pragma unroll
-    for (int p = 0; p < RP; ++p) tc::pin(o[p]);
+    for (int p = 0; p < kPW; ++p) tc::pin(o[p]);
     tc::pin(pa);
     tc::wgmma_fence();
-    // O += P ckv: each 64-column panel MN-major (latent columns
-    // contiguous), 16 keys a k-step of 2048 bytes
+    // O += P ckv over this warpgroup's panels: each 64-column panel
+    // MN-major (latent columns contiguous), 16 keys a k-step of 2048 bytes
 #pragma unroll
-    for (int p = 0; p < RP; ++p)
+    for (int p = 0; p < kPW; ++p)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         tc::wgmma_rs_n64(o[p], pa + 4 * j,
-                         tc::sw128_desc(tile + p * kPanel + j * 16 * 128,
+                         tc::sw128_desc(tile + (kPW * wg + p) * kPanel +
+                                            j * 16 * 128,
                                         kPanel, 1024));
     tc::wgmma_commit();
     tc::wgmma_wait0();
 #pragma unroll
-    for (int p = 0; p < RP; ++p) tc::pin(o[p]);
+    for (int p = 0; p < kPW; ++p) tc::pin(o[p]);
     tc::pin(pa);
-    if (threadIdx.x == 0) tc::mbar_arrive(&empty[s]);
+    if (tw == 0) tc::mbar_arrive(&empty[s]);
+    if constexpr (W::kWG > 1) {
+      if (wg == 1) {                      // the next tile into this stage
+        if (tw == 0 && it + kStages < n_t) load(it + kStages);
+        __syncwarp();
+      }
+    }
   }
 
   // this split's partial state; an empty split leaves m = -1e30, l = 0
@@ -1986,13 +2185,13 @@ flash_mla_tc_kernel(const __grid_constant__ CUtensorMap tckv,
     if (hh >= gn) continue;
     const long long row =
         (static_cast<long long>(b) * a.H + g0 + hh) * a.n_split + split;
-    if ((lane & 3) == 0) {
+    if (wg == 0 && (lane & 3) == 0) {
       a.part_ml[2 * row] = m[rr];
       a.part_ml[2 * row + 1] = l[rr];
     }
-    float* dst = a.part_acc + row * a.r;
+    float* dst = a.part_acc + row * a.r + 64 * kPW * wg;
 #pragma unroll
-    for (int p = 0; p < RP; ++p)
+    for (int p = 0; p < kPW; ++p)
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         *reinterpret_cast<float2*>(dst + 64 * p + 8 * i + col) =
@@ -2059,7 +2258,8 @@ bool make_map3(CUtensorMap* map, const void* base, int cols, int box_cols,
 
 template <int RP, int RD>
 constexpr int smem_bytes() {
-  return (kStages + 1) * Tile<RP, RD>::kBytes + Tile<RP, RD>::kPad;
+  return (Split<RP>::kStages + 1) * Tile<RP, RD>::kBytes + Split<RP>::kP +
+         Tile<RP, RD>::kPad;
 }
 
 // Runs f.template run<RP, RD>() for the widths (r, rd); widths() first.
@@ -2070,14 +2270,16 @@ cudaError_t with_widths(int r, int rd, const F& f) {
       case 1: return f.template run<1, 64>();
       case 2: return f.template run<2, 64>();
       case 3: return f.template run<3, 64>();
-      default: return f.template run<4, 64>();
+      case 4: return f.template run<4, 64>();
+      default: return f.template run<8, 64>();
     }
   }
   switch (r / 64) {
     case 1: return f.template run<1, 32>();
     case 2: return f.template run<2, 32>();
     case 3: return f.template run<3, 32>();
-    default: return f.template run<4, 32>();
+    case 4: return f.template run<4, 32>();
+    default: return f.template run<8, 32>();
   }
 }
 
@@ -2096,7 +2298,8 @@ struct Launch {
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>(B) * ((a.H + kHeads - 1) / kHeads),
                     static_cast<unsigned>(a.n_split));
-    flash_mla_tc_kernel<RP, RD><<<grid, kThreads, smem, stream>>>(mc, mk, a);
+    flash_mla_tc_kernel<RP, RD><<<grid, Split<RP>::kThreads, smem,
+                                  stream>>>(mc, mk, a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     flash_mla_merge_kernel<<<static_cast<unsigned>(B) * a.H,
@@ -2111,7 +2314,7 @@ struct Info {
   int* out;
   template <int RP, int RD>
   cudaError_t run() const {
-    return tc::kernel_info(flash_mla_tc_kernel<RP, RD>, kThreads,
+    return tc::kernel_info(flash_mla_tc_kernel<RP, RD>, Split<RP>::kThreads,
                            smem_bytes<RP, RD>(), out);
   }
 };
@@ -2201,7 +2404,8 @@ int soar_flash_tile(const void* q, const void* k, const void* v, void* o,
 }
 
 // The tensor-core tile kernel: bfloat16, (D, Dv) (64, 64), (128, 128), (96,
-// 64) or (112, 112), q, k and v based and strided on 16-byte multiples.
+// 64), (112, 112) or (192, 128), q, k and v based and strided on 16-byte
+// multiples.
 int soar_flash_tile_tc(const void* q, const void* k, const void* v, void* o,
                        int B, int Tq, int S, int H, int Hkv, int D, int Dv,
                        long long q_sb, long long q_st, long long q_sh,
@@ -2253,7 +2457,7 @@ int soar_flash_decode(const void* q, const void* k, const void* v, void* o,
 
 // The latent (MLA) decode on the CUDA cores: q_lat (B, 1, H, r) and q_rope
 // (B, 1, H, rd) over ckv (B, n, r) and kr (B, n, rd) -> o (B, 1, H, r),
-// contiguous; r <= 256 and rd <= 64, multiples of 8; n_split splits of
+// contiguous; r <= 512 and rd <= 64, multiples of 8; n_split splits of
 // `chunk` keys (a multiple of 64); part_ml (B H n_split 2) and part_acc (B H
 // n_split r) float32 scratch.
 int soar_flash_mla_decode(const void* q_lat, const void* q_rope,
@@ -2264,7 +2468,7 @@ int soar_flash_mla_decode(const void* q_lat, const void* q_rope,
                           long long kr_sb, long long kr_st, float scale,
                           int n_split, int chunk, void* part_ml,
                           void* part_acc, void* stream) {
-  if (B < 1 || n < 1 || H < 1 || r < 8 || r > mla::kMaxR || r % 8 ||
+  if (B < 1 || n < 1 || H < 1 || r < 8 || r > 512 || r % 8 ||
       rd < 8 || rd > mla::kMaxRd || rd % 8 || n_split < 1 ||
       n_split > 65535 || chunk < 1 || chunk % 64 ||
       static_cast<long long>(n_split) * chunk < n)
@@ -2282,7 +2486,7 @@ int soar_flash_mla_decode(const void* q_lat, const void* q_rope,
 }
 
 // The latent decode on the tensor cores, bfloat16: the arguments of
-// soar_flash_mla_decode but the dtype, r a multiple of 64 up to 256 and rd
+// soar_flash_mla_decode but the dtype, r 64, 128, 192, 256 or 512 and rd
 // 32 or 64, every input based and strided on 16-byte multiples, n_split <=
 // 1024; m in part_ml is in base-2 units.
 int soar_flash_mla_decode_tc(const void* q_lat, const void* q_rope,

@@ -22,13 +22,14 @@ of a KV head in one block, partial states merged in split order by a
 second launch; its plain twin is ``ref.flash_decode_split_torch``).
 :func:`flash_mla_decode_cuda` is MLA's absorbed decode, every head over
 one latent cache, split and merged, by dtype and widths
-(:func:`mla_path_of`): ``"mla_decode_tc"`` (bfloat16 with r a multiple of
-64 and rd 32 or 64, :func:`mla_tc_widths`, minicpm3's among them: the heads as
-the rows of wgmma products fed by TMA, the weights rounded to bfloat16 for
-P.ckv, one wave of blocks, its own merge in base 2; plain twin
-``ref.flash_mla_decode_tc_torch``) and ``"mla_decode"`` (float32, and
-bfloat16 at other widths: the CUDA cores, merged as the split decode;
-plain twin ``ref.flash_mla_decode_torch``). Each call counts
+(:func:`mla_path_of`): ``"mla_decode_tc"`` (bfloat16 with r 64, 128, 192,
+256 or 512 and rd 32 or 64, :func:`mla_tc_widths`, minicpm3's 256 + 32 and
+deepseek-v2's 512 + 64 among them: the heads as the rows of wgmma products
+fed by TMA, the weights rounded to bfloat16 for P.ckv, one wave of blocks,
+its own merge in base 2; at r 512 two warpgroups each hold half of O's
+columns; plain twin ``ref.flash_mla_decode_tc_torch``) and ``"mla_decode"``
+(float32, and bfloat16 at other widths: the CUDA cores, merged as the
+split decode; plain twin ``ref.flash_mla_decode_torch``). Each call counts
 once in ``flash_attention_cuda.launches`` and once under its path in
 ``flash_attention_cuda.launches_by_path``.
 """
@@ -44,18 +45,25 @@ from .ref import check_window, split_chunk
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 # (D, Dv) pairs of the tensor-core tile kernel: the dense family's square
-# heads, MLA's 96-wide keys over 64-wide values and kimi-k2's 112 (padded
-# to 128 on the chip by the tensor maps' zero fill)
-TC_DIMS = ((64, 64), (128, 128), (96, 64), (112, 112))
+# heads, MLA's 96-wide keys over 64-wide values (minicpm3) and 192-wide
+# keys over 128-wide values (deepseek-v2), and kimi-k2's 112 (padded to
+# 128 on the chip by the tensor maps' zero fill)
+TC_DIMS = ((64, 64), (128, 128), (96, 64), (112, 112), (192, 128))
 _INT_MAX = 2 ** 31 - 1
 PATHS = ("tile_tc", "tile_simt", "decode_split", "mla_decode",
          "mla_decode_tc")
-# The latent decode's widths: r at most MLA_MAX_R and rd at most
-# MLA_MAX_RD, each a multiple of 8; a block of the float32 kernel takes up
-# to MLA_HEADS heads, one of the tensor-core kernel up to MLA_TC_HEADS.
-MLA_MAX_R, MLA_MAX_RD = 256, 64
-MLA_HEADS = 40
+# The latent decode kernels' widths: r at most MLA_MAX_R and rd at most
+# MLA_MAX_RD, each a multiple of 8; a block of the CUDA-core kernel takes
+# up to MLA_HEADS heads where r <= MLA_NARROW_R, else MLA_WIDE_HEADS (its
+# shared memory holds the heads' q rows 576 wide); one of the tensor-core
+# kernel up to MLA_TC_HEADS. The plain versions take any widths.
+MLA_MAX_R, MLA_MAX_RD = 512, 64
+MLA_NARROW_R = 256
+MLA_HEADS, MLA_WIDE_HEADS = 40, 32
 MLA_TC_HEADS = 64
+# r of the tensor-core latent decode: 64-column panels, up to 4 in one
+# warpgroup's registers, 8 split over two
+MLA_TC_R = (64, 128, 192, 256, 512)
 # The tensor-core latent decode's grid: one wave, a block an SM of the
 # H100's 132; its merge keeps at most MLA_TC_MAX_SPLITS splits' weights.
 MLA_TC_BLOCKS = 132
@@ -200,11 +208,12 @@ flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
-def mla_geometry(q_lat, q_rope, ckv, kr,
-                 what: str = "flash_mla_decode_cuda") -> tuple:
+def mla_shapes(q_lat, q_rope, ckv, kr,
+               what: str = "flash_mla_decode") -> tuple:
     """(B, n, H, r, rd) of the latent decode's q_lat (B, 1, H, r), q_rope
-    (B, 1, H, rd), ckv (B, n, r) and kr (B, n, rd). Raises on what the
-    kernel does not take."""
+    (B, 1, H, rd), ckv (B, n, r) and kr (B, n, rd): what the plain
+    version's arithmetic needs. Raises on inputs that do not fit
+    together."""
     ts = (q_lat, q_rope, ckv, kr)
     if q_lat.dtype not in _BF16 or any(t.dtype != q_lat.dtype for t in ts):
         raise TypeError(f"{what} takes float32/bfloat16 inputs of one "
@@ -214,13 +223,25 @@ def mla_geometry(q_lat, q_rope, ckv, kr,
                          f"{[tuple(t.shape) for t in ts]}")
     B, T, H, r = q_lat.shape
     n, rd = ckv.shape[1], kr.shape[2]
-    if (T != 1 or q_rope.shape[:3] != (B, 1, H) or ckv.shape != (B, n, r)
-            or kr.shape[:2] != (B, n) or min(B, H, n) < 1 or r % 8 or rd % 8
-            or not 0 < r <= MLA_MAX_R or not 0 < rd <= MLA_MAX_RD):
+    if (T != 1 or q_rope.shape != (B, 1, H, rd) or ckv.shape != (B, n, r)
+            or kr.shape[:2] != (B, n) or min(B, H, n, r, rd) < 1):
         raise ValueError(f"{what}: needs q_lat (B, 1, H, r), q_rope (B, 1, "
-                         f"H, rd), ckv (B, n, r), kr (B, n, rd), r <= "
-                         f"{MLA_MAX_R} and rd <= {MLA_MAX_RD} multiples of "
-                         f"8, got {[tuple(t.shape) for t in ts]}")
+                         f"H, rd), ckv (B, n, r), kr (B, n, rd), got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    return B, n, H, r, rd
+
+
+def mla_geometry(q_lat, q_rope, ckv, kr,
+                 what: str = "flash_mla_decode_cuda") -> tuple:
+    """:func:`mla_shapes` and what the kernels take besides: r <= MLA_MAX_R
+    and rd <= MLA_MAX_RD multiples of 8, contiguous last dimensions.
+    Raises on what the kernels do not take."""
+    ts = (q_lat, q_rope, ckv, kr)
+    B, n, H, r, rd = mla_shapes(*ts, what)
+    if r % 8 or rd % 8 or r > MLA_MAX_R or rd > MLA_MAX_RD:
+        raise ValueError(f"{what}: needs r <= {MLA_MAX_R} and rd <= "
+                         f"{MLA_MAX_RD} multiples of 8, got "
+                         f"{[tuple(t.shape) for t in ts]}")
     if max(n, B * H) > _INT_MAX:
         raise ValueError(f"{what}: too many positions for "
                          f"{[tuple(t.shape) for t in ts]}")
@@ -231,11 +252,17 @@ def mla_geometry(q_lat, q_rope, ckv, kr,
     return B, n, H, r, rd
 
 
-def mla_splits(b: int, h: int, n: int) -> int:
-    """Splits of the float32 latent decode over ``n`` keys for ``b``
-    sequences of ``h`` heads: its grid has b x ceil(h / MLA_HEADS) blocks a
-    split."""
-    return decode_splits(n, b * -(-h // MLA_HEADS))
+def mla_heads(r: int) -> int:
+    """Heads a block of the CUDA-core latent decode takes at latent width
+    ``r``."""
+    return MLA_HEADS if r <= MLA_NARROW_R else MLA_WIDE_HEADS
+
+
+def mla_splits(b: int, h: int, n: int, r: int = MLA_NARROW_R) -> int:
+    """Splits of the CUDA-core latent decode over ``n`` keys for ``b``
+    sequences of ``h`` heads at latent width ``r``: its grid has b x
+    ceil(h / mla_heads(r)) blocks a split."""
+    return decode_splits(n, b * -(-h // mla_heads(r)))
 
 
 def mla_tc_splits(b: int, h: int, n: int) -> int:
@@ -251,8 +278,8 @@ def mla_tc_splits(b: int, h: int, n: int) -> int:
 
 def mla_tc_widths(r: int, rd: int) -> bool:
     """Whether the tensor-core latent decode takes a latent ``r`` and a
-    rope width ``rd`` wide: r a multiple of 64 up to 256, rd 32 or 64."""
-    return 0 < r <= MLA_MAX_R and r % 64 == 0 and rd in (32, 64)
+    rope width ``rd`` wide: r one of ``MLA_TC_R``, rd 32 or 64."""
+    return r in MLA_TC_R and rd in (32, 64)
 
 
 def mla_path_of(q_lat: torch.Tensor, q_rope: torch.Tensor) -> str:
@@ -265,9 +292,10 @@ def mla_path_of(q_lat: torch.Tensor, q_rope: torch.Tensor) -> str:
 
 def mla_splits_of(q_lat: torch.Tensor, q_rope: torch.Tensor, n: int) -> int:
     """The splits the latent decode kernel of this call takes."""
-    b, _, h, _ = q_lat.shape
-    return (mla_tc_splits if mla_path_of(q_lat, q_rope) == "mla_decode_tc"
-            else mla_splits)(b, h, n)
+    b, _, h, r = q_lat.shape
+    if mla_path_of(q_lat, q_rope) == "mla_decode_tc":
+        return mla_tc_splits(b, h, n)
+    return mla_splits(b, h, n, r)
 
 
 def kernel_info(kernel: str, x: int, y: int) -> dict:

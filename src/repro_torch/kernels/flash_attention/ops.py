@@ -14,7 +14,7 @@ import torch
 from ..plain import kernel_call
 from .flash_attention import (DECODE_HEADS, decode_splits,
                               flash_attention_cuda, flash_mla_decode_cuda,
-                              geometry, mla_geometry, mla_splits)
+                              geometry, mla_shapes, mla_splits)
 from .ref import (flash_attention_gqa_torch, flash_attention_torch,
                   flash_decode_split_torch, flash_mla_decode_torch)
 
@@ -74,12 +74,12 @@ def flash_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     """MLA's absorbed decode: q_lat (B, 1, H, r) and q_rope (B, 1, H, rd)
     over the latent cache prefix ckv (B, n, r), kr (B, n, rd) -> ctx_lat
     (B, 1, H, r), the softmax of (q_lat . ckv + q_rope . kr) * scale
-    times ckv. ``scale`` is a float or a 0-d float32 tensor."""
+    times ckv. ``scale`` is a float or a 0-d float32 tensor. On CPU
+    tensors any widths; on the card the kernels' (``mla_geometry``)."""
     if q_lat.device.type == "cpu":
-        B, n, H, _, _ = mla_geometry(q_lat, q_rope, ckv, kr,
-                                     "flash_mla_decode")
+        B, n, H, r, _ = mla_shapes(q_lat, q_rope, ckv, kr)
         with kernel_call("flash_mla_decode", q_lat, q_rope, ckv,
                          kr) as done:
             return done(flash_mla_decode_torch(q_lat, q_rope, ckv, kr, scale,
-                                               mla_splits(B, H, n)))
+                                               mla_splits(B, H, n, r)))
     return flash_mla_decode_cuda(q_lat, q_rope, ckv, kr, float(scale))

@@ -840,7 +840,9 @@ def test_flash_narrow_values_match_plain(dev, dtype, b, t, s, h, hkv, d, dv,
     (2, 1000, 5, 64, 16), (1, 200, 45, 256, 32), (4, 2112, 40, 256, 32),
     (1, 777, 40, 256, 32), (2, 300, 128, 256, 64), (2, 333, 16, 256, 32),
     (3, 1029, 40, 256, 32), (1, 70, 20, 72, 8), (2, 400, 40, 64, 64),
-    (1, 129, 8, 192, 32)])
+    (1, 129, 8, 192, 32), (1, 1, 128, 512, 64), (1, 2048, 128, 512, 64),
+    (2, 300, 45, 512, 64), (1, 333, 33, 512, 32), (1, 70, 20, 320, 64),
+    (2, 130, 40, 264, 16)])
 def test_flash_mla_decode_matches_plain(dev, dtype, b, n, h, r, rd):
     """The latent decode on cache prefixes ``[:, :n]``: n = 1, tile edges,
     ragged n, one split and many, one head group and several (16, 40, 45
@@ -850,11 +852,13 @@ def test_flash_mla_decode_matches_plain(dev, dtype, b, n, h, r, rd):
     within ``FLASH_TIGHT`` of the float32 one; bfloat16 with r a multiple
     of 64 and rd 32 or 64 on the tensor cores (``"mla_decode_tc"``) within
     ``FLASH_TC`` of the float32 plain version and within 3e-2 of its own
-    arithmetic's plain twin. The plain version equals ``sdpa`` over the
-    concatenated keys; two calls give the same bits; one launch under its
-    path."""
+    arithmetic's plain twin; deepseek-v2's 512 + 64 on both kernels (two
+    warpgroups a block on the tensor cores; 32 heads a block on the CUDA
+    cores), and r 264 and 320 on the CUDA cores. The plain version equals
+    ``sdpa`` over the concatenated keys; two calls give the same bits; one
+    launch under its path."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        mla_path_of, mla_splits, mla_tc_splits)
+        MLA_TC_R, mla_path_of, mla_splits, mla_tc_splits)
     from repro_torch.kernels.flash_attention.ops import flash_mla_decode
     from repro_torch.kernels.flash_attention.ref import (
         flash_mla_decode_tc_torch, flash_mla_decode_torch, mla_keys, sdpa)
@@ -866,7 +870,7 @@ def test_flash_mla_decode_matches_plain(dev, dtype, b, n, h, r, rd):
     scale = 0.1
     path = mla_path_of(q_lat, q_rope)
     assert (path == "mla_decode_tc") == (
-        dtype == torch.bfloat16 and r % 64 == 0 and rd in (32, 64))
+        dtype == torch.bfloat16 and r in MLA_TC_R and rd in (32, 64))
     before = _paths()
     got = flash_mla_decode(q_lat, q_rope, ckv, kr, scale)
     want_paths = dict.fromkeys(before, 0)
@@ -875,7 +879,7 @@ def test_flash_mla_decode_matches_plain(dev, dtype, b, n, h, r, rd):
     assert got.dtype == dtype and got.shape == (b, 1, h, r)
     assert torch.equal(got, flash_mla_decode(q_lat, q_rope, ckv, kr, scale))
     f = [x.float() for x in (q_lat, q_rope, ckv, kr)]
-    want = flash_mla_decode_torch(*f, scale, mla_splits(b, h, n))
+    want = flash_mla_decode_torch(*f, scale, mla_splits(b, h, n, r))
     plain = sdpa(torch.cat(f[:2], -1), mla_keys(f[2], f[3]),
                  f[2][:, :, None], None, scale)
     torch.testing.assert_close(want, plain, rtol=2e-5, atol=2e-5)
@@ -916,21 +920,25 @@ def test_flash_mla_decode_tc_refuses_unaligned_and_reports(dev):
     assert _path_delta(before) == dict.fromkeys(before, 0)
     for kernel, x, y in (("tile_tc", 64, 64), ("tile_tc", 96, 64),
                          ("tile_tc", 128, 128), ("tile_tc", 112, 112),
-                         ("mla_decode_tc", 256, 32)):
+                         ("tile_tc", 192, 128), ("mla_decode_tc", 256, 32),
+                         ("mla_decode_tc", 512, 64),
+                         ("mla_decode_tc", 512, 32)):
         info = kernel_info(kernel, x, y)
         assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 255
         assert 0 < info["smem_bytes"] <= 232_448
+        if (x, y) in ((192, 128), (512, 64), (512, 32)):   # no spill
+            assert info["spill_bytes"] == 0, (kernel, x, y, info)
 
 
 @pytest.mark.parametrize("d,dv", [(64, 64), (96, 64), (128, 128),
-                                  (112, 112)])
+                                  (112, 112), (192, 128)])
 @pytest.mark.parametrize("b,t,s,h,hkv,causal,window", [
     (2, 300, 200, 4, 2, True, 0), (2, 130, 61, 4, 1, True, 0),
     (2, 37, 101, 4, 2, False, 0), (2, 333, 333, 5, 1, True, 100),
     (1, 1100, 1100, 2, 2, True, 1024)])
 def test_flash_tc_kernel_pairs_against_twin(dev, d, dv, b, t, s, h, hkv,
                                             causal, window):
-    """The tensor-core tile's four (D, Dv) pairs, causal and ragged,
+    """The tensor-core tile's five (D, Dv) pairs, causal and ragged,
     bidirectional, windowed: within ``FLASH_TC`` of the float32 plain
     version and within 3e-2 of its arithmetic's twin
     ``flash_attention_tc_torch``; one launch on the tile."""

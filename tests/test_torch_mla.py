@@ -445,8 +445,10 @@ def test_trainer_trains_minicpm3_on_the_cpu():
 
 def test_dispatch_paths_and_refusals():
     """The kernel each call takes (tensor-core tile for bfloat16 (96, 64),
-    not for square 96), the latent decode's shape checks, and the CUDA
-    wrapper refusing CPU tensors without counting a launch."""
+    not for square 96), the latent decode's shape checks (the plain
+    version refuses inputs that do not fit together and computes at any
+    widths; the kernels' launcher refuses widths past theirs), and the
+    CUDA wrapper refusing CPU tensors without counting a launch."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention.ops import flash_mla_decode
     bf = torch.bfloat16
@@ -459,11 +461,15 @@ def test_dispatch_paths_and_refusals():
     ckv, kr = torch.zeros(2, 5, 32), torch.zeros(2, 5, 8)
     assert FA.mla_geometry(ql, qr, ckv, kr) == (2, 5, 4, 32, 8)
     for bad in ((ql, qr, ckv[..., :24], kr),
-                (ql, qr[..., :4], ckv, kr[..., :4]),
-                (torch.zeros(2, 2, 4, 32), qr, ckv, kr),
-                (torch.zeros(2, 1, 4, 264), qr, torch.zeros(2, 5, 264), kr)):
+                (ql, qr[..., :4], ckv, kr),
+                (torch.zeros(2, 2, 4, 32), qr, ckv, kr)):
         with pytest.raises(ValueError, match="flash_mla_decode"):
             flash_mla_decode(*bad, 0.1)
+    for wide in ((ql, qr[..., :4], ckv, kr[..., :4]),
+                 (torch.zeros(2, 1, 4, 520), qr, torch.zeros(2, 5, 520), kr)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            FA.mla_geometry(*wide)
+        assert flash_mla_decode(*wide, 0.1).shape == wide[0].shape
     with pytest.raises(TypeError, match="float32/bfloat16"):
         flash_mla_decode(ql.half(), qr.half(), ckv.half(), kr.half(), 0.1)
     before = dict(FA.flash_attention_cuda.launches_by_path)

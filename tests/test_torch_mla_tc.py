@@ -215,11 +215,13 @@ def test_tc_split_geometry(b, h, n):
 
 @pytest.mark.parametrize("r,rd,tc", [(256, 32, True), (64, 64, True),
                                       (192, 32, True), (32, 8, False),
-                                      (256, 16, False), (72, 32, False)])
+                                      (256, 16, False), (72, 32, False),
+                                      (512, 64, True), (320, 64, False)])
 def test_dispatch_by_dtype_and_widths(r, rd, tc):
-    """bfloat16 at the tensor-core kernel's widths (r a multiple of 64, rd
-    32 or 64; minicpm3's 256 + 32) takes ``"mla_decode_tc"`` and its
-    splits; float32, and bfloat16 at other widths, the CUDA-core kernel."""
+    """bfloat16 at the tensor-core kernel's widths (r 64, 128, 192, 256 or
+    512, rd 32 or 64; minicpm3's 256 + 32, deepseek-v2's 512 + 64) takes
+    ``"mla_decode_tc"`` and its splits; float32, and bfloat16 at other
+    widths (r 320 among them), the CUDA-core kernel."""
     ql, qr = torch.zeros(2, 1, 4, r, dtype=torch.bfloat16), torch.zeros(
         2, 1, 4, rd, dtype=torch.bfloat16)
     assert FA.mla_tc_widths(r, rd) == tc
@@ -227,7 +229,7 @@ def test_dispatch_by_dtype_and_widths(r, rd, tc):
     assert FA.mla_path_of(ql, qr) == want
     assert FA.mla_path_of(ql.float(), qr.float()) == "mla_decode"
     assert FA.mla_splits_of(ql, qr, 5000) == (
-        FA.mla_tc_splits if tc else FA.mla_splits)(2, 4, 5000)
+        FA.mla_tc_splits(2, 4, 5000) if tc else FA.mla_splits(2, 4, 5000, r))
 
 
 def test_cpu_tensors_run_the_plain_version():
